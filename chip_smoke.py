@@ -1,0 +1,511 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``srtb_tpu_torch``).
+
+Run from the root of a checkout, on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits non-zero before the
+result lines are printed:
+
+1. card: the card's name and power limit, torch and CUDA versions;
+2. build: the hand-written kernels, compiled from ``srtb_tpu_torch/csrc``;
+3. bandwidth: a 4 GiB device-to-device copy, the card's own yardstick;
+4. kernels: each kernel against its plain PyTorch version on the card, at
+   the shapes the production geometry gives it (2^30 2-bit samples,
+   2^11 channels), with the tolerance stated beside each check, and its
+   time beside the plain version's and its bound;
+5. main path: a 2-bit file of two segments with a dispersed pulse in the
+   second, made on the card by the port's synth, searched by the port's
+   ``srtb-torch-main`` at the example J1644-4559 configuration; the pulse
+   segment must be positive, the noise segment negative, the candidate
+   files must exist, and every kernel must have launched once per segment.
+
+The last two lines are the kernels' JSON record and the result line.
+Outputs go to ``build/chip_smoke/`` in the checkout.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "build" / "chip_smoke"
+CFG_EXAMPLE = ROOT / "examples" / "srtb_config_1644-4559.cfg"
+
+# published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
+# HBM3 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s; float64
+# outside the tensor cores 34 TFLOP/s
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12}
+
+LOG2_N = 30            # samples per segment (the example cfg)
+LOG2_CHANNELS = 11     # spectrum_channel_count (the example cfg)
+
+
+def say(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def fail(msg: str) -> None:
+    say(f"FAIL: {msg}")
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches after one warm-up
+    (CUDA events around the whole run)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, ops: dict) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rates."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_card() -> str:
+    import torch
+    line = card_line()
+    say(f"card: {line}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, python {sys.version.split()[0]}")
+    return line
+
+
+def phase_build() -> None:
+    from srtb_tpu_torch.kernels import build
+    t0 = time.perf_counter()
+    lib = build.build(verbose=True)
+    build.library()
+    say(f"build: {lib.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def phase_bandwidth() -> float:
+    import torch
+    nbytes = 1 << 32
+    a = torch.ones(nbytes // 4, dtype=torch.float32, device="cuda")
+    b = torch.empty_like(a)
+    ms = cuda_ms(lambda: b.copy_(a), 10)
+    gbps = 2 * nbytes / ms / 1e6
+    say(f"bandwidth: 4 GiB device copy {ms:.3f} ms = {gbps:.1f} GB/s "
+        "(read + write)")
+    del a, b
+    torch.cuda.empty_cache()
+    return gbps
+
+
+def _record(name, kernel_ms, plain_ms, nbytes, ops, err, copy_gbps):
+    from srtb_tpu_torch import kernels as K
+    src, tpu = {n: (s, t) for n, _w, s, t in K.KERNELS}[name]
+    b_ms, b_by = bound_ms(nbytes, ops)
+    rec = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+           "launches": None, "max_abs_err": err, "ms": kernel_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None, "bytes": nbytes,
+           "bound_ms_at_copy_bandwidth": nbytes / copy_gbps / 1e6}
+    say(f"kernel {name}: kernel_ms {kernel_ms:.4f}, plain_ms "
+        f"{plain_ms:.4f}, bytes {nbytes}, bound_ms {b_ms:.4f} ({b_by}), "
+        f"bound_ms at copy bandwidth "
+        f"{rec['bound_ms_at_copy_bandwidth']:.4f}, max_abs_err {err:.3e}")
+    return rec
+
+
+def check_unpack(copy_gbps: float) -> dict:
+    """K1 at the production segment: 2^28 bytes of 2-bit samples, no
+    window (the example cfg's rectangle window); plus a windowed check at
+    2^24 bytes.  Tolerance: exact — both spell the same integer fields
+    and one float32 multiply."""
+    import torch
+    from srtb_tpu_torch.kernels import unpack as KU
+    g = torch.Generator(device="cuda").manual_seed(11)
+    m = 1 << (LOG2_N - 2)
+    data = torch.randint(0, 256, (m,), dtype=torch.uint8, device="cuda",
+                         generator=g)
+    out = KU.unpack_subbyte_window(data, 2)
+    ref = KU.unpack_subbyte_window_plain(data, 2)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not torch.equal(out, ref):
+        fail(f"unpack_subbyte_window differs from plain: {err}")
+    del ref
+    small = data[: 1 << 24]
+    for nbits in (1, 2, 4):
+        win = torch.rand(small.numel() * (8 // nbits), device="cuda",
+                         generator=g)
+        if not torch.equal(KU.unpack_subbyte_window(small, nbits, win),
+                           KU.unpack_subbyte_window_plain(small, nbits,
+                                                          win)):
+            fail(f"windowed {nbits}-bit unpack differs from plain")
+    say("check unpack_subbyte_window: bit-identical to plain at 2^28 bytes "
+        "(2 bits) and with a window at 2^24 bytes (1/2/4 bits)")
+    k_ms = cuda_ms(lambda: KU.unpack_subbyte_window(data, 2), 10)
+    p_ms = cuda_ms(lambda: KU.unpack_subbyte_window_plain(data, 2), 2)
+    nbytes = m + 4 * 4 * m
+    # per output sample: one shift, one mask, one int-to-float convert
+    rec = _record("unpack_subbyte_window", k_ms, p_ms, nbytes,
+                  {"f32": 3 * 4 * m}, err, copy_gbps)
+    del data, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_rfi_chirp(copy_gbps: float) -> dict:
+    """K2 at the production spectrum: 2^29 bins with the example cfg's
+    RFI threshold, manual mask and DM.  Tolerance: 1e-6 of the largest
+    output — the kernel's sincospif and the plain float64 trig of the same
+    float32 argument differ by at most 1.5 ulp; the zapped bins must be
+    the same set exactly (a flipped keep decision is a whole bin)."""
+    import numpy as np
+    import torch
+    from srtb_tpu_torch.config import Config
+    from srtb_tpu_torch.kernels import rfi_chirp as KR
+    from srtb_tpu_torch.ops import dedisperse as dd
+    from srtb_tpu_torch.ops import rfi
+    cfg = Config()
+    cfg.load_file(str(CFG_EXAMPLE))
+    n = cfg.baseband_input_count // 2
+    f_min, f_c, df = dd.spectrum_frequencies(cfg, n)
+    norm = rfi.normalization_coefficient(n, cfg.spectrum_channel_count)
+    zap = rfi.rfi_ranges_to_mask(rfi.eval_rfi_ranges(
+        cfg.mitigate_rfi_freq_list), n, cfg.baseband_freq_low,
+        cfg.baseband_bandwidth)
+    keep = torch.from_numpy(~zap).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    spec = torch.randn(n, dtype=torch.complex64, device="cuda", generator=g)
+    thr_rel = cfg.mitigate_rfi_average_method_threshold
+    args = (norm, f_min, df, f_c, cfg.dm)
+    thr = KR.rfi_threshold(spec, thr_rel)
+    out = KR.rfi_s1_dedisperse(spec, thr, *args, keep=keep)
+    ref = KR.rfi_s1_dedisperse_plain(spec, thr, *args, keep=keep)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not torch.equal(out == 0, ref == 0):
+        fail("rfi_s1_dedisperse zaps other bins than plain: "
+             f"{int(((out == 0) != (ref == 0)).sum())}")
+    if not err <= 1e-6 * scale:
+        fail(f"rfi_s1_dedisperse max_abs_err {err} > 1e-6 * {scale}")
+    del ref
+    torch.cuda.empty_cache()
+    say(f"check rfi_s1_dedisperse: max_abs_err {err:.3e} <= 1e-6 x "
+        f"{scale:.3e}; zapped set identical "
+        f"({int((out == 0).sum())} of {n} bins)")
+    k_ms = cuda_ms(lambda: KR.rfi_s1_dedisperse(spec, thr, *args,
+                                                keep=keep), 10)
+    p_ms = cuda_ms(lambda: KR.rfi_s1_dedisperse_plain(spec, thr, *args,
+                                                      keep=keep), 2)
+    nbytes = 8 * n + n + 4 + 8 * n
+    # per bin: power/keep/scale/rotation ~12 float32 ops plus sincospif
+    # (~20); the exact phase 10 float64 ops (one division counted as one)
+    rec = _record("rfi_s1_dedisperse", k_ms, p_ms, nbytes,
+                  {"f32": 32 * n, "f64": 10 * n}, err, copy_gbps)
+    del spec, out, keep
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _planted_waterfall():
+    """[2^11, 2^18] complex64 noise with planted rows: a NaN, an Inf, a
+    zero first sample, an impulsive row (SK high) and a constant-modulus
+    row (SK low)."""
+    import torch
+    f_len, t_len = 1 << LOG2_CHANNELS, 1 << (LOG2_N - 1 - LOG2_CHANNELS)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    wf = torch.randn(f_len, t_len, dtype=torch.complex64, device="cuda",
+                     generator=g)
+    wf[5, 100] = complex(float("nan"), 0.0)
+    wf[17, 200] = complex(float("inf"), 1.0)
+    wf[33, 0] = 0
+    wf[40, ::1000] *= 100
+    wf[41] = torch.exp(1j * torch.rand(t_len, device="cuda", generator=g))
+    return wf
+
+
+def check_sk(copy_gbps: float) -> list:
+    """K3 and K4 at the production waterfall [2^11, 2^18].  Tolerances:
+    K3's sums to 1e-6 relative (both accumulate in float64 and round to
+    float32; only the float64 summation order differs), NaN/Inf rows
+    alike, first-sample powers and the zap verdicts identical; K4's zapped
+    waterfall bit-identical (a select), its time series to 1e-6
+    relative."""
+    import torch
+    from srtb_tpu_torch.kernels import sk as KS
+    from srtb_tpu_torch.ops import rfi
+    wf = _planted_waterfall()
+    t_len = wf.shape[1]
+    s2, s4, fs0 = KS.sk_stats(wf)
+    r2, r4, rf0 = KS.sk_stats_plain(wf)
+    torch.cuda.synchronize()
+
+    def rel_err(a, b):
+        both = torch.isfinite(a) & torch.isfinite(b)
+        if not torch.equal(torch.isnan(a), torch.isnan(b)) or not \
+                torch.equal(a[~both].nan_to_num(), b[~both].nan_to_num()):
+            fail("sk: non-finite entries differ from plain")
+        return float(((a - b).abs() / b.abs())[both].max())
+
+    e2, e4 = rel_err(s2, r2), rel_err(s4, r4)
+    if not (e2 <= 1e-6 and e4 <= 1e-6 and torch.equal(fs0, rf0)):
+        fail(f"sk_stats differs from plain: s2 {e2}, s4 {e4}")
+    sk_thr = 1.05  # the example cfg's spectral-kurtosis threshold
+    zap = rfi.sk_zap_decision(s2, s4, t_len, sk_thr)
+    if not torch.equal(zap, rfi.sk_zap_decision(r2, r4, t_len, sk_thr)):
+        fail("sk zap verdicts differ between kernel and plain statistics")
+    if not (zap[40] and zap[41]):
+        fail("sk: planted impulsive / constant-modulus rows not zapped")
+    zap[5] = True   # a zapped row holding a NaN must come out as zeros
+    say(f"check sk_stats: rel err s2 {e2:.2e}, s4 {e4:.2e} <= 1e-6; fs0 "
+        f"and zap verdicts identical ({int(zap.sum())} rows zapped)")
+    err_k3 = max(float((s2 - r2).abs().nan_to_num().max()),
+                 float((s4 - r4).abs().nan_to_num().max()))
+    out, ts = KS.sk_apply_timeseries(wf, zap)
+    ref_out, ref_ts = KS.sk_apply_timeseries_plain(wf, zap)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.view_as_real(out).nan_to_num(),
+                       torch.view_as_real(ref_out).nan_to_num()) \
+            or bool(out[5].abs().max() != 0):
+        fail("sk_apply_timeseries waterfall differs from plain")
+    e_ts = rel_err(ts, ref_ts)
+    if not e_ts <= 1e-6:
+        fail(f"sk_apply_timeseries time series rel err {e_ts}")
+    err_k4 = float((ts - ref_ts).abs().nan_to_num().max())
+    say(f"check sk_apply_timeseries: waterfall bit-identical, time series "
+        f"rel err {e_ts:.2e} <= 1e-6")
+    del ref_out, out, ref_ts, r2, r4, rf0
+    torch.cuda.empty_cache()
+    f_len = wf.shape[0]
+    n = wf.numel()
+    recs = [
+        _record("sk_stats", cuda_ms(lambda: KS.sk_stats(wf), 10),
+                cuda_ms(lambda: KS.sk_stats_plain(wf), 2),
+                8 * n + 12 * f_len,
+                # per value: |x|^2 (3 f32), two float64 adds and a multiply
+                {"f32": 3 * n, "f64": 3 * n}, err_k3, copy_gbps),
+        _record("sk_apply_timeseries",
+                cuda_ms(lambda: KS.sk_apply_timeseries(wf, zap), 10),
+                cuda_ms(lambda: KS.sk_apply_timeseries_plain(wf, zap), 2),
+                16 * n + f_len + 4 * t_len,
+                # per value: the select, |x|^2 (3 f32), one float64 add
+                {"f32": 4 * n, "f64": n}, err_k4, copy_gbps),
+    ]
+    del wf
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_kernels(copy_gbps: float) -> list:
+    recs = [check_unpack(copy_gbps), check_rfi_chirp(copy_gbps)]
+    recs += check_sk(copy_gbps)
+    return recs
+
+
+def make_input_file(cfg, path: Path) -> dict:
+    """Two segments of 2-bit baseband made on the card: segment 1 pure
+    noise, segment 2 with one dispersed pulse.  The file is one segment
+    plus one stride minus one byte long, so the overlap-save reader emits
+    exactly two segments (the second ends in one zero-padded byte, inside
+    its reserved tail)."""
+    import torch
+    from srtb_tpu_torch.io import synth
+    from srtb_tpu_torch.ops import dedisperse as dd
+    n = cfg.baseband_input_count
+    seg = cfg.segment_bytes()
+    nres = dd.nsamps_reserved(cfg)
+    reserved = nres * abs(cfg.baseband_input_bits) // 8
+    stride = seg - reserved
+    # block 2's sample j is segment 2's sample nres + j; the search keeps
+    # the first T - nres / channel_count waterfall columns of
+    # 2 * channel_count samples each, i.e. the first n - 2 nres samples
+    # (the reference's trim): aim at the middle of the searched span
+    pulse_at = (n - 3 * nres) // 2
+    blocks = []
+    for i, pos in enumerate(([], [pulse_at])):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        b = synth.make_dispersed_baseband(
+            n, cfg.baseband_freq_low, cfg.baseband_bandwidth, cfg.dm, pos,
+            nbits=cfg.baseband_input_bits, pulse_amp=40.0, pulse_width=32,
+            device="cuda", generator=gen)
+        blocks.append(b.cpu().numpy())
+        del b
+        torch.cuda.empty_cache()
+    with open(path, "wb") as f:
+        f.write(blocks[0].tobytes())
+        f.write(blocks[1][: stride - 1].tobytes())
+    return {"segment_bytes": seg, "reserved_bytes": reserved,
+            "pulse_sample_in_segment_2": nres + pulse_at}
+
+
+def phase_main_path(card: str) -> dict:
+    import torch
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.config import Config
+    from srtb_tpu_torch.tools import main as M
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    for old in OUT_DIR.glob("out_*"):
+        old.unlink()
+    cfg = Config()
+    cfg.load_file(str(CFG_EXAMPLE))
+    cfg.baseband_reserve_sample = True
+    data = OUT_DIR / "baseband.bin"
+    t0 = time.perf_counter()
+    info = make_input_file(cfg, data)
+    say(f"main path: input {data.relative_to(ROOT)} "
+        f"({data.stat().st_size} bytes, {info}) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg_path = OUT_DIR / "smoke.cfg"
+    text = CFG_EXAMPLE.read_text()
+    text += (f"\ninput_file_path = {data}\ngui_enable = 0\nuse_pallas = 1\n"
+             "use_pallas_sk = 1\nbaseband_reserve_sample = 1\n"
+             f"baseband_output_file_prefix = {OUT_DIR}/out_\n"
+             "deterministic_timestamps = 1\n")
+    cfg_path.write_text(text)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats, pipe = M.run(["--config_file_name", str(cfg_path)])
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    positives = pipe.positive_segments
+    say(f"main path: {stats.segments} segments, positive {positives}, "
+        f"{stats.msamples_per_sec:.1f} Msamples/s in the pipeline "
+        f"({stats.elapsed_s:.2f} s), {wall:.2f} s with set-up; real-time "
+        f"factor {stats.msamples_per_sec / 128.0:.3f} against 128 "
+        f"Msamples/s; launches {counts}; card {card}")
+    if stats.segments != 2:
+        fail(f"expected 2 segments, got {stats.segments}")
+    if positives != [1]:
+        fail(f"expected only segment 1 (the pulse) positive, got {positives}")
+    written = pipe.sink.written
+    for files in written:
+        for p in [files.bin_path, *files.npy_paths, *files.tim_paths]:
+            if not os.path.exists(p) or os.path.getsize(p) == 0:
+                fail(f"candidate file missing: {p}")
+    if not written or not written[0].tim_paths:
+        fail("no candidate files written for the pulse segment")
+    for name, count in counts.items():
+        if count != stats.segments:
+            fail(f"kernel {name} launched {count} times for "
+                 f"{stats.segments} segments")
+    say("main path: launches per segment "
+        + json.dumps({k: v / stats.segments for k, v in counts.items()}))
+    names = [os.path.basename(p) for f in written
+             for p in [f.bin_path, *f.npy_paths, *f.tim_paths]]
+    say(f"main path: candidates {names}")
+    say("main path: wall seconds by stage "
+        + json.dumps(stats.extras["stage_s"]))
+    return {"counts": counts, "stats": stats, "pipe": pipe}
+
+
+def phase_breakdown(pipe, data: Path) -> dict:
+    """Device time of one production segment stage by stage: each stage
+    alone on the input the chain gives it (CUDA events, mean of a few
+    runs), beside the whole chain on the same device-resident segment."""
+    import numpy as np
+    import torch
+    from srtb_tpu_torch.kernels import rfi_chirp as KR
+    from srtb_tpu_torch.kernels import sk as KS
+    from srtb_tpu_torch.kernels import unpack as KU
+    from srtb_tpu_torch.ops import detect as det
+    from srtb_tpu_torch.ops import fft as F
+    from srtb_tpu_torch.ops import rfi
+    sp = pipe.processor
+    cfg = sp.cfg
+    host = torch.from_numpy(np.fromfile(data, dtype=np.uint8,
+                                        count=cfg.segment_bytes()))
+    ms = {"h2d (pageable)": cuda_ms(lambda: host.to("cuda"), 3)}
+    raw = host.to("cuda")
+    bits = cfg.baseband_input_bits
+    ms["unpack K1"] = cuda_ms(
+        lambda: KU.unpack_subbyte_window(raw, bits, sp.window), 5)
+    x = KU.unpack_subbyte_window(raw, bits, sp.window)
+    ms["rfft"] = cuda_ms(lambda: F.rfft_drop_nyquist(x), 3)
+    spec = F.rfft_drop_nyquist(x)
+    del x
+    thr = cfg.mitigate_rfi_average_method_threshold
+    ms["mean power"] = cuda_ms(lambda: KR.rfi_threshold(spec, thr), 5)
+    k2 = (KR.rfi_threshold(spec, thr), sp.norm_coeff, sp.f_min, sp.df,
+          sp.f_c, cfg.dm)
+    ms["rfi + chirp K2"] = cuda_ms(
+        lambda: KR.rfi_s1_dedisperse(spec, *k2, keep=sp.rfi_keep), 5)
+    spec = KR.rfi_s1_dedisperse(spec, *k2, keep=sp.rfi_keep)
+    ms["waterfall ifft"] = cuda_ms(
+        lambda: F.waterfall_c2c(spec, sp.channel_count, sp.watfft_dewindow),
+        3)
+    wf = F.waterfall_c2c(spec, sp.channel_count, sp.watfft_dewindow)
+    del spec
+    ms["sk stats K3"] = cuda_ms(lambda: KS.sk_stats(wf), 5)
+    s2, s4, fs0 = KS.sk_stats(wf)
+    sk_thr = cfg.mitigate_rfi_spectral_kurtosis_threshold
+    ms["sk verdict"] = cuda_ms(
+        lambda: rfi.sk_zap_decision(s2, s4, wf.shape[-1], sk_thr), 5)
+    zap = rfi.sk_zap_decision(s2, s4, wf.shape[-1], sk_thr)
+    ms["sk apply + time series K4"] = cuda_ms(
+        lambda: KS.sk_apply_timeseries(wf, zap), 5)
+    _, ts = KS.sk_apply_timeseries(wf, zap)
+    del wf
+    t = det.trimmed_length(ts.shape[-1], sp.time_reserved_count)
+    zc = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ms["detect"] = cuda_ms(lambda: det.detect_from_time_series(
+        ts[None, :t], zc, cfg.signal_detect_signal_noise_threshold,
+        cfg.signal_detect_max_boxcar_length), 5)
+    whole = cuda_ms(lambda: sp.process(raw), 3)
+    torch.cuda.empty_cache()
+    stage_sum = sum(v for k, v in ms.items() if not k.startswith("h2d"))
+    out = {"stage_ms": ms, "stages_sum_ms": stage_sum,
+           "chain_ms": whole,
+           "chain_msamples_per_s": cfg.baseband_input_count / whole / 1e3}
+    say("breakdown: " + json.dumps(out))
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    card = phase_card()
+    phase_build()
+    copy_gbps = phase_bandwidth()
+    recs = phase_kernels(copy_gbps)
+    main_res = phase_main_path(card)
+    phase_breakdown(main_res["pipe"], OUT_DIR / "baseband.bin")
+    for rec in recs:
+        rec["launches"] = main_res["counts"][rec["name"]]
+    print(card, flush=True)
+    print(json.dumps({"kernels": recs}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,75 @@
+"""Synthetic baseband generation (port of ``srtb_tpu/io/synth.py``).
+
+Gaussian noise plus impulses dispersed by the inverse of the
+dedispersion chirp, quantized to the digitizer's bit width.  Everything
+runs in PyTorch on the given device with an explicit ``torch.Generator``,
+so a 2^30-sample segment is made on the card in a second instead of the
+minutes a host FFT of that length takes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from srtb_tpu_torch.ops import dedisperse as dd
+
+
+def pack_subbyte(values: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Pack small unsigned ints MSB-first into bytes — the inverse of the
+    unpack for nbits in {1, 2, 4} (ref bit order: unpack.hpp:43-140)."""
+    per_byte = 8 // nbits
+    v = values.to(torch.uint8).reshape(-1, per_byte)
+    mask = (1 << nbits) - 1
+    out = torch.zeros(v.shape[0], dtype=torch.uint8, device=v.device)
+    for j in range(per_byte):
+        out |= (v[:, j] & mask) << (8 - nbits * (j + 1))
+    return out
+
+
+def quantize(sig: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Quantize a zero-mean float signal to the byte stream of an
+    ``nbits``-per-sample unsigned baseband (scale to ~3 sigma full range,
+    offset to mid-scale, clip)."""
+    levels = 1 << abs(nbits)
+    if nbits == 1:
+        return pack_subbyte((sig > 0).to(torch.uint8), 1)
+    if nbits not in (2, 4, 8):
+        raise ValueError(f"unsupported nbits {nbits}")
+    mid = levels / 2
+    scale = (levels / 2 - 0.5) / 3.0
+    q = torch.clamp(torch.round(sig / sig.std(correction=0) * scale + mid),
+                    0, levels - 1).to(torch.uint8)
+    return q if nbits == 8 else pack_subbyte(q, nbits)
+
+
+def make_dispersed_baseband(n: int, f_min: float, bandwidth: float,
+                            dm: float, pulse_positions, nbits: int = 8,
+                            pulse_amp: float = 40.0, pulse_width: int = 32,
+                            device=None,
+                            generator: torch.Generator | None = None
+                            ) -> torch.Tensor:
+    """``n`` samples of unit noise plus impulses at ``pulse_positions``
+    dispersed at ``dm``, quantized to ``nbits``: the packed uint8 byte
+    stream on ``device``.  Float32 throughout."""
+    kw = {"device": device, "generator": generator}
+    x = torch.randn(n, dtype=torch.float32, **kw)
+    if isinstance(pulse_positions, int):
+        pulse_positions = [pulse_positions]
+    if len(pulse_positions):
+        pulse = torch.zeros(n, dtype=torch.float32, device=x.device)
+        for pos in pulse_positions:
+            pos = int(pos)
+            w = min(pulse_width, n - pos)
+            pulse[pos:pos + w] += pulse_amp * torch.randn(
+                w, dtype=torch.float32, **kw)
+        n_spec = n // 2
+        f_c = f_min + bandwidth
+        df = bandwidth / n_spec
+        spec = torch.fft.rfft(pulse)
+        del pulse
+        # disperse: the medium applies the inverse chirp
+        spec[:n_spec] *= torch.conj(dd.chirp_factor(n_spec, f_min, df, f_c,
+                                                    dm, x.device))
+        x += torch.fft.irfft(spec, n)
+        del spec
+    return quantize(x, nbits)

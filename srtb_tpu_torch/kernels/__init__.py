@@ -1,0 +1,35 @@
+"""The port's hand-written Hopper kernels.
+
+Each wrapper takes the plain PyTorch version for a tensor on the CPU and
+launches its CUDA kernel for a tensor on the card (there is no fallback
+between the two), and counts its launches in a ``launches`` attribute.
+``KERNELS`` lists them with the TPU kernel each replaces.
+"""
+
+from __future__ import annotations
+
+from srtb_tpu_torch.kernels.rfi_chirp import rfi_s1_dedisperse
+from srtb_tpu_torch.kernels.sk import sk_apply_timeseries, sk_stats
+from srtb_tpu_torch.kernels.unpack import unpack_subbyte_window
+
+# (name, wrapper, CUDA source, TPU kernel it replaces: the pallas_call line)
+KERNELS = (
+    ("unpack_subbyte_window", unpack_subbyte_window,
+     "srtb_tpu_torch/csrc/unpack.cu", "srtb_tpu/ops/pallas_kernels.py:679"),
+    ("rfi_s1_dedisperse", rfi_s1_dedisperse,
+     "srtb_tpu_torch/csrc/rfi_chirp.cu",
+     "srtb_tpu/ops/pallas_kernels.py:383"),
+    ("sk_stats", sk_stats,
+     "srtb_tpu_torch/csrc/sk.cu", "srtb_tpu/ops/pallas_kernels.py:546"),
+    ("sk_apply_timeseries", sk_apply_timeseries,
+     "srtb_tpu_torch/csrc/sk.cu", "srtb_tpu/ops/pallas_kernels.py:604"),
+)
+
+
+def reset_launch_counts() -> None:
+    for _name, wrapper, _src, _tpu in KERNELS:
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: wrapper.launches for name, wrapper, _src, _tpu in KERNELS}

@@ -1,0 +1,146 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source compiles to an object with ``nvcc`` for ``sm_90a``, all in
+parallel, and the objects link into one shared library with a plain C
+interface that :mod:`ctypes` loads.  No source includes PyTorch's headers,
+so a cold build takes seconds.  The library lands in
+``build/srtb_tpu_torch/`` at the root of the checkout, named by a hash of
+the sources and flags: an edited source rebuilds, an unchanged one is
+reused.  Nothing is built when the package is imported — only at the
+first kernel launch, or by calling :func:`build`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srtb_tpu_torch"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_F32, _F64 = ctypes.c_float, ctypes.c_double
+# every exported function returns cudaGetLastError() after its launch
+_SIGNATURES = {
+    "srtb_unpack_subbyte_window": (_P, _P, _P, _I64, _I32, _P),
+    "srtb_rfi_s1_dedisperse": (_P, _P, _P, _P, _I64, _F32, _F64, _F64,
+                               _F64, _F64, _P),
+    "srtb_sk_stats": (_P, _P, _P, _P, _I64, _I64, _P),
+    "srtb_sk_apply_timeseries": (_P, _P, _P, _P, _I64, _I64, _P),
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the port's "
+                       "CUDA kernels cannot be built on this machine")
+
+
+def _sources() -> tuple[list[Path], str]:
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources + sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return sources, digest.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into the shared library (if not built yet)
+    and return its path.  ``verbose`` adds ``-Xptxas -v`` and prints the
+    compiler's report of registers and spills per kernel."""
+    sources, digest = _sources()
+    lib = BUILD_DIR / f"libsrtb_tpu_torch_{digest}.so"
+    if lib.exists() and not verbose:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    extra = ("-Xptxas", "-v") if verbose else ()
+    tmp = Path(tempfile.mkdtemp(prefix="build_", dir=BUILD_DIR))
+    try:
+        procs = []
+        try:
+            for src in sources:
+                cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src),
+                       "-o", str(tmp / (src.stem + ".o"))]
+                procs.append((src, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            failed = []
+            for src, proc in procs:
+                out, _ = proc.communicate()
+                if verbose and out:
+                    print(out, end="", flush=True)
+                if proc.returncode:
+                    failed.append(f"{src.name}:\n{out}")
+        finally:
+            for _src, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        objs = [str(tmp / (src.stem + ".o")) for src in sources]
+        out_so = tmp / lib.name
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o",
+                              str(out_so), *objs],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
+        os.replace(out_so, lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise when a launch function reports a CUDA error (a refused
+    launch never runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def stream_of(t) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device, which
+    every kernel launches on (no synchronisation of its own)."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda_contiguous(name: str, **tensors) -> None:
+    """Raise unless every given tensor lies on one CUDA device and is
+    contiguous — the kernels take raw pointers and assume both."""
+    devices = set()
+    for arg, t in tensors.items():
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, not CUDA")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        devices.add(t.device)
+    if len(devices) > 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")

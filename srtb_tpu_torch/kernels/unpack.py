@@ -1,0 +1,53 @@
+"""K1: MSB-first sub-byte unpack fused with the FFT window
+(``csrc/unpack.cu``; replaces ``srtb_tpu/ops/pallas_kernels.py``
+``unpack_subbyte_window``)."""
+
+from __future__ import annotations
+
+import torch
+
+from srtb_tpu_torch.kernels import build
+from srtb_tpu_torch.ops import unpack as U
+
+
+def unpack_subbyte_window_plain(data: torch.Tensor, nbits: int,
+                                window: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """The plain PyTorch version of K1."""
+    return U.unpack(data, nbits, window)
+
+
+def unpack_subbyte_window(data: torch.Tensor, nbits: int,
+                          window: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """uint8 [m] -> float32 [(8/nbits) m] for nbits in {1, 2, 4}: MSB-first
+    fields, times ``window`` when given.  A CPU tensor takes the plain
+    version; a CUDA tensor launches K1."""
+    if nbits not in (1, 2, 4):
+        raise ValueError(f"sub-byte unpack needs nbits in 1/2/4, got {nbits}")
+    if data.dtype != torch.uint8 or data.dim() != 1:
+        raise ValueError("data must be a 1-D uint8 tensor")
+    m = data.numel()
+    per = 8 // nbits
+    if window is not None and (window.dtype != torch.float32
+                               or tuple(window.shape) != (per * m,)
+                               or window.device != data.device):
+        raise ValueError(f"window must be float32 [{per * m}] on "
+                         f"{data.device}")
+    if data.device.type == "cpu":
+        return unpack_subbyte_window_plain(data, nbits, window)
+    name = "unpack_subbyte_window"
+    build.require_cuda_contiguous(name, data=data, window=window)
+    if window is not None and window.data_ptr() % 16:
+        raise ValueError(f"{name}: window must be 16-byte aligned")
+    out = torch.empty(per * m, dtype=torch.float32, device=data.device)
+    with torch.cuda.device(data.device):
+        rc = build.library().srtb_unpack_subbyte_window(
+            data.data_ptr(), None if window is None else window.data_ptr(),
+            out.data_ptr(), m, nbits, build.stream_of(data))
+    build.check(rc, name)
+    unpack_subbyte_window.launches += 1
+    return out
+
+
+unpack_subbyte_window.launches = 0

@@ -1,0 +1,88 @@
+"""Main entry point of the port, ``srtb-torch-main`` (port of
+``srtb_tpu/tools/main.py``, file input only).
+
+Usage:
+    srtb-torch-main --config_file_name srtb_config.cfg [--key value ...]
+        [--device cpu]
+
+Takes the same ``.cfg`` file and ``--key value`` options as ``srtb-main``
+and runs on the CUDA card; ``--device cpu`` runs the plain PyTorch
+versions of the kernels on the CPU instead.  Ends with the same
+``[main] done: N segments, M with signal, X Msamples/s`` line.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+from srtb_tpu_torch.config import Config
+from srtb_tpu_torch.ops import dedisperse as dd
+from srtb_tpu_torch.pipeline.runtime import Pipeline, PipelineStats
+from srtb_tpu_torch.utils.logging import log
+
+
+def _pop_device(argv: list[str]) -> str | None:
+    """Remove ``--device X`` / ``--device=X`` from ``argv``; return X."""
+    device = None
+    out = []
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if arg == "--device":
+            if i + 1 >= len(argv):
+                raise SystemExit("missing value for --device")
+            device = argv[i + 1]
+            i += 2
+            continue
+        if arg.startswith("--device="):
+            device = arg.split("=", 1)[1]
+        else:
+            out.append(arg)
+        i += 1
+    argv[:] = out
+    return device
+
+
+def run(argv=None) -> tuple[PipelineStats, Pipeline]:
+    """Parse the options, run the file-mode search, and return the run's
+    statistics and the finished pipeline (its sink lists what it
+    wrote)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device = _pop_device(argv)
+    cfg = Config.from_args(argv)
+    if cfg.gui_enable or cfg.gui_http_port:
+        raise NotImplementedError(
+            "the waterfall GUI is not ported yet (ROADMAP A7); run with "
+            "--gui_enable 0")
+    if cfg.dm_list:
+        raise NotImplementedError(
+            "the multi-DM search is not ported yet (ROADMAP A10)")
+    if not cfg.input_file_path:
+        raise NotImplementedError(
+            "UDP input is not ported yet (ROADMAP A8); set input_file_path")
+    if not os.path.exists(cfg.input_file_path):
+        raise FileNotFoundError(f"input file {cfg.input_file_path} not found")
+    log.info(f"[main] nsamps_reserved = {dd.nsamps_reserved(cfg)}")
+    pipe = Pipeline(cfg, device=device)
+    try:
+        stats = pipe.run()
+    finally:
+        pipe.close()
+    log.info(f"[main] done: {stats.segments} segments, "
+             f"{stats.signals} with signal, "
+             f"{stats.msamples_per_sec:.1f} Msamples/s")
+    return stats, pipe
+
+
+def main(argv=None) -> int:
+    try:
+        run(argv)
+    except FileNotFoundError as e:
+        log.error(f"[main] {e}")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

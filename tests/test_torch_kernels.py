@@ -1,0 +1,228 @@
+"""The port's four kernels.  On the CPU each wrapper runs its plain
+PyTorch version, held here against the JAX package's Pallas kernel in
+interpret mode on the same inputs; the tests marked ``cuda`` hold each
+CUDA kernel against its plain version on the card and skip without one."""
+
+import numpy as np
+import pytest
+import torch
+
+from srtb_tpu_torch import kernels as K
+from srtb_tpu_torch.kernels import rfi_chirp as KR
+from srtb_tpu_torch.kernels import sk as KS
+from srtb_tpu_torch.kernels import unpack as KU
+from srtb_tpu_torch.ops import detect as det
+from srtb_tpu_torch.ops import rfi
+from test_torch_ref import run_reference
+
+RNG = np.random.default_rng(1644)
+BYTES = RNG.integers(0, 256, 1 << 14, dtype=np.uint8)
+N_SPEC = 1 << 15
+SPEC = (RNG.standard_normal(N_SPEC)
+        + 1j * RNG.standard_normal(N_SPEC)).astype(np.complex64)
+SPEC[::997] *= 4.0  # bins above the stage-1 threshold
+ZAP_MASK = np.zeros(N_SPEC, dtype=bool)
+ZAP_MASK[1000:1700] = True
+# J1644-4559 geometry (example cfg) over 2^15 channels: |k| ~ 3e6 turns
+CHIRP = dict(f_min=1437.0, df=-64.0 / N_SPEC, f_c=1373.0, dm=-478.80)
+NORM = rfi.normalization_coefficient(N_SPEC, 32)
+S1_THR = 3.0
+SK_THR = 1.5
+F_ROWS, T_LEN = 32, 1024
+
+
+def _planted_waterfall() -> np.ndarray:
+    """[32, 1024] noise with planted rows: NaN, Inf, zero first sample,
+    impulsive (SK high), constant modulus (SK low)."""
+    wf = (RNG.standard_normal((F_ROWS, T_LEN))
+          + 1j * RNG.standard_normal((F_ROWS, T_LEN))).astype(np.complex64)
+    wf[2, 100] = np.nan
+    wf[4, 7] = np.inf
+    wf[6, 0] = 0
+    wf[8, ::64] *= 30.0
+    wf[10] = np.exp(1j * RNG.uniform(0, 6, T_LEN)).astype(np.complex64)
+    return wf
+
+
+WF = _planted_waterfall()
+ZAP_APPLY = np.zeros(F_ROWS, dtype=bool)
+ZAP_APPLY[[2, 8, 10, 20]] = True  # includes the NaN row: select -> 0
+UNPACK_CASES = [(b, w) for b in (1, 2, 4) for w in (False, True)]
+RFI_CASES = [(m, e) for m in (False, True) for e in (False, True)]
+
+
+def _ri(c: np.ndarray) -> np.ndarray:
+    return np.stack([c.real, c.imag]).astype(np.float32)
+
+
+def _window(nbits):
+    return RNG.uniform(0.5, 1.5, BYTES.size * 8 // nbits).astype(np.float32)
+
+
+WINDOWS = {b: _window(b) for b in (1, 2, 4)}
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    pk = "srtb_tpu.ops.pallas_kernels:"
+    jobs = [{"key": f"unpack/{b}/{w}", "fn": pk + "unpack_subbyte_window",
+             "args": [BYTES, b, WINDOWS[b] if w else None],
+             "kwargs": {"interpret": True}} for b, w in UNPACK_CASES]
+    jobs += [{"key": f"rfi/{m}/{e}", "fn": pk + "rfi_s1_dedisperse_df64",
+              "args": [_ri(SPEC), S1_THR, NORM, CHIRP["f_min"], CHIRP["df"],
+                       CHIRP["f_c"], CHIRP["dm"]],
+              "kwargs": {"mask": ZAP_MASK if m else None, "interpret": True,
+                         "exact": e}} for m, e in RFI_CASES]
+    jobs += [
+        {"key": "skzap", "fn": pk + "sk_zap_timeseries",
+         "args": [_ri(WF), SK_THR], "kwargs": {"interpret": True}},
+        {"key": "skapply", "fn": pk + "sk_apply_timeseries",
+         "args": [_ri(WF), ZAP_APPLY], "kwargs": {"interpret": True}},
+    ]
+    return run_reference(jobs, tmp_path_factory.mktemp("ref_kernels"))
+
+
+@pytest.mark.parametrize("nbits,win", UNPACK_CASES)
+def test_unpack_plain_matches_pallas(ref, nbits, win):
+    """K1, exact: the same integer fields and one float32 multiply."""
+    w = torch.from_numpy(WINDOWS[nbits]) if win else None
+    got = KU.unpack_subbyte_window(torch.from_numpy(BYTES), nbits, w)
+    np.testing.assert_array_equal(got.numpy(), ref[f"unpack/{nbits}/{win}"])
+
+
+@pytest.mark.parametrize("masked,exact", RFI_CASES)
+def test_rfi_chirp_plain_matches_pallas(ref, masked, exact):
+    """K2: the same zapped bins exactly, and the chirped output to 5e-5 of
+    the largest — the reference's own anchored-vs-exact gate
+    (tests/test_dedisperse.py:149): its df64 phase is good to ~1e-5 turns
+    at |k| ~ 3e6, the port's float64 phase to ~1e-9."""
+    keep = torch.from_numpy(~ZAP_MASK) if masked else None
+    spec = torch.from_numpy(SPEC)
+    got = KR.rfi_s1_dedisperse(spec, KR.rfi_threshold(spec, S1_THR), NORM,
+                               CHIRP["f_min"], CHIRP["df"], CHIRP["f_c"],
+                               CHIRP["dm"], keep=keep).numpy()
+    want_ri = ref[f"rfi/{masked}/{exact}"]
+    want = want_ri[0] + 1j * want_ri[1]
+    np.testing.assert_array_equal(got == 0, want == 0)
+    assert (got == 0).sum() > (1700 - 1000 if masked else 0)
+    assert np.abs(got - want).max() <= 5e-5 * np.abs(want).max()
+
+
+def _margins_ok(s2: torch.Tensor, s4: torch.Tensor) -> None:
+    """No finite row's SK lies within 1e-5 relative of a threshold, so a
+    differing verdict would be a bug, not rounding."""
+    sk = (T_LEN * s4.double() / (s2.double() ** 2)).numpy()
+    lo, hi = rfi.sk_decision_thresholds(T_LEN, SK_THR)
+    fin = np.isfinite(sk)
+    for thr in (lo, hi):
+        assert (np.abs(sk[fin] - thr) > 1e-5 * thr).all()
+
+
+def test_sk_zap_timeseries_plain_matches_pallas(ref):
+    """K3 + verdict + K4: zapped rows and zero_count bit-identical; the
+    zapped waterfall bit-identical (NaN/Inf rows pass through or become
+    0 exactly as the reference's select does); the time series within
+    the reference's float32 summation gate (the port sums in float64)."""
+    wf = torch.from_numpy(WF)
+    s2, s4, fs0 = KS.sk_stats(wf)
+    _margins_ok(s2, s4)
+    out, zero_count, ts = KS.sk_zap_timeseries(wf, SK_THR)
+    want_out = ref["skzap/0"][0] + 1j * ref["skzap/0"][1]
+    np.testing.assert_array_equal(out.numpy(), want_out)
+    assert int(zero_count) == int(ref["skzap/1"])
+    zapped = ~np.any(out.numpy() != 0, axis=1)
+    assert zapped[8] and zapped[10] and not zapped[2] and not zapped[4]
+    assert fs0[6] == 0 and int(zero_count) == zapped.sum() + 1
+    _check_ts(ts.numpy(), ref["skzap/2"], out.numpy())
+
+
+def test_sk_apply_plain_matches_pallas(ref):
+    """K4 with a given verdict that zaps the NaN row: that row becomes 0
+    (select, not multiply); the rest as above."""
+    out, ts = KS.sk_apply_timeseries(torch.from_numpy(WF),
+                                     torch.from_numpy(ZAP_APPLY))
+    want_out = ref["skapply/0"][0] + 1j * ref["skapply/0"][1]
+    np.testing.assert_array_equal(out.numpy(), want_out)
+    assert not out[2].abs().max() and torch.isinf(out[4, 7].real)
+    _check_ts(ts.numpy(), ref["skapply/1"], out.numpy())
+
+
+def _check_ts(got, want, out):
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    p = np.abs(out.astype(np.complex128)) ** 2
+    ts_max = float(np.nanmax(np.where(np.isfinite(p), p, 0).sum(0)))
+    gate, _ = det.time_series_error_gates(F_ROWS, T_LEN, ts_max, 0.0)
+    assert np.abs(got[fin] - want[fin]).max() <= gate
+
+
+def test_kernel_registry_and_counters():
+    """Every kernel is listed with its source and TPU origin; CPU calls
+    run the plain versions and launch nothing."""
+    K.reset_launch_counts()
+    KU.unpack_subbyte_window(torch.from_numpy(BYTES), 2)
+    assert set(K.launch_counts()) == {"unpack_subbyte_window",
+                                      "rfi_s1_dedisperse", "sk_stats",
+                                      "sk_apply_timeseries"}
+    assert not any(K.launch_counts().values())
+    for _name, _wrapper, src, tpu in K.KERNELS:
+        assert src.startswith("srtb_tpu_torch/csrc/") and src.endswith(".cu")
+        assert tpu.startswith("srtb_tpu/ops/pallas_kernels.py:")
+
+
+def test_wrappers_reject_bad_inputs():
+    with pytest.raises(ValueError):
+        KU.unpack_subbyte_window(torch.from_numpy(BYTES), 8)
+    with pytest.raises(ValueError):
+        KR.rfi_s1_dedisperse(torch.from_numpy(SPEC).real,
+                             torch.ones(1), 1.0, 1.0, 1.0, 1.0, 0.0)
+    with pytest.raises(ValueError):
+        KR.rfi_s1_dedisperse(torch.from_numpy(SPEC), torch.ones(()), 1.0,
+                             1.0, 1.0, 1.0, 0.0)
+    with pytest.raises(ValueError):
+        KS.sk_apply_timeseries(torch.from_numpy(WF),
+                               torch.zeros(3, dtype=torch.bool))
+
+
+# ------------------------------------------------ on the card (CUDA only)
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+def test_cuda_unpack_matches_plain(cuda, nbits):
+    data = torch.from_numpy(BYTES).to(cuda)
+    win = torch.from_numpy(WINDOWS[nbits]).to(cuda)
+    before = KU.unpack_subbyte_window.launches
+    for w in (None, win):
+        assert torch.equal(KU.unpack_subbyte_window(data, nbits, w),
+                           KU.unpack_subbyte_window_plain(data, nbits, w))
+    assert KU.unpack_subbyte_window.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_rfi_chirp_matches_plain(cuda):
+    spec = torch.from_numpy(SPEC).to(cuda)
+    keep = torch.from_numpy(~ZAP_MASK).to(cuda)
+    args = (NORM, CHIRP["f_min"], CHIRP["df"], CHIRP["f_c"], CHIRP["dm"])
+    thr = KR.rfi_threshold(spec, S1_THR)
+    got = KR.rfi_s1_dedisperse(spec, thr, *args, keep=keep)
+    want = KR.rfi_s1_dedisperse_plain(spec, thr, *args, keep=keep)
+    assert torch.equal(got == 0, want == 0)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_sk_matches_plain(cuda):
+    wf = torch.from_numpy(WF).to(cuda)
+    zap = torch.from_numpy(ZAP_APPLY).to(cuda)
+    for a, b in zip(KS.sk_stats(wf), KS.sk_stats_plain(wf)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0, equal_nan=True)
+    for a, b in zip(KS.sk_apply_timeseries(wf, zap),
+                    KS.sk_apply_timeseries_plain(wf, zap)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0, equal_nan=True)

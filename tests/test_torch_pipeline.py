@@ -1,0 +1,118 @@
+"""The port's ``srtb-torch-main`` against the JAX package's ``srtb-main``:
+both search one synthetic 2-bit file of three overlapping segments with a
+dispersed pulse in the middle one, with deterministic timestamps, and
+must flag the same segments and write the same artifacts."""
+
+import os
+
+import numpy as np
+import pytest
+
+from srtb_tpu_torch.io.writers import WriteSignalSink
+from srtb_tpu_torch.ops import dedisperse as dd
+from srtb_tpu_torch.ops import detect as det
+from srtb_tpu_torch.tools import main as M
+from test_torch_ref import run_reference
+from test_torch_segment import dispersed_bytes, slice_config
+
+N, CHANNELS, DM = 1 << 16, 32, -0.1
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("pipeline")
+    cfg = slice_config(N, CHANNELS, DM)
+    nres = dd.nsamps_reserved(cfg)
+    seg = cfg.segment_bytes()
+    stride = seg - nres * 2 // 8
+    # segment 1 starts at byte `stride`; its searched span is its first
+    # N - 2 nres samples: the pulse goes in the middle of that span
+    pulse_at = 4 * stride + (N - 2 * nres) // 2
+    raw = dispersed_bytes(cfg, 4 * (seg + 2 * stride), pulse_at, 4.0,
+                          seed=7)
+    data = tmp / "baseband.bin"
+    # one byte short of three full segments: the reader emits exactly 3
+    raw[: seg + 2 * stride - 1].tofile(data)
+    argv = ["--config_file_name", str(tmp / "none.cfg"),
+            "--input_file_path", str(data), "--deterministic_timestamps",
+            "1", "--writer_thread_count", "0", "--gui_enable", "0"]
+    for key in ("baseband_input_count", "baseband_input_bits",
+                "baseband_freq_low", "baseband_bandwidth",
+                "baseband_sample_rate", "spectrum_channel_count",
+                "mitigate_rfi_freq_list",
+                "mitigate_rfi_average_method_threshold",
+                "mitigate_rfi_spectral_kurtosis_threshold",
+                "signal_detect_signal_noise_threshold",
+                "signal_detect_max_boxcar_length", "fft_strategy"):
+        argv += [f"--{key}", str(getattr(cfg, key))]
+    argv += ["--dm", f" {DM}", "--use_pallas", "1", "--use_pallas_sk", "1",
+             "--baseband_reserve_sample", "1"]
+    dirs = {}
+    for who in ("port", "ref"):
+        dirs[who] = tmp / who
+        dirs[who].mkdir()
+    ref = run_reference(
+        [{"key": "main", "fn": "test_torch_ref:pipeline_main",
+          "args": [argv + ["--baseband_output_file_prefix",
+                           f"{dirs['ref']}/out_"], str(dirs["ref"])]}],
+        tmp)
+    stats, pipe = M.run(argv + ["--baseband_output_file_prefix",
+                                f"{dirs['port']}/out_", "--device", "cpu"])
+    return {"ref": ref, "stats": stats, "pipe": pipe, "dirs": dirs,
+            "nres": nres}
+
+
+def test_same_segments_and_artifacts(runs):
+    """Three segments, only the pulse segment positive in both, and the
+    same artifact names (deterministic, offset-derived timestamps)."""
+    ref, stats = runs["ref"], runs["stats"]
+    assert int(ref["main/rc"]) == 0
+    assert stats.segments == 3 and stats.signals == 1
+    assert runs["pipe"].positive_segments == [1]
+    port_files = sorted(os.listdir(runs["dirs"]["port"]))
+    assert port_files == ref["main/files"].tolist()
+    assert sum(name.endswith(".bin") for name in port_files) == 1
+    assert any(name.endswith(".1.tim") for name in port_files)
+
+
+def test_candidate_contents(runs):
+    """.bin: one segment's size; .npy: the waterfall within 2e-5 of its
+    largest value (the segment test's bound); .tim: each boxcar series
+    within b times the time-series gates plus two prefix sums' float32
+    rounding (series_b[i] = acc[i + b] - acc[i])."""
+    ref, dirs = runs["ref"], runs["dirs"]
+    sink = runs["pipe"].sink
+    assert isinstance(sink, WriteSignalSink) and len(sink.written) == 1
+    files = sink.written[0]
+    assert os.path.getsize(files.bin_path) == N * 2 // 8
+    (npy,) = files.npy_paths
+    got_wf = np.load(npy)
+    want_wf = ref[f"main/npy/{os.path.basename(npy)}"]
+    assert got_wf.dtype == np.complex64 and got_wf.shape == want_wf.shape
+    wf_err = float(np.abs(got_wf - want_wf).max())
+    assert wf_err <= 2e-5 * np.abs(want_wf).max()
+    t = det.trimmed_length(want_wf.shape[-1], runs["nres"] // CHANNELS)
+    p = np.abs(want_wf[:, :t].astype(np.complex128)) ** 2
+    ts_raw = p.sum(0)
+    gate = sum(det.time_series_error_gates(CHANNELS, t,
+                                           float(ts_raw.max()), wf_err))
+    acc_err = 2.0 * t * 2.0 ** -24 * float(np.abs(ts_raw - ts_raw.mean())
+                                           .sum())
+    assert files.tim_paths
+    for path in files.tim_paths:
+        b = int(path.rsplit(".", 2)[-2])
+        got = np.fromfile(path, dtype="<f4")
+        want = ref[f"main/tim/{os.path.basename(path)}"]
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= b * gate + acc_err
+    assert os.path.dirname(npy) == str(dirs["port"])
+
+
+def test_cli_device_option_and_missing_file(tmp_path):
+    argv = ["--input_file_path", str(tmp_path / "missing.bin"), "--device",
+            "cpu", "--config_file_name", str(tmp_path / "none.cfg")]
+    assert M.main(list(argv)) == 1
+    parsed = list(argv)
+    assert M._pop_device(parsed) == "cpu" and "--device" not in parsed
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        M.run(argv + ["--gui_enable", "1"])

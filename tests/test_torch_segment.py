@@ -1,0 +1,179 @@
+"""The port's SegmentProcessor against the JAX package's, at two small
+shapes where the reference's plan takes the same four Pallas kernels
+(``fft_strategy = monolithic``, ``use_pallas = 1``, ``use_pallas_sk = 1``,
+rows of 1024 outside the Pallas row-FFT window)."""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from srtb_tpu_torch.config import Config
+from srtb_tpu_torch.io import synth
+from srtb_tpu_torch.ops import dedisperse as dd
+from srtb_tpu_torch.ops import detect as det
+from srtb_tpu_torch.pipeline.runtime import has_signal
+from srtb_tpu_torch.pipeline.segment import SegmentProcessor
+from test_torch_ref import run_reference
+
+
+def slice_config(n: int, channels: int, dm: float) -> Config:
+    return Config(
+        baseband_input_count=n, baseband_input_bits=2,
+        baseband_format_type="simple", baseband_freq_low=1437.0,
+        baseband_bandwidth=-64.0, baseband_sample_rate=128e6, dm=dm,
+        spectrum_channel_count=channels, baseband_reserve_sample=True,
+        mitigate_rfi_freq_list="1418-1422",
+        mitigate_rfi_average_method_threshold=1.5,
+        mitigate_rfi_spectral_kurtosis_threshold=1.5,
+        signal_detect_signal_noise_threshold=8.0,
+        signal_detect_max_boxcar_length=64,
+        fft_strategy="monolithic", use_pallas=True, use_pallas_sk=True)
+
+
+def dispersed_bytes(cfg: Config, n_samples: int, pulse_at: int,
+                    amp: float, seed: int) -> np.ndarray:
+    """2-bit baseband: numpy noise plus a pulse dispersed by the inverse
+    float64 chirp, quantized by the port's synth."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n_samples)
+    pulse = np.zeros(n_samples)
+    pulse[pulse_at:pulse_at + 32] = amp * rng.standard_normal(32)
+    m = n_samples // 2
+    spec = np.fft.rfft(pulse)
+    f_low, bw = cfg.baseband_freq_low, cfg.baseband_bandwidth
+    spec[:m] *= np.conj(dd.chirp_factor_host(m, f_low, bw / m, f_low + bw,
+                                             cfg.dm))
+    sig = torch.from_numpy(x + np.fft.irfft(spec, n_samples))
+    return synth.quantize(sig, 2).numpy()
+
+
+# (n, channels, dm, pulse amplitude, window): the second shape's reserve
+# trims a fifth of the waterfall's time axis; the third windows the
+# segment (K1's window multiply and the waterfall's de-window)
+SHAPES = {"n16_ch32": (1 << 16, 32, -0.1, 4.0, "rectangle"),
+          "n18_ch128": (1 << 18, 128, -0.5, 7.0, "rectangle"),
+          "n16_ch32_hann": (1 << 16, 32, -0.1, 4.0, "hann")}
+
+
+def _case(name):
+    n, ch, dm, amp, window = SHAPES[name]
+    cfg = slice_config(n, ch, dm)
+    nres = dd.nsamps_reserved(cfg)
+    raw = dispersed_bytes(cfg, n, (n - 2 * nres) // 2, amp, seed=n)
+    return cfg, raw, window
+
+
+CASES = {name: _case(name) for name in SHAPES}
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    jobs = [{"key": name, "fn": "test_torch_ref:segment_process",
+             "args": [dataclasses.asdict(cfg), raw, window]}
+            for name, (cfg, raw, window) in CASES.items()]
+    return run_reference(jobs, tmp_path_factory.mktemp("ref_segment"))
+
+
+@pytest.fixture(scope="module")
+def port(ref):
+    """The port's processor on the reference processor's own config
+    fields (``Config.from_reference_fields``), so both run one
+    configuration."""
+    out = {}
+    for name, (cfg, raw, window) in CASES.items():
+        fields = json.loads(str(ref[f"{name}/fields"]))
+        port_cfg = Config.from_reference_fields(fields)
+        assert port_cfg == cfg
+        sp = SegmentProcessor(port_cfg, window_name=window, device="cpu")
+        out[name] = (sp, *sp.process(raw))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_plan_and_constants_match(ref, port, name):
+    """The reference took the plan this slice ports, and the processor's
+    constants are the same: window, de-window, RFI mask, normalization,
+    reserved samples, time trim."""
+    sp = port[name][0]
+    assert str(ref[f"{name}/plan"]).startswith("fused:monolithic")
+    for got, key in ((sp.window, "window"), (sp.watfft_dewindow,
+                                             "dewindow")):
+        if got is None:
+            assert f"{name}/{key}" not in ref
+        else:
+            np.testing.assert_array_equal(got.numpy(), ref[f"{name}/{key}"])
+    assert (sp.window is None) == (SHAPES[name][4] == "rectangle")
+    np.testing.assert_array_equal(~sp.rfi_keep.numpy(),
+                                  ref[f"{name}/rfi_mask"])
+    assert sp.norm_coeff == float(ref[f"{name}/norm_coeff"])
+    assert sp.nsamps_reserved == int(ref[f"{name}/nsamps_reserved"]) > 0
+    assert sp.time_reserved_count == \
+        int(ref[f"{name}/time_reserved_count"])
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_decisions_bit_identical(ref, port, name):
+    """signal_counts, zero_count and has_signal exactly; the pulse is
+    found.  (With the hann window the de-window divides the waterfall's
+    row edges by the window's near-zero tails, so every row's SK trips
+    and both packages zap all rows: the decisions still match.)"""
+    sp, wf, res = port[name]
+    np.testing.assert_array_equal(res.signal_counts.numpy(),
+                                  ref[f"{name}/detect/signal_counts"])
+    np.testing.assert_array_equal(res.zero_count.numpy(),
+                                  ref[f"{name}/detect/zero_count"])
+    positive = has_signal(sp.cfg, res, frequency_bin_count=wf.shape[-2])
+    assert positive == bool(ref[f"{name}/has_signal"])
+    assert positive == (SHAPES[name][4] == "rectangle")
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_waterfall_and_time_series(ref, port, name):
+    """Waterfall within 2e-5 of its largest value: the reference's df64
+    chirp factor is gated at 2e-5 against the float64 chirp
+    (tests/test_dedisperse.py:127), and a waterfall value sums one row's
+    bins with unit-modulus weights, so the error stays within that
+    fraction of the row's scale (float32 FFT rounding adds ~1e-7; 4e-7 is
+    measured).  The time series within the reference's own
+    ``time_series_error_gates`` for that waterfall error."""
+    sp, wf, res = port[name]
+    want_ri = ref[f"{name}/wf_ri"]
+    want = want_ri[0] + 1j * want_ri[1]
+    got = wf.numpy()
+    assert got.shape == want.shape == (1, sp.channel_count, sp.watfft_len)
+    wf_err = float(np.abs(got - want).max())
+    assert wf_err <= 2e-5 * np.abs(want).max()
+    t = det.trimmed_length(sp.watfft_len, sp.time_reserved_count)
+    p = np.abs(want[0, :, :t].astype(np.complex128)) ** 2
+    gates = det.time_series_error_gates(sp.channel_count, t,
+                                        float(p.sum(0).max()), wf_err)
+    ts_err = np.abs(res.time_series.numpy()
+                    - ref[f"{name}/detect/time_series"]).max()
+    assert ts_err <= sum(gates)
+
+
+def test_unported_settings_raise():
+    cfg = slice_config(1 << 12, 32, 0.0)
+    for change in ({"fused_tail": "on"}, {"quality_stats": True},
+                   {"search_mode": "periodicity"},
+                   {"micro_batch_segments": 2}, {"fft_strategy": "pallas2"},
+                   {"ingest_ring": "on"}, {"front_fuse": "on"}):
+        with pytest.raises(NotImplementedError):
+            SegmentProcessor(cfg.replace(**change), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        SegmentProcessor(cfg.replace(baseband_format_type="gznupsr_a1"),
+                         device="cpu")
+
+
+def test_device_defaults_to_cuda():
+    """No device means the card; without one that raises instead of
+    quietly running on the CPU."""
+    cfg = slice_config(1 << 12, 32, 0.0)
+    if torch.cuda.is_available():
+        assert SegmentProcessor(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            SegmentProcessor(cfg)
