@@ -12,14 +12,23 @@ result lines are printed:
 2. build: the hand-written kernels, compiled from ``srtb_tpu_torch/csrc``;
 3. bandwidth: a 4 GiB device-to-device copy, the card's own yardstick;
 4. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the production geometry gives it (2^30 2-bit samples,
-   2^11 channels), with the tolerance stated beside each check, and its
-   time beside the plain version's and its bound;
-5. main path: a 2-bit file of two segments with a dispersed pulse in the
+   the shapes the main paths give it (K1-K4 at 2^30 2-bit samples and
+   2^11 channels; B13, B6, B7, B8 at 2^27 samples and 2^11 channels, the
+   row kernels also at every row length 2^12 ... 2^16), with the
+   tolerance stated beside each check, and its time beside the plain
+   version's, its bound and, where one PyTorch call computes the same
+   function, that call's;
+5. main paths: 2-bit files of two segments with a dispersed pulse in the
    second, made on the card by the port's synth, searched by the port's
-   ``srtb-torch-main`` at the example J1644-4559 configuration; the pulse
-   segment must be positive, the noise segment negative, the candidate
-   files must exist, and every kernel must have launched once per segment.
+   ``srtb-torch-main`` at the example J1644-4559 configuration: at 2^30
+   samples per segment (the reference's staged plan), and at 2^27 with
+   ``fft_strategy = pallas`` twice, with the fused tail (``auto``) and
+   without (``off``).  In each, the pulse segment must be positive, the
+   noise segment negative, the candidate files must exist, the plan must
+   be the reference's, and each kernel must have launched exactly as
+   often per segment as that plan's table says;
+6. breakdown: the device time of one segment stage by stage, for the 2^30
+   path and for the fused 2^27 path.
 
 The last two lines are the kernels' JSON record and the result line.
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -46,6 +55,24 @@ PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12}
 
 LOG2_N = 30            # samples per segment (the example cfg)
 LOG2_CHANNELS = 11     # spectrum_channel_count (the example cfg)
+LOG2_N_ROWS = 27       # samples per segment of the row-FFT plans
+
+# the main paths: (label, log2 samples per segment, cfg lines added to the
+# example cfg, the plan both packages resolve, kernel launches per segment)
+PALLAS_27 = "baseband_input_count = 2 ** 27\nfft_strategy = pallas\n"
+MAIN_PATHS = (
+    ("staged_2^30", LOG2_N, "", "staged:four_step",
+     {"unpack_subbyte_window": 1, "rfi_s1_dedisperse": 1, "sk_stats": 1,
+      "sk_apply_timeseries": 1}),
+    ("fused_2^27", LOG2_N_ROWS, PALLAS_27, "fused:pallas+ftail+skzap",
+     {"unpack_subbyte_planes_window": 1, "fft_rows": 2,
+      "rfi_s1_dedisperse": 1, "fft_rows_skzap": 1}),
+    ("unfused_2^27", LOG2_N_ROWS, PALLAS_27 + "fused_tail = off\n",
+     "fused:pallas",
+     {"unpack_subbyte_planes_window": 1, "fft_rows": 2,
+      "rfi_s1_dedisperse": 1, "fft_rows_stats": 1,
+      "sk_apply_timeseries": 1}),
+)
 
 
 def say(msg: str) -> None:
@@ -122,18 +149,20 @@ def phase_bandwidth() -> float:
     return gbps
 
 
-def _record(name, kernel_ms, plain_ms, nbytes, ops, err, copy_gbps):
+def _record(name, kernel_ms, plain_ms, nbytes, ops, err, copy_gbps,
+            library_ms=None):
     from srtb_tpu_torch import kernels as K
     src, tpu = {n: (s, t) for n, _w, s, t in K.KERNELS}[name]
     b_ms, b_by = bound_ms(nbytes, ops)
     rec = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
            "launches": None, "max_abs_err": err, "ms": kernel_ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": None, "bytes": nbytes,
+           "library_ms": library_ms, "bytes": nbytes,
            "bound_ms_at_copy_bandwidth": nbytes / copy_gbps / 1e6}
+    lib = "" if library_ms is None else f", library_ms {library_ms:.4f}"
     say(f"kernel {name}: kernel_ms {kernel_ms:.4f}, plain_ms "
-        f"{plain_ms:.4f}, bytes {nbytes}, bound_ms {b_ms:.4f} ({b_by}), "
-        f"bound_ms at copy bandwidth "
+        f"{plain_ms:.4f}{lib}, bytes {nbytes}, bound_ms {b_ms:.4f} "
+        f"({b_by}), bound_ms at copy bandwidth "
         f"{rec['bound_ms_at_copy_bandwidth']:.4f}, max_abs_err {err:.3e}")
     return rec
 
@@ -183,7 +212,6 @@ def check_rfi_chirp(copy_gbps: float) -> dict:
     output — the kernel's sincospif and the plain float64 trig of the same
     float32 argument differ by at most 1.5 ulp; the zapped bins must be
     the same set exactly (a flipped keep decision is a whole bin)."""
-    import numpy as np
     import torch
     from srtb_tpu_torch.config import Config
     from srtb_tpu_torch.kernels import rfi_chirp as KR
@@ -321,9 +349,294 @@ def check_sk(copy_gbps: float) -> list:
     return recs
 
 
+def check_unpack_planes(copy_gbps: float) -> dict:
+    """B13 at the 2^27-sample segment: 2^25 bytes of 2-bit samples into
+    the packed plane pairs z [2, 2^25], no window (the example cfg's
+    rectangle); plus a windowed check at 2^20 bytes for 1/2/4 bits.
+    Tolerance: exact — both spell the same integer fields and one float32
+    multiply."""
+    import torch
+    from srtb_tpu_torch.kernels import unpack as KU
+    g = torch.Generator(device="cuda").manual_seed(21)
+    m = 1 << (LOG2_N_ROWS - 2)
+    data = torch.randint(0, 256, (m,), dtype=torch.uint8, device="cuda",
+                         generator=g)
+    out = KU.unpack_subbyte_planes_window(data, 2)
+    ref = KU.unpack_subbyte_planes_window_plain(data, 2)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        fail("unpack_subbyte_planes_window differs from plain: "
+             f"{float((out - ref).abs().max())}")
+    del ref
+    small = data[: 1 << 20]
+    for nbits in (1, 2, 4):
+        win = torch.rand(8 // nbits, small.numel(), device="cuda",
+                         generator=g)
+        if not torch.equal(
+                KU.unpack_subbyte_planes_window(small, nbits, win),
+                KU.unpack_subbyte_planes_window_plain(small, nbits, win)):
+            fail(f"windowed {nbits}-bit planes unpack differs from plain")
+    say("check unpack_subbyte_planes_window: bit-identical to plain at 2^25 "
+        "bytes (2 bits) and with window planes at 2^20 bytes (1/2/4 bits)")
+    k_ms = cuda_ms(lambda: KU.unpack_subbyte_planes_window(data, 2), 10)
+    p_ms = cuda_ms(lambda: KU.unpack_subbyte_planes_window_plain(data, 2),
+                   3)
+    # reads m bytes, writes 2 complex64 per byte; per output float one
+    # shift, one mask, one int-to-float convert
+    rec = _record("unpack_subbyte_planes_window", k_ms, p_ms, m + 16 * m,
+                  {"f32": 3 * 4 * m}, 0.0, copy_gbps)
+    del data, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _fft_err(got, want) -> tuple[float, float]:
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def check_fft_rows(copy_gbps: float) -> dict:
+    """B6 at the two legs of the 2^27 segment FFT (forward rows
+    [2 x 2^13, 2^12] and [2 x 2^12, 2^13]) and at every row length 2^12
+    ... 2^16 in both directions (one CTA; clusters of 2 and 4) on 8 rows.
+    Tolerance: 1e-5 of the largest |plain| (float32 FFTs of two
+    algorithms: errors grow like eps log2 L).  Times: the mean of the two
+    legs, per launch; the library call is torch.fft.fft (cuFFT), which is
+    also the plain version."""
+    import torch
+    from srtb_tpu_torch.kernels import fft_rows as KF
+    g = torch.Generator(device="cuda").manual_seed(22)
+    worst = 0.0
+    for log2 in range(12, 17):
+        x = torch.randn(8, 1 << log2, dtype=torch.complex64, device="cuda",
+                        generator=g)
+        for inverse in (False, True):
+            err, scale = _fft_err(KF.fft_rows(x, inverse),
+                                  KF.fft_rows_plain(x, inverse))
+            if not err <= 1e-5 * scale:
+                fail(f"fft_rows L=2^{log2} inverse={inverse}: {err} > "
+                     f"1e-5 x {scale}")
+            worst = max(worst, err / scale)
+    legs = [(2 << 13, 1 << 12), (2 << 12, 1 << 13)]
+    times = []
+    err_legs = 0.0
+    for batch, length in legs:
+        x = torch.randn(batch, length, dtype=torch.complex64, device="cuda",
+                        generator=g)
+        err, scale = _fft_err(KF.fft_rows(x), KF.fft_rows_plain(x))
+        if not err <= 1e-5 * scale:
+            fail(f"fft_rows leg [{batch}, {length}]: {err} > 1e-5 x {scale}")
+        err_legs = max(err_legs, err)
+        times.append((cuda_ms(lambda: KF.fft_rows(x), 10),
+                      cuda_ms(lambda: KF.fft_rows_plain(x), 10),
+                      cuda_ms(lambda: torch.fft.fft(x), 10)))
+        say(f"fft_rows leg [{batch}, {length}]: kernel {times[-1][0]:.4f} "
+            f"ms, plain {times[-1][1]:.4f} ms, torch.fft.fft "
+            f"{times[-1][2]:.4f} ms, max_abs_err {err:.3e}")
+        del x
+    say(f"check fft_rows: every L in 2^12..2^16 both ways within 1e-5 of "
+        f"the largest (worst {worst:.2e}); legs within 1e-5")
+    n = 1 << (LOG2_N_ROWS - 1)  # complex values per leg
+    k_ms, p_ms, l_ms = (sum(t[i] for t in times) / 2 for i in range(3))
+    # per leg: 8 B read + 8 B written per value; ~5 log2(L) flops per value
+    rec = _record("fft_rows", k_ms, p_ms, 16 * n,
+                  {"f32": 5 * n * 12.5}, err_legs, copy_gbps, l_ms)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _wf_rows(g):
+    """The fused 2^27 path's waterfall shape: [2^11, 2^15] complex64."""
+    import torch
+    f_len = 1 << LOG2_CHANNELS
+    t_len = 1 << (LOG2_N_ROWS - 1 - LOG2_CHANNELS)
+    return torch.randn(f_len, t_len, dtype=torch.complex64, device="cuda",
+                       generator=g)
+
+
+def _sum_err(got, want) -> float:
+    """Max relative error of per-row sums; a sum that overflows float32
+    (|x|^4 past the hann de-window's near-zero edges) must overflow in
+    both."""
+    import torch
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(
+            got[~fin], want[~fin]):
+        fail("fft_rows_stats: non-finite sums differ from plain")
+    rel = ((got - want).abs() / want.abs())[fin]
+    return float(rel.max()) if rel.numel() else 0.0
+
+
+def check_fft_rows_stats(copy_gbps: float) -> dict:
+    """B7 (inverse, no de-window: the example cfg's rectangle) on the
+    2^27 path's waterfall rows [2^11, 2^15], and with a hann de-window at
+    every row length on 8 rows.  Tolerances: rows within 1e-5 of the
+    largest; sums within 1e-6 relative (1e-5 with the hann de-window,
+    whose near-zero edges amplify single values' rounding)."""
+    import torch
+    from srtb_tpu_torch.kernels import fft_rows as KF
+    from srtb_tpu_torch.ops import window as W
+    g = torch.Generator(device="cuda").manual_seed(23)
+    for log2 in range(12, 17):
+        x = torch.randn(8, 1 << log2, dtype=torch.complex64, device="cuda",
+                        generator=g)
+        dw = torch.from_numpy(W.dewindow_coefficients("hann", 1 << log2)
+                              ).to("cuda")
+        y, s2, s4 = KF.fft_rows_stats(x, True, dw)
+        ry, r2, r4 = KF.fft_rows_stats_plain(x, True, dw)
+        err, scale = _fft_err(y, ry)
+        e2, e4 = _sum_err(s2, r2), _sum_err(s4, r4)
+        if not (err <= 1e-5 * scale and e2 <= 1e-5 and e4 <= 1e-5):
+            fail(f"fft_rows_stats L=2^{log2}: {err} vs {scale}, {e2}, {e4}")
+    x = _wf_rows(g)
+    y, s2, s4 = KF.fft_rows_stats(x)
+    ry, r2, r4 = KF.fft_rows_stats_plain(x)
+    err, scale = _fft_err(y, ry)
+    e2, e4 = _sum_err(s2, r2), _sum_err(s4, r4)
+    if not (err <= 1e-5 * scale and e2 <= 1e-6 and e4 <= 1e-6):
+        fail(f"fft_rows_stats [2^11, 2^15]: {err} vs {scale}, {e2}, {e4}")
+    say(f"check fft_rows_stats: rows max_abs_err {err:.3e} <= 1e-5 x "
+        f"{scale:.3e}, sums rel err {e2:.2e} / {e4:.2e} <= 1e-6 at "
+        "[2^11, 2^15]; every L with a hann de-window within 1e-5")
+    del y, ry
+    n, f_len = x.numel(), x.shape[0]
+    rec = _record("fft_rows_stats", cuda_ms(lambda: KF.fft_rows_stats(x), 10),
+                  cuda_ms(lambda: KF.fft_rows_stats_plain(x), 3),
+                  16 * n + 8 * f_len,
+                  # the FFT, |x|^2 (3 f32), float64 sum, square, sum
+                  {"f32": 5 * n * 15 + 3 * n, "f64": 3 * n}, err, copy_gbps)
+    del x
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _sk_margin_ok(got, want, s2, s4, length, sk_thr) -> int:
+    """Rows whose verdicts differ between kernel and plain must lie within
+    1e-5 relative of an SK bound (float32 rounding of two FFTs can flip
+    only those); returns how many differ."""
+    import torch
+    from srtb_tpu_torch.ops import rfi
+    diff = got != want
+    if bool(diff.any()):
+        sk = (length * s4.double() / (s2.double() ** 2))[diff]
+        lo, hi = rfi.sk_decision_thresholds(length, sk_thr)
+        near = torch.minimum((sk - float(lo)).abs() / float(lo),
+                             (sk - float(hi)).abs() / float(hi))
+        if not bool((near <= 1e-5).all()):
+            fail(f"fft_rows_skzap verdicts differ away from the bounds: "
+                 f"rows {diff.nonzero().flatten().tolist()}")
+    return int(diff.sum())
+
+
+def check_fft_rows_skzap(copy_gbps: float) -> dict:
+    """B8 (inverse, no de-window) on the 2^27 path's waterfall rows
+    [2^11, 2^15] with planted rows — a NaN row (SK NaN: kept, its values
+    NaN, and so the whole time series NaN), an impulsive row (SK high), a
+    constant-modulus row (SK low) and an all-zero row (zero first sample)
+    — and the same rows with the NaN row replaced by noise for the time
+    series; also on 8 rows at every row length.  Tolerances: verdicts,
+    zero-sample flags and NaN positions identical (a verdict may differ
+    only for a row within 1e-5 of an SK bound, and such a row is left out
+    of the waterfall check), the zapped waterfall and the first-sample
+    powers within 1e-5 of the largest, the time series within the repo's
+    ``time_series_error_gates`` of the plain series over the rows the
+    kernel kept, for the measured
+    waterfall error (float32 summation plus that error carried through
+    |x|^2 and the sum over rows)."""
+    import torch
+    from srtb_tpu_torch.kernels import fft_rows as KF
+    from srtb_tpu_torch.ops import detect as det
+    from srtb_tpu_torch.ops import rfi
+    sk_thr = 1.05  # the example cfg's spectral-kurtosis threshold
+    g = torch.Generator(device="cuda").manual_seed(24)
+
+    def compare(x, where):
+        got = KF.fft_rows_skzap(x, sk_thr)
+        want = KF.fft_rows_skzap_plain(x, sk_thr)
+        y, s2, s4 = KF.fft_rows_stats_plain(x)
+        flips = _sk_margin_ok(got[1], want[1], s2, s4, x.shape[1], sk_thr)
+        # a row whose verdict flipped is left out of the waterfall check,
+        # and the plain time series is taken over the rows the kernel kept
+        same = (got[1] == want[1])[:, None]
+        nan_g = torch.isnan(got[0])
+        if not torch.equal(nan_g & same, torch.isnan(want[0]) & same):
+            fail(f"fft_rows_skzap {where}: NaN positions differ")
+        fin = ~nan_g & same
+        err, scale = _fft_err(got[0][fin], want[0][fin])
+        if not err <= 1e-5 * scale:
+            fail(f"fft_rows_skzap {where}: {err} > 1e-5 x {scale}")
+        if not torch.equal(got[2] == 0, want[2] == 0):
+            fail(f"fft_rows_skzap {where}: zero-sample flags differ")
+        fe, _scale = _fft_err(got[2].nan_to_num(), want[2].nan_to_num())
+        if not fe <= 1e-5 * float(want[2].nan_to_num().max()):
+            fail(f"fft_rows_skzap {where}: first-sample power err {fe}")
+        ts_want = torch.where(got[1][:, None], 0.0, rfi.power(y)).to(
+            torch.float64).sum(0).to(torch.float32)
+        del y
+        ts_ok = torch.isfinite(ts_want)
+        if not torch.equal(ts_ok, torch.isfinite(got[3])):
+            fail(f"fft_rows_skzap {where}: time series finiteness differs")
+        if bool(ts_ok.any()):
+            e_ts = float((got[3] - ts_want).abs()[ts_ok].max())
+            gates = det.time_series_error_gates(
+                x.shape[0], x.shape[1], float(ts_want[ts_ok].max()), err)
+            if not e_ts <= sum(gates):
+                fail(f"fft_rows_skzap {where}: time series err {e_ts} > "
+                     f"{sum(gates)}")
+        return got, want, flips, err
+
+    flips = 0
+    for log2 in range(12, 17):
+        x = torch.randn(8, 1 << log2, dtype=torch.complex64, device="cuda",
+                        generator=g)
+        x[3] = torch.fft.fft(torch.fft.ifft(x[3]) * torch.where(
+            torch.arange(1 << log2, device="cuda") % 64 == 0, 30.0, 1.0))
+        flips += compare(x, f"L=2^{log2}")[2]
+    wf = _wf_rows(g)
+    wf[10, ::1000] *= 100
+    wf[11] = torch.exp(1j * torch.rand(wf.shape[1], device="cuda",
+                                       generator=g))
+    wf[13] = 0
+    length = wf.shape[1]
+    x = torch.fft.fft(wf) / length  # rows whose inverse FFT is wf
+    del wf
+    got, want, f1, err = compare(x, "[2^11, 2^15]")
+    flips += f1
+    if not (bool(got[1][10]) and bool(got[1][11]) and not bool(got[1][13])
+            and float(got[2][13]) == 0.0):
+        fail("fft_rows_skzap: planted rows not zapped / flagged as planted")
+    x_nan = x.clone()
+    x_nan[5, 100] = complex(float("nan"), 0.0)
+    got_n, _w, f2, _e = compare(x_nan, "[2^11, 2^15] with a NaN row")
+    flips += f2
+    if bool(got_n[1][5]) or not bool(torch.isnan(got_n[0][5]).all()) \
+            or bool(torch.isfinite(got_n[3]).any()):
+        fail("fft_rows_skzap: the NaN row must be kept, NaN throughout, "
+             "and the time series NaN")
+    del x_nan, got_n, _w
+    say(f"check fft_rows_skzap: verdicts, zero flags and NaN positions "
+        f"identical ({int(got[1].sum())} of {x.shape[0]} rows zapped; "
+        f"{flips} verdicts within 1e-5 of a bound differ), waterfall "
+        f"max_abs_err {err:.3e} within 1e-5 of the largest, time series "
+        "within the time_series_error_gates; every L alike")
+    n, f_len = x.numel(), x.shape[0]
+    rec = _record("fft_rows_skzap",
+                  cuda_ms(lambda: KF.fft_rows_skzap(x, sk_thr), 10),
+                  cuda_ms(lambda: KF.fft_rows_skzap_plain(x, sk_thr), 3),
+                  16 * n + 5 * f_len + 4 * length,
+                  # the FFT, |x|^2 (3 f32) and the time series add, select;
+                  # float64 moments
+                  {"f32": 5 * n * 15 + 5 * n, "f64": 3 * n}, err, copy_gbps)
+    del x, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernels(copy_gbps: float) -> list:
     recs = [check_unpack(copy_gbps), check_rfi_chirp(copy_gbps)]
     recs += check_sk(copy_gbps)
+    recs += [check_unpack_planes(copy_gbps), check_fft_rows(copy_gbps),
+             check_fft_rows_stats(copy_gbps),
+             check_fft_rows_skzap(copy_gbps)]
     return recs
 
 
@@ -363,30 +676,37 @@ def make_input_file(cfg, path: Path) -> dict:
             "pulse_sample_in_segment_2": nres + pulse_at}
 
 
-def phase_main_path(card: str) -> dict:
+def phase_main_path(card: str, label: str, log2_n: int, extra: str,
+                    plan: str, per_segment: dict) -> dict:
+    """One main path: the example cfg with ``extra`` at 2^log2_n samples
+    per segment, on its own synthetic two-segment file, through
+    ``srtb-torch-main``; the launch counts are zeroed just before the run
+    and read just after it."""
     import torch
     from srtb_tpu_torch import kernels as K
     from srtb_tpu_torch.config import Config
     from srtb_tpu_torch.tools import main as M
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    for old in OUT_DIR.glob("out_*"):
+    out_dir = OUT_DIR / label
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("out_*"):
         old.unlink()
-    cfg = Config()
-    cfg.load_file(str(CFG_EXAMPLE))
-    cfg.baseband_reserve_sample = True
-    data = OUT_DIR / "baseband.bin"
-    t0 = time.perf_counter()
-    info = make_input_file(cfg, data)
-    say(f"main path: input {data.relative_to(ROOT)} "
-        f"({data.stat().st_size} bytes, {info}) made in "
-        f"{time.perf_counter() - t0:.1f} s")
-    cfg_path = OUT_DIR / "smoke.cfg"
+    data = out_dir / "baseband.bin"
+    cfg_path = out_dir / "smoke.cfg"
     text = CFG_EXAMPLE.read_text()
     text += (f"\ninput_file_path = {data}\ngui_enable = 0\nuse_pallas = 1\n"
              "use_pallas_sk = 1\nbaseband_reserve_sample = 1\n"
-             f"baseband_output_file_prefix = {OUT_DIR}/out_\n"
-             "deterministic_timestamps = 1\n")
+             f"baseband_output_file_prefix = {out_dir}/out_\n"
+             "deterministic_timestamps = 1\n" + extra)
     cfg_path.write_text(text)
+    cfg = Config()
+    cfg.load_file(str(cfg_path))
+    if cfg.baseband_input_count != 1 << log2_n:
+        fail(f"{label}: the cfg gives {cfg.baseband_input_count} samples")
+    t0 = time.perf_counter()
+    info = make_input_file(cfg, data)
+    say(f"main path {label}: input {data.relative_to(ROOT)} "
+        f"({data.stat().st_size} bytes, {info}) made in "
+        f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -394,34 +714,40 @@ def phase_main_path(card: str) -> dict:
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
     positives = pipe.positive_segments
-    say(f"main path: {stats.segments} segments, positive {positives}, "
+    say(f"main path {label}: plan {pipe.processor.plan_name}, "
+        f"{stats.segments} segments, positive {positives}, "
         f"{stats.msamples_per_sec:.1f} Msamples/s in the pipeline "
         f"({stats.elapsed_s:.2f} s), {wall:.2f} s with set-up; real-time "
         f"factor {stats.msamples_per_sec / 128.0:.3f} against 128 "
         f"Msamples/s; launches {counts}; card {card}")
+    if pipe.processor.plan_name != plan:
+        fail(f"{label}: plan {pipe.processor.plan_name}, expected {plan}")
     if stats.segments != 2:
-        fail(f"expected 2 segments, got {stats.segments}")
+        fail(f"{label}: expected 2 segments, got {stats.segments}")
     if positives != [1]:
-        fail(f"expected only segment 1 (the pulse) positive, got {positives}")
+        fail(f"{label}: expected only segment 1 (the pulse) positive, got "
+             f"{positives}")
     written = pipe.sink.written
     for files in written:
         for p in [files.bin_path, *files.npy_paths, *files.tim_paths]:
             if not os.path.exists(p) or os.path.getsize(p) == 0:
-                fail(f"candidate file missing: {p}")
+                fail(f"{label}: candidate file missing: {p}")
     if not written or not written[0].tim_paths:
-        fail("no candidate files written for the pulse segment")
+        fail(f"{label}: no candidate files written for the pulse segment")
     for name, count in counts.items():
-        if count != stats.segments:
-            fail(f"kernel {name} launched {count} times for "
-                 f"{stats.segments} segments")
-    say("main path: launches per segment "
+        want = per_segment.get(name, 0) * stats.segments
+        if count != want:
+            fail(f"{label}: kernel {name} launched {count} times for "
+                 f"{stats.segments} segments, the plan's table says {want}")
+    say(f"main path {label}: launches per segment as the plan's table "
         + json.dumps({k: v / stats.segments for k, v in counts.items()}))
     names = [os.path.basename(p) for f in written
              for p in [f.bin_path, *f.npy_paths, *f.tim_paths]]
-    say(f"main path: candidates {names}")
-    say("main path: wall seconds by stage "
-        + json.dumps(stats.extras["stage_s"]))
-    return {"counts": counts, "stats": stats, "pipe": pipe}
+    say(f"main path {label}: candidates {names}")
+    say(f"main path {label}: wall seconds by stage "
+        + json.dumps(stats.extras["stage_s"]) + ", device seconds by segment "
+        + json.dumps(stats.extras["device_s_per_segment"]))
+    return {"counts": counts, "stats": stats, "pipe": pipe, "data": data}
 
 
 def phase_breakdown(pipe, data: Path) -> dict:
@@ -478,12 +804,69 @@ def phase_breakdown(pipe, data: Path) -> dict:
         cfg.signal_detect_max_boxcar_length), 5)
     whole = cuda_ms(lambda: sp.process(raw), 3)
     torch.cuda.empty_cache()
+    return _breakdown_line("staged_2^30", ms, whole, cfg)
+
+
+def _breakdown_line(label, ms, whole, cfg, extra=None) -> dict:
     stage_sum = sum(v for k, v in ms.items() if not k.startswith("h2d"))
     out = {"stage_ms": ms, "stages_sum_ms": stage_sum,
            "chain_ms": whole,
-           "chain_msamples_per_s": cfg.baseband_input_count / whole / 1e3}
-    say("breakdown: " + json.dumps(out))
+           "chain_msamples_per_s": cfg.baseband_input_count / whole / 1e3,
+           **(extra or {})}
+    say(f"breakdown {label}: " + json.dumps(out))
     return out
+
+
+def phase_breakdown_rows(fused, unfused) -> dict:
+    """Device time of one 2^27 segment of the fused row-FFT plan stage by
+    stage, each stage the processor's own function alone on the input the
+    chain gives it (CUDA events, mean of a few runs), the whole chain on
+    the same device-resident segment, and the unfused plan's chain beside
+    it."""
+    import numpy as np
+    import torch
+    from srtb_tpu_torch.kernels import unpack as KU
+    from srtb_tpu_torch.ops import fft as F
+    sp = fused["pipe"].processor
+    cfg = sp.cfg
+    host = torch.from_numpy(np.fromfile(fused["data"], dtype=np.uint8,
+                                        count=cfg.segment_bytes()))
+    ms = {"h2d (pageable)": cuda_ms(lambda: host.to("cuda"), 3)}
+    raw = host.to("cuda")
+
+    def unpack():
+        return KU.unpack_subbyte_planes_window(raw, cfg.baseband_input_bits,
+                                               sp.window_planes)
+    ms["B13 unpack planes"] = cuda_ms(unpack, 5)
+    z = unpack()
+
+    def planes_fft():
+        return F.fft_minor(z, False, "pallas", sp._len_cap)
+    ms["four-step FFT: B6 legs, transposes, leg twiddle"] = cuda_ms(
+        planes_fft, 5)
+    a = planes_fft()
+    del z
+    ms["plane twiddle + butterfly + hermitian post"] = cuda_ms(
+        lambda: F.finish_rfft_subbyte(a), 3)
+    held = {}
+
+    def hold(zf, spec):
+        held.update(zf=zf, spec=spec)
+        return spec
+    F.finish_rfft_subbyte(a, epilogue=hold)
+    del a
+    epilogue = sp._tail_epilogue()
+    ms["epilogue: Parseval mean + K2"] = cuda_ms(
+        lambda: epilogue(held["zf"], held["spec"]), 5)
+    spec = epilogue(held.pop("zf"), held.pop("spec"))
+    ms["B8 waterfall tail + zero count + detect"] = cuda_ms(
+        lambda: sp._waterfall_detect(spec), 5)
+    del spec
+    whole = cuda_ms(lambda: sp.process(raw), 3)
+    unfused_ms = cuda_ms(lambda: unfused["pipe"].processor.process(raw), 3)
+    torch.cuda.empty_cache()
+    return _breakdown_line("fused_2^27", ms, whole, cfg,
+                           {"unfused_chain_ms": unfused_ms})
 
 
 def main() -> int:
@@ -495,10 +878,20 @@ def main() -> int:
     phase_build()
     copy_gbps = phase_bandwidth()
     recs = phase_kernels(copy_gbps)
-    main_res = phase_main_path(card)
-    phase_breakdown(main_res["pipe"], OUT_DIR / "baseband.bin")
+    runs = {}
+    for label, log2_n, extra, plan, per_segment in MAIN_PATHS:
+        runs[label] = phase_main_path(card, label, log2_n, extra, plan,
+                                      per_segment)
+        if label == "staged_2^30":
+            phase_breakdown(runs[label]["pipe"], runs[label]["data"])
+            del runs[label]["pipe"]
+            torch.cuda.empty_cache()
+    phase_breakdown_rows(runs["fused_2^27"], runs["unfused_2^27"])
     for rec in recs:
-        rec["launches"] = main_res["counts"][rec["name"]]
+        by_path = {label: run["counts"][rec["name"]]
+                   for label, run in runs.items()}
+        rec["launches"] = sum(by_path.values())
+        rec["launches_by_path"] = by_path
     print(card, flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,13 @@ between the two), and counts its launches in a ``launches`` attribute.
 
 from __future__ import annotations
 
+# the module, not its function of the same name, stays the package's
+# ``fft_rows`` attribute
+from srtb_tpu_torch.kernels import fft_rows as _fft_rows
 from srtb_tpu_torch.kernels.rfi_chirp import rfi_s1_dedisperse
 from srtb_tpu_torch.kernels.sk import sk_apply_timeseries, sk_stats
-from srtb_tpu_torch.kernels.unpack import unpack_subbyte_window
+from srtb_tpu_torch.kernels.unpack import (unpack_subbyte_planes_window,
+                                             unpack_subbyte_window)
 
 # (name, wrapper, CUDA source, TPU kernel it replaces: the pallas_call line)
 KERNELS = (
@@ -23,6 +27,16 @@ KERNELS = (
      "srtb_tpu_torch/csrc/sk.cu", "srtb_tpu/ops/pallas_kernels.py:546"),
     ("sk_apply_timeseries", sk_apply_timeseries,
      "srtb_tpu_torch/csrc/sk.cu", "srtb_tpu/ops/pallas_kernels.py:604"),
+    ("unpack_subbyte_planes_window", unpack_subbyte_planes_window,
+     "srtb_tpu_torch/csrc/unpack.cu", "srtb_tpu/ops/pallas_kernels.py:763"),
+    ("fft_rows", _fft_rows.fft_rows,
+     "srtb_tpu_torch/csrc/fft_rows.cu", "srtb_tpu/ops/pallas_fft.py:496"),
+    ("fft_rows_stats", _fft_rows.fft_rows_stats,
+     "srtb_tpu_torch/csrc/fft_rows_stats.cu",
+     "srtb_tpu/ops/pallas_fft.py:546"),
+    ("fft_rows_skzap", _fft_rows.fft_rows_skzap,
+     "srtb_tpu_torch/csrc/fft_rows_skzap.cu",
+     "srtb_tpu/ops/pallas_fft.py:278"),
 )
 
 

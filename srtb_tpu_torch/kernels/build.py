@@ -35,6 +35,11 @@ _SIGNATURES = {
                                _F64, _F64, _P),
     "srtb_sk_stats": (_P, _P, _P, _P, _I64, _I64, _P),
     "srtb_sk_apply_timeseries": (_P, _P, _P, _P, _I64, _I64, _P),
+    "srtb_unpack_subbyte_planes_window": (_P, _P, _P, _I64, _I32, _P),
+    "srtb_fft_rows": (_P, _P, _P, _I64, _I64, _I32, _P),
+    "srtb_fft_rows_stats": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P),
+    "srtb_fft_rows_skzap": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                            _I32, _I64, _F32, _F32, _P),
 }
 
 

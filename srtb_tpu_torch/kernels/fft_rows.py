@@ -1,0 +1,209 @@
+"""B6, B7 and B8: batched row FFTs of length 2^12 ... 2^16 held on chip,
+plain and with the waterfall tail's epilogues (``csrc/fft_rows*.cu``;
+replace ``srtb_tpu/ops/pallas_fft.py`` ``fft_rows_ri``,
+``fft_rows_stats_ri`` and ``fft_rows_skzap_ri``).
+
+Complex data is ``complex64`` ``[..., L]`` (leading dims batch); every
+transform is unnormalized in both directions.  The de-window is given as
+the ``[L]`` coefficients to divide out and is applied, as the reference's
+kernels apply it, as a multiply by their float32 reciprocal.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from srtb_tpu_torch.kernels import build
+from srtb_tpu_torch.ops import rfi
+
+MIN_LOG2, MAX_LOG2 = 12, 16
+
+
+def supported(length: int, batch: int) -> bool:
+    """Whether the row-FFT kernels take ``[batch, length]``: a power of two
+    in [2^12, 2^16] (the reference's window, ``pallas_fft.supported``)."""
+    return (length & (length - 1) == 0
+            and (1 << MIN_LOG2) <= length <= (1 << MAX_LOG2) and batch >= 1)
+
+
+def _rows(x: torch.Tensor, name: str) -> tuple[torch.Tensor, int, int]:
+    if x.dtype != torch.complex64 or x.dim() < 1:
+        raise ValueError(f"{name}: x must be a complex64 tensor [..., L]")
+    length = x.shape[-1]
+    batch = x.numel() // length if length else 0
+    if not supported(length, batch):
+        raise ValueError(f"{name}: unsupported row FFT shape "
+                         f"{tuple(x.shape)} (rows of 2^12 ... 2^16)")
+    return x.reshape(batch, length), batch, length
+
+
+def _reciprocal(dewindow: torch.Tensor | None, length: int,
+                device: torch.device) -> torch.Tensor | None:
+    if dewindow is None:
+        return None
+    if tuple(dewindow.shape) != (length,) or dewindow.device != device:
+        raise ValueError(f"dewindow must be [{length}] on {device}")
+    return 1.0 / dewindow.to(torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def twiddle_table(length: int, device: torch.device) -> torch.Tensor:
+    """exp(-2 pi i m / length), m < length, built in float64 and rounded to
+    complex64: the kernels' twiddle table (conjugated for the inverse)."""
+    m = torch.arange(length, dtype=torch.float64, device=device)
+    return torch.polar(torch.ones_like(m), m * (-2.0 * torch.pi / length)
+                       ).to(torch.complex64)
+
+
+def fft_rows_plain(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of B6."""
+    if inverse:
+        return torch.fft.ifft(x, norm="forward")
+    return torch.fft.fft(x)
+
+
+def _dewindowed(y: torch.Tensor, dw: torch.Tensor | None) -> torch.Tensor:
+    if dw is None:
+        return y
+    return torch.complex(y.real * dw, y.imag * dw)
+
+
+def _moments(p: torch.Tensor):
+    """Per-row sum p and sum p^2, accumulated in float64 and rounded to
+    float32 (as K3 and the kernels accumulate them)."""
+    p64 = p.to(torch.float64)
+    return (p64.sum(-1).to(torch.float32),
+            (p64 * p64).sum(-1).to(torch.float32))
+
+
+def fft_rows(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """C2C FFT along the last axis of complex64 ``x [..., L]``, L a power
+    of two in [2^12, 2^16].  A CPU tensor takes the plain version; a CUDA
+    tensor launches B6."""
+    x2, batch, length = _rows(x, "fft_rows")
+    if x.device.type == "cpu":
+        return fft_rows_plain(x, inverse)
+    name = "fft_rows"
+    x2 = x2.contiguous()
+    build.require_cuda_contiguous(name, x=x2)
+    out = torch.empty_like(x2)
+    tw = twiddle_table(length, x.device)
+    with torch.cuda.device(x.device):
+        rc = build.library().srtb_fft_rows(
+            x2.data_ptr(), out.data_ptr(), tw.data_ptr(), batch, length,
+            int(inverse), build.stream_of(x2))
+    build.check(rc, name)
+    fft_rows.launches += 1
+    return out.reshape(x.shape)
+
+
+fft_rows.launches = 0
+
+
+def fft_rows_stats_plain(x: torch.Tensor, inverse: bool = True,
+                         dewindow: torch.Tensor | None = None):
+    """The plain PyTorch version of B7."""
+    y = _dewindowed(fft_rows_plain(x, inverse),
+                    _reciprocal(dewindow, x.shape[-1], x.device))
+    s2, s4 = _moments(rfi.power(y))
+    return y, s2, s4
+
+
+def fft_rows_stats(x: torch.Tensor, inverse: bool = True,
+                   dewindow: torch.Tensor | None = None):
+    """B6 plus the de-window and the per-row power moments: complex64
+    ``x [..., L]`` -> ``(y [..., L], s2 [...], s4 [...])`` with s2 = sum
+    |y|^2 and s4 = sum |y|^4 per row (float32).  A CPU tensor takes the
+    plain version; a CUDA tensor launches B7."""
+    x2, batch, length = _rows(x, "fft_rows_stats")
+    dw = _reciprocal(dewindow, length, x.device)
+    if x.device.type == "cpu":
+        return fft_rows_stats_plain(x, inverse, dewindow)
+    name = "fft_rows_stats"
+    x2 = x2.contiguous()
+    build.require_cuda_contiguous(name, x=x2, dw=dw)
+    out = torch.empty_like(x2)
+    s2, s4 = (torch.empty(batch, dtype=torch.float32, device=x.device)
+              for _ in range(2))
+    tw = twiddle_table(length, x.device)
+    with torch.cuda.device(x.device):
+        rc = build.library().srtb_fft_rows_stats(
+            x2.data_ptr(), out.data_ptr(), tw.data_ptr(),
+            None if dw is None else dw.data_ptr(), s2.data_ptr(),
+            s4.data_ptr(), batch, length, int(inverse), build.stream_of(x2))
+    build.check(rc, name)
+    fft_rows_stats.launches += 1
+    lead = x.shape[:-1]
+    return out.reshape(x.shape), s2.reshape(lead), s4.reshape(lead)
+
+
+fft_rows_stats.launches = 0
+
+
+def skzap_groups(f_len: int, length: int) -> int:
+    """Clusters of B8 (row r goes to cluster r mod groups): about 512 CTAs
+    in all, each cluster of length / 2^14 CTAs (at least one)."""
+    ctas = max(1, length >> 14)
+    return max(1, min(f_len, 512 // ctas))
+
+
+def fft_rows_skzap_plain(x: torch.Tensor, sk_threshold: float,
+                         inverse: bool = True,
+                         dewindow: torch.Tensor | None = None):
+    """The plain PyTorch version of B8."""
+    y = _dewindowed(fft_rows_plain(x, inverse),
+                    _reciprocal(dewindow, x.shape[-1], x.device))
+    p = rfi.power(y)
+    s2, s4 = _moments(p)
+    zap = rfi.sk_zap_decision(s2, s4, x.shape[-1], sk_threshold)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    out = torch.where(zap[:, None], torch.zeros((), dtype=y.dtype,
+                                                device=x.device), y)
+    ts = torch.where(zap[:, None], zero, p).to(torch.float64).sum(0)
+    return out, zap, p[:, 0].clone(), ts.to(torch.float32)
+
+
+def fft_rows_skzap(x: torch.Tensor, sk_threshold: float,
+                   inverse: bool = True,
+                   dewindow: torch.Tensor | None = None):
+    """The whole waterfall tail on complex64 rows ``x [F, L]``: the row
+    FFT, de-window, spectral-kurtosis verdict and zap (a select: NaN/Inf
+    rows become 0), and the time series over kept rows.  Returns
+    ``(zapped [F, L], zap bool [F], fs0 float32 [F], ts float32 [L])``
+    with fs0 the first sample's power before the zap (finish the zero
+    channel count with ``zap | (fs0 == 0)``) and ts not yet
+    mean-subtracted.  A CPU tensor takes the plain version; a CUDA tensor
+    launches B8."""
+    if x.dim() != 2:
+        raise ValueError("fft_rows_skzap: x must be [F, L] (one stream)")
+    x2, f_len, length = _rows(x, "fft_rows_skzap")
+    dw = _reciprocal(dewindow, length, x.device)
+    if x.device.type == "cpu":
+        return fft_rows_skzap_plain(x, sk_threshold, inverse, dewindow)
+    name = "fft_rows_skzap"
+    x2 = x2.contiguous()
+    build.require_cuda_contiguous(name, x=x2, dw=dw)
+    thr_low, thr_high = rfi.sk_decision_thresholds(length, sk_threshold)
+    groups = skzap_groups(f_len, length)
+    dev = x.device
+    out = torch.empty_like(x2)
+    zap = torch.empty(f_len, dtype=torch.bool, device=dev)
+    fs0 = torch.empty(f_len, dtype=torch.float32, device=dev)
+    ts_part = torch.empty(groups, length, dtype=torch.float32, device=dev)
+    ts = torch.empty(length, dtype=torch.float32, device=dev)
+    tw = twiddle_table(length, dev)
+    with torch.cuda.device(dev):
+        rc = build.library().srtb_fft_rows_skzap(
+            x2.data_ptr(), out.data_ptr(), tw.data_ptr(),
+            None if dw is None else dw.data_ptr(), zap.data_ptr(),
+            fs0.data_ptr(), ts_part.data_ptr(), ts.data_ptr(), f_len, length,
+            int(inverse), groups, float(thr_low), float(thr_high),
+            build.stream_of(x2))
+    build.check(rc, name)
+    fft_rows_skzap.launches += 1
+    return out, zap, fs0, ts
+
+
+fft_rows_skzap.launches = 0

@@ -41,11 +41,33 @@ def mitigate_rfi_average_and_normalize(
     """Zap channels whose power exceeds ``threshold * mean power``; scale
     the survivors by the normalization coefficient
     (ref: rfi_mitigation_pipe.hpp:50-80)."""
-    thr = np.float32(threshold) * mean_power(spectrum)
-    zap = power(spectrum) > thr
+    return mitigate_rfi_s1_given_mean(spectrum, mean_power(spectrum),
+                                      threshold, normalization_coefficient)
+
+
+def mitigate_rfi_s1_given_mean(spectrum: torch.Tensor,
+                               mean_power: torch.Tensor, threshold: float,
+                               normalization_coefficient: float
+                               ) -> torch.Tensor:
+    """The elementwise half of stage 1 with the mean power supplied by the
+    caller (the fused spectrum tail takes it from
+    :func:`mean_power_packed`)."""
+    zap = power(spectrum) > np.float32(threshold) * mean_power
     return torch.where(zap, torch.zeros((), dtype=spectrum.dtype,
                                         device=spectrum.device),
                        spectrum * np.float32(normalization_coefficient))
+
+
+def mean_power_packed(zf: torch.Tensor) -> torch.Tensor:
+    """Mean |X_k|^2 over the m drop-Nyquist R2C bins, from the packed
+    half-size C2C output ``zf [..., m]`` without forming the spectrum
+    (keepdims ``[..., 1]``).  Parseval and the Hermitian symmetry of the
+    real input give sum_k |X_k|^2 = sum_k |F_k|^2 + 2 Re F_0 Im F_0."""
+    m = zf.shape[-1]
+    norm = torch.linalg.vector_norm(torch.view_as_real(zf), dim=(-2, -1),
+                                    keepdim=True)[..., 0]
+    f0 = zf[..., :1]
+    return (norm * norm + 2.0 * f0.real * f0.imag) / m
 
 
 def normalization_coefficient(n_channels: int,

@@ -25,6 +25,19 @@ def _unpack_subbyte(data: torch.Tensor, nbits: int) -> torch.Tensor:
     return fields.reshape(-1).to(torch.float32)
 
 
+def unpack_subbyte_planes(data: torch.Tensor, nbits: int) -> torch.Tensor:
+    """1/2/4-bit fields as blocked planes ``[8/nbits, m]`` float32: plane k
+    holds field k (MSB-first) of every byte, i.e. sample (8/nbits) b + k
+    lands at ``[k, b]`` (the reference's sub-byte R2C consumes this layout
+    and folds the blocked-to-natural order into its FFT)."""
+    count = 8 // nbits
+    mask = (1 << nbits) - 1
+    shifts = torch.arange(count - 1, -1, -1, dtype=torch.int32,
+                          device=data.device) * nbits
+    return ((data.to(torch.int32)[None, :] >> shifts[:, None]) & mask).to(
+        torch.float32)
+
+
 def unpack(data: torch.Tensor, nbits: int,
            window: torch.Tensor | None = None) -> torch.Tensor:
     """uint8 [m] -> float32 samples, times ``window`` when given (the

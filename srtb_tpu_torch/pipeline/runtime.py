@@ -76,10 +76,13 @@ class Pipeline:
         """Process the source to its end.  Wall seconds per stage land in
         ``stats.extras["stage_s"]``: ``read`` (the file reader), ``device``
         (upload, device chain and the detection gate, whose host read
-        waits for the device) and ``sink`` (candidate writing)."""
+        waits for the device) and ``sink`` (candidate writing); the device
+        seconds of each segment in ``stats.extras["device_s_per_segment"]``
+        (the first carries one-time set-up: tables, library initialization)."""
         cfg = self.cfg
         stage_s = {"read": 0.0, "device": 0.0, "sink": 0.0}
         self.stats.extras["stage_s"] = stage_s
+        device_s = self.stats.extras["device_s_per_segment"] = []
         start = time.perf_counter()
         while True:
             t0 = time.perf_counter()
@@ -93,6 +96,7 @@ class Pipeline:
                                   frequency_bin_count=wf.shape[-2])
             t2 = time.perf_counter()
             stage_s["device"] += t2 - t1
+            device_s.append(t2 - t1)
             if positive:
                 self.stats.signals += 1
                 self.positive_segments.append(self.stats.segments)

@@ -1,25 +1,41 @@
-"""The segment processor (port of ``srtb_tpu/pipeline/segment.py``, one
-plan).
+"""The segment processor (port of ``srtb_tpu/pipeline/segment.py``).
 
 Device chain, per segment of raw bytes (ref call stack: SURVEY.md §3.2):
 
-  K1 unpack (+window) -> R2C FFT, Nyquist bin dropped -> mean power
-  (the stage-1 threshold) -> K2 RFI stage 1 + normalize + manual mask +
-  chirp -> waterfall backward C2C (+de-window) -> K3 spectral-kurtosis
-  statistics -> SK verdict -> K4 zap + time series -> boxcar detection
+  unpack (+window) -> R2C FFT, Nyquist bin dropped -> RFI stage 1 (mean
+  power threshold, normalize, manual mask) -> coherent-dedispersion chirp
+  -> waterfall backward C2C (+de-window) -> spectral-kurtosis zap -> power
+  time series -> boxcar detection
 
-K1..K4 are the hand-written kernels of ``srtb_tpu_torch/kernels``; the
-FFTs are ``torch.fft`` (cuFFT on the card).  This is the plan the JAX
-package runs with ``use_pallas = 1`` and ``use_pallas_sk = 1``, the
-example J1644-4559 configuration's options.  The reference's other plans
-(its XLA-only chain, four-step, staged and fused-tail forms) compute the
-same function in other kernel arrangements, so ``use_pallas``,
-``use_pallas_sk``, ``fft_strategy`` in {auto, monolithic, four_step} and
-the "auto" fusion knobs all run this plan.  Settings that ask for
-something this plan does not do raise instead of being ignored.
+The processor resolves the reference's plan from the same configuration
+(``staged_resolves``, ``fused_tail_resolves``, ``resolve_strategy``, the
+skzap rule and the waterfall branch choice) and, for every Pallas kernel
+that plan runs, runs the port's hand-written counterpart
+(``srtb_tpu_torch/kernels``).  Where the reference hands a stage to XLA
+the port uses ``torch`` (cuFFT on the card).  At the configurations the
+port accepts:
+
+  plan                      kernels
+  fused:pallas+ftail+skzap  B13, B6 (segment-FFT legs), K2 epilogue, B8
+  fused:pallas              B13, B6, K2, B7 (rows in the window), K4
+  fused:monolithic          K1, cuFFT R2C, K2, B7 + K4 (rows in the
+                            window) or cuFFT rows + K3 + K4
+  use_pallas_sk = 0         ... B6 (rows in the window) + plain SK
+  staged (n >= 2^30)        K1, cuFFT R2C, K2, cuFFT rows, K3 + K4
+
+The fused spectrum tail's epilogue is XLA in the reference (no Pallas
+kernel); here it is the stage-1 threshold from Parseval over the packed
+C2C output (``rfi.mean_power_packed``) and K2 on the assembled spectrum,
+whose chirp is exact.  K1, B13 and K2 run whatever ``use_pallas`` says
+(without it the reference runs XLA and a chirp bank there); only the
+waterfall rows follow ``use_pallas``.  ``fused:four_step`` runs as
+``fused:pallas`` with cuFFT rows.  The staged plan's three programs exist
+to fit a TPU's HBM; the port runs the same kernels as one chain.
+Settings the port does not implement yet raise ``NotImplementedError``
+naming their ROADMAP item.
 
 Complex data stays ``complex64`` (interleaved), as ``torch.fft`` produces
-it; the JAX package's stacked ``[2, ...]`` (re, im) form is built only by
+it; the reference's stacked ``[2, ...]`` (re, im) form is built only by
 the tests that compare the two.
 """
 
@@ -30,10 +46,12 @@ import torch
 
 from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.io import formats
+from srtb_tpu_torch.kernels import fft_rows as KF
 from srtb_tpu_torch.kernels.rfi_chirp import (rfi_s1_dedisperse,
                                                 rfi_threshold)
-from srtb_tpu_torch.kernels.sk import sk_zap_timeseries
-from srtb_tpu_torch.kernels.unpack import unpack_subbyte_window
+from srtb_tpu_torch.kernels.sk import sk_apply_timeseries, sk_zap_timeseries
+from srtb_tpu_torch.kernels.unpack import (unpack_subbyte_planes_window,
+                                             unpack_subbyte_window)
 from srtb_tpu_torch.ops import dedisperse as dd
 from srtb_tpu_torch.ops import detect as det
 from srtb_tpu_torch.ops import fft as F
@@ -43,14 +61,63 @@ from srtb_tpu_torch.ops import window as W
 from srtb_tpu_torch.utils.device import resolve_device
 from srtb_tpu_torch.utils.logging import log
 
+# Segments of at least this many samples take the reference's staged plan.
+STAGED_MIN_N = 1 << 30
+
+# Largest n/2 at which fused_tail = "auto" fuses the bankless plans
+# (staged, or use_pallas) in the reference.
+FUSED_TAIL_DF64_MAX_SPECTRUM = 1 << 27
+
+STRATEGIES = ("auto", "monolithic", "four_step", "pallas")
+
+
+def staged_resolves(cfg: Config, staged: bool | None = None) -> bool:
+    """The reference's staged-plan flag: explicit, or n >= 2^30."""
+    if staged is not None:
+        return staged
+    return int(cfg.baseband_input_count or 0) >= STAGED_MIN_N
+
+
+def fused_tail_resolves(cfg: Config, staged: bool) -> bool:
+    """The reference's resolution of ``fused_tail`` (auto/on/off): the
+    staged plan and every non-monolithic strategy end in the Hermitian
+    post-process, which hosts the stage-1 + chirp epilogue; "auto" leaves
+    the bankless plans (staged, use_pallas) unfused above n/2 = 2^27.
+    Raises on "on" with the monolithic R2C."""
+    mode = str(cfg.fused_tail).lower()
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"fused_tail must be auto/on/off, got {mode!r}")
+    if mode == "off":
+        return False
+    n = int(cfg.baseband_input_count)
+    hostable = staged or F.resolve_strategy(
+        n, cfg.fft_strategy) != "monolithic"
+    if mode == "on":
+        if not hostable:
+            raise ValueError(
+                "fused_tail=on requires a non-monolithic fft_strategy (the "
+                "monolithic R2C cannot host the RFI/chirp epilogue)")
+        return True
+    if not hostable:
+        return False
+    bankless = staged or cfg.use_pallas
+    return not (bankless and n // 2 > FUSED_TAIL_DF64_MAX_SPECTRUM)
+
+
+def sk_tiling_ok(nfreq: int, ntime: int) -> bool:
+    """The reference's gate of the SK kernel pair (K3/K4, and K4 after
+    B7): rows in blocks of up to 8, time in blocks of up to 2^15 that are
+    multiples of 128."""
+    rows = min(8, nfreq)
+    tb = min(256 * 128, ntime)
+    return not (nfreq % rows or ntime % 128 or ntime % tb or tb % 128)
+
 
 def check_plan(cfg: Config) -> None:
-    """Raise for settings the port's one plan does not implement."""
+    """Raise for settings the port does not implement yet."""
     def no(what: str, item: str) -> None:
         raise NotImplementedError(f"{what} is not ported yet ({item})")
 
-    if str(cfg.fused_tail).lower() == "on":
-        no("fused_tail = on", "ROADMAP B8/B12: fused-tail kernels")
     if str(cfg.front_fuse).lower() == "on":
         no("front_fuse = on", "ROADMAP B11/B12: front-fused staged kernels")
     if str(cfg.ingest_ring).lower() == "on":
@@ -62,15 +129,25 @@ def check_plan(cfg: Config) -> None:
            "ROADMAP A6: periodicity search")
     if cfg.micro_batch_segments > 1:
         no("micro_batch_segments > 1", "ROADMAP A6: micro-batching")
-    if cfg.fft_strategy not in ("auto", "monolithic", "four_step"):
+    if cfg.fft_strategy in ("mxu", "pallas2"):
         no(f"fft_strategy = {cfg.fft_strategy}",
-           "ROADMAP B6-B12: row-FFT and four-step Pallas kernels")
+           "ROADMAP B9/B10: the large-FFT kernels")
+    if cfg.fft_strategy not in STRATEGIES:
+        raise ValueError(f"unknown fft_strategy {cfg.fft_strategy!r}")
+    staged = staged_resolves(cfg)
+    if staged and fused_tail_resolves(cfg, staged):
+        no("the staged plan with the fused tail",
+           "ROADMAP A5: the staged fused tail")
+    if staged and not cfg.use_pallas:
+        no("the staged plan without use_pallas",
+           "ROADMAP B3: dedisperse_df64, the chirp kernel")
 
 
 class SegmentProcessor:
     """Owns the per-segment constants (window, de-window, RFI keep mask,
-    normalization coefficient, reserved-sample count) on ``device`` and
-    runs the device chain on one segment at a time."""
+    normalization coefficient, reserved-sample count) on ``device``,
+    resolves the reference's plan, and runs the device chain on one
+    segment at a time."""
 
     def __init__(self, cfg: Config, window_name: str = W.DEFAULT_WINDOW,
                  device=None):
@@ -86,9 +163,29 @@ class SegmentProcessor:
         self.channel_count = min(cfg.spectrum_channel_count, self.n_spectrum)
         self.watfft_len = self.n_spectrum // self.channel_count
 
+        # ---- the plan, resolved as the reference resolves it ----
+        self.staged = staged_resolves(cfg)
+        self.strategy = F.resolve_strategy(n, cfg.fft_strategy)
+        self.fused_tail = fused_tail_resolves(cfg, self.staged)
+        # sub-byte segments (of the simple format, the one ported) take
+        # the blocked-plane R2C on the non-monolithic strategies (never
+        # staged)
+        self._blocked_subbyte = (
+            not self.staged and self.strategy in ("four_step", "pallas")
+            and cfg.baseband_input_bits in (1, 2, 4))
+        # the whole waterfall tail in one kernel (B8)
+        self._skzap = bool(
+            self.fused_tail and cfg.use_pallas and cfg.use_pallas_sk
+            and KF.supported(self.watfft_len, self.channel_count))
+        self._len_cap = cfg.fft_len_cap or None
+
         win = W.window_coefficients(window_name, n)
         self.window = None if win is None else \
             torch.from_numpy(win).to(self.device)
+        self.window_planes = None
+        if self._blocked_subbyte and win is not None:
+            self.window_planes = torch.from_numpy(F.subbyte_window_planes(
+                win, cfg.baseband_input_bits)).to(self.device)
         # the window divided out of the waterfall after the backward C2C
         # (ref: fft_pipe.hpp:346-359), zero edges already sanitized to 1
         wat_win = W.dewindow_coefficients(window_name, self.watfft_len)
@@ -111,7 +208,21 @@ class SegmentProcessor:
         self._segment_bytes = cfg.segment_bytes(self.fmt.data_stream_count)
         log.debug(f"[segment] n={n} spectrum={self.n_spectrum} "
                   f"channels={self.channel_count} watfft={self.watfft_len} "
-                  f"reserved={self.nsamps_reserved} device={self.device}")
+                  f"reserved={self.nsamps_reserved} plan={self.plan_name} "
+                  f"device={self.device}")
+
+    @property
+    def plan_name(self) -> str:
+        """The reference's plan id (``SegmentProcessor.plan_name``) for
+        this configuration.  The reference's ``+ring`` names its H2D
+        ingest ring, which the port does not have (ROADMAP A4), and
+        ``+ffuse`` a plan the port refuses, so neither appears."""
+        name = ("staged" if self.staged else "fused") + f":{self.strategy}"
+        if self.fused_tail:
+            name += "+ftail"
+        if self._skzap:
+            name += "+skzap"
+        return name
 
     def _as_device_bytes(self, raw) -> torch.Tensor:
         if isinstance(raw, np.ndarray):
@@ -123,32 +234,98 @@ class SegmentProcessor:
         return raw.to(self.device)
 
     def _unpack(self, raw: torch.Tensor) -> torch.Tensor:
-        """raw bytes -> windowed float32 samples [n] (K1 for 1/2/4 bits)."""
+        """raw bytes -> windowed float32 samples [n] in sample order (K1 for
+        1/2/4 bits)."""
         bits = self.cfg.baseband_input_bits
         if bits in (1, 2, 4):
             return unpack_subbyte_window(raw, bits, self.window)
         return U.unpack(raw, bits, self.window)
 
-    def process(self, raw) -> tuple[torch.Tensor, det.DetectResult]:
-        """Run one segment.  ``raw`` is the segment's uint8 bytes (numpy or
-        torch).  Returns ``(waterfall complex64 [S, F, T], DetectResult)``
-        with every result tensor on the processor's device."""
+    def _tail_epilogue(self):
+        """The fused tail's epilogue on the assembled spectrum: the
+        stage-1 threshold from Parseval over the packed C2C output, then
+        K2 (zap, normalize, manual mask, exact chirp)."""
         cfg = self.cfg
-        x = self._unpack(self._as_device_bytes(raw))
-        spec = F.rfft_drop_nyquist(x)                      # [n/2]
-        del x
-        thr = rfi_threshold(spec, cfg.mitigate_rfi_average_method_threshold)
-        spec = rfi_s1_dedisperse(spec, thr, self.norm_coeff, self.f_min,
-                                 self.df, self.f_c, cfg.dm,
+
+        def epilogue(zf: torch.Tensor, spec: torch.Tensor) -> torch.Tensor:
+            thr = (np.float32(cfg.mitigate_rfi_average_method_threshold)
+                   * rfi.mean_power_packed(zf)).reshape(1)
+            return self._k2(spec, thr)
+        return epilogue
+
+    def _k2(self, spec: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+        return rfi_s1_dedisperse(spec, thr, self.norm_coeff, self.f_min,
+                                 self.df, self.f_c, self.cfg.dm,
                                  keep=self.rfi_keep)
-        wf = F.waterfall_c2c(spec, self.channel_count,
-                             self.watfft_dewindow)         # [F, T]
-        del spec
-        wf, zero_count, ts = sk_zap_timeseries(
-            wf, cfg.mitigate_rfi_spectral_kurtosis_threshold)
-        t = det.trimmed_length(wf.shape[-1], self.time_reserved_count)
+
+    def _spectrum(self, raw: torch.Tensor) -> torch.Tensor:
+        """raw bytes -> the drop-Nyquist spectrum [n/2]; with the fused
+        tail already zapped, normalized, masked and dedispersed."""
+        epilogue = self._tail_epilogue() if self.fused_tail else None
+        if self._blocked_subbyte:
+            z = unpack_subbyte_planes_window(raw, self.cfg.baseband_input_bits,
+                                             self.window_planes)
+            rows_impl = "pallas" if self.strategy == "pallas" else "xla"
+            return F.rfft_subbyte(z, rows_impl, len_cap=self._len_cap,
+                                  epilogue=epilogue)
+        x = self._unpack(raw)
+        if self.staged:
+            return F.rfft_drop_nyquist(x)
+        return F.segment_rfft(x, self.strategy, len_cap=self._len_cap,
+                              epilogue=epilogue)
+
+    def _waterfall_detect(self, spec: torch.Tensor):
+        """Waterfall backward C2C + SK zap + detection from the
+        dedispersed spectrum, by the reference's branch rule."""
+        cfg = self.cfg
+        sk_thr = cfg.mitigate_rfi_spectral_kurtosis_threshold
+        f_len, t_len = self.channel_count, self.watfft_len
+        t = det.trimmed_length(t_len, self.time_reserved_count)
+        rows = F.waterfall_rows(spec, f_len)
+        if self._skzap:
+            wf, zap, fs0, ts = KF.fft_rows_skzap(
+                rows, sk_thr, inverse=True, dewindow=self.watfft_dewindow)
+            zero_count = torch.sum((zap | (fs0 == 0)).to(torch.int32),
+                                   dtype=torch.int32)
+        else:
+            pallas_wf = cfg.use_pallas and KF.supported(t_len, f_len)
+            pallas_sk = cfg.use_pallas_sk and sk_tiling_ok(f_len, t_len)
+            if pallas_sk and pallas_wf:
+                wf, s2, s4 = KF.fft_rows_stats(
+                    rows, inverse=True, dewindow=self.watfft_dewindow)
+                zap = rfi.sk_zap_decision(s2, s4, t_len, sk_thr)
+                zero_count = torch.sum(
+                    (zap | (rfi.power(wf[:, 0]) == 0)).to(torch.int32),
+                    dtype=torch.int32)
+                wf, ts = sk_apply_timeseries(wf, zap)
+            elif pallas_sk:
+                wf = F.waterfall_c2c(spec, f_len, self.watfft_dewindow)
+                wf, zero_count, ts = sk_zap_timeseries(wf, sk_thr)
+            else:
+                if pallas_wf:
+                    wf = KF.fft_rows(rows, inverse=True)
+                    if self.watfft_dewindow is not None:
+                        wf = wf / self.watfft_dewindow
+                else:
+                    wf = F.waterfall_c2c(spec, f_len, self.watfft_dewindow)
+                wf = rfi.mitigate_rfi_spectral_kurtosis(wf, sk_thr)
+                return wf[None], det.detect(
+                    wf[None], self.time_reserved_count,
+                    cfg.signal_detect_signal_noise_threshold,
+                    cfg.signal_detect_max_boxcar_length)
         result = det.detect_from_time_series(
             ts[None, :t], zero_count[None],
             cfg.signal_detect_signal_noise_threshold,
             cfg.signal_detect_max_boxcar_length)
         return wf[None], result
+
+    def process(self, raw) -> tuple[torch.Tensor, det.DetectResult]:
+        """Run one segment.  ``raw`` is the segment's uint8 bytes (numpy or
+        torch).  Returns ``(waterfall complex64 [S, F, T], DetectResult)``
+        with every result tensor on the processor's device."""
+        spec = self._spectrum(self._as_device_bytes(raw))
+        if not self.fused_tail:
+            # stage 1 + manual mask + chirp: K2 after a mean-power reduction
+            spec = self._k2(spec, rfi_threshold(
+                spec, self.cfg.mitigate_rfi_average_method_threshold))
+        return self._waterfall_detect(spec)

@@ -1,18 +1,21 @@
-"""The port's four kernels.  On the CPU each wrapper runs its plain
-PyTorch version, held here against the JAX package's Pallas kernel in
-interpret mode on the same inputs; the tests marked ``cuda`` hold each
-CUDA kernel against its plain version on the card and skip without one."""
+"""The port's kernels.  On the CPU each wrapper runs its plain PyTorch
+version, held here (K1-K4) and in ``test_torch_fft_rows.py`` (B6, B7, B8,
+B13) against the JAX package's Pallas kernel in interpret mode on the same
+inputs; the tests marked ``cuda`` hold each CUDA kernel against its plain
+version on the card and skip without one."""
 
 import numpy as np
 import pytest
 import torch
 
 from srtb_tpu_torch import kernels as K
+from srtb_tpu_torch.kernels import fft_rows as KF
 from srtb_tpu_torch.kernels import rfi_chirp as KR
 from srtb_tpu_torch.kernels import sk as KS
 from srtb_tpu_torch.kernels import unpack as KU
 from srtb_tpu_torch.ops import detect as det
 from srtb_tpu_torch.ops import rfi
+from srtb_tpu_torch.ops import window as W
 from test_torch_ref import run_reference
 
 RNG = np.random.default_rng(1644)
@@ -163,11 +166,15 @@ def test_kernel_registry_and_counters():
     KU.unpack_subbyte_window(torch.from_numpy(BYTES), 2)
     assert set(K.launch_counts()) == {"unpack_subbyte_window",
                                       "rfi_s1_dedisperse", "sk_stats",
-                                      "sk_apply_timeseries"}
+                                      "sk_apply_timeseries",
+                                      "unpack_subbyte_planes_window",
+                                      "fft_rows", "fft_rows_stats",
+                                      "fft_rows_skzap"}
     assert not any(K.launch_counts().values())
     for _name, _wrapper, src, tpu in K.KERNELS:
         assert src.startswith("srtb_tpu_torch/csrc/") and src.endswith(".cu")
-        assert tpu.startswith("srtb_tpu/ops/pallas_kernels.py:")
+        assert tpu.startswith(("srtb_tpu/ops/pallas_kernels.py:",
+                               "srtb_tpu/ops/pallas_fft.py:"))
 
 
 def test_wrappers_reject_bad_inputs():
@@ -226,3 +233,66 @@ def test_cuda_sk_matches_plain(cuda):
     for a, b in zip(KS.sk_apply_timeseries(wf, zap),
                     KS.sk_apply_timeseries_plain(wf, zap)):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=0, equal_nan=True)
+
+
+# B13, B6, B7, B8 on the card, against the plain versions that
+# test_torch_fft_rows.py holds against the reference
+PLANE_BYTES = RNG.integers(0, 256, 1 << 13, dtype=np.uint8)
+PLANE_WINDOWS = {b: RNG.uniform(0.5, 1.5, (8 // b, PLANE_BYTES.size))
+                 .astype(np.float32) for b in (1, 2, 4)}
+
+
+def _max_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    return float((a - b).abs().max()), float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2", [12, 13, 14, 15, 16])
+def test_cuda_fft_rows_matches_plain(cuda, log2):
+    """B6 at every row length (one CTA, clusters of 2 and 4): 1e-5 of the
+    largest value, both directions."""
+    g = torch.Generator(device=cuda).manual_seed(log2)
+    x = torch.randn(5, 1 << log2, dtype=torch.complex64, device=cuda,
+                    generator=g)
+    for inverse in (False, True):
+        err, scale = _max_err(KF.fft_rows(x, inverse),
+                              KF.fft_rows_plain(x, inverse))
+        assert err <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2", [12, 15, 16])
+def test_cuda_fft_rows_stats_and_skzap_match_plain(cuda, log2):
+    """B7 with a hann de-window and B8 without, on noise rows with a
+    planted impulsive row: values to 1e-5 of the largest; B7's sums to
+    1e-5 relative (the de-window's near-zero edges amplify single values'
+    rounding), B8's time series to 1e-6; verdicts identical."""
+    n = 1 << log2
+    g = torch.Generator(device=cuda).manual_seed(100 + log2)
+    x = torch.randn(9, n, dtype=torch.complex64, device=cuda, generator=g)
+    x[2] = torch.fft.fft(torch.where(torch.arange(n, device=cuda) % 64 == 0,
+                                     30.0, 1.0) * torch.fft.ifft(x[2]))
+    dw = torch.from_numpy(W.dewindow_coefficients("hann", n)).to(cuda)
+    for a, b in zip(KF.fft_rows_stats(x, True, dw),
+                    KF.fft_rows_stats_plain(x, True, dw)):
+        torch.testing.assert_close(a, b, rtol=1e-5 if a.dim() == 1 else 0,
+                                   atol=0 if a.dim() == 1
+                                   else 1e-5 * float(b.abs().max()))
+    got = KF.fft_rows_skzap(x, SK_THR)
+    want = KF.fft_rows_skzap_plain(x, SK_THR)
+    assert torch.equal(got[1], want[1]) and bool(got[1][2])
+    err, scale = _max_err(got[0], want[0])
+    assert err <= 1e-5 * scale
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+def test_cuda_unpack_planes_matches_plain(cuda, nbits):
+    data = torch.from_numpy(PLANE_BYTES).to(cuda)
+    win = torch.from_numpy(PLANE_WINDOWS[nbits]).to(cuda)
+    for w in (None, win):
+        assert torch.equal(KU.unpack_subbyte_planes_window(data, nbits, w),
+                           KU.unpack_subbyte_planes_window_plain(data, nbits,
+                                                                 w))

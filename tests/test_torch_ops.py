@@ -38,10 +38,29 @@ WINDOWS = [("hann", 1), ("hann", 1000), ("hamming", 1000),
 QUANT_BITS = (1, 2, 4, 8)
 UNPACK = [(b, w) for b in (1, 2, 4, 8, -8) for w in (False, True)
           if not (w and b not in (1, 2, 4, 8))]
+ZF = (RNG.standard_normal(1 << 12)
+      + 1j * RNG.standard_normal(1 << 12)).astype(np.complex64)
+SUBBYTE = [(b, w) for b in (1, 2, 4) for w in (False, True)]
+# (length, inverse, rows_impl, len_cap): the four-step with rows outside
+# the kernels' window, recursing past a small cap, and at 2^24, the
+# shortest length whose legs (2^12) run the row kernel B6
+FOUR_STEP = {"n13_xla": (1 << 13, False, "xla", None),
+             "n13_inv_cap32": (1 << 13, True, "pallas", 32),
+             "n24_b6_legs": (1 << 24, False, "pallas", None)}
+
+
+def _four_step_input(n: int) -> np.ndarray:
+    rng = np.random.default_rng(n)
+    return (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
 
 
 def _win(nbits):
     return W.window_coefficients("hann", BYTES.size * 8 // abs(nbits))
+
+
+def _win_planes(nbits):
+    return F.subbyte_window_planes(_win(nbits), nbits)
 
 
 @pytest.fixture(scope="module")
@@ -87,6 +106,31 @@ def ref(tmp_path_factory):
          "args": [TS, ZC, 6.0, 64]},
         {"key": "detect_wf", "fn": "srtb_tpu.ops.detect:detect",
          "args": [WF[None], 40, 6.0, 32]},
+    ]
+    for drop in (False, True):
+        jobs.append({"key": f"hermitian/{drop}",
+                     "fn": "srtb_tpu.ops.fft:hermitian_rfft_post",
+                     "args": [ZF, drop]})
+    for nbits, win in SUBBYTE:
+        jobs.append({"key": f"rfft_subbyte/{nbits}/{win}",
+                     "fn": "srtb_tpu.ops.fft:rfft_subbyte",
+                     "args": [BYTES, nbits, "four_step",
+                              _win_planes(nbits) if win else None]})
+    for name, (n, inv, rows, cap) in FOUR_STEP.items():
+        jobs.append({"key": f"four_step/{name}",
+                     "fn": "srtb_tpu.ops.fft:four_step_fft",
+                     "args": [_four_step_input(n), inv,
+                              "pallas_interpret" if rows == "pallas"
+                              else rows, cap]})
+    jobs += [
+        {"key": "segment_rfft_pallas", "fn": "srtb_tpu.ops.fft:segment_rfft",
+         "args": [X, "pallas_interpret"]},
+        {"key": "mean_packed", "fn": "srtb_tpu.ops.rfi:mean_power_packed",
+         "args": [ZF]},
+        {"key": "s1_given_mean",
+         "fn": "srtb_tpu.ops.rfi:mitigate_rfi_s1_given_mean",
+         "args": [SPEC, np.float32(2.5), 3.0,
+                  rfi.normalization_coefficient(4096, 16)]},
     ]
     for nbits in QUANT_BITS:
         jobs.append({"key": f"quantize/{nbits}",
@@ -139,6 +183,90 @@ def test_waterfall_c2c_unnormalized_with_dewindow(ref):
     want = ref["waterfall"]
     assert got.shape == want.shape == (16, 256)
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_hermitian_rfft_post(ref, drop):
+    """The R2C from the packed half-size C2C, m + 1 bins or drop-Nyquist:
+    1e-6 of the largest (the port's twiddle is float64-built, the
+    reference's a float32 factored phase)."""
+    got = F.hermitian_rfft_post(torch.from_numpy(ZF), drop).numpy()
+    want = ref[f"hermitian/{drop}"]
+    assert got.shape == want.shape == (ZF.size + (0 if drop else 1),)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    x = np.fft.ifft(ZF.astype(np.complex128))
+    real = np.empty(2 * ZF.size)
+    real[0::2], real[1::2] = x.real, x.imag
+    direct = np.fft.rfft(real)[:got.size]
+    assert np.abs(got - direct).max() <= 1e-5 * np.abs(direct).max()
+
+
+@pytest.mark.parametrize("nbits,win", SUBBYTE)
+def test_rfft_subbyte(ref, nbits, win):
+    """The blocked-plane sub-byte R2C (unpack to planes, pack plane pairs,
+    plane FFTs, cross-plane twiddle and butterfly, Hermitian post) against
+    the reference's, 1e-5 of the largest bin, and against the plain R2C
+    of the sample-order samples."""
+    data = torch.from_numpy(BYTES)
+    planes = U.unpack_subbyte_planes(data, nbits)
+    if win:
+        planes = planes * torch.from_numpy(_win_planes(nbits))
+    got = F.rfft_subbyte(F.subbyte_planes_to_packed(planes)).numpy()
+    want = ref[f"rfft_subbyte/{nbits}/{win}"]
+    assert got.shape == want.shape == (BYTES.size * 4 // nbits,)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    w = torch.from_numpy(_win(nbits)) if win else None
+    direct = F.rfft_drop_nyquist(U.unpack(data, nbits, w)).numpy()
+    assert np.abs(got - direct).max() <= 1e-5 * np.abs(direct).max()
+
+
+@pytest.mark.parametrize("name", sorted(FOUR_STEP))
+def test_four_step_fft(ref, name):
+    """The four-step C2C with its length window: rows in [2^12, 2^16] run
+    the row kernel (its plain version here), longer rows recurse, shorter
+    go to torch.fft; 1e-5 of the largest value against the reference's
+    with its Pallas legs in interpret mode."""
+    n, inverse, rows, cap = FOUR_STEP[name]
+    x = torch.from_numpy(_four_step_input(n))
+    got = F.four_step_fft(x, inverse, rows, cap).numpy()
+    want = ref[f"four_step/{name}"]
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_segment_rfft_strategies(ref):
+    """"pallas" (packed half-size C2C by the four-step, Hermitian post)
+    and "four_step" give the reference's spectrum to 1e-5; "monolithic"
+    refuses an epilogue; "pallas2" and "mxu" are not ported."""
+    x = torch.from_numpy(X)
+    want = ref["segment_rfft_pallas"]
+    for strategy in ("pallas", "four_step", "monolithic"):
+        got = F.segment_rfft(x, strategy).numpy()
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    with pytest.raises(ValueError):
+        F.segment_rfft(x, "monolithic", epilogue=lambda zf, s: s)
+    for strategy in ("pallas2", "mxu"):
+        with pytest.raises(NotImplementedError, match="ROADMAP B9/B10"):
+            F.segment_rfft(x, strategy)
+
+
+def test_mean_power_packed_and_s1_given_mean(ref):
+    """The Parseval mean from the packed C2C output: 1e-6 relative to the
+    reference's and to the mean over the assembled spectrum; stage 1 with a
+    given mean: the same zapped set, survivors to 1e-6 of the largest."""
+    zf = torch.from_numpy(ZF)
+    got = rfi.mean_power_packed(zf)
+    assert got.shape == (1,)
+    np.testing.assert_allclose(got.numpy(), ref["mean_packed"], rtol=1e-6)
+    spec = F.hermitian_rfft_post(zf.to(torch.complex128), True)
+    np.testing.assert_allclose(got.numpy(),
+                               rfi.power(spec).mean().numpy(), rtol=1e-6)
+    out = rfi.mitigate_rfi_s1_given_mean(
+        torch.from_numpy(SPEC), torch.tensor([2.5], dtype=torch.float32), 3.0,
+        rfi.normalization_coefficient(4096, 16)).numpy()
+    want = ref["s1_given_mean"]
+    np.testing.assert_array_equal(out == 0, want == 0)
+    assert 0 < (out == 0).sum() < out.size // 2
+    assert np.abs(out - want).max() <= 1e-6 * np.abs(want).max()
 
 
 def test_rfi_stage1(ref):

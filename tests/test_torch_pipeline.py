@@ -69,6 +69,9 @@ def test_same_segments_and_artifacts(runs):
     assert int(ref["main/rc"]) == 0
     assert stats.segments == 3 and stats.signals == 1
     assert runs["pipe"].positive_segments == [1]
+    device_s = stats.extras["device_s_per_segment"]
+    assert len(device_s) == 3 and sum(device_s) == pytest.approx(
+        stats.extras["stage_s"]["device"])
     port_files = sorted(os.listdir(runs["dirs"]["port"]))
     assert port_files == ref["main/files"].tolist()
     assert sum(name.endswith(".bin") for name in port_files) == 1

@@ -123,6 +123,24 @@ def segment_process(fields: dict, raw: np.ndarray,
     }
 
 
+def plan_resolution(fields: dict) -> dict:
+    """The reference's plan flags for a config, without building a
+    processor: staged, the resolved strategy, and the fused tail (or the
+    name of the exception its resolution raises)."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.ops import fft as F
+    from srtb_tpu.pipeline import segment as S
+    cfg = Config(**fields)
+    staged = S.staged_resolves(cfg)
+    try:
+        fused = str(S.fused_tail_resolves(cfg, staged))
+    except ValueError:
+        fused = "ValueError"
+    return {"staged": staged, "fused_tail": fused,
+            "strategy": F.resolve_strategy(cfg.baseband_input_count,
+                                           cfg.fft_strategy)}
+
+
 def pipeline_main(argv: list, out_dir: str) -> dict:
     """``srtb-main`` on ``argv``; returns its exit code, the artifact
     names under ``out_dir`` and the content of every ``.tim`` and

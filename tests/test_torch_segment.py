@@ -1,7 +1,13 @@
-"""The port's SegmentProcessor against the JAX package's, at two small
-shapes where the reference's plan takes the same four Pallas kernels
-(``fft_strategy = monolithic``, ``use_pallas = 1``, ``use_pallas_sk = 1``,
-rows of 1024 outside the Pallas row-FFT window)."""
+"""The port's SegmentProcessor against the JAX package's, at small shapes
+covering each plan the port takes: ``fused:monolithic`` with rows of 1024
+outside the Pallas row-FFT window (K1, K2, K3 + K4), with rows of 2^13
+inside it (B7 + K4) and without ``use_pallas`` (the reference's plain
+chain and chirp bank against K1, K2, K3 + K4), ``fused:pallas+ftail+skzap``
+(B13, B6, the K2 epilogue, B8), ``fused:pallas`` with ``fused_tail = off``
+(B7 + K4), ``fused:pallas+ftail`` with ``use_pallas_sk = 0`` (B6 rows,
+plain SK), and ``fused:four_step`` with and without the fused tail (B13
+and the sub-byte R2C on cuFFT rows).  Both packages run one
+configuration; the reference runs its Pallas kernels in interpret mode."""
 
 import dataclasses
 import json
@@ -14,6 +20,8 @@ from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.io import synth
 from srtb_tpu_torch.ops import dedisperse as dd
 from srtb_tpu_torch.ops import detect as det
+from srtb_tpu_torch.ops import fft as F
+from srtb_tpu_torch.pipeline import segment as seg
 from srtb_tpu_torch.pipeline.runtime import has_signal
 from srtb_tpu_torch.pipeline.segment import SegmentProcessor
 from test_torch_ref import run_reference
@@ -50,17 +58,44 @@ def dispersed_bytes(cfg: Config, n_samples: int, pulse_at: int,
     return synth.quantize(sig, 2).numpy()
 
 
-# (n, channels, dm, pulse amplitude, window): the second shape's reserve
-# trims a fifth of the waterfall's time axis; the third windows the
-# segment (K1's window multiply and the waterfall's de-window)
-SHAPES = {"n16_ch32": (1 << 16, 32, -0.1, 4.0, "rectangle"),
-          "n18_ch128": (1 << 18, 128, -0.5, 7.0, "rectangle"),
-          "n16_ch32_hann": (1 << 16, 32, -0.1, 4.0, "hann")}
+# (n, channels, dm, pulse amplitude, window, overrides, the plan both
+# packages resolve): the n18 shape's reserve trims a fifth of the
+# waterfall's time axis; the hann shapes window the segment (the unpack's
+# window multiply and the waterfall's de-window, whose near-zero edges
+# trip every row's SK)
+PALLAS = {"fft_strategy": "pallas"}
+FOUR_STEP = {"fft_strategy": "four_step"}
+SHAPES = {
+    "n16_ch32": (1 << 16, 32, -0.1, 4.0, "rectangle", {},
+                 "fused:monolithic"),
+    "n18_ch128": (1 << 18, 128, -0.5, 7.0, "rectangle", {},
+                  "fused:monolithic"),
+    "n16_ch32_hann": (1 << 16, 32, -0.1, 4.0, "hann", {},
+                      "fused:monolithic"),
+    "n17_ch8_rows_in_window": (1 << 17, 8, -0.2, 5.0, "rectangle", {},
+                               "fused:monolithic"),
+    "n16_ch4_skzap": (1 << 16, 4, -0.1, 4.0, "rectangle", PALLAS,
+                      "fused:pallas+ftail+skzap"),
+    "n17_ch8_skzap_hann": (1 << 17, 8, -0.2, 5.0, "hann", PALLAS,
+                           "fused:pallas+ftail+skzap"),
+    "n16_ch4_unfused": (1 << 16, 4, -0.1, 4.0, "rectangle",
+                        dict(PALLAS, fused_tail="off"), "fused:pallas"),
+    "n17_ch8_no_pallas_sk": (1 << 17, 8, -0.2, 5.0, "rectangle",
+                             dict(PALLAS, use_pallas_sk=False),
+                             "fused:pallas+ftail"),
+    "n16_ch32_four_step": (1 << 16, 32, -0.1, 4.0, "rectangle", FOUR_STEP,
+                           "fused:four_step+ftail"),
+    "n17_ch8_four_step_unfused_hann": (
+        1 << 17, 8, -0.2, 5.0, "hann", dict(FOUR_STEP, fused_tail="off"),
+        "fused:four_step"),
+    "n16_ch4_no_pallas": (1 << 16, 4, -0.1, 4.0, "rectangle",
+                          {"use_pallas": False}, "fused:monolithic"),
+}
 
 
 def _case(name):
-    n, ch, dm, amp, window = SHAPES[name]
-    cfg = slice_config(n, ch, dm)
+    n, ch, dm, amp, window, over, _plan = SHAPES[name]
+    cfg = slice_config(n, ch, dm).replace(**over)
     nres = dd.nsamps_reserved(cfg)
     raw = dispersed_bytes(cfg, n, (n - 2 * nres) // 2, amp, seed=n)
     return cfg, raw, window
@@ -69,11 +104,36 @@ def _case(name):
 CASES = {name: _case(name) for name in SHAPES}
 
 
+# (n, fft_strategy, use_pallas, fused_tail): the plan flags at sizes too
+# large to build here, the production 2^30 and 2^27 among them
+RESOLVE = {
+    "n30_auto": (1 << 30, "auto", True, "auto"),
+    "n30_auto_no_pallas": (1 << 30, "auto", False, "auto"),
+    "n30_tail_on": (1 << 30, "auto", True, "on"),
+    "n27_pallas": (1 << 27, "pallas", True, "auto"),
+    "n28_pallas": (1 << 28, "pallas", True, "auto"),
+    "n29_pallas": (1 << 29, "pallas", True, "auto"),
+    "n29_four_step_bank": (1 << 29, "four_step", False, "auto"),
+    "n27_monolithic": (1 << 27, "monolithic", True, "auto"),
+    "n27_monolithic_tail_on": (1 << 27, "monolithic", True, "on"),
+    "n27_pallas_tail_off": (1 << 27, "pallas", True, "off"),
+}
+
+
+def _resolve_config(name: str) -> Config:
+    n, strategy, use_pallas, tail = RESOLVE[name]
+    return Config(baseband_input_count=n, fft_strategy=strategy,
+                  use_pallas=use_pallas, use_pallas_sk=True, fused_tail=tail)
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     jobs = [{"key": name, "fn": "test_torch_ref:segment_process",
              "args": [dataclasses.asdict(cfg), raw, window]}
             for name, (cfg, raw, window) in CASES.items()]
+    jobs += [{"key": f"resolve/{name}", "fn": "test_torch_ref:plan_resolution",
+              "args": [dataclasses.asdict(_resolve_config(name))]}
+             for name in RESOLVE]
     return run_reference(jobs, tmp_path_factory.mktemp("ref_segment"))
 
 
@@ -94,11 +154,14 @@ def port(ref):
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_plan_and_constants_match(ref, port, name):
-    """The reference took the plan this slice ports, and the processor's
-    constants are the same: window, de-window, RFI mask, normalization,
-    reserved samples, time trim."""
+    """Both packages take the same plan (the reference's name less
+    ``+ring``, its ingest ring, which the port does not have), the one
+    listed for the shape, and the processor's constants are the same:
+    window, de-window, RFI mask, normalization, reserved samples, time
+    trim."""
     sp = port[name][0]
-    assert str(ref[f"{name}/plan"]).startswith("fused:monolithic")
+    assert str(ref[f"{name}/plan"]).replace("+ring", "") == sp.plan_name \
+        == SHAPES[name][6]
     for got, key in ((sp.window, "window"), (sp.watfft_dewindow,
                                              "dewindow")):
         if got is None:
@@ -155,17 +218,43 @@ def test_waterfall_and_time_series(ref, port, name):
     assert ts_err <= sum(gates)
 
 
+@pytest.mark.parametrize("name", sorted(RESOLVE))
+def test_plan_resolution_matches_reference(ref, name):
+    """staged_resolves, resolve_strategy and fused_tail_resolves give the
+    reference's answers (a ValueError where the reference raises one)."""
+    cfg = _resolve_config(name)
+    staged = seg.staged_resolves(cfg)
+    try:
+        fused = str(seg.fused_tail_resolves(cfg, staged))
+    except ValueError:
+        fused = "ValueError"
+    assert staged == bool(ref[f"resolve/{name}/staged"])
+    assert fused == str(ref[f"resolve/{name}/fused_tail"])
+    assert F.resolve_strategy(cfg.baseband_input_count, cfg.fft_strategy) \
+        == str(ref[f"resolve/{name}/strategy"])
+
+
 def test_unported_settings_raise():
     cfg = slice_config(1 << 12, 32, 0.0)
-    for change in ({"fused_tail": "on"}, {"quality_stats": True},
-                   {"search_mode": "periodicity"},
+    for change in ({"quality_stats": True}, {"search_mode": "periodicity"},
                    {"micro_batch_segments": 2}, {"fft_strategy": "pallas2"},
-                   {"ingest_ring": "on"}, {"front_fuse": "on"}):
+                   {"fft_strategy": "mxu"}, {"ingest_ring": "on"},
+                   {"front_fuse": "on"}):
         with pytest.raises(NotImplementedError):
             SegmentProcessor(cfg.replace(**change), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         SegmentProcessor(cfg.replace(baseband_format_type="gznupsr_a1"),
                          device="cpu")
+    # the staged plan without use_pallas runs the chirp kernel B3
+    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+        seg.check_plan(_resolve_config("n30_auto_no_pallas"))
+    # the staged plan with the fused tail has no test against the reference
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        seg.check_plan(_resolve_config("n30_tail_on"))
+    with pytest.raises(NotImplementedError, match="ROADMAP B9/B10"):
+        seg.check_plan(cfg.replace(fft_strategy="mxu"))
+    with pytest.raises(ValueError):
+        SegmentProcessor(cfg.replace(fused_tail="on"), device="cpu")
 
 
 def test_device_defaults_to_cuda():
