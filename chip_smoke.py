@@ -12,23 +12,26 @@ result lines are printed:
 2. build: the hand-written kernels, compiled from ``srtb_tpu_torch/csrc``;
 3. bandwidth: a 4 GiB device-to-device copy, the card's own yardstick;
 4. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it (K1-K4 at 2^30 2-bit samples and
-   2^11 channels; B13, B6, B7, B8 at 2^27 samples and 2^11 channels, the
-   row kernels also at every row length 2^12 ... 2^16), with the
-   tolerance stated beside each check, and its time beside the plain
-   version's, its bound and, where one PyTorch call computes the same
-   function, that call's;
+   the shapes the main paths give it (K1-K4 and B3 at 2^30 2-bit samples
+   and 2^11 channels; B13, B6, B7, B8, B9, B10 at 2^27 samples and 2^11
+   channels, the row kernels also at every row length 2^12 ... 2^16, B9
+   and B10 at both column lengths and every row length, B3 also past
+   float32's exact channel indices), with the tolerance stated beside
+   each check, and its time beside the plain version's, its bound and,
+   where one PyTorch call computes the same function, that call's;
 5. main paths: 2-bit files of two segments with a dispersed pulse in the
    second, made on the card by the port's synth, searched by the port's
    ``srtb-torch-main`` at the example J1644-4559 configuration: at 2^30
-   samples per segment (the reference's staged plan), and at 2^27 with
-   ``fft_strategy = pallas`` twice, with the fused tail (``auto``) and
-   without (``off``).  In each, the pulse segment must be positive, the
-   noise segment negative, the candidate files must exist, the plan must
-   be the reference's, and each kernel must have launched exactly as
-   often per segment as that plan's table says;
+   samples per segment with ``use_pallas = 1`` (the reference's staged
+   plan), at 2^27 with ``fft_strategy = pallas`` twice, with the fused
+   tail (``auto``) and without (``off``), the example cfg as shipped
+   (2^30, ``use_pallas = 0``: the staged plan with B3), and at 2^27 with
+   ``fft_strategy = pallas2`` (B9/B10).  In each, the pulse segment must
+   be positive, the noise segment negative, the candidate files must
+   exist, the plan must be the reference's, and each kernel must have
+   launched exactly as often per segment as that plan's table says;
 6. breakdown: the device time of one segment stage by stage, for the 2^30
-   path and for the fused 2^27 path.
+   paths and for the fused and pallas2 2^27 paths.
 
 The last two lines are the kernels' JSON record and the result line.
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -59,9 +62,13 @@ LOG2_N_ROWS = 27       # samples per segment of the row-FFT plans
 
 # the main paths: (label, log2 samples per segment, cfg lines added to the
 # example cfg, the plan both packages resolve, kernel launches per segment)
-PALLAS_27 = "baseband_input_count = 2 ** 27\nfft_strategy = pallas\n"
+PALLAS_ON = "use_pallas = 1\nuse_pallas_sk = 1\nbaseband_reserve_sample = 1\n"
+PALLAS_27 = "baseband_input_count = 2 ** 27\nfft_strategy = pallas\n" \
+    + PALLAS_ON
+PALLAS2_27 = "baseband_input_count = 2 ** 27\nfft_strategy = pallas2\n" \
+    + PALLAS_ON
 MAIN_PATHS = (
-    ("staged_2^30", LOG2_N, "", "staged:four_step",
+    ("staged_2^30", LOG2_N, PALLAS_ON, "staged:four_step",
      {"unpack_subbyte_window": 1, "rfi_s1_dedisperse": 1, "sk_stats": 1,
       "sk_apply_timeseries": 1}),
     ("fused_2^27", LOG2_N_ROWS, PALLAS_27, "fused:pallas+ftail+skzap",
@@ -72,6 +79,13 @@ MAIN_PATHS = (
      {"unpack_subbyte_planes_window": 1, "fft_rows": 2,
       "rfi_s1_dedisperse": 1, "fft_rows_stats": 1,
       "sk_apply_timeseries": 1}),
+    # the example cfg as shipped: use_pallas = use_pallas_sk = 0, no
+    # reserve; the reference's stage (c) runs XLA stage 1 and B3
+    ("shipped_2^30", LOG2_N, "", "staged:four_step",
+     {"unpack_subbyte_window": 1, "dedisperse": 1}),
+    ("pallas2_2^27", LOG2_N_ROWS, PALLAS2_27, "fused:pallas2+ftail+skzap",
+     {"unpack_subbyte_planes_window": 1, "fft2_pass1": 1, "fft2_pass2": 1,
+      "rfi_s1_dedisperse": 1, "fft_rows_skzap": 1}),
 )
 
 
@@ -631,12 +645,128 @@ def check_fft_rows_skzap(copy_gbps: float) -> dict:
     return rec
 
 
+def check_dedisperse(copy_gbps: float) -> dict:
+    """B3 at the production spectrum: 2^29 bins with the example cfg's DM
+    (i0 = 0), and 2^12 bins at i0 = 2^26 + 1024 of a 2^27-bin spectrum,
+    past float32's exact integers.  Tolerance: 1e-6 of the largest output,
+    as K2's check — the same phase code (srtb::chirp), sincospif against
+    the plain float64 trig of the same float32 argument."""
+    import torch
+    from srtb_tpu_torch.config import Config
+    from srtb_tpu_torch.kernels import dedisperse as KD
+    from srtb_tpu_torch.ops import dedisperse as dd
+    cfg = Config()
+    cfg.load_file(str(CFG_EXAMPLE))
+    n = cfg.baseband_input_count // 2
+    f_min, f_c, df = dd.spectrum_frequencies(cfg, n)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    cases = [(n, 0, df), (1 << 12, (1 << 26) + 1024,
+                          cfg.baseband_bandwidth / (1 << 27))]
+    worst = 0.0
+    for bins, i0, d in cases:
+        spec = torch.randn(bins, dtype=torch.complex64, device="cuda",
+                           generator=g)
+        out = KD.dedisperse(spec, f_min, d, f_c, cfg.dm, i0=i0)
+        ref = KD.dedisperse_plain(spec, f_min, d, f_c, cfg.dm, i0=i0)
+        torch.cuda.synchronize()
+        err, scale = _fft_err(out, ref)
+        if not err <= 1e-6 * scale:
+            fail(f"dedisperse {bins} bins at i0 {i0}: max_abs_err {err} > "
+                 f"1e-6 x {scale}")
+        worst = max(worst, err)
+        del out, ref
+    say(f"check dedisperse: within 1e-6 of the largest at 2^29 bins (i0 0) "
+        f"and 2^12 bins at i0 2^26 + 1024 (max_abs_err {worst:.3e})")
+    spec = torch.randn(n, dtype=torch.complex64, device="cuda", generator=g)
+    args = (f_min, df, f_c, cfg.dm)
+    k_ms = cuda_ms(lambda: KD.dedisperse(spec, *args), 10)
+    p_ms = cuda_ms(lambda: KD.dedisperse_plain(spec, *args), 2)
+    # per bin: the float64 phase (~10 ops, one division counted as one);
+    # sincospif (~20) and the rotation (6) in float32
+    rec = _record("dedisperse", k_ms, p_ms, 16 * n,
+                  {"f32": 26 * n, "f64": 10 * n}, worst, copy_gbps)
+    del spec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_fft2(copy_gbps: float) -> list:
+    """B9 and B10 at the pallas2 path's shape — the two packed planes of
+    the 2^27-sample segment, [2, 4096, 8192] — and on one block at
+    (4096, 4096), (4096, 2^14), (4096, 2^15), (4096, 2^16) and (8192,
+    2^16): both column lengths, every row length, rows of 2^15 and 2^16 on
+    clusters; forward and inverse.  Then the composed ``fft2_c2c`` (B9,
+    B10, unblock) against ``torch.fft.fft`` on the same [2, 2^25].
+    Tolerance: 2e-5 of the largest |plain|, the reference's own gate for
+    the two-pass C2C (tests/test_pallas_fft2.py:48).  Times at the path's
+    shape; B10's library call is ``torch.fft.fft`` along the rows (cuFFT),
+    and the cuFFT column FFT alone (``torch.fft.fft`` along the columns,
+    no twiddle) is printed beside B9 as a reference point."""
+    import torch
+    from srtb_tpu_torch.kernels import fft2 as K2
+    g = torch.Generator(device="cuda").manual_seed(25)
+    worst = {"fft2_pass1": 0.0, "fft2_pass2": 0.0}
+    shapes = [(2, 4096, 8192), (1, 4096, 4096), (1, 4096, 1 << 14),
+              (1, 4096, 1 << 15), (1, 4096, 1 << 16), (1, 8192, 1 << 16)]
+    for shape in shapes:
+        x = torch.randn(*shape, dtype=torch.complex64, device="cuda",
+                        generator=g)
+        for inverse in (False, True):
+            for name, kernel, plain in (
+                    ("fft2_pass1", K2.fft2_pass1, K2.fft2_pass1_plain),
+                    ("fft2_pass2", K2.fft2_pass2, K2.fft2_pass2_plain)):
+                err, scale = _fft_err(kernel(x, inverse), plain(x, inverse))
+                if not err <= 2e-5 * scale:
+                    fail(f"{name} {shape} inverse={inverse}: {err} > 2e-5 x "
+                         f"{scale}")
+                if shape == shapes[0]:
+                    worst[name] = max(worst[name], err)
+        del x
+        K2.twiddle.cache_clear()
+        torch.cuda.empty_cache()
+    x = torch.randn(2, 1 << 25, dtype=torch.complex64, device="cuda",
+                    generator=g)
+    err, scale = _fft_err(K2.fft2_c2c(x), torch.fft.fft(x))
+    if not err <= 2e-5 * scale:
+        fail(f"fft2_c2c [2, 2^25]: {err} > 2e-5 x {scale}")
+    say(f"check fft2_pass1 / fft2_pass2: every shape both ways within 2e-5 "
+        f"of the largest; fft2_c2c [2, 2^25] against torch.fft.fft "
+        f"max_abs_err {err:.3e} <= 2e-5 x {scale:.3e}")
+    c2c_ms = cuda_ms(lambda: K2.fft2_c2c(x), 10)
+    c2c_lib = cuda_ms(lambda: torch.fft.fft(x), 10)
+    b = x.reshape(2, *K2.factor(x.shape[-1]))
+    p1 = K2.fft2_pass1(b)
+    col_ms = cuda_ms(lambda: torch.fft.fft(b, dim=-2), 10)
+    unblock_ms = cuda_ms(lambda: K2.unblock(p1), 10)
+    say(f"fft2 {list(b.shape)}: cuFFT column FFT alone (torch.fft.fft "
+        f"dim=-2, no twiddle) {col_ms:.4f} ms; unblock transpose "
+        f"{unblock_ms:.4f} ms; fft2_c2c composed {c2c_ms:.4f} ms against "
+        f"one torch.fft.fft of [2, 2^25] {c2c_lib:.4f} ms")
+    n = b.numel()
+    recs = [
+        _record("fft2_pass1", cuda_ms(lambda: K2.fft2_pass1(b), 10),
+                cuda_ms(lambda: K2.fft2_pass1_plain(b), 10), 16 * n,
+                # the column FFT ~5 log2(n1) flops a value; the twiddle's
+                # sincospif (~20) and complex multiply (6)
+                {"f32": 5 * n * 12 + 26 * n}, worst["fft2_pass1"], copy_gbps),
+        _record("fft2_pass2", cuda_ms(lambda: K2.fft2_pass2(p1), 10),
+                cuda_ms(lambda: K2.fft2_pass2_plain(p1), 10), 16 * n,
+                {"f32": 5 * n * 13}, worst["fft2_pass2"], copy_gbps,
+                cuda_ms(lambda: torch.fft.fft(p1, dim=-1), 10)),
+    ]
+    del x, b, p1
+    K2.twiddle.cache_clear()
+    torch.cuda.empty_cache()
+    return recs
+
+
 def phase_kernels(copy_gbps: float) -> list:
     recs = [check_unpack(copy_gbps), check_rfi_chirp(copy_gbps)]
     recs += check_sk(copy_gbps)
     recs += [check_unpack_planes(copy_gbps), check_fft_rows(copy_gbps),
              check_fft_rows_stats(copy_gbps),
-             check_fft_rows_skzap(copy_gbps)]
+             check_fft_rows_skzap(copy_gbps), check_dedisperse(copy_gbps)]
+    recs += check_fft2(copy_gbps)
     return recs
 
 
@@ -693,8 +823,7 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
     data = out_dir / "baseband.bin"
     cfg_path = out_dir / "smoke.cfg"
     text = CFG_EXAMPLE.read_text()
-    text += (f"\ninput_file_path = {data}\ngui_enable = 0\nuse_pallas = 1\n"
-             "use_pallas_sk = 1\nbaseband_reserve_sample = 1\n"
+    text += (f"\ninput_file_path = {data}\ngui_enable = 0\n"
              f"baseband_output_file_prefix = {out_dir}/out_\n"
              "deterministic_timestamps = 1\n" + extra)
     cfg_path.write_text(text)
@@ -744,6 +873,9 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
     names = [os.path.basename(p) for f in written
              for p in [f.bin_path, *f.npy_paths, *f.tim_paths]]
     say(f"main path {label}: candidates {names}")
+    for files in written:  # the waterfall dumps, checked: free the disk
+        for p in files.npy_paths:
+            os.unlink(p)
     say(f"main path {label}: wall seconds by stage "
         + json.dumps(stats.extras["stage_s"]) + ", device seconds by segment "
         + json.dumps(stats.extras["device_s_per_segment"]))
@@ -817,22 +949,49 @@ def _breakdown_line(label, ms, whole, cfg, extra=None) -> dict:
     return out
 
 
+def _segment_on_card(run):
+    """The run's processor and its first segment's bytes on the card, with
+    the pageable host-to-device copy's time."""
+    import numpy as np
+    import torch
+    sp = run["pipe"].processor
+    host = torch.from_numpy(np.fromfile(run["data"], dtype=np.uint8,
+                                        count=sp.cfg.segment_bytes()))
+    return sp, host.to("cuda"), cuda_ms(lambda: host.to("cuda"), 3)
+
+
+def _fused_tail_stages(ms: dict, sp, a) -> None:
+    """Time the fused plans' stages after the plane FFTs ``a [p, M]``, each
+    the processor's own function on the input the chain gives it."""
+    from srtb_tpu_torch.ops import fft as F
+    ms["plane twiddle + butterfly + hermitian post"] = cuda_ms(
+        lambda: F.finish_rfft_subbyte(a), 3)
+    held = {}
+
+    def hold(zf, spec):
+        held.update(zf=zf, spec=spec)
+        return spec
+    F.finish_rfft_subbyte(a, epilogue=hold)
+    epilogue = sp._tail_epilogue()
+    ms["epilogue: Parseval mean + K2"] = cuda_ms(
+        lambda: epilogue(held["zf"], held["spec"]), 5)
+    spec = epilogue(held.pop("zf"), held.pop("spec"))
+    ms["B8 waterfall tail + zero count + detect"] = cuda_ms(
+        lambda: sp._waterfall_detect(spec), 5)
+
+
 def phase_breakdown_rows(fused, unfused) -> dict:
     """Device time of one 2^27 segment of the fused row-FFT plan stage by
     stage, each stage the processor's own function alone on the input the
     chain gives it (CUDA events, mean of a few runs), the whole chain on
     the same device-resident segment, and the unfused plan's chain beside
     it."""
-    import numpy as np
     import torch
     from srtb_tpu_torch.kernels import unpack as KU
     from srtb_tpu_torch.ops import fft as F
-    sp = fused["pipe"].processor
+    sp, raw, h2d = _segment_on_card(fused)
     cfg = sp.cfg
-    host = torch.from_numpy(np.fromfile(fused["data"], dtype=np.uint8,
-                                        count=cfg.segment_bytes()))
-    ms = {"h2d (pageable)": cuda_ms(lambda: host.to("cuda"), 3)}
-    raw = host.to("cuda")
+    ms = {"h2d (pageable)": h2d}
 
     def unpack():
         return KU.unpack_subbyte_planes_window(raw, cfg.baseband_input_bits,
@@ -846,27 +1005,78 @@ def phase_breakdown_rows(fused, unfused) -> dict:
         planes_fft, 5)
     a = planes_fft()
     del z
-    ms["plane twiddle + butterfly + hermitian post"] = cuda_ms(
-        lambda: F.finish_rfft_subbyte(a), 3)
-    held = {}
-
-    def hold(zf, spec):
-        held.update(zf=zf, spec=spec)
-        return spec
-    F.finish_rfft_subbyte(a, epilogue=hold)
+    _fused_tail_stages(ms, sp, a)
     del a
-    epilogue = sp._tail_epilogue()
-    ms["epilogue: Parseval mean + K2"] = cuda_ms(
-        lambda: epilogue(held["zf"], held["spec"]), 5)
-    spec = epilogue(held.pop("zf"), held.pop("spec"))
-    ms["B8 waterfall tail + zero count + detect"] = cuda_ms(
-        lambda: sp._waterfall_detect(spec), 5)
-    del spec
     whole = cuda_ms(lambda: sp.process(raw), 3)
     unfused_ms = cuda_ms(lambda: unfused["pipe"].processor.process(raw), 3)
     torch.cuda.empty_cache()
     return _breakdown_line("fused_2^27", ms, whole, cfg,
                            {"unfused_chain_ms": unfused_ms})
+
+
+def phase_breakdown_pallas2(run, fused_chain_ms: float) -> dict:
+    """The same for the pallas2 plan: B13, then B9, B10 and the unblocking
+    transpose in place of the four-step, then the same fused tail; the
+    fused_2^27 chain beside it."""
+    import torch
+    from srtb_tpu_torch.kernels import fft2 as K2
+    from srtb_tpu_torch.kernels import unpack as KU
+    sp, raw, h2d = _segment_on_card(run)
+    cfg = sp.cfg
+    ms = {"h2d (pageable)": h2d}
+
+    def unpack():
+        return KU.unpack_subbyte_planes_window(raw, cfg.baseband_input_bits,
+                                               sp.window_planes)
+    ms["B13 unpack planes"] = cuda_ms(unpack, 5)
+    z = unpack()
+    blocks = z.reshape(*z.shape[:-1], *K2.factor(z.shape[-1]))
+    del z
+    ms["B9 pass 1"] = cuda_ms(lambda: K2.fft2_pass1(blocks), 5)
+    b = K2.fft2_pass1(blocks)
+    del blocks
+    ms["B10 pass 2"] = cuda_ms(lambda: K2.fft2_pass2(b), 5)
+    c = K2.fft2_pass2(b)
+    del b
+    ms["unblock transpose"] = cuda_ms(lambda: K2.unblock(c), 5)
+    a = K2.unblock(c)
+    del c
+    _fused_tail_stages(ms, sp, a)
+    del a
+    whole = cuda_ms(lambda: sp.process(raw), 3)
+    torch.cuda.empty_cache()
+    return _breakdown_line("pallas2_2^27", ms, whole, cfg,
+                           {"fused_2^27_chain_ms": fused_chain_ms})
+
+
+def phase_breakdown_shipped(run) -> dict:
+    """Device time of one 2^30 segment of the example cfg as shipped, stage
+    by stage (the processor's own functions), and the whole chain."""
+    import torch
+    from srtb_tpu_torch.kernels import dedisperse as KD
+    from srtb_tpu_torch.ops import rfi
+    sp, raw, h2d = _segment_on_card(run)
+    cfg = sp.cfg
+    ms = {"h2d (pageable)": h2d}
+    ms["K1 unpack + R2C (cuFFT)"] = cuda_ms(lambda: sp._spectrum(raw), 3)
+    spec = sp._spectrum(raw)
+    thr = cfg.mitigate_rfi_average_method_threshold
+    ms["stage 1: mean, zap, normalize (torch)"] = cuda_ms(
+        lambda: rfi.mitigate_rfi_average_and_normalize(spec, thr,
+                                                       sp.norm_coeff), 3)
+    spec = rfi.mitigate_rfi_average_and_normalize(spec, thr, sp.norm_coeff)
+    ms["manual mask (torch)"] = cuda_ms(
+        lambda: rfi.mitigate_rfi_manual(spec, sp.rfi_zap), 3)
+    spec = rfi.mitigate_rfi_manual(spec, sp.rfi_zap)
+    chirp = (sp.f_min, sp.df, sp.f_c, cfg.dm)
+    ms["B3 dedisperse"] = cuda_ms(lambda: KD.dedisperse(spec, *chirp), 5)
+    spec = KD.dedisperse(spec, *chirp)
+    ms["waterfall C2C (cuFFT) + SK (torch) + detect"] = cuda_ms(
+        lambda: sp._waterfall_detect(spec), 3)
+    del spec
+    whole = cuda_ms(lambda: sp.process(raw), 3)
+    torch.cuda.empty_cache()
+    return _breakdown_line("shipped_2^30", ms, whole, cfg)
 
 
 def main() -> int:
@@ -882,11 +1092,15 @@ def main() -> int:
     for label, log2_n, extra, plan, per_segment in MAIN_PATHS:
         runs[label] = phase_main_path(card, label, log2_n, extra, plan,
                                       per_segment)
-        if label == "staged_2^30":
-            phase_breakdown(runs[label]["pipe"], runs[label]["data"])
+        if log2_n == LOG2_N:
+            if label == "shipped_2^30":
+                phase_breakdown_shipped(runs[label])
+            else:
+                phase_breakdown(runs[label]["pipe"], runs[label]["data"])
             del runs[label]["pipe"]
             torch.cuda.empty_cache()
-    phase_breakdown_rows(runs["fused_2^27"], runs["unfused_2^27"])
+    fused = phase_breakdown_rows(runs["fused_2^27"], runs["unfused_2^27"])
+    phase_breakdown_pallas2(runs["pallas2_2^27"], fused["chain_ms"])
     for rec in recs:
         by_path = {label: run["counts"][rec["name"]]
                    for label, run in runs.items()}

@@ -34,4 +34,30 @@ __device__ __forceinline__ float power(float2 v) {
   return __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
 }
 
+// The coherent-dedispersion chirp of spectrum bin i, shared by K2
+// (rfi_chirp.cu) and B3 (dedisperse.cu) so the two cannot drift apart:
+//   k = c_dm (f - f_c)^2 / f,  f = f_min + df i,  c_dm = D 1e6 dm / f_c^2
+// in turns, exact in native float64 from the int64 index (one division),
+// reduced to frac(k) with modf semantics before the only float32 step,
+// sincospif of -2 frac(k).  Returns (cos, sin) of -2 pi frac(k); the _rn
+// intrinsics keep nvcc from contracting into FMAs, so the phase is the
+// plain version's (ops/dedisperse.chirp_turns) exactly.
+__device__ __forceinline__ float2 chirp(long long i, double f_min, double df,
+                                        double f_c, double c_dm) {
+  const double f = __dadd_rn(f_min, __dmul_rn(df, static_cast<double>(i)));
+  const double d = __dsub_rn(f, f_c);
+  const double k = __ddiv_rn(__dmul_rn(c_dm, __dmul_rn(d, d)), f);
+  const double frac = __dsub_rn(k, trunc(k));  // sign of k, like modf
+  float s, c;
+  sincospif(__double2float_rn(-2.0 * frac), &s, &c);
+  return make_float2(c, s);
+}
+
+// x * (c + i s) with every product and sum rounded separately, as the
+// plain PyTorch spelling (re c - im s, re s + im c) rounds.
+__device__ __forceinline__ float2 rotate(float2 x, float2 cs) {
+  return make_float2(__fsub_rn(__fmul_rn(x.x, cs.x), __fmul_rn(x.y, cs.y)),
+                     __fadd_rn(__fmul_rn(x.x, cs.y), __fmul_rn(x.y, cs.x)));
+}
+
 }  // namespace srtb

@@ -20,9 +20,10 @@
 // one instead of the reference formula's two).  That is ~10 FP64
 // operations per bin; at FP64's rate that stays below the memory time, so
 // the design keeps the per-bin exact phase and the reduction to one turn
-// happens in FP64 before the only float32 step, sincospif of -2 frac(k).
-// The products that feed the keep decision and the rotation use _rn
-// intrinsics, so they round exactly as the plain PyTorch version does.
+// happens in FP64 before the only float32 step, sincospif of -2 frac(k)
+// (srtb::chirp in common.cuh, which B3 shares).  The products that feed
+// the keep decision and the rotation use _rn intrinsics, so they round
+// exactly as the plain PyTorch version does.
 #include "common.cuh"
 
 namespace {
@@ -42,17 +43,9 @@ __global__ void __launch_bounds__(srtb::kThreads)
     const float2 v = in[i];
     float scale = (srtb::power(v) <= t) ? norm : 0.0f;
     if (keep != nullptr && keep[i] == 0) scale = 0.0f;
-    const float re = __fmul_rn(v.x, scale);
-    const float im = __fmul_rn(v.y, scale);
-
-    const double f = __dadd_rn(f_min, __dmul_rn(df, static_cast<double>(i)));
-    const double d = __dsub_rn(f, f_c);
-    const double k = __ddiv_rn(__dmul_rn(c_dm, __dmul_rn(d, d)), f);
-    const double frac = __dsub_rn(k, trunc(k));  // sign of k, like modf
-    float s, c;
-    sincospif(__double2float_rn(-2.0 * frac), &s, &c);
-    out[i] = make_float2(__fsub_rn(__fmul_rn(re, c), __fmul_rn(im, s)),
-                         __fadd_rn(__fmul_rn(re, s), __fmul_rn(im, c)));
+    const float2 x = make_float2(__fmul_rn(v.x, scale),
+                                 __fmul_rn(v.y, scale));
+    out[i] = srtb::rotate(x, srtb::chirp(i, f_min, df, f_c, c_dm));
   }
 }
 

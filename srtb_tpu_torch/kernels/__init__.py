@@ -8,9 +8,11 @@ between the two), and counts its launches in a ``launches`` attribute.
 
 from __future__ import annotations
 
-# the module, not its function of the same name, stays the package's
-# ``fft_rows`` attribute
+# the modules, not their functions of the same names, stay the package's
+# ``fft_rows`` and ``dedisperse`` attributes
+from srtb_tpu_torch.kernels import dedisperse as _dedisperse
 from srtb_tpu_torch.kernels import fft_rows as _fft_rows
+from srtb_tpu_torch.kernels.fft2 import fft2_pass1, fft2_pass2
 from srtb_tpu_torch.kernels.rfi_chirp import rfi_s1_dedisperse
 from srtb_tpu_torch.kernels.sk import sk_apply_timeseries, sk_stats
 from srtb_tpu_torch.kernels.unpack import (unpack_subbyte_planes_window,
@@ -37,6 +39,12 @@ KERNELS = (
     ("fft_rows_skzap", _fft_rows.fft_rows_skzap,
      "srtb_tpu_torch/csrc/fft_rows_skzap.cu",
      "srtb_tpu/ops/pallas_fft.py:278"),
+    ("dedisperse", _dedisperse.dedisperse,
+     "srtb_tpu_torch/csrc/dedisperse.cu", "srtb_tpu/ops/pallas_kernels.py:421"),
+    ("fft2_pass1", fft2_pass1,
+     "srtb_tpu_torch/csrc/fft2.cu", "srtb_tpu/ops/pallas_fft2.py:531"),
+    ("fft2_pass2", fft2_pass2,
+     "srtb_tpu_torch/csrc/fft_rows.cu", "srtb_tpu/ops/pallas_fft2.py:571"),
 )
 
 

@@ -40,6 +40,9 @@ _SIGNATURES = {
     "srtb_fft_rows_stats": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P),
     "srtb_fft_rows_skzap": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                             _I32, _I64, _F32, _F32, _P),
+    "srtb_dedisperse": (_P, _P, _I64, _I64, _F64, _F64, _F64, _F64, _P),
+    "srtb_fft2_pass1": (_P, _P, _P, _I64, _I64, _I64, _I32, _P),
+    "srtb_fft2_pass2": (_P, _P, _P, _I64, _I64, _I32, _P),
 }
 
 

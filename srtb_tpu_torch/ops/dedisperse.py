@@ -83,12 +83,15 @@ def chirp_dm_coefficient(f_c: float, dm: float) -> float:
 
 
 def chirp_turns(n: int, f_min: float, df: float, f_c: float, dm: float,
-                device=None) -> torch.Tensor:
-    """frac(k) in float64 for channels i = 0..n-1, with modf semantics
-    (the sign of k).  The channel index goes to float64 from an integer:
-    a float32 index is exact only below 2^24, and the production spectrum
-    has 2^29 channels.  Kernel K2 evaluates exactly these operations."""
-    i = torch.arange(n, dtype=torch.int64, device=device).to(torch.float64)
+                device=None, i0: int = 0) -> torch.Tensor:
+    """frac(k) in float64 for channels i = i0 .. i0+n-1, with modf
+    semantics (the sign of k); ``i0`` is the global index of the first
+    channel (the reference's shard offset).  The channel index goes to
+    float64 from an integer: a float32 index is exact only below 2^24, and
+    the production spectrum has 2^29 channels.  Kernels K2 and B3
+    evaluate exactly these operations (``csrc/common.cuh``)."""
+    i = torch.arange(i0, i0 + n, dtype=torch.int64,
+                     device=device).to(torch.float64)
     f = f_min + df * i
     d = f - f_c
     k = chirp_dm_coefficient(f_c, dm) * (d * d) / f
@@ -96,12 +99,14 @@ def chirp_turns(n: int, f_min: float, df: float, f_c: float, dm: float,
 
 
 def chirp_cos_sin(n: int, f_min: float, df: float, f_c: float, dm: float,
-                  device=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """float32 (cos, sin) of -2*pi*frac(k): the phase in turns is rounded
-    to float32 once, as -2*frac(k), and the trig of pi times that value is
-    evaluated in float64 and rounded (kernel K2 calls sincospif on the
-    same float32 argument)."""
-    x = (-2.0 * chirp_turns(n, f_min, df, f_c, dm, device)).to(torch.float32)
+                  device=None, i0: int = 0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 (cos, sin) of -2*pi*frac(k) for channels i0 .. i0+n-1: the
+    phase in turns is rounded to float32 once, as -2*frac(k), and the trig
+    of pi times that value is evaluated in float64 and rounded (kernels K2
+    and B3 call sincospif on the same float32 argument)."""
+    x = (-2.0 * chirp_turns(n, f_min, df, f_c, dm, device, i0)
+         ).to(torch.float32)
     ang = x.to(torch.float64) * math.pi
     return torch.cos(ang).to(torch.float32), torch.sin(ang).to(torch.float32)
 

@@ -18,7 +18,11 @@ decomposes longer rows with the four-step algorithm; ``"xla"`` rows, and
 rows outside the window, go to ``torch.fft`` (cuFFT on the card), where
 the reference hands them to XLA.  cuFFT plans any length directly, so the
 reference's XLA length cap, a TPU limit, only shapes the ``"pallas"``
-plans, where it decides which kernels run.
+plans, where it decides which kernels run.  The ``"pallas2"`` strategy
+hands a segment-sized C2C (2^24 ... 2^29 points) to the two-pass kernels
+B9/B10 (``kernels/fft2.py``) and shorter ones to the ``"pallas"`` form,
+by the reference's rule; ``"mxu"`` (DFT-matrix matmuls in the reference,
+no Pallas kernel) is one ``torch.fft`` call.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ import functools
 import numpy as np
 import torch
 
+from srtb_tpu_torch.kernels import fft2 as K2
 from srtb_tpu_torch.kernels import fft_rows as KF
+from srtb_tpu_torch.kernels.fft2 import twiddle
 
 # Longest row the "pallas" plans hand to a row kernel before the four-step
 # decomposition (the reference's _XLA_FFT_LEN_CAP; Config.fft_len_cap
@@ -97,23 +103,6 @@ def fft_minor(x: torch.Tensor, inverse: bool, rows_impl: str = "xla",
 def _split_factor(n: int) -> int:
     """n1 ~ sqrt(n), a power of two (n a power of two)."""
     return 1 << ((n.bit_length() - 1) // 2)
-
-
-@functools.lru_cache(maxsize=8)
-def twiddle(n1: int, n2: int, inverse: bool, device: torch.device,
-            first_row: int = 0) -> torch.Tensor:
-    """w[j1, j2] = exp(+-2 pi i (j1 j2 mod n) / n), n = n1 n2, for
-    first_row <= j1 < n1, built in float64 from the exact integer residue
-    and rounded to complex64 (cached per shape and device: the four-step
-    and the sub-byte R2C use the same few tables every segment)."""
-    n = n1 * n2
-    j1 = torch.arange(first_row, n1, dtype=torch.int64,
-                      device=device)[:, None]
-    j2 = torch.arange(n2, dtype=torch.int64, device=device)[None, :]
-    r = ((j1 * j2) % n).to(torch.float64)
-    sign = 1.0 if inverse else -1.0
-    return torch.polar(torch.ones_like(r), r * (sign * 2.0 * np.pi / n)
-                       ).to(torch.complex64)
 
 
 def four_step_fft(x: torch.Tensor, inverse: bool = False,
@@ -202,17 +191,46 @@ def subbyte_planes_to_packed(planes: torch.Tensor) -> torch.Tensor:
     return torch.complex(planes[..., 0::2, :], planes[..., 1::2, :])
 
 
-def rfft_subbyte(z: torch.Tensor, rows_impl: str = "xla",
+def rfft_subbyte(z: torch.Tensor, strategy: str = "four_step",
                  drop_nyquist: bool = True, len_cap: int | None = None,
                  epilogue=None) -> torch.Tensor:
     """The sub-byte R2C from the packed plane pairs ``z [p, M]`` (B13's
     output, or ``subbyte_planes_to_packed`` of the unpacked planes): the
-    M-point FFT of each plane (:func:`fft_minor`), then
+    M-point FFT of each plane by ``strategy`` (:func:`plane_fft`), then
     :func:`finish_rfft_subbyte`.  The blocked layout is the four-step's
     [j2, j1] layout after its first transpose, so the natural-order
     spectrum comes out without any interleave."""
-    a = fft_minor(z, inverse=False, rows_impl=rows_impl, len_cap=len_cap)
+    a = plane_fft(z, strategy, len_cap)
     return finish_rfft_subbyte(a, drop_nyquist, epilogue=epilogue)
+
+
+def plane_fft(z: torch.Tensor, strategy: str,
+              len_cap: int | None = None) -> torch.Tensor:
+    """The forward C2C along the last axis of the packed planes, as the
+    reference's ``rfft_subbyte`` runs it for each strategy: "pallas" the
+    four-step with B6 legs (:func:`fft_minor`), "pallas2" the two-pass
+    kernels B9/B10 (:func:`pallas2_or_fallback`), "four_step" and "mxu"
+    one ``torch.fft`` call (the reference's XLA FFT and DFT-matrix
+    matmuls; neither is a Pallas kernel)."""
+    if strategy == "pallas":
+        return fft_minor(z, inverse=False, rows_impl="pallas",
+                         len_cap=len_cap)
+    if strategy == "pallas2":
+        return pallas2_or_fallback(z, len_cap)
+    if strategy in ("four_step", "mxu"):
+        return fft_minor(z, inverse=False)
+    raise ValueError(f"unknown plane FFT strategy {strategy!r}")
+
+
+def pallas2_or_fallback(z: torch.Tensor,
+                        len_cap: int | None = None) -> torch.Tensor:
+    """The reference's ``_pallas2_or_fallback``: the two-pass C2C
+    (``kernels/fft2.fft2_c2c``, B9 + B10 + unblock) for lengths in its
+    window 2^24 ... 2^29, else the four-step with B6 legs — its dispatch by
+    size, not a fallback on failure."""
+    if K2.supported(z.shape[-1]):
+        return K2.fft2_c2c(z)
+    return fft_minor(z, inverse=False, rows_impl="pallas", len_cap=len_cap)
 
 
 def finish_rfft_subbyte(a: torch.Tensor, drop_nyquist: bool = True,
@@ -251,25 +269,23 @@ def segment_rfft(x: torch.Tensor, strategy: str = "auto",
                  len_cap: int | None = None, epilogue=None) -> torch.Tensor:
     """The segment R2C with the drop-Nyquist convention, by strategy:
     "monolithic" one cuFFT R2C (cannot host an epilogue, as in the
-    reference); "four_step" the packed half-size C2C (one cuFFT C2C) and
-    the Hermitian post-process; "pallas" the same with the C2C run by
-    :func:`four_step_fft` on B6 legs.  "mxu" and "pallas2" are not ported
-    (ROADMAP B9/B10)."""
+    reference); otherwise the packed half-size C2C and the Hermitian
+    post-process, the C2C by "four_step" and "mxu" one cuFFT call,
+    "pallas" :func:`four_step_fft` on B6 legs, "pallas2"
+    :func:`pallas2_or_fallback` (B9/B10 in their window)."""
     strategy = resolve_strategy(x.shape[-1], strategy)
     if strategy == "monolithic":
         if epilogue is not None:
             raise ValueError("the monolithic R2C cannot host a spectrum "
                              "epilogue")
         return rfft_drop_nyquist(x)
-    if strategy in ("four_step", "pallas"):
-        rows_impl = "pallas" if strategy == "pallas" else "xla"
-        z = pack_even_odd(x)
-        if rows_impl == "pallas":
-            zf = four_step_fft(z, rows_impl=rows_impl, len_cap=len_cap)
-        else:
-            zf = fft_minor(z, inverse=False)
-        return hermitian_rfft_post(zf, drop_nyquist=True, epilogue=epilogue)
-    if strategy in ("mxu", "pallas2"):
-        raise NotImplementedError(
-            f"fft_strategy = {strategy} is not ported yet (ROADMAP B9/B10)")
-    raise ValueError(f"unknown fft strategy {strategy!r}")
+    z = pack_even_odd(x)
+    if strategy == "pallas":
+        zf = four_step_fft(z, rows_impl="pallas", len_cap=len_cap)
+    elif strategy == "pallas2":
+        zf = pallas2_or_fallback(z, len_cap)
+    elif strategy in ("four_step", "mxu"):
+        zf = fft_minor(z, inverse=False)
+    else:
+        raise ValueError(f"unknown fft strategy {strategy!r}")
+    return hermitian_rfft_post(zf, drop_nyquist=True, epilogue=epilogue)

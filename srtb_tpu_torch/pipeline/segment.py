@@ -12,27 +12,38 @@ The processor resolves the reference's plan from the same configuration
 skzap rule and the waterfall branch choice) and, for every Pallas kernel
 that plan runs, runs the port's hand-written counterpart
 (``srtb_tpu_torch/kernels``).  Where the reference hands a stage to XLA
-the port uses ``torch`` (cuFFT on the card).  At the configurations the
-port accepts:
+the port uses ``torch`` (cuFFT on the card), or a kernel it already has
+(K1, B13, K2).  At the configurations the port accepts:
 
   plan                      kernels
   fused:pallas+ftail+skzap  B13, B6 (segment-FFT legs), K2 epilogue, B8
+  fused:pallas2+ftail+skzap B13, B9 + B10 (2^24 ... 2^29-point planes;
+                            B6 legs below), K2 epilogue, B8
   fused:pallas              B13, B6, K2, B7 (rows in the window), K4
   fused:monolithic          K1, cuFFT R2C, K2, B7 + K4 (rows in the
                             window) or cuFFT rows + K3 + K4
   use_pallas_sk = 0         ... B6 (rows in the window) + plain SK
   staged (n >= 2^30)        K1, cuFFT R2C, K2, cuFFT rows, K3 + K4
+  staged, use_pallas = 0    K1, cuFFT R2C, plain stage 1 + manual mask,
+                            B3, cuFFT rows, plain SK and detect
 
 The fused spectrum tail's epilogue is XLA in the reference (no Pallas
 kernel); here it is the stage-1 threshold from Parseval over the packed
 C2C output (``rfi.mean_power_packed``) and K2 on the assembled spectrum,
-whose chirp is exact.  K1, B13 and K2 run whatever ``use_pallas`` says
-(without it the reference runs XLA and a chirp bank there); only the
-waterfall rows follow ``use_pallas``.  ``fused:four_step`` runs as
-``fused:pallas`` with cuFFT rows.  The staged plan's three programs exist
-to fit a TPU's HBM; the port runs the same kernels as one chain.
-Settings the port does not implement yet raise ``NotImplementedError``
-naming their ROADMAP item.
+whose chirp is exact.  The rule: for every Pallas kernel the reference's
+plan runs, the port runs its counterpart; where the reference runs XLA,
+the port runs torch or K1, B13 and K2.  So K1 and B13 unpack whatever
+``use_pallas`` says, K2 takes stage 1 and the chirp on every plan but
+one (without ``use_pallas`` the reference runs XLA and a chirp bank
+there), and the staged plan without ``use_pallas``, whose stage (c) runs
+the reference's chirp kernel ``dedisperse_df64`` after an XLA stage 1,
+runs the plain stage 1 and B3.  The waterfall rows follow ``use_pallas``.
+``fused:four_step`` and ``fused:mxu`` run as ``fused:pallas`` with
+cuFFT rows (the reference's ``mxu`` is DFT-matrix matmuls, no Pallas
+kernel).  The staged plan's three programs exist to fit a TPU's HBM; the
+port runs the same kernels as one chain.  ``staged`` forces the plan as
+the reference's argument of that name does.  Settings the port does not
+implement yet raise ``NotImplementedError`` naming their ROADMAP item.
 
 Complex data stays ``complex64`` (interleaved), as ``torch.fft`` produces
 it; the reference's stacked ``[2, ...]`` (re, im) form is built only by
@@ -47,6 +58,7 @@ import torch
 from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.io import formats
 from srtb_tpu_torch.kernels import fft_rows as KF
+from srtb_tpu_torch.kernels.dedisperse import dedisperse
 from srtb_tpu_torch.kernels.rfi_chirp import (rfi_s1_dedisperse,
                                                 rfi_threshold)
 from srtb_tpu_torch.kernels.sk import sk_apply_timeseries, sk_zap_timeseries
@@ -68,7 +80,7 @@ STAGED_MIN_N = 1 << 30
 # (staged, or use_pallas) in the reference.
 FUSED_TAIL_DF64_MAX_SPECTRUM = 1 << 27
 
-STRATEGIES = ("auto", "monolithic", "four_step", "pallas")
+STRATEGIES = ("auto", "monolithic", "four_step", "mxu", "pallas", "pallas2")
 
 
 def staged_resolves(cfg: Config, staged: bool | None = None) -> bool:
@@ -113,8 +125,9 @@ def sk_tiling_ok(nfreq: int, ntime: int) -> bool:
     return not (nfreq % rows or ntime % 128 or ntime % tb or tb % 128)
 
 
-def check_plan(cfg: Config) -> None:
-    """Raise for settings the port does not implement yet."""
+def check_plan(cfg: Config, staged: bool | None = None) -> None:
+    """Raise for settings the port does not implement yet (``staged`` as
+    the processor's argument of that name)."""
     def no(what: str, item: str) -> None:
         raise NotImplementedError(f"{what} is not ported yet ({item})")
 
@@ -129,18 +142,12 @@ def check_plan(cfg: Config) -> None:
            "ROADMAP A6: periodicity search")
     if cfg.micro_batch_segments > 1:
         no("micro_batch_segments > 1", "ROADMAP A6: micro-batching")
-    if cfg.fft_strategy in ("mxu", "pallas2"):
-        no(f"fft_strategy = {cfg.fft_strategy}",
-           "ROADMAP B9/B10: the large-FFT kernels")
     if cfg.fft_strategy not in STRATEGIES:
         raise ValueError(f"unknown fft_strategy {cfg.fft_strategy!r}")
-    staged = staged_resolves(cfg)
+    staged = staged_resolves(cfg, staged)
     if staged and fused_tail_resolves(cfg, staged):
         no("the staged plan with the fused tail",
            "ROADMAP A5: the staged fused tail")
-    if staged and not cfg.use_pallas:
-        no("the staged plan without use_pallas",
-           "ROADMAP B3: dedisperse_df64, the chirp kernel")
 
 
 class SegmentProcessor:
@@ -150,8 +157,8 @@ class SegmentProcessor:
     segment at a time."""
 
     def __init__(self, cfg: Config, window_name: str = W.DEFAULT_WINDOW,
-                 device=None):
-        check_plan(cfg)
+                 device=None, staged: bool | None = None):
+        check_plan(cfg, staged)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.fmt = formats.resolve(cfg.baseband_format_type)
@@ -164,14 +171,15 @@ class SegmentProcessor:
         self.watfft_len = self.n_spectrum // self.channel_count
 
         # ---- the plan, resolved as the reference resolves it ----
-        self.staged = staged_resolves(cfg)
+        self.staged = staged_resolves(cfg, staged)
         self.strategy = F.resolve_strategy(n, cfg.fft_strategy)
         self.fused_tail = fused_tail_resolves(cfg, self.staged)
         # sub-byte segments (of the simple format, the one ported) take
         # the blocked-plane R2C on the non-monolithic strategies (never
         # staged)
         self._blocked_subbyte = (
-            not self.staged and self.strategy in ("four_step", "pallas")
+            not self.staged
+            and self.strategy in ("four_step", "mxu", "pallas", "pallas2")
             and cfg.baseband_input_bits in (1, 2, 4))
         # the whole waterfall tail in one kernel (B8)
         self._skzap = bool(
@@ -197,9 +205,15 @@ class SegmentProcessor:
         zap = rfi.rfi_ranges_to_mask(
             rfi.eval_rfi_ranges(cfg.mitigate_rfi_freq_list), self.n_spectrum,
             cfg.baseband_freq_low, cfg.baseband_bandwidth)
-        # K2 takes the KEEP mask (True = keep), on the device once
-        self.rfi_keep = None if zap is None else \
-            torch.from_numpy(~zap).to(self.device)
+        # on the device once, in the form its one consumer takes: the
+        # plain stage 1 of the staged plan without use_pallas the zap mask,
+        # K2 on every other plan the KEEP mask (True = keep)
+        self._plain_s1 = self.staged and not cfg.use_pallas
+        self.rfi_zap = self.rfi_keep = None
+        if zap is not None and self._plain_s1:
+            self.rfi_zap = torch.from_numpy(zap).to(self.device)
+        elif zap is not None:
+            self.rfi_keep = torch.from_numpy(~zap).to(self.device)
         self.norm_coeff = rfi.normalization_coefficient(
             self.n_spectrum, self.channel_count)
         self.nsamps_reserved = dd.nsamps_reserved(cfg)
@@ -265,8 +279,7 @@ class SegmentProcessor:
         if self._blocked_subbyte:
             z = unpack_subbyte_planes_window(raw, self.cfg.baseband_input_bits,
                                              self.window_planes)
-            rows_impl = "pallas" if self.strategy == "pallas" else "xla"
-            return F.rfft_subbyte(z, rows_impl, len_cap=self._len_cap,
+            return F.rfft_subbyte(z, self.strategy, len_cap=self._len_cap,
                                   epilogue=epilogue)
         x = self._unpack(raw)
         if self.staged:
@@ -323,9 +336,18 @@ class SegmentProcessor:
         """Run one segment.  ``raw`` is the segment's uint8 bytes (numpy or
         torch).  Returns ``(waterfall complex64 [S, F, T], DetectResult)``
         with every result tensor on the processor's device."""
+        cfg = self.cfg
         spec = self._spectrum(self._as_device_bytes(raw))
-        if not self.fused_tail:
+        if self._plain_s1:
+            # the reference's staged stage (c) without use_pallas: XLA
+            # stage 1 + manual mask, then its chirp kernel (B3 here)
+            spec = rfi.mitigate_rfi_average_and_normalize(
+                spec, cfg.mitigate_rfi_average_method_threshold,
+                self.norm_coeff)
+            spec = dedisperse(rfi.mitigate_rfi_manual(spec, self.rfi_zap),
+                              self.f_min, self.df, self.f_c, cfg.dm)
+        elif not self.fused_tail:
             # stage 1 + manual mask + chirp: K2 after a mean-power reduction
             spec = self._k2(spec, rfi_threshold(
-                spec, self.cfg.mitigate_rfi_average_method_threshold))
+                spec, cfg.mitigate_rfi_average_method_threshold))
         return self._waterfall_detect(spec)

@@ -183,14 +183,15 @@ def test_supported_window_and_rejections():
 
 
 def test_registry_lists_the_slice_kernels():
-    """Eight kernels, each with its source and the reference's
-    pallas_call; CPU calls launch nothing."""
+    """The four kernels of the row-FFT slice follow K1-K4 in the registry,
+    each with its source and the reference's pallas_call; CPU calls launch
+    nothing."""
     K.reset_launch_counts()
     KF.fft_rows(torch.from_numpy(ROWS_IN[1 << 12]))
     KU.unpack_subbyte_planes_window(torch.from_numpy(BYTES), 2)
     names = [name for name, *_ in K.KERNELS]
-    assert names[4:] == ["unpack_subbyte_planes_window", "fft_rows",
-                         "fft_rows_stats", "fft_rows_skzap"]
+    assert names[4:8] == ["unpack_subbyte_planes_window", "fft_rows",
+                          "fft_rows_stats", "fft_rows_skzap"]
     assert not any(K.launch_counts().values())
     srcs = {name: (src, tpu) for name, _w, src, tpu in K.KERNELS}
     assert srcs["fft_rows_skzap"] == ("srtb_tpu_torch/csrc/fft_rows_skzap.cu",

@@ -1,18 +1,22 @@
 """The port's kernels.  On the CPU each wrapper runs its plain PyTorch
-version, held here (K1-K4) and in ``test_torch_fft_rows.py`` (B6, B7, B8,
-B13) against the JAX package's Pallas kernel in interpret mode on the same
-inputs; the tests marked ``cuda`` hold each CUDA kernel against its plain
-version on the card and skip without one."""
+version, held here (K1-K4, B3), in ``test_torch_fft_rows.py`` (B6, B7, B8,
+B13) and in ``test_torch_fft2.py`` (B9, B10) against the JAX package's
+Pallas kernel in interpret mode on the same inputs; the tests marked
+``cuda`` hold each CUDA kernel against its plain version on the card and
+skip without one."""
 
 import numpy as np
 import pytest
 import torch
 
 from srtb_tpu_torch import kernels as K
+from srtb_tpu_torch.kernels import dedisperse as KD
+from srtb_tpu_torch.kernels import fft2 as K2
 from srtb_tpu_torch.kernels import fft_rows as KF
 from srtb_tpu_torch.kernels import rfi_chirp as KR
 from srtb_tpu_torch.kernels import sk as KS
 from srtb_tpu_torch.kernels import unpack as KU
+from srtb_tpu_torch.ops import dedisperse as dd
 from srtb_tpu_torch.ops import detect as det
 from srtb_tpu_torch.ops import rfi
 from srtb_tpu_torch.ops import window as W
@@ -52,6 +56,19 @@ ZAP_APPLY = np.zeros(F_ROWS, dtype=bool)
 ZAP_APPLY[[2, 8, 10, 20]] = True  # includes the NaN row: select -> 0
 UNPACK_CASES = [(b, w) for b in (1, 2, 4) for w in (False, True)]
 RFI_CASES = [(m, e) for m in (False, True) for e in (False, True)]
+# B3's inputs: (spectrum, chirp geometry, i0) — the J1644-4559 chirp over
+# 2^15 channels; the reference's high-DM case (a unit spectrum, 2^12
+# channels over the whole band, tests/test_pallas_kernels.py:51-66); and
+# 2^12 channels at i0 = 2^26 + 1024 of a 2^27-channel spectrum, past
+# float32's exact integers (tests/test_pallas_kernels.py:178-192)
+B3_INPUTS = {
+    "j1644": (SPEC, CHIRP, 0),
+    "high_dm": (np.ones(1 << 12, np.complex64),
+                dict(CHIRP, df=-64.0 / (1 << 12)), 0),
+    "offset": (SPEC[: 1 << 12], dict(CHIRP, df=-64.0 / (1 << 27)),
+               (1 << 26) + 1024),
+}
+B3_CASES = [(k, e) for k in B3_INPUTS for e in (False, True)]
 
 
 def _ri(c: np.ndarray) -> np.ndarray:
@@ -76,6 +93,12 @@ def ref(tmp_path_factory):
                        CHIRP["f_c"], CHIRP["dm"]],
               "kwargs": {"mask": ZAP_MASK if m else None, "interpret": True,
                          "exact": e}} for m, e in RFI_CASES]
+    jobs += [{"key": f"b3/{k}/{e}", "fn": pk + "dedisperse_df64",
+              "args": [_ri(B3_INPUTS[k][0]), B3_INPUTS[k][1]["f_min"],
+                       B3_INPUTS[k][1]["df"], B3_INPUTS[k][1]["f_c"],
+                       B3_INPUTS[k][1]["dm"]],
+              "kwargs": {"interpret": True, "i0": B3_INPUTS[k][2],
+                         "exact": e}} for k, e in B3_CASES]
     jobs += [
         {"key": "skzap", "fn": pk + "sk_zap_timeseries",
          "args": [_ri(WF), SK_THR], "kwargs": {"interpret": True}},
@@ -109,6 +132,26 @@ def test_rfi_chirp_plain_matches_pallas(ref, masked, exact):
     np.testing.assert_array_equal(got == 0, want == 0)
     assert (got == 0).sum() > (1700 - 1000 if masked else 0)
     assert np.abs(got - want).max() <= 5e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("case,exact", B3_CASES)
+def test_dedisperse_plain_matches_pallas(ref, case, exact):
+    """B3 against ``dedisperse_df64`` in both of the reference's phase
+    modes (anchored-Taylor and exact df64): to 5e-5 of the largest, K2's
+    chirp gate; the port's phase is exact float64 in both, and within
+    1e-6 of the float64 numpy chirp of the same channels."""
+    spec, geo, i0 = B3_INPUTS[case]
+    got = KD.dedisperse(torch.from_numpy(spec), geo["f_min"], geo["df"],
+                        geo["f_c"], geo["dm"], i0=i0).numpy()
+    want_ri = ref[f"b3/{case}/{exact}"]
+    want = want_ri[0] + 1j * want_ri[1]
+    assert got.shape == want.shape == spec.shape
+    assert np.abs(got - want).max() <= 5e-5 * np.abs(want).max()
+    i = np.arange(i0, i0 + spec.size, dtype=np.float64)
+    f = geo["f_min"] + geo["df"] * i
+    k = (dd.D * 1e6) * geo["dm"] / f * ((f - geo["f_c"]) / geo["f_c"]) ** 2
+    exact64 = spec * np.exp(-2j * np.pi * np.modf(k)[0])
+    assert np.abs(got - exact64).max() <= 1e-6 * np.abs(exact64).max()
 
 
 def _margins_ok(s2: torch.Tensor, s4: torch.Tensor) -> None:
@@ -164,17 +207,20 @@ def test_kernel_registry_and_counters():
     run the plain versions and launch nothing."""
     K.reset_launch_counts()
     KU.unpack_subbyte_window(torch.from_numpy(BYTES), 2)
+    KD.dedisperse(torch.from_numpy(SPEC), **CHIRP)
     assert set(K.launch_counts()) == {"unpack_subbyte_window",
                                       "rfi_s1_dedisperse", "sk_stats",
                                       "sk_apply_timeseries",
                                       "unpack_subbyte_planes_window",
                                       "fft_rows", "fft_rows_stats",
-                                      "fft_rows_skzap"}
+                                      "fft_rows_skzap", "dedisperse",
+                                      "fft2_pass1", "fft2_pass2"}
     assert not any(K.launch_counts().values())
     for _name, _wrapper, src, tpu in K.KERNELS:
         assert src.startswith("srtb_tpu_torch/csrc/") and src.endswith(".cu")
         assert tpu.startswith(("srtb_tpu/ops/pallas_kernels.py:",
-                               "srtb_tpu/ops/pallas_fft.py:"))
+                               "srtb_tpu/ops/pallas_fft.py:",
+                               "srtb_tpu/ops/pallas_fft2.py:"))
 
 
 def test_wrappers_reject_bad_inputs():
@@ -189,6 +235,10 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         KS.sk_apply_timeseries(torch.from_numpy(WF),
                                torch.zeros(3, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        KD.dedisperse(torch.from_numpy(SPEC).reshape(2, -1), **CHIRP)
+    with pytest.raises(ValueError):
+        KD.dedisperse(torch.from_numpy(SPEC), **CHIRP, i0=-1)
 
 
 # ------------------------------------------------ on the card (CUDA only)
@@ -296,3 +346,35 @@ def test_cuda_unpack_planes_matches_plain(cuda, nbits):
         assert torch.equal(KU.unpack_subbyte_planes_window(data, nbits, w),
                            KU.unpack_subbyte_planes_window_plain(data, nbits,
                                                                  w))
+
+
+@pytest.mark.cuda
+def test_cuda_dedisperse_matches_plain(cuda):
+    """B3 at i0 = 0 and past float32's exact integers: 1e-6 of the largest
+    (sincospif against float64 trig of the same float32 argument), the
+    same phase code as K2."""
+    for spec, geo, i0 in B3_INPUTS.values():
+        x = torch.from_numpy(spec).to(cuda)
+        args = (geo["f_min"], geo["df"], geo["f_c"], geo["dm"])
+        err, scale = _max_err(KD.dedisperse(x, *args, i0=i0),
+                              KD.dedisperse_plain(x, *args, i0=i0))
+        assert err <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2", [(4096, 4096), (4096, 1 << 15),
+                                   (8192, 4096)])
+def test_cuda_fft2_passes_match_plain(cuda, n1, n2):
+    """B9 and B10 on two planes, both directions: 2e-5 of the largest
+    |plain|, the reference's own gate (tests/test_pallas_fft2.py:48)."""
+    g = torch.Generator(device=cuda).manual_seed(n1 + n2)
+    x = torch.randn(2, n1, n2, dtype=torch.complex64, device=cuda,
+                    generator=g)
+    for inverse in (False, True):
+        for kernel, plain in ((K2.fft2_pass1, K2.fft2_pass1_plain),
+                              (K2.fft2_pass2, K2.fft2_pass2_plain)):
+            err, scale = _max_err(kernel(x, inverse), plain(x, inverse))
+            assert err <= 2e-5 * scale
+    got = K2.fft2_c2c(x.reshape(2, -1))
+    err, scale = _max_err(got, torch.fft.fft(x.reshape(2, -1)))
+    assert err <= 2e-5 * scale

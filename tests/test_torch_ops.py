@@ -41,6 +41,10 @@ UNPACK = [(b, w) for b in (1, 2, 4, 8, -8) for w in (False, True)
 ZF = (RNG.standard_normal(1 << 12)
       + 1j * RNG.standard_normal(1 << 12)).astype(np.complex64)
 SUBBYTE = [(b, w) for b in (1, 2, 4) for w in (False, True)]
+# the sub-byte R2C's plane FFT by strategy, below the two-pass window
+# (planes of 2^12 ... 2^14 bytes): "pallas2" takes the B6-leg route there
+SUBBYTE_STRATEGIES = [(b, s) for b in (2, 4)
+                      for s in ("pallas2_interpret", "mxu")]
 # (length, inverse, rows_impl, len_cap): the four-step with rows outside
 # the kernels' window, recursing past a small cap, and at 2^24, the
 # shortest length whose legs (2^12) run the row kernel B6
@@ -122,9 +126,15 @@ def ref(tmp_path_factory):
                      "args": [_four_step_input(n), inv,
                               "pallas_interpret" if rows == "pallas"
                               else rows, cap]})
+    for strategy in ("pallas_interpret", "pallas2_interpret", "mxu"):
+        jobs.append({"key": f"segment_rfft/{strategy}",
+                     "fn": "srtb_tpu.ops.fft:segment_rfft",
+                     "args": [X, strategy]})
+    for nbits, strategy in SUBBYTE_STRATEGIES:
+        jobs.append({"key": f"rfft_subbyte_s/{nbits}/{strategy}",
+                     "fn": "srtb_tpu.ops.fft:rfft_subbyte",
+                     "args": [BYTES, nbits, strategy]})
     jobs += [
-        {"key": "segment_rfft_pallas", "fn": "srtb_tpu.ops.fft:segment_rfft",
-         "args": [X, "pallas_interpret"]},
         {"key": "mean_packed", "fn": "srtb_tpu.ops.rfi:mean_power_packed",
          "args": [ZF]},
         {"key": "s1_given_mean",
@@ -234,19 +244,39 @@ def test_four_step_fft(ref, name):
 
 
 def test_segment_rfft_strategies(ref):
-    """"pallas" (packed half-size C2C by the four-step, Hermitian post)
-    and "four_step" give the reference's spectrum to 1e-5; "monolithic"
-    refuses an epilogue; "pallas2" and "mxu" are not ported."""
+    """"pallas" (packed half-size C2C by the four-step, Hermitian post),
+    "pallas2" below its window (the same four-step on B6 legs, by the
+    reference's size rule), "mxu" (one torch.fft C2C where the reference
+    runs DFT-matrix matmuls) and "four_step" give the reference's spectrum
+    to 1e-5; "monolithic" refuses an epilogue."""
     x = torch.from_numpy(X)
-    want = ref["segment_rfft_pallas"]
-    for strategy in ("pallas", "four_step", "monolithic"):
+    for strategy in ("pallas", "pallas2", "mxu"):
+        want = ref[f"segment_rfft/{strategy}"
+                   + ("" if strategy == "mxu" else "_interpret")]
+        got = F.segment_rfft(x, strategy).numpy()
+        assert got.shape == want.shape == (X.size // 2,)
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    want = ref["segment_rfft/pallas_interpret"]
+    for strategy in ("four_step", "monolithic"):
         got = F.segment_rfft(x, strategy).numpy()
         assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     with pytest.raises(ValueError):
         F.segment_rfft(x, "monolithic", epilogue=lambda zf, s: s)
-    for strategy in ("pallas2", "mxu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP B9/B10"):
-            F.segment_rfft(x, strategy)
+    with pytest.raises(ValueError):
+        F.segment_rfft(x, "bogus")
+
+
+@pytest.mark.parametrize("nbits,strategy", SUBBYTE_STRATEGIES)
+def test_rfft_subbyte_strategies(ref, nbits, strategy):
+    """The sub-byte R2C with its plane FFT by "pallas2" (below the window:
+    the four-step with B6 legs) and "mxu" (torch.fft) against the
+    reference's with the same strategy: 1e-5 of the largest bin."""
+    z = U.unpack_subbyte_planes(torch.from_numpy(BYTES), nbits)
+    got = F.rfft_subbyte(F.subbyte_planes_to_packed(z),
+                         strategy.replace("_interpret", "")).numpy()
+    want = ref[f"rfft_subbyte_s/{nbits}/{strategy}"]
+    assert got.shape == want.shape == (BYTES.size * 4 // nbits,)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_mean_power_packed_and_s1_given_mean(ref):

@@ -102,14 +102,15 @@ def config_fields(argv: list) -> dict:
 
 
 def segment_process(fields: dict, raw: np.ndarray,
-                    window_name: str = "rectangle") -> dict:
-    """``SegmentProcessor(Config(**fields), window_name).process(raw)``
-    plus the processor's constants."""
+                    window_name: str = "rectangle",
+                    staged: bool | None = None) -> dict:
+    """``SegmentProcessor(Config(**fields), window_name, staged=staged)
+    .process(raw)`` plus the processor's constants."""
     from srtb_tpu.config import Config
     from srtb_tpu.pipeline.runtime import has_signal
     from srtb_tpu.pipeline.segment import SegmentProcessor
     cfg = Config(**fields)
-    sp = SegmentProcessor(cfg, window_name=window_name)
+    sp = SegmentProcessor(cfg, window_name=window_name, staged=staged)
     wf_ri, res = sp.process(raw)
     return {
         "fields": json.dumps(dataclasses.asdict(cfg)),

@@ -5,9 +5,13 @@ inside it (B7 + K4) and without ``use_pallas`` (the reference's plain
 chain and chirp bank against K1, K2, K3 + K4), ``fused:pallas+ftail+skzap``
 (B13, B6, the K2 epilogue, B8), ``fused:pallas`` with ``fused_tail = off``
 (B7 + K4), ``fused:pallas+ftail`` with ``use_pallas_sk = 0`` (B6 rows,
-plain SK), and ``fused:four_step`` with and without the fused tail (B13
-and the sub-byte R2C on cuFFT rows).  Both packages run one
-configuration; the reference runs its Pallas kernels in interpret mode."""
+plain SK), ``fused:four_step`` with and without the fused tail (B13
+and the sub-byte R2C on cuFFT rows), ``fused:pallas2`` with and without
+the fused tail (below the two-pass window: B6 legs, as the reference's
+size rule says), ``fused:mxu+ftail+skzap``, and the staged plan forced
+at a small size without ``use_pallas`` (plain stage 1 + manual mask, B3,
+then plain SK or K3 + K4).  Both packages run one configuration; the
+reference runs its Pallas kernels in interpret mode."""
 
 import dataclasses
 import json
@@ -24,7 +28,9 @@ from srtb_tpu_torch.ops import fft as F
 from srtb_tpu_torch.pipeline import segment as seg
 from srtb_tpu_torch.pipeline.runtime import has_signal
 from srtb_tpu_torch.pipeline.segment import SegmentProcessor
-from test_torch_ref import run_reference
+from test_torch_ref import REPO, run_reference
+
+EXAMPLE_CFG = REPO / "examples" / "srtb_config_1644-4559.cfg"
 
 
 def slice_config(n: int, channels: int, dm: float) -> Config:
@@ -65,6 +71,12 @@ def dispersed_bytes(cfg: Config, n_samples: int, pulse_at: int,
 # trip every row's SK)
 PALLAS = {"fft_strategy": "pallas"}
 FOUR_STEP = {"fft_strategy": "four_step"}
+PALLAS2 = {"fft_strategy": "pallas2"}
+# the staged plan forced (the processor's ``staged`` argument) without
+# use_pallas, as the example cfg runs it at 2^30; fused_tail off, since
+# "auto" fuses the staged tail at small n (ROADMAP A5)
+STAGED_PLAIN = {"staged": True, "fft_strategy": "four_step",
+                "use_pallas": False, "fused_tail": "off"}
 SHAPES = {
     "n16_ch32": (1 << 16, 32, -0.1, 4.0, "rectangle", {},
                  "fused:monolithic"),
@@ -90,23 +102,41 @@ SHAPES = {
         "fused:four_step"),
     "n16_ch4_no_pallas": (1 << 16, 4, -0.1, 4.0, "rectangle",
                           {"use_pallas": False}, "fused:monolithic"),
+    "n16_ch4_pallas2": (1 << 16, 4, -0.1, 4.0, "rectangle", PALLAS2,
+                        "fused:pallas2+ftail+skzap"),
+    "n17_ch8_pallas2_unfused_hann": (
+        1 << 17, 8, -0.2, 5.0, "hann", dict(PALLAS2, fused_tail="off"),
+        "fused:pallas2"),
+    "n16_ch4_mxu": (1 << 16, 4, -0.1, 4.0, "rectangle",
+                    {"fft_strategy": "mxu"}, "fused:mxu+ftail+skzap"),
+    "n16_ch32_staged_no_pallas": (
+        1 << 16, 32, -0.1, 4.0, "rectangle",
+        dict(STAGED_PLAIN, use_pallas_sk=False), "staged:four_step"),
+    "n17_ch8_staged_no_pallas_sk": (1 << 17, 8, -0.2, 5.0, "rectangle",
+                                    STAGED_PLAIN, "staged:four_step"),
 }
 
 
 def _case(name):
     n, ch, dm, amp, window, over, _plan = SHAPES[name]
+    over = dict(over)
+    staged = over.pop("staged", None)
     cfg = slice_config(n, ch, dm).replace(**over)
     nres = dd.nsamps_reserved(cfg)
     raw = dispersed_bytes(cfg, n, (n - 2 * nres) // 2, amp, seed=n)
-    return cfg, raw, window
+    return cfg, raw, window, staged
 
 
 CASES = {name: _case(name) for name in SHAPES}
 
 
 # (n, fft_strategy, use_pallas, fused_tail): the plan flags at sizes too
-# large to build here, the production 2^30 and 2^27 among them
+# large to build here, the production 2^30 and 2^27 among them ("shipped":
+# the example cfg as shipped, with gui_enable = 0)
 RESOLVE = {
+    "n30_shipped": None,
+    "n27_pallas2": (1 << 27, "pallas2", True, "auto"),
+    "n29_pallas2": (1 << 29, "pallas2", True, "auto"),
     "n30_auto": (1 << 30, "auto", True, "auto"),
     "n30_auto_no_pallas": (1 << 30, "auto", False, "auto"),
     "n30_tail_on": (1 << 30, "auto", True, "on"),
@@ -121,6 +151,10 @@ RESOLVE = {
 
 
 def _resolve_config(name: str) -> Config:
+    if RESOLVE[name] is None:
+        cfg = Config()
+        cfg.load_file(str(EXAMPLE_CFG))
+        return cfg.replace(gui_enable=False)
     n, strategy, use_pallas, tail = RESOLVE[name]
     return Config(baseband_input_count=n, fft_strategy=strategy,
                   use_pallas=use_pallas, use_pallas_sk=True, fused_tail=tail)
@@ -129,8 +163,8 @@ def _resolve_config(name: str) -> Config:
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     jobs = [{"key": name, "fn": "test_torch_ref:segment_process",
-             "args": [dataclasses.asdict(cfg), raw, window]}
-            for name, (cfg, raw, window) in CASES.items()]
+             "args": [dataclasses.asdict(cfg), raw, window, staged]}
+            for name, (cfg, raw, window, staged) in CASES.items()]
     jobs += [{"key": f"resolve/{name}", "fn": "test_torch_ref:plan_resolution",
               "args": [dataclasses.asdict(_resolve_config(name))]}
              for name in RESOLVE]
@@ -143,11 +177,12 @@ def port(ref):
     fields (``Config.from_reference_fields``), so both run one
     configuration."""
     out = {}
-    for name, (cfg, raw, window) in CASES.items():
+    for name, (cfg, raw, window, staged) in CASES.items():
         fields = json.loads(str(ref[f"{name}/fields"]))
         port_cfg = Config.from_reference_fields(fields)
         assert port_cfg == cfg
-        sp = SegmentProcessor(port_cfg, window_name=window, device="cpu")
+        sp = SegmentProcessor(port_cfg, window_name=window, device="cpu",
+                              staged=staged)
         out[name] = (sp, *sp.process(raw))
     return out
 
@@ -169,8 +204,8 @@ def test_plan_and_constants_match(ref, port, name):
         else:
             np.testing.assert_array_equal(got.numpy(), ref[f"{name}/{key}"])
     assert (sp.window is None) == (SHAPES[name][4] == "rectangle")
-    np.testing.assert_array_equal(~sp.rfi_keep.numpy(),
-                                  ref[f"{name}/rfi_mask"])
+    zap = sp.rfi_zap if sp._plain_s1 else ~sp.rfi_keep
+    np.testing.assert_array_equal(zap.numpy(), ref[f"{name}/rfi_mask"])
     assert sp.norm_coeff == float(ref[f"{name}/norm_coeff"])
     assert sp.nsamps_reserved == int(ref[f"{name}/nsamps_reserved"]) > 0
     assert sp.time_reserved_count == \
@@ -237,24 +272,41 @@ def test_plan_resolution_matches_reference(ref, name):
 def test_unported_settings_raise():
     cfg = slice_config(1 << 12, 32, 0.0)
     for change in ({"quality_stats": True}, {"search_mode": "periodicity"},
-                   {"micro_batch_segments": 2}, {"fft_strategy": "pallas2"},
-                   {"fft_strategy": "mxu"}, {"ingest_ring": "on"},
+                   {"micro_batch_segments": 2}, {"ingest_ring": "on"},
                    {"front_fuse": "on"}):
         with pytest.raises(NotImplementedError):
             SegmentProcessor(cfg.replace(**change), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         SegmentProcessor(cfg.replace(baseband_format_type="gznupsr_a1"),
                          device="cpu")
-    # the staged plan without use_pallas runs the chirp kernel B3
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        seg.check_plan(_resolve_config("n30_auto_no_pallas"))
     # the staged plan with the fused tail has no test against the reference
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         seg.check_plan(_resolve_config("n30_tail_on"))
-    with pytest.raises(NotImplementedError, match="ROADMAP B9/B10"):
-        seg.check_plan(cfg.replace(fft_strategy="mxu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        SegmentProcessor(cfg, device="cpu", staged=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP B11/B12"):
+        seg.check_plan(_resolve_config("n30_shipped").replace(
+            front_fuse="on"))
     with pytest.raises(ValueError):
         SegmentProcessor(cfg.replace(fused_tail="on"), device="cpu")
+
+
+def test_shipped_config_takes_the_b3_plan():
+    """The example cfg as shipped (2^30, use_pallas = 0) passes the plan
+    check and resolves to the staged plan whose stage 1 is the plain one
+    followed by B3; every other plan keeps K2."""
+    shipped = _resolve_config("n30_shipped")
+    seg.check_plan(shipped)
+    assert not shipped.use_pallas and not shipped.use_pallas_sk
+    small = shipped.replace(baseband_input_count=1 << 16, fused_tail="off")
+    sp = SegmentProcessor(small, device="cpu", staged=True)
+    # fft_strategy "auto" names the staged plan by the size: four_step at
+    # 2^30, monolithic at 2^16
+    assert sp.plan_name == "staged:monolithic" and sp._plain_s1
+    assert sp.rfi_zap is not None and sp.rfi_keep is None
+    assert not SegmentProcessor(small.replace(use_pallas=True), device="cpu",
+                                staged=True)._plain_s1
+    assert not SegmentProcessor(small, device="cpu")._plain_s1
 
 
 def test_device_defaults_to_cuda():
