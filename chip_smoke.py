@@ -16,22 +16,28 @@ result lines are printed:
    and 2^11 channels; B13, B6, B7, B8, B9, B10 at 2^27 samples and 2^11
    channels, the row kernels also at every row length 2^12 ... 2^16, B9
    and B10 at both column lengths and every row length, B3 also past
-   float32's exact channel indices), with the tolerance stated beside
-   each check, and its time beside the plain version's, its bound and,
-   where one PyTorch call computes the same function, that call's;
+   float32's exact channel indices; B11 and B12 at the front-fused 2^30
+   path's (8192, 65536), B11 also at 2^24 for every unpack variant and
+   width it reads, B12 at every row length), with the tolerance stated
+   beside each check, and its time beside the plain version's, its bound
+   and, where one PyTorch call computes the same function, that call's;
 5. main paths: 2-bit files of two segments with a dispersed pulse in the
    second, made on the card by the port's synth, searched by the port's
    ``srtb-torch-main`` at the example J1644-4559 configuration: at 2^30
    samples per segment with ``use_pallas = 1`` (the reference's staged
    plan), at 2^27 with ``fft_strategy = pallas`` twice, with the fused
    tail (``auto``) and without (``off``), the example cfg as shipped
-   (2^30, ``use_pallas = 0``: the staged plan with B3), and at 2^27 with
-   ``fft_strategy = pallas2`` (B9/B10).  In each, the pulse segment must
-   be positive, the noise segment negative, the candidate files must
-   exist, the plan must be the reference's, and each kernel must have
-   launched exactly as often per segment as that plan's table says;
+   (2^30, ``use_pallas = 0``: the staged plan with B3), at 2^27 with
+   ``fft_strategy = pallas2`` (B9/B10), and at 2^30 with the fused tail
+   and ``SRTB_STAGED_ROWS_IMPL=pallas2`` twice, front-fused (B11/B12) and
+   not (K1, B9, B10, K2).  In each, the pulse segment must be positive,
+   the noise segment negative, the candidate files must exist, the plan
+   must be the reference's, and each kernel must have launched exactly as
+   often per segment as that plan's table says.  Paths of one geometry
+   share one input file;
 6. breakdown: the device time of one segment stage by stage, for the 2^30
-   paths and for the fused and pallas2 2^27 paths.
+   paths and for the fused and pallas2 2^27 paths, and the staged R2C
+   front under each staged row implementation.
 
 The last two lines are the kernels' JSON record and the result line.
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -39,6 +45,7 @@ Outputs go to ``build/chip_smoke/`` in the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -61,31 +68,45 @@ LOG2_CHANNELS = 11     # spectrum_channel_count (the example cfg)
 LOG2_N_ROWS = 27       # samples per segment of the row-FFT plans
 
 # the main paths: (label, log2 samples per segment, cfg lines added to the
-# example cfg, the plan both packages resolve, kernel launches per segment)
+# example cfg, the plan both packages resolve, kernel launches per segment,
+# the environment set around the run: the reference's staged switches)
 PALLAS_ON = "use_pallas = 1\nuse_pallas_sk = 1\nbaseband_reserve_sample = 1\n"
 PALLAS_27 = "baseband_input_count = 2 ** 27\nfft_strategy = pallas\n" \
     + PALLAS_ON
 PALLAS2_27 = "baseband_input_count = 2 ** 27\nfft_strategy = pallas2\n" \
     + PALLAS_ON
+STAGED_TAIL = PALLAS_ON + "fused_tail = on\n"
+ROWS_PALLAS2 = {"SRTB_STAGED_ROWS_IMPL": "pallas2"}
 MAIN_PATHS = (
     ("staged_2^30", LOG2_N, PALLAS_ON, "staged:four_step",
      {"unpack_subbyte_window": 1, "rfi_s1_dedisperse": 1, "sk_stats": 1,
-      "sk_apply_timeseries": 1}),
+      "sk_apply_timeseries": 1}, {}),
     ("fused_2^27", LOG2_N_ROWS, PALLAS_27, "fused:pallas+ftail+skzap",
      {"unpack_subbyte_planes_window": 1, "fft_rows": 2,
-      "rfi_s1_dedisperse": 1, "fft_rows_skzap": 1}),
+      "rfi_s1_dedisperse": 1, "fft_rows_skzap": 1}, {}),
     ("unfused_2^27", LOG2_N_ROWS, PALLAS_27 + "fused_tail = off\n",
      "fused:pallas",
      {"unpack_subbyte_planes_window": 1, "fft_rows": 2,
       "rfi_s1_dedisperse": 1, "fft_rows_stats": 1,
-      "sk_apply_timeseries": 1}),
+      "sk_apply_timeseries": 1}, {}),
     # the example cfg as shipped: use_pallas = use_pallas_sk = 0, no
     # reserve; the reference's stage (c) runs XLA stage 1 and B3
     ("shipped_2^30", LOG2_N, "", "staged:four_step",
-     {"unpack_subbyte_window": 1, "dedisperse": 1}),
+     {"unpack_subbyte_window": 1, "dedisperse": 1}, {}),
     ("pallas2_2^27", LOG2_N_ROWS, PALLAS2_27, "fused:pallas2+ftail+skzap",
      {"unpack_subbyte_planes_window": 1, "fft2_pass1": 1, "fft2_pass2": 1,
-      "rfi_s1_dedisperse": 1, "fft_rows_skzap": 1}),
+      "rfi_s1_dedisperse": 1, "fft_rows_skzap": 1}, {}),
+    # the reference's staged_pallas2 and staged_ffuse plan families at the
+    # cfg's own 2^30 x 2^11
+    ("staged_pallas2_2^30", LOG2_N, STAGED_TAIL + "front_fuse = off\n",
+     "staged:four_step+ftail",
+     {"unpack_subbyte_window": 1, "fft2_pass1": 1, "fft2_pass2": 1,
+      "rfi_s1_dedisperse": 1, "sk_stats": 1, "sk_apply_timeseries": 1},
+     ROWS_PALLAS2),
+    ("ffuse_2^30", LOG2_N, STAGED_TAIL + "front_fuse = on\n",
+     "staged:four_step+ftail+ffuse",
+     {"fft2_pass1_front": 1, "fft2_pass2_spectrum": 1, "sk_stats": 1,
+      "sk_apply_timeseries": 1}, ROWS_PALLAS2),
 )
 
 
@@ -108,6 +129,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def path_env(env: dict):
+    """``os.environ`` updated by ``env`` inside the block and restored
+    after it (the processor reads the staged switches when it is
+    built)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` launches after one warm-up
     (CUDA events around the whole run)."""
@@ -122,6 +160,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def free_card() -> str:
+    """Drop the module caches of device tables (B9's plain twiddle, the
+    Hermitian weights: 8 GiB at 2^29) and the allocator's free blocks, so
+    that the next path starts from a card holding only what its own run
+    holds; returns the memory still allocated and reserved, for the log."""
+    import torch
+    from srtb_tpu_torch.kernels import fft2 as K2
+    from srtb_tpu_torch.ops import fft as F
+    K2.twiddle.cache_clear()
+    F._hermitian_weights.cache_clear()
+    torch.cuda.empty_cache()
+    return (f"allocated {torch.cuda.memory_allocated()} bytes, reserved "
+            f"{torch.cuda.memory_reserved()} bytes")
 
 
 def bound_ms(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -760,6 +813,221 @@ def check_fft2(copy_gbps: float) -> list:
     return recs
 
 
+def _check_pass1_front(raw, m, variant, nbits, weo, inverse, z) -> tuple:
+    """B11 against its plain version (2e-5 of the largest |plain|; the mean
+    power from the sums within 1e-6 relative of the plain float64 sums')
+    and against B9 on the packed values ``z`` (bit-identical)."""
+    import torch
+    from srtb_tpu_torch.kernels import fft2 as K2
+    from srtb_tpu_torch.kernels import fft2_front as FF
+    where = f"fft2_pass1_front m={m} {variant} {nbits} bits " \
+        f"window={weo is not None} inverse={inverse}"
+    n2 = K2.ffuse_factor(m)[1]
+    b, aux = FF.fft2_pass1_front(raw, m, variant, nbits, weo, inverse)
+    if not torch.equal(torch.view_as_real(b),
+                       torch.view_as_real(K2.fft2_pass1(z, inverse))):
+        fail(f"{where}: not bit-identical to B9 on the same packed values")
+    pb, paux = FF.fft2_pass1_front_plain(raw, m, variant, nbits, weo,
+                                         inverse)
+    err, scale = _fft_err(b, pb)
+    del pb
+    if not err <= 2e-5 * scale:
+        fail(f"{where}: {err} > 2e-5 x {scale}")
+    mean = FF.front_mean_power(aux, n2, m)
+    rel = float(((mean - FF.front_mean_power(paux, n2, m)).abs()
+                 / mean.abs()).max())
+    if not rel <= 1e-6:
+        fail(f"{where}: mean power rel err {rel}")
+    return b, aux, err, scale
+
+
+def _check_pass2_spectrum(b, thr, norm, where, **kw) -> tuple:
+    """B12 against its plain version: a zap decision may differ only on a
+    bin whose power lies within 1e-5 relative of ``thr`` (float32 rounding
+    of two FFTs), and those bins are left out of the value check; the
+    rest within 5e-5 of the largest |plain| with the chirp (K2's chirp
+    gate), 2e-5 without.  Returns (max_abs_err, flipped bins)."""
+    import torch
+    from srtb_tpu_torch.kernels import fft2_front as FF
+    from srtb_tpu_torch.ops import rfi
+    got = FF.fft2_pass2_spectrum(b, thr, norm, **kw)
+    want = FF.fft2_pass2_spectrum_plain(b, thr, norm, **kw)
+    same = (got == 0) == (want == 0)
+    flips = int((~same).sum())
+    if flips:
+        # the plain spectrum's power before the zap, at the flipped bins
+        x = FF.fft2_pass2_spectrum_plain(
+            b, torch.full_like(thr, float("inf")), 1.0,
+            premul=kw.get("premul"))
+        p = rfi.power(x)[~same]
+        del x
+        if not bool(((p - thr).abs() <= 1e-5 * thr).all()):
+            fail(f"fft2_pass2_spectrum {where}: {flips} zap decisions "
+                 "differ away from the threshold")
+    err = float(torch.where(same, (got - want).abs(), 0.0).max())
+    scale = float(want.abs().max())
+    gate = 5e-5 if kw.get("chirp") is not None else 2e-5
+    if not err <= gate * scale:
+        fail(f"fft2_pass2_spectrum {where}: {err} > {gate} x {scale}")
+    return err, flips
+
+
+def check_fft2_front(copy_gbps: float, k2_ms: float) -> list:
+    """B11 and B12.  B11 at m = 2^24 (4096, 4096) for ``simple`` at 1, 2,
+    4, 8 and -8 bits and ``interleaved_samples_2`` at 8 bits, windowed and
+    not, both directions, then at the front-fused path's shape: 2^28 raw
+    bytes of 2-bit samples, (n1, n2) = (8192, 65536), no window (the
+    example cfg's rectangle).  Tolerances: the intermediate within 2e-5
+    of the largest |plain| (the reference's gate,
+    tests/test_pallas_fft2.py:48); bit-identical to B9 on the same packed
+    values (K1 + pack at the path's shape, the plain unpack, window and
+    pack at 2^24: one column body, the reference's own contract,
+    tests/test_front_fuse.py:184-203); at the path's shape
+    ``front_mean_power`` within 1e-5 relative of ``rfi.mean_power_packed``
+    over the full C2C (tests/test_front_fuse.py:217).  B12 at the path's
+    shape on B11's intermediate with the example cfg's keep mask and exact
+    chirp (the path's form), and on noise at (4096, 2^12 ... 2^16) with
+    and without the mask, with the exact chirp, the premul pair or
+    neither, at the tolerances of :func:`_check_pass2_spectrum`.  Times at
+    the path's shape, with B9 on the same [8192, 65536] beside B11 and K2
+    at 2^29 bins beside B12."""
+    import numpy as np
+    import torch
+    from srtb_tpu_torch.config import Config
+    from srtb_tpu_torch.kernels import fft2 as K2
+    from srtb_tpu_torch.kernels import fft2_front as FF
+    from srtb_tpu_torch.kernels import unpack as KU
+    from srtb_tpu_torch.ops import dedisperse as dd
+    from srtb_tpu_torch.ops import fft as F
+    from srtb_tpu_torch.ops import rfi
+    cfg = Config()
+    cfg.load_file(str(CFG_EXAMPLE))
+    g = torch.Generator(device="cuda").manual_seed(26)
+    m = 1 << 24
+    n1, n2 = K2.ffuse_factor(m)
+    weo = tuple(torch.rand(n1, n2, device="cuda", generator=g)
+                for _ in range(2))
+    worst = 0.0
+    for variant, nbits in (("simple", 1), ("simple", 2), ("simple", 4),
+                           ("simple", 8), ("simple", -8),
+                           ("interleaved_samples_2", 8)):
+        size = FF.front_streams(variant) * 2 * m * abs(nbits) // 8
+        raw = torch.randint(0, 256, (size,), dtype=torch.uint8,
+                            device="cuda", generator=g)
+        for w in (None, weo):
+            z = FF.front_pack(raw, m, variant, nbits, w)
+            for inverse in (False, True):
+                _b, _aux, err, scale = _check_pass1_front(
+                    raw, m, variant, nbits, w, inverse, z)
+                worst = max(worst, err / scale)
+    say(f"check fft2_pass1_front at m = 2^24: every variant, width, "
+        f"window and direction within 2e-5 of the largest (worst "
+        f"{worst:.2e}), bit-identical to B9 on the same packed values, "
+        "mean power within 1e-6 of the plain sums'")
+    del raw, z, _b, weo
+    K2.twiddle.cache_clear()
+
+    # the front-fused 2^30 path's shape: K1 + pack is B9's input
+    m = 1 << (LOG2_N - 1)
+    n1, n2 = K2.ffuse_factor(m)
+    raw = torch.randint(0, 256, (m // 2,), dtype=torch.uint8, device="cuda",
+                        generator=g)
+    z = F.pack_even_odd(KU.unpack_subbyte_window(raw, 2)).reshape(1, n1, n2)
+    b, aux, err_b11, scale = _check_pass1_front(raw, m, "simple", 2, None,
+                                                False, z)
+    K2.twiddle.cache_clear()
+    torch.cuda.empty_cache()
+    mean = FF.front_mean_power(aux, n2, m)
+    # over the float32 C2C, summed in float64: a float32 sum of 2^29
+    # powers drifts by more than the gate
+    want = rfi.mean_power_packed(torch.fft.fft(z.reshape(-1)).to(
+        torch.complex128))
+    rel = float(((mean - want).abs() / want).max())
+    if not rel <= 1e-5:
+        fail(f"front_mean_power rel err {rel} against mean_power_packed")
+    say(f"check fft2_pass1_front at [{n1}, {n2}] (2-bit): max_abs_err "
+        f"{err_b11:.3e} <= 2e-5 x {scale:.3e}, bit-identical to K1 + pack + "
+        f"B9, front_mean_power within {rel:.2e} of mean_power_packed over "
+        "the full C2C")
+    torch.cuda.empty_cache()
+    k_ms = cuda_ms(lambda: FF.fft2_pass1_front(raw, m, "simple", 2), 10)
+    p_ms = cuda_ms(lambda: FF.fft2_pass1_front_plain(raw, m, "simple", 2),
+                   2)
+    K2.twiddle.cache_clear()
+    b9_ms = cuda_ms(lambda: K2.fft2_pass1(z), 10)
+    say(f"fft2_pass1_front [{n1}, {n2}]: B11 {k_ms:.4f} ms beside B9 on the "
+        f"same [{n1}, {n2}] (complex64 in, 16x the bytes read) "
+        f"{b9_ms:.4f} ms")
+    # reads the raw bytes once, writes the intermediate; the column FFT
+    # ~5 log2(n1) flops a value, the twiddle's sincospif and multiply (26),
+    # the unpack (3 a sample); float64 |B|^2 sums (4 a value)
+    recs = [_record("fft2_pass1_front", k_ms, p_ms, m // 2 + 8 * m,
+                    {"f32": 5 * m * 13 + 26 * m + 6 * m, "f64": 4 * m},
+                    err_b11, copy_gbps)]
+    del z
+
+    # B12 on B11's intermediate, the path's form
+    f_min, f_c, df = dd.spectrum_frequencies(cfg, m)
+    chirp = (f_min, df, f_c, cfg.dm)
+    norm = rfi.normalization_coefficient(m, cfg.spectrum_channel_count)
+    zap = rfi.rfi_ranges_to_mask(rfi.eval_rfi_ranges(
+        cfg.mitigate_rfi_freq_list), m, cfg.baseband_freq_low,
+        cfg.baseband_bandwidth)
+    keep = torch.from_numpy(~zap).to("cuda").reshape(n2, n1).T.contiguous()
+    thr = np.float32(cfg.mitigate_rfi_average_method_threshold) \
+        * FF.front_mean_power(aux, n2, m)
+    b = b[0]
+    err_b12, flips = _check_pass2_spectrum(b, thr, norm, f"[{n1}, {n2}]",
+                                           keep=keep, chirp=chirp)
+    F._hermitian_weights.cache_clear()
+    torch.cuda.empty_cache()
+    say(f"check fft2_pass2_spectrum at [{n1}, {n2}] with the example cfg's "
+        f"keep mask and exact chirp: max_abs_err {err_b12:.3e} within 5e-5 "
+        f"of the largest; {flips} zap decisions within 1e-5 of thr differ")
+    k_ms = cuda_ms(lambda: FF.fft2_pass2_spectrum(b, thr, norm, keep=keep,
+                                                  chirp=chirp), 10)
+    p_ms = cuda_ms(lambda: FF.fft2_pass2_spectrum_plain(
+        b, thr, norm, keep=keep, chirp=chirp), 2)
+    F._hermitian_weights.cache_clear()
+    b10_ms = cuda_ms(lambda: K2.fft2_pass2(b[None]), 10)
+    say(f"fft2_pass2_spectrum [{n1}, {n2}]: B12 {k_ms:.4f} ms beside K2 at "
+        f"2^29 bins (its stage 1 and chirp alone) {k2_ms:.4f} ms and B10 on "
+        f"the same [{n1}, {n2}] (its row FFT alone) {b10_ms:.4f} ms")
+    # reads the intermediate and the keep mask, writes the spectrum; the
+    # row FFT ~5 log2(n2) flops a value, the Hermitian post, zap, scale,
+    # twiddle and rotation ~40; the float64 chirp phase ~10
+    recs.append(_record("fft2_pass2_spectrum", k_ms, p_ms, 17 * m,
+                        {"f32": 5 * m * 16 + 40 * m, "f64": 10 * m},
+                        err_b12, copy_gbps))
+    del b, aux, keep, raw
+    torch.cuda.empty_cache()
+
+    # B12 on noise at every row length, every form
+    flips = 0
+    for n2 in (1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16):
+        n1 = 4096
+        m = n1 * n2
+        x = torch.randn(n1, n2, dtype=torch.complex64, device="cuda",
+                        generator=g)
+        thr = torch.tensor([6.0 * n2], device="cuda")
+        keep = torch.rand(n1, n2, device="cuda", generator=g) > 0.05
+        c = torch.exp(2j * torch.pi * torch.rand(n1, n2, device="cuda",
+                                                 generator=g))
+        ch = (f_min, cfg.baseband_bandwidth / m, f_c, cfg.dm)
+        for kw in (dict(keep=keep, chirp=ch), dict(chirp=ch), dict(keep=keep),
+                   dict(), dict(premul=(c, c * c)),
+                   dict(keep=keep, premul=(c, c * c))):
+            flips += _check_pass2_spectrum(
+                x, thr, 0.125, f"[{n1}, {n2}] {sorted(kw)}", **kw)[1]
+        F._hermitian_weights.cache_clear()
+    say(f"check fft2_pass2_spectrum at (4096, 2^12 ... 2^16): with and "
+        f"without the mask, exact chirp, premul or neither, within the "
+        f"gates; {flips} zap decisions within 1e-5 of thr differ")
+    del x, keep, c
+    torch.cuda.empty_cache()
+    return recs
+
+
 def phase_kernels(copy_gbps: float) -> list:
     recs = [check_unpack(copy_gbps), check_rfi_chirp(copy_gbps)]
     recs += check_sk(copy_gbps)
@@ -767,6 +1035,7 @@ def phase_kernels(copy_gbps: float) -> list:
              check_fft_rows_stats(copy_gbps),
              check_fft_rows_skzap(copy_gbps), check_dedisperse(copy_gbps)]
     recs += check_fft2(copy_gbps)
+    recs += check_fft2_front(copy_gbps, recs[1]["ms"])
     return recs
 
 
@@ -806,12 +1075,36 @@ def make_input_file(cfg, path: Path) -> dict:
             "pulse_sample_in_segment_2": nres + pulse_at}
 
 
+def input_file(cfg, label: str, made: dict) -> Path:
+    """The two-segment input file of the cfg's geometry (samples, bits,
+    DM, reserve, band), made once and shared by every path of that
+    geometry (``made`` maps the geometry to its file)."""
+    from srtb_tpu_torch.ops import dedisperse as dd
+    key = (cfg.baseband_input_count, cfg.baseband_input_bits, cfg.dm,
+           dd.nsamps_reserved(cfg), cfg.baseband_freq_low,
+           cfg.baseband_bandwidth)
+    if key in made:
+        say(f"main path {label}: input {made[key].relative_to(ROOT)} "
+            "shared with an earlier path of the same geometry")
+        return made[key]
+    data = OUT_DIR / "inputs" / f"{label}.bin"
+    data.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    info = make_input_file(cfg, data)
+    say(f"main path {label}: input {data.relative_to(ROOT)} "
+        f"({data.stat().st_size} bytes, {info}) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    made[key] = data
+    return data
+
+
 def phase_main_path(card: str, label: str, log2_n: int, extra: str,
-                    plan: str, per_segment: dict) -> dict:
+                    plan: str, per_segment: dict, env: dict,
+                    made: dict) -> dict:
     """One main path: the example cfg with ``extra`` at 2^log2_n samples
-    per segment, on its own synthetic two-segment file, through
-    ``srtb-torch-main``; the launch counts are zeroed just before the run
-    and read just after it."""
+    per segment, on the synthetic two-segment file of its geometry,
+    through ``srtb-torch-main`` under the environment ``env``; the launch
+    counts are zeroed just before the run and read just after it."""
     import torch
     from srtb_tpu_torch import kernels as K
     from srtb_tpu_torch.config import Config
@@ -820,10 +1113,9 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
     out_dir.mkdir(parents=True, exist_ok=True)
     for old in out_dir.glob("out_*"):
         old.unlink()
-    data = out_dir / "baseband.bin"
     cfg_path = out_dir / "smoke.cfg"
     text = CFG_EXAMPLE.read_text()
-    text += (f"\ninput_file_path = {data}\ngui_enable = 0\n"
+    text += (f"\ngui_enable = 0\n"
              f"baseband_output_file_prefix = {out_dir}/out_\n"
              "deterministic_timestamps = 1\n" + extra)
     cfg_path.write_text(text)
@@ -831,15 +1123,14 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
     cfg.load_file(str(cfg_path))
     if cfg.baseband_input_count != 1 << log2_n:
         fail(f"{label}: the cfg gives {cfg.baseband_input_count} samples")
-    t0 = time.perf_counter()
-    info = make_input_file(cfg, data)
-    say(f"main path {label}: input {data.relative_to(ROOT)} "
-        f"({data.stat().st_size} bytes, {info}) made in "
-        f"{time.perf_counter() - t0:.1f} s")
+    data = input_file(cfg, label, made)
+    cfg_path.write_text(text + f"input_file_path = {data}\n")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    stats, pipe = M.run(["--config_file_name", str(cfg_path)])
+    with path_env(env):
+        stats, pipe = M.run(["--config_file_name", str(cfg_path)])
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
     positives = pipe.positive_segments
@@ -848,7 +1139,9 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
         f"{stats.msamples_per_sec:.1f} Msamples/s in the pipeline "
         f"({stats.elapsed_s:.2f} s), {wall:.2f} s with set-up; real-time "
         f"factor {stats.msamples_per_sec / 128.0:.3f} against 128 "
-        f"Msamples/s; launches {counts}; card {card}")
+        f"Msamples/s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes; env {env}; launches "
+        f"{counts}; card {card}")
     if pipe.processor.plan_name != plan:
         fail(f"{label}: plan {pipe.processor.plan_name}, expected {plan}")
     if stats.segments != 2:
@@ -882,24 +1175,20 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
     return {"counts": counts, "stats": stats, "pipe": pipe, "data": data}
 
 
-def phase_breakdown(pipe, data: Path) -> dict:
+STAGED_FRONT = ("unpack K1", "rfft", "mean power", "rfi + chirp K2")
+
+
+def phase_breakdown(run) -> dict:
     """Device time of one production segment stage by stage: each stage
     alone on the input the chain gives it (CUDA events, mean of a few
     runs), beside the whole chain on the same device-resident segment."""
-    import numpy as np
     import torch
     from srtb_tpu_torch.kernels import rfi_chirp as KR
-    from srtb_tpu_torch.kernels import sk as KS
     from srtb_tpu_torch.kernels import unpack as KU
-    from srtb_tpu_torch.ops import detect as det
     from srtb_tpu_torch.ops import fft as F
-    from srtb_tpu_torch.ops import rfi
-    sp = pipe.processor
+    sp, raw, h2d = _segment_on_card(run)
     cfg = sp.cfg
-    host = torch.from_numpy(np.fromfile(data, dtype=np.uint8,
-                                        count=cfg.segment_bytes()))
-    ms = {"h2d (pageable)": cuda_ms(lambda: host.to("cuda"), 3)}
-    raw = host.to("cuda")
+    ms = {"h2d (pageable)": h2d}
     bits = cfg.baseband_input_bits
     ms["unpack K1"] = cuda_ms(
         lambda: KU.unpack_subbyte_window(raw, bits, sp.window), 5)
@@ -914,6 +1203,24 @@ def phase_breakdown(pipe, data: Path) -> dict:
     ms["rfi + chirp K2"] = cuda_ms(
         lambda: KR.rfi_s1_dedisperse(spec, *k2, keep=sp.rfi_keep), 5)
     spec = KR.rfi_s1_dedisperse(spec, *k2, keep=sp.rfi_keep)
+    _staged_tail_stages(ms, sp, spec)
+    del spec
+    whole = cuda_ms(lambda: sp.process(raw), 3)
+    torch.cuda.empty_cache()
+    return _breakdown_line("staged_2^30", ms, whole, cfg)
+
+
+def _staged_tail_stages(ms: dict, sp, spec) -> None:
+    """Time the staged plan's waterfall stages on the dedispersed spectrum
+    (rows of 2^18, outside the row kernels' window: cuFFT, K3, the
+    verdict, K4 and detect), each alone on the input the chain gives
+    it."""
+    import torch
+    from srtb_tpu_torch.kernels import sk as KS
+    from srtb_tpu_torch.ops import detect as det
+    from srtb_tpu_torch.ops import fft as F
+    from srtb_tpu_torch.ops import rfi
+    cfg = sp.cfg
     ms["waterfall ifft"] = cuda_ms(
         lambda: F.waterfall_c2c(spec, sp.channel_count, sp.watfft_dewindow),
         3)
@@ -934,9 +1241,97 @@ def phase_breakdown(pipe, data: Path) -> dict:
     ms["detect"] = cuda_ms(lambda: det.detect_from_time_series(
         ts[None, :t], zc, cfg.signal_detect_signal_noise_threshold,
         cfg.signal_detect_max_boxcar_length), 5)
+
+
+def phase_breakdown_staged_rows(run) -> dict:
+    """The staged_pallas2_2^30 chain on one device-resident segment, and
+    the staged R2C front (K1, the packed C2C by the staged row
+    implementation, the Hermitian post and the fused tail's epilogue)
+    under SRTB_STAGED_ROWS_IMPL = xla, pallas and pallas2 on the same
+    segment, each on a processor built under that switch.  The three R2C
+    spectra (before the epilogue, whose stage-1 zap may flip a bin at the
+    threshold) agree within 2e-5 of the largest value."""
+    import torch
+    from srtb_tpu_torch.pipeline.segment import SegmentProcessor
+    sp, raw, h2d = _segment_on_card(run)
+    fronts = {}
+    ref = None
+    worst = 0.0
+    for impl in ("xla", "pallas", "pallas2"):
+        with path_env({"SRTB_STAGED_ROWS_IMPL": impl}):
+            p = SegmentProcessor(sp.cfg, device="cuda")
+        fronts[impl] = cuda_ms(lambda: p._spectrum(raw), 3)
+        spec = p._staged_spectrum(raw, None)
+        if ref is None:
+            ref = spec
+        else:
+            err, scale = _fft_err(spec, ref)
+            if not err <= 2e-5 * scale:
+                fail(f"staged R2C, rows {impl}: {err} > 2e-5 x {scale} "
+                     "against rows xla")
+            worst = max(worst, err / scale)
+        del spec, p
+        free_card()
+    del ref
+    free_card()
+    say(f"staged R2C front by row implementation: spectra within "
+        f"{worst:.2e} of the largest (gate 2e-5)")
     whole = cuda_ms(lambda: sp.process(raw), 3)
     torch.cuda.empty_cache()
-    return _breakdown_line("staged_2^30", ms, whole, cfg)
+    return _breakdown_line(
+        "staged_pallas2_2^30", {"h2d (pageable)": h2d}, whole, sp.cfg,
+        {"front_ms_by_rows_impl (K1, C2C, Hermitian post, Parseval mean + "
+         "K2)": fronts, "front_spectra_max_rel_err": worst})
+
+
+def phase_breakdown_ffuse(run, breakdowns: dict) -> dict:
+    """Device time of one ffuse_2^30 segment stage by stage (the
+    processor's own functions, each alone on the input the chain gives
+    it), the whole chain, and beside them staged_2^30's front (K1 + R2C +
+    mean + K2) and staged_pallas2_2^30's chain."""
+    import numpy as np
+    import torch
+    from srtb_tpu_torch.kernels import fft2 as K2
+    from srtb_tpu_torch.kernels import fft2_front as FF
+    sp, raw, h2d = _segment_on_card(run)
+    cfg = sp.cfg
+    m = sp.n_spectrum
+    n2 = sp._ffuse_fac[1]
+    ms = {"h2d (pageable)": h2d}
+
+    def pass1():
+        return FF.fft2_pass1_front(raw, m, sp._ffuse_variant,
+                                   cfg.baseband_input_bits, sp._ffuse_window)
+    ms["B11 pass1_front"] = cuda_ms(pass1, 5)
+    b, aux = pass1()
+    ms["front_mean_power"] = cuda_ms(
+        lambda: FF.front_mean_power(aux, n2, m), 5)
+    thr = np.float32(cfg.mitigate_rfi_average_method_threshold) \
+        * FF.front_mean_power(aux, n2, m)
+
+    def pass2():
+        return FF.fft2_pass2_spectrum(b[0], thr, sp.norm_coeff,
+                                      keep=sp._ffuse_keep,
+                                      chirp=sp._ffuse_chirp)
+    ms["B12 pass2_spectrum"] = cuda_ms(pass2, 5)
+    s = pass2()
+    del b
+    ms["unblock transpose"] = cuda_ms(lambda: K2.unblock(s), 5)
+    spec = K2.unblock(s)
+    del s
+    front = sum(ms[k] for k in list(ms)[1:])
+    _staged_tail_stages(ms, sp, spec)
+    del spec
+    whole = cuda_ms(lambda: sp.process(raw), 3)
+    torch.cuda.empty_cache()
+    staged = breakdowns["staged_2^30"]["stage_ms"]
+    return _breakdown_line(
+        "ffuse_2^30", ms, whole, cfg,
+        {"front_ms (B11 + mean + B12 + unblock)": front,
+         "staged_2^30_front_ms (K1 + R2C + mean + K2)":
+             sum(staged[k] for k in STAGED_FRONT),
+         "staged_pallas2_2^30_chain_ms":
+             breakdowns["staged_pallas2_2^30"]["chain_ms"]})
 
 
 def _breakdown_line(label, ms, whole, cfg, extra=None) -> dict:
@@ -1088,17 +1483,19 @@ def main() -> int:
     phase_build()
     copy_gbps = phase_bandwidth()
     recs = phase_kernels(copy_gbps)
-    runs = {}
-    for label, log2_n, extra, plan, per_segment in MAIN_PATHS:
+    runs, breakdowns, made = {}, {}, {}
+    breakdown_30 = {
+        "staged_2^30": phase_breakdown,
+        "shipped_2^30": phase_breakdown_shipped,
+        "staged_pallas2_2^30": phase_breakdown_staged_rows,
+        "ffuse_2^30": lambda run: phase_breakdown_ffuse(run, breakdowns)}
+    for label, log2_n, extra, plan, per_segment, env in MAIN_PATHS:
         runs[label] = phase_main_path(card, label, log2_n, extra, plan,
-                                      per_segment)
+                                      per_segment, env, made)
         if log2_n == LOG2_N:
-            if label == "shipped_2^30":
-                phase_breakdown_shipped(runs[label])
-            else:
-                phase_breakdown(runs[label]["pipe"], runs[label]["data"])
+            breakdowns[label] = breakdown_30[label](runs[label])
             del runs[label]["pipe"]
-            torch.cuda.empty_cache()
+            say(f"card memory after {label}: {free_card()}")
     fused = phase_breakdown_rows(runs["fused_2^27"], runs["unfused_2^27"])
     phase_breakdown_pallas2(runs["pallas2_2^27"], fused["chain_ms"])
     for rec in recs:

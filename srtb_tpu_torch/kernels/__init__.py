@@ -13,6 +13,8 @@ from __future__ import annotations
 from srtb_tpu_torch.kernels import dedisperse as _dedisperse
 from srtb_tpu_torch.kernels import fft_rows as _fft_rows
 from srtb_tpu_torch.kernels.fft2 import fft2_pass1, fft2_pass2
+from srtb_tpu_torch.kernels.fft2_front import (fft2_pass1_front,
+                                                 fft2_pass2_spectrum)
 from srtb_tpu_torch.kernels.rfi_chirp import rfi_s1_dedisperse
 from srtb_tpu_torch.kernels.sk import sk_apply_timeseries, sk_stats
 from srtb_tpu_torch.kernels.unpack import (unpack_subbyte_planes_window,
@@ -45,6 +47,11 @@ KERNELS = (
      "srtb_tpu_torch/csrc/fft2.cu", "srtb_tpu/ops/pallas_fft2.py:531"),
     ("fft2_pass2", fft2_pass2,
      "srtb_tpu_torch/csrc/fft_rows.cu", "srtb_tpu/ops/pallas_fft2.py:571"),
+    ("fft2_pass1_front", fft2_pass1_front,
+     "srtb_tpu_torch/csrc/fft2_front.cu", "srtb_tpu/ops/pallas_fft2.py:864"),
+    ("fft2_pass2_spectrum", fft2_pass2_spectrum,
+     "srtb_tpu_torch/csrc/fft2_spectrum.cu",
+     "srtb_tpu/ops/pallas_fft2.py:1046"),
 )
 
 

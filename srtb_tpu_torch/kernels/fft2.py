@@ -1,8 +1,9 @@
 """B9 and B10: the two passes of the four-step C2C of a segment-sized
 transform, m = n1 n2 = 2^24 ... 2^29 (``csrc/fft2.cu`` and
 ``csrc/fft_rows.cu``; replace ``srtb_tpu/ops/pallas_fft2.py``
-``pass1_2d`` and ``pass2_2d``), with the factorization and the composed
-transform :func:`fft2_c2c`.
+``pass1_2d`` and ``pass2_2d``), with the factorizations (the front-fused
+plan's :func:`ffuse_factor` too) and the composed transform
+:func:`fft2_c2c`.
 
 The transform of ``x [..., m]`` views each plane as ``[n1, n2]`` row-major
 (x[j1, j2] = x[j1 n2 + j2]).  Pass 1 (B9) runs the n1-point C2C down every
@@ -44,6 +45,50 @@ def factor(m: int) -> tuple[int, int] | None:
 def supported(m: int) -> bool:
     """Whether the two-pass kernels take a transform of length m."""
     return factor(m) is not None
+
+
+# Longest leg the reference's front-fused kernels run as one DFT matrix
+# below the production window (``pallas_fft2._SMALL_LEG_MAX``).
+_SMALL_LEG_MAX = 512
+
+# The unpack variants the front-fused pass 1 (B11) reads, and the sample
+# widths of each (positive unsigned, -8 signed int8).
+FFUSE_VARIANT_BITS = {
+    "simple": (1, 2, 4, 8, -8),
+    "interleaved_samples_2": (8, -8),
+}
+
+
+def leg_supported(length: int) -> bool:
+    """A leg length the reference's front-fused kernels take: the row-FFT
+    window 2^12 ... 2^16, or a power of two in [8, 512]."""
+    if length <= 0 or length & (length - 1):
+        return False
+    return N2_MIN <= length <= N2_MAX or 8 <= length <= _SMALL_LEG_MAX
+
+
+def ffuse_factor(m: int) -> tuple[int, int] | None:
+    """[n1, n2] of the front-fused plan (the reference's
+    ``ffuse_factor``): :func:`factor` in the production window, below it a
+    small-leg split (n1 <= 512, n2 >= 128) so that the plan runs at test
+    sizes, where only the plain versions take it; None when m has no such
+    split."""
+    fac = factor(m)
+    if fac is not None:
+        return fac
+    if m <= 0 or m & (m - 1) or m < (1 << 10):
+        return None
+
+    def ok(n1: int) -> bool:
+        if not 8 <= n1 <= _SMALL_LEG_MAX or m % n1:
+            return False
+        return leg_supported(m // n1) and m // n1 >= 128
+
+    n1 = min(1 << ((m.bit_length() - 1) // 2), _SMALL_LEG_MAX)
+    for cand in (n1, m // 4096, m // 128):
+        if ok(cand):
+            return cand, m // cand
+    return None
 
 
 @functools.lru_cache(maxsize=8)

@@ -8,12 +8,13 @@ Device chain, per segment of raw bytes (ref call stack: SURVEY.md §3.2):
   time series -> boxcar detection
 
 The processor resolves the reference's plan from the same configuration
-(``staged_resolves``, ``fused_tail_resolves``, ``resolve_strategy``, the
-skzap rule and the waterfall branch choice) and, for every Pallas kernel
-that plan runs, runs the port's hand-written counterpart
-(``srtb_tpu_torch/kernels``).  Where the reference hands a stage to XLA
-the port uses ``torch`` (cuFFT on the card), or a kernel it already has
-(K1, B13, K2).  At the configurations the port accepts:
+and environment (``staged_resolves``, ``fused_tail_resolves``,
+``front_fuse_resolves``, ``resolve_strategy``, the staged row
+implementation, the skzap rule and the waterfall branch choice) and, for
+every Pallas kernel that plan runs, runs the port's hand-written
+counterpart (``srtb_tpu_torch/kernels``).  Where the reference hands a
+stage to XLA the port uses ``torch`` (cuFFT on the card), or a kernel it
+already has (K1, B13, K2).  At the configurations the port accepts:
 
   plan                      kernels
   fused:pallas+ftail+skzap  B13, B6 (segment-FFT legs), K2 epilogue, B8
@@ -23,9 +24,25 @@ the port uses ``torch`` (cuFFT on the card), or a kernel it already has
   fused:monolithic          K1, cuFFT R2C, K2, B7 + K4 (rows in the
                             window) or cuFFT rows + K3 + K4
   use_pallas_sk = 0         ... B6 (rows in the window) + plain SK
-  staged (n >= 2^30)        K1, cuFFT R2C, K2, cuFFT rows, K3 + K4
-  staged, use_pallas = 0    K1, cuFFT R2C, plain stage 1 + manual mask,
+  staged (n >= 2^30)        K1, the R2C by the staged row implementation
+                            (below), K2, cuFFT rows, K3 + K4
+  staged, use_pallas = 0    the same R2C, plain stage 1 + manual mask,
                             B3, cuFFT rows, plain SK and detect
+  staged+ftail              the same R2C in its packed form, ending in
+                            the K2 epilogue; then straight to the
+                            waterfall (cuFFT rows + K3 + K4, or B8)
+  staged+ftail+ffuse        B11 on the raw bytes, the Parseval mean, B12
+                            (row FFT, Hermitian post, stage 1, mask,
+                            chirp), unblock; then the waterfall as above
+
+The staged R2C by ``SRTB_STAGED_ROWS_IMPL`` (read with the other two
+switches by :func:`staged_env`): ``xla`` (the default) one cuFFT R2C, or
+with the fused tail ``pack_even_odd``, one cuFFT C2C and the Hermitian
+post; ``pallas`` the pack, the four-step on B6 legs and the Hermitian
+post; ``pallas2`` the pack, B9, B10, unblock and the Hermitian post (B6
+legs when n/2 lies outside 2^24 ... 2^29, the reference's dispatch by
+size).  ``SRTB_STAGED_BLOCKED=1`` (1/2/4 bits) unpacks into B13's planes
+instead and finishes with the sub-byte R2C's plane butterfly.
 
 The fused spectrum tail's epilogue is XLA in the reference (no Pallas
 kernel); here it is the stage-1 threshold from Parseval over the packed
@@ -34,10 +51,11 @@ whose chirp is exact.  The rule: for every Pallas kernel the reference's
 plan runs, the port runs its counterpart; where the reference runs XLA,
 the port runs torch or K1, B13 and K2.  So K1 and B13 unpack whatever
 ``use_pallas`` says, K2 takes stage 1 and the chirp on every plan but
-one (without ``use_pallas`` the reference runs XLA and a chirp bank
-there), and the staged plan without ``use_pallas``, whose stage (c) runs
-the reference's chirp kernel ``dedisperse_df64`` after an XLA stage 1,
-runs the plain stage 1 and B3.  The waterfall rows follow ``use_pallas``.
+two (without ``use_pallas`` the reference runs XLA and a chirp bank
+there; the front-fused plan runs them in B12), and the staged plan
+without ``use_pallas`` or the fused tail, whose stage (c) runs the
+reference's chirp kernel ``dedisperse_df64`` after an XLA stage 1, runs
+the plain stage 1 and B3.  The waterfall rows follow ``use_pallas``.
 ``fused:four_step`` and ``fused:mxu`` run as ``fused:pallas`` with
 cuFFT rows (the reference's ``mxu`` is DFT-matrix matmuls, no Pallas
 kernel).  The staged plan's three programs exist to fit a TPU's HBM; the
@@ -52,12 +70,18 @@ the tests that compare the two.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.io import formats
+from srtb_tpu_torch.kernels import fft2 as K2
 from srtb_tpu_torch.kernels import fft_rows as KF
+from srtb_tpu_torch.kernels.fft2_front import (fft2_pass1_front,
+                                                 fft2_pass2_spectrum,
+                                                 front_mean_power)
 from srtb_tpu_torch.kernels.dedisperse import dedisperse
 from srtb_tpu_torch.kernels.rfi_chirp import (rfi_s1_dedisperse,
                                                 rfi_threshold)
@@ -116,6 +140,74 @@ def fused_tail_resolves(cfg: Config, staged: bool) -> bool:
     return not (bankless and n // 2 > FUSED_TAIL_DF64_MAX_SPECTRUM)
 
 
+# the staged row implementations the reference names; the "_interpret"
+# spellings (Pallas's interpret mode) are the same kernels here
+ROWS_IMPLS = ("xla", "four_step", "mxu", "monolithic", "auto", "pallas",
+              "pallas_interpret", "pallas2", "pallas2_interpret")
+
+
+def staged_env() -> tuple[str, bool, bool]:
+    """The reference's three environment switches of the staged plan, read
+    here and nowhere else: ``SRTB_STAGED_ROWS_IMPL`` (who runs the staged
+    R2C's C2C, "xla" by default), ``SRTB_STAGED_BLOCKED`` (the
+    blocked-plane staged pack) and ``SRTB_PALLAS_FFUSE`` (=1: front_fuse =
+    "auto" may resolve on).  Both packages resolve the same plan from the
+    same environment."""
+    return (os.environ.get("SRTB_STAGED_ROWS_IMPL", "xla"),
+            bool(int(os.environ.get("SRTB_STAGED_BLOCKED", "0"))),
+            os.environ.get("SRTB_PALLAS_FFUSE", "") == "1")
+
+
+def resolve_rows_impl(impl: str) -> str:
+    """A staged row implementation's name with the ``_interpret`` suffix
+    dropped; unknown names raise, as in the reference."""
+    if impl not in ROWS_IMPLS:
+        raise ValueError(f"unknown rows impl / fft strategy {impl!r}")
+    return impl.removesuffix("_interpret")
+
+
+def _front_fuse_structural(cfg: Config, staged: bool) -> bool:
+    """Whether the front-fused staged plan (B11/B12) is structurally
+    possible: the staged plan with pallas2 rows and not the blocked pack,
+    an unpack variant and width B11 reads, a fused tail, and a length
+    ``ffuse_factor`` splits (the reference's rule)."""
+    if not staged:
+        return False
+    impl, blocked, _ = staged_env()
+    if impl not in ("pallas2", "pallas2_interpret") or blocked:
+        return False
+    variant = formats.unpack_variant(cfg.baseband_format_type)
+    if int(cfg.baseband_input_bits) not in K2.FFUSE_VARIANT_BITS.get(
+            variant, ()):
+        return False
+    if not fused_tail_resolves(cfg, staged):
+        return False
+    return K2.ffuse_factor(int(cfg.baseband_input_count) // 2) is not None
+
+
+def front_fuse_resolves(cfg: Config, staged: bool) -> bool:
+    """The reference's resolution of ``front_fuse`` (auto/on/off): "on"
+    raises ``ValueError`` when the fusion is structurally impossible;
+    "auto" fuses only with ``SRTB_PALLAS_FFUSE=1`` (the reference's TPU
+    compiler probe is false)."""
+    mode = str(cfg.front_fuse).lower()
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"front_fuse must be auto/on/off, got {mode!r}")
+    if mode == "off":
+        return False
+    ok = _front_fuse_structural(cfg, staged)
+    if mode == "on":
+        if not ok:
+            raise ValueError(
+                "front_fuse=on requires the staged plan with "
+                "SRTB_STAGED_ROWS_IMPL=pallas2, a fusable tail "
+                "(fused_tail != off, non-monolithic), a simple "
+                "1/2/4/8-bit or 2-pol byte-interleaved format, and a "
+                "pallas2-factorizable length")
+        return True
+    return ok and staged_env()[2]
+
+
 def sk_tiling_ok(nfreq: int, ntime: int) -> bool:
     """The reference's gate of the SK kernel pair (K3/K4, and K4 after
     B7): rows in blocks of up to 8, time in blocks of up to 2^15 that are
@@ -125,14 +217,11 @@ def sk_tiling_ok(nfreq: int, ntime: int) -> bool:
     return not (nfreq % rows or ntime % 128 or ntime % tb or tb % 128)
 
 
-def check_plan(cfg: Config, staged: bool | None = None) -> None:
-    """Raise for settings the port does not implement yet (``staged`` as
-    the processor's argument of that name)."""
+def check_plan(cfg: Config) -> None:
+    """Raise for settings the port does not implement yet."""
     def no(what: str, item: str) -> None:
         raise NotImplementedError(f"{what} is not ported yet ({item})")
 
-    if str(cfg.front_fuse).lower() == "on":
-        no("front_fuse = on", "ROADMAP B11/B12: front-fused staged kernels")
     if str(cfg.ingest_ring).lower() == "on":
         no("ingest_ring = on", "ROADMAP A4: the ingest ring")
     if cfg.quality_stats:
@@ -144,10 +233,6 @@ def check_plan(cfg: Config, staged: bool | None = None) -> None:
         no("micro_batch_segments > 1", "ROADMAP A6: micro-batching")
     if cfg.fft_strategy not in STRATEGIES:
         raise ValueError(f"unknown fft_strategy {cfg.fft_strategy!r}")
-    staged = staged_resolves(cfg, staged)
-    if staged and fused_tail_resolves(cfg, staged):
-        no("the staged plan with the fused tail",
-           "ROADMAP A5: the staged fused tail")
 
 
 class SegmentProcessor:
@@ -158,7 +243,7 @@ class SegmentProcessor:
 
     def __init__(self, cfg: Config, window_name: str = W.DEFAULT_WINDOW,
                  device=None, staged: bool | None = None):
-        check_plan(cfg, staged)
+        check_plan(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.fmt = formats.resolve(cfg.baseband_format_type)
@@ -174,13 +259,20 @@ class SegmentProcessor:
         self.staged = staged_resolves(cfg, staged)
         self.strategy = F.resolve_strategy(n, cfg.fft_strategy)
         self.fused_tail = fused_tail_resolves(cfg, self.staged)
+        # the front-fused staged plan (B11/B12)
+        self.front_fuse = front_fuse_resolves(cfg, self.staged)
+        subbyte = cfg.baseband_input_bits in (1, 2, 4)
         # sub-byte segments (of the simple format, the one ported) take
-        # the blocked-plane R2C on the non-monolithic strategies (never
-        # staged)
+        # the blocked-plane R2C on the non-monolithic strategies, and on
+        # the staged plan with SRTB_STAGED_BLOCKED=1
         self._blocked_subbyte = (
-            not self.staged
-            and self.strategy in ("four_step", "mxu", "pallas", "pallas2")
-            and cfg.baseband_input_bits in (1, 2, 4))
+            not self.staged and subbyte
+            and self.strategy in ("four_step", "mxu", "pallas", "pallas2"))
+        self._staged_blocked = False
+        if self.staged and not self.front_fuse:
+            impl, blocked, _ = staged_env()
+            self._staged_blocked = blocked and subbyte
+            self._rows_impl = self._staged_impl(resolve_rows_impl(impl))
         # the whole waterfall tail in one kernel (B8)
         self._skzap = bool(
             self.fused_tail and cfg.use_pallas and cfg.use_pallas_sk
@@ -191,7 +283,8 @@ class SegmentProcessor:
         self.window = None if win is None else \
             torch.from_numpy(win).to(self.device)
         self.window_planes = None
-        if self._blocked_subbyte and win is not None:
+        if (self._blocked_subbyte or self._staged_blocked) \
+                and win is not None:
             self.window_planes = torch.from_numpy(F.subbyte_window_planes(
                 win, cfg.baseband_input_bits)).to(self.device)
         # the window divided out of the waterfall after the backward C2C
@@ -206,9 +299,11 @@ class SegmentProcessor:
             rfi.eval_rfi_ranges(cfg.mitigate_rfi_freq_list), self.n_spectrum,
             cfg.baseband_freq_low, cfg.baseband_bandwidth)
         # on the device once, in the form its one consumer takes: the
-        # plain stage 1 of the staged plan without use_pallas the zap mask,
-        # K2 on every other plan the KEEP mask (True = keep)
-        self._plain_s1 = self.staged and not cfg.use_pallas
+        # plain stage 1 of the staged plan without use_pallas or the fused
+        # tail the zap mask, K2 on every other plan the KEEP mask (True =
+        # keep), B12 the keep mask blocked
+        self._plain_s1 = (self.staged and not cfg.use_pallas
+                          and not self.fused_tail)
         self.rfi_zap = self.rfi_keep = None
         if zap is not None and self._plain_s1:
             self.rfi_zap = torch.from_numpy(zap).to(self.device)
@@ -216,6 +311,8 @@ class SegmentProcessor:
             self.rfi_keep = torch.from_numpy(~zap).to(self.device)
         self.norm_coeff = rfi.normalization_coefficient(
             self.n_spectrum, self.channel_count)
+        if self.front_fuse:
+            self._init_front_fuse()
         self.nsamps_reserved = dd.nsamps_reserved(cfg)
         # trim of the waterfall time axis (ref: signal_detect_pipe.hpp:289-299)
         self.time_reserved_count = self.nsamps_reserved // self.channel_count
@@ -229,14 +326,47 @@ class SegmentProcessor:
     def plan_name(self) -> str:
         """The reference's plan id (``SegmentProcessor.plan_name``) for
         this configuration.  The reference's ``+ring`` names its H2D
-        ingest ring, which the port does not have (ROADMAP A4), and
-        ``+ffuse`` a plan the port refuses, so neither appears."""
+        ingest ring, which the port does not have (ROADMAP A4), so it
+        does not appear."""
         name = ("staged" if self.staged else "fused") + f":{self.strategy}"
         if self.fused_tail:
             name += "+ftail"
+        if self.front_fuse:
+            name += "+ffuse"
         if self._skzap:
             name += "+skzap"
         return name
+
+    def _staged_impl(self, impl: str) -> str:
+        """The staged row implementation after the two-pass window check:
+        pallas2 covers C2C lengths 2^24 ... 2^29 only, and smaller
+        segments take the four-step on B6 legs (the reference's dispatch
+        by size)."""
+        if impl == "pallas2":
+            count = (8 // self.cfg.baseband_input_bits
+                     if self._staged_blocked else 2)
+            if not K2.supported(self.n // count):
+                return "pallas"
+        return impl
+
+    def _init_front_fuse(self) -> None:
+        """The front-fused plan's constants: the factorization, the unpack
+        variant, the window split into its even and odd samples viewed
+        [n1, n2], the keep mask blocked (bin k = k2 n1 + k1 at [k1, k2];
+        it replaces the natural-order one, which this plan never reads)
+        and the chirp."""
+        n1, n2 = self._ffuse_fac = K2.ffuse_factor(self.n_spectrum)
+        self._ffuse_variant = formats.unpack_variant(self.fmt.name)
+        self._ffuse_window = None
+        if self.window is not None:
+            self._ffuse_window = tuple(
+                self.window[i::2].reshape(n1, n2).contiguous()
+                for i in (0, 1))
+        self._ffuse_keep = None
+        if self.rfi_keep is not None:
+            self._ffuse_keep = self.rfi_keep.reshape(n2, n1).T.contiguous()
+            self.rfi_keep = None
+        self._ffuse_chirp = (self.f_min, self.df, self.f_c, self.cfg.dm)
 
     def _as_device_bytes(self, raw) -> torch.Tensor:
         if isinstance(raw, np.ndarray):
@@ -275,17 +405,58 @@ class SegmentProcessor:
     def _spectrum(self, raw: torch.Tensor) -> torch.Tensor:
         """raw bytes -> the drop-Nyquist spectrum [n/2]; with the fused
         tail already zapped, normalized, masked and dedispersed."""
+        if self.front_fuse:
+            return self._front_spectrum(raw)
         epilogue = self._tail_epilogue() if self.fused_tail else None
+        if self.staged:
+            return self._staged_spectrum(raw, epilogue)
         if self._blocked_subbyte:
             z = unpack_subbyte_planes_window(raw, self.cfg.baseband_input_bits,
                                              self.window_planes)
             return F.rfft_subbyte(z, self.strategy, len_cap=self._len_cap,
                                   epilogue=epilogue)
+        return F.segment_rfft(self._unpack(raw), self.strategy,
+                              len_cap=self._len_cap, epilogue=epilogue)
+
+    def _staged_c2c(self, z: torch.Tensor) -> torch.Tensor:
+        """The staged plan's C2C of the packed sequence by the row
+        implementation: one cuFFT call ("xla"), B9 + B10 + unblock
+        ("pallas2" in its window), else the four-step on B6 legs (the
+        reference runs its row kernel for every other name)."""
+        if self._rows_impl == "xla":
+            return F.fft_minor(z, inverse=False)
+        if self._rows_impl == "pallas2":
+            return K2.fft2_c2c(z)
+        return F.four_step_fft(z, rows_impl="pallas", len_cap=self._len_cap)
+
+    def _staged_spectrum(self, raw: torch.Tensor, epilogue):
+        """The staged plan's R2C: K1 (or B13's planes with the blocked
+        pack), then one cuFFT R2C, or the packed C2C and the Hermitian
+        post that hosts the fused tail's epilogue."""
+        bits = self.cfg.baseband_input_bits
+        if self._staged_blocked:
+            z = unpack_subbyte_planes_window(raw, bits, self.window_planes)
+            return F.finish_rfft_subbyte(self._staged_c2c(z),
+                                         epilogue=epilogue)
         x = self._unpack(raw)
-        if self.staged:
+        if self._rows_impl == "xla" and epilogue is None:
             return F.rfft_drop_nyquist(x)
-        return F.segment_rfft(x, self.strategy, len_cap=self._len_cap,
-                              epilogue=epilogue)
+        return F.hermitian_rfft_post(self._staged_c2c(F.pack_even_odd(x)),
+                                     drop_nyquist=True, epilogue=epilogue)
+
+    def _front_spectrum(self, raw: torch.Tensor) -> torch.Tensor:
+        """The front-fused plan: B11 on the raw bytes, the stage-1
+        threshold from its Parseval sums, B12, and the unblocking
+        transpose to the natural-order dedispersed spectrum."""
+        n1, n2 = self._ffuse_fac
+        b, aux = fft2_pass1_front(raw, self.n_spectrum, self._ffuse_variant,
+                                  self.cfg.baseband_input_bits,
+                                  self._ffuse_window)
+        thr = np.float32(self.cfg.mitigate_rfi_average_method_threshold) \
+            * front_mean_power(aux, n2, self.n_spectrum)
+        return K2.unblock(fft2_pass2_spectrum(
+            b[0], thr[:1], self.norm_coeff, keep=self._ffuse_keep,
+            chirp=self._ffuse_chirp))
 
     def _waterfall_detect(self, spec: torch.Tensor):
         """Waterfall backward C2C + SK zap + detection from the

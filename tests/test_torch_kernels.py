@@ -1,7 +1,8 @@
 """The port's kernels.  On the CPU each wrapper runs its plain PyTorch
 version, held here (K1-K4, B3), in ``test_torch_fft_rows.py`` (B6, B7, B8,
-B13) and in ``test_torch_fft2.py`` (B9, B10) against the JAX package's
-Pallas kernel in interpret mode on the same inputs; the tests marked
+B13), in ``test_torch_fft2.py`` (B9, B10) and in
+``test_torch_fft2_front.py`` (B11, B12) against the JAX package's Pallas
+kernel in interpret mode on the same inputs; the tests marked
 ``cuda`` hold each CUDA kernel against its plain version on the card and
 skip without one."""
 
@@ -12,6 +13,7 @@ import torch
 from srtb_tpu_torch import kernels as K
 from srtb_tpu_torch.kernels import dedisperse as KD
 from srtb_tpu_torch.kernels import fft2 as K2
+from srtb_tpu_torch.kernels import fft2_front as FF
 from srtb_tpu_torch.kernels import fft_rows as KF
 from srtb_tpu_torch.kernels import rfi_chirp as KR
 from srtb_tpu_torch.kernels import sk as KS
@@ -214,7 +216,9 @@ def test_kernel_registry_and_counters():
                                       "unpack_subbyte_planes_window",
                                       "fft_rows", "fft_rows_stats",
                                       "fft_rows_skzap", "dedisperse",
-                                      "fft2_pass1", "fft2_pass2"}
+                                      "fft2_pass1", "fft2_pass2",
+                                      "fft2_pass1_front",
+                                      "fft2_pass2_spectrum"}
     assert not any(K.launch_counts().values())
     for _name, _wrapper, src, tpu in K.KERNELS:
         assert src.startswith("srtb_tpu_torch/csrc/") and src.endswith(".cu")
@@ -378,3 +382,72 @@ def test_cuda_fft2_passes_match_plain(cuda, n1, n2):
     got = K2.fft2_c2c(x.reshape(2, -1))
     err, scale = _max_err(got, torch.fft.fft(x.reshape(2, -1)))
     assert err <= 2e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,nbits", [("simple", 1), ("simple", 2),
+                                           ("simple", 4), ("simple", 8),
+                                           ("simple", -8),
+                                           ("interleaved_samples_2", 8)])
+def test_cuda_fft2_pass1_front_matches_plain(cuda, variant, nbits):
+    """B11 at m = 2^24 ((4096, 4096)), windowed and not, both directions:
+    the intermediate within 2e-5 of the largest |plain| and the sums to
+    1e-9 relative (both float64, other orders); for the simple sub-byte
+    widths bit-identical to K1 + pack + B9 on the same bytes (B9's body on
+    the same values)."""
+    m = 1 << 24
+    g = torch.Generator(device=cuda).manual_seed(abs(nbits))
+    raw = torch.randint(0, 256, (FF.front_streams(variant) * 2 * m
+                                 * abs(nbits) // 8,), dtype=torch.uint8,
+                        device=cuda, generator=g)
+    weo = tuple(torch.rand(4096, 4096, device=cuda, generator=g)
+                for _ in range(2))
+    for w in (None, weo):
+        for inverse in (False, True):
+            b, aux = FF.fft2_pass1_front(raw, m, variant, nbits, w, inverse)
+            pb, paux = FF.fft2_pass1_front_plain(raw, m, variant, nbits, w,
+                                                 inverse)
+            err, scale = _max_err(b, pb)
+            assert err <= 2e-5 * scale
+            torch.testing.assert_close(aux, paux, rtol=1e-9, atol=0)
+            if variant == "simple" and nbits in (1, 2, 4):
+                win = None if w is None else torch.stack(
+                    [w[0].reshape(-1), w[1].reshape(-1)], 1).reshape(-1)
+                z = KU.unpack_subbyte_window(raw, nbits, win)
+                b9 = K2.fft2_pass1(torch.view_as_complex(
+                    z.reshape(1, 4096, 4096, 2)), inverse)
+                assert torch.equal(torch.view_as_real(b),
+                                   torch.view_as_real(b9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2", [(4096, 4096), (4096, 1 << 15),
+                                   (8192, 1 << 16)])
+def test_cuda_fft2_pass2_spectrum_matches_plain(cuda, n1, n2):
+    """B12 on a noise intermediate, with the keep mask and the exact
+    chirp, with the premul pair and with neither: within 5e-5 of the
+    largest |plain| with the chirp (K2's gate) and 2e-5 without; a zap
+    decision may differ only on a bin whose power lies within float32
+    rounding (1e-5 relative) of the threshold."""
+    m = n1 * n2
+    g = torch.Generator(device=cuda).manual_seed(n2)
+    b = torch.randn(n1, n2, dtype=torch.complex64, device=cuda, generator=g)
+    thr = torch.tensor([6.0 * n2], device=cuda)
+    keep = torch.rand(n1, n2, device=cuda, generator=g) > 0.05
+    c = torch.exp(2j * torch.pi * torch.rand(n1, n2, device=cuda,
+                                             generator=g))
+    forms = [dict(keep=keep, chirp=(1437.0, -64.0 / m, 1373.0, -478.8)),
+             dict(premul=(c, c * c)), dict()]
+    for kw in forms:
+        got = FF.fft2_pass2_spectrum(b, thr, 0.125, **kw)
+        want = FF.fft2_pass2_spectrum_plain(b, thr, 0.125, **kw)
+        same = (got == 0) == (want == 0)
+        if not bool(same.all()):
+            # the plain power of a flipped bin, before the scale
+            x = FF.fft2_pass2_spectrum_plain(
+                b, torch.tensor([float("inf")], device=cuda), 1.0,
+                premul=kw.get("premul"))
+            p = (x.real ** 2 + x.imag ** 2)[~same]
+            assert bool(((p - thr).abs() <= 1e-5 * thr).all())
+        err, scale = _max_err(got[same], want[same])
+        assert err <= (5e-5 if "chirp" in kw else 2e-5) * scale

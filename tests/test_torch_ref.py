@@ -101,17 +101,50 @@ def config_fields(argv: list) -> dict:
     return {"json": json.dumps(dataclasses.asdict(cfg))}
 
 
+class environ:
+    """``os.environ`` updated by ``env`` inside the block, restored after
+    it (the reference reads its ``SRTB_*`` switches when a processor is
+    built)."""
+
+    def __init__(self, env: dict | None):
+        self.env = dict(env or {})
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def segment_process(fields: dict, raw: np.ndarray,
                     window_name: str = "rectangle",
-                    staged: bool | None = None) -> dict:
+                    staged: bool | None = None, env: dict | None = None,
+                    spectrum: bool = False) -> dict:
     """``SegmentProcessor(Config(**fields), window_name, staged=staged)
-    .process(raw)`` plus the processor's constants."""
+    .process(raw)`` plus the processor's constants, under the environment
+    ``env``; with ``spectrum`` also the staged plan's dedispersed spectrum
+    (stage (b)'s output, in natural order)."""
     from srtb_tpu.config import Config
     from srtb_tpu.pipeline.runtime import has_signal
     from srtb_tpu.pipeline.segment import SegmentProcessor
     cfg = Config(**fields)
-    sp = SegmentProcessor(cfg, window_name=window_name, staged=staged)
-    wf_ri, res = sp.process(raw)
+    with environ(env):
+        sp = SegmentProcessor(cfg, window_name=window_name, staged=staged)
+        wf_ri, res = sp.process(raw)
+        out = {}
+        if spectrum:
+            spec = np.asarray(sp._run_stage_b(sp._jit_stage_a(
+                sp._as_device_bytes(raw))))
+            spec = spec.reshape(2, spec.shape[1], -1)
+            if sp.front_fuse:
+                n1, n2 = sp._ffuse_fac
+                spec = np.swapaxes(spec.reshape(2, -1, n1, n2), -1, -2)
+            out["spectrum"] = spec.reshape(2, -1, sp.n_spectrum)
     return {
         "fields": json.dumps(dataclasses.asdict(cfg)),
         "wf_ri": wf_ri, "detect": res,
@@ -120,26 +153,67 @@ def segment_process(fields: dict, raw: np.ndarray,
         "plan": sp.plan_name, "window": sp.window,
         "dewindow": sp.watfft_dewindow, "rfi_mask": sp.rfi_mask,
         "norm_coeff": sp.norm_coeff, "nsamps_reserved": sp.nsamps_reserved,
-        "time_reserved_count": sp.time_reserved_count,
+        "time_reserved_count": sp.time_reserved_count, **out,
     }
 
 
-def plan_resolution(fields: dict) -> dict:
-    """The reference's plan flags for a config, without building a
-    processor: staged, the resolved strategy, and the fused tail (or the
-    name of the exception its resolution raises)."""
+def plan_resolution(fields: dict, env: dict | None = None) -> dict:
+    """The reference's plan flags for a config under the environment
+    ``env``, without building a processor: staged, the resolved strategy,
+    the fused tail and the front fuse (or the name of the exception a
+    resolution raises)."""
     from srtb_tpu.config import Config
     from srtb_tpu.ops import fft as F
     from srtb_tpu.pipeline import segment as S
     cfg = Config(**fields)
     staged = S.staged_resolves(cfg)
-    try:
-        fused = str(S.fused_tail_resolves(cfg, staged))
-    except ValueError:
-        fused = "ValueError"
-    return {"staged": staged, "fused_tail": fused,
-            "strategy": F.resolve_strategy(cfg.baseband_input_count,
-                                           cfg.fft_strategy)}
+    out = {"staged": staged,
+           "strategy": F.resolve_strategy(cfg.baseband_input_count,
+                                          cfg.fft_strategy)}
+    with environ(env):
+        for key, resolve in (("fused_tail", S.fused_tail_resolves),
+                             ("front_fuse", S.front_fuse_resolves)):
+            try:
+                out[key] = str(resolve(cfg, staged))
+            except ValueError:
+                out[key] = "ValueError"
+    return out
+
+
+def pass1_front(raw: np.ndarray, m: int, variant: str, nbits: int,
+                window_eo=None, inverse: bool = False) -> dict:
+    """``pallas_fft2.pass1_front`` in interpret mode, with its
+    ``front_mean_power``: the intermediate (re, im), the accumulators and
+    the mean."""
+    import jax.numpy as jnp
+    from srtb_tpu.io import formats
+    from srtb_tpu.ops import pallas_fft2 as pf2
+    streams = 2 if variant == "interleaved_samples_2" else 1
+    assert formats.resolve(variant).data_stream_count == streams
+    w = None if window_eo is None else tuple(jnp.asarray(a)
+                                             for a in window_eo)
+    br, bi, aux = pf2.pass1_front(jnp.asarray(raw), m=m, streams=streams,
+                                  variant=variant, nbits=nbits, window_eo=w,
+                                  inverse=inverse, interpret=True)
+    n2 = pf2.ffuse_factor(m)[1]
+    return {"br": br, "bi": bi, "aux": aux,
+            "mean": pf2.front_mean_power(aux, n2, m)}
+
+
+def pass2_spectrum(br: np.ndarray, bi: np.ndarray, thr: float, norm: float,
+                   mask_blocked=None, premul_blocked=None,
+                   chirp=None) -> dict:
+    """``pallas_fft2.pass2_spectrum`` in interpret mode."""
+    import jax.numpy as jnp
+    from srtb_tpu.ops import pallas_fft2 as pf2
+    pm = None if premul_blocked is None else tuple(
+        jnp.asarray(a) for a in premul_blocked)
+    sr, si = pf2.pass2_spectrum(
+        jnp.asarray(br), jnp.asarray(bi), thr=jnp.float32(thr), norm=norm,
+        mask_blocked=None if mask_blocked is None
+        else jnp.asarray(mask_blocked), premul_blocked=pm, chirp=chirp,
+        interpret=True)
+    return {"sr": sr, "si": si}
 
 
 def pipeline_main(argv: list, out_dir: str) -> dict:

@@ -28,7 +28,7 @@ from srtb_tpu_torch.ops import fft as F
 from srtb_tpu_torch.pipeline import segment as seg
 from srtb_tpu_torch.pipeline.runtime import has_signal
 from srtb_tpu_torch.pipeline.segment import SegmentProcessor
-from test_torch_ref import REPO, run_reference
+from test_torch_ref import REPO, environ, run_reference
 
 EXAMPLE_CFG = REPO / "examples" / "srtb_config_1644-4559.cfg"
 
@@ -49,8 +49,9 @@ def slice_config(n: int, channels: int, dm: float) -> Config:
 
 def dispersed_bytes(cfg: Config, n_samples: int, pulse_at: int,
                     amp: float, seed: int) -> np.ndarray:
-    """2-bit baseband: numpy noise plus a pulse dispersed by the inverse
-    float64 chirp, quantized by the port's synth."""
+    """Baseband of the cfg's sample width: numpy noise plus a pulse
+    dispersed by the inverse float64 chirp, quantized by the port's
+    synth."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(n_samples)
     pulse = np.zeros(n_samples)
@@ -61,7 +62,7 @@ def dispersed_bytes(cfg: Config, n_samples: int, pulse_at: int,
     spec[:m] *= np.conj(dd.chirp_factor_host(m, f_low, bw / m, f_low + bw,
                                              cfg.dm))
     sig = torch.from_numpy(x + np.fft.irfft(spec, n_samples))
-    return synth.quantize(sig, 2).numpy()
+    return synth.quantize(sig, cfg.baseband_input_bits).numpy()
 
 
 # (n, channels, dm, pulse amplitude, window, overrides, the plan both
@@ -74,9 +75,15 @@ FOUR_STEP = {"fft_strategy": "four_step"}
 PALLAS2 = {"fft_strategy": "pallas2"}
 # the staged plan forced (the processor's ``staged`` argument) without
 # use_pallas, as the example cfg runs it at 2^30; fused_tail off, since
-# "auto" fuses the staged tail at small n (ROADMAP A5)
+# "auto" fuses the staged tail at small n
 STAGED_PLAIN = {"staged": True, "fft_strategy": "four_step",
                 "use_pallas": False, "fused_tail": "off"}
+# the staged plan with the fused tail ("auto" fuses it at 2^16), under the
+# reference's environment switches ("env", set around both processors)
+STAGED = {"staged": True, "fft_strategy": "four_step"}
+ROWS_PALLAS2 = {"SRTB_STAGED_ROWS_IMPL": "pallas2"}
+FFUSE = dict(STAGED, front_fuse="on", use_pallas=False,
+             use_pallas_sk=False, env=ROWS_PALLAS2)
 SHAPES = {
     "n16_ch32": (1 << 16, 32, -0.1, 4.0, "rectangle", {},
                  "fused:monolithic"),
@@ -114,22 +121,66 @@ SHAPES = {
         dict(STAGED_PLAIN, use_pallas_sk=False), "staged:four_step"),
     "n17_ch8_staged_no_pallas_sk": (1 << 17, 8, -0.2, 5.0, "rectangle",
                                     STAGED_PLAIN, "staged:four_step"),
+    "n16_ch4_staged_rows_pallas": (
+        1 << 16, 4, -0.1, 4.0, "rectangle",
+        dict(STAGED, env={"SRTB_STAGED_ROWS_IMPL": "pallas"}),
+        "staged:four_step+ftail+skzap"),
+    "n16_ch32_staged_rows_pallas2": (
+        1 << 16, 32, -0.1, 4.0, "rectangle", dict(STAGED, env=ROWS_PALLAS2),
+        "staged:four_step+ftail"),
+    "n16_ch4_staged_blocked": (
+        1 << 16, 4, -0.1, 4.0, "rectangle",
+        dict(STAGED, use_pallas=False, use_pallas_sk=False,
+             env={"SRTB_STAGED_BLOCKED": "1"}), "staged:four_step+ftail"),
+    "n16_ch4_ffuse_1bit": (1 << 16, 4, -0.1, 6.0, "rectangle",
+                           dict(FFUSE, baseband_input_bits=1),
+                           "staged:four_step+ftail+ffuse"),
+    "n16_ch4_ffuse_2bit": (1 << 16, 4, -0.1, 4.0, "rectangle", FFUSE,
+                           "staged:four_step+ftail+ffuse"),
+    "n16_ch4_ffuse_4bit": (1 << 16, 4, -0.1, 4.0, "rectangle",
+                           dict(FFUSE, baseband_input_bits=4),
+                           "staged:four_step+ftail+ffuse"),
+    "n16_ch4_ffuse_8bit": (1 << 16, 4, -0.1, 4.0, "rectangle",
+                           dict(FFUSE, baseband_input_bits=8),
+                           "staged:four_step+ftail+ffuse"),
+    "n16_ch4_ffuse_hann": (1 << 16, 4, -0.1, 4.0, "hann", FFUSE,
+                           "staged:four_step+ftail+ffuse"),
+    "n16_ch4_ffuse_skzap": (
+        1 << 16, 4, -0.1, 4.0, "rectangle",
+        dict(FFUSE, use_pallas=True, use_pallas_sk=True),
+        "staged:four_step+ftail+ffuse+skzap"),
+    "n16_ch4_ffuse_auto": (1 << 16, 4, -0.1, 4.0, "rectangle",
+                           dict(FFUSE, front_fuse="auto"),
+                           "staged:four_step+ftail"),
+    "n16_ch4_ffuse_auto_opt_in": (
+        1 << 16, 4, -0.1, 4.0, "rectangle",
+        dict(FFUSE, front_fuse="auto",
+             env=dict(ROWS_PALLAS2, SRTB_PALLAS_FFUSE="1")),
+        "staged:four_step+ftail+ffuse"),
 }
+# shapes whose dedispersed spectrum is compared too (the hann window zaps
+# every waterfall row at this size, in both packages)
+SPECTRUM = ("n16_ch4_ffuse_hann",)
 
 
 def _case(name):
     n, ch, dm, amp, window, over, _plan = SHAPES[name]
     over = dict(over)
     staged = over.pop("staged", None)
+    env = over.pop("env", {})
     cfg = slice_config(n, ch, dm).replace(**over)
     nres = dd.nsamps_reserved(cfg)
     raw = dispersed_bytes(cfg, n, (n - 2 * nres) // 2, amp, seed=n)
-    return cfg, raw, window, staged
+    return cfg, raw, window, staged, env
 
 
 CASES = {name: _case(name) for name in SHAPES}
 
 
+# the lines every 2^30 path of the chip smoke but the shipped one adds,
+# with the fused tail
+PATH_2_30 = dict(use_pallas=True, use_pallas_sk=True,
+                 baseband_reserve_sample=True, fused_tail="on")
 # (n, fft_strategy, use_pallas, fused_tail): the plan flags at sizes too
 # large to build here, the production 2^30 and 2^27 among them ("shipped":
 # the example cfg as shipped, with gui_enable = 0)
@@ -147,14 +198,46 @@ RESOLVE = {
     "n27_monolithic": (1 << 27, "monolithic", True, "auto"),
     "n27_monolithic_tail_on": (1 << 27, "monolithic", True, "on"),
     "n27_pallas_tail_off": (1 << 27, "pallas", True, "off"),
+    # the example cfg with the lines of the chip smoke's 2^30 staged paths
+    # (a dict: fields replaced in the shipped cfg), front-fused or not,
+    # and the reference's ValueError cases of front_fuse = on (not staged,
+    # other rows, no fused tail, an unpack variant B11 does not read, the
+    # blocked pack); "auto" with and without the opt-in
+    "n30_ffuse": dict(PATH_2_30, front_fuse="on"),
+    "n30_staged_pallas2": dict(PATH_2_30, front_fuse="off"),
+    "n30_ffuse_auto": dict(PATH_2_30, front_fuse="auto"),
+    "n30_ffuse_auto_opt_in": dict(PATH_2_30, front_fuse="auto"),
+    "n27_ffuse_not_staged": dict(PATH_2_30, front_fuse="on",
+                                 baseband_input_count=1 << 27,
+                                 fft_strategy="pallas2"),
+    "n30_ffuse_rows_pallas": dict(PATH_2_30, front_fuse="on"),
+    "n30_ffuse_tail_off": dict(PATH_2_30, front_fuse="on",
+                               fused_tail="off"),
+    "n30_ffuse_snap1": dict(PATH_2_30, front_fuse="on",
+                            baseband_input_bits=-8,
+                            baseband_format_type="naocpsr_snap1"),
+    "n30_ffuse_blocked": dict(PATH_2_30, front_fuse="on"),
+    # the example cfg as shipped with the fused tail and front fusion
+    "n30_shipped_ffuse": dict(fused_tail="on", front_fuse="on"),
+}
+RESOLVE_ENV = {
+    "n30_ffuse": ROWS_PALLAS2, "n30_staged_pallas2": ROWS_PALLAS2,
+    "n30_ffuse_auto": ROWS_PALLAS2,
+    "n30_ffuse_auto_opt_in": dict(ROWS_PALLAS2, SRTB_PALLAS_FFUSE="1"),
+    "n27_ffuse_not_staged": ROWS_PALLAS2,
+    "n30_ffuse_rows_pallas": {"SRTB_STAGED_ROWS_IMPL": "pallas"},
+    "n30_ffuse_tail_off": ROWS_PALLAS2,
+    "n30_ffuse_snap1": ROWS_PALLAS2,
+    "n30_ffuse_blocked": dict(ROWS_PALLAS2, SRTB_STAGED_BLOCKED="1"),
+    "n30_shipped_ffuse": ROWS_PALLAS2,
 }
 
 
 def _resolve_config(name: str) -> Config:
-    if RESOLVE[name] is None:
+    if RESOLVE[name] is None or isinstance(RESOLVE[name], dict):
         cfg = Config()
         cfg.load_file(str(EXAMPLE_CFG))
-        return cfg.replace(gui_enable=False)
+        return cfg.replace(gui_enable=False, **(RESOLVE[name] or {}))
     n, strategy, use_pallas, tail = RESOLVE[name]
     return Config(baseband_input_count=n, fft_strategy=strategy,
                   use_pallas=use_pallas, use_pallas_sk=True, fused_tail=tail)
@@ -163,10 +246,12 @@ def _resolve_config(name: str) -> Config:
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     jobs = [{"key": name, "fn": "test_torch_ref:segment_process",
-             "args": [dataclasses.asdict(cfg), raw, window, staged]}
-            for name, (cfg, raw, window, staged) in CASES.items()]
+             "args": [dataclasses.asdict(cfg), raw, window, staged, env,
+                      name in SPECTRUM]}
+            for name, (cfg, raw, window, staged, env) in CASES.items()]
     jobs += [{"key": f"resolve/{name}", "fn": "test_torch_ref:plan_resolution",
-              "args": [dataclasses.asdict(_resolve_config(name))]}
+              "args": [dataclasses.asdict(_resolve_config(name)),
+                       RESOLVE_ENV.get(name)]}
              for name in RESOLVE]
     return run_reference(jobs, tmp_path_factory.mktemp("ref_segment"))
 
@@ -174,15 +259,16 @@ def ref(tmp_path_factory):
 @pytest.fixture(scope="module")
 def port(ref):
     """The port's processor on the reference processor's own config
-    fields (``Config.from_reference_fields``), so both run one
-    configuration."""
+    fields (``Config.from_reference_fields``) under the same environment,
+    so both run one configuration."""
     out = {}
-    for name, (cfg, raw, window, staged) in CASES.items():
+    for name, (cfg, raw, window, staged, env) in CASES.items():
         fields = json.loads(str(ref[f"{name}/fields"]))
         port_cfg = Config.from_reference_fields(fields)
         assert port_cfg == cfg
-        sp = SegmentProcessor(port_cfg, window_name=window, device="cpu",
-                              staged=staged)
+        with environ(env):
+            sp = SegmentProcessor(port_cfg, window_name=window, device="cpu",
+                                  staged=staged)
         out[name] = (sp, *sp.process(raw))
     return out
 
@@ -204,7 +290,11 @@ def test_plan_and_constants_match(ref, port, name):
         else:
             np.testing.assert_array_equal(got.numpy(), ref[f"{name}/{key}"])
     assert (sp.window is None) == (SHAPES[name][4] == "rectangle")
-    zap = sp.rfi_zap if sp._plain_s1 else ~sp.rfi_keep
+    if sp.front_fuse:
+        # B12's keep mask, blocked (bin k2 n1 + k1 at [k1, k2])
+        zap = ~sp._ffuse_keep.T.reshape(-1)
+    else:
+        zap = sp.rfi_zap if sp._plain_s1 else ~sp.rfi_keep
     np.testing.assert_array_equal(zap.numpy(), ref[f"{name}/rfi_mask"])
     assert sp.norm_coeff == float(ref[f"{name}/norm_coeff"])
     assert sp.nsamps_reserved == int(ref[f"{name}/nsamps_reserved"]) > 0
@@ -253,18 +343,38 @@ def test_waterfall_and_time_series(ref, port, name):
     assert ts_err <= sum(gates)
 
 
+@pytest.mark.parametrize("name", SPECTRUM)
+def test_dedispersed_spectrum_matches_reference(ref, port, name):
+    """The dedispersed spectrum (the front-fused plan's B11, Parseval
+    mean, B12 and unblock; their plain versions here) against the
+    reference's stage (b) output, within 2e-5 of its largest value, the
+    waterfall's gate: the chirp dominates the error there as here.  The
+    stage-1 zaps (exact zeros) are the same bins."""
+    sp = port[name][0]
+    got = sp._spectrum(sp._as_device_bytes(CASES[name][1])).numpy()
+    want_ri = ref[f"{name}/spectrum"]
+    want = want_ri[0, 0] + 1j * want_ri[1, 0]
+    assert got.shape == want.shape == (sp.n_spectrum,)
+    np.testing.assert_array_equal(got == 0, want == 0)
+    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("name", sorted(RESOLVE))
 def test_plan_resolution_matches_reference(ref, name):
-    """staged_resolves, resolve_strategy and fused_tail_resolves give the
-    reference's answers (a ValueError where the reference raises one)."""
+    """staged_resolves, resolve_strategy, fused_tail_resolves and
+    front_fuse_resolves give the reference's answers under the same
+    environment (a ValueError where the reference raises one)."""
     cfg = _resolve_config(name)
     staged = seg.staged_resolves(cfg)
-    try:
-        fused = str(seg.fused_tail_resolves(cfg, staged))
-    except ValueError:
-        fused = "ValueError"
     assert staged == bool(ref[f"resolve/{name}/staged"])
-    assert fused == str(ref[f"resolve/{name}/fused_tail"])
+    with environ(RESOLVE_ENV.get(name, {})):
+        for key, resolve in (("fused_tail", seg.fused_tail_resolves),
+                             ("front_fuse", seg.front_fuse_resolves)):
+            try:
+                got = str(resolve(cfg, staged))
+            except ValueError:
+                got = "ValueError"
+            assert got == str(ref[f"resolve/{name}/{key}"]), key
     assert F.resolve_strategy(cfg.baseband_input_count, cfg.fft_strategy) \
         == str(ref[f"resolve/{name}/strategy"])
 
@@ -272,21 +382,25 @@ def test_plan_resolution_matches_reference(ref, name):
 def test_unported_settings_raise():
     cfg = slice_config(1 << 12, 32, 0.0)
     for change in ({"quality_stats": True}, {"search_mode": "periodicity"},
-                   {"micro_batch_segments": 2}, {"ingest_ring": "on"},
-                   {"front_fuse": "on"}):
+                   {"micro_batch_segments": 2}, {"ingest_ring": "on"}):
         with pytest.raises(NotImplementedError):
             SegmentProcessor(cfg.replace(**change), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         SegmentProcessor(cfg.replace(baseband_format_type="gznupsr_a1"),
                          device="cpu")
-    # the staged plan with the fused tail has no test against the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        seg.check_plan(_resolve_config("n30_tail_on"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        SegmentProcessor(cfg, device="cpu", staged=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B11/B12"):
-        seg.check_plan(_resolve_config("n30_shipped").replace(
-            front_fuse="on"))
+    with environ(ROWS_PALLAS2):
+        # B11 reads the 2-pol interleave; the processor is single-stream
+        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+            SegmentProcessor(cfg.replace(
+                baseband_format_type="interleaved_samples_2",
+                baseband_input_bits=8, front_fuse="on"), device="cpu",
+                staged=True)
+        # front_fuse = on off the staged plan raises, as in the reference
+        with pytest.raises(ValueError, match="front_fuse=on"):
+            SegmentProcessor(cfg.replace(front_fuse="on"), device="cpu")
+    with pytest.raises(ValueError, match="unknown rows impl"):
+        with environ({"SRTB_STAGED_ROWS_IMPL": "cufft"}):
+            SegmentProcessor(cfg, device="cpu", staged=True)
     with pytest.raises(ValueError):
         SegmentProcessor(cfg.replace(fused_tail="on"), device="cpu")
 
