@@ -20,7 +20,11 @@ result lines are printed:
    path's (8192, 65536), B11 also at 2^24 for every unpack variant and
    width it reads, B12 at every row length), with the tolerance stated
    beside each check, and its time beside the plain version's, its bound
-   and, where one PyTorch call computes the same function, that call's;
+   and, where one PyTorch call computes the same function, that call's
+   (B6 and B10 in turns with ``torch.fft`` at every shape a main path
+   gives them: the 2^27 legs, the staged ``pallas`` rows front's legs at
+   2^30, the waterfall rows, B10 at [2, 4096, 8192] and [8192, 65536];
+   with the row-FFT core's launch geometry at every row length);
 5. main paths: 2-bit files of two segments with a dispersed pulse in the
    second, made on the card by the port's synth, searched by the port's
    ``srtb-torch-main`` at the example J1644-4559 configuration: at 2^30
@@ -461,14 +465,69 @@ def _fft_err(got, want) -> tuple[float, float]:
     return float((got - want).abs().max()), float(want.abs().max())
 
 
+def turns(kernel, library, reps: int = 10) -> tuple[float, float]:
+    """Mean device times of ``kernel`` and ``library`` timed in turns
+    (kernel, library, library, kernel) in the same call, so that both see
+    the same card and clocks."""
+    k1, l1, l2, k2 = (cuda_ms(kernel, reps), cuda_ms(library, reps),
+                      cuda_ms(library, reps), cuda_ms(kernel, reps))
+    return (k1 + k2) / 2, (l1 + l2) / 2
+
+
+def row_geometry_lines() -> dict:
+    """Print and return the B6/B10 core's launch geometry at every row
+    length (one row a CTA or a cluster): CTAs a cluster, values a CTA,
+    threads, CTAs an SM, the CTAs or clusters the occupancy query says the
+    card holds at once, registers and spilled bytes a thread, shared bytes
+    a CTA."""
+    import torch
+    from srtb_tpu_torch.kernels import fft_rows as KF
+    geo = {}
+    for log2 in range(12, 17):
+        geo[f"2^{log2}"] = KF.geometry(1 << log2, torch.device("cuda"))
+        say(f"row-FFT core geometry L=2^{log2}: " + json.dumps(
+            geo[f"2^{log2}"]))
+    return geo
+
+
+def time_rows(label, shape, inverse, kernel, g, gate) -> dict:
+    """One shape of B6 or B10: checked against ``torch.fft`` (the plain
+    version) within ``gate`` of the largest, then timed in turns with it."""
+    import torch
+    x = torch.randn(*shape, dtype=torch.complex64, device="cuda",
+                    generator=g)
+
+    def library():
+        if inverse:
+            return torch.fft.ifft(x, norm="forward")
+        return torch.fft.fft(x)
+    err, scale = _fft_err(kernel(x, inverse), library())
+    if not err <= gate * scale:
+        fail(f"{label} {list(shape)} inverse={inverse}: {err} > {gate} x "
+             f"{scale}")
+    k_ms, l_ms = turns(lambda: kernel(x, inverse), library)
+    b_ms = 16 * x.numel() / PEAK_BYTES_PER_S * 1e3
+    say(f"{label} {list(shape)} inverse={inverse}: kernel {k_ms:.4f} ms, "
+        f"torch.fft {l_ms:.4f} ms (in turns), bound {b_ms:.4f} ms "
+        f"({100 * b_ms / k_ms:.1f}% of it), kernel / torch.fft "
+        f"{k_ms / l_ms:.3f}, max_abs_err {err:.3e} <= {gate} x {scale:.3e}")
+    del x
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "inverse": inverse, "ms": k_ms,
+            "library_ms": l_ms, "bound_ms": b_ms, "max_abs_err": err}
+
+
 def check_fft_rows(copy_gbps: float) -> dict:
-    """B6 at the two legs of the 2^27 segment FFT (forward rows
-    [2 x 2^13, 2^12] and [2 x 2^12, 2^13]) and at every row length 2^12
-    ... 2^16 in both directions (one CTA; clusters of 2 and 4) on 8 rows.
-    Tolerance: 1e-5 of the largest |plain| (float32 FFTs of two
-    algorithms: errors grow like eps log2 L).  Times: the mean of the two
-    legs, per launch; the library call is torch.fft.fft (cuFFT), which is
-    also the plain version."""
+    """B6 at every row length 2^12 ... 2^16 in both directions (one CTA;
+    clusters of 2, 4 and 8) on 8 rows, then timed at every shape a main
+    path gives it: the two legs of the 2^27 segment FFT (forward rows
+    [2 x 2^13, 2^12] and [2 x 2^12, 2^13]), the legs of the staged
+    ``pallas`` rows front at 2^30 (one 2^29 plane as [2^15, 2^14] and
+    [2^14, 2^15]) and the waterfall rows [2^11, 2^15], inverse.  Tolerance:
+    1e-5 of the largest |plain| (float32 FFTs of two algorithms: errors
+    grow like eps log2 L).  Each shape is timed in turns with the library
+    call, torch.fft (cuFFT), which is also the plain version; the record's
+    times are the mean of the two 2^27 legs, per launch."""
     import torch
     from srtb_tpu_torch.kernels import fft_rows as KF
     g = torch.Generator(device="cuda").manual_seed(22)
@@ -483,31 +542,29 @@ def check_fft_rows(copy_gbps: float) -> dict:
                 fail(f"fft_rows L=2^{log2} inverse={inverse}: {err} > "
                      f"1e-5 x {scale}")
             worst = max(worst, err / scale)
-    legs = [(2 << 13, 1 << 12), (2 << 12, 1 << 13)]
-    times = []
-    err_legs = 0.0
-    for batch, length in legs:
-        x = torch.randn(batch, length, dtype=torch.complex64, device="cuda",
-                        generator=g)
-        err, scale = _fft_err(KF.fft_rows(x), KF.fft_rows_plain(x))
-        if not err <= 1e-5 * scale:
-            fail(f"fft_rows leg [{batch}, {length}]: {err} > 1e-5 x {scale}")
-        err_legs = max(err_legs, err)
-        times.append((cuda_ms(lambda: KF.fft_rows(x), 10),
-                      cuda_ms(lambda: KF.fft_rows_plain(x), 10),
-                      cuda_ms(lambda: torch.fft.fft(x), 10)))
-        say(f"fft_rows leg [{batch}, {length}]: kernel {times[-1][0]:.4f} "
-            f"ms, plain {times[-1][1]:.4f} ms, torch.fft.fft "
-            f"{times[-1][2]:.4f} ms, max_abs_err {err:.3e}")
-        del x
     say(f"check fft_rows: every L in 2^12..2^16 both ways within 1e-5 of "
-        f"the largest (worst {worst:.2e}); legs within 1e-5")
+        f"the largest (worst {worst:.2e})")
+    legs = [(2 << 13, 1 << 12), (2 << 12, 1 << 13)]
+    by_shape = [time_rows("fft_rows leg", leg, False, KF.fft_rows, g, 1e-5)
+                for leg in legs]
+    plane = 1 << (LOG2_N - 1)
+    for length in (1 << 14, 1 << 15):
+        by_shape.append(time_rows("fft_rows staged pallas front leg",
+                                  (plane // length, length), False,
+                                  KF.fft_rows, g, 1e-5))
+    wf = (1 << LOG2_CHANNELS, 1 << (LOG2_N_ROWS - 1 - LOG2_CHANNELS))
+    by_shape.append(time_rows("fft_rows waterfall rows", wf, True,
+                              KF.fft_rows, g, 1e-5))
     n = 1 << (LOG2_N_ROWS - 1)  # complex values per leg
-    k_ms, p_ms, l_ms = (sum(t[i] for t in times) / 2 for i in range(3))
+    k_ms, l_ms = (sum(t[k] for t in by_shape[:2]) / 2
+                  for k in ("ms", "library_ms"))
+    err_legs = max(t["max_abs_err"] for t in by_shape[:2])
+    # the plain version is torch.fft itself: its time is the library's
     # per leg: 8 B read + 8 B written per value; ~5 log2(L) flops per value
-    rec = _record("fft_rows", k_ms, p_ms, 16 * n,
+    rec = _record("fft_rows", k_ms, l_ms, 16 * n,
                   {"f32": 5 * n * 12.5}, err_legs, copy_gbps, l_ms)
-    torch.cuda.empty_cache()
+    rec["by_shape"] = by_shape
+    rec["geometry"] = row_geometry_lines()
     return rec
 
 
@@ -753,8 +810,10 @@ def check_fft2(copy_gbps: float) -> list:
     Tolerance: 2e-5 of the largest |plain|, the reference's own gate for
     the two-pass C2C (tests/test_pallas_fft2.py:48).  Times at the path's
     shape; B10's library call is ``torch.fft.fft`` along the rows (cuFFT),
-    and the cuFFT column FFT alone (``torch.fft.fft`` along the columns,
-    no twiddle) is printed beside B9 as a reference point."""
+    timed in turns with B10 at the pallas2 path's shape and at the staged
+    pallas2 2^30 path's [8192, 65536]; the cuFFT column FFT alone
+    (``torch.fft.fft`` along the columns, no twiddle) is printed beside B9
+    as a reference point."""
     import torch
     from srtb_tpu_torch.kernels import fft2 as K2
     g = torch.Generator(device="cuda").manual_seed(25)
@@ -802,13 +861,24 @@ def check_fft2(copy_gbps: float) -> list:
                 # the column FFT ~5 log2(n1) flops a value; the twiddle's
                 # sincospif (~20) and complex multiply (6)
                 {"f32": 5 * n * 12 + 26 * n}, worst["fft2_pass1"], copy_gbps),
-        _record("fft2_pass2", cuda_ms(lambda: K2.fft2_pass2(p1), 10),
-                cuda_ms(lambda: K2.fft2_pass2_plain(p1), 10), 16 * n,
-                {"f32": 5 * n * 13}, worst["fft2_pass2"], copy_gbps,
-                cuda_ms(lambda: torch.fft.fft(p1, dim=-1), 10)),
     ]
-    del x, b, p1
+    del x, b
     K2.twiddle.cache_clear()
+    torch.cuda.empty_cache()
+    # B10 in turns with torch.fft.fft along the same rows: at the pallas2
+    # path's [2, 4096, 8192] (pass 1's output) and at the staged pallas2
+    # 2^30 path's [8192, 65536]
+    by_shape = []
+    for shape in ((2, 4096, 8192), (1, 8192, 1 << 16)):
+        by_shape.append(time_rows("fft2_pass2", shape, False, K2.fft2_pass2,
+                                  g, 2e-5))
+    k_ms, l_ms = by_shape[0]["ms"], by_shape[0]["library_ms"]
+    recs.append(_record("fft2_pass2", k_ms,
+                        cuda_ms(lambda: K2.fft2_pass2_plain(p1), 10),
+                        16 * n, {"f32": 5 * n * 13}, worst["fft2_pass2"],
+                        copy_gbps, l_ms))
+    recs[-1]["by_shape"] = by_shape
+    del p1
     torch.cuda.empty_cache()
     return recs
 

@@ -1,6 +1,12 @@
 // B6/B7/B8: batched row FFTs of length L = 2^12 ... 2^16 held in shared
 // memory, with the waterfall tail's epilogues.
 //
+// The plain mode (B6, and B10 on the same function) no longer runs here:
+// it moved to the TMA-fed row-FFT core of fft_rows_sm90.cuh.  This
+// kernel keeps the epilogue modes (kStats for B7, kSkZap for B8), and Plan
+// and its passes stay as they were for them, for B9/B11's column pass
+// (fft2.cuh) and for B12 (fft2_spectrum.cu).
+//
 // Replace the TPU kernels of srtb_tpu/ops/pallas_fft.py:
 //   B6 fft_rows_ri        (pallas_call :496, body _fft_rows_kernel :137)
 //   B7 fft_rows_stats_ri  (pallas_call :546, body _fft_rows_stats_kernel

@@ -36,13 +36,14 @@ _SIGNATURES = {
     "srtb_sk_stats": (_P, _P, _P, _P, _I64, _I64, _P),
     "srtb_sk_apply_timeseries": (_P, _P, _P, _P, _I64, _I64, _P),
     "srtb_unpack_subbyte_planes_window": (_P, _P, _P, _I64, _I32, _P),
-    "srtb_fft_rows": (_P, _P, _P, _I64, _I64, _I32, _P),
+    "srtb_fft_rows_geometry": (_I64, _P),
+    "srtb_fft_rows": (_P, _P, _I64, _I64, _I32, _P),
     "srtb_fft_rows_stats": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P),
     "srtb_fft_rows_skzap": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                             _I32, _I64, _F32, _F32, _P),
     "srtb_dedisperse": (_P, _P, _I64, _I64, _F64, _F64, _F64, _F64, _P),
     "srtb_fft2_pass1": (_P, _P, _P, _I64, _I64, _I64, _I32, _P),
-    "srtb_fft2_pass2": (_P, _P, _P, _I64, _I64, _I32, _P),
+    "srtb_fft2_pass2": (_P, _P, _I64, _I64, _I32, _P),
     "srtb_fft2_pass1_front": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                               _I32, _I32, _P),
     "srtb_fft2_pass2_spectrum": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64,

@@ -165,22 +165,15 @@ def fft2_pass2(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """Pass 2 on pass 1's ``[..., n1, n2]``: the n2-point C2C along every
     row, C[k1, k2] in the same k1-major layout.  A CPU tensor takes the
     plain version; a CUDA tensor launches B10 (B6's kernel under its own
-    entry point and counter)."""
+    entry point and counter; a view not 16-byte aligned is copied
+    first)."""
     batch, n1, n2 = _blocks(x, "fft2_pass2")
     if x.device.type == "cpu":
         return fft2_pass2_plain(x, inverse)
-    name = "fft2_pass2"
-    x = x.contiguous()
-    build.require_cuda_contiguous(name, x=x)
-    out = torch.empty_like(x)
-    tw = KF.twiddle_table(n2, x.device)
-    with torch.cuda.device(x.device):
-        rc = build.library().srtb_fft2_pass2(
-            x.data_ptr(), out.data_ptr(), tw.data_ptr(), batch * n1, n2,
-            int(inverse), build.stream_of(x))
-    build.check(rc, name)
+    out = KF.run_rows("srtb_fft2_pass2", x.contiguous().reshape(-1, n2),
+                      batch * n1, n2, inverse)
     fft2_pass2.launches += 1
-    return out
+    return out.reshape(x.shape)
 
 
 fft2_pass2.launches = 0

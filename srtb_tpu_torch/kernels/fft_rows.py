@@ -11,6 +11,7 @@ kernels apply it, as a multiply by their float32 reciprocal.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -78,23 +79,51 @@ def _moments(p: torch.Tensor):
             (p64 * p64).sum(-1).to(torch.float32))
 
 
+# the fields of ``srtb_fft_rows_geometry`` (csrc/fft_rows.cu)
+GEOMETRY_FIELDS = ("ctas_a_cluster", "values_a_cta", "threads", "ctas_an_sm",
+                   "resident", "registers", "local_bytes", "smem_bytes")
+
+
+def geometry(length: int, device: torch.device) -> dict:
+    """The launch geometry of the B6/B10 row-FFT core for rows of
+    ``length`` on ``device``'s card (one row a CTA or a cluster): CTAs a
+    cluster, values a CTA, threads, CTAs an SM, the CTAs (or clusters)
+    the card holds at once (the occupancy query), and the compiler's
+    registers and local (spilled) bytes a thread."""
+    geo = (ctypes.c_int * len(GEOMETRY_FIELDS))()
+    with torch.cuda.device(device):
+        rc = build.library().srtb_fft_rows_geometry(length,
+                                                    ctypes.addressof(geo))
+    build.check(rc, "fft_rows geometry")
+    return dict(zip(GEOMETRY_FIELDS, geo))
+
+
+def run_rows(entry: str, x2: torch.Tensor, batch: int, length: int,
+             inverse: bool) -> torch.Tensor:
+    """Launch the row-FFT core through the library's ``entry`` (B6's or
+    B10's) on CUDA rows ``x2 [batch, length]``.  TMA reads need 16-byte
+    aligned rows: a view whose storage offset leaves it 8-byte aligned is
+    copied first."""
+    build.require_cuda_contiguous(entry, x=x2)
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    out = torch.empty_like(x2)
+    with torch.cuda.device(x2.device):
+        rc = getattr(build.library(), entry)(
+            x2.data_ptr(), out.data_ptr(), batch, length, int(inverse),
+            build.stream_of(x2))
+    build.check(rc, entry)
+    return out
+
+
 def fft_rows(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """C2C FFT along the last axis of complex64 ``x [..., L]``, L a power
     of two in [2^12, 2^16].  A CPU tensor takes the plain version; a CUDA
-    tensor launches B6."""
+    tensor launches B6 (a view not 16-byte aligned is copied first)."""
     x2, batch, length = _rows(x, "fft_rows")
     if x.device.type == "cpu":
         return fft_rows_plain(x, inverse)
-    name = "fft_rows"
-    x2 = x2.contiguous()
-    build.require_cuda_contiguous(name, x=x2)
-    out = torch.empty_like(x2)
-    tw = twiddle_table(length, x.device)
-    with torch.cuda.device(x.device):
-        rc = build.library().srtb_fft_rows(
-            x2.data_ptr(), out.data_ptr(), tw.data_ptr(), batch, length,
-            int(inverse), build.stream_of(x2))
-    build.check(rc, name)
+    out = run_rows("srtb_fft_rows", x2.contiguous(), batch, length, inverse)
     fft_rows.launches += 1
     return out.reshape(x.shape)
 

@@ -207,6 +207,22 @@ def test_skzap_groups_cover_every_row():
     assert KF.skzap_groups(4, 1 << 13) == 4
 
 
+def test_row_core_wrapper_contract():
+    """B6/B10's launcher: the geometry record has the fields the library
+    fills (``kGeometryFields`` in csrc/fft_rows_sm90.cuh), and rows that
+    are not on a CUDA device never reach the library."""
+    import re
+    from pathlib import Path
+    src = (Path(KF.__file__).resolve().parent.parent / "csrc"
+           / "fft_rows_sm90.cuh").read_text()
+    n = int(re.search(r"kGeometryFields = (\d+);", src).group(1))
+    assert len(KF.GEOMETRY_FIELDS) == n
+    with pytest.raises(ValueError):
+        KF.run_rows("srtb_fft_rows", torch.zeros(2, 1 << 12,
+                                                 dtype=torch.complex64),
+                    2, 1 << 12, False)
+
+
 def test_ops_fft_minor_takes_the_kernel_window():
     """``fft_minor`` with "pallas" rows: rows in the window go to B6 (the
     plain version here), longer rows to the four-step, shorter ones to

@@ -303,8 +303,8 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
 @pytest.mark.cuda
 @pytest.mark.parametrize("log2", [12, 13, 14, 15, 16])
 def test_cuda_fft_rows_matches_plain(cuda, log2):
-    """B6 at every row length (one CTA, clusters of 2 and 4): 1e-5 of the
-    largest value, both directions."""
+    """B6 at every row length (one CTA, clusters of 2, 4 and 8): 1e-5 of
+    the largest value, both directions."""
     g = torch.Generator(device=cuda).manual_seed(log2)
     x = torch.randn(5, 1 << log2, dtype=torch.complex64, device=cuda,
                     generator=g)
@@ -312,6 +312,57 @@ def test_cuda_fft_rows_matches_plain(cuda, log2):
         err, scale = _max_err(KF.fft_rows(x, inverse),
                               KF.fft_rows_plain(x, inverse))
         assert err <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 133, 1000])
+@pytest.mark.parametrize("log2", [12, 13, 14, 15, 16])
+def test_cuda_row_fft_core_batches(cuda, log2, batch):
+    """B6's core at one row, a few rows and more rows (or clusters) than
+    the card holds at once: 1e-5 of the largest value, both directions,
+    one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(batch + log2)
+    x = torch.randn(batch, 1 << log2, dtype=torch.complex64, device=cuda,
+                    generator=g)
+    before = KF.fft_rows.launches
+    for inverse in (False, True):
+        err, scale = _max_err(KF.fft_rows(x, inverse),
+                              KF.fft_rows_plain(x, inverse))
+        assert err <= 1e-5 * scale
+    assert KF.fft_rows.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2", [12, 13, 14, 15, 16])
+def test_cuda_row_fft_core_unaligned_view_is_copied(cuda, log2):
+    """A view whose storage offset leaves it 8-byte aligned (TMA reads
+    need 16) is copied by the wrapper, not refused; B6 and B10 alike."""
+    n = 1 << log2
+    g = torch.Generator(device=cuda).manual_seed(log2)
+    base = torch.randn(4096 * n + 1, dtype=torch.complex64, device=cuda,
+                       generator=g)
+    rows = base[1:].reshape(4096, n)
+    assert rows.data_ptr() % 16 == 8
+    err, scale = _max_err(KF.fft_rows(rows[:3]),
+                          KF.fft_rows_plain(rows[:3]))
+    assert err <= 1e-5 * scale
+    err, scale = _max_err(K2.fft2_pass2(rows[None], True),
+                          K2.fft2_pass2_plain(rows[None], True))
+    assert err <= 2e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2", [12, 13, 14, 15, 16])
+def test_cuda_fft2_pass2_every_row_length(cuda, log2):
+    """B10 on one [4096, 2^log2] block, both directions: 2e-5 of the
+    largest |plain| (the reference's two-pass gate)."""
+    g = torch.Generator(device=cuda).manual_seed(200 + log2)
+    x = torch.randn(1, 4096, 1 << log2, dtype=torch.complex64, device=cuda,
+                    generator=g)
+    for inverse in (False, True):
+        err, scale = _max_err(K2.fft2_pass2(x, inverse),
+                              K2.fft2_pass2_plain(x, inverse))
+        assert err <= 2e-5 * scale
 
 
 @pytest.mark.cuda
