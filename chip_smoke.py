@@ -24,7 +24,10 @@ result lines are printed:
    (B6 and B10 in turns with ``torch.fft`` at every shape a main path
    gives them: the 2^27 legs, the staged ``pallas`` rows front's legs at
    2^30, the waterfall rows, B10 at [2, 4096, 8192] and [8192, 65536];
-   with the row-FFT core's launch geometry at every row length);
+   with the row-FFT core's launch geometry at every row length; B9 at
+   [2, 4096, 8192] and [1, 8192, 65536] and B11 at [8192, 65536] in turns
+   with cuFFT's column FFT, a reference point without the twiddle, with
+   the column body's launch geometry at both column lengths);
 5. main paths: 2-bit files of two segments with a dispersed pulse in the
    second, made on the card by the port's synth, searched by the port's
    ``srtb-torch-main`` at the example J1644-4559 configuration: at 2^30
@@ -517,6 +520,40 @@ def time_rows(label, shape, inverse, kernel, g, gate) -> dict:
             "library_ms": l_ms, "bound_ms": b_ms, "max_abs_err": err}
 
 
+def column_geometry_lines() -> dict:
+    """Print and return the launch geometry of B9's and B11's clustered
+    column body at both column lengths: CTAs a cluster, columns a
+    cluster, rows a CTA, threads, CTAs an SM, the clusters the occupancy
+    query says the card holds at once, registers and spilled bytes a
+    thread, shared bytes a CTA."""
+    import torch
+    from srtb_tpu_torch.kernels import fft2 as K2
+    geo = {}
+    for name, front in (("fft2_pass1", False), ("fft2_pass1_front", True)):
+        for n1 in K2.N1_CHOICES:
+            key = f"{name} n1={n1}"
+            geo[key] = K2.pass1_geometry(n1, torch.device("cuda"), front)
+            say(f"column body geometry {key}: " + json.dumps(geo[key]))
+    return geo
+
+
+def time_columns(label, kernel, x, nbytes, err) -> dict:
+    """``kernel`` (B9 or B11, whose column FFT runs on ``x [..., n1, n2]``'s
+    values) timed in turns with cuFFT's column FFT of ``x``
+    (``torch.fft.fft`` along dim -2: no four-step twiddle, so a reference
+    point and not the same function); the bound is the kernel's own
+    ``nbytes`` over the card's memory rate."""
+    import torch
+    k_ms, c_ms = turns(kernel, lambda: torch.fft.fft(x, dim=-2))
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    say(f"{label} {list(x.shape)}: kernel {k_ms:.4f} ms, cuFFT column FFT "
+        f"(torch.fft.fft dim=-2, no twiddle) {c_ms:.4f} ms (in turns), "
+        f"bound {b_ms:.4f} ms ({100 * b_ms / k_ms:.1f}% of it), kernel "
+        f"/ cuFFT column {k_ms / c_ms:.3f}, max_abs_err {err:.3e}")
+    return {"shape": list(x.shape), "ms": k_ms, "cufft_column_ms": c_ms,
+            "bound_ms": b_ms, "max_abs_err": err}
+
+
 def check_fft_rows(copy_gbps: float) -> dict:
     """B6 at every row length 2^12 ... 2^16 in both directions (one CTA;
     clusters of 2, 4 and 8) on 8 rows, then timed at every shape a main
@@ -810,14 +847,17 @@ def check_fft2(copy_gbps: float) -> list:
     Tolerance: 2e-5 of the largest |plain|, the reference's own gate for
     the two-pass C2C (tests/test_pallas_fft2.py:48).  Times at the path's
     shape; B10's library call is ``torch.fft.fft`` along the rows (cuFFT),
-    timed in turns with B10 at the pallas2 path's shape and at the staged
-    pallas2 2^30 path's [8192, 65536]; the cuFFT column FFT alone
-    (``torch.fft.fft`` along the columns, no twiddle) is printed beside B9
-    as a reference point."""
+    timed in turns with B10 at the pallas2 path's shape (before and after
+    B9's timing at 2^30) and at the staged
+    pallas2 2^30 path's [8192, 65536]; B9 timed in turns with cuFFT's
+    column FFT alone (``torch.fft.fft`` along the columns, no twiddle: a
+    reference point, not a library call of the same function) at the same
+    two shapes, its record's time at the first."""
     import torch
     from srtb_tpu_torch.kernels import fft2 as K2
     g = torch.Generator(device="cuda").manual_seed(25)
     worst = {"fft2_pass1": 0.0, "fft2_pass2": 0.0}
+    b9_err = {}  # B9's error at the two main-path shapes
     shapes = [(2, 4096, 8192), (1, 4096, 4096), (1, 4096, 1 << 14),
               (1, 4096, 1 << 15), (1, 4096, 1 << 16), (1, 8192, 1 << 16)]
     for shape in shapes:
@@ -833,6 +873,8 @@ def check_fft2(copy_gbps: float) -> list:
                          f"{scale}")
                 if shape == shapes[0]:
                     worst[name] = max(worst[name], err)
+                if name == "fft2_pass1" and shape in (shapes[0], shapes[-1]):
+                    b9_err[shape] = max(b9_err.get(shape, 0.0), err)
         del x
         K2.twiddle.cache_clear()
         torch.cuda.empty_cache()
@@ -848,23 +890,37 @@ def check_fft2(copy_gbps: float) -> list:
     c2c_lib = cuda_ms(lambda: torch.fft.fft(x), 10)
     b = x.reshape(2, *K2.factor(x.shape[-1]))
     p1 = K2.fft2_pass1(b)
-    col_ms = cuda_ms(lambda: torch.fft.fft(b, dim=-2), 10)
     unblock_ms = cuda_ms(lambda: K2.unblock(p1), 10)
-    say(f"fft2 {list(b.shape)}: cuFFT column FFT alone (torch.fft.fft "
-        f"dim=-2, no twiddle) {col_ms:.4f} ms; unblock transpose "
-        f"{unblock_ms:.4f} ms; fft2_c2c composed {c2c_ms:.4f} ms against "
-        f"one torch.fft.fft of [2, 2^25] {c2c_lib:.4f} ms")
+    say(f"fft2 {list(b.shape)}: unblock transpose {unblock_ms:.4f} ms; "
+        f"fft2_c2c composed {c2c_ms:.4f} ms against one torch.fft.fft of "
+        f"[2, 2^25] {c2c_lib:.4f} ms")
     n = b.numel()
-    recs = [
-        _record("fft2_pass1", cuda_ms(lambda: K2.fft2_pass1(b), 10),
-                cuda_ms(lambda: K2.fft2_pass1_plain(b), 10), 16 * n,
-                # the column FFT ~5 log2(n1) flops a value; the twiddle's
-                # sincospif (~20) and complex multiply (6)
-                {"f32": 5 * n * 12 + 26 * n}, worst["fft2_pass1"], copy_gbps),
-    ]
+    plain_ms = cuda_ms(lambda: K2.fft2_pass1_plain(b), 10)
     del x, b
     K2.twiddle.cache_clear()
     torch.cuda.empty_cache()
+    # B10 at the pallas2 path's shape also before B9's timing at [1, 8192,
+    # 65536] makes and frees its tensors, to set beside its time after it
+    b10_first = time_rows("fft2_pass2 (before B9's 2^30 timing)",
+                          (2, 4096, 8192), False, K2.fft2_pass2, g, 2e-5)
+    # B9 in turns with cuFFT's column FFT at the pallas2 path's shape and
+    # at the staged pallas2 2^30 path's [1, 8192, 65536]
+    b9_shapes = []
+    for shape in (shapes[0], shapes[-1]):
+        x = torch.randn(*shape, dtype=torch.complex64, device="cuda",
+                        generator=g)
+        b9_shapes.append(time_columns("fft2_pass1", lambda: K2.fft2_pass1(x),
+                                      x, 16 * x.numel(), b9_err[shape]))
+        del x
+        torch.cuda.empty_cache()
+    # the column FFT ~5 log2(n1) flops a value; the four-step twiddle (four
+    # sincospif a thread of 32 values, two products a value) ~12
+    recs = [_record("fft2_pass1", b9_shapes[0]["ms"], plain_ms, 16 * n,
+                    {"f32": 5 * n * 12 + 12 * n}, worst["fft2_pass1"],
+                    copy_gbps)]
+    recs[0]["by_shape"] = b9_shapes
+    recs[0]["cufft_column_ms"] = b9_shapes[0]["cufft_column_ms"]
+    recs[0]["geometry"] = column_geometry_lines()
     # B10 in turns with torch.fft.fft along the same rows: at the pallas2
     # path's [2, 4096, 8192] (pass 1's output) and at the staged pallas2
     # 2^30 path's [8192, 65536]
@@ -878,15 +934,46 @@ def check_fft2(copy_gbps: float) -> list:
                         16 * n, {"f32": 5 * n * 13}, worst["fft2_pass2"],
                         copy_gbps, l_ms))
     recs[-1]["by_shape"] = by_shape
+    recs[-1]["ms_before_b9_2^30"] = b10_first["ms"]
+    recs[-1]["library_ms_before_b9_2^30"] = b10_first["library_ms"]
     del p1
     torch.cuda.empty_cache()
     return recs
 
 
+def _packed_sums(z):
+    """Exact float64 values of B11's sums from its packed input z [S, n1,
+    n2], independent of any FFT: Parseval's sum |B|^2 = n1 sum |z|^2, the
+    DC sum_j2 B[0, j2] = sum z (Re, Im), and sum |Re z|, sum |Im z|."""
+    import torch
+    out = torch.zeros(z.shape[0], 5, dtype=torch.float64, device=z.device)
+    for blk in torch.view_as_real(z).split(1024, dim=1):
+        v = blk.to(torch.float64)
+        out[:, 0] += v.square().sum((1, 2, 3))
+        out[:, 1:3] += v.sum((1, 2))
+        out[:, 3:5] += v.abs().sum((1, 2))
+    out[:, 0] *= z.shape[1]
+    return out
+
+
+def _sum_errors(aux, ref) -> tuple[float, float]:
+    """(sum |B|^2 / Parseval's - 1 of the stream furthest from it, the
+    largest DC error over sum |z|) of the sums ``aux`` against
+    ``_packed_sums``."""
+    e = aux[:, 0] / ref[:, 0] - 1
+    energy = float(e[e.abs().argmax()])
+    dc = float(((aux[:, 1:] - ref[:, 1:3]).abs() / ref[:, 3:]).max())
+    return energy, dc
+
+
 def _check_pass1_front(raw, m, variant, nbits, weo, inverse, z) -> tuple:
     """B11 against its plain version (2e-5 of the largest |plain|; the mean
-    power from the sums within 1e-6 relative of the plain float64 sums')
-    and against B9 on the packed values ``z`` (bit-identical)."""
+    power from the sums within 1e-6 relative of the plain float64 sums'),
+    against B9 on the packed values ``z`` (bit-identical), and its sums
+    against their exact values from ``z`` (``_packed_sums``): sum |B|^2
+    within 3e-7 relative of Parseval's, the DC within 1e-8 of sum |z|.
+    Also returns the energy bias and DC error of B11's and the plain
+    version's float32 column FFTs (``_sum_errors``)."""
     import torch
     from srtb_tpu_torch.kernels import fft2 as K2
     from srtb_tpu_torch.kernels import fft2_front as FF
@@ -908,7 +995,13 @@ def _check_pass1_front(raw, m, variant, nbits, weo, inverse, z) -> tuple:
                  / mean.abs()).max())
     if not rel <= 1e-6:
         fail(f"{where}: mean power rel err {rel}")
-    return b, aux, err, scale
+    ref = _packed_sums(z)
+    bias = (_sum_errors(aux, ref), _sum_errors(paux, ref))
+    energy, dc = bias[0]
+    if not (abs(energy) <= 3e-7 and dc <= 1e-8):
+        fail(f"{where}: sum |B|^2 off Parseval's by {energy:.3e}, DC off "
+             f"sum z by {dc:.3e} of sum |z|")
+    return b, aux, err, scale, bias
 
 
 def _check_pass2_spectrum(b, thr, norm, where, **kw) -> tuple:
@@ -954,7 +1047,8 @@ def check_fft2_front(copy_gbps: float, k2_ms: float) -> list:
     pack at 2^24: one column body, the reference's own contract,
     tests/test_front_fuse.py:184-203); at the path's shape
     ``front_mean_power`` within 1e-5 relative of ``rfi.mean_power_packed``
-    over the full C2C (tests/test_front_fuse.py:217).  B12 at the path's
+    over the full C2C (tests/test_front_fuse.py:217).  B11 is timed in
+    turns with cuFFT's column FFT of the same packed values.  B12 at the path's
     shape on B11's intermediate with the example cfg's keep mask and exact
     chirp (the path's form), and on noise at (4096, 2^12 ... 2^16) with
     and without the mask, with the exact chirp, the premul pair or
@@ -978,6 +1072,7 @@ def check_fft2_front(copy_gbps: float, k2_ms: float) -> list:
     weo = tuple(torch.rand(n1, n2, device="cuda", generator=g)
                 for _ in range(2))
     worst = 0.0
+    biases = []
     for variant, nbits in (("simple", 1), ("simple", 2), ("simple", 4),
                            ("simple", 8), ("simple", -8),
                            ("interleaved_samples_2", 8)):
@@ -987,13 +1082,18 @@ def check_fft2_front(copy_gbps: float, k2_ms: float) -> list:
         for w in (None, weo):
             z = FF.front_pack(raw, m, variant, nbits, w)
             for inverse in (False, True):
-                _b, _aux, err, scale = _check_pass1_front(
+                _b, _aux, err, scale, bias = _check_pass1_front(
                     raw, m, variant, nbits, w, inverse, z)
                 worst = max(worst, err / scale)
+                biases.append(bias)
     say(f"check fft2_pass1_front at m = 2^24: every variant, width, "
         f"window and direction within 2e-5 of the largest (worst "
         f"{worst:.2e}), bit-identical to B9 on the same packed values, "
-        "mean power within 1e-6 of the plain sums'")
+        "mean power within 1e-6 of the plain sums'; energy bias (sum "
+        "|B|^2 / (n1 sum |z|^2) - 1) and DC error (over sum |z|) of B11 "
+        "and of the plain version, by case: " + ", ".join(
+            f"{k[0]:+.2e} {k[1]:.1e} / {p[0]:+.2e} {p[1]:.1e}"
+            for k, p in biases))
     del raw, z, _b, weo
     K2.twiddle.cache_clear()
 
@@ -1003,8 +1103,8 @@ def check_fft2_front(copy_gbps: float, k2_ms: float) -> list:
     raw = torch.randint(0, 256, (m // 2,), dtype=torch.uint8, device="cuda",
                         generator=g)
     z = F.pack_even_odd(KU.unpack_subbyte_window(raw, 2)).reshape(1, n1, n2)
-    b, aux, err_b11, scale = _check_pass1_front(raw, m, "simple", 2, None,
-                                                False, z)
+    b, aux, err_b11, scale, bias = _check_pass1_front(raw, m, "simple", 2,
+                                                      None, False, z)
     K2.twiddle.cache_clear()
     torch.cuda.empty_cache()
     mean = FF.front_mean_power(aux, n2, m)
@@ -1018,22 +1118,27 @@ def check_fft2_front(copy_gbps: float, k2_ms: float) -> list:
     say(f"check fft2_pass1_front at [{n1}, {n2}] (2-bit): max_abs_err "
         f"{err_b11:.3e} <= 2e-5 x {scale:.3e}, bit-identical to K1 + pack + "
         f"B9, front_mean_power within {rel:.2e} of mean_power_packed over "
-        "the full C2C")
+        f"the full C2C; energy bias of B11 {bias[0][0]:+.2e}, of the plain "
+        f"version {bias[1][0]:+.2e}; DC error over sum |z| of B11 "
+        f"{bias[0][1]:.2e}, of the plain version {bias[1][1]:.2e}")
     torch.cuda.empty_cache()
-    k_ms = cuda_ms(lambda: FF.fft2_pass1_front(raw, m, "simple", 2), 10)
+    b11 = time_columns("fft2_pass1_front", lambda: FF.fft2_pass1_front(
+        raw, m, "simple", 2), z, m // 2 + 8 * m, err_b11)
     p_ms = cuda_ms(lambda: FF.fft2_pass1_front_plain(raw, m, "simple", 2),
                    2)
     K2.twiddle.cache_clear()
     b9_ms = cuda_ms(lambda: K2.fft2_pass1(z), 10)
-    say(f"fft2_pass1_front [{n1}, {n2}]: B11 {k_ms:.4f} ms beside B9 on the "
-        f"same [{n1}, {n2}] (complex64 in, 16x the bytes read) "
+    say(f"fft2_pass1_front [{n1}, {n2}]: B11 {b11['ms']:.4f} ms beside B9 "
+        f"on the same [{n1}, {n2}] (complex64 in, 16x the bytes read) "
         f"{b9_ms:.4f} ms")
     # reads the raw bytes once, writes the intermediate; the column FFT
-    # ~5 log2(n1) flops a value, the twiddle's sincospif and multiply (26),
-    # the unpack (3 a sample); float64 |B|^2 sums (4 a value)
-    recs = [_record("fft2_pass1_front", k_ms, p_ms, m // 2 + 8 * m,
-                    {"f32": 5 * m * 13 + 26 * m + 6 * m, "f64": 4 * m},
+    # ~5 log2(n1) flops a value, the four-step twiddle (~12), the unpack
+    # (3 a sample); float64 |B|^2 sums (4 a value)
+    recs = [_record("fft2_pass1_front", b11["ms"], p_ms, m // 2 + 8 * m,
+                    {"f32": 5 * m * 13 + 12 * m + 6 * m, "f64": 4 * m},
                     err_b11, copy_gbps)]
+    recs[0]["cufft_column_ms"] = b11["cufft_column_ms"]
+    recs[0]["b9_same_shape_ms"] = b9_ms
     del z
 
     # B12 on B11's intermediate, the path's form

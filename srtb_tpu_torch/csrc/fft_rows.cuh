@@ -4,8 +4,9 @@
 // The plain mode (B6, and B10 on the same function) no longer runs here:
 // it moved to the TMA-fed row-FFT core of fft_rows_sm90.cuh.  This
 // kernel keeps the epilogue modes (kStats for B7, kSkZap for B8), and Plan
-// and its passes stay as they were for them, for B9/B11's column pass
-// (fft2.cuh) and for B12 (fft2_spectrum.cu).
+// and its passes stay as they were for them and for B12
+// (fft2_spectrum.cu).  B9/B11's column pass runs on its own clustered
+// body (fft2.cuh).
 //
 // Replace the TPU kernels of srtb_tpu/ops/pallas_fft.py:
 //   B6 fft_rows_ri        (pallas_call :496, body _fft_rows_kernel :137)

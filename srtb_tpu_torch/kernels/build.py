@@ -43,6 +43,8 @@ _SIGNATURES = {
                             _I32, _I64, _F32, _F32, _P),
     "srtb_dedisperse": (_P, _P, _I64, _I64, _F64, _F64, _F64, _F64, _P),
     "srtb_fft2_pass1": (_P, _P, _P, _I64, _I64, _I64, _I32, _P),
+    "srtb_fft2_pass1_geometry": (_I64, _P),
+    "srtb_fft2_pass1_front_geometry": (_I64, _P),
     "srtb_fft2_pass2": (_P, _P, _I64, _I64, _I32, _P),
     "srtb_fft2_pass1_front": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                               _I32, _I32, _P),

@@ -15,6 +15,7 @@ transpose, restores natural order.  Unnormalized in both directions.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -121,6 +122,43 @@ def _blocks(x: torch.Tensor, name: str) -> tuple[int, int, int]:
     return x.numel() // (n1 * n2), n1, n2
 
 
+# the fields of ``srtb_fft2_pass1_geometry`` (csrc/fft2.cu)
+PASS1_GEOMETRY_FIELDS = ("ctas_a_cluster", "columns_a_cluster",
+                         "rows_a_cta", "threads", "ctas_an_sm",
+                         "resident_clusters", "registers", "local_bytes",
+                         "smem_bytes")
+
+
+def pass1_geometry(n1: int, device: torch.device,
+                   front: bool = False) -> dict:
+    """The launch geometry of the column body at n1 on ``device``'s card,
+    B9's kernel or (``front``) B11's: CTAs a cluster, columns a cluster,
+    rows a CTA, threads, CTAs an SM, the clusters the occupancy query says
+    the card holds at once, and the compiler's registers and local
+    (spilled) bytes a thread, shared bytes a CTA."""
+    return dict(zip(PASS1_GEOMETRY_FIELDS,
+                    _pass1_geometry(n1, device, front)))
+
+
+@functools.lru_cache(maxsize=8)
+def _pass1_geometry(n1: int, device: torch.device,
+                    front: bool) -> tuple[int, ...]:
+    entry = ("srtb_fft2_pass1_front_geometry" if front
+             else "srtb_fft2_pass1_geometry")
+    geo = (ctypes.c_int * len(PASS1_GEOMETRY_FIELDS))()
+    with torch.cuda.device(device):
+        rc = getattr(build.library(), entry)(n1, ctypes.addressof(geo))
+    build.check(rc, entry)
+    return tuple(geo)
+
+
+def column_ctas(n1: int, n2: int, device: torch.device) -> int:
+    """CTAs of B11's column body a plane (one partial each), from the
+    launch geometry the library reports (csrc/fft2.cuh ``Geometry``)."""
+    geo = pass1_geometry(n1, device, front=True)
+    return n2 // geo["columns_a_cluster"] * geo["ctas_a_cluster"]
+
+
 def fft2_pass1_plain(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """The plain PyTorch version of B9 (any [..., n1, n2]): the C2C down
     each column times the float64-built four-step twiddle."""
@@ -134,13 +172,16 @@ def fft2_pass1(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """Pass 1 on complex64 ``x [..., n1, n2]``: B[k1, j2] = exp(s 2 pi i
     k1 j2 / m) sum_j1 x[j1, j2] exp(s 2 pi i j1 k1 / n1), s = -1 forward,
     +1 inverse.  A CPU tensor takes the plain version; a CUDA tensor
-    launches B9."""
+    launches B9 (a view not 16-byte aligned is copied first: TMA reads
+    it)."""
     batch, n1, n2 = _blocks(x, "fft2_pass1")
     if x.device.type == "cpu":
         return fft2_pass1_plain(x, inverse)
     name = "fft2_pass1"
     x = x.contiguous()
     build.require_cuda_contiguous(name, x=x)
+    if x.data_ptr() % 16:
+        x = x.clone()
     out = torch.empty_like(x)
     tw = KF.twiddle_table(n1, x.device)
     with torch.cuda.device(x.device):

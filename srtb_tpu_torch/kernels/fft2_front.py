@@ -120,10 +120,12 @@ def fft2_pass1_front(raw: torch.Tensor, m: int, variant: str, nbits: int,
     name = "fft2_pass1_front"
     _kernel_block(n1, n2, name)
     build.require_cuda_contiguous(name, raw=raw, w_e=w_e, w_o=w_o)
+    if raw.data_ptr() % 4:  # 8-bit groups are read as one word
+        raw = raw.clone()
     dev = raw.device
     out = torch.empty(streams, n1, n2, dtype=torch.complex64, device=dev)
-    tiles = n2 // ((1 << 14) // n1)  # column tiles (CTAs) a stream
-    part = torch.empty(streams * tiles, 3, dtype=torch.float64, device=dev)
+    ctas = K2.column_ctas(n1, n2, dev)  # one partial a CTA
+    part = torch.empty(streams * ctas, 3, dtype=torch.float64, device=dev)
     tw = KF.twiddle_table(n1, dev)
     with torch.cuda.device(dev):
         rc = build.library().srtb_fft2_pass1_front(
@@ -134,7 +136,7 @@ def fft2_pass1_front(raw: torch.Tensor, m: int, variant: str, nbits: int,
     build.check(rc, name)
     fft2_pass1_front.launches += 1
     # the CTAs' partials, added in float64 in a fixed order on the device
-    return out, part.view(streams, tiles, 3).sum(1)
+    return out, part.view(streams, ctas, 3).sum(1)
 
 
 fft2_pass1_front.launches = 0

@@ -436,16 +436,100 @@ def test_cuda_fft2_passes_match_plain(cuda, n1, n2):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("planes,n1,n2", [(1, 8192, 1 << 16),
+                                         (1, 4096, 4096), (1, 8192, 4096),
+                                         (3, 4096, 1 << 13),
+                                         (3, 8192, 4096)])
+def test_cuda_fft2_pass1_column_body(cuda, planes, n1, n2):
+    """B9's clustered column body (clusters of n1 / 1024 CTAs, 8 columns
+    each) at the 2^30 segment's [8192, 65536], at n2 = 4096 (the fewest
+    clusters) at both n1, and on three planes: both directions within 2e-5
+    of the largest |plain| (tests/test_pallas_fft2.py:48), one launch a
+    call."""
+    g = torch.Generator(device=cuda).manual_seed(planes * n1 + n2)
+    x = torch.randn(planes, n1, n2, dtype=torch.complex64, device=cuda,
+                    generator=g)
+    before = K2.fft2_pass1.launches
+    for inverse in (False, True):
+        err, scale = _max_err(K2.fft2_pass1(x, inverse),
+                              K2.fft2_pass1_plain(x, inverse))
+        assert err <= 2e-5 * scale
+    assert K2.fft2_pass1.launches == before + 2
+    K2.twiddle.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1", [4096, 8192])
+def test_cuda_fft2_pass1_unaligned_view_is_copied(cuda, n1):
+    """A view whose storage offset leaves it 8-byte aligned (B9's tensor
+    map needs 16) is copied by the wrapper, not refused."""
+    g = torch.Generator(device=cuda).manual_seed(n1)
+    base = torch.randn(n1 * 4096 + 1, dtype=torch.complex64, device=cuda,
+                       generator=g)
+    x = base[1:].reshape(1, n1, 4096)
+    assert x.data_ptr() % 16 == 8
+    for inverse in (False, True):
+        err, scale = _max_err(K2.fft2_pass1(x, inverse),
+                              K2.fft2_pass1_plain(x, inverse))
+        assert err <= 2e-5 * scale
+
+
+def _front_sums(b: torch.Tensor) -> torch.Tensor:
+    """B11's sums of an intermediate b [S, n1, n2] in float64: sum |b|^2,
+    Re and Im of sum_j2 b[0, j2] (the plain version's spelling)."""
+    b64 = torch.view_as_real(b).to(torch.float64)
+    f0 = b64[:, 0].sum(1)
+    return torch.stack([b64.square().sum((1, 2, 3)), f0[:, 0], f0[:, 1]], 1)
+
+
+def _packed_sums(z: torch.Tensor) -> torch.Tensor:
+    """Exact float64 values of B11's sums from its packed input z [S, n1,
+    n2], independent of any FFT: Parseval's sum |B|^2 = n1 sum |z|^2, the
+    DC sum_j2 B[0, j2] = sum z (the twiddle is 1 on row k1 = 0) as Re and
+    Im, and sum |Re z|, sum |Im z|, the scale of the DC's rounding."""
+    out = torch.zeros(z.shape[0], 5, dtype=torch.float64, device=z.device)
+    for blk in torch.view_as_real(z).split(1024, dim=1):
+        v = blk.to(torch.float64)
+        out[:, 0] += v.square().sum((1, 2, 3))
+        out[:, 1:3] += v.sum((1, 2))
+        out[:, 3:5] += v.abs().sum((1, 2))
+    out[:, 0] *= z.shape[1]
+    return out
+
+
+def _hold_front_sums(aux: torch.Tensor, b: torch.Tensor,
+                     z: torch.Tensor) -> None:
+    """B11's sums ``aux`` [S, 3]: within 1e-9 relative of the float64 sums
+    of its own intermediate ``b`` (other orders); sum |B|^2 within 3e-7
+    relative of Parseval's exact value from the packed values ``z`` (a
+    float32 column FFT loses energy: B11 read 3e-8 to 1.18e-7 below it at
+    2^24 and 2^30, cuFFT up to 1.27e-7); the DC Re and Im within 1e-8 of
+    sum |Re z|, sum |Im z| of the exact sum z (each float32 column sum
+    rounds by about 2^-24 of its n1 values' sum, which averages down over
+    the n2 columns to about 1e-9 of sum |z|; one value of z in 2^24 is
+    6e-8 of it)."""
+    torch.testing.assert_close(aux, _front_sums(b), rtol=1e-9, atol=0)
+    ref = _packed_sums(z)
+    energy = float((aux[:, 0] / ref[:, 0] - 1).abs().max())
+    assert energy <= 3e-7, f"sum |B|^2 off Parseval's by {energy:.3e}"
+    dc = float(((aux[:, 1:] - ref[:, 1:3]).abs() / ref[:, 3:]).max())
+    assert dc <= 1e-8, f"DC off sum z by {dc:.3e} of sum |z|"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant,nbits", [("simple", 1), ("simple", 2),
                                            ("simple", 4), ("simple", 8),
                                            ("simple", -8),
                                            ("interleaved_samples_2", 8)])
 def test_cuda_fft2_pass1_front_matches_plain(cuda, variant, nbits):
     """B11 at m = 2^24 ((4096, 4096)), windowed and not, both directions:
-    the intermediate within 2e-5 of the largest |plain| and the sums to
-    1e-9 relative (both float64, other orders); for the simple sub-byte
-    widths bit-identical to K1 + pack + B9 on the same bytes (B9's body on
-    the same values)."""
+    the intermediate within 2e-5 of the largest |plain|, the sums held by
+    :func:`_hold_front_sums` to its intermediate's and to the exact values
+    from the packed input, and the mean power from them to 1e-6 relative
+    of the plain version's (the chip check's gate: the energy of two
+    float32 column FFTs, each 3e-8 to 1.3e-7 below Parseval's, differs by
+    up to 5e-8 relative); for the simple sub-byte widths bit-identical to
+    K1 + pack + B9 on the same bytes (B9's body on the same values)."""
     m = 1 << 24
     g = torch.Generator(device=cuda).manual_seed(abs(nbits))
     raw = torch.randint(0, 256, (FF.front_streams(variant) * 2 * m
@@ -460,7 +544,11 @@ def test_cuda_fft2_pass1_front_matches_plain(cuda, variant, nbits):
                                                  inverse)
             err, scale = _max_err(b, pb)
             assert err <= 2e-5 * scale
-            torch.testing.assert_close(aux, paux, rtol=1e-9, atol=0)
+            _hold_front_sums(aux, b, FF.front_pack(raw, m, variant, nbits,
+                                                   w))
+            torch.testing.assert_close(FF.front_mean_power(aux, 4096, m),
+                                       FF.front_mean_power(paux, 4096, m),
+                                       rtol=1e-6, atol=0)
             if variant == "simple" and nbits in (1, 2, 4):
                 win = None if w is None else torch.stack(
                     [w[0].reshape(-1), w[1].reshape(-1)], 1).reshape(-1)
@@ -469,6 +557,34 @@ def test_cuda_fft2_pass1_front_matches_plain(cuda, variant, nbits):
                     z.reshape(1, 4096, 4096, 2)), inverse)
                 assert torch.equal(torch.view_as_real(b),
                                    torch.view_as_real(b9))
+
+
+@pytest.mark.cuda
+def test_cuda_fft2_pass1_front_at_the_segment_shape(cuda):
+    """B11 at the front-fused 2^30 path's shape (2^28 raw 2-bit bytes into
+    [8192, 65536]), forward: bit-identical to K1 + pack + B9 on the same
+    bytes, the sums held by :func:`_hold_front_sums`, the mean power
+    within 1e-6 of the plain version's and the intermediate within 2e-5
+    of the largest |plain|."""
+    m = 1 << 29
+    g = torch.Generator(device=cuda).manual_seed(29)
+    raw = torch.randint(0, 256, (m // 2,), dtype=torch.uint8, device=cuda,
+                        generator=g)
+    b, aux = FF.fft2_pass1_front(raw, m, "simple", 2)
+    z = torch.view_as_complex(KU.unpack_subbyte_window(raw, 2).reshape(
+        1, 8192, 1 << 16, 2))
+    b9 = K2.fft2_pass1(z)
+    assert torch.equal(torch.view_as_real(b), torch.view_as_real(b9))
+    del b9
+    _hold_front_sums(aux, b, z)
+    del z
+    pb, paux = FF.fft2_pass1_front_plain(raw, m, "simple", 2)
+    K2.twiddle.cache_clear()
+    torch.testing.assert_close(FF.front_mean_power(aux, 1 << 16, m),
+                               FF.front_mean_power(paux, 1 << 16, m),
+                               rtol=1e-6, atol=0)
+    err, scale = _max_err(b, pb)
+    assert err <= 2e-5 * scale
 
 
 @pytest.mark.cuda
