@@ -18,7 +18,8 @@ result lines are printed:
    and B10 at both column lengths and every row length, B3 also past
    float32's exact channel indices; B11 and B12 at the front-fused 2^30
    path's (8192, 65536), B11 also at 2^24 for every unpack variant and
-   width it reads, B12 at every row length), with the tolerance stated
+   width it reads, B12 at every row length and both column lengths), with
+   the tolerance stated
    beside each check, and its time beside the plain version's, its bound
    and, where one PyTorch call computes the same function, that call's
    (B6 and B10 in turns with ``torch.fft`` at every shape a main path
@@ -27,7 +28,10 @@ result lines are printed:
    with the row-FFT core's launch geometry at every row length; B9 at
    [2, 4096, 8192] and [1, 8192, 65536] and B11 at [8192, 65536] in turns
    with cuFFT's column FFT, a reference point without the twiddle, with
-   the column body's launch geometry at both column lengths);
+   the column body's launch geometry at both column lengths; B8 in turns
+   with B6 on the same [2^11, 2^15] rows and B12 at [8192, 65536] in turns
+   with B10 on the same input, both before B9's 2^30 timing, with their
+   launch geometry at every row length);
 5. main paths: 2-bit files of two segments with a dispersed pulse in the
    second, made on the card by the port's synth, searched by the port's
    ``srtb-torch-main`` at the example J1644-4559 configuration: at 2^30
@@ -779,17 +783,46 @@ def check_fft_rows_skzap(copy_gbps: float) -> dict:
         f"{flips} verdicts within 1e-5 of a bound differ), waterfall "
         f"max_abs_err {err:.3e} within 1e-5 of the largest, time series "
         "within the time_series_error_gates; every L alike")
+    geo = skzap_geometry_lines()
+    del got, want
+    # in turns with B6, its row FFT alone, on the same rows (a reference
+    # point: B6 does not compute B8's function)
+    k_ms, b6_ms = turns(lambda: KF.fft_rows_skzap(x, sk_thr),
+                        lambda: KF.fft_rows(x, True))
     n, f_len = x.numel(), x.shape[0]
-    rec = _record("fft_rows_skzap",
-                  cuda_ms(lambda: KF.fft_rows_skzap(x, sk_thr), 10),
+    nbytes = 16 * n + 5 * f_len + 4 * length
+    say(f"fft_rows_skzap {list(x.shape)}: B8 {k_ms:.4f} ms, B6 (its inverse "
+        f"row FFT alone) on the same rows {b6_ms:.4f} ms (in turns), bound "
+        f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms "
+        f"({100 * nbytes / PEAK_BYTES_PER_S * 1e3 / k_ms:.1f}% of it), "
+        f"B8 / B6 {k_ms / b6_ms:.3f}")
+    rec = _record("fft_rows_skzap", k_ms,
                   cuda_ms(lambda: KF.fft_rows_skzap_plain(x, sk_thr), 3),
-                  16 * n + 5 * f_len + 4 * length,
+                  nbytes,
                   # the FFT, |x|^2 (3 f32) and the time series add, select;
                   # float64 moments
                   {"f32": 5 * n * 15 + 5 * n, "f64": 3 * n}, err, copy_gbps)
-    del x, got, want
+    rec["b6_same_rows_ms"] = b6_ms
+    rec["geometry"] = geo
+    del x
     torch.cuda.empty_cache()
     return rec
+
+
+def skzap_geometry_lines() -> dict:
+    """Print and return B8's launch geometry at every row length: CTAs a
+    cluster, values a CTA, threads, CTAs an SM, the persistent CTAs or
+    clusters it launches (as many as the occupancy query says the card
+    holds at once), registers and spilled bytes a thread, shared bytes a
+    CTA."""
+    import torch
+    from srtb_tpu_torch.kernels import fft_rows as KF
+    geo = {}
+    for log2 in range(12, 17):
+        geo[f"2^{log2}"] = KF.skzap_geometry(1 << log2, torch.device("cuda"))
+        say(f"fft_rows_skzap geometry L=2^{log2}: " + json.dumps(
+            geo[f"2^{log2}"]))
+    return geo
 
 
 def check_dedisperse(copy_gbps: float) -> dict:
@@ -837,7 +870,7 @@ def check_dedisperse(copy_gbps: float) -> dict:
     return rec
 
 
-def check_fft2(copy_gbps: float) -> list:
+def check_fft2(copy_gbps: float, b10_2_30_before: float) -> list:
     """B9 and B10 at the pallas2 path's shape — the two packed planes of
     the 2^27-sample segment, [2, 4096, 8192] — and on one block at
     (4096, 4096), (4096, 2^14), (4096, 2^15), (4096, 2^16) and (8192,
@@ -936,6 +969,11 @@ def check_fft2(copy_gbps: float) -> list:
     recs[-1]["by_shape"] = by_shape
     recs[-1]["ms_before_b9_2^30"] = b10_first["ms"]
     recs[-1]["library_ms_before_b9_2^30"] = b10_first["library_ms"]
+    # [8192, 65536] in turns with B12, before B9's 2^30 timing
+    recs[-1]["ms_8192x65536_before_b9_2^30"] = b10_2_30_before
+    say(f"fft2_pass2 [1, 8192, 65536]: {b10_2_30_before:.4f} ms before B9's "
+        f"2^30 timing (in turns with B12), {by_shape[1]['ms']:.4f} ms after "
+        "it (in turns with torch.fft)")
     del p1
     torch.cuda.empty_cache()
     return recs
@@ -1027,15 +1065,22 @@ def _check_pass2_spectrum(b, thr, norm, where, **kw) -> tuple:
         if not bool(((p - thr).abs() <= 1e-5 * thr).all()):
             fail(f"fft2_pass2_spectrum {where}: {flips} zap decisions "
                  "differ away from the threshold")
-    err = float(torch.where(same, (got - want).abs(), 0.0).max())
+    diff = torch.where(same, (got - want).abs(), 0.0)
+    err = float(diff.max())
     scale = float(want.abs().max())
     gate = 5e-5 if kw.get("chirp") is not None else 2e-5
     if not err <= gate * scale:
         fail(f"fft2_pass2_spectrum {where}: {err} > {gate} x {scale}")
+    # the rows that pair with themselves, written by one half of their
+    # cluster (row 0) or by both halves, each half of the row (n1/2)
+    for r in (0, b.shape[0] // 2):
+        if not (bool(torch.isfinite(got[r]).all())
+                and float(diff[r].max()) <= gate * scale):
+            fail(f"fft2_pass2_spectrum {where}: self-paired row {r} off")
     return err, flips
 
 
-def check_fft2_front(copy_gbps: float, k2_ms: float) -> list:
+def check_fft2_front(copy_gbps: float, k2_ms: float, b12: dict) -> list:
     """B11 and B12.  B11 at m = 2^24 (4096, 4096) for ``simple`` at 1, 2,
     4, 8 and -8 bits and ``interleaved_samples_2`` at 8 bits, windowed and
     not, both directions, then at the front-fused path's shape: 2^28 raw
@@ -1061,7 +1106,6 @@ def check_fft2_front(copy_gbps: float, k2_ms: float) -> list:
     from srtb_tpu_torch.kernels import fft2 as K2
     from srtb_tpu_torch.kernels import fft2_front as FF
     from srtb_tpu_torch.kernels import unpack as KU
-    from srtb_tpu_torch.ops import dedisperse as dd
     from srtb_tpu_torch.ops import fft as F
     from srtb_tpu_torch.ops import rfi
     cfg = Config()
@@ -1142,13 +1186,7 @@ def check_fft2_front(copy_gbps: float, k2_ms: float) -> list:
     del z
 
     # B12 on B11's intermediate, the path's form
-    f_min, f_c, df = dd.spectrum_frequencies(cfg, m)
-    chirp = (f_min, df, f_c, cfg.dm)
-    norm = rfi.normalization_coefficient(m, cfg.spectrum_channel_count)
-    zap = rfi.rfi_ranges_to_mask(rfi.eval_rfi_ranges(
-        cfg.mitigate_rfi_freq_list), m, cfg.baseband_freq_low,
-        cfg.baseband_bandwidth)
-    keep = torch.from_numpy(~zap).to("cuda").reshape(n2, n1).T.contiguous()
+    keep, chirp, norm = _pass2_path_form(cfg, n1, n2)
     thr = np.float32(cfg.mitigate_rfi_average_method_threshold) \
         * FF.front_mean_power(aux, n2, m)
     b = b[0]
@@ -1164,23 +1202,26 @@ def check_fft2_front(copy_gbps: float, k2_ms: float) -> list:
     p_ms = cuda_ms(lambda: FF.fft2_pass2_spectrum_plain(
         b, thr, norm, keep=keep, chirp=chirp), 2)
     F._hermitian_weights.cache_clear()
-    b10_ms = cuda_ms(lambda: K2.fft2_pass2(b[None]), 10)
-    say(f"fft2_pass2_spectrum [{n1}, {n2}]: B12 {k_ms:.4f} ms beside K2 at "
-        f"2^29 bins (its stage 1 and chirp alone) {k2_ms:.4f} ms and B10 on "
-        f"the same [{n1}, {n2}] (its row FFT alone) {b10_ms:.4f} ms")
+    say(f"fft2_pass2_spectrum [{n1}, {n2}] on B11's intermediate: B12 "
+        f"{k_ms:.4f} ms after B9's 2^30 timing ({b12['ms']:.4f} ms before "
+        f"it, in turns with B10's {b12['b10_same_input_ms']:.4f}), beside "
+        f"K2 at 2^29 bins (its stage 1 and chirp alone) {k2_ms:.4f} ms")
     # reads the intermediate and the keep mask, writes the spectrum; the
     # row FFT ~5 log2(n2) flops a value, the Hermitian post, zap, scale,
     # twiddle and rotation ~40; the float64 chirp phase ~10
-    recs.append(_record("fft2_pass2_spectrum", k_ms, p_ms, 17 * m,
+    recs.append(_record("fft2_pass2_spectrum", b12["ms"], p_ms, 17 * m,
                         {"f32": 5 * m * 16 + 40 * m, "f64": 10 * m},
                         err_b12, copy_gbps))
+    recs[-1]["b10_same_input_ms"] = b12["b10_same_input_ms"]
+    recs[-1]["ms_after_b9_2^30"] = k_ms
+    recs[-1]["geometry"] = b12["geometry"]
     del b, aux, keep, raw
     torch.cuda.empty_cache()
 
-    # B12 on noise at every row length, every form
+    # B12 on noise at every row length and both column lengths, every form
     flips = 0
-    for n2 in (1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16):
-        n1 = 4096
+    for n1, n2 in [(n1, 1 << k) for n1 in K2.N1_CHOICES
+                   for k in range(12, 17)]:
         m = n1 * n2
         x = torch.randn(n1, n2, dtype=torch.complex64, device="cuda",
                         generator=g)
@@ -1188,19 +1229,97 @@ def check_fft2_front(copy_gbps: float, k2_ms: float) -> list:
         keep = torch.rand(n1, n2, device="cuda", generator=g) > 0.05
         c = torch.exp(2j * torch.pi * torch.rand(n1, n2, device="cuda",
                                                  generator=g))
-        ch = (f_min, cfg.baseband_bandwidth / m, f_c, cfg.dm)
+        ch = (chirp[0], cfg.baseband_bandwidth / m, chirp[2], cfg.dm)
         for kw in (dict(keep=keep, chirp=ch), dict(chirp=ch), dict(keep=keep),
                    dict(), dict(premul=(c, c * c)),
                    dict(keep=keep, premul=(c, c * c))):
             flips += _check_pass2_spectrum(
                 x, thr, 0.125, f"[{n1}, {n2}] {sorted(kw)}", **kw)[1]
         F._hermitian_weights.cache_clear()
-    say(f"check fft2_pass2_spectrum at (4096, 2^12 ... 2^16): with and "
-        f"without the mask, exact chirp, premul or neither, within the "
-        f"gates; {flips} zap decisions within 1e-5 of thr differ")
+    say(f"check fft2_pass2_spectrum at n1 = 4096, 8192 and n2 = 2^12 ... "
+        f"2^16: with and without the mask, exact chirp, premul or neither, "
+        f"within the gates, the self-paired rows 0 and n1/2 too; {flips} "
+        "zap decisions within 1e-5 of thr differ")
     del x, keep, c
     torch.cuda.empty_cache()
     return recs
+
+
+def spectrum_geometry_lines() -> dict:
+    """Print and return B12's launch geometry at every row length: CTAs a
+    pair cluster, values a CTA, threads, CTAs an SM, the pair clusters the
+    occupancy query says the card holds at once, registers and spilled
+    bytes a thread, shared bytes a CTA."""
+    import torch
+    from srtb_tpu_torch.kernels import fft2_front as FF
+    geo = {}
+    for log2 in range(12, 17):
+        geo[f"2^{log2}"] = FF.pass2_spectrum_geometry(1 << log2,
+                                                      torch.device("cuda"))
+        say(f"fft2_pass2_spectrum geometry n2=2^{log2}: " + json.dumps(
+            geo[f"2^{log2}"]))
+    return geo
+
+
+def time_pass2_spectrum() -> dict:
+    """B12 at the front-fused path's [8192, 65536] with the example cfg's
+    keep mask and exact chirp (the path's form), on a noise intermediate,
+    in turns with B10 (its row FFT alone, a reference point: B10 does not
+    compute B12's function) on the same input; timed before B9's 2^30
+    column timing (PERF.md §7)."""
+    import torch
+    from srtb_tpu_torch.kernels import fft2 as K2
+    from srtb_tpu_torch.kernels import fft2_front as FF
+    n1, n2 = 1 << 13, 1 << 16
+    m = n1 * n2
+    b, thr, keep, chirp, norm = _pass2_path_inputs(n1, n2)
+    k_ms, b10_ms = turns(
+        lambda: FF.fft2_pass2_spectrum(b, thr, norm, keep=keep, chirp=chirp),
+        lambda: K2.fft2_pass2(b[None]))
+    nbytes = 17 * m
+    say(f"fft2_pass2_spectrum [{n1}, {n2}] (keep mask, exact chirp): B12 "
+        f"{k_ms:.4f} ms, B10 (its row FFT alone) on the same input "
+        f"{b10_ms:.4f} ms (in turns), bound "
+        f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms "
+        f"({100 * nbytes / PEAK_BYTES_PER_S * 1e3 / k_ms:.1f}% of it), "
+        f"B12 / B10 {k_ms / b10_ms:.3f}")
+    del b, keep
+    torch.cuda.empty_cache()
+    return {"ms": k_ms, "b10_same_input_ms": b10_ms,
+            "geometry": spectrum_geometry_lines()}
+
+
+def _pass2_path_form(cfg, n1: int, n2: int):
+    """B12's form on the front-fused path at [n1, n2] for ``cfg``: its
+    keep mask (blocked), exact chirp and normalization."""
+    import torch
+    from srtb_tpu_torch.ops import dedisperse as dd
+    from srtb_tpu_torch.ops import rfi
+    m = n1 * n2
+    f_min, f_c, df = dd.spectrum_frequencies(cfg, m)
+    zap = rfi.rfi_ranges_to_mask(rfi.eval_rfi_ranges(
+        cfg.mitigate_rfi_freq_list), m, cfg.baseband_freq_low,
+        cfg.baseband_bandwidth)
+    keep = torch.from_numpy(~zap).to("cuda").reshape(n2, n1).T.contiguous()
+    return (keep, (f_min, df, f_c, cfg.dm),
+            rfi.normalization_coefficient(m, cfg.spectrum_channel_count))
+
+
+def _pass2_path_inputs(n1: int, n2: int):
+    """B12's inputs in the front-fused path's form on a noise
+    intermediate [n1, n2] of unit power: the stage-1 threshold (the
+    example cfg's threshold times the spectrum's mean power, n2), and
+    :func:`_pass2_path_form`'s keep mask, chirp and normalization."""
+    import torch
+    from srtb_tpu_torch.config import Config
+    cfg = Config()
+    cfg.load_file(str(CFG_EXAMPLE))
+    g = torch.Generator(device="cuda").manual_seed(27)
+    b = torch.randn(n1, n2, dtype=torch.complex64, device="cuda",
+                    generator=g)
+    thr = torch.tensor([cfg.mitigate_rfi_average_method_threshold * n2],
+                       dtype=torch.float32, device="cuda")
+    return (b, thr, *_pass2_path_form(cfg, n1, n2))
 
 
 def phase_kernels(copy_gbps: float) -> list:
@@ -1209,8 +1328,9 @@ def phase_kernels(copy_gbps: float) -> list:
     recs += [check_unpack_planes(copy_gbps), check_fft_rows(copy_gbps),
              check_fft_rows_stats(copy_gbps),
              check_fft_rows_skzap(copy_gbps), check_dedisperse(copy_gbps)]
-    recs += check_fft2(copy_gbps)
-    recs += check_fft2_front(copy_gbps, recs[1]["ms"])
+    b12 = time_pass2_spectrum()
+    recs += check_fft2(copy_gbps, b12["b10_same_input_ms"])
+    recs += check_fft2_front(copy_gbps, recs[1]["ms"], b12)
     return recs
 
 

@@ -42,15 +42,27 @@ __device__ __forceinline__ float power(float2 v) {
 // sincospif of -2 frac(k).  Returns (cos, sin) of -2 pi frac(k); the _rn
 // intrinsics keep nvcc from contracting into FMAs, so the phase is the
 // plain version's (ops/dedisperse.chirp_turns) exactly.
-__device__ __forceinline__ float2 chirp(long long i, double f_min, double df,
-                                        double f_c, double c_dm) {
+// chirp_arg is the float32 argument -2 frac(k) of that sincospif, the
+// float64 part alone (B12 makes it ahead of its epilogue).
+__device__ __forceinline__ float chirp_arg(long long i, double f_min,
+                                          double df, double f_c,
+                                          double c_dm) {
   const double f = __dadd_rn(f_min, __dmul_rn(df, static_cast<double>(i)));
   const double d = __dsub_rn(f, f_c);
   const double k = __ddiv_rn(__dmul_rn(c_dm, __dmul_rn(d, d)), f);
   const double frac = __dsub_rn(k, trunc(k));  // sign of k, like modf
+  return __double2float_rn(-2.0 * frac);
+}
+
+__device__ __forceinline__ float2 chirp_of_arg(float arg) {
   float s, c;
-  sincospif(__double2float_rn(-2.0 * frac), &s, &c);
+  sincospif(arg, &s, &c);
   return make_float2(c, s);
+}
+
+__device__ __forceinline__ float2 chirp(long long i, double f_min, double df,
+                                        double f_c, double c_dm) {
+  return chirp_of_arg(chirp_arg(i, f_min, df, f_c, c_dm));
 }
 
 // x * (c + i s) with every product and sum rounded separately, as the

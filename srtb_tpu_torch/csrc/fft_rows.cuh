@@ -1,33 +1,27 @@
-// B6/B7/B8: batched row FFTs of length L = 2^12 ... 2^16 held in shared
-// memory, with the waterfall tail's epilogues.
+// B7: batched row FFTs of length L = 2^12 ... 2^16 held in shared memory,
+// with the de-window and the per-row power moments as their epilogue; and
+// the radix-2 building blocks the Hopper kernels share.
 //
-// The plain mode (B6, and B10 on the same function) no longer runs here:
-// it moved to the TMA-fed row-FFT core of fft_rows_sm90.cuh.  This
-// kernel keeps the epilogue modes (kStats for B7, kSkZap for B8), and Plan
-// and its passes stay as they were for them and for B12
-// (fft2_spectrum.cu).  B9/B11's column pass runs on its own clustered
-// body (fft2.cuh).
+// The plain mode (B6, and B10 on the same function) moved to the TMA-fed
+// row-FFT core of fft_rows_sm90.cuh, and so did B8 (fft_rows_skzap.cu)
+// and B12 (fft2_spectrum.cu) as that core's epilogue kernels.  B7's
+// kernel stays here, with Plan and its passes.  B9/B11's column pass runs
+// on its own clustered body (fft2.cuh).
 //
-// Replace the TPU kernels of srtb_tpu/ops/pallas_fft.py:
-//   B6 fft_rows_ri        (pallas_call :496, body _fft_rows_kernel :137)
+// Replaces the TPU kernel of srtb_tpu/ops/pallas_fft.py:
 //   B7 fft_rows_stats_ri  (pallas_call :546, body _fft_rows_stats_kernel
-//                          :145): + de-window multiply, per-row sum |x|^2
-//                          and sum |x|^4
-//   B8 fft_rows_skzap_ri  (pallas_call :278, body _fft_rows_skzap_kernel
-//                          :177): + the spectral-kurtosis verdict, the
-//                          zap as a select, per-row zap flag and pre-zap
-//                          first-sample power, and the time series over
-//                          kept rows.
+//                          :145): the row FFT, de-window multiply, per-row
+//                          sum |x|^2 and sum |x|^4.
 // All transforms are unnormalized in both directions (cuFFT conventions,
 // like the TPU kernels).
 //
-// What the TPU kernels did and what carries over.  They ran each row as
-// two DFT-matrix matmuls (L = 128 x L/128) on the MXU because matmul
-// FLOPs were the cheap resource there and lane-dim reshapes were not;
-// none of that carries over.  What does carry over is the contract: one
-// read and one write of each row in device memory, with the whole row
-// resident on chip while it is transformed, so the SK moments are
-// complete before anything is written.
+// What the TPU kernel did and what carries over.  It ran each row as two
+// DFT-matrix matmuls (L = 128 x L/128) on the MXU because matmul FLOPs
+// were the cheap resource there and lane-dim reshapes were not; none of
+// that carries over.  What does carry over is the contract: one read and
+// one write of each row in device memory, with the whole row resident on
+// chip while it is transformed, so the moments are complete before
+// anything is written.
 //
 // Design on Hopper.  Bound: bytes (8 B read + 8 B written per point; a
 // radix-16 FFT is ~5 log2(L) flops per point, far below the float32
@@ -46,8 +40,8 @@
 //      output, no bit reversal), N / 16 threads each holding 16 values;
 //      with C = 1 the first pass reads the row from device memory;
 //   3. the last pass stays in registers: the epilogue (de-window, power
-//      moments, the SK verdict after a cluster-wide reduction) runs there
-//      and CTA p writes its outputs X[Ck + p] straight to device memory.
+//      moments after a cluster-wide reduction) runs there and CTA p writes
+//      its outputs X[Ck + p] straight to device memory.
 // Twiddles come from a table exp(-2 pi i m / L), m < L, built in float64
 // by the wrapper (conjugated for the inverse; four table reads per
 // butterfly, the other powers by products); the register DFTs use the
@@ -57,12 +51,6 @@
 // two to three times slower on an H100.  Shared-memory indices are padded
 // by one value per 16 (pad()), so the first pass's stride-16 writes do
 // not conflict.
-//
-// B8's time series must be reproducible: each cluster owns a fixed set of
-// rows (row = cluster, cluster + G, ...), adds its kept rows' powers into
-// a float32 partial series in shared memory, and writes it to
-// ts_part[cluster]; a second kernel adds the G partials in cluster order
-// in float64.  No float atomics anywhere.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -93,8 +81,6 @@ static __constant__ float2 kRoot16[16] = {
     {7.071067691e-01f, 7.071067691e-01f},
     {9.238795042e-01f, 3.826834261e-01f},
 };
-
-enum Mode { kPlain = 0, kStats = 1, kSkZap = 2 };
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
 
@@ -356,21 +342,17 @@ struct Args {
   const float2* in;
   float2* out;
   const float2* tw;   // exp(-2 pi i m / L), m < L
-  const float* dw;    // reciprocal de-window [L] or null (B7, B8)
-  float* s2;          // B7: per-row sums, float32 [batch]
+  const float* dw;    // reciprocal de-window [L] or null
+  float* s2;          // per-row sums, float32 [batch]
   float* s4;
-  uint8_t* zapf;      // B8: per-row zap flag [batch]
-  float* fs0;         // B8: per-row pre-zap first-sample power [batch]
-  float* ts_part;     // B8: per-cluster partial series [groups, L]
-  float thr_low;      // B8: SK acceptance bounds
-  float thr_high;
   long long batch;
 };
 
-template <int LOG_N, int C, bool INV, int MODE>
+// Row blockIdx.x / C on C CTAs (a cluster when C > 1).
+template <int LOG_N, int C, bool INV>
 __global__ void __launch_bounds__(Plan<LOG_N, C>::THREADS,
                                   Plan<LOG_N, C>::MIN_CTAS)
-    fft_rows_kernel(Args a) {
+    fft_rows_stats_kernel(Args a) {
   using P = Plan<LOG_N, C>;
   constexpr int N = P::N;
   constexpr int L = P::L;
@@ -379,148 +361,100 @@ __global__ void __launch_bounds__(Plan<LOG_N, C>::THREADS,
   constexpr int BPT = P::LAST_BPT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* s = reinterpret_cast<float2*>(smem_raw);
-  float* tsl = reinterpret_cast<float*>(s + P::SMEM_VALUES);  // B8 only
   __shared__ double red[2 * (THREADS / 32)];
   __shared__ double cta_part[2];
 
   const int tid = threadIdx.x;
   const int rank = C > 1 ? static_cast<int>(blockIdx.x % C) : 0;
-  const long long cluster = blockIdx.x / C;
-  const long long groups = gridDim.x / C;
-
-  if constexpr (MODE == kSkZap) {
-    for (int k = tid; k < N; k += THREADS) tsl[k] = 0.0f;
+  const long long row = blockIdx.x / C;
+  const long long base = row * L;
+  const float2* in = a.in + base;
+  if constexpr (C > 1) {
+    // every CTA of the cluster has started
+    cluster_barrier<C>();
+    // cross stage: this CTA takes positions j of its own range
+    // [rank N/C, (rank+1) N/C), reads x[j + qN] (q < C) from device
+    // memory and writes y_p[j] = w_L^{pj} sum_q x[j + qN] w_C^{pq} into
+    // CTA p's shared memory at j
+    constexpr int J = N / C;
+    float2* rem[C];
+#pragma unroll
+    for (int p = 0; p < C; ++p) rem[p] = cluster_smem<C>(s, p);
+#pragma unroll
+    for (int jj = 0; jj < J / THREADS; ++jj) {
+      const int j = rank * J + tid + jj * THREADS;
+      float2 x[C];
+#pragma unroll
+      for (int q = 0; q < C; ++q) x[q] = in[j + q * N];
+#pragma unroll
+      for (int p = 0; p < C; ++p) {
+        float2 acc = x[0];
+#pragma unroll
+        for (int q = 1; q < C; ++q) {
+          acc = cadd(acc, cmul(x[q], root16<INV>((p * q % C) * (16 / C))));
+        }
+        rem[p][pad(j)] = p == 0 ? acc : cmul(acc, twiddle<INV>(a.tw, p * j));
+      }
+    }
+    cluster_barrier<C>();
   }
-
-  for (long long row = cluster; row < a.batch; row += groups) {
-    const long long base = row * L;
-    const float2* in = a.in + base;
-    if constexpr (C > 1) {
-      // the previous row's passes are done in every CTA
-      cluster_barrier<C>();
-      // cross stage: this CTA takes positions j of its own range
-      // [rank N/C, (rank+1) N/C), reads x[j + qN] (q < C) from device
-      // memory and writes y_p[j] = w_L^{pj} sum_q x[j + qN] w_C^{pq} into
-      // CTA p's shared memory at j
-      constexpr int J = N / C;
-      float2* rem[C];
+  // one CTA a row (C = 1): the first pass reads the row itself
+  P::template passes<0, INV>(s, a.tw, C == 1 ? in : nullptr);
+  float2 u[BPT][R];
+  P::template load_dft<P::PASSES - 1, INV>(s, a.tw, nullptr, u);
+  // u[b][r] is output X[g] for g = C k + rank, k = tid + b THREADS +
+  // r N/R: de-window, write, and the power moments
+  double p2 = 0.0;
+  double p4 = 0.0;
 #pragma unroll
-      for (int p = 0; p < C; ++p) rem[p] = cluster_smem<C>(s, p);
+  for (int b = 0; b < BPT; ++b) {
 #pragma unroll
-      for (int jj = 0; jj < J / THREADS; ++jj) {
-        const int j = rank * J + tid + jj * THREADS;
-        float2 x[C];
-#pragma unroll
-        for (int q = 0; q < C; ++q) x[q] = in[j + q * N];
-#pragma unroll
-        for (int p = 0; p < C; ++p) {
-          float2 acc = x[0];
-#pragma unroll
-          for (int q = 1; q < C; ++q) {
-            acc = cadd(acc, cmul(x[q], root16<INV>((p * q % C) * (16 / C))));
-          }
-          rem[p][pad(j)] = p == 0 ? acc : cmul(acc, twiddle<INV>(a.tw, p * j));
-        }
+    for (int r = 0; r < R; ++r) {
+      const int g = C * (tid + b * THREADS + r * P::LAST_T) + rank;
+      if (a.dw != nullptr) {
+        const float d = __ldg(a.dw + g);
+        u[b][r] = make_float2(__fmul_rn(u[b][r].x, d),
+                              __fmul_rn(u[b][r].y, d));
       }
-      cluster_barrier<C>();
-    }
-    // one CTA a row (C = 1): the first pass reads the row itself
-    P::template passes<0, INV>(s, a.tw, C == 1 ? in : nullptr);
-    float2 u[BPT][R];
-    P::template load_dft<P::PASSES - 1, INV>(s, a.tw, nullptr, u);
-    // u[b][r] is output X[g] for g = C k + rank, k = tid + b THREADS +
-    // r N/R: de-window and the power moments (B7, B8)
-    double p2 = 0.0;
-    double p4 = 0.0;
-#pragma unroll
-    for (int b = 0; b < BPT; ++b) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int g = C * (tid + b * THREADS + r * P::LAST_T) + rank;
-        if constexpr (MODE != kPlain) {
-          if (a.dw != nullptr) {
-            const float d = __ldg(a.dw + g);
-            u[b][r] = make_float2(__fmul_rn(u[b][r].x, d),
-                                  __fmul_rn(u[b][r].y, d));
-          }
-          const double pw = srtb::power(u[b][r]);
-          p2 += pw;
-          p4 += pw * pw;
-        }
-        // B8 writes after the verdict
-        if constexpr (MODE != kSkZap) a.out[base + g] = u[b][r];
-      }
-    }
-    if constexpr (MODE != kPlain) {
-      block_sum2<THREADS>(p2, p4, red);
-      if (tid == 0) {
-        cta_part[0] = p2;
-        cta_part[1] = p4;
-      }
-      cluster_barrier<C>();
-      double s2 = 0.0;
-      double s4 = 0.0;
-#pragma unroll
-      for (int q = 0; q < C; ++q) {  // fixed order: every CTA agrees
-        const double* part = cluster_smem<C>(cta_part, q);
-        s2 += part[0];
-        s4 += part[1];
-      }
-      const float s2f = static_cast<float>(s2);
-      const float s4f = static_cast<float>(s4);
-      if constexpr (MODE == kStats) {
-        if (rank == 0 && tid == 0) {
-          a.s2[row] = s2f;
-          a.s4[row] = s4f;
-        }
-      } else {
-        // the verdict as rfi.sk_zap_decision spells it in float32
-        const float sk = __fdiv_rn(__fmul_rn(static_cast<float>(L), s4f),
-                                   __fmul_rn(s2f, s2f));
-        const bool zap = (sk > a.thr_high) || (sk < a.thr_low);
-#pragma unroll
-        for (int b = 0; b < BPT; ++b) {
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const int k = tid + b * THREADS + r * P::LAST_T;
-            const float2 x = u[b][r];
-            a.out[base + C * k + rank] = zap ? make_float2(0.0f, 0.0f) : x;
-            tsl[k] = __fadd_rn(tsl[k], zap ? 0.0f : srtb::power(x));
-          }
-        }
-        if (rank == 0 && tid == 0) {
-          a.zapf[row] = zap ? 1 : 0;
-          a.fs0[row] = srtb::power(u[0][0]);  // output 0, before the zap
-        }
-      }
+      const double pw = srtb::power(u[b][r]);
+      p2 += pw;
+      p4 += pw * pw;
+      a.out[base + g] = u[b][r];
     }
   }
-  if constexpr (MODE == kSkZap) {
-    for (int k = tid; k < N; k += THREADS) {
-      a.ts_part[cluster * L + C * k + rank] = tsl[k];
+  block_sum2<THREADS>(p2, p4, red);
+  if (tid == 0) {
+    cta_part[0] = p2;
+    cta_part[1] = p4;
+  }
+  cluster_barrier<C>();
+  if (rank == 0 && tid == 0) {
+    double s2 = 0.0;
+    double s4 = 0.0;
+#pragma unroll
+    for (int q = 0; q < C; ++q) {  // fixed order
+      const double* part = cluster_smem<C>(cta_part, q);
+      s2 += part[0];
+      s4 += part[1];
     }
+    a.s2[row] = static_cast<float>(s2);
+    a.s4[row] = static_cast<float>(s4);
   }
   // no CTA leaves while another may still read its shared memory
   cluster_barrier<C>();
 }
 
-template <int LOG_N, int C>
-constexpr size_t smem_bytes(int mode) {
-  return Plan<LOG_N, C>::SMEM_VALUES * sizeof(float2) +
-         (mode == kSkZap ? Plan<LOG_N, C>::N * sizeof(float) : 0);
-}
-
-template <int LOG_N, int C, bool INV, int MODE>
-int run(const Args& a, long long groups, cudaStream_t stream) {
+template <int LOG_N, int C, bool INV>
+int run_stats(const Args& a, cudaStream_t stream) {
   using P = Plan<LOG_N, C>;
-  auto kernel = fft_rows_kernel<LOG_N, C, INV, MODE>;
-  constexpr size_t smem = smem_bytes<LOG_N, C>(MODE);
+  auto kernel = fft_rows_stats_kernel<LOG_N, C, INV>;
+  constexpr size_t smem = P::SMEM_VALUES * sizeof(float2);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(groups * C));
+  cfg.gridDim = dim3(static_cast<unsigned>(a.batch * C));
   cfg.blockDim = dim3(P::THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -537,28 +471,26 @@ int run(const Args& a, long long groups, cudaStream_t stream) {
 }
 
 // Dispatch on the row length: N = min(L, 2^14) values per CTA, C = L / N.
-template <int MODE, bool INV>
-int dispatch_dir(const Args& a, long long length, long long groups,
-                 cudaStream_t stream) {
+template <bool INV>
+int stats_dir(const Args& a, long long length, cudaStream_t stream) {
   switch (length) {
-    case 1 << 12: return run<12, 1, INV, MODE>(a, groups, stream);
-    case 1 << 13: return run<13, 1, INV, MODE>(a, groups, stream);
-    case 1 << 14: return run<14, 1, INV, MODE>(a, groups, stream);
-    case 1 << 15: return run<14, 2, INV, MODE>(a, groups, stream);
-    case 1 << 16: return run<14, 4, INV, MODE>(a, groups, stream);
+    case 1 << 12: return run_stats<12, 1, INV>(a, stream);
+    case 1 << 13: return run_stats<13, 1, INV>(a, stream);
+    case 1 << 14: return run_stats<14, 1, INV>(a, stream);
+    case 1 << 15: return run_stats<14, 2, INV>(a, stream);
+    case 1 << 16: return run_stats<14, 4, INV>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <int MODE>
-int dispatch(const Args& a, long long length, int inverse, long long groups,
-             cudaStream_t stream) {
+inline int run_stats(const Args& a, long long length, int inverse,
+                     cudaStream_t stream) {
   if (a.batch <= 0) return 0;
-  if (groups <= 0 || groups > a.batch || groups * 4 > 0x7fffffffLL) {
+  if (a.batch * 4 > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return inverse ? dispatch_dir<MODE, true>(a, length, groups, stream)
-                 : dispatch_dir<MODE, false>(a, length, groups, stream);
+  return inverse ? stats_dir<true>(a, length, stream)
+                 : stats_dir<false>(a, length, stream);
 }
 
 }  // namespace fft

@@ -4,13 +4,16 @@
 // Replaces the TPU kernels
 //   B6  srtb_tpu/ops/pallas_fft.py:485  fft_rows_ri  (pallas_call :496)
 //   B10 srtb_tpu/ops/pallas_fft2.py:542 pass2_2d     (pallas_call :571)
-// which compute the same function (B10 on pass 1's [n1, n2] rows).
+// which compute the same function (B10 on pass 1's [n1, n2] rows).  Its
+// phases (the TMA row load, the cross step, the local FFT, the exchange)
+// are also the transform of B8 (fft_rows_skzap.cu) and B12
+// (fft2_spectrum.cu), which add their epilogues on the exchanged blocks.
 //
 // Bound: bytes.  Each point is read once and written once, 16 B a point
 // (2^29 points: 8.59 GB, 2.56 ms at 3.35 TB/s); the ~5 log2(L) float32
 // operations a point are a tenth of that time.  The first design
-// (fft_rows.cuh's fft_rows_kernel, which keeps B7/B8) reached 71-78% of the
-// bound at 2^12-2^13 and 24% at 2^16.  What held it back, and what this
+// (fft_rows.cuh's kernel, which keeps B7) reached 71-78% of the bound at
+// 2^12-2^13 and 24% at 2^16.  What held it back, and what this
 // kernel does instead:
 //
 // 1. Load, passes and store ran in sequence in every CTA, one row a CTA
@@ -176,15 +179,16 @@ struct PassTwiddle {
 };
 
 // The geometry of rows of L = C N: N = 2^LOG_N values a CTA, C CTAs a
-// cluster (one row a cluster), 256 threads, two CTAs an SM, one padded
-// buffer a CTA that a TMA bulk copy fills and the passes transform in
-// place.
-template <int LOG_N, int C>
+// cluster (one row a cluster), 256 threads and two CTAs an SM (B12 also
+// takes N = 2^14 with 512 threads, one CTA an SM), one padded buffer a
+// CTA that a TMA bulk copy fills and the passes transform in place.
+template <int LOG_N, int C, int THREADS_ = 256>
 struct Geometry {
   static constexpr int N = 1 << LOG_N;
+  static constexpr int CTAS = C;                  // a row's CTAs
   static constexpr int L = N * C;
-  static constexpr int THREADS = 256;
-  static constexpr int CTAS_PER_SM = 2;
+  static constexpr int THREADS = THREADS_;
+  static constexpr int CTAS_PER_SM = THREADS_ == 256 ? 2 : 1;
   static constexpr int J = N / C;                 // positions a CTA owns
   static constexpr int SX = J + 4;                // exchange row stride
   static constexpr int BUF_VALUES = N + N / 16;   // padded
@@ -210,7 +214,7 @@ struct Geometry {
     static_assert(BPT >= 1 && T % THREADS == 0, "butterflies a thread");
     static_assert(P <= THREADS, "i mod P must not depend on the butterfly");
   };
-  static_assert(LOG_N == 12 || LOG_N == 13, "local lengths 2^12, 2^13");
+  static_assert(LOG_N >= 12 && LOG_N <= 14, "local lengths 2^12 ... 2^14");
   static_assert(C == 1 || C == 2 || C == 4 || C == 8, "cluster sizes");
   static_assert(J % THREADS == 0, "cross step positions a thread");
   static_assert(C * SX <= BUF_VALUES, "the exchange fits the buffer");
@@ -271,12 +275,6 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-struct RowArgs {
-  const float2* in;
-  float2* out;
-  long long batch;
-};
-
 // Pass I's reads into registers, twiddle and DFT: butterfly i = tid + b
 // THREADS reads src[i + r T] (padded indices unless the buffer still
 // holds what TMA or the cross step wrote, in natural order).
@@ -314,15 +312,171 @@ __device__ __forceinline__ void pass_store(
   }
 }
 
-// C = 1: row blockIdx.x, in place in the CTA's buffer.  The twiddles of a
-// pass are made just before it, so that 128 registers hold a thread's 32
-// values without spilling.
+// ---- the core's phases, shared by B6/B10 and the epilogue kernels (B8 in
+// fft_rows_skzap.cu, B12 in fft2_spectrum.cu) ----
+
+// Thread 0: TMA for this CTA's share of ``row`` (the whole row at C = 1;
+// at C > 1 the C slices x[qN + rank J, qN + (rank + 1) J) of it, into
+// buf[qJ, (q + 1) J)), completion counted on ``bar``.
+template <class G>
+__device__ __forceinline__ void issue_row_load(float2* buf, const float2* row,
+                                               int rank, uint64_t* bar) {
+  mbar_expect_tx(bar, G::ROW_BYTES);
+  if constexpr (G::CTAS == 1) {
+    bulk_load(buf, row, G::ROW_BYTES, bar);
+  } else {
+    const float2* src = row + rank * G::J;
+#pragma unroll
+    for (int q = 0; q < G::CTAS; ++q) {
+      bulk_load(buf + q * G::J, src + q * G::N, G::ROW_BYTES / G::CTAS, bar);
+    }
+  }
+}
+
+// C > 1, after the load: the cross step, in registers.  Positions j =
+// rank J + jj, x[j + qN] at buf[qJ + jj]; y[t][p] = w_L^{pj} sum_q x[j +
+// qN] w_C^{pq}, pushed into row CTA p's buffer (``rbuf[p]``) at j, whose
+// local FFT then gives X[Ck + p].  Two cluster barriers: every CTA has
+// read its slices before any push, every push lands before any pass.
+// w_L^{pj} is w_L^j's p-th power by products, or with EXACT_TW one
+// sincospif of the exact argument each (C - 1 of them a position: fewer
+// roundings, more time).
+template <class G, bool INV, bool EXACT_TW = false>
+__device__ __forceinline__ void cross_step(const float2* buf,
+                                           float2* const (&rbuf)[G::CTAS],
+                                           int rank) {
+  constexpr int C = G::CTAS;
+  constexpr int J = G::J;
+  constexpr int THREADS = G::THREADS;
+  constexpr int JT = J / THREADS;  // cross-step positions a thread
+  const int tid = threadIdx.x;
+  float2 y[JT][C];
+#pragma unroll
+  for (int t = 0; t < JT; ++t) {
+    const int jj = tid + t * THREADS;
+#pragma unroll
+    for (int q = 0; q < C; ++q) y[t][q] = buf[q * J + jj];
+    dft<C, INV>(y[t]);
+    if constexpr (EXACT_TW) {
+#pragma unroll
+      for (int p = 1; p < C; ++p) {
+        y[t][p] = cmul(y[t][p], root<INV>(p * (rank * J + jj), G::L));
+      }
+    } else {
+      const float2 w1 = root<INV>(rank * J + jj, G::L);
+      float2 w = w1;
+#pragma unroll
+      for (int p = 1; p < C; ++p) {
+        y[t][p] = cmul(y[t][p], w);
+        w = cmul(w, w1);
+      }
+    }
+  }
+  cg::this_cluster().sync();  // every CTA has read its slices
+#pragma unroll
+  for (int t = 0; t < JT; ++t) {
+#pragma unroll
+    for (int p = 0; p < C; ++p) {
+      rbuf[p][rank * J + tid + t * THREADS] = y[t][p];
+    }
+  }
+  cg::this_cluster().sync();  // every buffer holds its y_p
+}
+
+template <class G>
+using LastPass = float2[G::template Pass<2>::BPT][G::template Pass<2>::R];
+
+// The local N-point FFT of the buffer (natural order in): passes 0 and 1
+// in place, pass 2's reads, twiddles and DFTs into ``u2``, whose
+// butterfly i = tid + b THREADS holds outputs k = i + r T.  The caller
+// orders any later write of the buffer after every thread's reads.  The
+// twiddles of a pass are made just before it, so that 128 registers hold
+// a thread's 32 values without spilling.
+template <class G, bool INV>
+__device__ __forceinline__ void local_fft(float2* buf, LastPass<G>& u2) {
+  using P0 = typename G::template Pass<0>;
+  using P1 = typename G::template Pass<1>;
+  using P2 = typename G::template Pass<2>;
+  const int tid = threadIdx.x;
+  const PassTwiddle<P0::R, INV> tw0 = {};  // unused: P = 1
+  float2 u0[P0::BPT][P0::R];
+  pass_load<G, 0, INV, false>(buf, tw0, u0);
+  __syncthreads();
+  pass_store<G, 0>(buf, u0);
+  __syncthreads();
+  float2 u1[P1::BPT][P1::R];
+  {
+    PassTwiddle<P1::R, INV> tw1;
+    tw1.init(tid & (P1::P - 1), P1::P * P1::R);
+    pass_load<G, 1, INV, true>(buf, tw1, u1);
+  }
+  __syncthreads();
+  pass_store<G, 1>(buf, u1);
+  __syncthreads();
+  {
+    PassTwiddle<P2::R, INV> tw2;
+    tw2.init(tid & (P2::P - 1), P2::P * P2::R);
+    pass_load<G, 2, INV, true>(buf, tw2, u2);
+  }
+}
+
+// C > 1, once every CTA of the row has read its buffer: output k = tid +
+// r T of CTA ``rank`` (X[Ck + rank]) goes to the CTA k / J that owns it,
+// at position (k mod J) C + rank of that CTA's block, stored p-major with
+// a row stride of SX (block_pos).  A cluster barrier must follow before
+// any block is read.
+template <class G>
+__device__ __forceinline__ void exchange(float2* const (&rbuf)[G::CTAS],
+                                         int rank, const LastPass<G>& u2) {
+  using P2 = typename G::template Pass<2>;
+  static_assert(P2::BPT == 1 && P2::T == G::THREADS, "last pass layout");
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < P2::R; ++r) {
+    const int o = (r * P2::T) / G::J;  // compile-time: tid < T <= J
+    rbuf[o][rank * G::SX + tid + r * P2::T - o * G::J] = u2[0][r];
+  }
+}
+
+// Where value i of the CTA's output block X[rank N + i] lies in its buffer
+// after the exchange (C > 1), or after the epilogue kernels' natural-order
+// write of pass 2's registers (C = 1).
+template <class G>
+__device__ __forceinline__ int block_pos(int i) {
+  if constexpr (G::CTAS == 1) {
+    return i;
+  } else {
+    return (i % G::CTAS) * G::SX + i / G::CTAS;
+  }
+}
+
+// C = 1, pass 2's registers into the buffer in natural order (after a
+// barrier that follows every thread's pass-2 reads).
+template <class G>
+__device__ __forceinline__ void store_natural(float2* buf,
+                                              const LastPass<G>& u2) {
+  using P2 = typename G::template Pass<2>;
+#pragma unroll
+  for (int b = 0; b < P2::BPT; ++b) {
+#pragma unroll
+    for (int r = 0; r < P2::R; ++r) {
+      buf[threadIdx.x + b * G::THREADS + r * P2::T] = u2[b][r];
+    }
+  }
+}
+
+struct RowArgs {
+  const float2* in;
+  float2* out;
+  long long batch;
+};
+
+// C = 1: row blockIdx.x, in place in the CTA's buffer, stored straight
+// from pass 2's registers.
 template <int LOG_N, bool INV>
 __global__ void __launch_bounds__(256, Geometry<LOG_N, 1>::CTAS_PER_SM)
     row_fft_kernel(RowArgs a) {
   using G = Geometry<LOG_N, 1>;
-  using P0 = typename G::template Pass<0>;
-  using P1 = typename G::template Pass<1>;
   using P2 = typename G::template Pass<2>;
   constexpr int N = G::N;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -335,33 +489,10 @@ __global__ void __launch_bounds__(256, Geometry<LOG_N, 1>::CTAS_PER_SM)
     mbar_init_fence();
   }
   __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(&full, G::ROW_BYTES);
-    bulk_load(buf, a.in + row * N, G::ROW_BYTES, &full);
-  }
-  const PassTwiddle<P0::R, INV> tw0 = {};  // unused: P = 1
+  if (tid == 0) issue_row_load<G>(buf, a.in + row * N, 0, &full);
   mbar_wait(&full, 0);
-  float2 u0[P0::BPT][P0::R];
-  pass_load<G, 0, INV, false>(buf, tw0, u0);
-  __syncthreads();
-  pass_store<G, 0>(buf, u0);
-  __syncthreads();
-  float2 u1[P1::BPT][P1::R];
-  {
-    PassTwiddle<P1::R, INV> tw1;
-    tw1.init(tid & (P1::P - 1), P1::P * P1::R);
-    pass_load<G, 1, INV, true>(buf, tw1, u1);
-  }
-  __syncthreads();
-  pass_store<G, 1>(buf, u1);
-  __syncthreads();
-  // the last pass: butterfly i = tid + b THREADS holds outputs k = i + r T
-  float2 u2[P2::BPT][P2::R];
-  {
-    PassTwiddle<P2::R, INV> tw2;
-    tw2.init(tid & (P2::P - 1), P2::P * P2::R);
-    pass_load<G, 2, INV, true>(buf, tw2, u2);
-  }
+  LastPass<G> u2;
+  local_fft<G, INV>(buf, u2);
   float2* const out = a.out + row * N;
 #pragma unroll
   for (int b = 0; b < P2::BPT; ++b) {
@@ -372,21 +503,14 @@ __global__ void __launch_bounds__(256, Geometry<LOG_N, 1>::CTAS_PER_SM)
   }
 }
 
-// C > 1: row blockIdx.x / C on a cluster of C CTAs; CTA ``rank`` loads
-// the C slices x[qN + rank J, qN + (rank + 1) J) of it.
+// C > 1: row blockIdx.x / C on a cluster of C CTAs; CTA ``rank`` ends
+// holding, and stores, the contiguous block X[rank N, (rank + 1) N).
 template <int LOG_N, int C, bool INV>
 __global__ void __launch_bounds__(256, Geometry<LOG_N, C>::CTAS_PER_SM)
     cluster_fft_kernel(RowArgs a) {
   static_assert(C > 1, "rows of one CTA run row_fft_kernel");
   using G = Geometry<LOG_N, C>;
-  using P0 = typename G::template Pass<0>;
-  using P1 = typename G::template Pass<1>;
-  using P2 = typename G::template Pass<2>;
   constexpr int N = G::N;
-  constexpr int L = G::L;
-  constexpr int J = G::J;
-  constexpr int THREADS = G::THREADS;
-  constexpr int JT = J / THREADS;  // cross-step positions a thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float2* const buf = reinterpret_cast<float2*>(smem_raw);
   __shared__ __align__(8) uint64_t full;
@@ -397,12 +521,7 @@ __global__ void __launch_bounds__(256, Geometry<LOG_N, C>::CTAS_PER_SM)
   if (tid == 0) {
     mbar_init(&full, 1);
     mbar_init_fence();
-    mbar_expect_tx(&full, G::ROW_BYTES);
-    const float2* src = a.in + row * L + rank * J;
-#pragma unroll
-    for (int q = 0; q < C; ++q) {
-      bulk_load(buf + q * J, src + q * N, G::ROW_BYTES / C, &full);
-    }
+    issue_row_load<G>(buf, a.in + row * G::L, rank, &full);
   }
   __syncthreads();
   // this CTA's buffer in every CTA of the cluster
@@ -410,74 +529,17 @@ __global__ void __launch_bounds__(256, Geometry<LOG_N, C>::CTAS_PER_SM)
 #pragma unroll
   for (int p = 0; p < C; ++p) rbuf[p] = cluster.map_shared_rank(buf, p);
   mbar_wait(&full, 0);
-
-  // cross step, in registers: positions j = rank J + jj, x[j + qN] at
-  // buf[qJ + jj]; y[t][p] = w_L^{pj} sum_q x[j + qN] w_C^{pq}
-  float2 y[JT][C];
-#pragma unroll
-  for (int t = 0; t < JT; ++t) {
-    const int jj = tid + t * THREADS;
-#pragma unroll
-    for (int q = 0; q < C; ++q) y[t][q] = buf[q * J + jj];
-    dft<C, INV>(y[t]);
-    const float2 w1 = root<INV>(rank * J + jj, L);
-    float2 w = w1;
-#pragma unroll
-    for (int p = 1; p < C; ++p) {
-      y[t][p] = cmul(y[t][p], w);
-      w = cmul(w, w1);
-    }
-  }
-  cluster.sync();  // every CTA has read its slices
-#pragma unroll
-  for (int t = 0; t < JT; ++t) {
-#pragma unroll
-    for (int p = 0; p < C; ++p) {
-      rbuf[p][rank * J + tid + t * THREADS] = y[t][p];
-    }
-  }
-  cluster.sync();  // every buffer holds its y_p
-
-  // the local N-point FFT of y_rank, whose output k is X[Ck + rank]
-  const PassTwiddle<P0::R, INV> tw0 = {};  // unused: P = 1
-  float2 u0[P0::BPT][P0::R];
-  pass_load<G, 0, INV, false>(buf, tw0, u0);
-  __syncthreads();
-  pass_store<G, 0>(buf, u0);
-  __syncthreads();
-  float2 u1[P1::BPT][P1::R];
-  {
-    PassTwiddle<P1::R, INV> tw1;
-    tw1.init(tid & (P1::P - 1), P1::P * P1::R);
-    pass_load<G, 1, INV, true>(buf, tw1, u1);
-  }
-  __syncthreads();
-  pass_store<G, 1>(buf, u1);
-  __syncthreads();
-  float2 u2[P2::BPT][P2::R];
-  {
-    PassTwiddle<P2::R, INV> tw2;
-    tw2.init(tid & (P2::P - 1), P2::P * P2::R);
-    pass_load<G, 2, INV, true>(buf, tw2, u2);
-  }
+  cross_step<G, INV>(buf, rbuf, rank);
+  LastPass<G> u2;
+  local_fft<G, INV>(buf, u2);
   cluster.sync();  // every CTA has read its buffer
-
-  // output k = tid + r T is owned by CTA k / J, at position (k mod J) C +
-  // rank of its block: row ``rank`` of that CTA's p-major buffer
-  static_assert(P2::BPT == 1 && P2::T == THREADS, "last pass layout");
-#pragma unroll
-  for (int r = 0; r < P2::R; ++r) {
-    const int o = (r * P2::T) / J;  // compile-time: tid < T <= J
-    rbuf[o][rank * G::SX + tid + r * P2::T - o * J] = u2[0][r];
-  }
+  exchange<G>(rbuf, rank, u2);
   // every output block is assembled; after this barrier no CTA touches
   // another's shared memory, so each may leave when its stores are issued
   cluster.sync();
-  float2* const out = a.out + row * L + rank * N;
+  float2* const out = a.out + row * G::L + rank * N;
 #pragma unroll 4
-  for (int i = tid; i < N; i += THREADS) {
-    out[i] = buf[(i % C) * G::SX + i / C];
-  }
+  for (int i = tid; i < N; i += G::THREADS) out[i] = buf[block_pos<G>(i)];
 }
 
 template <int LOG_N, int C, bool INV>
@@ -489,22 +551,34 @@ inline auto kernel_of() {
   }
 }
 
-// Geometry of the launch: [C, N, threads, CTAs an SM, resident (CTAs for
-// C = 1, clusters for C > 1, that the card holds at once), registers,
-// local bytes, shared bytes].
+// ---- launching ----
+
+// Geometry of a launch: [CTAs a cluster, N, threads, CTAs an SM, resident
+// (CTAs for a cluster of 1, else clusters, that the card holds at once),
+// registers, local bytes, shared bytes].
 constexpr int kGeometryFields = 8;
 
-template <int LOG_N, int C>
-int configure(int* geo) {
-  using G = Geometry<LOG_N, C>;
-  const auto kernel = kernel_of<LOG_N, C, false>();
-  for (auto k : {kernel, kernel_of<LOG_N, C, true>()}) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(G::SMEM));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// Opt ``kernel`` into ``smem`` bytes of dynamic shared memory and, for
+// clusters above the portable 8 CTAs, into the larger cluster size.
+template <class K>
+int prepare(K kernel, int cluster, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess && cluster > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
-  if (geo == nullptr) return 0;
+  return static_cast<int>(err);
+}
+
+// Fill ``geo`` for ``kernel`` (prepared) on clusters of ``cluster`` CTAs
+// of ``values`` values each: the occupancy queries' CTAs an SM and
+// resident CTAs or clusters, the compiler's registers and local bytes.
+// Fails when the card holds none.
+template <class K>
+int query(K kernel, int cluster, int values, int threads, size_t smem,
+          int* geo) {
   int dev = 0;
   int sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -513,18 +587,18 @@ int configure(int* geo) {
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, G::THREADS, G::SMEM);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int resident = per_sm * sms;
-  if constexpr (C > 1) {
+  if (cluster > 1) {
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(C * sms);
-    cfg.blockDim = dim3(G::THREADS);
-    cfg.dynamicSmemBytes = G::SMEM;
+    cfg.gridDim = dim3(cluster * sms);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.x = cluster;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
@@ -535,12 +609,47 @@ int configure(int* geo) {
   cudaFuncAttributes fa = {};
   err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vals[kGeometryFields] = {C, G::N, G::THREADS, per_sm, resident,
-                                     fa.numRegs,
+  const int vals[kGeometryFields] = {cluster, values, threads, per_sm,
+                                     resident, fa.numRegs,
                                      static_cast<int>(fa.localSizeBytes),
-                                     static_cast<int>(G::SMEM)};
+                                     static_cast<int>(smem)};
   for (int i = 0; i < kGeometryFields; ++i) geo[i] = vals[i];
   return resident > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// Launch ``kernel`` (prepared) as ``blocks`` CTAs on clusters of
+// ``cluster``.
+template <class K, class A>
+int launch_on_clusters(K kernel, long long blocks, int cluster, int threads,
+                       size_t smem, cudaStream_t stream, const A& args) {
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LOG_N, int C>
+int configure(int* geo) {
+  using G = Geometry<LOG_N, C>;
+  for (auto k : {kernel_of<LOG_N, C, false>(), kernel_of<LOG_N, C, true>()}) {
+    const int rc = prepare(k, C, G::SMEM);
+    if (rc != 0) return rc;
+  }
+  if (geo == nullptr) return 0;
+  return query(kernel_of<LOG_N, C, false>(), C, G::N, G::THREADS, G::SMEM,
+               geo);
 }
 
 template <int LOG_N, int C, bool INV>
@@ -548,24 +657,9 @@ int launch(const RowArgs& a, cudaStream_t stream) {
   using G = Geometry<LOG_N, C>;
   const int rc = configure<LOG_N, C>(nullptr);
   if (rc != 0) return rc;
-  cudaLaunchConfig_t cfg = {};
-  const long long blocks = a.batch * C;  // one row a CTA or a cluster
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-  cfg.blockDim = dim3(G::THREADS);
-  cfg.dynamicSmemBytes = G::SMEM;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, kernel_of<LOG_N, C, INV>(), a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  // one row a CTA or a cluster
+  return launch_on_clusters(kernel_of<LOG_N, C, INV>(), a.batch * C, C,
+                            G::THREADS, G::SMEM, stream, a);
 }
 
 // Rows of 2^12 and 2^13 on one CTA, 2^14 ... 2^16 on clusters of 2, 4, 8

@@ -20,6 +20,6 @@ SRTB_EXPORT int srtb_fft_rows_stats(const void* in, void* out, const void* tw,
   a.s2 = static_cast<float*>(s2);
   a.s4 = static_cast<float*>(s4);
   a.batch = batch;
-  return srtb::fft::dispatch<srtb::fft::kStats>(
-      a, length, inverse, batch, static_cast<cudaStream_t>(stream));
+  return srtb::fft::run_stats(a, length, inverse,
+                              static_cast<cudaStream_t>(stream));
 }

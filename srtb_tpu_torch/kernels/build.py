@@ -39,8 +39,9 @@ _SIGNATURES = {
     "srtb_fft_rows_geometry": (_I64, _P),
     "srtb_fft_rows": (_P, _P, _I64, _I64, _I32, _P),
     "srtb_fft_rows_stats": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P),
-    "srtb_fft_rows_skzap": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                            _I32, _I64, _F32, _F32, _P),
+    "srtb_fft_rows_skzap_geometry": (_I64, _P),
+    "srtb_fft_rows_skzap": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
+                            _I64, _F32, _F32, _P),
     "srtb_dedisperse": (_P, _P, _I64, _I64, _F64, _F64, _F64, _F64, _P),
     "srtb_fft2_pass1": (_P, _P, _P, _I64, _I64, _I64, _I32, _P),
     "srtb_fft2_pass1_geometry": (_I64, _P),
@@ -48,8 +49,9 @@ _SIGNATURES = {
     "srtb_fft2_pass2": (_P, _P, _I64, _I64, _I32, _P),
     "srtb_fft2_pass1_front": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                               _I32, _I32, _P),
-    "srtb_fft2_pass2_spectrum": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                                 _F32, _I32, _F64, _F64, _F64, _F64, _P),
+    "srtb_fft2_pass2_spectrum_geometry": (_I64, _P),
+    "srtb_fft2_pass2_spectrum": (_P, _P, _P, _P, _P, _P, _I64, _I64, _F32,
+                                 _I32, _F64, _F64, _F64, _F64, _P),
 }
 
 

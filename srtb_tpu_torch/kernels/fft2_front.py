@@ -12,7 +12,8 @@ row FFT, the Hermitian R2C post-process from the mirror bin, RFI stage 1,
 the manual keep mask and the chirp (exact, or the premultiplied pair) in
 one pass, and returns the dedispersed drop-Nyquist spectrum k1-major
 blocked (bin k = k2 n1 + k1 at ``[k1, k2]``); :func:`fft2.unblock`
-restores natural order.
+restores natural order.  B12 runs on the row-FFT core of
+``csrc/fft_rows_sm90.cuh`` (B10's), one row pair {w, n1 - w} a cluster.
 
 The kernels take the production window n1 in {4096, 8192}, n2 in [2^12,
 2^16]; the small-leg splits that ``ffuse_factor`` gives below it occur
@@ -189,7 +190,7 @@ def fft2_pass2_spectrum(b: torch.Tensor, thr: torch.Tensor, norm: float,
     complex64 pair (c, cw) of chirp and chirp times Hermitian twiddle, or
     ``chirp`` = (f_min, df, f_c, dm) for the exact chirp (neither: no
     chirp).  A CPU tensor takes the plain version; a CUDA tensor launches
-    B12."""
+    B12 (a view not 16-byte aligned is copied first)."""
     if b.dtype != torch.complex64 or b.dim() != 2:
         raise ValueError("fft2_pass2_spectrum: b must be complex64 [n1, n2]")
     n1, n2 = b.shape
@@ -216,11 +217,11 @@ def fft2_pass2_spectrum(b: torch.Tensor, thr: torch.Tensor, norm: float,
     build.require_cuda_contiguous(name, b=b, thr=thr, keep=keep, pm_c=pm_c,
                                   pm_cw=pm_cw)
     f_min, df, f_c, dm = chirp if chirp is not None else (0.0, 0.0, 1.0, 0.0)
+    b = KF.aligned(b)
     out = torch.empty_like(b)
-    tw = KF.twiddle_table(n2, b.device)
     with torch.cuda.device(b.device):
         rc = build.library().srtb_fft2_pass2_spectrum(
-            b.data_ptr(), out.data_ptr(), tw.data_ptr(), thr.data_ptr(),
+            b.data_ptr(), out.data_ptr(), thr.data_ptr(),
             None if keep is None else keep.data_ptr(),
             None if pm_c is None else pm_c.data_ptr(),
             None if pm_cw is None else pm_cw.data_ptr(), n1, n2,
@@ -233,3 +234,12 @@ def fft2_pass2_spectrum(b: torch.Tensor, thr: torch.Tensor, norm: float,
 
 
 fft2_pass2_spectrum.launches = 0
+
+
+def pass2_spectrum_geometry(n2: int, device: torch.device) -> dict:
+    """B12's launch geometry at rows of ``n2`` on ``device``'s card (the
+    fields of :data:`fft_rows.GEOMETRY_FIELDS`): CTAs a pair cluster (two
+    rows of the row-FFT core), values a CTA, threads, CTAs an SM, the pair
+    clusters the card holds at once, registers and local bytes a thread,
+    shared bytes a CTA."""
+    return KF.query_geometry("srtb_fft2_pass2_spectrum_geometry", n2, device)

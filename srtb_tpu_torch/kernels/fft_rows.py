@@ -3,7 +3,9 @@ plain and with the waterfall tail's epilogues (``csrc/fft_rows*.cu``;
 replace ``srtb_tpu/ops/pallas_fft.py`` ``fft_rows_ri``,
 ``fft_rows_stats_ri`` and ``fft_rows_skzap_ri``).
 
-Complex data is ``complex64`` ``[..., L]`` (leading dims batch); every
+B6 and B8 run on the TMA-fed row-FFT core (``csrc/fft_rows_sm90.cuh``,
+B8 as its epilogue kernel), B7 on ``csrc/fft_rows.cuh``.  Complex data is
+``complex64`` ``[..., L]`` (leading dims batch); every
 transform is unnormalized in both directions.  The de-window is given as
 the ``[L]`` coefficients to divide out and is applied, as the reference's
 kernels apply it, as a multiply by their float32 reciprocal.
@@ -79,9 +81,20 @@ def _moments(p: torch.Tensor):
             (p64 * p64).sum(-1).to(torch.float32))
 
 
-# the fields of ``srtb_fft_rows_geometry`` (csrc/fft_rows.cu)
+# the fields of ``srtb_fft_rows_geometry`` (csrc/fft_rows.cu), and of the
+# geometry queries of the core's epilogue kernels, B8 and B12
 GEOMETRY_FIELDS = ("ctas_a_cluster", "values_a_cta", "threads", "ctas_an_sm",
                    "resident", "registers", "local_bytes", "smem_bytes")
+
+
+def query_geometry(entry: str, length: int, device: torch.device) -> dict:
+    """The launch geometry the library's query ``entry`` reports for rows
+    of ``length`` on ``device``'s card."""
+    geo = (ctypes.c_int * len(GEOMETRY_FIELDS))()
+    with torch.cuda.device(device):
+        rc = getattr(build.library(), entry)(length, ctypes.addressof(geo))
+    build.check(rc, entry)
+    return dict(zip(GEOMETRY_FIELDS, geo))
 
 
 def geometry(length: int, device: torch.device) -> dict:
@@ -90,12 +103,25 @@ def geometry(length: int, device: torch.device) -> dict:
     cluster, values a CTA, threads, CTAs an SM, the CTAs (or clusters)
     the card holds at once (the occupancy query), and the compiler's
     registers and local (spilled) bytes a thread."""
-    geo = (ctypes.c_int * len(GEOMETRY_FIELDS))()
-    with torch.cuda.device(device):
-        rc = build.library().srtb_fft_rows_geometry(length,
-                                                    ctypes.addressof(geo))
-    build.check(rc, "fft_rows geometry")
-    return dict(zip(GEOMETRY_FIELDS, geo))
+    return query_geometry("srtb_fft_rows_geometry", length, device)
+
+
+def skzap_geometry(length: int, device: torch.device) -> dict:
+    """B8's launch geometry on the same core: its ``resident`` CTAs (rows
+    of one CTA) or clusters are the groups it launches."""
+    return query_geometry("srtb_fft_rows_skzap_geometry", length, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _skzap_resident(length: int, device: torch.device) -> int:
+    return skzap_geometry(length, device)["resident"]
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, or a copy when its data is not 16-byte aligned (TMA
+    reads need 16; a view whose storage offset leaves it 8-byte aligned is
+    copied)."""
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def run_rows(entry: str, x2: torch.Tensor, batch: int, length: int,
@@ -105,8 +131,7 @@ def run_rows(entry: str, x2: torch.Tensor, batch: int, length: int,
     aligned rows: a view whose storage offset leaves it 8-byte aligned is
     copied first."""
     build.require_cuda_contiguous(entry, x=x2)
-    if x2.data_ptr() % 16:
-        x2 = x2.clone()
+    x2 = aligned(x2)
     out = torch.empty_like(x2)
     with torch.cuda.device(x2.device):
         rc = getattr(build.library(), entry)(
@@ -171,11 +196,12 @@ def fft_rows_stats(x: torch.Tensor, inverse: bool = True,
 fft_rows_stats.launches = 0
 
 
-def skzap_groups(f_len: int, length: int) -> int:
-    """Clusters of B8 (row r goes to cluster r mod groups): about 512 CTAs
-    in all, each cluster of length / 2^14 CTAs (at least one)."""
-    ctas = max(1, length >> 14)
-    return max(1, min(f_len, 512 // ctas))
+def skzap_groups(f_len: int, resident: int) -> int:
+    """The persistent clusters (groups) of B8 over ``f_len`` rows: row r
+    goes to group r mod groups.  As many as the card holds at once
+    (``resident``, from :func:`skzap_geometry`), so that one wave covers
+    every row, and never more than there are rows."""
+    return max(1, min(f_len, resident))
 
 
 def fft_rows_skzap_plain(x: torch.Tensor, sk_threshold: float,
@@ -204,7 +230,8 @@ def fft_rows_skzap(x: torch.Tensor, sk_threshold: float,
     with fs0 the first sample's power before the zap (finish the zero
     channel count with ``zap | (fs0 == 0)``) and ts not yet
     mean-subtracted.  A CPU tensor takes the plain version; a CUDA tensor
-    launches B8."""
+    launches B8 (a view not 16-byte aligned is copied first) on
+    :func:`skzap_groups` persistent clusters."""
     if x.dim() != 2:
         raise ValueError("fft_rows_skzap: x must be [F, L] (one stream)")
     x2, f_len, length = _rows(x, "fft_rows_skzap")
@@ -214,18 +241,18 @@ def fft_rows_skzap(x: torch.Tensor, sk_threshold: float,
     name = "fft_rows_skzap"
     x2 = x2.contiguous()
     build.require_cuda_contiguous(name, x=x2, dw=dw)
+    x2 = aligned(x2)
     thr_low, thr_high = rfi.sk_decision_thresholds(length, sk_threshold)
-    groups = skzap_groups(f_len, length)
     dev = x.device
+    groups = skzap_groups(f_len, _skzap_resident(length, dev))
     out = torch.empty_like(x2)
     zap = torch.empty(f_len, dtype=torch.bool, device=dev)
     fs0 = torch.empty(f_len, dtype=torch.float32, device=dev)
     ts_part = torch.empty(groups, length, dtype=torch.float32, device=dev)
     ts = torch.empty(length, dtype=torch.float32, device=dev)
-    tw = twiddle_table(length, dev)
     with torch.cuda.device(dev):
         rc = build.library().srtb_fft_rows_skzap(
-            x2.data_ptr(), out.data_ptr(), tw.data_ptr(),
+            x2.data_ptr(), out.data_ptr(),
             None if dw is None else dw.data_ptr(), zap.data_ptr(),
             fs0.data_ptr(), ts_part.data_ptr(), ts.data_ptr(), f_len, length,
             int(inverse), groups, float(thr_low), float(thr_high),

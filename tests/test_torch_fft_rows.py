@@ -199,28 +199,71 @@ def test_registry_lists_the_slice_kernels():
 
 
 def test_skzap_groups_cover_every_row():
-    """B8's row-to-cluster assignment: about 512 CTAs, never more clusters
-    than rows, one CTA per 2^14 values of a row."""
-    assert KF.skzap_groups(2048, 1 << 15) == 256
-    assert KF.skzap_groups(2048, 1 << 16) == 128
-    assert KF.skzap_groups(2048, 1 << 12) == 512
-    assert KF.skzap_groups(4, 1 << 13) == 4
+    """B8's persistent groups: as many as the card holds at once (the
+    resident clusters or CTAs of its geometry query), never more than
+    there are rows, at least one; row r goes to group r mod groups."""
+    assert KF.skzap_groups(2048, 62) == 62
+    assert KF.skzap_groups(2048, 264) == 264
+    assert KF.skzap_groups(9, 62) == 9
+    assert KF.skzap_groups(1, 30) == 1
+    rows = {r % KF.skzap_groups(2049, 62) for r in range(2049)}
+    assert rows == set(range(62))
 
 
-def test_row_core_wrapper_contract():
-    """B6/B10's launcher: the geometry record has the fields the library
-    fills (``kGeometryFields`` in csrc/fft_rows_sm90.cuh), and rows that
-    are not on a CUDA device never reach the library."""
-    import re
+def _csrc(name: str) -> str:
     from pathlib import Path
-    src = (Path(KF.__file__).resolve().parent.parent / "csrc"
-           / "fft_rows_sm90.cuh").read_text()
-    n = int(re.search(r"kGeometryFields = (\d+);", src).group(1))
+    return (Path(KF.__file__).resolve().parent.parent / "csrc"
+            / name).read_text()
+
+
+@pytest.mark.parametrize("query", ["srtb_fft_rows_geometry",
+                                   "srtb_fft_rows_skzap_geometry",
+                                   "srtb_fft2_pass2_spectrum_geometry"])
+def test_row_core_wrapper_contract(query):
+    """The row core's geometry queries (B6/B10's, and those of its
+    epilogue kernels B8 and B12) fill the record the wrappers read
+    (``kGeometryFields`` in csrc/fft_rows_sm90.cuh, one query of rows of a
+    length each), and rows that are not on a CUDA device never reach the
+    library."""
+    import re
+    from srtb_tpu_torch.kernels import build
+    n = int(re.search(r"kGeometryFields = (\d+);",
+                      _csrc("fft_rows_sm90.cuh")).group(1))
     assert len(KF.GEOMETRY_FIELDS) == n
+    assert build._SIGNATURES[query] == (build._I64, build._P)
     with pytest.raises(ValueError):
         KF.run_rows("srtb_fft_rows", torch.zeros(2, 1 << 12,
                                                  dtype=torch.complex64),
                     2, 1 << 12, False)
+
+
+def test_library_signatures_match_the_sources():
+    """Every entry point the wrappers call is exported by exactly one
+    source, with as many parameters as its ctypes signature has (a
+    mismatch would pass pointers into the wrong arguments on the card)."""
+    import re
+    from pathlib import Path
+    from srtb_tpu_torch.kernels import build
+    exported = {}
+    for src in sorted(Path(build.CSRC_DIR).glob("*.cu")):
+        for name, params in re.findall(
+                r"SRTB_EXPORT int (\w+)\(([^)]*)\)", src.read_text()):
+            assert name not in exported, name
+            exported[name] = len([a for a in params.split(",") if a.strip()])
+    assert set(exported) == set(build._SIGNATURES)
+    for name, argtypes in build._SIGNATURES.items():
+        assert exported[name] == len(argtypes), name
+
+
+def test_aligned_copies_only_a_misaligned_view():
+    """The TMA-fed kernels' wrappers pass 16-byte aligned rows: a view 8
+    bytes off is copied, an aligned tensor is passed as it is."""
+    base = torch.zeros(2 * 4096 + 1, dtype=torch.complex64)
+    assert KF.aligned(base) is base
+    view = base[1:]
+    assert view.data_ptr() % 16 == 8
+    copy = KF.aligned(view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
 
 
 def test_ops_fft_minor_takes_the_kernel_window():

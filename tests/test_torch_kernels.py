@@ -366,7 +366,7 @@ def test_cuda_fft2_pass2_every_row_length(cuda, log2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log2", [12, 15, 16])
+@pytest.mark.parametrize("log2", [12, 13, 14, 15, 16])
 def test_cuda_fft_rows_stats_and_skzap_match_plain(cuda, log2):
     """B7 with a hann de-window and B8 without, on noise rows with a
     planted impulsive row: values to 1e-5 of the largest; B7's sums to
@@ -587,34 +587,163 @@ def test_cuda_fft2_pass1_front_at_the_segment_shape(cuda):
     assert err <= 2e-5 * scale
 
 
+def _check_spectrum(got: torch.Tensor, want: torch.Tensor, b: torch.Tensor,
+                    thr: torch.Tensor, kw: dict) -> None:
+    """B12 against its plain version: a zap decision may differ only on a
+    bin whose plain power lies within float32 rounding (1e-5 relative) of
+    the threshold; the other bins within 5e-5 of the largest |plain| with
+    the chirp (K2's gate) and 2e-5 without; the self-paired rows 0 and
+    n1/2 (row 0 written by one half of its cluster, row n1/2 by both, a
+    half each) finite and within the same gate."""
+    same = (got == 0) == (want == 0)
+    if not bool(same.all()):
+        # the plain power of a flipped bin, before the scale
+        x = FF.fft2_pass2_spectrum_plain(
+            b, torch.tensor([float("inf")], device=b.device), 1.0,
+            premul=kw.get("premul"))
+        p = (x.real ** 2 + x.imag ** 2)[~same]
+        assert bool(((p - thr).abs() <= 1e-5 * thr).all())
+    gate = 5e-5 if "chirp" in kw else 2e-5
+    diff = torch.where(same, (got - want).abs(), 0.0)
+    scale = float(want.abs().max())
+    assert float(diff.max()) <= gate * scale
+    for r in (0, b.shape[0] // 2):
+        assert bool(torch.isfinite(got[r]).all())
+        assert float(diff[r].max()) <= gate * scale
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n1,n2", [(4096, 4096), (4096, 1 << 15),
-                                   (8192, 1 << 16)])
+@pytest.mark.parametrize("n1,n2", [(n1, 1 << k) for n1 in (4096, 8192)
+                                   for k in range(12, 17)])
 def test_cuda_fft2_pass2_spectrum_matches_plain(cuda, n1, n2):
-    """B12 on a noise intermediate, with the keep mask and the exact
-    chirp, with the premul pair and with neither: within 5e-5 of the
-    largest |plain| with the chirp (K2's gate) and 2e-5 without; a zap
-    decision may differ only on a bin whose power lies within float32
-    rounding (1e-5 relative) of the threshold."""
+    """B12 on a noise intermediate at every row length (the pair clusters
+    of 2, 2, 4 and 8 CTAs of the row core, and of 8 CTAs of 2^14 values at
+    2^16) and both column lengths: with the exact chirp, the premul pair
+    and neither, each with and without the keep mask, at the gates of
+    ``_check_spectrum``; forms in turn write different values into the
+    reused output block, so a bin left unwritten fails."""
+    from srtb_tpu_torch.ops import fft as F
     m = n1 * n2
-    g = torch.Generator(device=cuda).manual_seed(n2)
+    g = torch.Generator(device=cuda).manual_seed(n1 + n2)
     b = torch.randn(n1, n2, dtype=torch.complex64, device=cuda, generator=g)
     thr = torch.tensor([6.0 * n2], device=cuda)
     keep = torch.rand(n1, n2, device=cuda, generator=g) > 0.05
     c = torch.exp(2j * torch.pi * torch.rand(n1, n2, device=cuda,
                                              generator=g))
-    forms = [dict(keep=keep, chirp=(1437.0, -64.0 / m, 1373.0, -478.8)),
-             dict(premul=(c, c * c)), dict()]
+    premul = (c, c * c)
+    chirp = (1437.0, -64.0 / m, 1373.0, -478.8)
+    forms = [dict(keep=keep, chirp=chirp), dict(chirp=chirp),
+             dict(keep=keep, premul=premul), dict(premul=premul),
+             dict(keep=keep), dict()]
+    before = FF.fft2_pass2_spectrum.launches
     for kw in forms:
         got = FF.fft2_pass2_spectrum(b, thr, 0.125, **kw)
         want = FF.fft2_pass2_spectrum_plain(b, thr, 0.125, **kw)
-        same = (got == 0) == (want == 0)
-        if not bool(same.all()):
-            # the plain power of a flipped bin, before the scale
-            x = FF.fft2_pass2_spectrum_plain(
-                b, torch.tensor([float("inf")], device=cuda), 1.0,
-                premul=kw.get("premul"))
-            p = (x.real ** 2 + x.imag ** 2)[~same]
-            assert bool(((p - thr).abs() <= 1e-5 * thr).all())
-        err, scale = _max_err(got[same], want[same])
-        assert err <= (5e-5 if "chirp" in kw else 2e-5) * scale
+        _check_spectrum(got, want, b, thr, kw)
+        del got, want
+        # the plain version's Hermitian weights: 8 GiB at m = 2^29
+        F._hermitian_weights.cache_clear()
+        torch.cuda.empty_cache()
+    assert FF.fft2_pass2_spectrum.launches == before + len(forms)
+
+
+@pytest.mark.cuda
+def test_cuda_fft2_pass2_spectrum_unaligned_view_is_copied(cuda):
+    """A view whose storage offset leaves it 8-byte aligned (the row
+    core's TMA reads need 16) is copied by B12's wrapper, not refused."""
+    n1, n2 = 4096, 1 << 13
+    g = torch.Generator(device=cuda).manual_seed(7)
+    base = torch.randn(n1 * n2 + 1, dtype=torch.complex64, device=cuda,
+                       generator=g)
+    b = base[1:].reshape(n1, n2)
+    assert b.data_ptr() % 16 == 8
+    thr = torch.tensor([6.0 * n2], device=cuda)
+    got = FF.fft2_pass2_spectrum(b, thr, 0.125)
+    _check_spectrum(got, FF.fft2_pass2_spectrum_plain(b, thr, 0.125), b,
+                    thr, {})
+
+
+def _skzap_rows(cuda, batch: int, n: int, seed: int,
+                nan_row: bool) -> torch.Tensor:
+    """Noise rows whose inverse transform has an impulsive row 1 (SK high),
+    a constant-modulus row 2 (SK low) and an all-zero row 3 (zero first
+    sample, kept); with ``nan_row`` row 0 holds a NaN (kept, NaN
+    throughout, and the time series NaN)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    wf = torch.randn(batch, n, dtype=torch.complex64, device=cuda,
+                     generator=g)
+    wf[1, ::64] *= 30.0
+    wf[2] = torch.exp(1j * torch.rand(n, device=cuda, generator=g) * 6.0)
+    wf[3] = 0
+    x = torch.fft.fft(wf) / n
+    if nan_row:
+        x[0, 5] = complex(float("nan"), 0.0)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["fewer", "uneven", "two_waves"])
+@pytest.mark.parametrize("log2", [12, 13, 14, 15, 16])
+def test_cuda_fft_rows_skzap_groups_and_planted_rows(cuda, log2, rows):
+    """B8 on its persistent groups (as many as the card holds at once) at
+    every row length: fewer rows than groups, a batch that is not a
+    multiple of the group count, and more than two rows a group; planted
+    rows zapped or kept as the plain version decides, the NaN row kept
+    and NaN throughout (so the time series is NaN) in the first of two
+    calls; values within 1e-5 of the largest, first-sample powers within
+    1e-5 relative, the time series within the repo's
+    ``time_series_error_gates`` for the measured waterfall error (as
+    ``chip_smoke.py`` holds it: over four kept rows, two float32 FFTs'
+    powers differ by up to 2e-6 relative); one launch a call."""
+    n = 1 << log2
+    groups = KF.skzap_geometry(n, cuda)["resident"]
+    batch = {"fewer": min(7, groups - 1), "uneven": groups + 3,
+             "two_waves": 2 * groups + 5}[rows]
+    assert KF.skzap_groups(batch, groups) == min(batch, groups)
+    before = KF.fft_rows_skzap.launches
+    for nan_row in (True, False):
+        x = _skzap_rows(cuda, batch, n, log2 + batch, nan_row)
+        got = KF.fft_rows_skzap(x, SK_THR)
+        want = KF.fft_rows_skzap_plain(x, SK_THR)
+        assert torch.equal(got[1], want[1])
+        assert bool(got[1][1]) and bool(got[1][2]) and not bool(got[1][3])
+        assert float(got[2][3]) == 0.0
+        nan = torch.isnan(want[0])
+        assert torch.equal(torch.isnan(got[0]), nan)
+        assert bool(nan[0].all()) == nan_row and not bool(nan[1:].any())
+        err, scale = _max_err(got[0][~nan], want[0][~nan])
+        assert err <= 1e-5 * scale
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0,
+                                   equal_nan=True)
+        assert bool(torch.isnan(got[3]).all()) == nan_row
+        if not nan_row:
+            _hold_time_series(got[3], want[3], batch, n, err)
+    assert KF.fft_rows_skzap.launches == before + 2
+
+
+def _hold_time_series(got: torch.Tensor, want: torch.Tensor, rows: int,
+                      n: int, wf_err: float) -> None:
+    """B8's time series against the plain one within
+    ``time_series_error_gates``: float32 summation over the rows plus the
+    waterfall error ``wf_err`` carried through |x|^2 and the row sum."""
+    gates = det.time_series_error_gates(rows, n, float(want.max()), wf_err)
+    assert float((got - want).abs().max()) <= sum(gates)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2", [12, 15])
+def test_cuda_fft_rows_skzap_unaligned_view_is_copied(cuda, log2):
+    """A view whose storage offset leaves it 8-byte aligned (TMA reads
+    need 16) is copied by B8's wrapper, not refused."""
+    n = 1 << log2
+    x = _skzap_rows(cuda, 9, n, 3, False)
+    base = torch.empty(9 * n + 1, dtype=torch.complex64, device=cuda)
+    view = base[1:].reshape(9, n)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 8
+    got = KF.fft_rows_skzap(view, SK_THR)
+    want = KF.fft_rows_skzap_plain(x, SK_THR)
+    assert torch.equal(got[1], want[1])
+    err, scale = _max_err(got[0], want[0])
+    assert err <= 1e-5 * scale
+    _hold_time_series(got[3], want[3], 9, n, err)
