@@ -1071,8 +1071,8 @@ def _check_pass2_spectrum(b, thr, norm, where, **kw) -> tuple:
     gate = 5e-5 if kw.get("chirp") is not None else 2e-5
     if not err <= gate * scale:
         fail(f"fft2_pass2_spectrum {where}: {err} > {gate} x {scale}")
-    # the rows that pair with themselves, written by one half of their
-    # cluster (row 0) or by both halves, each half of the row (n1/2)
+    # the rows that pair with themselves (0 and n1/2), each written by the
+    # first half of its cluster alone
     for r in (0, b.shape[0] // 2):
         if not (bool(torch.isfinite(got[r]).all())
                 and float(diff[r].max()) <= gate * scale):

@@ -39,18 +39,19 @@
 // one partner CTA through distributed shared memory, and each pair of
 // values gives two bins: CTA p writes the first half of its block and the
 // second half of the partner's, the partner the rest of both (one DSMEM
-// read for two bins).  Row n1/2 pairs with itself and splits the same way;
-// row 0's mirror column (n2 - k2) mod n2 reaches into the neighbouring
-// block by one value, so the first half alone writes it, taking its
-// partner per value.  The keep bytes of the values a CTA writes come in
-// by TMA with the row.  Geometry: N = 2^13 values and 256 threads a CTA,
-// two CTAs an SM, C = 1, 1, 2, 4 at n2 = 2^12 ... 2^15 (pair clusters of
-// 2, 2, 4, 8); at n2 = 2^16, N = 2^14 values and 512 threads a CTA, one
-// CTA an SM, C = 4, so that a pair cluster is 8 CTAs.  The core's own
-// C = 8 there (pair clusters of 16, above the portable 8, which the card
-// allows: 14 resident) was slower (PERF.md).  The epilogue reads its own
-// values back from shared memory rather than keeping the last pass's
-// registers live, so that the float64 chirp does not spill.
+// read for two bins).  The self-paired rows 0 and n1/2 are written by the
+// first half of their cluster alone: row n1/2 the same way, CTA p its
+// block's first half and block q's second; row 0's mirror column (n2 -
+// k2) mod n2 reaches into the neighbouring block by one value, so it takes
+// its partner per value.  The keep bytes of the values a CTA writes come
+// in by TMA with the row.  Geometry: N = 2^13 values and 256 threads a
+// CTA, two CTAs an SM, C = 1, 1, 2, 4 at n2 = 2^12 ... 2^15 (pair
+// clusters of 2, 2, 4, 8); at n2 = 2^16, N = 2^14 values and 512 threads a
+// CTA, one CTA an SM, C = 4, so that a pair cluster is 8 CTAs.  The core's
+// own C = 8 there (pair clusters of 16, above the portable 8) was slower
+// (PERF.md).  The epilogue reads its own values back from shared memory
+// rather than keeping the last pass's registers live, so that the float64
+// chirp does not spill.
 #include "fft_rows_sm90.cuh"
 
 namespace srtb {
@@ -70,30 +71,6 @@ struct SpectrumArgs {
   int n1;
   long long m;
 };
-
-// Switches for the designs this kernel was chosen from, each 0 in the
-// kernel; chip_variants.py builds the library once per switch and times
-// each in turns (PERF.md):
-//   SRTB_B12_PAIR16       n2 = 2^16 on the core's own geometry, C = 8:
-//                         pair clusters of 16 CTAs (non-portable)
-//   SRTB_B12_UNPAIRED     each CTA writes its own block only (one DSMEM
-//                         read a bin; rows 0 and n1/2 by the first half)
-//   SRTB_B12_KEEP_GLOBAL  the keep bytes read from device memory in the
-//                         epilogue, not brought in by TMA with the row
-//   SRTB_B12_CHIRP_LATE   the float64 chirp made in the epilogue, not
-//                         while the row loads
-#ifndef SRTB_B12_PAIR16
-#define SRTB_B12_PAIR16 0
-#endif
-#ifndef SRTB_B12_UNPAIRED
-#define SRTB_B12_UNPAIRED 0
-#endif
-#ifndef SRTB_B12_KEEP_GLOBAL
-#define SRTB_B12_KEEP_GLOBAL 0
-#endif
-#ifndef SRTB_B12_CHIRP_LATE
-#define SRTB_B12_CHIRP_LATE 0
-#endif
 
 // Bin (row, k2) of the spectrum from its own value z and its mirror's zm:
 // the Hermitian post, stage 1 against t, the keep mask and the chirp
@@ -116,16 +93,9 @@ __device__ __forceinline__ float2 spectrum_value(const SpectrumArgs& a,
     sincospif(-__ll2float_rn(bin) * inv_m, &sn, &cs);
     x = cadd(e, cmul(make_float2(cs, sn), o));
   }
-  float scale = (srtb::power(x) <= t) ? a.norm : 0.0f;
-  if (SRTB_B12_KEEP_GLOBAL) kept = a.keep == nullptr || a.keep[at] != 0;
-  if (!kept) scale = 0.0f;
+  const float scale = (kept && srtb::power(x) <= t) ? a.norm : 0.0f;
   x = make_float2(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale));
-  if (a.chirp) {
-    if (SRTB_B12_CHIRP_LATE) {
-      carg = srtb::chirp_arg(bin, a.f_min, a.df, a.f_c, a.c_dm);
-    }
-    x = srtb::rotate(x, srtb::chirp_of_arg(carg));
-  }
+  if (a.chirp) x = srtb::rotate(x, srtb::chirp_of_arg(carg));
   return x;
 }
 
@@ -160,12 +130,12 @@ __global__ void __launch_bounds__(T, Geometry<LOG_N, C, T>::CTAS_PER_SM)
   const long long mbase = static_cast<long long>(mrow) * L + q * N;
   // epilogue slot j: value j of this block, or (paired, j >= N/2) value
   // j of the partner's block
-  const bool paired = !SRTB_B12_UNPAIRED && row != 0;
+  const bool paired = row != 0;
   const bool masked = a.keep != nullptr;
   if (tid == 0) {
-    mbar_init(&full, masked && !SRTB_B12_KEEP_GLOBAL ? 2 : 1);
+    mbar_init(&full, masked ? 2 : 1);
     mbar_init_fence();
-    if (masked && !SRTB_B12_KEEP_GLOBAL) {
+    if (masked) {
       mbar_expect_tx(&full, N);
       if (paired) {
         bulk_load(keep, a.keep + base, N / 2, &full);
@@ -177,7 +147,7 @@ __global__ void __launch_bounds__(T, Geometry<LOG_N, C, T>::CTAS_PER_SM)
     issue_row_load<G>(buf, a.in + static_cast<long long>(row) * L, p, &full);
   }
   // while the row loads: the float64 chirp arguments of the slots
-  if (a.chirp && !SRTB_B12_CHIRP_LATE) {
+  if (a.chirp) {
     for (int j = tid; j < N; j += G::THREADS) {
       const bool own = !paired || j < N / 2;
       const long long bin =
@@ -208,7 +178,9 @@ __global__ void __launch_bounds__(T, Geometry<LOG_N, C, T>::CTAS_PER_SM)
   const float t = __ldg(a.thr);
   const float inv_m = 1.0f / static_cast<float>(a.m);  // a power of two
   const float2* const mirror = cluster.map_shared_rank(buf, other + q);
-  if (paired) {
+  if (half == 1 && (w == 0 || 2 * w == a.n1)) {
+    // a self-paired row: the first half writes it
+  } else if (paired) {
     // value i < N/2 of this block and its mirror, value N - 1 - i of the
     // partner's block, give both of their bins
 #pragma unroll 2
@@ -223,19 +195,14 @@ __global__ void __launch_bounds__(T, Geometry<LOG_N, C, T>::CTAS_PER_SM)
           spectrum_value(a, zm, z, mrow, q * N + j, mbase + j,
                          !masked || keep[j] != 0, carg[j], t, inv_m);
     }
-  } else if (half == 0 || (w != 0 && 2 * w != a.n1)) {
-    // row 0, self-paired: its mirror column (n2 - k2) mod n2 reaches into
-    // the neighbouring block at i = 0, so the partner is found per value
+  } else {
+    // row 0: its mirror column (n2 - k2) mod n2 reaches into the
+    // neighbouring block at i = 0, so the partner is found per value
     for (int i = tid; i < N; i += G::THREADS) {
       const int k2 = p * N + i;
-      float2 zm;
-      if (row == 0) {
-        const int mc = (L - k2) & (L - 1);
-        zm = cluster.map_shared_rank(buf, other + (mc >> LOG_N))
-                 [block_pos<G>(mc & (N - 1))];
-      } else {
-        zm = mirror[block_pos<G>(N - 1 - i)];
-      }
+      const int mc = (L - k2) & (L - 1);
+      const float2 zm = cluster.map_shared_rank(buf, other + (mc >> LOG_N))
+                            [block_pos<G>(mc & (N - 1))];
       a.out[base + i] =
           spectrum_value(a, buf[block_pos<G>(i)], zm, row, k2, base + i,
                          !masked || keep[i] != 0, carg[i], t, inv_m);
@@ -250,7 +217,7 @@ int configure_spectrum(int* geo) {
   using G = Geometry<LOG_N, C, T>;
   const auto kernel = &spectrum_kernel<LOG_N, C, T>;
   constexpr size_t smem = spectrum_smem<LOG_N, C, T>();
-  const int rc = prepare(kernel, 2 * C, smem);
+  const int rc = prepare(kernel, smem);
   if (rc != 0 || geo == nullptr) return rc;
   return query(kernel, 2 * C, G::N, G::THREADS, smem, geo);
 }
@@ -271,7 +238,7 @@ int run_spectrum(const SpectrumArgs& a, cudaStream_t stream) {
 // pair cluster is 8 CTAs (the core's C = 8 would make it 16).
 template <class F>
 int spectrum_by_length(long long n2, F&& f) {
-  if (!SRTB_B12_PAIR16 && n2 == (1 << 16)) {
+  if (n2 == (1 << 16)) {
     return f(std::integral_constant<int, 14>{},
              std::integral_constant<int, 4>{},
              std::integral_constant<int, 512>{});

@@ -42,21 +42,6 @@
 namespace srtb {
 namespace rows {
 
-// Switches for the designs this kernel was chosen from, each 0 in the
-// kernel; chip_variants.py builds the library once per switch and times
-// each in turns (PERF.md):
-//   SRTB_B8_PULL     each CTA reads the C sums through DSMEM after the
-//                    barrier, instead of every CTA pushing its sums into
-//                    the others' shared memory before it
-//   SRTB_B8_CORE_TW  the cross step's twiddles w^p as the core makes them
-//                    (products of w), not one sincospif each
-#ifndef SRTB_B8_PULL
-#define SRTB_B8_PULL 0
-#endif
-#ifndef SRTB_B8_CORE_TW
-#define SRTB_B8_CORE_TW 0
-#endif
-
 namespace {
 
 using fft::block_sum2;
@@ -88,11 +73,7 @@ __global__ void __launch_bounds__(256, Geometry<LOG_N, C>::CTAS_PER_SM)
   float* const tsl = reinterpret_cast<float*>(buf + G::BUF_VALUES);  // [N]
   __shared__ __align__(8) uint64_t full;
   __shared__ double red[2 * (THREADS / 32)];
-#if !SRTB_B8_PULL
   __shared__ double parts[C][2];  // the row's CTAs' sums, pushed here
-#else
-  __shared__ double cta_part[2];
-#endif
   const int tid = threadIdx.x;
   const int rank = static_cast<int>(blockIdx.x % C);
   const long long group = blockIdx.x / C;
@@ -117,7 +98,7 @@ __global__ void __launch_bounds__(256, Geometry<LOG_N, C>::CTAS_PER_SM)
     }
     mbar_wait(&full, parity);
     if constexpr (C > 1) {
-      cross_step<G, INV, !SRTB_B8_CORE_TW>(buf, rbuf, rank);
+      cross_step<G, INV, true>(buf, rbuf, rank);
     }
     LastPass<G> u2;
     local_fft<G, INV>(buf, u2);
@@ -141,7 +122,6 @@ __global__ void __launch_bounds__(256, Geometry<LOG_N, C>::CTAS_PER_SM)
       }
     }
     block_sum2<THREADS>(p2, p4, red);
-#if !SRTB_B8_PULL
     if (tid == 0) {
 #pragma unroll
       for (int q = 0; q < C; ++q) {
@@ -150,12 +130,6 @@ __global__ void __launch_bounds__(256, Geometry<LOG_N, C>::CTAS_PER_SM)
         part[1] = p4;
       }
     }
-#else
-    if (tid == 0) {
-      cta_part[0] = p2;
-      cta_part[1] = p4;
-    }
-#endif
     // C = 1: the sums are posted and every pass-2 read is done; C > 1:
     // besides, every CTA of the row has read its buffer
     cluster_barrier<C>();
@@ -167,14 +141,8 @@ __global__ void __launch_bounds__(256, Geometry<LOG_N, C>::CTAS_PER_SM)
     double s4 = 0.0;
 #pragma unroll
     for (int q = 0; q < C; ++q) {  // fixed order: every CTA agrees
-#if !SRTB_B8_PULL
       s2 += parts[q][0];
       s4 += parts[q][1];
-#else
-      const double* part = cluster_smem<C>(cta_part, q);
-      s2 += part[0];
-      s4 += part[1];
-#endif
     }
     const float s2f = static_cast<float>(s2);
     const float s4f = static_cast<float>(s4);
@@ -241,7 +209,7 @@ int configure_skzap(int* geo) {
   constexpr size_t smem = skzap_smem<LOG_N, C>();
   for (auto k : {&skzap_kernel<LOG_N, C, false>,
                  &skzap_kernel<LOG_N, C, true>}) {
-    const int rc = prepare(k, C, smem);
+    const int rc = prepare(k, smem);
     if (rc != 0) return rc;
   }
   if (geo == nullptr) return 0;

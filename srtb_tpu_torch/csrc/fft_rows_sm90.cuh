@@ -558,18 +558,12 @@ inline auto kernel_of() {
 // registers, local bytes, shared bytes].
 constexpr int kGeometryFields = 8;
 
-// Opt ``kernel`` into ``smem`` bytes of dynamic shared memory and, for
-// clusters above the portable 8 CTAs, into the larger cluster size.
+// Opt ``kernel`` into ``smem`` bytes of dynamic shared memory.
 template <class K>
-int prepare(K kernel, int cluster, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
+int prepare(K kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess && cluster > 8) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  return static_cast<int>(err);
+      static_cast<int>(smem)));
 }
 
 // Fill ``geo`` for ``kernel`` (prepared) on clusters of ``cluster`` CTAs
@@ -644,7 +638,7 @@ template <int LOG_N, int C>
 int configure(int* geo) {
   using G = Geometry<LOG_N, C>;
   for (auto k : {kernel_of<LOG_N, C, false>(), kernel_of<LOG_N, C, true>()}) {
-    const int rc = prepare(k, C, G::SMEM);
+    const int rc = prepare(k, G::SMEM);
     if (rc != 0) return rc;
   }
   if (geo == nullptr) return 0;

@@ -190,7 +190,8 @@ def fft2_pass2_spectrum(b: torch.Tensor, thr: torch.Tensor, norm: float,
     complex64 pair (c, cw) of chirp and chirp times Hermitian twiddle, or
     ``chirp`` = (f_min, df, f_c, dm) for the exact chirp (neither: no
     chirp).  A CPU tensor takes the plain version; a CUDA tensor launches
-    B12 (a view not 16-byte aligned is copied first)."""
+    B12 (a view of ``b`` or ``keep`` that is not 16-byte aligned is copied
+    first)."""
     if b.dtype != torch.complex64 or b.dim() != 2:
         raise ValueError("fft2_pass2_spectrum: b must be complex64 [n1, n2]")
     n1, n2 = b.shape
@@ -218,6 +219,7 @@ def fft2_pass2_spectrum(b: torch.Tensor, thr: torch.Tensor, norm: float,
                                   pm_cw=pm_cw)
     f_min, df, f_c, dm = chirp if chirp is not None else (0.0, 0.0, 1.0, 0.0)
     b = KF.aligned(b)
+    keep = None if keep is None else KF.aligned(keep)
     out = torch.empty_like(b)
     with torch.cuda.device(b.device):
         rc = build.library().srtb_fft2_pass2_spectrum(

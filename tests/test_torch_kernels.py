@@ -593,8 +593,8 @@ def _check_spectrum(got: torch.Tensor, want: torch.Tensor, b: torch.Tensor,
     bin whose plain power lies within float32 rounding (1e-5 relative) of
     the threshold; the other bins within 5e-5 of the largest |plain| with
     the chirp (K2's gate) and 2e-5 without; the self-paired rows 0 and
-    n1/2 (row 0 written by one half of its cluster, row n1/2 by both, a
-    half each) finite and within the same gate."""
+    n1/2 (each written by the first half of its cluster alone) finite and
+    within the same gate."""
     same = (got == 0) == (want == 0)
     if not bool(same.all()):
         # the plain power of a flipped bin, before the scale
@@ -649,8 +649,9 @@ def test_cuda_fft2_pass2_spectrum_matches_plain(cuda, n1, n2):
 
 @pytest.mark.cuda
 def test_cuda_fft2_pass2_spectrum_unaligned_view_is_copied(cuda):
-    """A view whose storage offset leaves it 8-byte aligned (the row
-    core's TMA reads need 16) is copied by B12's wrapper, not refused."""
+    """Views whose storage offsets leave them 8-byte aligned (the row
+    core's TMA reads need 16), the intermediate and the keep mask, are
+    copied by B12's wrapper, not refused."""
     n1, n2 = 4096, 1 << 13
     g = torch.Generator(device=cuda).manual_seed(7)
     base = torch.randn(n1 * n2 + 1, dtype=torch.complex64, device=cuda,
@@ -661,6 +662,13 @@ def test_cuda_fft2_pass2_spectrum_unaligned_view_is_copied(cuda):
     got = FF.fft2_pass2_spectrum(b, thr, 0.125)
     _check_spectrum(got, FF.fft2_pass2_spectrum_plain(b, thr, 0.125), b,
                     thr, {})
+    keep_base = torch.rand(n1 * n2 + 8, device=cuda, generator=g) > 0.05
+    keep = keep_base[8:].reshape(n1, n2)
+    assert keep.data_ptr() % 16 == 8
+    kw = dict(keep=keep)
+    got = FF.fft2_pass2_spectrum(b, thr, 0.125, **kw)
+    _check_spectrum(got, FF.fft2_pass2_spectrum_plain(b, thr, 0.125, **kw),
+                    b, thr, kw)
 
 
 def _skzap_rows(cuda, batch: int, n: int, seed: int,
