@@ -28,10 +28,10 @@ result lines are printed:
    with the row-FFT core's launch geometry at every row length; B9 at
    [2, 4096, 8192] and [1, 8192, 65536] and B11 at [8192, 65536] in turns
    with cuFFT's column FFT, a reference point without the twiddle, with
-   the column body's launch geometry at both column lengths; B8 in turns
-   with B6 on the same [2^11, 2^15] rows and B12 at [8192, 65536] in turns
-   with B10 on the same input, both before B9's 2^30 timing, with their
-   launch geometry at every row length);
+   the column body's launch geometry at both column lengths; B7 and B8
+   each in turns with B6 on the same [2^11, 2^15] rows and B12 at [8192,
+   65536] in turns with B10 on the same input, all before B9's 2^30
+   timing, with their launch geometry at every row length);
 5. main paths: 2-bit files of two segments with a dispersed pulse in the
    second, made on the card by the port's synth, searched by the port's
    ``srtb-torch-main`` at the example J1644-4559 configuration: at 2^30
@@ -47,8 +47,8 @@ result lines are printed:
    often per segment as that plan's table says.  Paths of one geometry
    share one input file;
 6. breakdown: the device time of one segment stage by stage, for the 2^30
-   paths and for the fused and pallas2 2^27 paths, and the staged R2C
-   front under each staged row implementation.
+   paths and for the fused, unfused and pallas2 2^27 paths, and the
+   staged R2C front under each staged row implementation.
 
 The last two lines are the kernels' JSON record and the result line.
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -636,7 +636,9 @@ def check_fft_rows_stats(copy_gbps: float) -> dict:
     2^27 path's waterfall rows [2^11, 2^15], and with a hann de-window at
     every row length on 8 rows.  Tolerances: rows within 1e-5 of the
     largest; sums within 1e-6 relative (1e-5 with the hann de-window,
-    whose near-zero edges amplify single values' rounding)."""
+    whose near-zero edges amplify single values' rounding).  Timed in
+    turns with B6, its row FFT alone, on the same rows, with B7's launch
+    geometry at every row length."""
     import torch
     from srtb_tpu_torch.kernels import fft_rows as KF
     from srtb_tpu_torch.ops import window as W
@@ -663,15 +665,42 @@ def check_fft_rows_stats(copy_gbps: float) -> dict:
         f"{scale:.3e}, sums rel err {e2:.2e} / {e4:.2e} <= 1e-6 at "
         "[2^11, 2^15]; every L with a hann de-window within 1e-5")
     del y, ry
+    geo = stats_geometry_lines()
+    # in turns with B6, its row FFT alone, on the same rows (a reference
+    # point: B6 does not compute B7's function)
+    k_ms, b6_ms = turns(lambda: KF.fft_rows_stats(x),
+                        lambda: KF.fft_rows(x, True))
     n, f_len = x.numel(), x.shape[0]
-    rec = _record("fft_rows_stats", cuda_ms(lambda: KF.fft_rows_stats(x), 10),
-                  cuda_ms(lambda: KF.fft_rows_stats_plain(x), 3),
-                  16 * n + 8 * f_len,
+    nbytes = 16 * n + 8 * f_len
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    say(f"fft_rows_stats {list(x.shape)}: B7 {k_ms:.4f} ms, B6 (its "
+        f"inverse row FFT alone) on the same rows {b6_ms:.4f} ms (in "
+        f"turns), bound {b_ms:.4f} ms ({100 * b_ms / k_ms:.1f}% of it), "
+        f"B7 / B6 {k_ms / b6_ms:.3f}")
+    rec = _record("fft_rows_stats", k_ms,
+                  cuda_ms(lambda: KF.fft_rows_stats_plain(x), 3), nbytes,
                   # the FFT, |x|^2 (3 f32), float64 sum, square, sum
                   {"f32": 5 * n * 15 + 3 * n, "f64": 3 * n}, err, copy_gbps)
+    rec["b6_same_rows_ms"] = b6_ms
+    rec["geometry"] = geo
     del x
     torch.cuda.empty_cache()
     return rec
+
+
+def stats_geometry_lines() -> dict:
+    """Print and return B7's launch geometry at every row length: CTAs a
+    cluster, values a CTA, threads, CTAs an SM, the CTAs or clusters the
+    occupancy query says the card holds at once, registers and spilled
+    bytes a thread, shared bytes a CTA."""
+    import torch
+    from srtb_tpu_torch.kernels import fft_rows as KF
+    geo = {}
+    for log2 in range(12, 17):
+        geo[f"2^{log2}"] = KF.stats_geometry(1 << log2, torch.device("cuda"))
+        say(f"fft_rows_stats geometry L=2^{log2}: " + json.dumps(
+            geo[f"2^{log2}"]))
+    return geo
 
 
 def _sk_margin_ok(got, want, s2, s4, length, sk_thr) -> int:
@@ -1670,22 +1699,15 @@ def _fused_tail_stages(ms: dict, sp, a) -> None:
         lambda: sp._waterfall_detect(spec), 5)
 
 
-def phase_breakdown_rows(fused, unfused) -> dict:
-    """Device time of one 2^27 segment of the fused row-FFT plan stage by
-    stage, each stage the processor's own function alone on the input the
-    chain gives it (CUDA events, mean of a few runs), the whole chain on
-    the same device-resident segment, and the unfused plan's chain beside
-    it."""
-    import torch
+def _rows_front_stages(ms: dict, sp, raw):
+    """Time the 2^27 row-FFT plans' front: B13 and the four-step FFT on
+    B6 legs; returns the plane FFTs ``a [p, M]``."""
     from srtb_tpu_torch.kernels import unpack as KU
     from srtb_tpu_torch.ops import fft as F
-    sp, raw, h2d = _segment_on_card(fused)
-    cfg = sp.cfg
-    ms = {"h2d (pageable)": h2d}
 
     def unpack():
-        return KU.unpack_subbyte_planes_window(raw, cfg.baseband_input_bits,
-                                               sp.window_planes)
+        return KU.unpack_subbyte_planes_window(
+            raw, sp.cfg.baseband_input_bits, sp.window_planes)
     ms["B13 unpack planes"] = cuda_ms(unpack, 5)
     z = unpack()
 
@@ -1693,15 +1715,79 @@ def phase_breakdown_rows(fused, unfused) -> dict:
         return F.fft_minor(z, False, "pallas", sp._len_cap)
     ms["four-step FFT: B6 legs, transposes, leg twiddle"] = cuda_ms(
         planes_fft, 5)
-    a = planes_fft()
-    del z
-    _fused_tail_stages(ms, sp, a)
-    del a
-    whole = cuda_ms(lambda: sp.process(raw), 3)
-    unfused_ms = cuda_ms(lambda: unfused["pipe"].processor.process(raw), 3)
-    torch.cuda.empty_cache()
-    return _breakdown_line("fused_2^27", ms, whole, cfg,
-                           {"unfused_chain_ms": unfused_ms})
+    return planes_fft()
+
+
+def _unfused_tail_stages(ms: dict, sp, a) -> None:
+    """Time the unfused plan's stages after the plane FFTs ``a [p, M]``:
+    the R2C's finish, the mean power + K2, then the waterfall as
+    ``_waterfall_detect`` runs it on that plan (B7, the torch verdict and
+    zero count, K4, detect), each alone on the input the chain gives
+    it."""
+    import torch
+    from srtb_tpu_torch.kernels import fft_rows as KF
+    from srtb_tpu_torch.kernels import rfi_chirp as KR
+    from srtb_tpu_torch.kernels import sk as KS
+    from srtb_tpu_torch.ops import detect as det
+    from srtb_tpu_torch.ops import fft as F
+    from srtb_tpu_torch.ops import rfi
+    cfg = sp.cfg
+    ms["plane twiddle + butterfly + hermitian post"] = cuda_ms(
+        lambda: F.finish_rfft_subbyte(a), 3)
+    spec = F.finish_rfft_subbyte(a)
+    thr = cfg.mitigate_rfi_average_method_threshold
+    ms["mean power + K2"] = cuda_ms(
+        lambda: sp._k2(spec, KR.rfi_threshold(spec, thr)), 5)
+    spec = sp._k2(spec, KR.rfi_threshold(spec, thr))
+    rows = F.waterfall_rows(spec, sp.channel_count)
+    del spec
+    ms["B7 fft_rows_stats"] = cuda_ms(lambda: KF.fft_rows_stats(
+        rows, inverse=True, dewindow=sp.watfft_dewindow), 5)
+    wf, s2, s4 = KF.fft_rows_stats(rows, inverse=True,
+                                   dewindow=sp.watfft_dewindow)
+    del rows
+    sk_thr = cfg.mitigate_rfi_spectral_kurtosis_threshold
+
+    def verdict():
+        zap = rfi.sk_zap_decision(s2, s4, sp.watfft_len, sk_thr)
+        return zap, torch.sum((zap | (rfi.power(wf[:, 0]) == 0)).to(
+            torch.int32), dtype=torch.int32)
+    ms["sk verdict + zero count (torch)"] = cuda_ms(verdict, 5)
+    zap, zero_count = verdict()
+    ms["sk apply + time series K4"] = cuda_ms(
+        lambda: KS.sk_apply_timeseries(wf, zap), 5)
+    _, ts = KS.sk_apply_timeseries(wf, zap)
+    del wf
+    t = det.trimmed_length(ts.shape[-1], sp.time_reserved_count)
+    ms["detect"] = cuda_ms(lambda: det.detect_from_time_series(
+        ts[None, :t], zero_count[None],
+        cfg.signal_detect_signal_noise_threshold,
+        cfg.signal_detect_max_boxcar_length), 5)
+
+
+def phase_breakdown_rows(fused, unfused) -> dict:
+    """Device time of one 2^27 segment of the fused and of the unfused
+    row-FFT plan stage by stage, each stage the processor's own function
+    alone on the input the chain gives it (CUDA events, mean of a few
+    runs), and each whole chain on the same device-resident segment;
+    returns the fused plan's line."""
+    import torch
+    out = {}
+    for label, run, tail in (("fused_2^27", fused, _fused_tail_stages),
+                             ("unfused_2^27", unfused,
+                              _unfused_tail_stages)):
+        sp, raw, h2d = _segment_on_card(run)
+        ms = {"h2d (pageable)": h2d}
+        tail(ms, sp, _rows_front_stages(ms, sp, raw))
+        out[label] = (ms, cuda_ms(lambda: sp.process(raw), 3), sp.cfg)
+        del raw
+        torch.cuda.empty_cache()
+    f_ms, f_whole, cfg = out["fused_2^27"]
+    u_ms, u_whole, _ = out["unfused_2^27"]
+    _breakdown_line("unfused_2^27", u_ms, u_whole, cfg,
+                    {"fused_2^27_chain_ms": f_whole})
+    return _breakdown_line("fused_2^27", f_ms, f_whole, cfg,
+                           {"unfused_chain_ms": u_whole})
 
 
 def phase_breakdown_pallas2(run, fused_chain_ms: float) -> dict:

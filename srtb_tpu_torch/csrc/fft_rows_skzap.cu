@@ -102,25 +102,9 @@ __global__ void __launch_bounds__(256, Geometry<LOG_N, C>::CTAS_PER_SM)
     }
     LastPass<G> u2;
     local_fft<G, INV>(buf, u2);
-    // u2[b][r] is X[C k + rank], k = tid + b THREADS + r T: de-window and
-    // the power moments
-    double p2 = 0.0;
-    double p4 = 0.0;
-#pragma unroll
-    for (int b = 0; b < P2::BPT; ++b) {
-#pragma unroll
-      for (int r = 0; r < P2::R; ++r) {
-        if (a.dw != nullptr) {
-          const float d =
-              __ldg(a.dw + C * (tid + b * THREADS + r * P2::T) + rank);
-          u2[b][r] = make_float2(__fmul_rn(u2[b][r].x, d),
-                                 __fmul_rn(u2[b][r].y, d));
-        }
-        const double pw = srtb::power(u2[b][r]);
-        p2 += pw;
-        p4 += pw * pw;
-      }
-    }
+    double p2;
+    double p4;
+    dewindow_moments<G>(u2, a.dw, rank, p2, p4);
     block_sum2<THREADS>(p2, p4, red);
     if (tid == 0) {
 #pragma unroll

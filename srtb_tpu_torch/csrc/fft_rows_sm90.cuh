@@ -6,15 +6,16 @@
 //   B10 srtb_tpu/ops/pallas_fft2.py:542 pass2_2d     (pallas_call :571)
 // which compute the same function (B10 on pass 1's [n1, n2] rows).  Its
 // phases (the TMA row load, the cross step, the local FFT, the exchange)
-// are also the transform of B8 (fft_rows_skzap.cu) and B12
-// (fft2_spectrum.cu), which add their epilogues on the exchanged blocks.
+// are also the transform of B7 (fft_rows_stats.cu), B8
+// (fft_rows_skzap.cu) and B12 (fft2_spectrum.cu), which add their
+// epilogues on pass 2's registers and the exchanged blocks.
 //
 // Bound: bytes.  Each point is read once and written once, 16 B a point
 // (2^29 points: 8.59 GB, 2.56 ms at 3.35 TB/s); the ~5 log2(L) float32
-// operations a point are a tenth of that time.  The first design
-// (fft_rows.cuh's kernel, which keeps B7) reached 71-78% of the bound at
-// 2^12-2^13 and 24% at 2^16.  What held it back, and what this
-// kernel does instead:
+// operations a point are a tenth of that time.  The first design (a
+// Stockham kernel of radix 16/8 with a twiddle table, since retired)
+// reached 71-78% of the bound at 2^12-2^13 and 24% at 2^16.  What held
+// it back, and what this kernel does instead:
 //
 // 1. Load, passes and store ran in sequence in every CTA, one row a CTA
 //    and one CTA an SM at most lengths, the first pass reading device
@@ -461,6 +462,36 @@ __device__ __forceinline__ void store_natural(float2* buf,
 #pragma unroll
     for (int r = 0; r < P2::R; ++r) {
       buf[threadIdx.x + b * G::THREADS + r * P2::T] = u2[b][r];
+    }
+  }
+}
+
+// B7's and B8's epilogue on pass 2's registers, u2[b][r] = X[C k + rank]
+// (k = tid + b THREADS + r T): each value times the reciprocal de-window
+// dw[C k + rank] when dw is given (__fmul_rn, as the plain version
+// rounds), and this thread's share of the power moments sum |x|^2, sum
+// |x|^4 in float64 (block_sum2 then adds the CTA's in a fixed order).
+template <class G>
+__device__ __forceinline__ void dewindow_moments(LastPass<G>& u2,
+                                                 const float* __restrict__ dw,
+                                                 int rank, double& p2,
+                                                 double& p4) {
+  using P2 = typename G::template Pass<2>;
+  p2 = 0.0;
+  p4 = 0.0;
+#pragma unroll
+  for (int b = 0; b < P2::BPT; ++b) {
+#pragma unroll
+    for (int r = 0; r < P2::R; ++r) {
+      if (dw != nullptr) {
+        const float d = __ldg(
+            dw + G::CTAS * (threadIdx.x + b * G::THREADS + r * P2::T) + rank);
+        u2[b][r] = make_float2(__fmul_rn(u2[b][r].x, d),
+                               __fmul_rn(u2[b][r].y, d));
+      }
+      const double pw = srtb::power(u2[b][r]);
+      p2 += pw;
+      p4 += pw * pw;
     }
   }
 }

@@ -38,7 +38,8 @@ _SIGNATURES = {
     "srtb_unpack_subbyte_planes_window": (_P, _P, _P, _I64, _I32, _P),
     "srtb_fft_rows_geometry": (_I64, _P),
     "srtb_fft_rows": (_P, _P, _I64, _I64, _I32, _P),
-    "srtb_fft_rows_stats": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P),
+    "srtb_fft_rows_stats_geometry": (_I64, _P),
+    "srtb_fft_rows_stats": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _P),
     "srtb_fft_rows_skzap_geometry": (_I64, _P),
     "srtb_fft_rows_skzap": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
                             _I64, _F32, _F32, _P),

@@ -3,10 +3,10 @@ plain and with the waterfall tail's epilogues (``csrc/fft_rows*.cu``;
 replace ``srtb_tpu/ops/pallas_fft.py`` ``fft_rows_ri``,
 ``fft_rows_stats_ri`` and ``fft_rows_skzap_ri``).
 
-B6 and B8 run on the TMA-fed row-FFT core (``csrc/fft_rows_sm90.cuh``,
-B8 as its epilogue kernel), B7 on ``csrc/fft_rows.cuh``.  Complex data is
-``complex64`` ``[..., L]`` (leading dims batch); every
-transform is unnormalized in both directions.  The de-window is given as
+All three run on the TMA-fed row-FFT core (``csrc/fft_rows_sm90.cuh``),
+B7 and B8 as its epilogue kernels.  Complex data is ``complex64``
+``[..., L]`` (leading dims batch); every transform is unnormalized in
+both directions.  The de-window is given as
 the ``[L]`` coefficients to divide out and is applied, as the reference's
 kernels apply it, as a multiply by their float32 reciprocal.
 """
@@ -54,7 +54,8 @@ def _reciprocal(dewindow: torch.Tensor | None, length: int,
 @functools.lru_cache(maxsize=None)
 def twiddle_table(length: int, device: torch.device) -> torch.Tensor:
     """exp(-2 pi i m / length), m < length, built in float64 and rounded to
-    complex64: the kernels' twiddle table (conjugated for the inverse)."""
+    complex64: the twiddle table of B9's and B11's column body
+    (conjugated for the inverse)."""
     m = torch.arange(length, dtype=torch.float64, device=device)
     return torch.polar(torch.ones_like(m), m * (-2.0 * torch.pi / length)
                        ).to(torch.complex64)
@@ -82,7 +83,7 @@ def _moments(p: torch.Tensor):
 
 
 # the fields of ``srtb_fft_rows_geometry`` (csrc/fft_rows.cu), and of the
-# geometry queries of the core's epilogue kernels, B8 and B12
+# geometry queries of the core's epilogue kernels, B7, B8 and B12
 GEOMETRY_FIELDS = ("ctas_a_cluster", "values_a_cta", "threads", "ctas_an_sm",
                    "resident", "registers", "local_bytes", "smem_bytes")
 
@@ -104,6 +105,12 @@ def geometry(length: int, device: torch.device) -> dict:
     the card holds at once (the occupancy query), and the compiler's
     registers and local (spilled) bytes a thread."""
     return query_geometry("srtb_fft_rows_geometry", length, device)
+
+
+def stats_geometry(length: int, device: torch.device) -> dict:
+    """B7's launch geometry on the same core (one row a CTA or a
+    cluster, as B6's)."""
+    return query_geometry("srtb_fft_rows_stats_geometry", length, device)
 
 
 def skzap_geometry(length: int, device: torch.device) -> dict:
@@ -170,7 +177,8 @@ def fft_rows_stats(x: torch.Tensor, inverse: bool = True,
     """B6 plus the de-window and the per-row power moments: complex64
     ``x [..., L]`` -> ``(y [..., L], s2 [...], s4 [...])`` with s2 = sum
     |y|^2 and s4 = sum |y|^4 per row (float32).  A CPU tensor takes the
-    plain version; a CUDA tensor launches B7."""
+    plain version; a CUDA tensor launches B7 (a view not 16-byte aligned
+    is copied first)."""
     x2, batch, length = _rows(x, "fft_rows_stats")
     dw = _reciprocal(dewindow, length, x.device)
     if x.device.type == "cpu":
@@ -178,13 +186,13 @@ def fft_rows_stats(x: torch.Tensor, inverse: bool = True,
     name = "fft_rows_stats"
     x2 = x2.contiguous()
     build.require_cuda_contiguous(name, x=x2, dw=dw)
+    x2 = aligned(x2)
     out = torch.empty_like(x2)
     s2, s4 = (torch.empty(batch, dtype=torch.float32, device=x.device)
               for _ in range(2))
-    tw = twiddle_table(length, x.device)
     with torch.cuda.device(x.device):
         rc = build.library().srtb_fft_rows_stats(
-            x2.data_ptr(), out.data_ptr(), tw.data_ptr(),
+            x2.data_ptr(), out.data_ptr(),
             None if dw is None else dw.data_ptr(), s2.data_ptr(),
             s4.data_ptr(), batch, length, int(inverse), build.stream_of(x2))
     build.check(rc, name)

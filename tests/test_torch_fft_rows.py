@@ -217,11 +217,12 @@ def _csrc(name: str) -> str:
 
 
 @pytest.mark.parametrize("query", ["srtb_fft_rows_geometry",
+                                   "srtb_fft_rows_stats_geometry",
                                    "srtb_fft_rows_skzap_geometry",
                                    "srtb_fft2_pass2_spectrum_geometry"])
 def test_row_core_wrapper_contract(query):
     """The row core's geometry queries (B6/B10's, and those of its
-    epilogue kernels B8 and B12) fill the record the wrappers read
+    epilogue kernels B7, B8 and B12) fill the record the wrappers read
     (``kGeometryFields`` in csrc/fft_rows_sm90.cuh, one query of rows of a
     length each), and rows that are not on a CUDA device never reach the
     library."""

@@ -393,6 +393,50 @@ def test_cuda_fft_rows_stats_and_skzap_match_plain(cuda, log2):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("log2", [12, 13, 14, 15, 16])
+def test_cuda_fft_rows_stats_unaligned_view_is_copied(cuda, log2):
+    """A view whose storage offset leaves it 8-byte aligned (TMA reads
+    need 16) is copied by B7's wrapper, not refused; held at the gates of
+    test_cuda_fft_rows_stats_and_skzap_match_plain (values to 1e-5 of the
+    largest, sums to 1e-5 relative with the hann de-window).  An all-zero
+    row stays exactly 0, its sums too: the unfused plan's zero count reads
+    B7's first output."""
+    n = 1 << log2
+    g = torch.Generator(device=cuda).manual_seed(300 + log2)
+    base = torch.randn(5 * n + 1, dtype=torch.complex64, device=cuda,
+                       generator=g)
+    view = base[1:].reshape(5, n)
+    view[3] = 0
+    assert view.data_ptr() % 16 == 8
+    dw = torch.from_numpy(W.dewindow_coefficients("hann", n)).to(cuda)
+    for d in (None, dw):
+        got = KF.fft_rows_stats(view, True, d)
+        want = KF.fft_rows_stats_plain(view, True, d)
+        err, scale = _max_err(got[0], want[0])
+        assert err <= 1e-5 * scale
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+        assert not bool(got[0][3].any())
+        assert float(got[1][3]) == 0.0 and float(got[2][3]) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_fft_rows_stats_geometry(cuda):
+    """B7's launch geometry: one row a CTA at 2^12 and 2^13, a cluster of
+    2, 4, 8 CTAs of 2^13 values at 2^14 ... 2^16, 256 threads and two
+    CTAs an SM, the card holding some of them at once, and the compiler's
+    local (spilled) bytes reported."""
+    for log2, ctas in zip(range(12, 17), (1, 1, 2, 4, 8)):
+        geo = KF.stats_geometry(1 << log2, cuda)
+        assert set(geo) == set(KF.GEOMETRY_FIELDS)
+        assert geo["ctas_a_cluster"] == ctas
+        assert geo["values_a_cta"] == min(1 << log2, 1 << 13)
+        assert geo["threads"] == 256 and geo["ctas_an_sm"] == 2
+        assert geo["resident"] > 0 and geo["local_bytes"] >= 0
+        assert geo["registers"] <= 128
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nbits", [1, 2, 4])
 def test_cuda_unpack_planes_matches_plain(cuda, nbits):
     data = torch.from_numpy(PLANE_BYTES).to(cuda)
