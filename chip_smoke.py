@@ -481,19 +481,19 @@ def turns(kernel, library, reps: int = 10) -> tuple[float, float]:
     return (k1 + k2) / 2, (l1 + l2) / 2
 
 
-def row_geometry_lines() -> dict:
-    """Print and return the B6/B10 core's launch geometry at every row
-    length (one row a CTA or a cluster): CTAs a cluster, values a CTA,
-    threads, CTAs an SM, the CTAs or clusters the occupancy query says the
-    card holds at once, registers and spilled bytes a thread, shared bytes
-    a CTA."""
+def row_length_geometry(label: str, query, var: str = "L") -> dict:
+    """Print and return the launch geometry ``query(length, device)``
+    reports at every row length 2^12 ... 2^16 (one of the row-FFT core's
+    geometry queries: B6/B10's or an epilogue kernel's): CTAs a cluster
+    (B12: a pair cluster), values a CTA, threads, CTAs an SM, the CTAs or
+    clusters the occupancy query says the card holds at once (B8: the
+    persistent groups it launches), registers and spilled bytes a thread,
+    shared bytes a CTA."""
     import torch
-    from srtb_tpu_torch.kernels import fft_rows as KF
     geo = {}
     for log2 in range(12, 17):
-        geo[f"2^{log2}"] = KF.geometry(1 << log2, torch.device("cuda"))
-        say(f"row-FFT core geometry L=2^{log2}: " + json.dumps(
-            geo[f"2^{log2}"]))
+        geo[f"2^{log2}"] = query(1 << log2, torch.device("cuda"))
+        say(f"{label} {var}=2^{log2}: " + json.dumps(geo[f"2^{log2}"]))
     return geo
 
 
@@ -605,7 +605,8 @@ def check_fft_rows(copy_gbps: float) -> dict:
     rec = _record("fft_rows", k_ms, l_ms, 16 * n,
                   {"f32": 5 * n * 12.5}, err_legs, copy_gbps, l_ms)
     rec["by_shape"] = by_shape
-    rec["geometry"] = row_geometry_lines()
+    rec["geometry"] = row_length_geometry("row-FFT core geometry",
+                                          KF.geometry)
     return rec
 
 
@@ -665,7 +666,8 @@ def check_fft_rows_stats(copy_gbps: float) -> dict:
         f"{scale:.3e}, sums rel err {e2:.2e} / {e4:.2e} <= 1e-6 at "
         "[2^11, 2^15]; every L with a hann de-window within 1e-5")
     del y, ry
-    geo = stats_geometry_lines()
+    geo = row_length_geometry("fft_rows_stats geometry",
+                              KF.stats_geometry)
     # in turns with B6, its row FFT alone, on the same rows (a reference
     # point: B6 does not compute B7's function)
     k_ms, b6_ms = turns(lambda: KF.fft_rows_stats(x),
@@ -686,21 +688,6 @@ def check_fft_rows_stats(copy_gbps: float) -> dict:
     del x
     torch.cuda.empty_cache()
     return rec
-
-
-def stats_geometry_lines() -> dict:
-    """Print and return B7's launch geometry at every row length: CTAs a
-    cluster, values a CTA, threads, CTAs an SM, the CTAs or clusters the
-    occupancy query says the card holds at once, registers and spilled
-    bytes a thread, shared bytes a CTA."""
-    import torch
-    from srtb_tpu_torch.kernels import fft_rows as KF
-    geo = {}
-    for log2 in range(12, 17):
-        geo[f"2^{log2}"] = KF.stats_geometry(1 << log2, torch.device("cuda"))
-        say(f"fft_rows_stats geometry L=2^{log2}: " + json.dumps(
-            geo[f"2^{log2}"]))
-    return geo
 
 
 def _sk_margin_ok(got, want, s2, s4, length, sk_thr) -> int:
@@ -812,7 +799,8 @@ def check_fft_rows_skzap(copy_gbps: float) -> dict:
         f"{flips} verdicts within 1e-5 of a bound differ), waterfall "
         f"max_abs_err {err:.3e} within 1e-5 of the largest, time series "
         "within the time_series_error_gates; every L alike")
-    geo = skzap_geometry_lines()
+    geo = row_length_geometry("fft_rows_skzap geometry",
+                              KF.skzap_geometry)
     del got, want
     # in turns with B6, its row FFT alone, on the same rows (a reference
     # point: B6 does not compute B8's function)
@@ -836,22 +824,6 @@ def check_fft_rows_skzap(copy_gbps: float) -> dict:
     del x
     torch.cuda.empty_cache()
     return rec
-
-
-def skzap_geometry_lines() -> dict:
-    """Print and return B8's launch geometry at every row length: CTAs a
-    cluster, values a CTA, threads, CTAs an SM, the persistent CTAs or
-    clusters it launches (as many as the occupancy query says the card
-    holds at once), registers and spilled bytes a thread, shared bytes a
-    CTA."""
-    import torch
-    from srtb_tpu_torch.kernels import fft_rows as KF
-    geo = {}
-    for log2 in range(12, 17):
-        geo[f"2^{log2}"] = KF.skzap_geometry(1 << log2, torch.device("cuda"))
-        say(f"fft_rows_skzap geometry L=2^{log2}: " + json.dumps(
-            geo[f"2^{log2}"]))
-    return geo
 
 
 def check_dedisperse(copy_gbps: float) -> dict:
@@ -1274,22 +1246,6 @@ def check_fft2_front(copy_gbps: float, k2_ms: float, b12: dict) -> list:
     return recs
 
 
-def spectrum_geometry_lines() -> dict:
-    """Print and return B12's launch geometry at every row length: CTAs a
-    pair cluster, values a CTA, threads, CTAs an SM, the pair clusters the
-    occupancy query says the card holds at once, registers and spilled
-    bytes a thread, shared bytes a CTA."""
-    import torch
-    from srtb_tpu_torch.kernels import fft2_front as FF
-    geo = {}
-    for log2 in range(12, 17):
-        geo[f"2^{log2}"] = FF.pass2_spectrum_geometry(1 << log2,
-                                                      torch.device("cuda"))
-        say(f"fft2_pass2_spectrum geometry n2=2^{log2}: " + json.dumps(
-            geo[f"2^{log2}"]))
-    return geo
-
-
 def time_pass2_spectrum() -> dict:
     """B12 at the front-fused path's [8192, 65536] with the example cfg's
     keep mask and exact chirp (the path's form), on a noise intermediate,
@@ -1314,8 +1270,9 @@ def time_pass2_spectrum() -> dict:
         f"B12 / B10 {k_ms / b10_ms:.3f}")
     del b, keep
     torch.cuda.empty_cache()
-    return {"ms": k_ms, "b10_same_input_ms": b10_ms,
-            "geometry": spectrum_geometry_lines()}
+    geo = row_length_geometry("fft2_pass2_spectrum geometry",
+                              FF.pass2_spectrum_geometry, "n2")
+    return {"ms": k_ms, "b10_same_input_ms": b10_ms, "geometry": geo}
 
 
 def _pass2_path_form(cfg, n1: int, n2: int):

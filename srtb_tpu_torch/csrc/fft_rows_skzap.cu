@@ -27,8 +27,8 @@
 // THREADS, of the exchanged block), and keeps their float32 partial
 // series in shared memory (N floats, so 100 KB a CTA at N = 2^13: still
 // two CTAs an SM).  The row's moments come from pass 2's registers (the
-// row's values X[Ck + rank], de-windowed there) in float64 and a
-// fixed-order CTA reduction; each CTA pushes its sums into every CTA of
+// row's values X[Ck + rank], de-windowed there; dewindow_moments, B7's
+// too) in float64 and a fixed-order CTA reduction; each CTA pushes its sums into every CTA of
 // the row through DSMEM before the barrier that precedes the exchange, and
 // every CTA adds the C of them in rank order after the one that closes
 // it.  At the end each cluster writes its partial series to

@@ -313,8 +313,8 @@ __device__ __forceinline__ void pass_store(
   }
 }
 
-// ---- the core's phases, shared by B6/B10 and the epilogue kernels (B8 in
-// fft_rows_skzap.cu, B12 in fft2_spectrum.cu) ----
+// ---- the core's phases, shared by B6/B10 and the epilogue kernels (B7 in
+// fft_rows_stats.cu, B8 in fft_rows_skzap.cu, B12 in fft2_spectrum.cu) ----
 
 // Thread 0: TMA for this CTA's share of ``row`` (the whole row at C = 1;
 // at C > 1 the C slices x[qN + rank J, qN + (rank + 1) J) of it, into
