@@ -34,7 +34,9 @@ result lines are printed:
    timing, with their launch geometry at every row length);
 5. main paths: 2-bit files of two segments with a dispersed pulse in the
    second, made on the card by the port's synth, searched by the port's
-   ``srtb-torch-main`` at the example J1644-4559 configuration: at 2^30
+   ``srtb-torch-main`` at the example J1644-4559 configuration and the
+   engine's defaults (an in-flight window of 2, a writer pool of 2
+   threads, the ingest ring wherever the cfg reserves a tail): at 2^30
    samples per segment with ``use_pallas = 1`` (the reference's staged
    plan), at 2^27 with ``fft_strategy = pallas`` twice, with the fused
    tail (``auto``) and without (``off``), the example cfg as shipped
@@ -44,11 +46,22 @@ result lines are printed:
    not (K1, B9, B10, K2).  In each, the pulse segment must be positive,
    the noise segment negative, the candidate files must exist, the plan
    must be the reference's, and each kernel must have launched exactly as
-   often per segment as that plan's table says.  Paths of one geometry
-   share one input file;
+   often per segment as that plan's table says; the peak memory at the
+   window is printed.  Then both segments are dispatched again (cold,
+   then warm with the ring) under ``torch.cuda.set_sync_debug_mode
+   ("error")``, so that any call of the dispatch that synchronises with
+   the card fails.  Paths of one geometry share one input file;
 6. breakdown: the device time of one segment stage by stage, for the 2^30
    paths and for the fused, unfused and pallas2 2^27 paths, and the
-   staged R2C front under each staged row implementation.
+   staged R2C front under each staged row implementation;
+7. window: staged_2^30 on a file of 4 noise segments and fused_2^27 on
+   one of 8 with the pulse in one segment, each at the serial leg
+   (``inflight_segments = 1``, ``writer_thread_count = 0``,
+   ``ingest_ring = off``), at the defaults and at the defaults without
+   the ring (``ingest_ring = off``) in turns, with Msamples/s, wall
+   seconds by stage, overlap-hidden seconds and H2D bytes per segment
+   and peak memory; the candidate files of all runs must be identical in
+   name and bytes.
 
 The last two lines are the kernels' JSON record and the result line.
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -89,14 +102,15 @@ PALLAS2_27 = "baseband_input_count = 2 ** 27\nfft_strategy = pallas2\n" \
 STAGED_TAIL = PALLAS_ON + "fused_tail = on\n"
 ROWS_PALLAS2 = {"SRTB_STAGED_ROWS_IMPL": "pallas2"}
 MAIN_PATHS = (
-    ("staged_2^30", LOG2_N, PALLAS_ON, "staged:four_step",
+    ("staged_2^30", LOG2_N, PALLAS_ON, "staged:four_step+ring",
      {"unpack_subbyte_window": 1, "rfi_s1_dedisperse": 1, "sk_stats": 1,
       "sk_apply_timeseries": 1}, {}),
-    ("fused_2^27", LOG2_N_ROWS, PALLAS_27, "fused:pallas+ftail+skzap",
+    ("fused_2^27", LOG2_N_ROWS, PALLAS_27,
+     "fused:pallas+ftail+skzap+ring",
      {"unpack_subbyte_planes_window": 1, "fft_rows": 2,
       "rfi_s1_dedisperse": 1, "fft_rows_skzap": 1}, {}),
     ("unfused_2^27", LOG2_N_ROWS, PALLAS_27 + "fused_tail = off\n",
-     "fused:pallas",
+     "fused:pallas+ring",
      {"unpack_subbyte_planes_window": 1, "fft_rows": 2,
       "rfi_s1_dedisperse": 1, "fft_rows_stats": 1,
       "sk_apply_timeseries": 1}, {}),
@@ -104,18 +118,19 @@ MAIN_PATHS = (
     # reserve; the reference's stage (c) runs XLA stage 1 and B3
     ("shipped_2^30", LOG2_N, "", "staged:four_step",
      {"unpack_subbyte_window": 1, "dedisperse": 1}, {}),
-    ("pallas2_2^27", LOG2_N_ROWS, PALLAS2_27, "fused:pallas2+ftail+skzap",
+    ("pallas2_2^27", LOG2_N_ROWS, PALLAS2_27,
+     "fused:pallas2+ftail+skzap+ring",
      {"unpack_subbyte_planes_window": 1, "fft2_pass1": 1, "fft2_pass2": 1,
       "rfi_s1_dedisperse": 1, "fft_rows_skzap": 1}, {}),
     # the reference's staged_pallas2 and staged_ffuse plan families at the
     # cfg's own 2^30 x 2^11
     ("staged_pallas2_2^30", LOG2_N, STAGED_TAIL + "front_fuse = off\n",
-     "staged:four_step+ftail",
+     "staged:four_step+ftail+ring",
      {"unpack_subbyte_window": 1, "fft2_pass1": 1, "fft2_pass2": 1,
       "rfi_s1_dedisperse": 1, "sk_stats": 1, "sk_apply_timeseries": 1},
      ROWS_PALLAS2),
     ("ffuse_2^30", LOG2_N, STAGED_TAIL + "front_fuse = on\n",
-     "staged:four_step+ftail+ffuse",
+     "staged:four_step+ftail+ffuse+ring",
      {"fft2_pass1_front": 1, "fft2_pass2_spectrum": 1, "sk_stats": 1,
       "sk_apply_timeseries": 1}, ROWS_PALLAS2),
 )
@@ -205,12 +220,17 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    from srtb_tpu_torch.io import native_writer
     from srtb_tpu_torch.kernels import build
     t0 = time.perf_counter()
     lib = build.build(verbose=True)
     build.library()
     say(f"build: {lib.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    writer = Path(native_writer.native_library()._name)
+    say(f"build: {writer.relative_to(ROOT)} (the writer pool, host "
+        f"compiler) in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_bandwidth() -> float:
@@ -1320,12 +1340,15 @@ def phase_kernels(copy_gbps: float) -> list:
     return recs
 
 
-def make_input_file(cfg, path: Path) -> dict:
-    """Two segments of 2-bit baseband made on the card: segment 1 pure
-    noise, segment 2 with one dispersed pulse.  The file is one segment
-    plus one stride minus one byte long, so the overlap-save reader emits
-    exactly two segments (the second ends in one zero-padded byte, inside
-    its reserved tail)."""
+def make_input_file(cfg, path: Path, segments: int = 2,
+                    pulse_segment: int = 1) -> dict:
+    """``segments`` segments of 2-bit baseband made on the card, a
+    dispersed pulse in segment ``pulse_segment`` (None: nowhere) and noise
+    elsewhere.
+    Segment k >= 1 is the tail of segment k - 1 and the first stride of
+    block k; the last block is one byte short, so the overlap-save reader
+    emits exactly ``segments`` segments (the last ends in one zero-padded
+    byte, inside its reserved tail)."""
     import torch
     from srtb_tpu_torch.io import synth
     from srtb_tpu_torch.ops import dedisperse as dd
@@ -1334,26 +1357,32 @@ def make_input_file(cfg, path: Path) -> dict:
     nres = dd.nsamps_reserved(cfg)
     reserved = nres * abs(cfg.baseband_input_bits) // 8
     stride = seg - reserved
-    # block 2's sample j is segment 2's sample nres + j; the search keeps
+    # block k's sample j is segment k's sample nres + j; the search keeps
     # the first T - nres / channel_count waterfall columns of
     # 2 * channel_count samples each, i.e. the first n - 2 nres samples
     # (the reference's trim): aim at the middle of the searched span
     pulse_at = (n - 3 * nres) // 2
-    blocks = []
-    for i, pos in enumerate(([], [pulse_at])):
-        gen = torch.Generator(device="cuda").manual_seed(100 + i)
-        b = synth.make_dispersed_baseband(
-            n, cfg.baseband_freq_low, cfg.baseband_bandwidth, cfg.dm, pos,
-            nbits=cfg.baseband_input_bits, pulse_amp=40.0, pulse_width=32,
-            device="cuda", generator=gen)
-        blocks.append(b.cpu().numpy())
-        del b
-        torch.cuda.empty_cache()
     with open(path, "wb") as f:
-        f.write(blocks[0].tobytes())
-        f.write(blocks[1][: stride - 1].tobytes())
-    return {"segment_bytes": seg, "reserved_bytes": reserved,
-            "pulse_sample_in_segment_2": nres + pulse_at}
+        for i in range(segments):
+            gen = torch.Generator(device="cuda").manual_seed(100 + i)
+            b = synth.make_dispersed_baseband(
+                n, cfg.baseband_freq_low, cfg.baseband_bandwidth, cfg.dm,
+                [pulse_at] if i == pulse_segment else [],
+                nbits=cfg.baseband_input_bits, pulse_amp=40.0,
+                pulse_width=32, device="cuda", generator=gen)
+            block = b.cpu().numpy()
+            del b
+            torch.cuda.empty_cache()
+            if i == 0:
+                f.write(block.tobytes())
+            else:
+                end = stride - 1 if i == segments - 1 else stride
+                f.write(block[:end].tobytes())
+    info = {"segment_bytes": seg, "reserved_bytes": reserved,
+            "segments": segments, "pulse_segment": pulse_segment}
+    if pulse_segment is not None:
+        info[f"pulse_sample_in_segment_{pulse_segment}"] = nres + pulse_at
+    return info
 
 
 def input_file(cfg, label: str, made: dict) -> Path:
@@ -1379,50 +1408,82 @@ def input_file(cfg, label: str, made: dict) -> Path:
     return data
 
 
+def path_cfg(out_dir: Path, extra: str, log2_n: int, label: str):
+    """The example cfg with ``extra`` written to ``out_dir/smoke.cfg``
+    (outputs to ``out_dir/out_*``, deterministic timestamps), its old
+    outputs removed; returns the parsed config and the file's text."""
+    from srtb_tpu_torch.config import Config
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("out_*"):
+        old.unlink()
+    text = CFG_EXAMPLE.read_text()
+    text += (f"\ngui_enable = 0\n"
+             f"baseband_output_file_prefix = {out_dir}/out_\n"
+             "deterministic_timestamps = 1\n" + extra)
+    (out_dir / "smoke.cfg").write_text(text)
+    cfg = Config()
+    cfg.load_file(str(out_dir / "smoke.cfg"))
+    if cfg.baseband_input_count != 1 << log2_n:
+        fail(f"{label}: the cfg gives {cfg.baseband_input_count} samples")
+    return cfg, text
+
+
+def run_cli(out_dir: Path, text: str, data: Path, env: dict):
+    """``srtb-torch-main`` on ``data`` with the cfg ``text``, after a
+    synchronize and a reset of the peak memory; returns the run's
+    statistics, the finished pipeline and the host wall seconds."""
+    import torch
+    from srtb_tpu_torch.tools import main as M
+    cfg_path = out_dir / "smoke.cfg"
+    cfg_path.write_text(text + f"input_file_path = {data}\n")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with path_env(env):
+        stats, pipe = M.run(["--config_file_name", str(cfg_path)])
+    return stats, pipe, time.perf_counter() - t0
+
+
+def engine_numbers(stats) -> str:
+    """The engine's records of a run, as JSON."""
+    ex = stats.extras
+    return json.dumps({k: ex[k] for k in (
+        "inflight_segments", "stage_s", "device_s_per_segment",
+        "overlap_hidden_s_per_segment", "h2d_bytes_per_segment")})
+
+
 def phase_main_path(card: str, label: str, log2_n: int, extra: str,
                     plan: str, per_segment: dict, env: dict,
                     made: dict) -> dict:
     """One main path: the example cfg with ``extra`` at 2^log2_n samples
     per segment, on the synthetic two-segment file of its geometry,
-    through ``srtb-torch-main`` under the environment ``env``; the launch
-    counts are zeroed just before the run and read just after it."""
+    through ``srtb-torch-main`` at the engine's defaults (a window of 2,
+    a writer pool of 2, the ingest ring where the cfg reserves a tail)
+    under the environment ``env``; the launch counts are zeroed just
+    before the run and read just after it.  Then the dispatch check
+    (:func:`check_dispatch_syncs`)."""
     import torch
     from srtb_tpu_torch import kernels as K
-    from srtb_tpu_torch.config import Config
-    from srtb_tpu_torch.tools import main as M
     out_dir = OUT_DIR / label
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for old in out_dir.glob("out_*"):
-        old.unlink()
-    cfg_path = out_dir / "smoke.cfg"
-    text = CFG_EXAMPLE.read_text()
-    text += (f"\ngui_enable = 0\n"
-             f"baseband_output_file_prefix = {out_dir}/out_\n"
-             "deterministic_timestamps = 1\n" + extra)
-    cfg_path.write_text(text)
-    cfg = Config()
-    cfg.load_file(str(cfg_path))
-    if cfg.baseband_input_count != 1 << log2_n:
-        fail(f"{label}: the cfg gives {cfg.baseband_input_count} samples")
+    cfg, text = path_cfg(out_dir, extra, log2_n, label)
     data = input_file(cfg, label, made)
-    cfg_path.write_text(text + f"input_file_path = {data}\n")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    t0 = time.perf_counter()
-    with path_env(env):
-        stats, pipe = M.run(["--config_file_name", str(cfg_path)])
-    wall = time.perf_counter() - t0
+    stats, pipe, wall = run_cli(out_dir, text, data, env)
     counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     positives = pipe.positive_segments
     say(f"main path {label}: plan {pipe.processor.plan_name}, "
         f"{stats.segments} segments, positive {positives}, "
         f"{stats.msamples_per_sec:.1f} Msamples/s in the pipeline "
         f"({stats.elapsed_s:.2f} s), {wall:.2f} s with set-up; real-time "
         f"factor {stats.msamples_per_sec / 128.0:.3f} against 128 "
-        f"Msamples/s; max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated()} bytes; env {env}; launches "
-        f"{counts}; card {card}")
+        f"Msamples/s; max_memory_allocated {peak} bytes; env {env}; "
+        f"launches {counts}; card {card}")
+    say(f"main path {label}: peak memory at window "
+        f"{stats.extras['inflight_segments']}: {peak} bytes "
+        f"({peak / 1e9:.2f} GB) of "
+        f"{torch.cuda.get_device_properties(0).total_memory} bytes; "
+        f"card {card}")
     if pipe.processor.plan_name != plan:
         fail(f"{label}: plan {pipe.processor.plan_name}, expected {plan}")
     if stats.segments != 2:
@@ -1450,10 +1511,167 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
     for files in written:  # the waterfall dumps, checked: free the disk
         for p in files.npy_paths:
             os.unlink(p)
-    say(f"main path {label}: wall seconds by stage "
-        + json.dumps(stats.extras["stage_s"]) + ", device seconds by segment "
-        + json.dumps(stats.extras["device_s_per_segment"]))
-    return {"counts": counts, "stats": stats, "pipe": pipe, "data": data}
+    say(f"main path {label}: engine " + engine_numbers(stats))
+    check_dispatch_syncs(pipe, label)
+    return {"counts": counts, "stats": stats, "pipe": pipe, "data": data,
+            "peak_bytes": peak}
+
+
+def check_dispatch_syncs(pipe, label: str) -> None:
+    """Dispatch the path's two segments again, the first cold and the
+    second warm where the plan has the ring, under
+    ``torch.cuda.set_sync_debug_mode("error")``: a call in the upload,
+    the chain or the result copies that synchronises with the card
+    raises.  Then wait for them, and hold the gate's decisions to the
+    run's (the pulse in segment 1 only)."""
+    import torch
+    from srtb_tpu_torch.io.file_input import make_file_source
+    from srtb_tpu_torch.pipeline.runtime import has_signal
+    from srtb_tpu_torch.utils.bufferpool import BufferPool
+    proc = pipe.processor
+    pool = BufferPool("dispatch check", pinned=True)
+    src = make_file_source(pipe.cfg, buffer_pool=pool)
+    segs = list(src)
+    src.close()
+    pipe._ring_invalidate()
+    cold0, warm0 = proc.ring_cold_dispatches, proc.ring_warm_dispatches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        items = [pipe._dispatch_segment(seg) for seg in segs]
+    except RuntimeError as e:
+        fail(f"{label}: a dispatch synchronised with the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    decisions = []
+    for item in items:
+        item.done.synchronize()
+        decisions.append(has_signal(pipe.cfg, item.det,
+                                    frequency_bin_count=item.wf.shape[-2]))
+    pipe._ring_invalidate()
+    del items
+    for seg in segs:
+        pool.release(seg.data)
+    pool.free_all()
+    if decisions != [False, True]:
+        fail(f"{label}: decisions {decisions} of the checked dispatches")
+    say(f"main path {label}: {len(segs)} dispatches (ring cold "
+        f"{proc.ring_cold_dispatches - cold0}, warm "
+        f"{proc.ring_warm_dispatches - warm0}) under "
+        "set_sync_debug_mode('error'): no synchronising call; decisions "
+        f"{decisions}")
+
+
+# the window phase: (path, log2 samples, cfg lines, segments in the file,
+# the pulse's segment or None), each run at the settings in the order of
+# WINDOW_TURNS (a palindrome: the ring on and off each once on either
+# side of the serial leg).  The 2^30 file holds noise only: a positive
+# 2^30 segment dumps a 4 GiB waterfall, and writing and reading back one
+# a turn took most of the phase's minute; the main paths dump one each
+WINDOW_PATHS = (("staged_2^30", LOG2_N, PALLAS_ON, 4, None),
+                ("fused_2^27", LOG2_N_ROWS, PALLAS_27, 8, 5))
+WINDOW_SETTINGS = {
+    "serial": "inflight_segments = 1\nwriter_thread_count = 0\n"
+              "ingest_ring = off\n",
+    "default": "",
+    "ring_off": "ingest_ring = off\n"}
+WINDOW_TURNS = ("default", "ring_off", "serial", "ring_off", "default")
+
+
+def _candidate_files(pipe) -> dict:
+    """Every candidate file of a run, by name."""
+    return {os.path.basename(p): p for files in pipe.sink.written
+            for p in [files.bin_path, *files.npy_paths, *files.tim_paths]}
+
+
+def _same_bytes(a: str, b: str) -> bool:
+    """Whether two files hold the same bytes (compared in 64 MiB chunks,
+    from the page cache that the run's writes just filled)."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while chunk := fa.read(1 << 26):
+            if chunk != fb.read(1 << 26):
+                return False
+    return True
+
+
+def phase_window(card: str) -> dict:
+    """The in-flight engine against the serial leg, and the ring on
+    against off at the window, on longer files: each path of
+    ``WINDOW_PATHS`` runs at ``WINDOW_SETTINGS`` in the order of
+    ``WINDOW_TURNS``, with its Msamples/s, wall seconds by stage,
+    overlap-hidden seconds and H2D bytes per segment and peak memory; the
+    candidate files of every run must be identical in name and bytes to
+    the first run's, and the pulse segment (if any) the only positive
+    one."""
+    import shutil
+    import torch
+    out = {}
+    for label, log2_n, extra, segments, pulse in WINDOW_PATHS:
+        runs = {name: [] for name in WINDOW_SETTINGS}
+        data = OUT_DIR / "inputs" / f"window_{label}.bin"
+        first = None
+        want = [] if pulse is None else [pulse]
+        compare_s = 0.0
+        for turn, setting in enumerate(WINDOW_TURNS):
+            out_dir = OUT_DIR / f"window_{label}_{turn}"
+            cfg, text = path_cfg(out_dir, extra + WINDOW_SETTINGS[setting],
+                                 log2_n, label)
+            if turn == 0:
+                data.parent.mkdir(parents=True, exist_ok=True)
+                t0 = time.perf_counter()
+                info = make_input_file(cfg, data, segments, pulse)
+                say(f"window {label}: input {data.relative_to(ROOT)} "
+                    f"({data.stat().st_size} bytes, {info}) made in "
+                    f"{time.perf_counter() - t0:.1f} s")
+            stats, pipe, wall = run_cli(out_dir, text, data, {})
+            peak = torch.cuda.max_memory_allocated()
+            say(f"window {label} {setting} (turn {turn}): plan "
+                f"{pipe.processor.plan_name}, {stats.segments} segments, "
+                f"positive {pipe.positive_segments}, "
+                f"{stats.msamples_per_sec:.1f} Msamples/s "
+                f"({stats.elapsed_s:.3f} s, {wall:.3f} s with set-up), "
+                f"max_memory_allocated {peak} bytes; card {card}; engine "
+                + engine_numbers(stats))
+            if stats.segments != segments or \
+                    pipe.positive_segments != want:
+                fail(f"window {label} {setting}: {stats.segments} segments,"
+                     f" positive {pipe.positive_segments}; expected "
+                     f"{segments} and {want}")
+            t0 = time.perf_counter()
+            got = _candidate_files(pipe)
+            if first is None:
+                first = got
+            else:
+                if sorted(got) != sorted(first):
+                    fail(f"window {label} {setting}: candidate files "
+                         f"{sorted(got)}, the first run's {sorted(first)}")
+                for name, path in got.items():
+                    if not _same_bytes(path, first[name]):
+                        fail(f"window {label} {setting}: {name} differs "
+                             "from the first run's")
+                shutil.rmtree(out_dir)
+            compare_s += time.perf_counter() - t0
+            runs[setting].append({
+                "msamples_per_s": stats.msamples_per_sec,
+                "elapsed_s": stats.elapsed_s, "peak_bytes": peak,
+                "stage_s": stats.extras["stage_s"]})
+            del pipe
+            free_card()
+        data.unlink()
+        shutil.rmtree(OUT_DIR / f"window_{label}_0")
+        summary = {name: {
+            "msamples_per_s": [r["msamples_per_s"] for r in rs],
+            "elapsed_s": [r["elapsed_s"] for r in rs],
+            "peak_bytes": max(r["peak_bytes"] for r in rs)}
+            for name, rs in runs.items()}
+        say(f"window {label}: candidate files identical in name and bytes "
+            f"in all {len(WINDOW_TURNS)} runs ({sorted(first)}; compared "
+            f"in {compare_s:.1f} s); summary "
+            + json.dumps(summary) + f"; card {card}")
+        out[label] = summary
+    return out
 
 
 STAGED_FRONT = ("unpack K1", "rfft", "mean power", "rfi + chirp K2")
@@ -1469,7 +1687,7 @@ def phase_breakdown(run) -> dict:
     from srtb_tpu_torch.ops import fft as F
     sp, raw, h2d = _segment_on_card(run)
     cfg = sp.cfg
-    ms = {"h2d (pageable)": h2d}
+    ms = dict(h2d)
     bits = cfg.baseband_input_bits
     ms["unpack K1"] = cuda_ms(
         lambda: KU.unpack_subbyte_window(raw, bits, sp.window), 5)
@@ -1560,7 +1778,7 @@ def phase_breakdown_staged_rows(run) -> dict:
     whole = cuda_ms(lambda: sp.process(raw), 3)
     torch.cuda.empty_cache()
     return _breakdown_line(
-        "staged_pallas2_2^30", {"h2d (pageable)": h2d}, whole, sp.cfg,
+        "staged_pallas2_2^30", dict(h2d), whole, sp.cfg,
         {"front_ms_by_rows_impl (K1, C2C, Hermitian post, Parseval mean + "
          "K2)": fronts, "front_spectra_max_rel_err": worst})
 
@@ -1578,7 +1796,7 @@ def phase_breakdown_ffuse(run, breakdowns: dict) -> dict:
     cfg = sp.cfg
     m = sp.n_spectrum
     n2 = sp._ffuse_fac[1]
-    ms = {"h2d (pageable)": h2d}
+    ms = dict(h2d)
 
     def pass1():
         return FF.fft2_pass1_front(raw, m, sp._ffuse_variant,
@@ -1627,13 +1845,24 @@ def _breakdown_line(label, ms, whole, cfg, extra=None) -> dict:
 
 def _segment_on_card(run):
     """The run's processor and its first segment's bytes on the card, with
-    the pageable host-to-device copy's time."""
+    the upload's times: the pageable copy the serial ``process`` makes,
+    and the engine's, from pinned memory on the processor's copy stream
+    (``stage_input``; timed on the compute stream, which waits for it)."""
     import numpy as np
     import torch
+    from srtb_tpu_torch.utils.bufferpool import BufferPool
     sp = run["pipe"].processor
+    n = sp.cfg.segment_bytes()
     host = torch.from_numpy(np.fromfile(run["data"], dtype=np.uint8,
-                                        count=sp.cfg.segment_bytes()))
-    return sp, host.to("cuda"), cuda_ms(lambda: host.to("cuda"), 3)
+                                        count=n))
+    pool = BufferPool("upload", pinned=True)
+    pinned = pool.acquire(n, zero=False)
+    pinned[:] = host.numpy()
+    h2d = {"h2d (pageable)": cuda_ms(lambda: host.to("cuda"), 3),
+           "h2d (pinned, copy stream)": cuda_ms(
+               lambda: sp.stage_input(pinned), 3)}
+    pool.release(pinned)
+    return sp, host.to("cuda"), h2d
 
 
 def _fused_tail_stages(ms: dict, sp, a) -> None:
@@ -1734,7 +1963,7 @@ def phase_breakdown_rows(fused, unfused) -> dict:
                              ("unfused_2^27", unfused,
                               _unfused_tail_stages)):
         sp, raw, h2d = _segment_on_card(run)
-        ms = {"h2d (pageable)": h2d}
+        ms = dict(h2d)
         tail(ms, sp, _rows_front_stages(ms, sp, raw))
         out[label] = (ms, cuda_ms(lambda: sp.process(raw), 3), sp.cfg)
         del raw
@@ -1756,7 +1985,7 @@ def phase_breakdown_pallas2(run, fused_chain_ms: float) -> dict:
     from srtb_tpu_torch.kernels import unpack as KU
     sp, raw, h2d = _segment_on_card(run)
     cfg = sp.cfg
-    ms = {"h2d (pageable)": h2d}
+    ms = dict(h2d)
 
     def unpack():
         return KU.unpack_subbyte_planes_window(raw, cfg.baseband_input_bits,
@@ -1790,7 +2019,7 @@ def phase_breakdown_shipped(run) -> dict:
     from srtb_tpu_torch.ops import rfi
     sp, raw, h2d = _segment_on_card(run)
     cfg = sp.cfg
-    ms = {"h2d (pageable)": h2d}
+    ms = dict(h2d)
     ms["K1 unpack + R2C (cuFFT)"] = cuda_ms(lambda: sp._spectrum(raw), 3)
     spec = sp._spectrum(raw)
     thr = cfg.mitigate_rfi_average_method_threshold
@@ -1817,10 +2046,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     sys.path.insert(0, str(ROOT))
+    t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        say(f"time: {what} done {time.perf_counter() - t0:.1f} s "
+            "into the script")
+
     card = phase_card()
     phase_build()
+    lap("build")
     copy_gbps = phase_bandwidth()
     recs = phase_kernels(copy_gbps)
+    lap("kernels")
     runs, breakdowns, made = {}, {}, {}
     breakdown_30 = {
         "staged_2^30": phase_breakdown,
@@ -1836,6 +2073,12 @@ def main() -> int:
             say(f"card memory after {label}: {free_card()}")
     fused = phase_breakdown_rows(runs["fused_2^27"], runs["unfused_2^27"])
     phase_breakdown_pallas2(runs["pallas2_2^27"], fused["chain_ms"])
+    for run in runs.values():
+        run.pop("pipe", None)
+    free_card()
+    lap("main paths and breakdowns")
+    phase_window(card)
+    lap("window")
     for rec in recs:
         by_path = {label: run["counts"][rec["name"]]
                    for label, run in runs.items()}

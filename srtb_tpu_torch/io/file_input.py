@@ -1,5 +1,5 @@
 """Baseband file reader with overlap-save (port of
-``srtb_tpu/io/file_input.py``, without the buffer pool and metrics).
+``srtb_tpu/io/file_input.py``, without its metrics).
 
 Mirrors read_file_pipe (ref: pipeline/read_file_pipe.hpp:31-127):
 - skip ``input_file_offset_bytes`` first;
@@ -12,27 +12,35 @@ With ``Config.ingest_ring`` != "off" the reserved tail of the last segment
 is kept in host memory and the next read takes only the stride's new
 bytes (``io/overlap.py``); "off" seeks back and re-reads instead.  The
 emitted bytes are identical either way.
+
+Each segment's buffer comes from the reader's ``pool``
+(``utils/bufferpool.py``; pinned on the card, so the upload reads it
+directly); whoever consumes a segment returns its buffer there when done
+with it.  The retained tail is a copy, so no handed-out buffer is held
+by the reader.
 """
 
 from __future__ import annotations
 
 import time
 
-import numpy as np
-
 from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.io import formats
 from srtb_tpu_torch.io.overlap import OverlapTailCarry
 from srtb_tpu_torch.ops import dedisperse as dd
 from srtb_tpu_torch.pipeline.work import SegmentWork
+from srtb_tpu_torch.utils.bufferpool import BufferPool
 from srtb_tpu_torch.utils.logging import log
 
 
 class BasebandFileReader:
     """Iterates SegmentWork items from a raw baseband file."""
 
-    def __init__(self, cfg: Config, start_offset_bytes: int | None = None):
+    def __init__(self, cfg: Config, buffer_pool: BufferPool | None = None,
+                 start_offset_bytes: int | None = None):
         self.cfg = cfg
+        self.pool = buffer_pool if buffer_pool is not None \
+            else BufferPool("segments")
         self.fmt = formats.resolve(cfg.baseband_format_type)
         self.segment_bytes = cfg.segment_bytes(self.fmt.data_stream_count)
         nsamps = dd.nsamps_reserved(cfg)
@@ -57,11 +65,16 @@ class BasebandFileReader:
     def __next__(self) -> SegmentWork:
         if self._exhausted:
             raise StopIteration
-        buf = np.zeros(self.segment_bytes, dtype=np.uint8)
+        buf = self.pool.acquire(self.segment_bytes, zero=False)
         warm = self._skip_read and self._carry.warm
         reserved = self.reserved_bytes if warm else 0
-        chunk = self._file.read(self.segment_bytes - reserved)
-        if len(chunk) == 0 and not warm:
+        try:
+            got = self._file.readinto(memoryview(buf)[reserved:])
+        except BaseException:
+            self.pool.release(buf)
+            raise
+        if got == 0 and not warm:
+            self.pool.release(buf)
             log.info(f"[read_file] {self.cfg.input_file_path} has been read")
             self._exhausted = True
             raise StopIteration
@@ -69,10 +82,10 @@ class BasebandFileReader:
             # head = retained tail; with 0 new bytes this still emits the
             # tail + zeros final segment the seek-back path produces
             self._carry.head_into(buf)
-        buf[reserved:reserved + len(chunk)] = np.frombuffer(
-            chunk, dtype=np.uint8)
+        # a short final read stays zero-padded (ref: read_file_pipe.hpp:76)
+        buf[reserved + got:] = 0
         self.logical_offset += self.segment_bytes
-        if len(chunk) < self.segment_bytes - reserved:
+        if got < self.segment_bytes - reserved:
             # final partial segment: emit zero-padded, then stop
             # (ref: read_file_pipe.hpp:76-77)
             self._exhausted = True
@@ -109,10 +122,12 @@ class DeterministicTimestampReader(BasebandFileReader):
         return work
 
 
-def make_file_source(cfg: Config, start_offset_bytes: int | None = None
+def make_file_source(cfg: Config, buffer_pool: BufferPool | None = None,
+                     start_offset_bytes: int | None = None
                      ) -> BasebandFileReader:
     """The config-selected file source."""
     cls = (DeterministicTimestampReader
            if getattr(cfg, "deterministic_timestamps", False)
            else BasebandFileReader)
-    return cls(cfg, start_offset_bytes=start_offset_bytes)
+    return cls(cfg, buffer_pool=buffer_pool,
+               start_offset_bytes=start_offset_bytes)

@@ -1,5 +1,6 @@
-"""Candidate writer (port of ``srtb_tpu/io/writers.py`` WriteSignalSink,
-without the run manifest and the writer pool).
+"""Output writers: candidate capture (.bin/.npy/.tim) and write-all mode
+(port of ``srtb_tpu/io/writers.py``, without the run manifest, ROADMAP
+A6).
 
 Files are byte-compatible with the reference's:
 - ``<prefix><counter>.bin``      raw baseband bytes of the segment
@@ -10,15 +11,22 @@ Files are byte-compatible with the reference's:
   (ref: write_signal_pipe.hpp:249-280);
 - the "piggybank" policy keeps recent negatives and writes them when they
   lie within 0.45 segment of a recent positive (real-time input only,
-  ref: write_signal_pipe.hpp:77-140).
+  ref: write_signal_pipe.hpp:77-140);
+- ``<prefix>stream<i>.bin``      every segment's baseband minus the
+  reserved tail, appended (``WriteAllSink``, ref:
+  write_file_pipe.hpp:41-94).
 
-Every file is written to ``<path>.srtb_tmp`` and renamed into place, so a
-reader never sees a torn candidate.
+Every candidate file is written to ``<path>.srtb_tmp`` and renamed into
+place, so a reader never sees a torn candidate; a run that died between
+the two leaves an orphan temp, which :func:`recover_orphan_temps` sweeps
+at the next start.
 """
 
 from __future__ import annotations
 
+import io
 import os
+import time
 from collections import deque
 from dataclasses import dataclass
 
@@ -34,29 +42,122 @@ TMP_SUFFIX = ".srtb_tmp"
 
 
 def to_host(x) -> np.ndarray:
-    """A tensor (on any device) or array as a host numpy array."""
+    """A tensor (on any device) or array as a host numpy array.  A CUDA
+    tensor is copied on the calling thread's current stream."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
-def atomic_write(path: str, write, *, fsync: bool = False) -> None:
-    """Crash-consistent write: ``write(f)`` into the temp file, flush
-    (+ fdatasync), atomic rename; a failed write drops its temp."""
+def recover_orphan_temps(prefix: str,
+                         min_age_s: float = 60.0) -> list[str]:
+    """Start-up sweep: remove ``<prefix>*.srtb_tmp`` orphans left by a run
+    that died between a temp write and its rename; returns the removed
+    paths.  Only temps older than ``min_age_s`` go: a fresh one may
+    belong to a live writer sharing the prefix."""
+    d = os.path.dirname(prefix) or "."
+    base = os.path.basename(prefix)
+    removed = []
+    try:
+        names = os.listdir(d)
+    except OSError:
+        return removed
+    now = time.time()
+    for name in names:
+        if name.startswith(base) and name.endswith(TMP_SUFFIX):
+            p = os.path.join(d, name)
+            try:
+                if now - os.path.getmtime(p) < min_age_s:
+                    log.warning(f"[recover] leaving fresh temp {p} "
+                                "(possibly a live writer's)")
+                    continue
+                os.unlink(p)
+                removed.append(p)
+            except OSError as e:
+                log.warning(f"[recover] cannot remove orphan {p}: {e}")
+    if removed:
+        log.warning(f"[recover] removed {len(removed)} orphaned temp "
+                    f"file(s) from an interrupted run: "
+                    f"{[os.path.basename(p) for p in removed]}")
+    return removed
+
+
+def fsync_dir(path: str) -> None:
+    """fsync the directory holding ``path``, so that a rename survives
+    power loss.  Best effort: a filesystem that refuses directory fds
+    keeps the rename-only guarantee."""
+    d = os.path.dirname(path) or "."
+    try:
+        fd = os.open(d, os.O_RDONLY | getattr(os, "O_DIRECTORY", 0))
+    except OSError as e:
+        log.debug(f"[writers] cannot open dir {d} for fsync: {e}")
+        return
+    try:
+        os.fsync(fd)
+    except OSError as e:
+        log.debug(f"[writers] dir fsync of {d} failed: {e}")
+    finally:
+        os.close(fd)
+
+
+def atomic_write(path: str, payload, *, fsync: bool = False) -> None:
+    """Crash-consistent write: temp + flush (+ fdatasync) + atomic rename
+    (+ the directory's fsync, with the same ``fsync`` knob).  A failed
+    write drops its temp.  The native pool (native/file_writer.cpp) runs
+    the same sequence with the same suffix."""
     tmp = path + TMP_SUFFIX
     try:
         with open(tmp, "wb") as f:
-            write(f)
+            f.write(payload)
             f.flush()
             if fsync:
                 os.fdatasync(f.fileno())
         os.replace(tmp, path)
+        if fsync:
+            fsync_dir(path)
     except BaseException:
         try:
             os.unlink(tmp)
         except OSError:
             pass  # never created
         raise
+
+
+def _npy_header(shape: tuple) -> bytes:
+    """The .npy header np.save writes for a C-ordered complex64 array of
+    ``shape`` (format 1.0, or 2.0 when the header outgrows 1.0's)."""
+    d = {"descr": np.lib.format.dtype_to_descr(np.dtype(np.complex64)),
+         "fortran_order": False, "shape": tuple(int(n) for n in shape)}
+    bio = io.BytesIO()
+    try:
+        np.lib.format.write_array_header_1_0(bio, d)
+    except ValueError:
+        bio = io.BytesIO()
+        np.lib.format.write_array_header_2_0(bio, d)
+    return bio.getvalue()
+
+
+def _npy_bytes(wf, pool=None) -> np.ndarray:
+    """A complex64 waterfall (a tensor on any device, or an array) in .npy
+    format as one uint8 buffer, byte for byte what np.save writes (the
+    reference writes .npy via cnpy, write_signal_pipe.hpp:243-244).  The
+    data is copied from the card straight into the buffer (on the calling
+    thread's current stream); a writer pool then copies the buffer again
+    at submit, a second host copy.  The buffer comes from ``pool`` (the
+    caller releases it) or is a new array."""
+    header = _npy_header(tuple(wf.shape))
+    h, nbytes = len(header), 8 * int(np.prod(wf.shape))
+    buf = (pool.acquire(h + nbytes, zero=False) if pool is not None
+           else np.empty(h + nbytes, dtype=np.uint8))
+    buf[:h] = np.frombuffer(header, dtype=np.uint8)
+    if isinstance(wf, torch.Tensor):
+        src = torch.view_as_real(wf.detach().to(torch.complex64)
+                                 .contiguous()).reshape(-1).view(torch.uint8)
+        torch.from_numpy(buf[h:]).copy_(src)
+    else:
+        buf[h:] = np.ascontiguousarray(wf, dtype=np.complex64).view(
+            np.uint8).reshape(-1)
+    return buf
 
 
 @dataclass
@@ -68,11 +169,22 @@ class CandidateFiles:
 
 
 class WriteSignalSink:
-    """Candidate writer with the reference's piggybank capture policy
-    (synchronous writes; the raw ``.bin`` is fdatasync'd)."""
+    """Candidate writer with the reference's piggybank capture policy.
 
-    def __init__(self, cfg: Config):
+    With ``writer_pool`` (an :class:`~srtb_tpu_torch.io.native_writer.
+    AsyncWriterPool`) the writes are queued to its threads and this sink
+    never blocks on disk (the reference's thread pools,
+    write_signal_pipe.hpp:159-206); call ``drain()`` before reading the
+    files back.  Without one, every write is synchronous."""
+
+    def __init__(self, cfg: Config, writer_pool=None, host_pool=None):
         self.cfg = cfg
+        self.pool = writer_pool
+        # buffers for the .npy payloads (pinned on the card: the fast
+        # copy from the device), back to the pool once written or queued
+        self.host_pool = host_pool
+        # paths queued to the pool but maybe not written yet
+        self._assigned_paths: set[str] = set()
         self.recent_positive_timestamps: deque[int] = deque()
         self.recent_negative_works: deque[SegmentResultWork] = deque()
         self.written: list[CandidateFiles] = []
@@ -129,22 +241,31 @@ class WriteSignalSink:
         base = self.cfg.baseband_output_file_prefix + str(counter)
         log.info(f"[write_signal] begin writing, file_counter = {counter}")
         bin_path = base + ".bin"
-        data = np.ascontiguousarray(work.segment.data)
-        atomic_write(bin_path, lambda f: f.write(data), fsync=True)
+        # the baseband is fdatasync'd, as the reference's is
+        # (write_signal_pipe.hpp:187-197); the spectra are not
+        self._write_bytes(bin_path, np.ascontiguousarray(work.segment.data),
+                          fsync=True)
 
         npy_paths = []
         if work.waterfall is not None:
-            wf = to_host(work.waterfall)
+            wf = work.waterfall
             if wf.ndim == 2:
                 wf = wf[None]
             for i in range(wf.shape[0]):
-                # first non-existing index (ref: 230-235)
+                # the first free index (ref: 230-235); with a pool, the
+                # queued but maybe unwritten paths count as taken
                 j = i
-                while os.path.exists(f"{base}.{j}.npy"):
+                while (os.path.exists(f"{base}.{j}.npy")
+                       or f"{base}.{j}.npy" in self._assigned_paths):
                     j += 1
                 path = f"{base}.{j}.npy"
-                row = np.ascontiguousarray(wf[i], dtype=np.complex64)
-                atomic_write(path, lambda f, a=row: np.save(f, a))
+                payload = _npy_bytes(wf[i], self.host_pool)
+                try:
+                    # written, or copied by the pool at submit
+                    self._write_bytes(path, payload)
+                finally:
+                    if self.host_pool is not None:
+                        self.host_pool.release(payload)
                 npy_paths.append(path)
 
         tim_paths = []
@@ -161,8 +282,58 @@ class WriteSignalSink:
                         path = (f"{base}.s{s}.{b}.tim" if multi
                                 else f"{base}.{b}.tim")
                         valid = series.shape[-1] - (b if b > 1 else 0)
-                        payload = series[s, bi, :valid].astype("<f4")
-                        atomic_write(path, lambda f, a=payload: f.write(a))
+                        self._write_bytes(
+                            path, series[s, bi, :valid].astype("<f4"))
                         tim_paths.append(path)
         self.written.append(CandidateFiles(bin_path, npy_paths, tim_paths))
         log.info(f"[write_signal] finished writing, file_counter = {counter}")
+
+    def _write_bytes(self, path: str, data: np.ndarray, *,
+                     fsync: bool = False) -> None:
+        if self.pool is not None:
+            if path in self._assigned_paths:
+                # the same target queued again: flush first, so that the
+                # later write wins instead of racing
+                self.pool.drain()
+                self._assigned_paths.clear()
+            self._assigned_paths.add(path)
+            self.pool.submit(path, data, fsync=fsync)
+            return
+        atomic_write(path, data, fsync=fsync)
+
+    def drain(self) -> None:
+        """Wait for queued writes to land (a no-op when synchronous);
+        raises ``RuntimeError`` if any of them failed, as the synchronous
+        path would have raised at the failing write."""
+        if self.pool is not None:
+            self.pool.drain()
+            self._assigned_paths.clear()
+            self.pool.raise_new_errors(
+                f"candidate prefix {self.cfg.baseband_output_file_prefix}")
+
+
+class WriteAllSink:
+    """Unconditional append of each segment's baseband minus the reserved
+    tail to one file (ref: pipeline/write_file_pipe.hpp:41-94, selected
+    by ``baseband_write_all``).  Synchronous, as in the reference."""
+
+    def __init__(self, cfg: Config, reserved_bytes: int):
+        self.reserved_bytes = reserved_bytes
+        self.path = cfg.baseband_output_file_prefix + "stream0.bin"
+        self._f = open(self.path, "ab")
+
+    def push(self, work: SegmentResultWork, has_signal: bool = False) -> None:
+        data = work.segment.data
+        end = len(data) - self.reserved_bytes
+        if end <= 0:
+            end = len(data)
+        self._f.write(np.ascontiguousarray(data[:end]).tobytes())
+        self._f.flush()
+
+    def drain(self) -> None:
+        """Nothing is queued: every append is written at its push."""
+
+    def close(self):
+        if self._f is not None:
+            self._f.close()
+            self._f = None

@@ -55,6 +55,9 @@ KERNELS = (
 )
 
 
+# The counts are plain integers without a lock: kernels launch only on the
+# thread that dispatches segments (the runtime's sink thread copies results
+# and launches none), so no two increments race.
 def reset_launch_counts() -> None:
     for _name, wrapper, _src, _tpu in KERNELS:
         wrapper.launches = 0

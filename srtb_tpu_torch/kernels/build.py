@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``),
+and the port's host C++ libraries (``native/*.cpp``).
 
 Each source compiles to an object with ``nvcc`` for ``sm_90a``, all in
 parallel, and the objects link into one shared library with a plain C
@@ -8,6 +9,10 @@ so a cold build takes seconds.  The library lands in
 the sources and flags: an edited source rebuilds, an unchanged one is
 reused.  Nothing is built when the package is imported — only at the
 first kernel launch, or by calling :func:`build`.
+
+:func:`build_host_library` takes the same route for host code: the host
+C++ compiler (``$CXX``, else ``g++``) builds a source of ``native/`` into
+a shared library beside the kernels', named by the source's hash.
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ import tempfile
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srtb_tpu_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+HOST_CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared", "-pthread")
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _F32, _F64 = ctypes.c_float, ctypes.c_double
@@ -117,6 +124,40 @@ def build(verbose: bool = False) -> Path:
                              text=True)
         if res.returncode:
             raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
+        os.replace(out_so, lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+def _host_cxx() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no host C++ compiler ($CXX, g++): the port's "
+                           "native libraries cannot be built here")
+    return cxx
+
+
+def build_host_library(name: str) -> Path:
+    """Compile ``native/<name>.cpp`` with the host C++ compiler into
+    ``build/srtb_tpu_torch/lib<name>_<hash>.so`` (if not built yet) and
+    return its path; raises when the compiler fails."""
+    src = NATIVE_DIR / f"{name}.cpp"
+    digest = hashlib.sha256(" ".join(HOST_CXX_FLAGS).encode()
+                            + src.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{name}_{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="build_", dir=BUILD_DIR))
+    try:
+        out_so = tmp / lib.name
+        res = subprocess.run([_host_cxx(), *HOST_CXX_FLAGS, str(src), "-o",
+                              str(out_so)], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode:
+            raise RuntimeError(f"host build of {src.name} failed:\n"
+                               f"{res.stdout}")
         os.replace(out_so, lib)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -1,0 +1,215 @@
+// Native asynchronous file-writer pool (the port's copy of the JAX
+// package's writer pool, srtb_tpu_torch/io/native_writer.py binds it).
+//
+// The reference writes candidates from thread pools (ref:
+// pipeline/write_signal_pipe.hpp:159-280 -- one boost::asio::thread_pool
+// for baseband .bin writes with fdatasync, one for .npy/.tim spectrum
+// writes).  Here a single pool with a configurable thread count accepts
+// (path, bytes, fsync) jobs; submission copies the payload so the
+// caller's buffer can be reused at once, matching the reference's
+// shared_ptr-owned work semantics.
+//
+// Exposed as a plain C interface for Python ctypes.  Built with the host
+// compiler at first use (srtb_tpu_torch/kernels/build.py,
+// build_host_library) into build/srtb_tpu_torch/.
+
+#include <fcntl.h>
+#include <sys/stat.h>
+#include <unistd.h>
+
+#include <atomic>
+#include <cstdio>
+#include <condition_variable>
+#include <cstdint>
+#include <cstring>
+#include <deque>
+#include <mutex>
+#include <new>
+#include <string>
+#include <thread>
+#include <vector>
+
+namespace {
+
+struct WriteJob {
+  std::string path;
+  std::vector<uint8_t> data;
+  bool fsync = false;
+};
+
+struct WriterPool {
+  std::vector<std::thread> threads;
+  std::deque<WriteJob> jobs;
+  std::mutex mu;
+  std::condition_variable cv_push;   // signalled when a job arrives / stop
+  std::condition_variable cv_drain;  // signalled when a job completes
+  bool stopping = false;
+  size_t in_flight = 0;        // queued + running
+  size_t queued_bytes = 0;     // payload bytes queued + being written
+  size_t max_queued_bytes = 0; // submit blocks above this (0 = unbounded)
+  size_t active_submitters = 0;  // threads inside srtb_writer_submit
+
+  // statistics (ref keeps per-write logs; we expose counters)
+  std::atomic<uint64_t> jobs_done{0};
+  std::atomic<uint64_t> bytes_written{0};
+  std::atomic<uint64_t> errors{0};
+
+  void worker() {
+    for (;;) {
+      WriteJob job;
+      {
+        std::unique_lock<std::mutex> lk(mu);
+        cv_push.wait(lk, [&] { return stopping || !jobs.empty(); });
+        if (jobs.empty()) return;  // stopping and drained
+        job = std::move(jobs.front());
+        jobs.pop_front();
+      }
+      if (!write_one(job)) errors.fetch_add(1);
+      jobs_done.fetch_add(1);
+      {
+        std::lock_guard<std::mutex> lk(mu);
+        in_flight--;
+        queued_bytes -= job.data.size();
+      }
+      cv_drain.notify_all();
+    }
+  }
+
+  bool write_one(const WriteJob& job) {
+    // crash consistency: write <path>.srtb_tmp and atomically rename
+    // into place on success, so a reader -- or a restarted run's orphan
+    // sweep (io/writers.recover_orphan_temps) -- never sees a torn
+    // candidate file.  The Python pool (io/native_writer.py) does the
+    // same.
+    const std::string path = job.path + ".srtb_tmp";
+    int fd = open(path.c_str(), O_WRONLY | O_CREAT | O_TRUNC, 0644);
+    if (fd < 0) return false;
+    const uint8_t* p = job.data.data();
+    size_t left = job.data.size();
+    bool ok = true;
+    while (left > 0) {
+      ssize_t n = write(fd, p, left);
+      if (n < 0) {
+        if (errno == EINTR) continue;
+        ok = false;
+        break;
+      }
+      p += n;
+      left -= (size_t)n;
+    }
+    // the reference fdatasync()s candidate baseband so a captured transient
+    // survives a crash of the host (ref: write_signal_pipe.hpp:187-197)
+    if (ok && job.fsync && fdatasync(fd) != 0) ok = false;
+    if (close(fd) != 0) ok = false;
+    if (ok) ok = std::rename(path.c_str(), job.path.c_str()) == 0;
+    // failed write OR failed rename: drop the temp, matching the Python
+    // atomic_write contract — a live-run failure must not masquerade as
+    // an interrupted-run orphan at the next startup
+    if (!ok) unlink(path.c_str());
+    if (ok) bytes_written.fetch_add(job.data.size());
+    return ok;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// `max_queued_bytes` bounds the RAM held by queued payload copies; when
+// the bound would be exceeded, submit blocks until writers catch up — the
+// backpressure the reference gets for free from its bounded work queues
+// (work.hpp:35-41).  0 = unbounded.
+WriterPool* srtb_writer_create(int32_t n_threads,
+                               uint64_t max_queued_bytes) {
+  if (n_threads < 1) n_threads = 1;
+  WriterPool* pool = new (std::nothrow) WriterPool;
+  if (!pool) return nullptr;
+  pool->max_queued_bytes = (size_t)max_queued_bytes;
+  pool->threads.reserve((size_t)n_threads);
+  for (int32_t i = 0; i < n_threads; i++)
+    pool->threads.emplace_back([pool] { pool->worker(); });
+  return pool;
+}
+
+// Enqueue one write; copies `data` so the caller may reuse its buffer.
+// Returns 0 on success, -1 if the pool is stopping or allocation failed.
+int32_t srtb_writer_submit(WriterPool* pool, const char* path,
+                           const uint8_t* data, uint64_t nbytes,
+                           int32_t fsync_flag) {
+  if (!pool || !path) return -1;
+  WriteJob job;
+  job.path = path;
+  job.fsync = fsync_flag != 0;
+  try {
+    job.data.assign(data, data + nbytes);
+  } catch (...) {
+    return -1;
+  }
+  {
+    std::unique_lock<std::mutex> lk(pool->mu);
+    if (pool->stopping) return -1;
+    pool->active_submitters++;
+    int32_t rc = 0;
+    if (pool->max_queued_bytes > 0) {
+      // block until the job fits (oversized jobs wait for an empty queue)
+      pool->cv_drain.wait(lk, [&] {
+        return pool->stopping ||
+               pool->queued_bytes + job.data.size() <=
+                   pool->max_queued_bytes ||
+               pool->queued_bytes == 0;
+      });
+      if (pool->stopping) rc = -1;
+    }
+    if (rc == 0) {
+      pool->queued_bytes += job.data.size();
+      pool->jobs.push_back(std::move(job));
+      pool->in_flight++;
+      pool->cv_push.notify_one();
+    }
+    pool->active_submitters--;
+    // notify while still holding mu: a destroyer waiting for
+    // active_submitters == 0 can then only delete the pool after our
+    // unique_lock releases — no pool access happens after the unlock,
+    // so submit-vs-destroy cannot use freed memory
+    pool->cv_drain.notify_all();
+    return rc;
+  }
+}
+
+// Block until every submitted job has been written (or failed).
+void srtb_writer_drain(WriterPool* pool) {
+  std::unique_lock<std::mutex> lk(pool->mu);
+  pool->cv_drain.wait(lk, [&] { return pool->in_flight == 0; });
+}
+
+uint64_t srtb_writer_jobs_done(WriterPool* pool) {
+  return pool->jobs_done.load();
+}
+uint64_t srtb_writer_bytes_written(WriterPool* pool) {
+  return pool->bytes_written.load();
+}
+uint64_t srtb_writer_errors(WriterPool* pool) { return pool->errors.load(); }
+
+// Drain, stop the workers and free the pool.
+//
+// A submitter blocked in the backpressure wait when destroy begins is
+// woken via cv_drain, returns -1 on the stopping flag, and destroy waits
+// for it to leave submit() (active_submitters == 0) before freeing the
+// pool — so submit-vs-destroy is safe for already-entered calls.  Calls
+// *entered after* destroy returns are still use-after-free (the pointer
+// is dead); the Python wrapper's close() serializes that.
+void srtb_writer_destroy(WriterPool* pool) {
+  if (!pool) return;
+  {
+    std::unique_lock<std::mutex> lk(pool->mu);
+    pool->stopping = true;
+    pool->cv_push.notify_all();
+    pool->cv_drain.notify_all();  // wake backpressure waiters in submit
+    pool->cv_drain.wait(lk, [&] { return pool->active_submitters == 0; });
+  }
+  pool->cv_push.notify_all();  // workers may have missed the first notify
+  for (auto& t : pool->threads) t.join();
+  delete pool;
+}
+
+}  // extern "C"

@@ -123,6 +123,44 @@ def detect(waterfall: torch.Tensor, time_reserved_count: int,
                                    max_boxcar_length)
 
 
+# block length of :func:`cumsum_last`'s two-level scan on the card
+SCAN_BLOCK = 1024
+
+
+def _row_scan(rows: torch.Tensor) -> torch.Tensor:
+    """cumsum along the last axis of ``rows [r, b]`` by PyTorch's row scan
+    kernel, which adds in a fixed order; a zero row is appended so that
+    even one row never takes the single-array scan."""
+    two = torch.cat([rows, torch.zeros_like(rows[:1])])
+    return torch.cumsum(two, dim=-1)[:rows.shape[0]]
+
+
+def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """cumsum over the last axis of a tensor that is one row: the row in
+    blocks of ``SCAN_BLOCK`` by the row scan kernel, then the blocks'
+    totals, scanned the same way, added to the blocks after the first.
+    Every sum runs in an order fixed by the shape."""
+    t = x.shape[-1]
+    nblocks = -(-t // SCAN_BLOCK)
+    flat = torch.nn.functional.pad(x.reshape(-1),
+                                   (0, nblocks * SCAN_BLOCK - t))
+    within = _row_scan(flat.view(nblocks, SCAN_BLOCK))
+    totals = _row_scan(within[None, :, -1])[0]
+    offsets = torch.cat([torch.zeros_like(totals[:1]), totals[:-1]])
+    return (within + offsets[:, None]).reshape(-1)[:t].reshape(x.shape)
+
+
+def cumsum_last(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(x, -1)`` in an order fixed by the shape.  On the
+    card a scan of a tensor that is one row goes to CUB's decoupled
+    look-back scan, whose float rounding depends on which tiles finish
+    first, so two runs of one segment could write different boxcar
+    series: there it is :func:`blocked_cumsum`."""
+    if x.device.type == "cuda" and x.numel() == x.shape[-1]:
+        return blocked_cumsum(x)
+    return torch.cumsum(x, dim=-1)
+
+
 def detect_from_time_series(ts: torch.Tensor, zero_count: torch.Tensor,
                             snr_threshold: float,
                             max_boxcar_length: int) -> DetectResult:
@@ -132,7 +170,7 @@ def detect_from_time_series(ts: torch.Tensor, zero_count: torch.Tensor,
     t = ts.shape[-1]
     ts = ts - tree_mean(ts)
     lengths = boxcar_lengths(max_boxcar_length, t)
-    acc = torch.cumsum(ts, dim=-1)
+    acc = cumsum_last(ts)
     counts, peaks, rows = [], [], []
     for b in lengths:
         series = ts if b == 1 else acc[..., b:] - acc[..., :-b]

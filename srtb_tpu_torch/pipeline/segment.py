@@ -66,6 +66,22 @@ implement yet raise ``NotImplementedError`` naming their ROADMAP item.
 Complex data stays ``complex64`` (interleaved), as ``torch.fft`` produces
 it; the reference's stacked ``[2, ...]`` (re, im) form is built only by
 the tests that compare the two.
+
+Staging (the reference's protocol, used by the runtime's in-flight
+engine): :meth:`SegmentProcessor.stage_input` starts the upload of a
+segment's bytes from pinned host memory on a copy stream and makes the
+compute stream (the caller's current stream) wait for it, so the upload
+runs under the previous segment's chain; :meth:`run_device` runs the
+chain on the staged bytes.  With the ingest ring (``ingest_ring``, "auto"
+whenever overlap-save reserves a byte-aligned tail) only a segment's
+stride of new bytes is uploaded: a warm ``stage_input`` copies the
+device-resident carry (the previous segment's reserved tail) into the
+head of a fresh buffer and uploads the stride into its tail, both on the
+copy stream, and :meth:`run_device_ring` runs the chain and returns the
+next carry.  The assembled bytes are the segment's own, so warm and cold
+steps give bit-identical results.
+:meth:`process` stays the serial entry: one pageable upload and the
+chain.
 """
 
 from __future__ import annotations
@@ -208,6 +224,18 @@ def front_fuse_resolves(cfg: Config, staged: bool) -> bool:
     return ok and staged_env()[2]
 
 
+def ring_usable(cfg: Config) -> bool:
+    """Whether overlap-save reserves a non-empty, byte-aligned tail
+    strictly smaller than the segment: the ingest ring's structural
+    precondition, whatever ``ingest_ring`` says (the reference's rule)."""
+    fmt = formats.resolve(cfg.baseband_format_type)
+    bits = abs(int(cfg.baseband_input_bits))
+    nres = int(dd.nsamps_reserved(cfg))
+    reserved = nres * bits // 8 * fmt.data_stream_count
+    seg = cfg.segment_bytes(fmt.data_stream_count)
+    return nres > 0 and (nres * bits) % 8 == 0 and 0 < reserved < seg
+
+
 def sk_tiling_ok(nfreq: int, ntime: int) -> bool:
     """The reference's gate of the SK kernel pair (K3/K4, and K4 after
     B7): rows in blocks of up to 8, time in blocks of up to 2^15 that are
@@ -222,15 +250,13 @@ def check_plan(cfg: Config) -> None:
     def no(what: str, item: str) -> None:
         raise NotImplementedError(f"{what} is not ported yet ({item})")
 
-    if str(cfg.ingest_ring).lower() == "on":
-        no("ingest_ring = on", "ROADMAP A4: the ingest ring")
     if cfg.quality_stats:
-        no("quality_stats", "ROADMAP A7: quality statistics")
+        no("quality_stats", "ROADMAP A4: quality statistics")
     if cfg.search_mode != "single_pulse":
         no(f"search_mode = {cfg.search_mode}",
-           "ROADMAP A6: periodicity search")
+           "ROADMAP A5: periodicity search")
     if cfg.micro_batch_segments > 1:
-        no("micro_batch_segments > 1", "ROADMAP A6: micro-batching")
+        no("micro_batch_segments > 1", "ROADMAP A3: micro-batching")
     if cfg.fft_strategy not in STRATEGIES:
         raise ValueError(f"unknown fft_strategy {cfg.fft_strategy!r}")
 
@@ -317,6 +343,18 @@ class SegmentProcessor:
         # trim of the waterfall time axis (ref: signal_detect_pipe.hpp:289-299)
         self.time_reserved_count = self.nsamps_reserved // self.channel_count
         self._segment_bytes = cfg.segment_bytes(self.fmt.data_stream_count)
+        # the ingest ring: the reserved tail stays on the device as the
+        # carry, and a warm step uploads only the stride's new bytes
+        self.reserved_bytes = int(
+            self.nsamps_reserved * abs(cfg.baseband_input_bits) // 8
+            * self.fmt.data_stream_count)
+        self.stride_bytes = self._segment_bytes - self.reserved_bytes
+        self.ring = self._resolve_ring()
+        # uploads by stage_input: bytes, and the ring's cold and warm steps
+        self.h2d_bytes = 0
+        self.ring_cold_dispatches = 0
+        self.ring_warm_dispatches = 0
+        self._copy_stream = None
         log.debug(f"[segment] n={n} spectrum={self.n_spectrum} "
                   f"channels={self.channel_count} watfft={self.watfft_len} "
                   f"reserved={self.nsamps_reserved} plan={self.plan_name} "
@@ -325,9 +363,7 @@ class SegmentProcessor:
     @property
     def plan_name(self) -> str:
         """The reference's plan id (``SegmentProcessor.plan_name``) for
-        this configuration.  The reference's ``+ring`` names its H2D
-        ingest ring, which the port does not have (ROADMAP A4), so it
-        does not appear."""
+        this configuration."""
         name = ("staged" if self.staged else "fused") + f":{self.strategy}"
         if self.fused_tail:
             name += "+ftail"
@@ -335,7 +371,29 @@ class SegmentProcessor:
             name += "+ffuse"
         if self._skzap:
             name += "+skzap"
+        if self.ring:
+            name += "+ring"
         return name
+
+    def _resolve_ring(self) -> bool:
+        """``ingest_ring`` ("auto"/"on"/"off") against the plan, as the
+        reference resolves it: "auto" takes the ring whenever
+        :func:`ring_usable`, "on" raises ``ValueError`` when it is not,
+        "off" uploads every segment whole."""
+        mode = str(self.cfg.ingest_ring).lower()
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(
+                f"ingest_ring must be auto/on/off, got {mode!r}")
+        if mode == "off":
+            return False
+        usable = ring_usable(self.cfg)
+        if mode == "on" and not usable:
+            raise ValueError(
+                "ingest_ring=on requires overlap-save with a byte-"
+                "aligned reserved tail (baseband_reserve_sample with "
+                f"0 < reserved_bytes < segment_bytes; got reserved="
+                f"{self.reserved_bytes} of {self._segment_bytes})")
+        return usable
 
     def _staged_impl(self, impl: str) -> str:
         """The staged row implementation after the two-pass window check:
@@ -504,11 +562,72 @@ class SegmentProcessor:
         return wf[None], result
 
     def process(self, raw) -> tuple[torch.Tensor, det.DetectResult]:
-        """Run one segment.  ``raw`` is the segment's uint8 bytes (numpy or
-        torch).  Returns ``(waterfall complex64 [S, F, T], DetectResult)``
-        with every result tensor on the processor's device."""
+        """Run one segment, serially.  ``raw`` is the segment's uint8
+        bytes (numpy or torch).  Returns ``(waterfall complex64 [S, F,
+        T], DetectResult)`` with every result tensor on the processor's
+        device."""
+        return self.run_device(self._as_device_bytes(raw))
+
+    # ------------------------------------------------------ H2D staging
+
+    def stage_input(self, raw: np.ndarray,
+                    carry: torch.Tensor | None = None) -> torch.Tensor:
+        """Start the upload of one segment's bytes and return the whole
+        segment on the device at once.  ``raw`` is contiguous uint8, and
+        pinned on the card (the reader's buffers are).  On the card the
+        copies run on the processor's copy stream and the caller's
+        current stream (the compute stream) waits for them; the buffer
+        is allocated on the copy stream and recorded on the compute
+        stream, so the allocator reuses it only after the chain that
+        reads it.  With ``carry`` (the ring's warm step: the previous
+        segment's reserved tail, on the device) only
+        ``raw[reserved_bytes:]`` is uploaded, behind a device copy of
+        the carry into the buffer's head.  On the CPU both are plain
+        copies."""
+        if not (isinstance(raw, np.ndarray) and raw.dtype == np.uint8
+                and raw.flags["C_CONTIGUOUS"]
+                and raw.shape == (self._segment_bytes,)):
+            raise ValueError(
+                f"segment must be contiguous uint8 [{self._segment_bytes}]"
+                f" bytes, got {type(raw).__name__} "
+                f"{getattr(raw, 'dtype', None)} {np.shape(raw)}")
+        src = torch.from_numpy(raw)
+        if self.device.type == "cuda" and not src.is_pinned():
+            raise ValueError("segment bytes must be pinned host memory "
+                             "for an asynchronous upload")
+        if carry is not None:
+            if not self.ring:
+                raise ValueError("a carry requires the ingest ring "
+                                 "(Config.ingest_ring)")
+            src = src[self.reserved_bytes:]
+            self.ring_warm_dispatches += 1
+        elif self.ring:
+            self.ring_cold_dispatches += 1
+        self.h2d_bytes += src.nbytes
+        if self.device.type != "cuda":
+            return src.clone() if carry is None else torch.cat([carry, src])
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            dev = torch.empty(self._segment_bytes, dtype=torch.uint8,
+                              device=self.device)
+            if carry is not None:
+                dev[:self.reserved_bytes].copy_(carry)
+            dev[self._segment_bytes - src.numel():].copy_(
+                src, non_blocking=True)
+        compute.wait_stream(self._copy_stream)
+        dev.record_stream(compute)
+        return dev
+
+    # -------------------------------------------------- device execution
+
+    def run_device(self, raw: torch.Tensor
+                   ) -> tuple[torch.Tensor, det.DetectResult]:
+        """The chain on one segment's device-resident bytes, enqueued on
+        the current stream: no host read, no synchronisation."""
         cfg = self.cfg
-        spec = self._spectrum(self._as_device_bytes(raw))
+        spec = self._spectrum(raw)
         if self._plain_s1:
             # the reference's staged stage (c) without use_pallas: XLA
             # stage 1 + manual mask, then its chirp kernel (B3 here)
@@ -522,3 +641,14 @@ class SegmentProcessor:
             spec = self._k2(spec, rfi_threshold(
                 spec, cfg.mitigate_rfi_average_method_threshold))
         return self._waterfall_detect(spec)
+
+    def run_device_ring(self, raw: torch.Tensor):
+        """The ring's step on a staged segment, warm or cold (the bytes
+        are the segment's own either way, so are the results).  Returns
+        ``((waterfall, detect), next_carry)``: ``next_carry`` is the
+        segment's reserved tail, a view of ``raw`` that the caller hands
+        to the next warm ``stage_input``."""
+        if not self.ring:
+            raise ValueError("ingest ring disabled for this plan "
+                             "(Config.ingest_ring / no reserved tail)")
+        return self.run_device(raw), raw[self.stride_bytes:]

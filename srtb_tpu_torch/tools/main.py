@@ -7,8 +7,12 @@ Usage:
 
 Takes the same ``.cfg`` file and ``--key value`` options as ``srtb-main``
 and runs on the CUDA card; ``--device cpu`` runs the plain PyTorch
-versions of the kernels on the CPU instead.  Ends with the same
-``[main] done: N segments, M with signal, X Msamples/s`` line.
+versions of the kernels on the CPU instead.  The run takes the
+reference's defaults: an in-flight window of ``inflight_segments`` (2),
+a writer pool of ``writer_thread_count`` threads (2) owned by the
+pipeline, and ``ingest_ring = auto``; ``baseband_write_all`` appends
+every segment's baseband instead of writing candidates.  Ends with the
+same ``[main] done: N segments, M with signal, X Msamples/s`` line.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.ops import dedisperse as dd
 from srtb_tpu_torch.pipeline.runtime import Pipeline, PipelineStats
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.termination import install_termination_handler
 
 
 def _pop_device(argv: list[str]) -> str | None:
@@ -53,14 +58,14 @@ def run(argv=None) -> tuple[PipelineStats, Pipeline]:
     cfg = Config.from_args(argv)
     if cfg.gui_enable or cfg.gui_http_port:
         raise NotImplementedError(
-            "the waterfall GUI is not ported yet (ROADMAP A7); run with "
+            "the waterfall GUI is not ported yet (ROADMAP A4); run with "
             "--gui_enable 0")
     if cfg.dm_list:
         raise NotImplementedError(
-            "the multi-DM search is not ported yet (ROADMAP A10)")
+            "the multi-DM search is not ported yet (ROADMAP A5)")
     if not cfg.input_file_path:
         raise NotImplementedError(
-            "UDP input is not ported yet (ROADMAP A8); set input_file_path")
+            "UDP input is not ported yet (ROADMAP A6); set input_file_path")
     if not os.path.exists(cfg.input_file_path):
         raise FileNotFoundError(f"input file {cfg.input_file_path} not found")
     log.info(f"[main] nsamps_reserved = {dd.nsamps_reserved(cfg)}")
@@ -76,6 +81,7 @@ def run(argv=None) -> tuple[PipelineStats, Pipeline]:
 
 
 def main(argv=None) -> int:
+    install_termination_handler()
     try:
         run(argv)
     except FileNotFoundError as e:

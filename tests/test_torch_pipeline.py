@@ -18,9 +18,10 @@ from test_torch_segment import dispersed_bytes, slice_config
 N, CHANNELS, DM = 1 << 16, 32, -0.1
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("pipeline")
+def make_case(tmp):
+    """The synthetic file (three overlapping segments, the pulse in the
+    middle one) and the CLI arguments both packages take for it, less
+    the output prefix."""
     cfg = slice_config(N, CHANNELS, DM)
     nres = dd.nsamps_reserved(cfg)
     seg = cfg.segment_bytes()
@@ -35,7 +36,7 @@ def runs(tmp_path_factory):
     raw[: seg + 2 * stride - 1].tofile(data)
     argv = ["--config_file_name", str(tmp / "none.cfg"),
             "--input_file_path", str(data), "--deterministic_timestamps",
-            "1", "--writer_thread_count", "0", "--gui_enable", "0"]
+            "1", "--gui_enable", "0"]
     for key in ("baseband_input_count", "baseband_input_bits",
                 "baseband_freq_low", "baseband_bandwidth",
                 "baseband_sample_rate", "spectrum_channel_count",
@@ -47,6 +48,14 @@ def runs(tmp_path_factory):
         argv += [f"--{key}", str(getattr(cfg, key))]
     argv += ["--dm", f" {DM}", "--use_pallas", "1", "--use_pallas_sk", "1",
              "--baseband_reserve_sample", "1"]
+    return argv, nres
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("pipeline")
+    argv, nres = make_case(tmp)
+    argv += ["--writer_thread_count", "0"]
     dirs = {}
     for who in ("port", "ref"):
         dirs[who] = tmp / who
@@ -70,31 +79,30 @@ def test_same_segments_and_artifacts(runs):
     assert stats.segments == 3 and stats.signals == 1
     assert runs["pipe"].positive_segments == [1]
     device_s = stats.extras["device_s_per_segment"]
+    stage_s = stats.extras["stage_s"]
     assert len(device_s) == 3 and sum(device_s) == pytest.approx(
-        stats.extras["stage_s"]["device"])
+        stage_s["dispatch"] + stage_s["overlap"] + stage_s["fetch"])
     port_files = sorted(os.listdir(runs["dirs"]["port"]))
     assert port_files == ref["main/files"].tolist()
     assert sum(name.endswith(".bin") for name in port_files) == 1
     assert any(name.endswith(".1.tim") for name in port_files)
 
 
-def test_candidate_contents(runs):
-    """.bin: one segment's size; .npy: the waterfall within 2e-5 of its
-    largest value (the segment test's bound); .tim: each boxcar series
-    within b times the time-series gates plus two prefix sums' float32
-    rounding (series_b[i] = acc[i + b] - acc[i])."""
-    ref, dirs = runs["ref"], runs["dirs"]
-    sink = runs["pipe"].sink
-    assert isinstance(sink, WriteSignalSink) and len(sink.written) == 1
-    files = sink.written[0]
+def check_candidate_contents(files, want_npy, want_tim, nres) -> None:
+    """One positive segment's files against the reference's arrays
+    (``want_npy`` / ``want_tim``: by file name).  .bin: one segment's
+    size; .npy: the waterfall within 2e-5 of its largest value (the
+    segment test's bound); .tim: each boxcar series within b times the
+    time-series gates plus two prefix sums' float32 rounding
+    (series_b[i] = acc[i + b] - acc[i])."""
     assert os.path.getsize(files.bin_path) == N * 2 // 8
     (npy,) = files.npy_paths
     got_wf = np.load(npy)
-    want_wf = ref[f"main/npy/{os.path.basename(npy)}"]
+    want_wf = want_npy[os.path.basename(npy)]
     assert got_wf.dtype == np.complex64 and got_wf.shape == want_wf.shape
     wf_err = float(np.abs(got_wf - want_wf).max())
     assert wf_err <= 2e-5 * np.abs(want_wf).max()
-    t = det.trimmed_length(want_wf.shape[-1], runs["nres"] // CHANNELS)
+    t = det.trimmed_length(want_wf.shape[-1], nres // CHANNELS)
     p = np.abs(want_wf[:, :t].astype(np.complex128)) ** 2
     ts_raw = p.sum(0)
     gate = sum(det.time_series_error_gates(CHANNELS, t,
@@ -105,10 +113,30 @@ def test_candidate_contents(runs):
     for path in files.tim_paths:
         b = int(path.rsplit(".", 2)[-2])
         got = np.fromfile(path, dtype="<f4")
-        want = ref[f"main/tim/{os.path.basename(path)}"]
+        want = want_tim[os.path.basename(path)]
         assert got.shape == want.shape
         assert np.abs(got - want).max() <= b * gate + acc_err
-    assert os.path.dirname(npy) == str(dirs["port"])
+
+
+def reference_arrays(ref: dict, key: str, kind: str) -> dict:
+    """The ``kind`` ("npy" or "tim") arrays of reference job ``key``, by
+    file name."""
+    prefix = f"{key}/{kind}/"
+    return {k[len(prefix):]: v for k, v in ref.items()
+            if k.startswith(prefix)}
+
+
+def test_candidate_contents(runs):
+    """The positive segment's files against the reference's
+    (``check_candidate_contents``), in the port's output directory."""
+    ref, dirs = runs["ref"], runs["dirs"]
+    sink = runs["pipe"].sink
+    assert isinstance(sink, WriteSignalSink) and len(sink.written) == 1
+    files = sink.written[0]
+    check_candidate_contents(files, reference_arrays(ref, "main", "npy"),
+                             reference_arrays(ref, "main", "tim"),
+                             runs["nres"])
+    assert os.path.dirname(files.npy_paths[0]) == str(dirs["port"])
 
 
 def test_cli_device_option_and_missing_file(tmp_path):
@@ -117,5 +145,5 @@ def test_cli_device_option_and_missing_file(tmp_path):
     assert M.main(list(argv)) == 1
     parsed = list(argv)
     assert M._pop_device(parsed) == "cpu" and "--device" not in parsed
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         M.run(argv + ["--gui_enable", "1"])

@@ -66,7 +66,8 @@ def dispersed_bytes(cfg: Config, n_samples: int, pulse_at: int,
 
 
 # (n, channels, dm, pulse amplitude, window, overrides, the plan both
-# packages resolve): the n18 shape's reserve trims a fifth of the
+# packages resolve, each with the ingest ring: every shape reserves a
+# byte-aligned tail): the n18 shape's reserve trims a fifth of the
 # waterfall's time axis; the hann shapes window the segment (the unpack's
 # window multiply and the waterfall's de-window, whose near-zero edges
 # trip every row's SK)
@@ -86,77 +87,77 @@ FFUSE = dict(STAGED, front_fuse="on", use_pallas=False,
              use_pallas_sk=False, env=ROWS_PALLAS2)
 SHAPES = {
     "n16_ch32": (1 << 16, 32, -0.1, 4.0, "rectangle", {},
-                 "fused:monolithic"),
+                 "fused:monolithic+ring"),
     "n18_ch128": (1 << 18, 128, -0.5, 7.0, "rectangle", {},
-                  "fused:monolithic"),
+                  "fused:monolithic+ring"),
     "n16_ch32_hann": (1 << 16, 32, -0.1, 4.0, "hann", {},
-                      "fused:monolithic"),
+                      "fused:monolithic+ring"),
     "n17_ch8_rows_in_window": (1 << 17, 8, -0.2, 5.0, "rectangle", {},
-                               "fused:monolithic"),
+                               "fused:monolithic+ring"),
     "n16_ch4_skzap": (1 << 16, 4, -0.1, 4.0, "rectangle", PALLAS,
-                      "fused:pallas+ftail+skzap"),
+                      "fused:pallas+ftail+skzap+ring"),
     "n17_ch8_skzap_hann": (1 << 17, 8, -0.2, 5.0, "hann", PALLAS,
-                           "fused:pallas+ftail+skzap"),
+                           "fused:pallas+ftail+skzap+ring"),
     "n16_ch4_unfused": (1 << 16, 4, -0.1, 4.0, "rectangle",
-                        dict(PALLAS, fused_tail="off"), "fused:pallas"),
+                        dict(PALLAS, fused_tail="off"), "fused:pallas+ring"),
     "n17_ch8_no_pallas_sk": (1 << 17, 8, -0.2, 5.0, "rectangle",
                              dict(PALLAS, use_pallas_sk=False),
-                             "fused:pallas+ftail"),
+                             "fused:pallas+ftail+ring"),
     "n16_ch32_four_step": (1 << 16, 32, -0.1, 4.0, "rectangle", FOUR_STEP,
-                           "fused:four_step+ftail"),
+                           "fused:four_step+ftail+ring"),
     "n17_ch8_four_step_unfused_hann": (
         1 << 17, 8, -0.2, 5.0, "hann", dict(FOUR_STEP, fused_tail="off"),
-        "fused:four_step"),
+        "fused:four_step+ring"),
     "n16_ch4_no_pallas": (1 << 16, 4, -0.1, 4.0, "rectangle",
-                          {"use_pallas": False}, "fused:monolithic"),
+                          {"use_pallas": False}, "fused:monolithic+ring"),
     "n16_ch4_pallas2": (1 << 16, 4, -0.1, 4.0, "rectangle", PALLAS2,
-                        "fused:pallas2+ftail+skzap"),
+                        "fused:pallas2+ftail+skzap+ring"),
     "n17_ch8_pallas2_unfused_hann": (
         1 << 17, 8, -0.2, 5.0, "hann", dict(PALLAS2, fused_tail="off"),
-        "fused:pallas2"),
+        "fused:pallas2+ring"),
     "n16_ch4_mxu": (1 << 16, 4, -0.1, 4.0, "rectangle",
-                    {"fft_strategy": "mxu"}, "fused:mxu+ftail+skzap"),
+                    {"fft_strategy": "mxu"}, "fused:mxu+ftail+skzap+ring"),
     "n16_ch32_staged_no_pallas": (
         1 << 16, 32, -0.1, 4.0, "rectangle",
-        dict(STAGED_PLAIN, use_pallas_sk=False), "staged:four_step"),
+        dict(STAGED_PLAIN, use_pallas_sk=False), "staged:four_step+ring"),
     "n17_ch8_staged_no_pallas_sk": (1 << 17, 8, -0.2, 5.0, "rectangle",
-                                    STAGED_PLAIN, "staged:four_step"),
+                                    STAGED_PLAIN, "staged:four_step+ring"),
     "n16_ch4_staged_rows_pallas": (
         1 << 16, 4, -0.1, 4.0, "rectangle",
         dict(STAGED, env={"SRTB_STAGED_ROWS_IMPL": "pallas"}),
-        "staged:four_step+ftail+skzap"),
+        "staged:four_step+ftail+skzap+ring"),
     "n16_ch32_staged_rows_pallas2": (
         1 << 16, 32, -0.1, 4.0, "rectangle", dict(STAGED, env=ROWS_PALLAS2),
-        "staged:four_step+ftail"),
+        "staged:four_step+ftail+ring"),
     "n16_ch4_staged_blocked": (
         1 << 16, 4, -0.1, 4.0, "rectangle",
         dict(STAGED, use_pallas=False, use_pallas_sk=False,
-             env={"SRTB_STAGED_BLOCKED": "1"}), "staged:four_step+ftail"),
+             env={"SRTB_STAGED_BLOCKED": "1"}), "staged:four_step+ftail+ring"),
     "n16_ch4_ffuse_1bit": (1 << 16, 4, -0.1, 6.0, "rectangle",
                            dict(FFUSE, baseband_input_bits=1),
-                           "staged:four_step+ftail+ffuse"),
+                           "staged:four_step+ftail+ffuse+ring"),
     "n16_ch4_ffuse_2bit": (1 << 16, 4, -0.1, 4.0, "rectangle", FFUSE,
-                           "staged:four_step+ftail+ffuse"),
+                           "staged:four_step+ftail+ffuse+ring"),
     "n16_ch4_ffuse_4bit": (1 << 16, 4, -0.1, 4.0, "rectangle",
                            dict(FFUSE, baseband_input_bits=4),
-                           "staged:four_step+ftail+ffuse"),
+                           "staged:four_step+ftail+ffuse+ring"),
     "n16_ch4_ffuse_8bit": (1 << 16, 4, -0.1, 4.0, "rectangle",
                            dict(FFUSE, baseband_input_bits=8),
-                           "staged:four_step+ftail+ffuse"),
+                           "staged:four_step+ftail+ffuse+ring"),
     "n16_ch4_ffuse_hann": (1 << 16, 4, -0.1, 4.0, "hann", FFUSE,
-                           "staged:four_step+ftail+ffuse"),
+                           "staged:four_step+ftail+ffuse+ring"),
     "n16_ch4_ffuse_skzap": (
         1 << 16, 4, -0.1, 4.0, "rectangle",
         dict(FFUSE, use_pallas=True, use_pallas_sk=True),
-        "staged:four_step+ftail+ffuse+skzap"),
+        "staged:four_step+ftail+ffuse+skzap+ring"),
     "n16_ch4_ffuse_auto": (1 << 16, 4, -0.1, 4.0, "rectangle",
                            dict(FFUSE, front_fuse="auto"),
-                           "staged:four_step+ftail"),
+                           "staged:four_step+ftail+ring"),
     "n16_ch4_ffuse_auto_opt_in": (
         1 << 16, 4, -0.1, 4.0, "rectangle",
         dict(FFUSE, front_fuse="auto",
              env=dict(ROWS_PALLAS2, SRTB_PALLAS_FFUSE="1")),
-        "staged:four_step+ftail+ffuse"),
+        "staged:four_step+ftail+ffuse+ring"),
 }
 # shapes whose dedispersed spectrum is compared too (the hann window zaps
 # every waterfall row at this size, in both packages)
@@ -275,14 +276,11 @@ def port(ref):
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_plan_and_constants_match(ref, port, name):
-    """Both packages take the same plan (the reference's name less
-    ``+ring``, its ingest ring, which the port does not have), the one
-    listed for the shape, and the processor's constants are the same:
-    window, de-window, RFI mask, normalization, reserved samples, time
-    trim."""
+    """Both packages take the same plan, the one listed for the shape,
+    and the processor's constants are the same: window, de-window, RFI
+    mask, normalization, reserved samples, time trim."""
     sp = port[name][0]
-    assert str(ref[f"{name}/plan"]).replace("+ring", "") == sp.plan_name \
-        == SHAPES[name][6]
+    assert str(ref[f"{name}/plan"]) == sp.plan_name == SHAPES[name][6]
     for got, key in ((sp.window, "window"), (sp.watfft_dewindow,
                                              "dewindow")):
         if got is None:
@@ -382,9 +380,21 @@ def test_plan_resolution_matches_reference(ref, name):
 def test_unported_settings_raise():
     cfg = slice_config(1 << 12, 32, 0.0)
     for change in ({"quality_stats": True}, {"search_mode": "periodicity"},
-                   {"micro_batch_segments": 2}, {"ingest_ring": "on"}):
+                   {"micro_batch_segments": 2}):
         with pytest.raises(NotImplementedError):
             SegmentProcessor(cfg.replace(**change), device="cpu")
+    # the ingest ring: "on" builds the ring plan, "off" leaves it out,
+    # and "on" without a reserved tail raises as in the reference
+    rcfg = CASES["n16_ch32"][0]
+    ring = SegmentProcessor(rcfg.replace(ingest_ring="on"), device="cpu")
+    assert ring.ring and ring.plan_name == "fused:monolithic+ring"
+    assert ring.stride_bytes + ring.reserved_bytes == rcfg.segment_bytes()
+    assert SegmentProcessor(rcfg.replace(ingest_ring="off"),
+                            device="cpu").plan_name == "fused:monolithic"
+    with pytest.raises(ValueError, match="ingest_ring=on"):
+        SegmentProcessor(rcfg.replace(ingest_ring="on",
+                                      baseband_reserve_sample=False),
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         SegmentProcessor(cfg.replace(baseband_format_type="gznupsr_a1"),
                          device="cpu")
