@@ -31,7 +31,9 @@ result lines are printed:
    the column body's launch geometry at both column lengths; B7 and B8
    each in turns with B6 on the same [2^11, 2^15] rows and B12 at [8192,
    65536] in turns with B10 on the same input, all before B9's 2^30
-   timing, with their launch geometry at every row length);
+   timing, with their launch geometry at every row length); and B11 in
+   its two-stream 8-bit form at [2, 8192, 65536], held to B9, to its
+   plain version and to the exact float64 sums, and timed;
 5. main paths: 2-bit files of two segments with a dispersed pulse in the
    second, made on the card by the port's synth, searched by the port's
    ``srtb-torch-main`` at the example J1644-4559 configuration and the
@@ -43,17 +45,25 @@ result lines are printed:
    (2^30, ``use_pallas = 0``: the staged plan with B3), at 2^27 with
    ``fft_strategy = pallas2`` (B9/B10), and at 2^30 with the fused tail
    and ``SRTB_STAGED_ROWS_IMPL=pallas2`` twice, front-fused (B11/B12) and
-   not (K1, B9, B10, K2).  In each, the pulse segment must be positive,
-   the noise segment negative, the candidate files must exist, the plan
-   must be the reference's, and each kernel must have launched exactly as
-   often per segment as that plan's table says; the peak memory at the
-   window is printed.  Then both segments are dispatched again (cold,
-   then warm with the ring) under ``torch.cuda.set_sync_debug_mode
+   not (K1, B9, B10, K2); then the multi-stream formats: 2 × 2^30 2-bit
+   ``interleaved_samples_2`` with ``use_pallas = 1`` (the de-interleave,
+   K1, K2, K3, K4 once a stream), 2 × 2^30 8-bit front-fused (B11 over
+   both streams, B12 once a stream) and 2 × 2^27 ``gznupsr_a1`` int8
+   words with ``fft_strategy = pallas`` (B6 over both streams, K2 and B8
+   once a stream), the pulse in stream 0 only.  In each, the pulse
+   segment must be positive, the noise segment negative, the candidate
+   files must exist (one waterfall a stream, and only stream 0's boxcar
+   series), the plan must be the reference's, and each kernel must have
+   launched exactly as often per segment as that plan's table says; the
+   peak memory at the window and Msamples/s (a stream's) are printed.
+   Then both segments are dispatched again (cold, then warm with the
+   ring) under ``torch.cuda.set_sync_debug_mode
    ("error")``, so that any call of the dispatch that synchronises with
    the card fails.  Paths of one geometry share one input file;
 6. breakdown: the device time of one segment stage by stage, for the 2^30
-   paths and for the fused, unfused and pallas2 2^27 paths, and the
-   staged R2C front under each staged row implementation;
+   paths (the two-stream ones with the byte de-interleave as its own
+   stage) and for the fused, unfused, pallas2 and gznupsr 2^27 paths, and
+   the staged R2C front under each staged row implementation;
 7. window: staged_2^30 on a file of 4 noise segments and fused_2^27 on
    one of 8 with the pulse in one segment, each at the serial leg
    (``inflight_segments = 1``, ``writer_thread_count = 0``,
@@ -70,6 +80,7 @@ Outputs go to ``build/chip_smoke/`` in the checkout.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -101,6 +112,7 @@ PALLAS2_27 = "baseband_input_count = 2 ** 27\nfft_strategy = pallas2\n" \
     + PALLAS_ON
 STAGED_TAIL = PALLAS_ON + "fused_tail = on\n"
 ROWS_PALLAS2 = {"SRTB_STAGED_ROWS_IMPL": "pallas2"}
+DUALPOL = "baseband_format_type = interleaved_samples_2\n"
 MAIN_PATHS = (
     ("staged_2^30", LOG2_N, PALLAS_ON, "staged:four_step+ring",
      {"unpack_subbyte_window": 1, "rfi_s1_dedisperse": 1, "sk_stats": 1,
@@ -133,6 +145,23 @@ MAIN_PATHS = (
      "staged:four_step+ftail+ffuse+ring",
      {"fft2_pass1_front": 1, "fft2_pass2_spectrum": 1, "sk_stats": 1,
       "sk_apply_timeseries": 1}, ROWS_PALLAS2),
+    # the multi-stream formats: the example cfg's two byte-interleaved
+    # polarizations on the card (the kernels a stream's work runs through
+    # launch once a stream; B11 reads both streams in one launch), and
+    # the gznupsr word-interleaved int8 format on the row-FFT plan (its
+    # B6 legs carry both streams in their batch)
+    ("dualpol_2^30", LOG2_N, DUALPOL + PALLAS_ON, "staged:four_step+ring",
+     {"unpack_subbyte_window": 2, "rfi_s1_dedisperse": 2, "sk_stats": 2,
+      "sk_apply_timeseries": 2}, {}),
+    ("dualpol8_ffuse_2^30", LOG2_N,
+     DUALPOL + "baseband_input_bits = 8\n" + STAGED_TAIL
+     + "front_fuse = on\n", "staged:four_step+ftail+ffuse+ring",
+     {"fft2_pass1_front": 1, "fft2_pass2_spectrum": 2, "sk_stats": 2,
+      "sk_apply_timeseries": 2}, ROWS_PALLAS2),
+    ("gznupsr_2^27", LOG2_N_ROWS,
+     "baseband_format_type = gznupsr_a1\nbaseband_input_bits = -8\n"
+     + PALLAS_27, "fused:pallas+ftail+skzap+ring",
+     {"fft_rows": 2, "rfi_s1_dedisperse": 2, "fft_rows_skzap": 2}, {}),
 )
 
 
@@ -145,7 +174,10 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+@functools.lru_cache(maxsize=1)
 def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them (read
+    once; every measurement line carries it)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1266,6 +1298,78 @@ def check_fft2_front(copy_gbps: float, k2_ms: float, b12: dict) -> list:
     return recs
 
 
+def check_fft2_front_two_streams(rec: dict) -> None:
+    """B11 in its two-stream 8-bit form at the dualpol8_ffuse_2^30 path's
+    shape: 2 GiB of "1212"-interleaved 8-bit bytes, (S, n1, n2) = (2,
+    8192, 65536), no window.  Held bit-identical to B9 on the same packed
+    values, to its plain version stream by stream (the plain column FFT
+    of each stream's packed values, 2e-5 of the largest |plain|), and its
+    sums to their exact float64 values from the packed values
+    (``_packed_sums``: sum |B|^2 within 3e-7 relative of Parseval's, the
+    DC within 1e-8 of sum |z|, each stream's mean power within 1e-6 of
+    the exact one).  Then timed, beside the whole plain version (unpack,
+    pack, column FFT, twiddle, float64 sums) on the same bytes; the
+    numbers go into B11's record under ``two_stream_8bit``."""
+    import torch
+    from srtb_tpu_torch.kernels import fft2 as K2
+    from srtb_tpu_torch.kernels import fft2_front as FF
+    variant, nbits = "interleaved_samples_2", 8
+    m = 1 << (LOG2_N - 1)
+    n1, n2 = K2.ffuse_factor(m)
+    g = torch.Generator(device="cuda").manual_seed(27)
+    raw = torch.randint(0, 256, (FF.front_streams(variant) * 2 * m,),
+                        dtype=torch.uint8, device="cuda", generator=g)
+    z = FF.front_pack(raw, m, variant, nbits)
+    b, aux = FF.fft2_pass1_front(raw, m, variant, nbits)
+    where = f"fft2_pass1_front [2, {n1}, {n2}] {variant} {nbits} bits"
+    if not torch.equal(torch.view_as_real(b),
+                       torch.view_as_real(K2.fft2_pass1(z))):
+        fail(f"{where}: not bit-identical to B9 on the same packed values")
+    err = scale = 0.0
+    for s in range(z.shape[0]):
+        e, sc = _fft_err(b[s:s + 1], K2.fft2_pass1_plain(z[s:s + 1]))
+        K2.twiddle.cache_clear()
+        if not e <= 2e-5 * sc:
+            fail(f"{where}: stream {s} {e} > 2e-5 x {sc}")
+        err, scale = max(err, e), max(scale, sc)
+    exact = _packed_sums(z)
+    del z
+    torch.cuda.empty_cache()
+    energy, dc = _sum_errors(aux, exact)
+    mean = FF.front_mean_power(aux, n2, m)
+    want = FF.front_mean_power(exact[:, :3], n2, m)
+    rel = float(((mean - want).abs() / want).max())
+    if not (abs(energy) <= 3e-7 and dc <= 1e-8 and rel <= 1e-6):
+        fail(f"{where}: sum |B|^2 off Parseval's by {energy:.3e}, DC off "
+             f"sum z by {dc:.3e} of sum |z|, mean power rel err {rel:.3e}")
+    del b
+    torch.cuda.empty_cache()
+    k_ms = cuda_ms(lambda: FF.fft2_pass1_front(raw, m, variant, nbits), 5)
+    torch.cuda.empty_cache()
+    p_ms = cuda_ms(lambda: FF.fft2_pass1_front_plain(raw, m, variant,
+                                                     nbits), 1)
+    K2.twiddle.cache_clear()
+    torch.cuda.empty_cache()
+    # reads the 2 GiB of raw bytes once and writes 2 x 4 GiB; the
+    # operations as the one-stream record counts them, twice
+    nbytes = 4 * m + 2 * 8 * m
+    b_ms, b_by = bound_ms(nbytes, {"f32": 2 * (5 * m * 13 + 12 * m + 6 * m),
+                                   "f64": 2 * 4 * m})
+    rec["two_stream_8bit"] = {
+        "shape": [2, n1, n2], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        "max_abs_err": err, "energy_bias": energy, "dc_err": dc,
+        "mean_power_rel_err": rel}
+    say(f"check {where}: bit-identical to B9 on the same packed values, "
+        f"max_abs_err {err:.3e} <= 2e-5 x {scale:.3e} (each stream against "
+        f"its plain column FFT), sum |B|^2 off Parseval's by {energy:+.2e}, "
+        f"DC off sum z by {dc:.2e}, mean power within {rel:.2e} of the "
+        f"exact; B11 {k_ms:.4f} ms, plain version {p_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / k_ms:.1f}% of it); card "
+        f"{card_line()}")
+    del raw
+
+
 def time_pass2_spectrum() -> dict:
     """B12 at the front-fused path's [8192, 65536] with the example cfg's
     keep mask and exact chirp (the path's form), on a noise intermediate,
@@ -1337,25 +1441,30 @@ def phase_kernels(copy_gbps: float) -> list:
     b12 = time_pass2_spectrum()
     recs += check_fft2(copy_gbps, b12["b10_same_input_ms"])
     recs += check_fft2_front(copy_gbps, recs[1]["ms"], b12)
+    check_fft2_front_two_streams(
+        {r["name"]: r for r in recs}["fft2_pass1_front"])
     return recs
 
 
 def make_input_file(cfg, path: Path, segments: int = 2,
                     pulse_segment: int = 1) -> dict:
-    """``segments`` segments of 2-bit baseband made on the card, a
-    dispersed pulse in segment ``pulse_segment`` (None: nowhere) and noise
-    elsewhere.
+    """``segments`` segments of the cfg's format and sample width made on
+    the card, a dispersed pulse in stream 0 of segment ``pulse_segment``
+    (None: nowhere) and noise elsewhere: each stream quantized apart from
+    its own generator seed, then interleaved in the format's own layout.
     Segment k >= 1 is the tail of segment k - 1 and the first stride of
     block k; the last block is one byte short, so the overlap-save reader
     emits exactly ``segments`` segments (the last ends in one zero-padded
     byte, inside its reserved tail)."""
     import torch
-    from srtb_tpu_torch.io import synth
+    from srtb_tpu_torch.io import formats, synth
     from srtb_tpu_torch.ops import dedisperse as dd
     n = cfg.baseband_input_count
-    seg = cfg.segment_bytes()
+    fmt = formats.resolve(cfg.baseband_format_type)
+    streams = fmt.data_stream_count
+    seg = cfg.segment_bytes(streams)
     nres = dd.nsamps_reserved(cfg)
-    reserved = nres * abs(cfg.baseband_input_bits) // 8
+    reserved = nres * abs(cfg.baseband_input_bits) // 8 * streams
     stride = seg - reserved
     # block k's sample j is segment k's sample nres + j; the search keeps
     # the first T - nres / channel_count waterfall columns of
@@ -1364,22 +1473,27 @@ def make_input_file(cfg, path: Path, segments: int = 2,
     pulse_at = (n - 3 * nres) // 2
     with open(path, "wb") as f:
         for i in range(segments):
-            gen = torch.Generator(device="cuda").manual_seed(100 + i)
-            b = synth.make_dispersed_baseband(
-                n, cfg.baseband_freq_low, cfg.baseband_bandwidth, cfg.dm,
-                [pulse_at] if i == pulse_segment else [],
-                nbits=cfg.baseband_input_bits, pulse_amp=40.0,
-                pulse_width=32, device="cuda", generator=gen)
-            block = b.cpu().numpy()
-            del b
+            rows = []
+            for s in range(streams):
+                gen = torch.Generator(device="cuda").manual_seed(
+                    100 + i + 1000 * s)
+                rows.append(synth.make_dispersed_baseband(
+                    n, cfg.baseband_freq_low, cfg.baseband_bandwidth, cfg.dm,
+                    [pulse_at] if i == pulse_segment and s == 0 else [],
+                    nbits=cfg.baseband_input_bits, pulse_amp=40.0,
+                    pulse_width=32, device="cuda", generator=gen))
+            block = synth.interleave_streams(
+                torch.stack(rows), fmt.unpack_variant).cpu().numpy()
+            del rows
             torch.cuda.empty_cache()
             if i == 0:
                 f.write(block.tobytes())
             else:
                 end = stride - 1 if i == segments - 1 else stride
                 f.write(block[:end].tobytes())
-    info = {"segment_bytes": seg, "reserved_bytes": reserved,
-            "segments": segments, "pulse_segment": pulse_segment}
+    info = {"format": fmt.name, "streams": streams, "segment_bytes": seg,
+            "reserved_bytes": reserved, "segments": segments,
+            "pulse_segment": pulse_segment}
     if pulse_segment is not None:
         info[f"pulse_sample_in_segment_{pulse_segment}"] = nres + pulse_at
     return info
@@ -1390,9 +1504,9 @@ def input_file(cfg, label: str, made: dict) -> Path:
     DM, reserve, band), made once and shared by every path of that
     geometry (``made`` maps the geometry to its file)."""
     from srtb_tpu_torch.ops import dedisperse as dd
-    key = (cfg.baseband_input_count, cfg.baseband_input_bits, cfg.dm,
-           dd.nsamps_reserved(cfg), cfg.baseband_freq_low,
-           cfg.baseband_bandwidth)
+    key = (cfg.baseband_format_type, cfg.baseband_input_count,
+           cfg.baseband_input_bits, cfg.dm, dd.nsamps_reserved(cfg),
+           cfg.baseband_freq_low, cfg.baseband_bandwidth)
     if key in made:
         say(f"main path {label}: input {made[key].relative_to(ROOT)} "
             "shared with an earlier path of the same geometry")
@@ -1472,9 +1586,12 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     positives = pipe.positive_segments
+    streams = pipe.processor.streams
     say(f"main path {label}: plan {pipe.processor.plan_name}, "
+        f"{pipe.processor.fmt.name} ({streams} stream(s), "
+        f"{cfg.baseband_input_bits}-bit), "
         f"{stats.segments} segments, positive {positives}, "
-        f"{stats.msamples_per_sec:.1f} Msamples/s in the pipeline "
+        f"{stats.msamples_per_sec:.1f} Msamples/s (a stream) in the pipeline "
         f"({stats.elapsed_s:.2f} s), {wall:.2f} s with set-up; real-time "
         f"factor {stats.msamples_per_sec / 128.0:.3f} against 128 "
         f"Msamples/s; max_memory_allocated {peak} bytes; env {env}; "
@@ -1498,6 +1615,16 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
                 fail(f"{label}: candidate file missing: {p}")
     if not written or not written[0].tim_paths:
         fail(f"{label}: no candidate files written for the pulse segment")
+    # one waterfall a stream; the pulse, in stream 0 only, fires there only
+    for files in written:
+        tims = [os.path.basename(p) for p in files.tim_paths]
+        if len(files.npy_paths) != streams:
+            fail(f"{label}: {len(files.npy_paths)} waterfall dumps for "
+                 f"{streams} streams")
+        if streams > 1 and not (all(".s0." in t for t in tims)
+                                and not any(".s1." in t for t in tims)):
+            fail(f"{label}: the pulse is in stream 0 only, the series are "
+                 f"{tims}")
     for name, count in counts.items():
         want = per_segment.get(name, 0) * stats.segments
         if count != want:
@@ -1543,11 +1670,14 @@ def check_dispatch_syncs(pipe, label: str) -> None:
         fail(f"{label}: a dispatch synchronised with the card: {e}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    decisions = []
+    decisions, by_stream = [], []
     for item in items:
         item.done.synchronize()
         decisions.append(has_signal(pipe.cfg, item.det,
                                     frequency_bin_count=item.wf.shape[-2]))
+        by_stream.append([has_signal(pipe.cfg, item.det, stream=s,
+                                     frequency_bin_count=item.wf.shape[-2])
+                          for s in range(proc.streams)])
     pipe._ring_invalidate()
     del items
     for seg in segs:
@@ -1555,11 +1685,15 @@ def check_dispatch_syncs(pipe, label: str) -> None:
     pool.free_all()
     if decisions != [False, True]:
         fail(f"{label}: decisions {decisions} of the checked dispatches")
+    quiet = [False] * (proc.streams - 1)
+    if by_stream != [[False] + quiet, [True] + quiet]:
+        fail(f"{label}: per-stream decisions {by_stream}; the pulse is in "
+             "stream 0 of segment 1 only")
     say(f"main path {label}: {len(segs)} dispatches (ring cold "
         f"{proc.ring_cold_dispatches - cold0}, warm "
         f"{proc.ring_warm_dispatches - warm0}) under "
         "set_sync_debug_mode('error'): no synchronising call; decisions "
-        f"{decisions}")
+        f"{decisions}, by stream {by_stream}")
 
 
 # the window phase: (path, log2 samples, cfg lines, segments in the file,
@@ -1711,34 +1845,44 @@ def phase_breakdown(run) -> dict:
 
 def _staged_tail_stages(ms: dict, sp, spec) -> None:
     """Time the staged plan's waterfall stages on the dedispersed spectrum
-    (rows of 2^18, outside the row kernels' window: cuFFT, K3, the
-    verdict, K4 and detect), each alone on the input the chain gives
-    it."""
+    [S, m] (or [m], one stream; rows of 2^18, outside the row kernels'
+    window): the rows of every stream in one cuFFT call, then K3, the
+    verdict and K4 once a stream, and detect over the streams, each stage
+    alone on the input the chain gives it."""
     import torch
     from srtb_tpu_torch.kernels import sk as KS
     from srtb_tpu_torch.ops import detect as det
     from srtb_tpu_torch.ops import fft as F
     from srtb_tpu_torch.ops import rfi
     cfg = sp.cfg
+    spec = spec if spec.dim() == 2 else spec[None]
+    streams = range(spec.shape[0])
     ms["waterfall ifft"] = cuda_ms(
         lambda: F.waterfall_c2c(spec, sp.channel_count, sp.watfft_dewindow),
         3)
     wf = F.waterfall_c2c(spec, sp.channel_count, sp.watfft_dewindow)
     del spec
-    ms["sk stats K3"] = cuda_ms(lambda: KS.sk_stats(wf), 5)
-    s2, s4, fs0 = KS.sk_stats(wf)
+    ms["sk stats K3"] = cuda_ms(lambda: [KS.sk_stats(wf[s])
+                                         for s in streams], 5)
+    moments = [KS.sk_stats(wf[s])[:2] for s in streams]
     sk_thr = cfg.mitigate_rfi_spectral_kurtosis_threshold
-    ms["sk verdict"] = cuda_ms(
-        lambda: rfi.sk_zap_decision(s2, s4, wf.shape[-1], sk_thr), 5)
-    zap = rfi.sk_zap_decision(s2, s4, wf.shape[-1], sk_thr)
+    t_len = wf.shape[-1]
+
+    def verdicts():
+        return [rfi.sk_zap_decision(s2, s4, t_len, sk_thr)
+                for s2, s4 in moments]
+    ms["sk verdict"] = cuda_ms(verdicts, 5)
+    zaps = verdicts()
     ms["sk apply + time series K4"] = cuda_ms(
-        lambda: KS.sk_apply_timeseries(wf, zap), 5)
-    _, ts = KS.sk_apply_timeseries(wf, zap)
+        lambda: [KS.sk_apply_timeseries(wf[s], zaps[s]) for s in streams],
+        5)
+    ts = torch.stack([KS.sk_apply_timeseries(wf[s], zaps[s])[1]
+                      for s in streams])
     del wf
-    t = det.trimmed_length(ts.shape[-1], sp.time_reserved_count)
-    zc = torch.zeros(1, dtype=torch.int32, device="cuda")
+    t = det.trimmed_length(t_len, sp.time_reserved_count)
+    zc = torch.zeros(len(streams), dtype=torch.int32, device="cuda")
     ms["detect"] = cuda_ms(lambda: det.detect_from_time_series(
-        ts[None, :t], zc, cfg.signal_detect_signal_noise_threshold,
+        ts[:, :t], zc, cfg.signal_detect_signal_noise_threshold,
         cfg.signal_detect_max_boxcar_length), 5)
 
 
@@ -1783,11 +1927,11 @@ def phase_breakdown_staged_rows(run) -> dict:
          "K2)": fronts, "front_spectra_max_rel_err": worst})
 
 
-def phase_breakdown_ffuse(run, breakdowns: dict) -> dict:
-    """Device time of one ffuse_2^30 segment stage by stage (the
-    processor's own functions, each alone on the input the chain gives
-    it), the whole chain, and beside them staged_2^30's front (K1 + R2C +
-    mean + K2) and staged_pallas2_2^30's chain."""
+def phase_breakdown_ffuse(run, label: str, extra: dict) -> dict:
+    """Device time of one segment of a front-fused 2^30 path stage by
+    stage (the processor's own functions, each alone on the input the
+    chain gives it: B11 over every stream, B12 once a stream), the whole
+    chain, and the numbers ``extra`` of other paths beside them."""
     import numpy as np
     import torch
     from srtb_tpu_torch.kernels import fft2 as K2
@@ -1809,28 +1953,71 @@ def phase_breakdown_ffuse(run, breakdowns: dict) -> dict:
         * FF.front_mean_power(aux, n2, m)
 
     def pass2():
-        return FF.fft2_pass2_spectrum(b[0], thr, sp.norm_coeff,
-                                      keep=sp._ffuse_keep,
-                                      chirp=sp._ffuse_chirp)
+        out = torch.empty_like(b)
+        for s in range(b.shape[0]):
+            FF.fft2_pass2_spectrum(b[s], thr[s:s + 1], sp.norm_coeff,
+                                   keep=sp._ffuse_keep,
+                                   chirp=sp._ffuse_chirp, out=out[s])
+        return out
     ms["B12 pass2_spectrum"] = cuda_ms(pass2, 5)
-    s = pass2()
+    blocked = pass2()
     del b
-    ms["unblock transpose"] = cuda_ms(lambda: K2.unblock(s), 5)
-    spec = K2.unblock(s)
-    del s
-    front = sum(ms[k] for k in list(ms)[1:])
+    ms["unblock transpose"] = cuda_ms(lambda: K2.unblock(blocked), 5)
+    spec = K2.unblock(blocked)
+    del blocked
+    front = sum(ms[k] for k in list(ms)[2:])
     _staged_tail_stages(ms, sp, spec)
     del spec
     whole = cuda_ms(lambda: sp.process(raw), 3)
     torch.cuda.empty_cache()
-    staged = breakdowns["staged_2^30"]["stage_ms"]
     return _breakdown_line(
-        "ffuse_2^30", ms, whole, cfg,
-        {"front_ms (B11 + mean + B12 + unblock)": front,
-         "staged_2^30_front_ms (K1 + R2C + mean + K2)":
-             sum(staged[k] for k in STAGED_FRONT),
-         "staged_pallas2_2^30_chain_ms":
-             breakdowns["staged_pallas2_2^30"]["chain_ms"]})
+        label, ms, whole, cfg,
+        {"streams": sp.streams,
+         "front_ms (B11 + mean + B12 + unblock)": front, **extra})
+
+
+def phase_breakdown_dualpol(run, breakdowns: dict) -> dict:
+    """Device time of one dualpol_2^30 segment stage by stage: the byte
+    de-interleave as a stage of its own, K1 once a stream, the two
+    streams' R2C in one cuFFT call, their mean powers, K2 once a stream,
+    then the waterfall stages; the whole chain, and staged_2^30's (the
+    same plan on one stream) beside it."""
+    import torch
+    from srtb_tpu_torch.kernels import rfi_chirp as KR
+    from srtb_tpu_torch.kernels import unpack as KU
+    from srtb_tpu_torch.ops import fft as F
+    from srtb_tpu_torch.ops import unpack as U
+    sp, raw, h2d = _segment_on_card(run)
+    cfg = sp.cfg
+    bits, variant = cfg.baseband_input_bits, sp.fmt.unpack_variant
+    ms = dict(h2d)
+    ms["de-interleave bytes"] = cuda_ms(
+        lambda: U.deinterleave_bytes(raw, variant), 5)
+    rows = U.deinterleave_bytes(raw, variant)
+    ms["unpack K1"] = cuda_ms(
+        lambda: [KU.unpack_subbyte_window(rows[s], bits, sp.window)
+                 for s in range(sp.streams)], 5)
+    del rows
+    x = sp._unpack(raw)
+    ms["rfft"] = cuda_ms(lambda: F.rfft_drop_nyquist(x), 3)
+    spec = F.rfft_drop_nyquist(x)
+    del x
+    thr = cfg.mitigate_rfi_average_method_threshold
+    ms["mean power"] = cuda_ms(lambda: KR.rfi_threshold(spec, thr), 5)
+    t = KR.rfi_threshold(spec, thr)
+    ms["rfi + chirp K2"] = cuda_ms(lambda: sp._k2(spec, t), 5)
+    spec = sp._k2(spec, t)
+    front = sum(ms[k] for k in list(ms)[2:])
+    _staged_tail_stages(ms, sp, spec)
+    del spec
+    whole = cuda_ms(lambda: sp.process(raw), 3)
+    torch.cuda.empty_cache()
+    return _breakdown_line(
+        "dualpol_2^30", ms, whole, cfg,
+        {"streams": sp.streams,
+         "front_ms (de-interleave + K1 + R2C + mean + K2)": front,
+         "staged_2^30_chain_ms (one stream)":
+             breakdowns["staged_2^30"]["chain_ms"]})
 
 
 def _breakdown_line(label, ms, whole, cfg, extra=None) -> dict:
@@ -1839,7 +2026,7 @@ def _breakdown_line(label, ms, whole, cfg, extra=None) -> dict:
            "chain_ms": whole,
            "chain_msamples_per_s": cfg.baseband_input_count / whole / 1e3,
            **(extra or {})}
-    say(f"breakdown {label}: " + json.dumps(out))
+    say(f"breakdown {label}: " + json.dumps(out) + f"; card {card_line()}")
     return out
 
 
@@ -1852,7 +2039,7 @@ def _segment_on_card(run):
     import torch
     from srtb_tpu_torch.utils.bufferpool import BufferPool
     sp = run["pipe"].processor
-    n = sp.cfg.segment_bytes()
+    n = sp.cfg.segment_bytes(sp.streams)
     host = torch.from_numpy(np.fromfile(run["data"], dtype=np.uint8,
                                         count=n))
     pool = BufferPool("upload", pinned=True)
@@ -1866,8 +2053,9 @@ def _segment_on_card(run):
 
 
 def _fused_tail_stages(ms: dict, sp, a) -> None:
-    """Time the fused plans' stages after the plane FFTs ``a [p, M]``, each
-    the processor's own function on the input the chain gives it."""
+    """Time the fused plans' stages after the plane FFTs ``a [1, p, M]``
+    (one stream), each the processor's own function on the input the
+    chain gives it."""
     from srtb_tpu_torch.ops import fft as F
     ms["plane twiddle + butterfly + hermitian post"] = cuda_ms(
         lambda: F.finish_rfft_subbyte(a), 3)
@@ -1887,7 +2075,7 @@ def _fused_tail_stages(ms: dict, sp, a) -> None:
 
 def _rows_front_stages(ms: dict, sp, raw):
     """Time the 2^27 row-FFT plans' front: B13 and the four-step FFT on
-    B6 legs; returns the plane FFTs ``a [p, M]``."""
+    B6 legs; returns the plane FFTs ``a [1, p, M]`` (one stream)."""
     from srtb_tpu_torch.kernels import unpack as KU
     from srtb_tpu_torch.ops import fft as F
 
@@ -1895,7 +2083,7 @@ def _rows_front_stages(ms: dict, sp, raw):
         return KU.unpack_subbyte_planes_window(
             raw, sp.cfg.baseband_input_bits, sp.window_planes)
     ms["B13 unpack planes"] = cuda_ms(unpack, 5)
-    z = unpack()
+    z = unpack()[None]
 
     def planes_fft():
         return F.fft_minor(z, False, "pallas", sp._len_cap)
@@ -1905,11 +2093,11 @@ def _rows_front_stages(ms: dict, sp, raw):
 
 
 def _unfused_tail_stages(ms: dict, sp, a) -> None:
-    """Time the unfused plan's stages after the plane FFTs ``a [p, M]``:
-    the R2C's finish, the mean power + K2, then the waterfall as
-    ``_waterfall_detect`` runs it on that plan (B7, the torch verdict and
-    zero count, K4, detect), each alone on the input the chain gives
-    it."""
+    """Time the unfused plan's stages after the plane FFTs ``a [1, p, M]``
+    (one stream): the R2C's finish, the mean power + K2, then the
+    waterfall as ``_waterfall_detect`` runs it on that plan (B7, the torch
+    verdict and zero count, K4, detect), each alone on the input the
+    chain gives it."""
     import torch
     from srtb_tpu_torch.kernels import fft_rows as KF
     from srtb_tpu_torch.kernels import rfi_chirp as KR
@@ -1924,7 +2112,7 @@ def _unfused_tail_stages(ms: dict, sp, a) -> None:
     thr = cfg.mitigate_rfi_average_method_threshold
     ms["mean power + K2"] = cuda_ms(
         lambda: sp._k2(spec, KR.rfi_threshold(spec, thr)), 5)
-    spec = sp._k2(spec, KR.rfi_threshold(spec, thr))
+    spec = sp._k2(spec, KR.rfi_threshold(spec, thr))[0]
     rows = F.waterfall_rows(spec, sp.channel_count)
     del spec
     ms["B7 fft_rows_stats"] = cuda_ms(lambda: KF.fft_rows_stats(
@@ -2001,7 +2189,7 @@ def phase_breakdown_pallas2(run, fused_chain_ms: float) -> dict:
     c = K2.fft2_pass2(b)
     del b
     ms["unblock transpose"] = cuda_ms(lambda: K2.unblock(c), 5)
-    a = K2.unblock(c)
+    a = K2.unblock(c)[None]
     del c
     _fused_tail_stages(ms, sp, a)
     del a
@@ -2009,6 +2197,45 @@ def phase_breakdown_pallas2(run, fused_chain_ms: float) -> dict:
     torch.cuda.empty_cache()
     return _breakdown_line("pallas2_2^27", ms, whole, cfg,
                            {"fused_2^27_chain_ms": fused_chain_ms})
+
+
+def phase_breakdown_gznupsr(run, fused_chain_ms: float) -> dict:
+    """Device time of one gznupsr_2^27 segment stage by stage (the
+    processor's own functions): the torch unpack of the word interleave
+    into [2, n], the even/odd pack, the packed C2C of both streams on B6
+    legs (two launches), the Hermitian post with the fused tail's
+    epilogue (each stream's Parseval mean and K2), B8 once a stream with
+    the zero count and detect; the whole chain, and fused_2^27's (one
+    2-bit stream, the blocked R2C) beside it."""
+    import torch
+    from srtb_tpu_torch.ops import fft as F
+    sp, raw, h2d = _segment_on_card(run)
+    ms = dict(h2d)
+    ms["unpack (torch)"] = cuda_ms(lambda: sp._unpack(raw), 5)
+    x = sp._unpack(raw)
+    ms["pack even/odd"] = cuda_ms(lambda: F.pack_even_odd(x), 5)
+    z = F.pack_even_odd(x)
+    del x
+
+    def c2c():
+        return F.four_step_fft(z, rows_impl="pallas", len_cap=sp._len_cap)
+    ms["four-step FFT: B6 legs, transposes, leg twiddle"] = cuda_ms(c2c, 5)
+    zf = c2c()
+    del z
+    epilogue = sp._tail_epilogue()
+    ms["Hermitian post + epilogue (Parseval mean, K2)"] = cuda_ms(
+        lambda: F.hermitian_rfft_post(zf, True, epilogue=epilogue), 5)
+    spec = F.hermitian_rfft_post(zf, True, epilogue=epilogue)
+    del zf
+    ms["B8 waterfall tail + zero count + detect"] = cuda_ms(
+        lambda: sp._waterfall_detect(spec), 5)
+    del spec
+    whole = cuda_ms(lambda: sp.process(raw), 3)
+    torch.cuda.empty_cache()
+    return _breakdown_line("gznupsr_2^27", ms, whole, sp.cfg,
+                           {"streams": sp.streams,
+                            "fused_2^27_chain_ms (one 2-bit stream)":
+                                fused_chain_ms})
 
 
 def phase_breakdown_shipped(run) -> dict:
@@ -2031,8 +2258,8 @@ def phase_breakdown_shipped(run) -> dict:
         lambda: rfi.mitigate_rfi_manual(spec, sp.rfi_zap), 3)
     spec = rfi.mitigate_rfi_manual(spec, sp.rfi_zap)
     chirp = (sp.f_min, sp.df, sp.f_c, cfg.dm)
-    ms["B3 dedisperse"] = cuda_ms(lambda: KD.dedisperse(spec, *chirp), 5)
-    spec = KD.dedisperse(spec, *chirp)
+    ms["B3 dedisperse"] = cuda_ms(lambda: KD.dedisperse(spec[0], *chirp), 5)
+    spec = KD.dedisperse(spec[0], *chirp)[None]
     ms["waterfall C2C (cuFFT) + SK (torch) + detect"] = cuda_ms(
         lambda: sp._waterfall_detect(spec), 3)
     del spec
@@ -2059,11 +2286,26 @@ def main() -> int:
     recs = phase_kernels(copy_gbps)
     lap("kernels")
     runs, breakdowns, made = {}, {}, {}
+    def ffuse(run):
+        staged = breakdowns["staged_2^30"]["stage_ms"]
+        return phase_breakdown_ffuse(run, "ffuse_2^30", {
+            "staged_2^30_front_ms (K1 + R2C + mean + K2)":
+                sum(staged[k] for k in STAGED_FRONT),
+            "staged_pallas2_2^30_chain_ms":
+                breakdowns["staged_pallas2_2^30"]["chain_ms"]})
+
+    def dualpol8_ffuse(run):
+        return phase_breakdown_ffuse(run, "dualpol8_ffuse_2^30", {
+            "ffuse_2^30_chain_ms (one 2-bit stream)":
+                breakdowns["ffuse_2^30"]["chain_ms"],
+            "dualpol_2^30_chain_ms": breakdowns["dualpol_2^30"]["chain_ms"]})
     breakdown_30 = {
         "staged_2^30": phase_breakdown,
         "shipped_2^30": phase_breakdown_shipped,
         "staged_pallas2_2^30": phase_breakdown_staged_rows,
-        "ffuse_2^30": lambda run: phase_breakdown_ffuse(run, breakdowns)}
+        "ffuse_2^30": ffuse,
+        "dualpol_2^30": lambda run: phase_breakdown_dualpol(run, breakdowns),
+        "dualpol8_ffuse_2^30": dualpol8_ffuse}
     for label, log2_n, extra, plan, per_segment, env in MAIN_PATHS:
         runs[label] = phase_main_path(card, label, log2_n, extra, plan,
                                       per_segment, env, made)
@@ -2073,6 +2315,7 @@ def main() -> int:
             say(f"card memory after {label}: {free_card()}")
     fused = phase_breakdown_rows(runs["fused_2^27"], runs["unfused_2^27"])
     phase_breakdown_pallas2(runs["pallas2_2^27"], fused["chain_ms"])
+    phase_breakdown_gznupsr(runs["gznupsr_2^27"], fused["chain_ms"])
     for run in runs.values():
         run.pop("pipe", None)
     free_card()

@@ -28,18 +28,41 @@ def pack_subbyte(values: torch.Tensor, nbits: int) -> torch.Tensor:
 
 def quantize(sig: torch.Tensor, nbits: int) -> torch.Tensor:
     """Quantize a zero-mean float signal to the byte stream of an
-    ``nbits``-per-sample unsigned baseband (scale to ~3 sigma full range,
-    offset to mid-scale, clip)."""
+    ``nbits``-per-sample baseband (scale to ~3 sigma full range, offset to
+    mid-scale, clip); -8 is signed int8, the same scale without the
+    offset, as bytes."""
     levels = 1 << abs(nbits)
     if nbits == 1:
         return pack_subbyte((sig > 0).to(torch.uint8), 1)
-    if nbits not in (2, 4, 8):
+    if nbits not in (2, 4, 8, -8):
         raise ValueError(f"unsupported nbits {nbits}")
     mid = levels / 2
     scale = (levels / 2 - 0.5) / 3.0
+    if nbits == -8:
+        return torch.clamp(torch.round(sig / sig.std(correction=0) * scale),
+                           -mid, mid - 1).to(torch.int8).view(torch.uint8)
     q = torch.clamp(torch.round(sig / sig.std(correction=0) * scale + mid),
                     0, levels - 1).to(torch.uint8)
     return q if nbits == 8 else pack_subbyte(q, nbits)
+
+
+def interleave_streams(rows: torch.Tensor, variant: str) -> torch.Tensor:
+    """The segment bytes of ``variant`` from each stream's bytes ``rows
+    [S, m]`` (uint8): the inverse of its de-interleave
+    (``ops.unpack``): "simple" the one row, "interleaved_samples_2" byte
+    by byte ("1212"), "naocpsr_snap1" two bytes at a time ("1122"),
+    "gznupsr_a1_v2_1" and "gznupsr_a1" four at a time, the latter with
+    each byte XOR 0x80 (its unpack's int8 trick)."""
+    group = {"simple": None, "interleaved_samples_2": 1, "naocpsr_snap1": 2,
+             "gznupsr_a1_v2_1": 4, "gznupsr_a1": 4}
+    if variant not in group:
+        raise ValueError(f"unknown unpack variant {variant!r}")
+    if group[variant] is None:
+        return rows.reshape(-1)
+    streams = rows.shape[0]
+    out = rows.reshape(streams, -1, group[variant]).transpose(0, 1)
+    out = out.reshape(-1)
+    return torch.bitwise_xor(out, 0x80) if variant == "gznupsr_a1" else out
 
 
 def make_dispersed_baseband(n: int, f_min: float, bandwidth: float,

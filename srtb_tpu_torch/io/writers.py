@@ -6,15 +6,16 @@ Files are byte-compatible with the reference's:
 - ``<prefix><counter>.bin``      raw baseband bytes of the segment
   (ref: write_signal_pipe.hpp:159-206);
 - ``<prefix><counter>.<i>.npy``  complex64 waterfall [freq_bins, time]
-  (ref: write_signal_pipe.hpp:209-246);
-- ``<prefix><counter>.<boxcar>.tim``  float32 boxcar time series
-  (ref: write_signal_pipe.hpp:249-280);
+  of stream i (ref: write_signal_pipe.hpp:209-246);
+- ``<prefix><counter>.<boxcar>.tim``  float32 boxcar time series, and
+  ``<prefix><counter>.s<stream>.<boxcar>.tim`` when a segment holds more
+  than one stream (ref: write_signal_pipe.hpp:249-280);
 - the "piggybank" policy keeps recent negatives and writes them when they
   lie within 0.45 segment of a recent positive (real-time input only,
   ref: write_signal_pipe.hpp:77-140);
-- ``<prefix>stream<i>.bin``      every segment's baseband minus the
-  reserved tail, appended (``WriteAllSink``, ref:
-  write_file_pipe.hpp:41-94).
+- ``<prefix>stream0.bin``      every segment's baseband (all its
+  interleaved streams) minus the reserved tail, appended
+  (``WriteAllSink``, ref: write_file_pipe.hpp:41-94).
 
 Every candidate file is written to ``<path>.srtb_tmp`` and renamed into
 place, so a reader never sees a torn candidate; a run that died between

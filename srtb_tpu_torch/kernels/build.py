@@ -203,3 +203,13 @@ def require_cuda_contiguous(name: str, **tensors) -> None:
         devices.add(t.device)
     if len(devices) > 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
+
+
+def check_out(out, dtype, shape: tuple, device) -> None:
+    """Raise unless ``out``, when given, is a ``dtype`` tensor of
+    ``shape`` on ``device``: the caller's buffer (a stream's row of an
+    [S, ...] tensor) that a kernel's wrapper writes its result into."""
+    if out is not None and (out.dtype != dtype
+                            or tuple(out.shape) != tuple(shape)
+                            or out.device != device):
+        raise ValueError(f"out must be {dtype} {list(shape)} on {device}")

@@ -22,20 +22,24 @@ def dedisperse_plain(spec: torch.Tensor, f_min: float, df: float, f_c: float,
 
 
 def dedisperse(spec: torch.Tensor, f_min: float, df: float, f_c: float,
-               dm: float, i0: int = 0) -> torch.Tensor:
-    """complex64 spectrum [n] -> dedispersed [n]: bin i times
-    exp(-2 pi i frac(k)) with k the chirp phase of channel ``i0 + i`` at
-    f = f_min + df (i0 + i).  A CPU tensor takes the plain version; a CUDA
-    tensor launches B3."""
+               dm: float, i0: int = 0,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """complex64 spectrum [n] -> dedispersed [n] (into ``out`` when given):
+    bin i times exp(-2 pi i frac(k)) with k the chirp phase of channel
+    ``i0 + i`` at f = f_min + df (i0 + i).  A CPU tensor takes the plain
+    version; a CUDA tensor launches B3."""
     if spec.dtype != torch.complex64 or spec.dim() != 1:
         raise ValueError("spec must be a 1-D complex64 tensor")
     if i0 < 0:
         raise ValueError(f"i0 must be >= 0, got {i0}")
+    build.check_out(out, torch.complex64, spec.shape, spec.device)
     if spec.device.type == "cpu":
-        return dedisperse_plain(spec, f_min, df, f_c, dm, i0)
+        res = dedisperse_plain(spec, f_min, df, f_c, dm, i0)
+        return res if out is None else out.copy_(res)
     name = "dedisperse"
-    build.require_cuda_contiguous(name, spec=spec)
-    out = torch.empty_like(spec)
+    build.require_cuda_contiguous(name, spec=spec, out=out)
+    if out is None:
+        out = torch.empty_like(spec)
     with torch.cuda.device(spec.device):
         rc = build.library().srtb_dedisperse(
             spec.data_ptr(), out.data_ptr(), spec.shape[0], int(i0),

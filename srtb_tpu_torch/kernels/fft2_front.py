@@ -182,16 +182,18 @@ def fft2_pass2_spectrum_plain(b: torch.Tensor, thr: torch.Tensor,
 
 def fft2_pass2_spectrum(b: torch.Tensor, thr: torch.Tensor, norm: float,
                         keep: torch.Tensor | None = None, premul=None,
-                        chirp=None) -> torch.Tensor:
+                        chirp=None,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
     """Pass 2 of the front-fused plan on one stream's intermediate
     ``b complex64 [n1, n2]``: the dedispersed spectrum [n1, n2], k1-major
     blocked.  ``thr``: float32 [1], threshold times the mean power;
     ``keep``: bool [n1, n2] blocked (False = zap); ``premul``: the blocked
     complex64 pair (c, cw) of chirp and chirp times Hermitian twiddle, or
     ``chirp`` = (f_min, df, f_c, dm) for the exact chirp (neither: no
-    chirp).  A CPU tensor takes the plain version; a CUDA tensor launches
-    B12 (a view of ``b`` or ``keep`` that is not 16-byte aligned is copied
-    first)."""
+    chirp).  ``out``: where to write the result (a stream's block of the
+    caller's [S, n1, n2]), 16-byte aligned.  A CPU tensor takes the plain
+    version; a CUDA tensor launches B12 (a view of ``b`` or ``keep`` that
+    is not 16-byte aligned is copied first)."""
     if b.dtype != torch.complex64 or b.dim() != 2:
         raise ValueError("fft2_pass2_spectrum: b must be complex64 [n1, n2]")
     n1, n2 = b.shape
@@ -210,17 +212,22 @@ def fft2_pass2_spectrum(b: torch.Tensor, thr: torch.Tensor, norm: float,
                     or p.device != b.device:
                 raise ValueError(f"premul must be complex64 [{n1}, {n2}] "
                                  f"on {b.device}")
+    build.check_out(out, torch.complex64, b.shape, b.device)
     if b.device.type == "cpu":
-        return fft2_pass2_spectrum_plain(b, thr, norm, keep, premul, chirp)
+        res = fft2_pass2_spectrum_plain(b, thr, norm, keep, premul, chirp)
+        return res if out is None else out.copy_(res)
     name = "fft2_pass2_spectrum"
     _kernel_block(n1, n2, name)
     pm_c, pm_cw = premul if premul is not None else (None, None)
     build.require_cuda_contiguous(name, b=b, thr=thr, keep=keep, pm_c=pm_c,
-                                  pm_cw=pm_cw)
+                                  pm_cw=pm_cw, out=out)
+    if out is not None and out.data_ptr() % 16:
+        raise ValueError(f"{name}: out must be 16-byte aligned")
     f_min, df, f_c, dm = chirp if chirp is not None else (0.0, 0.0, 1.0, 0.0)
     b = KF.aligned(b)
     keep = None if keep is None else KF.aligned(keep)
-    out = torch.empty_like(b)
+    if out is None:
+        out = torch.empty_like(b)
     with torch.cuda.device(b.device):
         rc = build.library().srtb_fft2_pass2_spectrum(
             b.data_ptr(), out.data_ptr(), thr.data_ptr(),

@@ -58,20 +58,25 @@ def sk_apply_timeseries_plain(wf: torch.Tensor, zap: torch.Tensor):
     return out, ts
 
 
-def sk_apply_timeseries(wf: torch.Tensor, zap: torch.Tensor):
+def sk_apply_timeseries(wf: torch.Tensor, zap: torch.Tensor,
+                        out: torch.Tensor | None = None):
     """complex64 waterfall [F, T] and bool zap verdict [F] ->
-    (zapped waterfall [F, T], time series float32 [T]).  A CPU tensor
-    takes the plain version; a CUDA tensor launches K4."""
+    (zapped waterfall [F, T], into ``out`` when given, time series float32
+    [T]).  A CPU tensor takes the plain version; a CUDA tensor launches
+    K4."""
     _check_waterfall(wf)
     f_len, t_len = wf.shape
     if zap.dtype != torch.bool or tuple(zap.shape) != (f_len,) \
             or zap.device != wf.device:
         raise ValueError(f"zap must be bool [{f_len}] on {wf.device}")
+    build.check_out(out, torch.complex64, wf.shape, wf.device)
     if wf.device.type == "cpu":
-        return sk_apply_timeseries_plain(wf, zap)
+        res, ts = sk_apply_timeseries_plain(wf, zap)
+        return (res if out is None else out.copy_(res)), ts
     name = "sk_apply_timeseries"
-    build.require_cuda_contiguous(name, wf=wf, zap=zap)
-    out = torch.empty_like(wf)
+    build.require_cuda_contiguous(name, wf=wf, zap=zap, out=out)
+    if out is None:
+        out = torch.empty_like(wf)
     ts = torch.empty(t_len, dtype=torch.float32, device=wf.device)
     with torch.cuda.device(wf.device):
         rc = build.library().srtb_sk_apply_timeseries(
@@ -85,15 +90,16 @@ def sk_apply_timeseries(wf: torch.Tensor, zap: torch.Tensor):
 sk_apply_timeseries.launches = 0
 
 
-def sk_zap_timeseries(wf: torch.Tensor, sk_threshold: float):
+def sk_zap_timeseries(wf: torch.Tensor, sk_threshold: float,
+                      out: torch.Tensor | None = None):
     """The fused waterfall tail, as the reference's ``sk_zap_timeseries``:
-    K3 statistics, the per-row SK verdict, then K4.  Returns
-    ``(zapped waterfall [F, T], zero_count [], ts [T])``: zero_count
-    counts rows zapped or with a zero first sample; ts is not yet
-    mean-subtracted."""
+    K3 statistics, the per-row SK verdict, then K4 (into ``out`` when
+    given).  Returns ``(zapped waterfall [F, T], zero_count [], ts [T])``:
+    zero_count counts rows zapped or with a zero first sample; ts is not
+    yet mean-subtracted."""
     s2, s4, fs0 = sk_stats(wf)
     zap = rfi.sk_zap_decision(s2, s4, wf.shape[-1], sk_threshold)
     zero_count = torch.sum((zap | (fs0 == 0)).to(torch.int32),
                            dtype=torch.int32)
-    out, ts = sk_apply_timeseries(wf, zap)
+    out, ts = sk_apply_timeseries(wf, zap, out)
     return out, zero_count, ts

@@ -19,11 +19,12 @@ def unpack_subbyte_window_plain(data: torch.Tensor, nbits: int,
 
 
 def unpack_subbyte_window(data: torch.Tensor, nbits: int,
-                          window: torch.Tensor | None = None
-                          ) -> torch.Tensor:
+                          window: torch.Tensor | None = None,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
     """uint8 [m] -> float32 [(8/nbits) m] for nbits in {1, 2, 4}: MSB-first
-    fields, times ``window`` when given.  A CPU tensor takes the plain
-    version; a CUDA tensor launches K1."""
+    fields, times ``window`` when given, into ``out`` when given (a
+    stream's row of the caller's [S, n] samples).  A CPU tensor takes the
+    plain version; a CUDA tensor launches K1."""
     if nbits not in (1, 2, 4):
         raise ValueError(f"sub-byte unpack needs nbits in 1/2/4, got {nbits}")
     if data.dtype != torch.uint8 or data.dim() != 1:
@@ -35,13 +36,17 @@ def unpack_subbyte_window(data: torch.Tensor, nbits: int,
                                or window.device != data.device):
         raise ValueError(f"window must be float32 [{per * m}] on "
                          f"{data.device}")
+    build.check_out(out, torch.float32, (per * m,), data.device)
     if data.device.type == "cpu":
-        return unpack_subbyte_window_plain(data, nbits, window)
+        res = unpack_subbyte_window_plain(data, nbits, window)
+        return res if out is None else out.copy_(res)
     name = "unpack_subbyte_window"
-    build.require_cuda_contiguous(name, data=data, window=window)
-    if window is not None and window.data_ptr() % 16:
-        raise ValueError(f"{name}: window must be 16-byte aligned")
-    out = torch.empty(per * m, dtype=torch.float32, device=data.device)
+    build.require_cuda_contiguous(name, data=data, window=window, out=out)
+    for arg, t in (("window", window), ("out", out)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+    if out is None:
+        out = torch.empty(per * m, dtype=torch.float32, device=data.device)
     with torch.cuda.device(data.device):
         rc = build.library().srtb_unpack_subbyte_window(
             data.data_ptr(), None if window is None else window.data_ptr(),

@@ -73,11 +73,13 @@ class PipelineStats:
         return self.samples / self.elapsed_s / 1e6 if self.elapsed_s else 0.0
 
 
-def has_signal(cfg: Config, detect_result,
+def has_signal(cfg: Config, detect_result, stream: int | None = None,
                frequency_bin_count: int | None = None) -> bool:
-    """The reference's gate: negative when too many channels are zapped
-    (ref: signal_detect_pipe.hpp:343-345), else positive when any boxcar
-    fired.  ``frequency_bin_count`` is the row count of the waterfall the
+    """The reference's gate, per stream: negative when too many channels
+    are zapped (ref: signal_detect_pipe.hpp:343-345), else positive when
+    any boxcar fired.  ``stream`` asks for one stream's verdict; without
+    it the segment is positive when any stream is.
+    ``frequency_bin_count`` is the row count of the waterfall the
     detection ran on (falls back to the configured channel count)."""
     zero_count = to_host(detect_result.zero_count)
     counts = to_host(detect_result.signal_counts)
@@ -87,7 +89,10 @@ def has_signal(cfg: Config, detect_result,
     freq_bins = (frequency_bin_count if frequency_bin_count is not None
                  else cfg.spectrum_channel_count)
     ok = zero_count < cfg.signal_detect_channel_threshold * freq_bins
-    return bool(np.any(ok & (counts.sum(axis=-1) > 0)))
+    per_stream = ok & (counts.sum(axis=-1) > 0)
+    if stream is not None:
+        return bool(per_stream[stream])
+    return bool(per_stream.any())
 
 
 # settings of later slices that would change what a run reads or writes:

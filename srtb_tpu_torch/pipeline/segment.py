@@ -7,6 +7,16 @@ Device chain, per segment of raw bytes (ref call stack: SURVEY.md §3.2):
   -> waterfall backward C2C (+de-window) -> spectral-kurtosis zap -> power
   time series -> boxcar detection
 
+Everything carries the segment's data streams (polarizations) on a
+leading axis, [S, ...], as the reference does: the packet format
+(``io/formats.py``) names S and the unpack variant that de-interleaves
+them (:func:`unpack_streams`).  The FFTs take the stream axis in their
+batch (one B6, B9 or B10 launch over every stream); the kernels whose
+reference loops over the streams (K1 on a byte-interleaved segment, K2,
+B3, K3, K4, B8 and B12) launch once a stream, each stream with its own
+stage-1 threshold; B11 reads both streams of the 2-pol interleave in one
+launch.
+
 The processor resolves the reference's plan from the same configuration
 and environment (``staged_resolves``, ``fused_tail_resolves``,
 ``front_fuse_resolves``, ``resolve_strategy``, the staged row
@@ -14,26 +24,33 @@ implementation, the skzap rule and the waterfall branch choice) and, for
 every Pallas kernel that plan runs, runs the port's hand-written
 counterpart (``srtb_tpu_torch/kernels``).  Where the reference hands a
 stage to XLA the port uses ``torch`` (cuFFT on the card), or a kernel it
-already has (K1, B13, K2).  At the configurations the port accepts:
+already has (K1, B13, K2).  By plan (S = 1; the kernels marked * launch
+once a stream):
 
   plan                      kernels
-  fused:pallas+ftail+skzap  B13, B6 (segment-FFT legs), K2 epilogue, B8
+  fused:pallas+ftail+skzap  B13, B6 (segment-FFT legs), K2* epilogue, B8*
   fused:pallas2+ftail+skzap B13, B9 + B10 (2^24 ... 2^29-point planes;
-                            B6 legs below), K2 epilogue, B8
-  fused:pallas              B13, B6, K2, B7 (rows in the window), K4
-  fused:monolithic          K1, cuFFT R2C, K2, B7 + K4 (rows in the
-                            window) or cuFFT rows + K3 + K4
+                            B6 legs below), K2* epilogue, B8*
+  fused:pallas              B13, B6, K2*, B7 (rows in the window), K4*
+  fused:monolithic          K1*, cuFFT R2C, K2*, B7 + K4* (rows in the
+                            window) or cuFFT rows + K3* + K4*
   use_pallas_sk = 0         ... B6 (rows in the window) + plain SK
-  staged (n >= 2^30)        K1, the R2C by the staged row implementation
-                            (below), K2, cuFFT rows, K3 + K4
+  staged (n >= 2^30)        K1*, the R2C by the staged row implementation
+                            (below), K2*, cuFFT rows, K3* + K4*
   staged, use_pallas = 0    the same R2C, plain stage 1 + manual mask,
-                            B3, cuFFT rows, plain SK and detect
+                            B3*, cuFFT rows, plain SK and detect
   staged+ftail              the same R2C in its packed form, ending in
-                            the K2 epilogue; then straight to the
-                            waterfall (cuFFT rows + K3 + K4, or B8)
-  staged+ftail+ffuse        B11 on the raw bytes, the Parseval mean, B12
+                            the K2* epilogue; then straight to the
+                            waterfall (cuFFT rows + K3* + K4*, or B8*)
+  staged+ftail+ffuse        B11 on the raw bytes, the Parseval mean, B12*
                             (row FFT, Hermitian post, stage 1, mask,
                             chirp), unblock; then the waterfall as above
+
+B13 and the blocked sub-byte R2C serve the ``simple`` format only, as in
+the reference; the other formats unpack to sample order.  K1 unpacks
+1/2/4-bit ``simple`` segments and, after a torch de-interleave of the
+bytes (``unpack.deinterleave_bytes``), each stream of the byte-interleaved
+formats at those widths; every other variant and width is torch.
 
 The staged R2C by ``SRTB_STAGED_ROWS_IMPL`` (read with the other two
 switches by :func:`staged_env`): ``xla`` (the default) one cuFFT R2C, or
@@ -112,6 +129,30 @@ from srtb_tpu_torch.ops import unpack as U
 from srtb_tpu_torch.ops import window as W
 from srtb_tpu_torch.utils.device import resolve_device
 from srtb_tpu_torch.utils.logging import log
+
+
+def unpack_streams(raw: torch.Tensor, variant: str, nbits: int,
+                   window: torch.Tensor | None) -> torch.Tensor:
+    """The unpack of ``variant``, its data streams stacked into float32
+    [S, n] (the reference's dispatch, ref: unpack_pipe.hpp:46-136,
+    392-413)."""
+    if variant == "simple":
+        return U.unpack(raw, nbits, window)[None, :]
+    if variant == "interleaved_samples_2":
+        return torch.stack(U.unpack_interleaved_2pol(raw, nbits, window))
+    if variant == "naocpsr_snap1":
+        return torch.stack(U.unpack_naocpsr_snap1(raw, nbits, window))
+    if variant == "gznupsr_a1":
+        return torch.stack(U.unpack_gznupsr_a1(raw, window))
+    if variant == "gznupsr_a1_v2_1":
+        return torch.stack(U.unpack_gznupsr_a1_v2_1(raw, window))
+    raise ValueError(f"unknown unpack variant {variant!r}")
+
+
+# the unpack variants whose streams K1 unpacks at 1/2/4 bits: "simple"
+# as it is, the byte-interleaved ones after the bytes' de-interleave
+K1_VARIANTS = ("simple", "interleaved_samples_2", "naocpsr_snap1")
+
 
 # Segments of at least this many samples take the reference's staged plan.
 STAGED_MIN_N = 1 << 30
@@ -287,10 +328,12 @@ class SegmentProcessor:
         self.fused_tail = fused_tail_resolves(cfg, self.staged)
         # the front-fused staged plan (B11/B12)
         self.front_fuse = front_fuse_resolves(cfg, self.staged)
-        subbyte = cfg.baseband_input_bits in (1, 2, 4)
-        # sub-byte segments (of the simple format, the one ported) take
-        # the blocked-plane R2C on the non-monolithic strategies, and on
-        # the staged plan with SRTB_STAGED_BLOCKED=1
+        self.streams = self.fmt.data_stream_count
+        # sub-byte segments of the simple format take the blocked-plane
+        # R2C on the non-monolithic strategies, and on the staged plan
+        # with SRTB_STAGED_BLOCKED=1 (the reference's rule)
+        subbyte = (cfg.baseband_input_bits in (1, 2, 4)
+                   and self.fmt.unpack_variant == "simple")
         self._blocked_subbyte = (
             not self.staged and subbyte
             and self.strategy in ("four_step", "mxu", "pallas", "pallas2"))
@@ -436,12 +479,21 @@ class SegmentProcessor:
         return raw.to(self.device)
 
     def _unpack(self, raw: torch.Tensor) -> torch.Tensor:
-        """raw bytes -> windowed float32 samples [n] in sample order (K1 for
-        1/2/4 bits)."""
+        """raw bytes -> windowed float32 samples [S, n] in sample order: K1
+        once a stream for 1/2/4 bits of the ``K1_VARIANTS`` (the bytes of
+        an interleaved segment de-interleaved first), else
+        :func:`unpack_streams`."""
         bits = self.cfg.baseband_input_bits
-        if bits in (1, 2, 4):
-            return unpack_subbyte_window(raw, bits, self.window)
-        return U.unpack(raw, bits, self.window)
+        variant = self.fmt.unpack_variant
+        if bits not in (1, 2, 4) or variant not in K1_VARIANTS:
+            return unpack_streams(raw, variant, bits, self.window)
+        rows = raw[None] if variant == "simple" else \
+            U.deinterleave_bytes(raw, variant)
+        out = torch.empty(self.streams, self.n, dtype=torch.float32,
+                          device=raw.device)
+        for s in range(self.streams):
+            unpack_subbyte_window(rows[s], bits, self.window, out=out[s])
+        return out
 
     def _tail_epilogue(self):
         """The fused tail's epilogue on the assembled spectrum: the
@@ -451,17 +503,22 @@ class SegmentProcessor:
 
         def epilogue(zf: torch.Tensor, spec: torch.Tensor) -> torch.Tensor:
             thr = (np.float32(cfg.mitigate_rfi_average_method_threshold)
-                   * rfi.mean_power_packed(zf)).reshape(1)
+                   * rfi.mean_power_packed(zf))
             return self._k2(spec, thr)
         return epilogue
 
     def _k2(self, spec: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
-        return rfi_s1_dedisperse(spec, thr, self.norm_coeff, self.f_min,
-                                 self.df, self.f_c, self.cfg.dm,
-                                 keep=self.rfi_keep)
+        """K2 once a stream on ``spec [S, m]``, stream s at ``thr[s]``
+        (float32 [S, 1])."""
+        out = torch.empty_like(spec)
+        for s in range(spec.shape[0]):
+            rfi_s1_dedisperse(spec[s], thr[s], self.norm_coeff, self.f_min,
+                              self.df, self.f_c, self.cfg.dm,
+                              keep=self.rfi_keep, out=out[s])
+        return out
 
     def _spectrum(self, raw: torch.Tensor) -> torch.Tensor:
-        """raw bytes -> the drop-Nyquist spectrum [n/2]; with the fused
+        """raw bytes -> the drop-Nyquist spectrum [S, n/2]; with the fused
         tail already zapped, normalized, masked and dedispersed."""
         if self.front_fuse:
             return self._front_spectrum(raw)
@@ -471,8 +528,8 @@ class SegmentProcessor:
         if self._blocked_subbyte:
             z = unpack_subbyte_planes_window(raw, self.cfg.baseband_input_bits,
                                              self.window_planes)
-            return F.rfft_subbyte(z, self.strategy, len_cap=self._len_cap,
-                                  epilogue=epilogue)
+            return F.rfft_subbyte(z[None], self.strategy,
+                                  len_cap=self._len_cap, epilogue=epilogue)
         return F.segment_rfft(self._unpack(raw), self.strategy,
                               len_cap=self._len_cap, epilogue=epilogue)
 
@@ -494,7 +551,7 @@ class SegmentProcessor:
         bits = self.cfg.baseband_input_bits
         if self._staged_blocked:
             z = unpack_subbyte_planes_window(raw, bits, self.window_planes)
-            return F.finish_rfft_subbyte(self._staged_c2c(z),
+            return F.finish_rfft_subbyte(self._staged_c2c(z[None]),
                                          epilogue=epilogue)
         x = self._unpack(raw)
         if self._rows_impl == "xla" and epilogue is None:
@@ -503,46 +560,71 @@ class SegmentProcessor:
                                      drop_nyquist=True, epilogue=epilogue)
 
     def _front_spectrum(self, raw: torch.Tensor) -> torch.Tensor:
-        """The front-fused plan: B11 on the raw bytes, the stage-1
-        threshold from its Parseval sums, B12, and the unblocking
-        transpose to the natural-order dedispersed spectrum."""
-        n1, n2 = self._ffuse_fac
+        """The front-fused plan: B11 on the raw bytes (every stream in one
+        launch), each stream's stage-1 threshold from its Parseval sums,
+        B12 once a stream, and the unblocking transpose to the
+        natural-order dedispersed spectrum [S, n/2]."""
+        n2 = self._ffuse_fac[1]
         b, aux = fft2_pass1_front(raw, self.n_spectrum, self._ffuse_variant,
                                   self.cfg.baseband_input_bits,
                                   self._ffuse_window)
         thr = np.float32(self.cfg.mitigate_rfi_average_method_threshold) \
             * front_mean_power(aux, n2, self.n_spectrum)
-        return K2.unblock(fft2_pass2_spectrum(
-            b[0], thr[:1], self.norm_coeff, keep=self._ffuse_keep,
-            chirp=self._ffuse_chirp))
+        blocked = torch.empty_like(b)
+        for s in range(b.shape[0]):
+            fft2_pass2_spectrum(b[s], thr[s:s + 1], self.norm_coeff,
+                                keep=self._ffuse_keep,
+                                chirp=self._ffuse_chirp, out=blocked[s])
+        del b
+        return K2.unblock(blocked)
 
     def _waterfall_detect(self, spec: torch.Tensor):
         """Waterfall backward C2C + SK zap + detection from the
-        dedispersed spectrum, by the reference's branch rule."""
+        dedispersed spectrum [S, n/2], by the reference's branch rule:
+        the row FFT of every stream in one launch (B6, B7), the kernels
+        that take one stream (B8, K3, K4) once a stream."""
         cfg = self.cfg
         sk_thr = cfg.mitigate_rfi_spectral_kurtosis_threshold
+        streams = spec.shape[0]
         f_len, t_len = self.channel_count, self.watfft_len
         t = det.trimmed_length(t_len, self.time_reserved_count)
         rows = F.waterfall_rows(spec, f_len)
         if self._skzap:
-            wf, zap, fs0, ts = KF.fft_rows_skzap(
-                rows, sk_thr, inverse=True, dewindow=self.watfft_dewindow)
-            zero_count = torch.sum((zap | (fs0 == 0)).to(torch.int32),
-                                   dtype=torch.int32)
+            tails = [KF.fft_rows_skzap(rows[s], sk_thr, inverse=True,
+                                       dewindow=self.watfft_dewindow)
+                     for s in range(streams)]
+            wf = torch.stack([w for w, _z, _f, _t in tails])
+            zero_count = torch.stack([
+                torch.sum((zap | (fs0 == 0)).to(torch.int32),
+                          dtype=torch.int32) for _w, zap, fs0, _t in tails])
+            ts = torch.stack([ts for _w, _z, _f, ts in tails])
+            del tails
         else:
-            pallas_wf = cfg.use_pallas and KF.supported(t_len, f_len)
+            pallas_wf = cfg.use_pallas and KF.supported(t_len,
+                                                        streams * f_len)
             pallas_sk = cfg.use_pallas_sk and sk_tiling_ok(f_len, t_len)
             if pallas_sk and pallas_wf:
                 wf, s2, s4 = KF.fft_rows_stats(
                     rows, inverse=True, dewindow=self.watfft_dewindow)
                 zap = rfi.sk_zap_decision(s2, s4, t_len, sk_thr)
                 zero_count = torch.sum(
-                    (zap | (rfi.power(wf[:, 0]) == 0)).to(torch.int32),
-                    dtype=torch.int32)
-                wf, ts = sk_apply_timeseries(wf, zap)
+                    (zap | (rfi.power(wf[..., 0]) == 0)).to(torch.int32),
+                    dim=-1, dtype=torch.int32)
+                out = torch.empty_like(wf)
+                ts = torch.stack([sk_apply_timeseries(wf[s], zap[s],
+                                                      out=out[s])[1]
+                                  for s in range(streams)])
+                wf = out
             elif pallas_sk:
                 wf = F.waterfall_c2c(spec, f_len, self.watfft_dewindow)
-                wf, zero_count, ts = sk_zap_timeseries(wf, sk_thr)
+                out = torch.empty_like(wf)
+                zero_counts, series = [], []
+                for s in range(streams):
+                    _, zc, ts_s = sk_zap_timeseries(wf[s], sk_thr, out=out[s])
+                    zero_counts.append(zc)
+                    series.append(ts_s)
+                wf = out
+                zero_count, ts = torch.stack(zero_counts), torch.stack(series)
             else:
                 if pallas_wf:
                     wf = KF.fft_rows(rows, inverse=True)
@@ -551,15 +633,15 @@ class SegmentProcessor:
                 else:
                     wf = F.waterfall_c2c(spec, f_len, self.watfft_dewindow)
                 wf = rfi.mitigate_rfi_spectral_kurtosis(wf, sk_thr)
-                return wf[None], det.detect(
-                    wf[None], self.time_reserved_count,
+                return wf, det.detect(
+                    wf, self.time_reserved_count,
                     cfg.signal_detect_signal_noise_threshold,
                     cfg.signal_detect_max_boxcar_length)
         result = det.detect_from_time_series(
-            ts[None, :t], zero_count[None],
+            ts[:, :t], zero_count,
             cfg.signal_detect_signal_noise_threshold,
             cfg.signal_detect_max_boxcar_length)
-        return wf[None], result
+        return wf, result
 
     def process(self, raw) -> tuple[torch.Tensor, det.DetectResult]:
         """Run one segment, serially.  ``raw`` is the segment's uint8
@@ -630,12 +712,17 @@ class SegmentProcessor:
         spec = self._spectrum(raw)
         if self._plain_s1:
             # the reference's staged stage (c) without use_pallas: XLA
-            # stage 1 + manual mask, then its chirp kernel (B3 here)
-            spec = rfi.mitigate_rfi_average_and_normalize(
-                spec, cfg.mitigate_rfi_average_method_threshold,
-                self.norm_coeff)
-            spec = dedisperse(rfi.mitigate_rfi_manual(spec, self.rfi_zap),
-                              self.f_min, self.df, self.f_c, cfg.dm)
+            # stage 1 + manual mask, then its chirp kernel (B3 here), once
+            # a stream
+            spec = rfi.mitigate_rfi_manual(
+                rfi.mitigate_rfi_average_and_normalize(
+                    spec, cfg.mitigate_rfi_average_method_threshold,
+                    self.norm_coeff), self.rfi_zap)
+            out = torch.empty_like(spec)
+            for s in range(spec.shape[0]):
+                dedisperse(spec[s], self.f_min, self.df, self.f_c, cfg.dm,
+                           out=out[s])
+            spec = out
         elif not self.fused_tail:
             # stage 1 + manual mask + chirp: K2 after a mean-power reduction
             spec = self._k2(spec, rfi_threshold(

@@ -245,6 +245,39 @@ def test_wrappers_reject_bad_inputs():
         KD.dedisperse(torch.from_numpy(SPEC), **CHIRP, i0=-1)
 
 
+def test_wrappers_write_into_out_and_check_it():
+    """The per-stream wrappers write their result into ``out`` (a row of
+    the caller's [S, ...] tensor) and return it, bit for bit the result
+    without ``out``; an ``out`` of the wrong dtype or shape raises."""
+    spec = torch.from_numpy(SPEC)
+    rows = torch.empty(2, N_SPEC, dtype=torch.complex64)
+    thr = KR.rfi_threshold(spec, S1_THR)
+    args = (thr, NORM, CHIRP["f_min"], CHIRP["df"], CHIRP["f_c"],
+            CHIRP["dm"])
+    for call in (lambda out: KR.rfi_s1_dedisperse(spec, *args, out=out),
+                 lambda out: KD.dedisperse(spec, **CHIRP, out=out)):
+        got = call(rows[1])
+        assert got.data_ptr() == rows[1].data_ptr()
+        assert torch.equal(rows[1], call(None))
+        for bad in (rows[1, 1:], rows[1].real.contiguous()):
+            with pytest.raises(ValueError, match="out must be"):
+                call(bad)
+    data = torch.from_numpy(BYTES)
+    samples = torch.empty(2, 4 * BYTES.size)
+    KU.unpack_subbyte_window(data, 2, out=samples[0])
+    assert torch.equal(samples[0], KU.unpack_subbyte_window(data, 2))
+    with pytest.raises(ValueError, match="out must be"):
+        KU.unpack_subbyte_window(data, 4, out=samples[0])
+    wf = torch.from_numpy(WF)
+    zap = torch.from_numpy(ZAP_APPLY)
+    zapped = torch.empty(2, *WF.shape, dtype=torch.complex64)
+    _, ts = KS.sk_apply_timeseries(wf, zap, out=zapped[1])
+    want, want_ts = KS.sk_apply_timeseries(wf, zap)
+    assert torch.equal(zapped[1], want) and torch.equal(ts, want_ts)
+    with pytest.raises(ValueError, match="out must be"):
+        KS.sk_apply_timeseries(wf, zap, out=zapped[1, 1:])
+
+
 # ------------------------------------------------ on the card (CUDA only)
 
 @pytest.fixture
@@ -799,3 +832,66 @@ def test_cuda_fft_rows_skzap_unaligned_view_is_copied(cuda, log2):
     err, scale = _max_err(got[0], want[0])
     assert err <= 1e-5 * scale
     _hold_time_series(got[3], want[3], 9, n, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [8, -8])
+def test_cuda_pass1_front_two_streams_matches_plain(cuda, nbits):
+    """B11 in its two-stream form ("1212"-interleaved 8-bit bytes) at
+    m = 2^24 a stream, (n1, n2) = (4096, 4096): within 2e-5 of the
+    largest |plain| of its plain version, bit-identical to B9 on the
+    same packed values, and each stream's mean power within 1e-6 of the
+    plain float64 sums'."""
+    from srtb_tpu_torch.kernels import fft2 as K2
+    from srtb_tpu_torch.kernels import fft2_front as FF
+    m, variant = 1 << 24, "interleaved_samples_2"
+    n2 = K2.ffuse_factor(m)[1]
+    g = torch.Generator(device=cuda).manual_seed(31)
+    raw = torch.randint(0, 256, (4 * m,), dtype=torch.uint8, device=cuda,
+                        generator=g)
+    before = FF.fft2_pass1_front.launches
+    b, aux = FF.fft2_pass1_front(raw, m, variant, nbits)
+    assert FF.fft2_pass1_front.launches == before + 1
+    assert b.shape == (2, 4096, 4096)
+    pb, paux = FF.fft2_pass1_front_plain(raw, m, variant, nbits)
+    assert float((b - pb).abs().max()) <= 2e-5 * float(pb.abs().max())
+    z = FF.front_pack(raw, m, variant, nbits)
+    assert torch.equal(torch.view_as_real(b),
+                       torch.view_as_real(K2.fft2_pass1(z)))
+    mean = FF.front_mean_power(aux, n2, m)
+    want = FF.front_mean_power(paux, n2, m)
+    assert float(((mean - want).abs() / want).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_on_per_stream_views(cuda):
+    """K2, K3 and K4 on the rows of a two-stream [S, ...] tensor, as the
+    processor hands them (contiguous views, the output into the caller's
+    rows), against their plain versions on the same views."""
+    spec = torch.from_numpy(np.stack([SPEC, SPEC[::-1].copy()])).to(cuda)
+    keep = torch.from_numpy(~ZAP_MASK).to(cuda)
+    args = (NORM, CHIRP["f_min"], CHIRP["df"], CHIRP["f_c"], CHIRP["dm"])
+    thr = KR.rfi_threshold(spec, S1_THR)
+    assert thr.shape == (2, 1)
+    out = torch.empty_like(spec)
+    for s in range(2):
+        got = KR.rfi_s1_dedisperse(spec[s], thr[s], *args, keep=keep,
+                                   out=out[s])
+        assert got.data_ptr() == out[s].data_ptr()
+        want = KR.rfi_s1_dedisperse_plain(spec[s], thr[s], *args, keep=keep)
+        assert torch.equal(got == 0, want == 0)
+        assert float((got - want).abs().max()) <= \
+            1e-6 * float(want.abs().max())
+    wf = torch.from_numpy(np.stack([WF, np.roll(WF, 5, axis=0)])).to(cuda)
+    zapped = torch.empty_like(wf)
+    for s in range(2):
+        for a, b in zip(KS.sk_stats(wf[s]), KS.sk_stats_plain(wf[s])):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0,
+                                       equal_nan=True)
+        zap = torch.from_numpy(np.roll(ZAP_APPLY, s)).to(cuda)
+        got, ts = KS.sk_apply_timeseries(wf[s], zap, out=zapped[s])
+        assert got.data_ptr() == zapped[s].data_ptr()
+        for a, b in zip((zapped[s], ts),
+                        KS.sk_apply_timeseries_plain(wf[s], zap)):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0,
+                                       equal_nan=True)

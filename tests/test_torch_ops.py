@@ -171,8 +171,13 @@ def test_unpack(ref, nbits, win):
 
 
 def test_unpack_rejects_unported_widths():
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        U.unpack(torch.from_numpy(BYTES), 16)
+    """Every width of the reference's SUPPORTED_BITS unpacks
+    (``test_torch_formats.py`` holds each to the reference); a width
+    outside it raises ValueError, as in the reference."""
+    assert U.SUPPORTED_BITS == (1, 2, 4, 8, -8, 16, -16, 32, 64)
+    for nbits in (3, -4, 12, -32, -64):
+        with pytest.raises(ValueError, match="unsupported"):
+            U.unpack(torch.from_numpy(BYTES), nbits)
 
 
 def test_rfft_drop_nyquist(ref):

@@ -8,29 +8,34 @@ import os
 import numpy as np
 import pytest
 
+from srtb_tpu_torch.io import formats
 from srtb_tpu_torch.io.writers import WriteSignalSink
 from srtb_tpu_torch.ops import dedisperse as dd
 from srtb_tpu_torch.ops import detect as det
 from srtb_tpu_torch.tools import main as M
 from test_torch_ref import run_reference
-from test_torch_segment import dispersed_bytes, slice_config
+from test_torch_segment import slice_config, stream_bytes
 
 N, CHANNELS, DM = 1 << 16, 32, -0.1
 
 
-def make_case(tmp):
+def make_case(tmp, fmt: str = "simple", bits: int = 2):
     """The synthetic file (three overlapping segments, the pulse in the
-    middle one) and the CLI arguments both packages take for it, less
-    the output prefix."""
-    cfg = slice_config(N, CHANNELS, DM)
+    middle one, in stream 0 of a multi-stream format) and the CLI
+    arguments both packages take for it, less the output prefix."""
+    cfg = slice_config(N, CHANNELS, DM).replace(baseband_format_type=fmt,
+                                                baseband_input_bits=bits)
     nres = dd.nsamps_reserved(cfg)
-    seg = cfg.segment_bytes()
-    stride = seg - nres * 2 // 8
-    # segment 1 starts at byte `stride`; its searched span is its first
-    # N - 2 nres samples: the pulse goes in the middle of that span
-    pulse_at = 4 * stride + (N - 2 * nres) // 2
-    raw = dispersed_bytes(cfg, 4 * (seg + 2 * stride), pulse_at, 4.0,
-                          seed=7)
+    streams = formats.get_data_stream_count(fmt)
+    seg = cfg.segment_bytes(streams)
+    stride = seg - nres * abs(bits) // 8 * streams
+    # segment 1 starts at byte `stride`, sample stride / S * 8 / |bits| of
+    # each stream; its searched span is its first N - 2 nres samples: the
+    # pulse goes in the middle of that span
+    per_byte = 8 // abs(bits)
+    pulse_at = stride // streams * per_byte + (N - 2 * nres) // 2
+    raw = stream_bytes(cfg, (seg + 2 * stride) // streams * per_byte,
+                       pulse_at, 4.0, seed=7)
     data = tmp / "baseband.bin"
     # one byte short of three full segments: the reader emits exactly 3
     raw[: seg + 2 * stride - 1].tofile(data)
@@ -38,9 +43,9 @@ def make_case(tmp):
             "--input_file_path", str(data), "--deterministic_timestamps",
             "1", "--gui_enable", "0"]
     for key in ("baseband_input_count", "baseband_input_bits",
-                "baseband_freq_low", "baseband_bandwidth",
-                "baseband_sample_rate", "spectrum_channel_count",
-                "mitigate_rfi_freq_list",
+                "baseband_format_type", "baseband_freq_low",
+                "baseband_bandwidth", "baseband_sample_rate",
+                "spectrum_channel_count", "mitigate_rfi_freq_list",
                 "mitigate_rfi_average_method_threshold",
                 "mitigate_rfi_spectral_kurtosis_threshold",
                 "signal_detect_signal_noise_threshold",
@@ -88,34 +93,40 @@ def test_same_segments_and_artifacts(runs):
     assert any(name.endswith(".1.tim") for name in port_files)
 
 
-def check_candidate_contents(files, want_npy, want_tim, nres) -> None:
+def check_candidate_contents(files, want_npy, want_tim, nres,
+                             segment_bytes: int = N * 2 // 8) -> None:
     """One positive segment's files against the reference's arrays
     (``want_npy`` / ``want_tim``: by file name).  .bin: one segment's
-    size; .npy: the waterfall within 2e-5 of its largest value (the
-    segment test's bound); .tim: each boxcar series within b times the
-    time-series gates plus two prefix sums' float32 rounding
+    size; .npy (one a stream): the waterfall within 2e-5 of its largest
+    value (the segment test's bound); .tim (``.s<stream>.`` in the name
+    for a multi-stream format): each boxcar series within b times the
+    stream's time-series gates plus two prefix sums' float32 rounding
     (series_b[i] = acc[i + b] - acc[i])."""
-    assert os.path.getsize(files.bin_path) == N * 2 // 8
-    (npy,) = files.npy_paths
-    got_wf = np.load(npy)
-    want_wf = want_npy[os.path.basename(npy)]
-    assert got_wf.dtype == np.complex64 and got_wf.shape == want_wf.shape
-    wf_err = float(np.abs(got_wf - want_wf).max())
-    assert wf_err <= 2e-5 * np.abs(want_wf).max()
-    t = det.trimmed_length(want_wf.shape[-1], nres // CHANNELS)
-    p = np.abs(want_wf[:, :t].astype(np.complex128)) ** 2
-    ts_raw = p.sum(0)
-    gate = sum(det.time_series_error_gates(CHANNELS, t,
-                                           float(ts_raw.max()), wf_err))
-    acc_err = 2.0 * t * 2.0 ** -24 * float(np.abs(ts_raw - ts_raw.mean())
-                                           .sum())
+    assert os.path.getsize(files.bin_path) == segment_bytes
+    gates = []
+    for npy in files.npy_paths:
+        got_wf = np.load(npy)
+        want_wf = want_npy[os.path.basename(npy)]
+        assert got_wf.dtype == np.complex64 and got_wf.shape == want_wf.shape
+        wf_err = float(np.abs(got_wf - want_wf).max())
+        assert wf_err <= 2e-5 * np.abs(want_wf).max()
+        t = det.trimmed_length(want_wf.shape[-1], nres // CHANNELS)
+        p = np.abs(want_wf[:, :t].astype(np.complex128)) ** 2
+        ts_raw = p.sum(0)
+        gate = sum(det.time_series_error_gates(CHANNELS, t,
+                                               float(ts_raw.max()), wf_err))
+        acc_err = 2.0 * t * 2.0 ** -24 * float(
+            np.abs(ts_raw - ts_raw.mean()).sum())
+        gates.append((gate, acc_err))
     assert files.tim_paths
     for path in files.tim_paths:
-        b = int(path.rsplit(".", 2)[-2])
+        stream, b = os.path.basename(path).rsplit(".", 3)[-3:-1]
+        stream = int(stream[1:]) if stream.startswith("s") else 0
+        gate, acc_err = gates[stream]
         got = np.fromfile(path, dtype="<f4")
         want = want_tim[os.path.basename(path)]
         assert got.shape == want.shape
-        assert np.abs(got - want).max() <= b * gate + acc_err
+        assert np.abs(got - want).max() <= int(b) * gate + acc_err
 
 
 def reference_arrays(ref: dict, key: str, kind: str) -> dict:

@@ -150,11 +150,73 @@ def segment_process(fields: dict, raw: np.ndarray,
         "wf_ri": wf_ri, "detect": res,
         "has_signal": has_signal(cfg, res,
                                  frequency_bin_count=wf_ri.shape[-2]),
+        "has_signal_streams": np.array([
+            has_signal(cfg, res, stream=s,
+                       frequency_bin_count=wf_ri.shape[-2])
+            for s in range(wf_ri.shape[1])]),
         "plan": sp.plan_name, "window": sp.window,
         "dewindow": sp.watfft_dewindow, "rfi_mask": sp.rfi_mask,
         "norm_coeff": sp.norm_coeff, "nsamps_reserved": sp.nsamps_reserved,
         "time_reserved_count": sp.time_reserved_count, **out,
     }
+
+
+def gate_verdicts(zero_count: np.ndarray, counts: np.ndarray,
+                  freq_bins: int, streams: list) -> np.ndarray:
+    """The reference's ``has_signal`` at the default config on a detect
+    result holding ``zero_count`` and ``counts``, for each entry of
+    ``streams`` (None: the segment's verdict)."""
+    from types import SimpleNamespace
+
+    from srtb_tpu.config import Config
+    from srtb_tpu.pipeline.runtime import has_signal
+    res = SimpleNamespace(zero_count=zero_count, signal_counts=counts)
+    return np.array([has_signal(Config(), res, stream=s,
+                                frequency_bin_count=freq_bins)
+                     for s in streams])
+
+
+def plan_name(fields: dict, env: dict | None = None,
+              staged: bool | None = None) -> dict:
+    """The plan name of the reference's processor for a config, built
+    under the environment ``env``."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.pipeline.segment import SegmentProcessor
+    with environ(env):
+        return {"plan": SegmentProcessor(Config(**fields),
+                                         staged=staged).plan_name}
+
+
+def resolved_plan_name(fields: dict, env: dict | None = None,
+                       staged: bool | None = None) -> dict:
+    """The reference's plan name for a config, composed as its
+    ``SegmentProcessor.plan_name`` composes it, from its module-level
+    resolutions (no processor is built, so a 2^30 config costs nothing
+    here): the staged flag and strategy, the fused tail, the front fuse,
+    the skzap rule and the ingest ring."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.ops import fft as F
+    from srtb_tpu.ops import pallas_fft as pf
+    from srtb_tpu.pipeline import segment as S
+    cfg = Config(**fields)
+    n = cfg.baseband_input_count
+    staged = S.staged_resolves(cfg, staged)
+    channels = min(cfg.spectrum_channel_count, n // 2)
+    with environ(env):
+        tail = S.fused_tail_resolves(cfg, staged)
+        name = ("staged" if staged else "fused") + ":" \
+            + F.resolve_strategy(n, cfg.fft_strategy)
+        if tail:
+            name += "+ftail"
+        if S.front_fuse_resolves(cfg, staged):
+            name += "+ffuse"
+        if (tail and cfg.use_pallas and cfg.use_pallas_sk
+                and pf.supported(n // 2 // channels, channels)):
+            name += "+skzap"
+        if str(cfg.ingest_ring).lower() != "off" and S.ring_usable(cfg):
+            name += "+ring"
+    return {"plan": name, "streams": S.formats.resolve(
+        cfg.baseband_format_type).data_stream_count}
 
 
 def plan_resolution(fields: dict, env: dict | None = None) -> dict:
@@ -214,6 +276,63 @@ def pass2_spectrum(br: np.ndarray, bi: np.ndarray, thr: float, norm: float,
         else jnp.asarray(mask_blocked), premul_blocked=pm, chirp=chirp,
         interpret=True)
     return {"sr": sr, "si": si}
+
+
+def format_registry(names: list) -> dict:
+    """``formats.resolve`` of each name (its fields, the payload bytes and
+    ``get_data_stream_count``), or the message of the ``ValueError`` it
+    raises."""
+    from srtb_tpu.io import formats
+    out = {}
+    for name in names:
+        try:
+            f = formats.resolve(name)
+        except ValueError as e:
+            out[name] = {"error": str(e)}
+            continue
+        out[name] = {
+            "name": f.name, "data_stream_count": f.data_stream_count,
+            "packet_header_size": f.packet_header_size,
+            "packet_payload_size": f.packet_payload_size,
+            "payload_bytes": f.payload_bytes,
+            "unpack_variant": f.unpack_variant,
+            "parser": "" if f.parse_packet is None
+            else f.parse_packet.__name__,
+            "streams": formats.get_data_stream_count(name)}
+    return out
+
+
+def parse_packets(packets: list) -> dict:
+    """``parse_vdif_header`` and both counter parsers on each packet."""
+    from srtb_tpu.io import formats
+    return {str(i): {"vdif": formats.parse_vdif_header(p),
+                     "le64": formats._parse_counter_le64(p),
+                     "vdif_counter": formats._parse_counter_vdif(p)}
+            for i, p in enumerate(packets)}
+
+
+def unpack_call(name: str, data: np.ndarray, nbits=None,
+                window=None, variant=None) -> dict:
+    """An unpack function of the JAX package (``ops.unpack.<name>``, or
+    ``pipeline.segment.unpack_streams`` for ``name == "unpack_streams"``)
+    on ``data``, eagerly and under ``jax.jit`` (the pipeline runs it
+    inside its jitted programs); ``window`` is passed by keyword."""
+    import jax
+    import jax.numpy as jnp
+    if name == "unpack_streams":
+        from srtb_tpu.pipeline.segment import unpack_streams
+
+        def fn(d, window):
+            return unpack_streams(d, variant, nbits, window)
+    else:
+        from srtb_tpu.ops import unpack as U
+        args = () if nbits is None else (nbits,)
+
+        def fn(d, window):
+            return getattr(U, name)(d, *args, window=window)
+    w = None if window is None else jnp.asarray(window)
+    d = jnp.asarray(data)
+    return {"eager": fn(d, w), "jit": jax.jit(fn)(d, w)}
 
 
 def pipeline_main(argv: list, out_dir: str) -> dict:

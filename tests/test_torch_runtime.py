@@ -8,7 +8,11 @@ segments, the pulse in the middle one), at each setting of the engine:
 names, decisions and ``.bin`` bytes must be the same exactly; ``.npy`` and
 ``.tim`` within ``test_torch_pipeline.py``'s gates.  Then the port's ring
 (warm against cold, bit-identical), and unit cases of the buffer pool,
-the pipe framework and the writer pool (native and Python)."""
+the pipe framework and the writer pool (native and Python).  Then the
+multi-stream formats: two-stream files (``interleaved_samples_2``
+2-bit and ``gznupsr_a1`` int8 words, the pulse in stream 0 only) through
+both mains at the serial leg, the defaults and write-all, the per-stream
+gate, and the ring's warm steps at every format."""
 
 import os
 import threading
@@ -30,7 +34,7 @@ from srtb_tpu_torch.utils.bufferpool import BufferPool
 from test_torch_pipeline import (check_candidate_contents, make_case,
                                  reference_arrays)
 from test_torch_ref import run_reference
-from test_torch_segment import CASES
+from test_torch_segment import CASES, MULTI_FORMATS
 
 # (inflight_segments, writer_thread_count, ingest_ring[, write-all])
 SETTINGS = {
@@ -193,6 +197,127 @@ def test_stage_input_takes_only_contiguous_segment_bytes():
                            window_name=CASES["n16_ch32"][2], device="cpu")
     with pytest.raises(ValueError, match="ingest ring"):
         off.stage_input(s0, carry=torch.from_numpy(s0[:sp.reserved_bytes]))
+
+
+# two-stream files through both mains: (format, bits) by name, and the
+# settings they run at (the window 1 and 2, the ring off and auto)
+STREAM_FILES = {"is2_2bit": ("interleaved_samples_2", 2),
+                "gznupsr": ("gznupsr_a1", -8)}
+STREAM_SETTINGS = ("serial", "default", "write_all")
+
+
+@pytest.fixture(scope="module")
+def stream_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("streams")
+    dirs, jobs, argvs = {}, [], {}
+    for name, (fmt, bits) in STREAM_FILES.items():
+        (tmp / name).mkdir()
+        argvs[name] = make_case(tmp / name, fmt, bits)
+        for setting in STREAM_SETTINGS:
+            for who in ("port", "ref"):
+                dirs[name, setting, who] = tmp / name / setting / who
+                dirs[name, setting, who].mkdir(parents=True)
+            jobs.append({
+                "key": f"{name}/{setting}",
+                "fn": "test_torch_ref:pipeline_main",
+                "args": [argvs[name][0] + _setting_argv(setting) + [
+                    "--baseband_output_file_prefix",
+                    f"{dirs[name, setting, 'ref']}/out_"],
+                    str(dirs[name, setting, "ref"])]})
+    ref = run_reference(jobs, tmp)
+    port = {(name, setting): M.run(argvs[name][0] + _setting_argv(setting) + [
+        "--baseband_output_file_prefix",
+        f"{dirs[name, setting, 'port']}/out_", "--device", "cpu"])
+        for name in STREAM_FILES for setting in STREAM_SETTINGS}
+    return {"ref": ref, "port": port, "dirs": dirs, "argvs": argvs}
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_FILES))
+@pytest.mark.parametrize("setting", STREAM_SETTINGS)
+def test_two_stream_files_write_the_references_artifacts(stream_runs, name,
+                                                         setting):
+    """``srtb-torch-main`` on a two-stream file writes ``srtb-main``'s
+    artifact names: the pulse segment's ``.bin`` (byte-identical), one
+    ``.npy`` a stream and ``.s0.`` boxcar series only (the pulse is in
+    stream 0), or write-all's ``stream0.bin`` (byte-identical); the
+    waterfalls and series within the pipeline test's gates, and the same
+    bytes at every setting."""
+    ref, dirs = stream_runs["ref"], stream_runs["dirs"]
+    stats, pipe = stream_runs["port"][name, setting]
+    key = f"{name}/{setting}"
+    assert int(ref[f"{key}/rc"]) == 0
+    d = dirs[name, setting, "port"]
+    names = sorted(os.listdir(d))
+    assert names == ref[f"{key}/files"].tolist()
+    assert stats.segments == 3 and stats.signals == 1
+    assert pipe.positive_segments == [1]
+    assert pipe.processor.streams == 2
+    for f in names:
+        if f.endswith(".bin"):
+            assert (d / f).read_bytes() == \
+                (dirs[name, setting, "ref"] / f).read_bytes(), f
+    if setting == "write_all":
+        assert names == ["out_stream0.bin"]
+        return
+    assert sum(f.endswith(".npy") for f in names) == 2
+    tims = [f for f in names if f.endswith(".tim")]
+    assert tims and all(".s0." in f for f in tims)
+    (files,) = pipe.sink.written
+    proc = pipe.processor
+    check_candidate_contents(files, reference_arrays(ref, key, "npy"),
+                             reference_arrays(ref, key, "tim"),
+                             proc.nsamps_reserved,
+                             proc.stride_bytes + proc.reserved_bytes)
+    serial = dirs[name, "serial", "port"]
+    assert {f: (d / f).read_bytes() for f in names} == {
+        f: (serial / f).read_bytes() for f in os.listdir(serial)}
+
+
+def test_has_signal_per_stream_matches_reference(tmp_path):
+    """The gate's per-stream verdict (``stream=``) and the segment's
+    (any stream) on hand-made results: a stream with too many zapped
+    channels is negative whatever fired, a stream fires only with a
+    count."""
+    from srtb_tpu_torch.ops.detect import DetectResult
+    zero_count = np.array([0, 5, 30, 2], dtype=np.int32)
+    counts = np.array([[0, 0], [1, 0], [3, 2], [0, 0]], dtype=np.int32)
+    cfg = CASES["n16_ch32"][0]
+    jobs = [{"key": "gate", "fn": "test_torch_ref:gate_verdicts",
+             "args": [zero_count, counts, 32, [None, 0, 1, 2, 3]]}]
+    ref = run_reference(jobs, tmp_path)
+    res = DetectResult(torch.from_numpy(zero_count), None, (1, 2),
+                       torch.from_numpy(counts), None, None)
+    got = [R.has_signal(cfg, res, stream=s, frequency_bin_count=32)
+           for s in (None, 0, 1, 2, 3)]
+    assert got == ref["gate"].tolist() == [True, False, True, False, False]
+
+
+@pytest.mark.parametrize("fmt", sorted(MULTI_FORMATS))
+def test_ring_warm_equals_cold_every_format(fmt):
+    """At every multi-stream format the reserved tail is a whole number of
+    the format's interleave groups (2 bytes for "1212" at 8 bits, 4 for
+    "1122", 8 and 16 for the gznupsr words), so a warm step's carry
+    starts at a group boundary, and warm and cold steps give the same
+    waterfall, detection and carry bit for bit."""
+    cfg = CASES[f"{fmt}_monolithic"][0]
+    sp = SegmentProcessor(cfg, device="cpu")
+    group = {"interleaved_samples_2": 2, "naocpsr_snap1": 4,
+             "gznupsr_a1_v2_1": 8, "gznupsr_a1": 16}[sp.fmt.unpack_variant]
+    assert sp.ring and sp.reserved_bytes % group == 0
+    assert sp.stride_bytes % group == 0
+    rng = np.random.default_rng(11)
+    stream = rng.integers(0, 256, sp.stride_bytes * 2 + sp.reserved_bytes,
+                          dtype=np.uint8)
+    s0 = stream[:sp.stride_bytes + sp.reserved_bytes]
+    s1 = stream[sp.stride_bytes:]
+    _out, carry = sp.run_device_ring(sp.stage_input(s0))
+    (wf_w, det_w), carry_w = sp.run_device_ring(sp.stage_input(s1,
+                                                               carry=carry))
+    (wf_c, det_c), carry_c = sp.run_device_ring(sp.stage_input(s1))
+    assert wf_w.shape[0] == sp.streams
+    assert torch.equal(wf_w, wf_c) and torch.equal(carry_w, carry_c)
+    for a, b in zip(det_w, det_c):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
 def test_unported_runtime_settings_raise(tmp_path):

@@ -10,8 +10,13 @@ and the sub-byte R2C on cuFFT rows), ``fused:pallas2`` with and without
 the fused tail (below the two-pass window: B6 legs, as the reference's
 size rule says), ``fused:mxu+ftail+skzap``, and the staged plan forced
 at a small size without ``use_pallas`` (plain stage 1 + manual mask, B3,
-then plain SK or K3 + K4).  Both packages run one configuration; the
-reference runs its Pallas kernels in interpret mode."""
+then plain SK or K3 + K4).  Then the multi-stream formats
+(``interleaved_samples_2`` at 2 and 8 bits, ``naocpsr_snap1`` at -8,
+``gznupsr_a1`` and the 4-stream ``gznupsr_a1_v1``) on each plan family:
+monolithic, pallas, pallas2, staged, staged without ``use_pallas`` (B3),
+staged with the fused tail, and front-fused (2-pol 8-bit), the pulse in
+stream 0 only.  Both packages run one configuration; the reference runs
+its Pallas kernels in interpret mode."""
 
 import dataclasses
 import json
@@ -21,7 +26,7 @@ import pytest
 import torch
 
 from srtb_tpu_torch.config import Config
-from srtb_tpu_torch.io import synth
+from srtb_tpu_torch.io import formats, synth
 from srtb_tpu_torch.ops import dedisperse as dd
 from srtb_tpu_torch.ops import detect as det
 from srtb_tpu_torch.ops import fft as F
@@ -63,6 +68,18 @@ def dispersed_bytes(cfg: Config, n_samples: int, pulse_at: int,
                                              cfg.dm))
     sig = torch.from_numpy(x + np.fft.irfft(spec, n_samples))
     return synth.quantize(sig, cfg.baseband_input_bits).numpy()
+
+
+def stream_bytes(cfg: Config, n_samples: int, pulse_at: int, amp: float,
+                 seed: int) -> np.ndarray:
+    """The bytes of the cfg's format: stream 0 carries the dispersed
+    pulse, every other stream noise of its own seed, each quantized apart
+    (``dispersed_bytes``), then interleaved in the format's own layout."""
+    fmt = formats.resolve(cfg.baseband_format_type)
+    rows = [dispersed_bytes(cfg, n_samples, pulse_at, amp if s == 0 else 0.0,
+                            seed + s) for s in range(fmt.data_stream_count)]
+    return synth.interleave_streams(torch.from_numpy(np.stack(rows)),
+                                    fmt.unpack_variant).numpy()
 
 
 # (n, channels, dm, pulse amplitude, window, overrides, the plan both
@@ -159,9 +176,43 @@ SHAPES = {
              env=dict(ROWS_PALLAS2, SRTB_PALLAS_FFUSE="1")),
         "staged:four_step+ftail+ffuse+ring"),
 }
+# the multi-stream formats (format, bits) on each plan family (channels,
+# overrides, plan), at 2^16 samples a stream with the pulse in stream 0
+MULTI_FORMATS = {
+    "is2_2bit": ("interleaved_samples_2", 2),
+    "is2_8bit": ("interleaved_samples_2", 8),
+    "snap1": ("naocpsr_snap1", -8),
+    "gznupsr": ("gznupsr_a1", -8),
+    "gznupsr_v1": ("gznupsr_a1_v1", -8),
+}
+MULTI_FAMILIES = {
+    # rows of 1024: K3 + K4 once a stream
+    "monolithic": (32, {}, "fused:monolithic+ring"),
+    "pallas": (4, PALLAS, "fused:pallas+ftail+skzap+ring"),
+    "pallas2": (4, PALLAS2, "fused:pallas2+ftail+skzap+ring"),
+    # rows of 2^13: B7 over every stream's rows, then K4 once a stream
+    "staged": (4, dict(STAGED, fused_tail="off"), "staged:four_step+ring"),
+    "staged_b3": (32, STAGED_PLAIN, "staged:four_step+ring"),
+    "staged_ftail": (32, STAGED, "staged:four_step+ftail+ring"),
+}
+for _fmt, (_name, _bits) in MULTI_FORMATS.items():
+    for _fam, (_ch, _over, _plan) in MULTI_FAMILIES.items():
+        SHAPES[f"{_fmt}_{_fam}"] = (
+            1 << 16, _ch, -0.1, 4.0, "rectangle",
+            dict(_over, baseband_format_type=_name,
+                 baseband_input_bits=_bits), _plan)
+for _bits, _window in ((8, "rectangle"), (-8, "rectangle"), (8, "hann")):
+    SHAPES[f"is2_{_bits}bit_ffuse_{_window}"] = (
+        1 << 16, 4, -0.1, 4.0, _window,
+        dict(FFUSE, baseband_format_type="interleaved_samples_2",
+             baseband_input_bits=_bits), "staged:four_step+ftail+ffuse+ring")
 # shapes whose dedispersed spectrum is compared too (the hann window zaps
 # every waterfall row at this size, in both packages)
-SPECTRUM = ("n16_ch4_ffuse_hann",)
+SPECTRUM = ("n16_ch4_ffuse_hann", "is2_2bit_staged", "snap1_staged_ftail")
+# fused-tail shapes whose dedispersed spectrum is held to a float64
+# computation of the same function, stream by stream
+TRUTH = ("is2_8bit_ffuse_hann", "is2_-8bit_ffuse_rectangle",
+         "snap1_staged_ftail", "gznupsr_v1_pallas", "is2_2bit_pallas2")
 
 
 def _case(name):
@@ -171,7 +222,7 @@ def _case(name):
     env = over.pop("env", {})
     cfg = slice_config(n, ch, dm).replace(**over)
     nres = dd.nsamps_reserved(cfg)
-    raw = dispersed_bytes(cfg, n, (n - 2 * nres) // 2, amp, seed=n)
+    raw = stream_bytes(cfg, n, (n - 2 * nres) // 2, amp, seed=n)
     return cfg, raw, window, staged, env
 
 
@@ -254,6 +305,13 @@ def ref(tmp_path_factory):
               "args": [dataclasses.asdict(_resolve_config(name)),
                        RESOLVE_ENV.get(name)]}
              for name in RESOLVE]
+    cfg = slice_config(1 << 12, 32, 0.0)
+    for key, (over, staged, env) in A2_BUILDS.items():
+        args = [dataclasses.asdict(cfg.replace(**over)), env, staged]
+        jobs += [{"key": f"a2/{key}", "fn": "test_torch_ref:plan_name",
+                  "args": args},
+                 {"key": f"a2_composed/{key}",
+                  "fn": "test_torch_ref:resolved_plan_name", "args": args}]
     return run_reference(jobs, tmp_path_factory.mktemp("ref_segment"))
 
 
@@ -311,9 +369,16 @@ def test_decisions_bit_identical(ref, port, name):
                                   ref[f"{name}/detect/signal_counts"])
     np.testing.assert_array_equal(res.zero_count.numpy(),
                                   ref[f"{name}/detect/zero_count"])
+    assert res.zero_count.shape == (sp.streams,)
     positive = has_signal(sp.cfg, res, frequency_bin_count=wf.shape[-2])
     assert positive == bool(ref[f"{name}/has_signal"])
     assert positive == (SHAPES[name][4] == "rectangle")
+    # per stream: the pulse's stream 0 only
+    streams = [has_signal(sp.cfg, res, stream=s,
+                          frequency_bin_count=wf.shape[-2])
+               for s in range(sp.streams)]
+    assert streams == ref[f"{name}/has_signal_streams"].tolist()
+    assert streams == [positive] + [False] * (sp.streams - 1)
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
@@ -329,16 +394,18 @@ def test_waterfall_and_time_series(ref, port, name):
     want_ri = ref[f"{name}/wf_ri"]
     want = want_ri[0] + 1j * want_ri[1]
     got = wf.numpy()
-    assert got.shape == want.shape == (1, sp.channel_count, sp.watfft_len)
-    wf_err = float(np.abs(got - want).max())
-    assert wf_err <= 2e-5 * np.abs(want).max()
+    assert got.shape == want.shape == (sp.streams, sp.channel_count,
+                                       sp.watfft_len)
     t = det.trimmed_length(sp.watfft_len, sp.time_reserved_count)
-    p = np.abs(want[0, :, :t].astype(np.complex128)) ** 2
-    gates = det.time_series_error_gates(sp.channel_count, t,
-                                        float(p.sum(0).max()), wf_err)
-    ts_err = np.abs(res.time_series.numpy()
-                    - ref[f"{name}/detect/time_series"]).max()
-    assert ts_err <= sum(gates)
+    for s in range(sp.streams):
+        wf_err = float(np.abs(got[s] - want[s]).max())
+        assert wf_err <= 2e-5 * np.abs(want[s]).max()
+        p = np.abs(want[s, :, :t].astype(np.complex128)) ** 2
+        gates = det.time_series_error_gates(sp.channel_count, t,
+                                            float(p.sum(0).max()), wf_err)
+        ts_err = np.abs(res.time_series.numpy()[s]
+                        - ref[f"{name}/detect/time_series"][s]).max()
+        assert ts_err <= sum(gates)
 
 
 @pytest.mark.parametrize("name", SPECTRUM)
@@ -351,10 +418,129 @@ def test_dedispersed_spectrum_matches_reference(ref, port, name):
     sp = port[name][0]
     got = sp._spectrum(sp._as_device_bytes(CASES[name][1])).numpy()
     want_ri = ref[f"{name}/spectrum"]
-    want = want_ri[0, 0] + 1j * want_ri[1, 0]
-    assert got.shape == want.shape == (sp.n_spectrum,)
+    want = want_ri[0] + 1j * want_ri[1]
+    assert got.shape == want.shape == (sp.streams, sp.n_spectrum)
     np.testing.assert_array_equal(got == 0, want == 0)
-    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+    for s in range(sp.streams):
+        assert np.abs(got[s] - want[s]).max() <= 2e-5 * np.abs(want[s]).max()
+
+
+def float64_spectrum(sp, raw: np.ndarray) -> tuple:
+    """The fused tail's dedispersed spectrum [S, n/2] in float64 numpy,
+    independent of both packages' FFTs and chirps: every stream unpacked
+    (exact), windowed, its R2C without the Nyquist bin, the stage-1 keep
+    decision against threshold times its own mean power, the manual mask,
+    normalization, and the exact chirp exp(-2 pi i frac(k)), k = D 1e6 dm
+    (f - f_c)^2 / (f f_c^2).  Returns (spectrum, the power over the
+    threshold, which places each bin against the zap decision, and each
+    stream's largest normalized value before stage 1)."""
+    from srtb_tpu_torch.pipeline.segment import unpack_streams
+    cfg = sp.cfg
+    x = unpack_streams(torch.from_numpy(raw), sp.fmt.unpack_variant,
+                       cfg.baseband_input_bits, None).numpy()
+    x = x.astype(np.float64)
+    if sp.window is not None:
+        x = x * sp.window.numpy()
+    spec = np.fft.rfft(x)[:, :-1]
+    m = spec.shape[-1]
+    p = np.abs(spec) ** 2
+    ratio = p / (cfg.mitigate_rfi_average_method_threshold
+                 * p.mean(-1, keepdims=True))
+    zap = ratio > 1
+    rfi_zap = np.zeros(m, dtype=bool)
+    if sp.front_fuse and sp._ffuse_keep is not None:
+        rfi_zap = ~sp._ffuse_keep.T.reshape(-1).numpy()
+    elif sp.rfi_keep is not None:
+        rfi_zap = ~sp.rfi_keep.numpy()
+    f_c = cfg.baseband_freq_low + cfg.baseband_bandwidth
+    f = cfg.baseband_freq_low + cfg.baseband_bandwidth / m * np.arange(m)
+    k = dd.D * 1e6 * cfg.dm * (f - f_c) ** 2 / (f * f_c ** 2)
+    chirp = np.exp(-2j * np.pi * (k - np.trunc(k)))
+    out = np.where(zap | rfi_zap, 0, spec * sp.norm_coeff) * chirp
+    return out, ratio, sp.norm_coeff * np.abs(spec).max(-1)
+
+
+@pytest.mark.parametrize("name", TRUTH)
+def test_spectrum_matches_float64(port, name):
+    """The port's dedispersed spectrum against :func:`float64_spectrum`,
+    stream by stream: the zaps are the same bins (but for a bin within
+    1e-5 relative of its threshold, where two float32 FFTs may round
+    either way), the rest within 1e-6 of the stream's largest value
+    before stage 1 (float32 rounding grows with the transform's largest
+    values: an unsigned stream's DC, which stage 1 zaps, is ~200 times
+    its largest kept bin; 2.2e-7 of that value is measured, and against
+    the largest kept bin 2e-7 to 5.5e-7, 6.2e-6 for the hann 8-bit
+    shape).  At these shapes the JAX
+    package's front-fused spectrum lies up to 2.5e-5 of the largest value
+    from the same float64 values (its interpret-mode small-leg passes, at
+    bins k1 = 0 and n1 - 1 of the blocked order): the reason these shapes
+    are held to float64 and not to it."""
+    sp = port[name][0]
+    got = sp._spectrum(sp._as_device_bytes(CASES[name][1])).numpy()
+    want, ratio, scale = float64_spectrum(sp, CASES[name][1])
+    assert got.shape == want.shape == (sp.streams, sp.n_spectrum)
+    edge = np.abs(ratio - 1) <= 1e-5
+    np.testing.assert_array_equal((got == 0)[~edge], (want == 0)[~edge])
+    for s in range(sp.streams):
+        diff = np.where(edge[s], 0, np.abs(got[s] - want[s]))
+        assert diff.max() <= 1e-6 * scale[s]
+
+
+def chip_path_config(label: str) -> tuple:
+    """The config of a ``chip_smoke.py`` main path (the example cfg and
+    the path's lines, as the script writes them) and its table row."""
+    row = {r[0]: r for r in _chip_smoke().MAIN_PATHS}[label]
+    cfg = Config()
+    cfg.load_file(str(EXAMPLE_CFG))
+    # the path's lines, parsed as the cfg file's own
+    for line in row[2].splitlines():
+        key, value = (part.strip() for part in line.split("=", 1))
+        assert cfg.set_option(key, value), key
+    return cfg.replace(gui_enable=False), row
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its top level imports only the
+    standard library)."""
+    import importlib
+    import sys
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    return importlib.import_module("chip_smoke")
+
+
+def _chip_labels() -> list:
+    return [r[0] for r in _chip_smoke().MAIN_PATHS]
+
+
+@pytest.fixture(scope="module")
+def chip_plans(tmp_path_factory):
+    jobs = []
+    for label in _chip_labels():
+        cfg, row = chip_path_config(label)
+        jobs.append({"key": label, "fn": "test_torch_ref:resolved_plan_name",
+                     "args": [dataclasses.asdict(cfg), row[5]]})
+    return run_reference(jobs, tmp_path_factory.mktemp("ref_chip_plans"))
+
+
+@pytest.mark.parametrize("label", _chip_labels())
+def test_chip_smoke_paths_take_the_references_plan(chip_plans, label):
+    """Every main path of ``chip_smoke.py`` names the plan the reference
+    resolves for its config and environment (the script fails on the
+    card unless the port's processor takes that plan), the multi-stream
+    paths with the reference's stream count, and the port resolves the
+    same staged, fused-tail and front-fuse flags and ring."""
+    cfg, row = chip_path_config(label)
+    assert row[3] == str(chip_plans[f"{label}/plan"])
+    assert formats.get_data_stream_count(cfg.baseband_format_type) == \
+        int(chip_plans[f"{label}/streams"])
+    staged = seg.staged_resolves(cfg)
+    with environ(row[5]):
+        flags = (("+ftail" in row[3]) == seg.fused_tail_resolves(cfg, staged),
+                 ("+ffuse" in row[3]) == seg.front_fuse_resolves(cfg, staged))
+    assert flags == (True, True)
+    assert row[3].startswith("staged" if staged else "fused")
+    assert ("+ring" in row[3]) == seg.ring_usable(cfg)
 
 
 @pytest.mark.parametrize("name", sorted(RESOLVE))
@@ -377,7 +563,19 @@ def test_plan_resolution_matches_reference(ref, name):
         == str(ref[f"resolve/{name}/strategy"])
 
 
-def test_unported_settings_raise():
+# the settings the port refused before the multi-stream formats (ROADMAP
+# A2), now built and held to the reference's plan: (overrides, staged,
+# environment)
+A2_BUILDS = {
+    "gznupsr": ({"baseband_format_type": "gznupsr_a1",
+                 "baseband_input_bits": -8}, None, {}),
+    "is2_ffuse": ({"baseband_format_type": "interleaved_samples_2",
+                   "baseband_input_bits": 8, "front_fuse": "on"}, True,
+                  ROWS_PALLAS2),
+}
+
+
+def test_unported_settings_raise(ref):
     cfg = slice_config(1 << 12, 32, 0.0)
     for change in ({"quality_stats": True}, {"search_mode": "periodicity"},
                    {"micro_batch_segments": 2}):
@@ -395,16 +593,18 @@ def test_unported_settings_raise():
         SegmentProcessor(rcfg.replace(ingest_ring="on",
                                       baseband_reserve_sample=False),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        SegmentProcessor(cfg.replace(baseband_format_type="gznupsr_a1"),
-                         device="cpu")
+    # the multi-stream formats build (no NotImplementedError any more)
+    # and resolve the reference's plan
+    for key, (over, staged, env) in A2_BUILDS.items():
+        with environ(env):
+            sp = SegmentProcessor(cfg.replace(**over), device="cpu",
+                                  staged=staged)
+        assert sp.streams == 2
+        assert sp.plan_name == str(ref[f"a2/{key}/plan"])
+        # the composition the chip paths' test reads, against the
+        # reference processor's own name
+        assert str(ref[f"a2_composed/{key}/plan"]) == sp.plan_name
     with environ(ROWS_PALLAS2):
-        # B11 reads the 2-pol interleave; the processor is single-stream
-        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-            SegmentProcessor(cfg.replace(
-                baseband_format_type="interleaved_samples_2",
-                baseband_input_bits=8, front_fuse="on"), device="cpu",
-                staged=True)
         # front_fuse = on off the staged plan raises, as in the reference
         with pytest.raises(ValueError, match="front_fuse=on"):
             SegmentProcessor(cfg.replace(front_fuse="on"), device="cpu")
