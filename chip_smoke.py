@@ -48,7 +48,9 @@ result lines are printed:
    not (K1, B9, B10, K2); then the multi-stream formats: 2 × 2^30 2-bit
    ``interleaved_samples_2`` with ``use_pallas = 1`` (the de-interleave,
    K1, K2, K3, K4 once a stream), 2 × 2^30 8-bit front-fused (B11 over
-   both streams, B12 once a stream) and 2 × 2^27 ``gznupsr_a1`` int8
+   both streams, B12 once a stream), 2 × 2^30 2-bit on the staged
+   pallas2 plan (K1 once a stream, B9 and B10 over both streams, K2, K3
+   and K4 once a stream) and 2 × 2^27 ``gznupsr_a1`` int8
    words with ``fft_strategy = pallas`` (B6 over both streams, K2 and B8
    once a stream), the pulse in stream 0 only.  In each, the pulse
    segment must be positive, the noise segment negative, the candidate
@@ -71,7 +73,24 @@ result lines are printed:
    the ring (``ingest_ring = off``) in turns, with Msamples/s, wall
    seconds by stage, overlap-hidden seconds and H2D bytes per segment
    and peak memory; the candidate files of all runs must be identical in
-   name and bytes.
+   name and bytes;
+8. live: the AF_PACKET ring receiver once on loopback (or the reason it
+   cannot run: it needs CAP_NET_RAW), then ``srtb-torch-main``'s default
+   input, UDP packets: a loopback sender process streams
+   ``fastmb_roach2`` packets at the J1644-4559 rate (32 MB/s a port)
+   from files of the overlap-save layout, while ``Pipeline(cfg,
+   source=...)`` searches them at the engine's defaults: ``live_2^30``
+   (staged_2^30's cfg, one ``UdpReceiverSource``, 3 segments, the pulse
+   in the first; if packets are lost, again without the pulse) and
+   ``live2rx_2^27`` (fused_2^27's cfg on two ports,
+   ``MultiUdpSource``, 4 segments a port, the pulse on port 0 only).
+   Each prints its provider (it must be the native recvmmsg one), packets
+   sent, received and lost, Msamples/s over the offered window and the
+   real-time factor, the granted SO_RCVBUF and ``net.core.rmem_max``,
+   the ring's warm dispatches and the peak memory; every received slot
+   must equal the file's (lost ones zero, their count the source's
+   loss), the launches the table's, and with no packet lost each port's
+   decisions and candidate bytes those of a file-mode run of its file.
 
 The last two lines are the kernels' JSON record and the result line.
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -158,6 +177,14 @@ MAIN_PATHS = (
      + "front_fuse = on\n", "staged:four_step+ftail+ffuse+ring",
      {"fft2_pass1_front": 1, "fft2_pass2_spectrum": 2, "sk_stats": 2,
       "sk_apply_timeseries": 2}, ROWS_PALLAS2),
+    # the reference's staged_pallas2 plan at the cfg's two polarizations
+    # (B9 and B10 take both streams in their batch; its peak: PERF.md §5)
+    ("dualpol_pallas2_2^30", LOG2_N,
+     DUALPOL + STAGED_TAIL + "front_fuse = off\n",
+     "staged:four_step+ftail+ring",
+     {"unpack_subbyte_window": 2, "fft2_pass1": 1, "fft2_pass2": 1,
+      "rfi_s1_dedisperse": 2, "sk_stats": 2, "sk_apply_timeseries": 2},
+     ROWS_PALLAS2),
     ("gznupsr_2^27", LOG2_N_ROWS,
      "baseband_format_type = gznupsr_a1\nbaseband_input_bits = -8\n"
      + PALLAS_27, "fused:pallas+ftail+skzap+ring",
@@ -1447,7 +1474,7 @@ def phase_kernels(copy_gbps: float) -> list:
 
 
 def make_input_file(cfg, path: Path, segments: int = 2,
-                    pulse_segment: int = 1) -> dict:
+                    pulse_segment: int = 1, seed: int = 100) -> dict:
     """``segments`` segments of the cfg's format and sample width made on
     the card, a dispersed pulse in stream 0 of segment ``pulse_segment``
     (None: nowhere) and noise elsewhere: each stream quantized apart from
@@ -1455,7 +1482,8 @@ def make_input_file(cfg, path: Path, segments: int = 2,
     Segment k >= 1 is the tail of segment k - 1 and the first stride of
     block k; the last block is one byte short, so the overlap-save reader
     emits exactly ``segments`` segments (the last ends in one zero-padded
-    byte, inside its reserved tail)."""
+    byte, inside its reserved tail).  Segment i of stream s is quantized
+    from generator seed ``seed + i + 1000 s``."""
     import torch
     from srtb_tpu_torch.io import formats, synth
     from srtb_tpu_torch.ops import dedisperse as dd
@@ -1476,7 +1504,7 @@ def make_input_file(cfg, path: Path, segments: int = 2,
             rows = []
             for s in range(streams):
                 gen = torch.Generator(device="cuda").manual_seed(
-                    100 + i + 1000 * s)
+                    seed + i + 1000 * s)
                 rows.append(synth.make_dispersed_baseband(
                     n, cfg.baseband_freq_low, cfg.baseband_bandwidth, cfg.dm,
                     [pulse_at] if i == pulse_segment and s == 0 else [],
@@ -2020,6 +2048,28 @@ def phase_breakdown_dualpol(run, breakdowns: dict) -> dict:
              breakdowns["staged_2^30"]["chain_ms"]})
 
 
+def phase_breakdown_dualpol_pallas2(run, breakdowns: dict) -> dict:
+    """Device time of one dualpol_pallas2_2^30 segment: the staged front
+    (K1 a stream, B9 and B10 over both streams, the Hermitian post and
+    the fused tail's K2 epilogue a stream), then the waterfall stages;
+    the whole chain, and staged_pallas2_2^30's (one stream) beside it."""
+    import torch
+    sp, raw, h2d = _segment_on_card(run)
+    ms = dict(h2d)
+    ms["front (K1, B9, B10, post, K2)"] = cuda_ms(
+        lambda: sp._spectrum(raw), 3)
+    spec = sp._spectrum(raw)
+    _staged_tail_stages(ms, sp, spec)
+    del spec
+    whole = cuda_ms(lambda: sp.process(raw), 3)
+    torch.cuda.empty_cache()
+    return _breakdown_line(
+        "dualpol_pallas2_2^30", ms, whole, sp.cfg,
+        {"streams": sp.streams,
+         "staged_pallas2_2^30_chain_ms (one stream)":
+             breakdowns["staged_pallas2_2^30"]["chain_ms"]})
+
+
 def _breakdown_line(label, ms, whole, cfg, extra=None) -> dict:
     stage_sum = sum(v for k, v in ms.items() if not k.startswith("h2d"))
     out = {"stage_ms": ms, "stages_sum_ms": stage_sum,
@@ -2268,6 +2318,444 @@ def phase_breakdown_shipped(run) -> dict:
     return _breakdown_line("shipped_2^30", ms, whole, cfg)
 
 
+# ---------------------------------------------------------------- live
+# The live phase: srtb-torch-main's default input, UDP packets, from a
+# loopback sender process at the J1644-4559 rate (2-bit at 128 Msamples/s
+# a stream: 32 MB/s, 7812.5 fastmb_roach2 packets of 4096 payload bytes a
+# second), through Pipeline(cfg, source=...) at the engine's defaults.
+LIVE_RATE_BYTES_PER_S = 32e6
+LIVE_PAYLOAD = 4096
+LIVE_FORMAT = "baseband_format_type = fastmb_roach2\n"
+# (label, log2 samples, cfg lines, segments a port, the pulse's segment
+# on port 0, ports, kernel launches a segment and stream).  live_2^30's
+# pulse is in its first segment: that positive's dump (a 4 GiB .npy)
+# runs on the sink thread while the second segment is received, and
+# holds its window slot, so the engine thread reads the third segment
+# only once the dump is done; a lossy run is repeated without the pulse
+LIVE_PATHS = (
+    ("live_2^30", LOG2_N, PALLAS_ON, 3, 0, 1,
+     {"unpack_subbyte_window": 1, "rfi_s1_dedisperse": 1, "sk_stats": 1,
+      "sk_apply_timeseries": 1}),
+    ("live2rx_2^27", LOG2_N_ROWS,
+     PALLAS_27 + "udp_receiver_cpu_preferred = 2, 3\n", 4, 1, 2,
+     {"unpack_subbyte_planes_window": 1, "fft_rows": 2,
+      "rfi_s1_dedisperse": 1, "fft_rows_skzap": 1}),
+)
+# the first packet counter of each port's stream (distinct, so that the
+# two ports' candidates never share a name)
+LIVE_COUNTER0 = (0, 1 << 40)
+# packets of zeros sent after each stream
+LIVE_TRAILER = 64
+
+
+def loopback_sender(argv: list) -> int:
+    """``chip_smoke.py --loopback-sender RATE FILE PORT COUNTER0 [...]``:
+    each file as counter-sequential fastmb_roach2 datagrams (LE64 counter
+    from COUNTER0, 4096 payload bytes, the last payload zero-padded) to
+    127.0.0.1:PORT, every stream at RATE bytes a second, then
+    ``LIVE_TRAILER`` packets of zeros (a live stream goes on: a receiver
+    whose last block lost its last packets closes it on them); prints
+    the send window's wall-clock start and end and the most packets a
+    stream fell behind its schedule (sent at once to catch up) as
+    JSON."""
+    import socket
+    import struct
+    rate = float(argv[0])
+    streams = []
+    for i in range(1, len(argv), 3):
+        # read whole before the first packet: a page fault in the send
+        # loop would make the sender fall behind and then burst
+        with open(argv[i], "rb") as f:
+            data = f.read()
+        streams.append((data, int(argv[i + 1]), int(argv[i + 2]),
+                        -(-len(data) // LIVE_PAYLOAD)))
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    sent = [0] * len(streams)
+    behind = 0  # the most packets a stream was behind its schedule
+    t_start = time.time()
+    t0 = time.perf_counter()
+    while any(sent[i] < s[3] for i, s in enumerate(streams)):
+        due = int((time.perf_counter() - t0) * rate / LIVE_PAYLOAD) + 1
+        for i, (data, port, c0, count) in enumerate(streams):
+            behind = max(behind, min(due, count) - sent[i])
+            while sent[i] < min(due, count):
+                k = sent[i]
+                body = data[k * LIVE_PAYLOAD:(k + 1) * LIVE_PAYLOAD]
+                body += bytes(LIVE_PAYLOAD - len(body))
+                sock.sendto(struct.pack("<Q", c0 + k) + body,
+                            ("127.0.0.1", port))
+                sent[i] += 1
+        time.sleep(0.0005)
+    t_end = time.time()
+    time.sleep(0.05)
+    for data, port, c0, count in streams:
+        for k in range(count, count + LIVE_TRAILER):
+            sock.sendto(struct.pack("<Q", c0 + k) + bytes(LIVE_PAYLOAD),
+                        ("127.0.0.1", port))
+    print(json.dumps({"start": t_start, "end": t_end, "packets": sent,
+                      "max_behind_packets": behind}), flush=True)
+    return 0
+
+
+def _free_udp_port() -> int:
+    import socket
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class LiveTap:
+    """A sink appended to the live pipeline (it runs on the sink thread):
+    it keeps a copy of each received segment's bytes with its (port,
+    index, counter, decision) and nothing more, so that the sink side
+    takes as long as it would without it (a slow sink holds a window
+    slot, and the engine thread then reads the socket late).  After the
+    run, :meth:`verify` holds each copy against the file reader's segment
+    of the same port and index, payload slot by slot: a slot that
+    differs must be all zeros (a lost packet); the differing slots of the
+    freshly received strides are counted, and their sum must equal the
+    source's packets_lost.  A segment with no differing slot, head
+    included, is ``clean``: its decision and candidates can be held
+    against file mode's."""
+
+    def __init__(self, files: list, cfg, reserved: int):
+        self.files = files
+        self.seg = cfg.segment_bytes(1)
+        self.stride = self.seg - reserved
+        self.reserved_slots = reserved // LIVE_PAYLOAD
+        self.next_index = [0] * len(files)
+        self.copies = []
+        self.records = []
+        self.lossy = {}
+        self.stride_mismatch = 0
+        self.head_mismatch = 0
+        self.clean = set()
+        self.failures = []
+
+    def push(self, work, has_signal):
+        seg = work.segment
+        port = seg.data_stream_id
+        k = self.next_index[port]
+        self.next_index[port] += 1
+        self.copies.append(seg.data.copy())
+        self.records.append([port, k, int(seg.udp_packet_counter),
+                             bool(has_signal), 0])
+
+    def verify(self) -> None:
+        """The slot-by-slot comparison with the files (after the run)."""
+        import numpy as np
+        for record, got in zip(self.records, self.copies):
+            port, k = record[0], record[1]
+            want = np.zeros(self.seg, dtype=np.uint8)
+            with open(self.files[port], "rb") as f:
+                f.seek(k * self.stride)
+                f.readinto(memoryview(want))
+            got = got.reshape(-1, LIVE_PAYLOAD)
+            differ = (got != want.reshape(-1, LIVE_PAYLOAD)).any(axis=1)
+            if got[differ].any():
+                self.failures.append(f"port {port} segment {k}: a slot "
+                                     "differs from the file's and is not "
+                                     "zero")
+            head = self.reserved_slots if k else 0
+            lost = int(differ[head:].sum())
+            self.head_mismatch += int(differ[:head].sum())
+            self.stride_mismatch += lost
+            record[4] = lost
+            if not differ.any():
+                self.clean.add((port, k))
+            if lost:
+                # where in the segment: the lost slots' first and last
+                # index and the count of gaps (runs of lost slots)
+                at = np.flatnonzero(differ[head:]) + head
+                self.lossy[(port, k)] = (int(at[0]), int(at[-1]),
+                                         int(1 + (np.diff(at) > 1).sum()))
+        self.copies = []
+
+
+def _candidate_bytes_equal(live_files, file_files) -> list:
+    """Pairs of candidate files (.bin, each .npy, each .tim by its
+    suffix after the counter or timestamp) whose bytes differ."""
+    def by_suffix(files):
+        base = files.bin_path[:-len(".bin")]
+        return {p[len(base):]: p for p in
+                [files.bin_path, *files.npy_paths, *files.tim_paths]}
+    live, ref = by_suffix(live_files), by_suffix(file_files)
+    if sorted(live) != sorted(ref):
+        return [f"files {sorted(live)} against {sorted(ref)}"]
+    return [live[k] for k in live if not _same_bytes(live[k], ref[k])]
+
+
+def check_packet_ring(card: str) -> None:
+    """The AF_PACKET ring receiver once on loopback (it needs
+    CAP_NET_RAW): four packets, one block, or the OSError's text."""
+    import threading
+    import numpy as np
+    from srtb_tpu_torch.io import formats, udp
+    fmt = formats.resolve("fastmb_roach2")
+    port = _free_udp_port()
+    try:
+        rx = udp.PacketRingReceiver("", port, fmt, interface="lo")
+    except OSError as e:
+        say(f"live packet_ring: not run: {e}")
+        return
+
+    def send():
+        import socket
+        import struct
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        time.sleep(0.1)
+        for c in (0, 2, 1, 3, 4):
+            s.sendto(struct.pack("<Q", c) + bytes([c]) * LIVE_PAYLOAD,
+                     ("127.0.0.1", port))
+        s.close()
+    t = threading.Thread(target=send, daemon=True)
+    t.start()
+    out = np.full(4 * LIVE_PAYLOAD, 0xA5, dtype=np.uint8)
+    box = []
+    r = threading.Thread(target=lambda: box.append(rx.receive_block(out)),
+                         daemon=True)
+    r.start()
+    r.join(30)
+    t.join(5)
+    if r.is_alive():
+        fail("packet_ring: no block within 30 s")
+    rx.close()
+    first, lost, total = box[0]
+    if (first, lost, total) != (0, 0, 4) or [
+            int(out[i * LIVE_PAYLOAD]) for i in range(4)] != [0, 1, 2, 3]:
+        fail(f"packet_ring: block {box[0]}, slots "
+             f"{[int(out[i * LIVE_PAYLOAD]) for i in range(4)]}")
+    say(f"live packet_ring: one block of 4 reordered packets on lo "
+        f"(first {first}, lost {lost}, total {total}), bytes as sent; "
+        f"card {card}")
+
+
+def phase_live_path(card: str, label: str, log2_n: int, extra: str,
+                    segments: int, pulse: int, ports: int,
+                    per_segment: dict) -> dict:
+    """One live path: the sender streams each port's file (the
+    overlap-save layout of ``make_input_file``, the pulse in stream 0's
+    segment ``pulse`` on port 0 only) while ``Pipeline(cfg,
+    source=UdpReceiverSource(cfg) | MultiUdpSource(cfg))`` searches
+    ``segments`` segments a port at the engine's defaults; the launch
+    counts are zeroed just before the run (after a warm-up dispatch on
+    zeros, made before the first packet) and read just after it.  Then
+    the gates: the native recvmmsg provider ran, every received slot
+    equals the file's, lost slots are zero and their count is the
+    source's packets_lost, the launches are the table's, the pulse's
+    segment is positive; and on the segments that lost no packet (warm
+    head included), each port's decisions and candidate bytes equal a
+    file-mode run of its file."""
+    import numpy as np
+    import torch
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.io import udp
+    from srtb_tpu_torch.pipeline.runtime import Pipeline
+    port_numbers = [_free_udp_port() for _ in range(ports)]
+    out_dir = OUT_DIR / label
+    lines = (extra + LIVE_FORMAT + "udp_receiver_address = 127.0.0.1\n"
+             + "udp_receiver_port = "
+             + ", ".join(map(str, port_numbers)) + "\n")
+    cfg, text = path_cfg(out_dir, lines, log2_n, label)
+    files = []
+    for p in range(ports):
+        data = OUT_DIR / "inputs" / f"{label}_port{p}.bin"
+        data.parent.mkdir(parents=True, exist_ok=True)
+        info = make_input_file(cfg, data, segments,
+                               pulse if p == 0 else None, seed=100 + 400 * p)
+        files.append(data)
+    say(f"{label}: inputs {[str(f.relative_to(ROOT)) for f in files]} "
+        f"({info['segment_bytes']} bytes a segment, reserved "
+        f"{info['reserved_bytes']})")
+    src = udp.MultiUdpSource(cfg) if ports > 1 else \
+        udp.UdpReceiverSource(cfg)
+    sources = src.sources if ports > 1 else [src]
+    provider = type(sources[0].receiver).__name__
+    if provider != "NativeBlockReceiver":
+        src.close()
+        fail(f"{label}: the receiver is {provider}, not the native "
+             "recvmmsg one")
+    rcvbuf = sources[0].receiver.rcvbuf_bytes
+    rmem_max = Path("/proc/sys/net/core/rmem_max").read_text().strip()
+    pipe = Pipeline(cfg, source=src)
+    sender = None
+    try:
+        proc = pipe.processor
+        # one dispatch on zeros before the first packet: the plan's
+        # one-time set-up (FFT plans, cached tables) is not the stream's
+        proc.process(np.zeros(cfg.segment_bytes(1), dtype=np.uint8))
+        torch.cuda.synchronize()
+        if sources[0].reserved_bytes != proc.reserved_bytes:
+            fail(f"{label}: the source's overlap ({sources[0].reserved_bytes}"
+                 f" bytes) is not the processor's ({proc.reserved_bytes})")
+        tap = LiveTap(files, cfg, proc.reserved_bytes)
+        pipe.sinks.append(tap)
+        cold0, warm0 = proc.ring_cold_dispatches, proc.ring_warm_dispatches
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        args = [sys.executable, str(Path(__file__).resolve()),
+                "--loopback-sender", str(LIVE_RATE_BYTES_PER_S)]
+        for p in range(ports):
+            args += [str(files[p]), str(port_numbers[p]),
+                     str(LIVE_COUNTER0[p])]
+        sender = subprocess.Popen(args, stdout=subprocess.PIPE, text=True)
+        stats = _bounded_run(pipe, sources, segments * ports, label,
+                             sum(f.stat().st_size for f in files)
+                             / ports / LIVE_RATE_BYTES_PER_S + 120)
+        t_done = time.time()
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        sent = json.loads(sender.communicate(timeout=120)[0])
+        cold = proc.ring_cold_dispatches - cold0
+        warm = proc.ring_warm_dispatches - warm0
+    finally:
+        if sender is not None and sender.poll() is None:
+            sender.kill()
+            sender.wait()
+        pipe.close()
+    tap.verify()
+    lost = stats.extras["packets_lost"]
+    total = stats.extras["packets_total"]
+    window = sent["end"] - sent["start"]
+    samples = stats.segments * cfg.baseband_input_count
+    msps = samples / ports / window / 1e6
+    say(f"live {label}: provider {provider}; {stats.segments} segments "
+        f"({ports} port(s)); sent {sent['packets']} packets in "
+        f"{window:.3f} s (at most {sent['max_behind_packets']} packets "
+        f"behind schedule); packets_total {total}, packets_lost {lost}; "
+        f"offered rate {msps:.2f} Msamples/s a stream (the sender's, "
+        f"over its window: {msps / 128.0:.4f}x real time); lag: the last "
+        f"segment done {t_done - sent['end']:.3f} s after the last "
+        f"packet; pipeline "
+        f"{stats.elapsed_s:.3f} s; SO_RCVBUF granted {rcvbuf} bytes, "
+        f"net.core.rmem_max {rmem_max}; ring cold {cold}, warm {warm}; "
+        f"max_memory_allocated {peak} bytes at window "
+        f"{stats.extras['inflight_segments']}; launches {counts}; "
+        f"positive {pipe.positive_segments}; card {card}")
+    say(f"live {label}: engine " + engine_numbers(stats))
+    say(f"live {label}: segments (port, index, counter, positive, lost) "
+        + json.dumps(tap.records))
+    if stats.segments != segments * ports:
+        fail(f"{label}: {stats.segments} segments")
+    if tap.failures:
+        fail(f"{label}: " + "; ".join(tap.failures))
+    if tap.stride_mismatch != lost:
+        fail(f"{label}: {tap.stride_mismatch} received slots differ from "
+             f"the file's, the source lost {lost}")
+    if lost:
+        say(f"live {label}: LOST {lost} packets of {total} (zeroed slots; "
+            f"{tap.head_mismatch} more in warm heads); SO_RCVBUF {rcvbuf}, "
+            f"rmem_max {rmem_max}; (port, index, counter, positive, lost) "
+            f"of the lossy segments {[r for r in tap.records if r[4]]}; "
+            f"their lost slots' (first, last, gaps) of "
+            f"{tap.seg // LIVE_PAYLOAD} "
+            + json.dumps({str(k): v for k, v in tap.lossy.items()}))
+    for name, count in counts.items():
+        want = per_segment.get(name, 0) * stats.segments
+        if count != want:
+            fail(f"{label}: kernel {name} launched {count} times for "
+                 f"{stats.segments} segments, the table says {want}")
+    say(f"live {label}: every received slot equals the file's, lost "
+        f"slots zero and counted; launches per segment as the table "
+        + json.dumps({k: v / stats.segments for k, v in counts.items()}))
+    result = {"counts": counts, "lost": lost, "msamples_per_s": msps,
+              "peak_bytes": peak}
+    if pulse is not None and [0, pulse] not in [r[:2] for r in tap.records
+                                                if r[3]]:
+        fail(f"{label}: the pulse's segment {pulse} on port 0 is not "
+             f"positive live (positives {pipe.positive_segments})")
+    _compare_with_file_mode(card, label, lines, log2_n, files, pipe, tap)
+    for files_ in pipe.sink.written:
+        for p in files_.npy_paths:
+            os.unlink(p)
+    for f in files:
+        f.unlink()
+    free_card()
+    return result
+
+
+def _bounded_run(pipe, sources, segments: int, label: str,
+                 limit_s: float):
+    """``pipe.run(max_segments=segments)`` on a thread of its own, the
+    only one that launches kernels; past ``limit_s`` seconds the
+    receivers are shut down (a blocked receive then raises) and the
+    phase fails instead of waiting for packets that never come."""
+    import threading
+    box = {}
+
+    def body():
+        try:
+            box["stats"] = pipe.run(max_segments=segments)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            box["error"] = e
+    runner = threading.Thread(target=body, name="live_engine", daemon=True)
+    runner.start()
+    runner.join(limit_s)
+    if runner.is_alive():
+        for src in sources:
+            src.receiver.shutdown()
+        runner.join(60)
+        fail(f"{label}: the run did not end within {limit_s:.0f} s")
+    if "error" in box:
+        raise box["error"]
+    return box["stats"]
+
+
+def _compare_with_file_mode(card, label, lines, log2_n, files, pipe,
+                            tap) -> None:
+    """Each port's file through ``srtb-torch-main`` in file mode, held
+    against the live run on the segments that lost no packet
+    (``tap.clean``): their positives must be the live run's for that
+    port, and each positive's candidate bytes the live candidate's of the
+    same segment (named by packet counter live, by timestamp in file
+    mode).  A live candidate with no file-mode twin must be a piggyback
+    (another port's negative written beside a positive) or a segment
+    that lost packets."""
+    stride_packets = tap.stride // LIVE_PAYLOAD
+    clean = tap.clean
+    live_by_name = {os.path.basename(f.bin_path): f
+                    for f in pipe.sink.written}
+    matched = set()
+    for p, data in enumerate(files):
+        out_dir = OUT_DIR / f"{label}_file{p}"
+        _cfg, ftext = path_cfg(out_dir, lines, log2_n, label)
+        _stats, fpipe, _wall = run_cli(out_dir, ftext, data, {})
+        live_pos = [k for port, k, _c, pos, _l in tap.records
+                    if port == p and pos and (p, k) in clean]
+        file_pos = [k for k in fpipe.positive_segments if (p, k) in clean]
+        if file_pos != live_pos:
+            fail(f"{label} port {p}: on the segments that lost nothing, "
+                 f"file-mode positives {file_pos}, live {live_pos}")
+        for k, ffiles in zip(fpipe.positive_segments, fpipe.sink.written):
+            if (p, k) not in clean:
+                continue
+            name = f"out_{LIVE_COUNTER0[p] + k * stride_packets}.bin"
+            if name not in live_by_name:
+                fail(f"{label} port {p}: no live candidate {name}")
+            bad = _candidate_bytes_equal(live_by_name[name], ffiles)
+            if bad:
+                fail(f"{label} port {p} segment {k}: live candidate files "
+                     f"differ from file mode's: {bad}")
+            matched.add(name)
+        for ffiles in fpipe.sink.written:
+            for q in ffiles.npy_paths:
+                os.unlink(q)
+        del fpipe
+    extra = sorted(set(live_by_name) - matched)
+    unmatched_ok = {f"out_{c}.bin" for p, k, c, pos, _l in tap.records
+                    if not pos or (p, k) not in clean}
+    if not set(extra) <= unmatched_ok:
+        fail(f"{label}: live candidates {extra} are neither file mode's, "
+             "nor piggybacked negatives, nor of a lossy segment")
+    compared = sorted(clean)
+    say(f"live {label}: on the {len(compared)} of {len(tap.records)} "
+        f"segments that lost nothing {compared}, decisions and candidate "
+        f"bytes equal file mode's ({sorted(matched)}); other live "
+        f"candidates {extra}; card {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2305,7 +2793,9 @@ def main() -> int:
         "staged_pallas2_2^30": phase_breakdown_staged_rows,
         "ffuse_2^30": ffuse,
         "dualpol_2^30": lambda run: phase_breakdown_dualpol(run, breakdowns),
-        "dualpol8_ffuse_2^30": dualpol8_ffuse}
+        "dualpol8_ffuse_2^30": dualpol8_ffuse,
+        "dualpol_pallas2_2^30":
+            lambda run: phase_breakdown_dualpol_pallas2(run, breakdowns)}
     for label, log2_n, extra, plan, per_segment, env in MAIN_PATHS:
         runs[label] = phase_main_path(card, label, log2_n, extra, plan,
                                       per_segment, env, made)
@@ -2322,6 +2812,18 @@ def main() -> int:
     lap("main paths and breakdowns")
     phase_window(card)
     lap("window")
+    check_packet_ring(card)
+    for label, log2_n, extra, segments, pulse, ports, per_segment \
+            in LIVE_PATHS:
+        runs[label] = phase_live_path(card, label, log2_n, extra, segments,
+                                      pulse, ports, per_segment)
+        if runs[label]["lost"]:
+            # where the loss comes from: the same stream without the
+            # pulse, so without the positive's waterfall dump in the sink
+            say(f"live {label}: packets lost; again without the pulse")
+            phase_live_path(card, f"{label}_no_pulse", log2_n, extra,
+                            segments, None, ports, per_segment)
+    lap("live")
     for rec in recs:
         by_path = {label: run["counts"][rec["name"]]
                    for label, run in runs.items()}
@@ -2336,4 +2838,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--loopback-sender"]:
+        sys.exit(loopback_sender(sys.argv[2:]))
     sys.exit(main())

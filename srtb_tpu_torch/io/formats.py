@@ -5,9 +5,9 @@ io/backend_registry.hpp:36-181) as plain dataclass instances: per format
 the header size, the packet size, the counter parser, the data-stream
 count and the unpack variant that de-interleaves its streams
 (``pipeline.segment.unpack_streams``).  The VDIF header bit fields follow
-io/vdif_header.hpp:28-61.  The UDP receiver that calls the parsers is a
-later slice (ROADMAP A6); file input reads a format's payload bytes as
-they are.
+io/vdif_header.hpp:28-61.  The UDP receivers (``io/udp.py``) place each
+packet's payload by its counter; file input reads a format's payload
+bytes as they are.
 """
 
 from __future__ import annotations

@@ -7,18 +7,22 @@ boost::asio::thread_pools so the pipeline never blocks on disk: baseband
 (ref: pipeline/write_signal_pipe.hpp:159-280).  ``AsyncWriterPool`` is
 the port's equivalent: submission copies the payload, so the caller may
 reuse its buffer at once, and ``drain()`` blocks until everything queued
-has reached the filesystem.
+has reached the filesystem.  A one-thread pool also appends in
+submission order (``append=True``), the baseband recorder's stream.
 
 The pool runs the port's own C++ (``srtb_tpu_torch/native/
 file_writer.cpp``), built with the host compiler at first use
 (``kernels/build.build_host_library``); a failed build raises.  The
-Python daemon-thread pool with the same (path, bytes, fsync) semantics runs only when the caller asks for it (``prefer_native=False``).
+Python daemon-thread pool with the same (path, bytes, fsync, append)
+semantics runs only when the caller asks for it
+(``prefer_native=False``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 import queue
 import threading
 import weakref
@@ -40,7 +44,7 @@ def native_library() -> ctypes.CDLL:
     lib.srtb_writer_submit.restype = ctypes.c_int32
     lib.srtb_writer_submit.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
-        ctypes.c_uint64, ctypes.c_int32]
+        ctypes.c_uint64, ctypes.c_int32, ctypes.c_int32]
     lib.srtb_writer_drain.restype = None
     lib.srtb_writer_drain.argtypes = [ctypes.c_void_p]
     for name in ("srtb_writer_jobs_done", "srtb_writer_bytes_written",
@@ -111,8 +115,9 @@ class _DaemonWriterPool:
 
 
 class AsyncWriterPool:
-    """Thread-pool writer for (path, bytes, fsync) jobs: each written to a
-    temp file and renamed into place."""
+    """Thread-pool writer for (path, bytes, fsync, append) jobs: each
+    written to a temp file and renamed into place, or appended to the
+    file in place."""
 
     DEFAULT_MAX_QUEUED_BYTES = 1 << 30  # 1 GiB of queued payload copies
 
@@ -153,19 +158,26 @@ class AsyncWriterPool:
     def is_native(self) -> bool:
         return self._h is not None
 
-    def submit(self, path: str, data, *, fsync: bool = False) -> None:
+    def submit(self, path: str, data, *, fsync: bool = False,
+               append: bool = False) -> None:
         """Queue one write.  ``data`` is bytes or a numpy array; it is
         copied at submission, so the caller may reuse its buffer.  With
         ``max_queued_bytes`` > 0 a submit waits while the queued copies
         would exceed the cap; a payload larger than the cap waits for an
-        empty queue and is then taken whole."""
+        empty queue and is then taken whole.  ``append`` needs a
+        one-thread pool: with more workers the appends' order would not
+        be the submissions'."""
+        if append and self.n_threads > 1:
+            raise ValueError(
+                "append=True needs n_threads=1 (ordered appends)")
         buf = np.ascontiguousarray(data).view(np.uint8).reshape(-1) \
             if isinstance(data, np.ndarray) else \
             np.frombuffer(bytes(data), dtype=np.uint8)
         if self._h is not None:
             ptr = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
             rc = self._lib.srtb_writer_submit(
-                self._h, path.encode(), ptr, buf.size, 1 if fsync else 0)
+                self._h, path.encode(), ptr, buf.size, 1 if fsync else 0,
+                1 if append else 0)
             if rc != 0:
                 raise RuntimeError(f"srtb_writer_submit failed for {path}")
             return
@@ -181,15 +193,23 @@ class AsyncWriterPool:
             self._futures = [f for f in self._futures
                              if not f.done() or f.exception() is not None]
             self._futures.append(self._pool.submit(
-                self._py_write, path, payload, fsync))
+                self._py_write, path, payload, fsync, append))
 
-    def _py_write(self, path: str, payload: bytes, fsync: bool) -> None:
+    def _py_write(self, path: str, payload: bytes, fsync: bool,
+                  append: bool) -> None:
         # the accounting runs for any exception, or the backpressure
         # window would shrink for good and later submits block forever
         ok = False
         try:
-            from srtb_tpu_torch.io.writers import atomic_write
-            atomic_write(path, payload, fsync=fsync)
+            if append:
+                with open(path, "ab") as f:
+                    f.write(payload)
+                    f.flush()
+                    if fsync:
+                        os.fdatasync(f.fileno())
+            else:
+                from srtb_tpu_torch.io.writers import atomic_write
+                atomic_write(path, payload, fsync=fsync)
             ok = True
         except OSError:
             pass  # counted below; surfaced by raise_new_errors()

@@ -1,14 +1,20 @@
-"""Overlap-save tail carry of the file reader (port of
-``srtb_tpu/io/overlap.py``).
+"""Source-side half of the ingest-ring contract, shared by the file
+reader and the UDP source (port of ``srtb_tpu/io/overlap.py``).
 
-Consecutive segments overlap by ``reserved_bytes`` (the overlap-save
-tail).  This helper owns two invariants in one place:
+Both sources emit segments that overlap by ``reserved_bytes`` (the
+overlap-save tail) and stamp ``SegmentWork.seq`` so the engine's
+adjacency guard (``pipeline/runtime.py`` ``_ring_adjacent``) can prove a
+segment is the stream-adjacent successor of the last dispatched one,
+the precondition for warm carry assembly.  This helper owns both
+invariants in one place:
 
 - **tail retention**: the reserved tail of the last emitted segment is
   kept in ONE persistent host buffer (``np.copyto``, never a fresh
   allocation per segment) and copied into the next segment's head;
 - **seq stamping**: a per-source monotonically increasing emission
-  counter (``SegmentWork.seq``).
+  counter, or ``-1`` (never warm-assembled) when the source cannot
+  guarantee the overlap: the UDP source whose stride is not a whole
+  number of packet payloads.
 """
 
 from __future__ import annotations
@@ -20,8 +26,9 @@ class OverlapTailCarry:
     """Retained reserved-tail + emission-seq bookkeeping for one
     segment source (one instance per receiver/reader)."""
 
-    def __init__(self, reserved_bytes: int):
+    def __init__(self, reserved_bytes: int, stamp_seq: bool = True):
         self.reserved_bytes = int(reserved_bytes)
+        self._stamp_seq = bool(stamp_seq)
         self._tail: np.ndarray | None = None
         self._seq = 0
 
@@ -47,6 +54,9 @@ class OverlapTailCarry:
         np.copyto(self._tail, buf[buf.shape[0] - self.reserved_bytes:])
 
     def next_seq(self) -> int:
-        """The emitted segment's ``SegmentWork.seq``: 0, 1, 2, ..."""
+        """The emitted segment's ``SegmentWork.seq``: adjacent stamps
+        for overlap-capable sources, -1 (never warm) otherwise."""
+        if not self._stamp_seq:
+            return -1
         self._seq += 1
         return self._seq - 1

@@ -10,9 +10,10 @@ Files are byte-compatible with the reference's:
 - ``<prefix><counter>.<boxcar>.tim``  float32 boxcar time series, and
   ``<prefix><counter>.s<stream>.<boxcar>.tim`` when a segment holds more
   than one stream (ref: write_signal_pipe.hpp:249-280);
-- the "piggybank" policy keeps recent negatives and writes them when they
-  lie within 0.45 segment of a recent positive (real-time input only,
-  ref: write_signal_pipe.hpp:77-140);
+- the "piggybank" policy writes a negative segment that lies within 0.45
+  segment of a recent positive (real-time input only, an empty
+  ``input_file_path``: the other polarization's receiver, ref:
+  write_signal_pipe.hpp:77-140);
 - ``<prefix>stream0.bin``      every segment's baseband (all its
   interleaved streams) minus the reserved tail, appended
   (``WriteAllSink``, ref: write_file_pipe.hpp:41-94).

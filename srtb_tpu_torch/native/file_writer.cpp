@@ -5,9 +5,10 @@
 // pipeline/write_signal_pipe.hpp:159-280 -- one boost::asio::thread_pool
 // for baseband .bin writes with fdatasync, one for .npy/.tim spectrum
 // writes).  Here a single pool with a configurable thread count accepts
-// (path, bytes, fsync) jobs; submission copies the payload so the
-// caller's buffer can be reused at once, matching the reference's
-// shared_ptr-owned work semantics.
+// (path, bytes, fsync, append) jobs; submission copies the payload so
+// the caller's buffer can be reused at once, matching the reference's
+// shared_ptr-owned work semantics.  Appends land in submission order on
+// a one-thread pool (the baseband recorder's ordered stream).
 //
 // Exposed as a plain C interface for Python ctypes.  Built with the host
 // compiler at first use (srtb_tpu_torch/kernels/build.py,
@@ -35,6 +36,7 @@ struct WriteJob {
   std::string path;
   std::vector<uint8_t> data;
   bool fsync = false;
+  bool append = false;
 };
 
 struct WriterPool {
@@ -76,13 +78,15 @@ struct WriterPool {
   }
 
   bool write_one(const WriteJob& job) {
-    // crash consistency: write <path>.srtb_tmp and atomically rename
-    // into place on success, so a reader -- or a restarted run's orphan
-    // sweep (io/writers.recover_orphan_temps) -- never sees a torn
-    // candidate file.  The Python pool (io/native_writer.py) does the
-    // same.
-    const std::string path = job.path + ".srtb_tmp";
-    int fd = open(path.c_str(), O_WRONLY | O_CREAT | O_TRUNC, 0644);
+    // crash consistency (whole-file jobs): write <path>.srtb_tmp and
+    // atomically rename into place on success, so a reader -- or a
+    // restarted run's orphan sweep (io/writers.recover_orphan_temps) --
+    // never sees a torn candidate file.  Appends are in place by nature.
+    // The Python pool (io/native_writer.py) does the same.
+    const std::string path =
+        job.append ? job.path : job.path + ".srtb_tmp";
+    int flags = O_WRONLY | O_CREAT | (job.append ? O_APPEND : O_TRUNC);
+    int fd = open(path.c_str(), flags, 0644);
     if (fd < 0) return false;
     const uint8_t* p = job.data.data();
     size_t left = job.data.size();
@@ -101,11 +105,13 @@ struct WriterPool {
     // survives a crash of the host (ref: write_signal_pipe.hpp:187-197)
     if (ok && job.fsync && fdatasync(fd) != 0) ok = false;
     if (close(fd) != 0) ok = false;
-    if (ok) ok = std::rename(path.c_str(), job.path.c_str()) == 0;
-    // failed write OR failed rename: drop the temp, matching the Python
-    // atomic_write contract — a live-run failure must not masquerade as
-    // an interrupted-run orphan at the next startup
-    if (!ok) unlink(path.c_str());
+    if (!job.append) {
+      if (ok) ok = std::rename(path.c_str(), job.path.c_str()) == 0;
+      // failed write OR failed rename: drop the temp, matching the
+      // Python atomic_write contract — a live-run failure must not
+      // masquerade as an interrupted-run orphan at the next startup
+      if (!ok) unlink(path.c_str());
+    }
     if (ok) bytes_written.fetch_add(job.data.size());
     return ok;
   }
@@ -131,15 +137,18 @@ WriterPool* srtb_writer_create(int32_t n_threads,
   return pool;
 }
 
-// Enqueue one write; copies `data` so the caller may reuse its buffer.
-// Returns 0 on success, -1 if the pool is stopping or allocation failed.
+// Enqueue one write (`append_flag`: append to the file in place, else
+// a whole-file temp + rename); copies `data` so the caller may reuse its
+// buffer.  Returns 0 on success, -1 if the pool is stopping or
+// allocation failed.
 int32_t srtb_writer_submit(WriterPool* pool, const char* path,
                            const uint8_t* data, uint64_t nbytes,
-                           int32_t fsync_flag) {
+                           int32_t fsync_flag, int32_t append_flag) {
   if (!pool || !path) return -1;
   WriteJob job;
   job.path = path;
   job.fsync = fsync_flag != 0;
+  job.append = append_flag != 0;
   try {
     job.data.assign(data, data + nbytes);
   } catch (...) {

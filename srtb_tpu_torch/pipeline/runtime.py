@@ -143,20 +143,25 @@ class Fetched(NamedTuple):
 
 
 class Pipeline:
-    """The configured input file to the sinks, through the in-flight
-    engine.  The pipeline owns its writer pool (``writer_thread_count``
-    threads; none at 0, when every write is synchronous), as the
-    reference's builds it."""
+    """A segment source to the sinks, through the in-flight engine: the
+    given ``source`` (a UDP source, ``io/udp.py``), or else the
+    configured input file.  The source hands out its segments in buffers
+    of its ``pool``, pinned on the card (the file reader the pipeline
+    builds is).  The pipeline owns its writer pool
+    (``writer_thread_count`` threads; none at 0, when every write is
+    synchronous), as the reference's builds it."""
 
-    def __init__(self, cfg: Config, device=None):
+    def __init__(self, cfg: Config, source=None, device=None):
         check_runtime(cfg)
-        if not cfg.input_file_path:
-            raise ValueError("no input_file_path")
         self.cfg = cfg
         self.processor = SegmentProcessor(cfg, device=device)
         on_card = self.processor.device.type == "cuda"
-        self.source = make_file_source(
-            cfg, buffer_pool=BufferPool("segments", pinned=on_card))
+        if source is None:
+            if not cfg.input_file_path:
+                raise ValueError("no input_file_path and no source given")
+            source = make_file_source(
+                cfg, buffer_pool=BufferPool("segments", pinned=on_card))
+        self.source = source
         # a run that died between a temp write and its rename left
         # orphans: sweep them before the sinks open the prefix
         if cfg.baseband_output_file_prefix:
@@ -288,7 +293,7 @@ class Pipeline:
 
     def _drain_body(self, item: Fetched, drained: list) -> None:
         """The sink half of one segment: the detection gate, the sink
-        pushes, then the segment's buffer back to the reader's pool (its
+        pushes, then the segment's buffer back to the source's pool (its
         upload finished before its event).  On the sink thread with a
         window, inline in the serial leg."""
         cfg = self.cfg
@@ -305,14 +310,18 @@ class Pipeline:
                                             waterfall=item.wf,
                                             detect=item.det), positive)
         self.stats.extras["stage_s"]["sink"] += time.perf_counter() - t0
-        # file mode: the sinks keep no segment (the piggybank is for
-        # real-time input), so the buffer goes back to the reader
+        # no sink keeps the segment past its push: the write-signal sink's
+        # piggyback queue holds a real-time negative only until the
+        # re-check in the same push pops it (ref: write_signal_pipe.hpp
+        # 122-140), so the queue is empty between pushes
         self.source.pool.release(item.seg.data)
         drained[0] += 1
 
     def _drain_sinks(self) -> None:
         for sink in self.sinks:
-            sink.drain()  # the writer pool: wait for the disk
+            drain = getattr(sink, "drain", None)  # a tap may have none
+            if drain is not None:
+                drain()  # the writer pool: wait for the disk
 
     # --------------------------------------------------- the engine
 
@@ -439,6 +448,11 @@ class Pipeline:
             self._drain_sinks()
             stage_s["drain"] += time.perf_counter() - t0
         stats.elapsed_s = time.perf_counter() - start
+        # a UDP source's loss counters (ref: metrics packets_total and
+        # packets_lost)
+        for name in ("packets_total", "packets_lost"):
+            if hasattr(self.source, name):
+                stats.extras[name] = getattr(self.source, name)
         log.info(f"[pipeline] {stats.segments} segments, "
                  f"{stats.msamples_per_sec:.1f} Msamples/s")
         return stats
@@ -462,7 +476,7 @@ class Pipeline:
                 f"pipeline shutdown ({join_s:g}s join timeout)")
 
     def close(self) -> None:
-        """Release the run's resources: the reader, the writer pool the
+        """Release the run's resources: the source, the writer pool the
         pipeline owns (abandoned, not drained, after a wedged sink), the
         write-all file and the pinned segment buffers."""
         self.source.close()

@@ -25,8 +25,11 @@ class SegmentWork:
     data: np.ndarray            # uint8 [segment_bytes]
     timestamp: int = 0          # nanoseconds since epoch
     udp_packet_counter: int = NO_UDP_PACKET_COUNTER
-    # per-source emission sequence (-1 = unstamped), stamped by the
-    # file reader (io/overlap.py)
+    # which receiver of a multi-port source the segment came from
+    data_stream_id: int = 0
+    # per-source emission sequence (-1 = unstamped), stamped by the file
+    # reader and the UDP source (io/overlap.py); the engine's ring is warm
+    # only for the (data_stream_id, seq + 1) successor of its last segment
     seq: int = -1
 
 

@@ -1,5 +1,5 @@
 """Main entry point of the port, ``srtb-torch-main`` (port of
-``srtb_tpu/tools/main.py``, file input only).
+``srtb_tpu/tools/main.py``).
 
 Usage:
     srtb-torch-main --config_file_name srtb_config.cfg [--key value ...]
@@ -7,7 +7,12 @@ Usage:
 
 Takes the same ``.cfg`` file and ``--key value`` options as ``srtb-main``
 and runs on the CUDA card; ``--device cpu`` runs the plain PyTorch
-versions of the kernels on the CPU instead.  The run takes the
+versions of the kernels on the CPU instead.  Input selection follows the
+reference (main.cpp:241-271): an ``input_file_path`` that exists is read;
+one that does not ends the run with exit code 1; an empty one (the
+default) receives UDP packets, on one ``udp_receiver_port`` through
+``UdpReceiverSource`` and on several through ``MultiUdpSource``, until
+the run is interrupted.  The run takes the
 reference's defaults: an in-flight window of ``inflight_segments`` (2),
 a writer pool of ``writer_thread_count`` threads (2) owned by the
 pipeline, and ``ingest_ring = auto``; ``baseband_write_all`` appends
@@ -49,10 +54,24 @@ def _pop_device(argv: list[str]) -> str | None:
     return device
 
 
+def make_source(cfg):
+    """The reference's input selection: None for an input file that
+    exists (the pipeline reads it), FileNotFoundError for one that does
+    not, else a UDP source on the configured port(s)."""
+    if cfg.input_file_path and os.path.exists(cfg.input_file_path):
+        return None
+    if cfg.input_file_path:
+        raise FileNotFoundError(f"input file {cfg.input_file_path} not found")
+    from srtb_tpu_torch.io import udp
+    if len(cfg.udp_receiver_port) > 1:
+        return udp.MultiUdpSource(cfg)
+    return udp.UdpReceiverSource(cfg)
+
+
 def run(argv=None) -> tuple[PipelineStats, Pipeline]:
-    """Parse the options, run the file-mode search, and return the run's
-    statistics and the finished pipeline (its sink lists what it
-    wrote)."""
+    """Parse the options, run the search on the selected input, and
+    return the run's statistics and the finished pipeline (its sink lists
+    what it wrote)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _pop_device(argv)
     cfg = Config.from_args(argv)
@@ -63,13 +82,14 @@ def run(argv=None) -> tuple[PipelineStats, Pipeline]:
     if cfg.dm_list:
         raise NotImplementedError(
             "the multi-DM search is not ported yet (ROADMAP A5)")
-    if not cfg.input_file_path:
-        raise NotImplementedError(
-            "UDP input is not ported yet (ROADMAP A6); set input_file_path")
-    if not os.path.exists(cfg.input_file_path):
-        raise FileNotFoundError(f"input file {cfg.input_file_path} not found")
     log.info(f"[main] nsamps_reserved = {dd.nsamps_reserved(cfg)}")
-    pipe = Pipeline(cfg, device=device)
+    source = make_source(cfg)
+    try:
+        pipe = Pipeline(cfg, source=source, device=device)
+    except BaseException:
+        if source is not None:
+            source.close()
+        raise
     try:
         stats = pipe.run()
     finally:

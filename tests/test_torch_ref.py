@@ -352,6 +352,364 @@ def pipeline_main(argv: list, out_dir: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------ UDP harness
+# Plain socket and numpy code shared by the port's UDP tests and the
+# runner's UDP jobs: the same packets, made from a seed, go to the port's
+# receivers in the test process and to the JAX package's in the runner,
+# each from its own sender thread.  Every wait is bounded: a lost
+# datagram fails its test within UDP_TIMEOUT_S instead of hanging.
+
+UDP_TIMEOUT_S = 30.0
+
+
+def free_udp_port() -> int:
+    """A UDP port the OS picks (bound once, then released)."""
+    import socket
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def make_datagram(fmt_name: str, counter: int, payload: bytes) -> bytes:
+    """One packet of ``fmt_name``: its header with ``counter`` (LE64 at
+    offset 0, or VDIF words 6 and 7 of a 64-byte header for the gznupsr
+    formats), then the payload."""
+    import struct
+    if fmt_name.startswith("gznupsr"):
+        header = bytearray(64)
+        struct.pack_into("<2I", header, 24, counter & 0xFFFFFFFF,
+                         counter >> 32)
+        return bytes(header) + payload
+    return struct.pack("<Q", counter) + payload
+
+
+def seeded_payload(seed: int, counter: int, size: int) -> bytes:
+    """The payload of the packet with ``counter``: a duplicate of a
+    counter carries the same bytes."""
+    rng = np.random.default_rng([seed, counter])
+    return rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+
+
+def send_datagrams(port: int, datagrams, delay: float = 0.0,
+                   start_delay: float = 0.1) -> None:
+    import socket
+    import time
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    time.sleep(start_delay)  # let the receiver bind
+    for d in datagrams:
+        sock.sendto(d, ("127.0.0.1", port))
+        if delay:
+            time.sleep(delay)
+    sock.close()
+
+
+def start_thread(fn, *args):
+    import threading
+    t = threading.Thread(target=fn, args=args, daemon=True)
+    t.start()
+    return t
+
+
+def bounded(fn, what: str, timeout: float = UDP_TIMEOUT_S):
+    """``fn()`` on a daemon thread: its result, its exception re-raised,
+    or TimeoutError after ``timeout`` seconds (the thread is left
+    blocked; it dies with the process)."""
+    import threading
+    box = {}
+
+    def body():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            box["error"] = e
+    t = threading.Thread(target=body, daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        raise TimeoutError(f"{what}: no result within {timeout:g} s "
+                           "(a datagram lost on loopback?)")
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
+
+
+def receive_blocks(udp, kind: str, fmt_name: str, counters: list,
+                   seed: int, block_bytes: list) -> dict:
+    """One receiver of ``kind`` ("native", "python", "asyncio",
+    "continuous", "ring") of the module ``udp`` on a free port: the
+    packets of ``counters`` sent in that order, then one
+    ``receive_block`` a size of ``block_bytes``, each into a buffer
+    prefilled with 0xA5 (a receiver zeroes lost slots itself).  Returns
+    the blocks, their (first, lost, total) and the receiver's totals, or
+    ``skipped`` with the reason when the receiver cannot be made here."""
+    fmt = udp.formats.resolve(fmt_name)
+    port = free_udp_port()
+    makers = {"native": udp.NativeBlockReceiver,
+              "python": udp.PythonBlockReceiver,
+              "asyncio": udp.AsyncioBlockReceiver,
+              "continuous": udp.PythonContinuousReceiver}
+    try:
+        if kind == "ring":
+            rx = udp.PacketRingReceiver("", port, fmt, interface="lo")
+        else:
+            rx = makers[kind]("127.0.0.1", port, fmt)
+    except (OSError, RuntimeError) as e:
+        return {"skipped": f"{type(e).__name__}: {e}"}
+    datagrams = [make_datagram(fmt_name, c,
+                               seeded_payload(seed, c, fmt.payload_bytes))
+                 for c in counters]
+    sender = start_thread(send_datagrams, port, datagrams)
+    blocks, stamps = [], []
+    for nbytes in block_bytes:
+        out = np.full(nbytes, 0xA5, dtype=np.uint8)
+        stamps.append(bounded(lambda: rx.receive_block(out),
+                              f"{kind} receive_block"))
+        blocks.append(out)
+    sender.join(UDP_TIMEOUT_S)
+    res = {"blocks": blocks, "stamps": np.array(stamps, dtype=np.int64),
+           "total_packets": rx.total_packets,
+           "lost_packets": rx.lost_packets}
+    rx.close()
+    return res
+
+
+def source_segments(udp, cfg, counters_by_port: list, seed: int,
+                    segments: int, use_native=None,
+                    delay: float = 0.0) -> dict:
+    """``UdpReceiverSource`` (one entry in ``counters_by_port``) or
+    ``MultiUdpSource`` (several) of the module ``udp`` on ``cfg`` with
+    the receivers on free loopback ports, each port sent its counters'
+    packets (payloads seeded by ``seed`` and the port's index); returns
+    ``segments`` segments a port: their bytes, packet counters and seqs,
+    and the source's geometry and receivers' loss totals."""
+    import dataclasses
+    ports = [free_udp_port() for _ in counters_by_port]
+    cfg = dataclasses.replace(cfg, udp_receiver_address=["127.0.0.1"],
+                              udp_receiver_port=ports)
+    fmt = udp.formats.resolve(cfg.baseband_format_type)
+    multi = len(ports) > 1
+    src = (udp.MultiUdpSource(cfg, use_native=use_native) if multi
+           else udp.UdpReceiverSource(cfg, use_native=use_native))
+    senders = [start_thread(
+        send_datagrams, port,
+        [make_datagram(fmt.name, c, seeded_payload(seed + i, c,
+                                                   fmt.payload_bytes))
+         for c in counters], delay)
+        for i, (port, counters) in enumerate(zip(ports, counters_by_port))]
+    got = {i: [] for i in range(len(ports))}
+    while min(len(v) for v in got.values()) < segments:
+        seg = bounded(lambda: next(src), "source segment")
+        got[seg.data_stream_id].append(seg)
+    for t in senders:
+        t.join(UDP_TIMEOUT_S)
+    res = {}
+    for i, segs in got.items():
+        segs = segs[:segments]
+        res[str(i)] = {
+            "data": np.stack([np.array(s.data) for s in segs]),
+            "counter": np.array([s.udp_packet_counter for s in segs],
+                                dtype=np.uint64),
+            "seq": np.array([s.seq for s in segs])}
+    sources = src.sources if multi else [src]
+    res["reserved_bytes"] = sources[0].reserved_bytes
+    res["stride_bytes"] = sources[0].stride_bytes
+    res["total_packets"] = [s.receiver.total_packets for s in sources]
+    res["lost_packets"] = [s.receiver.lost_packets for s in sources]
+    src.close()
+    return res
+
+
+def stream_datagrams(fmt_name: str, payload: int, stream: np.ndarray,
+                     counter0: int) -> list:
+    """A contiguous byte stream as counter-sequential packets from
+    ``counter0``."""
+    return [make_datagram(fmt_name, counter0 + i,
+                          stream[i * payload:(i + 1) * payload].tobytes())
+            for i in range(len(stream) // payload)]
+
+
+def paced_pipeline(udp, pipeline_cls, cfg, stream: np.ndarray,
+                   segments: int, pace_s: float, out_dir: str,
+                   counter0: int = 1000, **pipeline_kwargs) -> dict:
+    """``pipeline_cls(cfg, source=UdpReceiverSource(cfg))`` of the module
+    ``udp`` on a free loopback port, fed ``stream`` (at least
+    ``segments`` segments' bytes, overlap included) as counter-sequential
+    packets: the first segment's packets at once, then each stride's
+    ``pace_s`` seconds after the source returned the previous segment, so
+    that no two segments' arrival stamps lie within the piggyback's
+    window.  ``run(max_segments=segments)``; returns each segment's
+    counter and decision, and the files written under ``out_dir`` with
+    their bytes."""
+    import dataclasses
+    import os
+    import threading
+    import time
+    port = free_udp_port()
+    cfg = dataclasses.replace(cfg, udp_receiver_address=["127.0.0.1"],
+                              udp_receiver_port=[port])
+    returned = threading.Semaphore(0)
+
+    class Paced(udp.UdpReceiverSource):
+        def __next__(self):
+            seg = super().__next__()
+            returned.release()
+            return seg
+
+    src = Paced(cfg)
+    fmt = src.fmt
+    payload = fmt.payload_bytes
+    datagrams = stream_datagrams(fmt.name, payload, stream, counter0)
+    first = src.segment_bytes // payload
+    stride = src.stride_bytes // payload
+
+    def send():
+        send_datagrams(port, datagrams[:first])
+        for k in range(1, segments):
+            if not returned.acquire(timeout=UDP_TIMEOUT_S):
+                return
+            time.sleep(pace_s)
+            lo = first + (k - 1) * stride
+            send_datagrams(port, datagrams[lo:lo + stride], start_delay=0)
+
+    pipe = pipeline_cls(cfg, source=src, **pipeline_kwargs)
+    decisions = []
+
+    class Tap:
+        def push(self, work, has_signal):
+            decisions.append((int(work.segment.udp_packet_counter),
+                              bool(has_signal)))
+    pipe.sinks.append(Tap())
+    sender = start_thread(send)
+    try:
+        bounded(lambda: pipe.run(max_segments=segments), "paced pipeline",
+                timeout=4 * UDP_TIMEOUT_S)
+        lost = src.receiver.lost_packets
+        native = type(src.receiver).__name__ == "NativeBlockReceiver"
+    finally:
+        pipe.close()
+    sender.join(UDP_TIMEOUT_S)
+    names = sorted(os.listdir(out_dir))
+    res = {"decisions": np.array(decisions, dtype=np.uint64),
+           "files": np.array(names), "reserved_bytes": src.reserved_bytes,
+           "lost_packets": lost, "native": native}
+    for name in names:
+        path = os.path.join(out_dir, name)
+        if name.endswith(".tim"):
+            res[f"tim/{name}"] = np.fromfile(path, dtype="<f4")
+        elif name.endswith(".npy"):
+            res[f"npy/{name}"] = np.load(path)
+        elif name.endswith(".bin"):
+            res[f"bin/{name}"] = np.fromfile(path, dtype=np.uint8)
+    return res
+
+
+def ref_receive_blocks(*args) -> dict:
+    """:func:`receive_blocks` on the JAX package's receivers."""
+    from srtb_tpu.io import udp
+    return receive_blocks(udp, *args)
+
+
+def ref_source_segments(fields: dict, *args, **kwargs) -> dict:
+    """:func:`source_segments` on the JAX package's sources."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.io import udp
+    return source_segments(udp, Config(**fields), *args, **kwargs)
+
+
+def ref_source_refusals(fields: dict, cases: list) -> dict:
+    """For each (overrides, use_native): the ValueError text the JAX
+    package's ``UdpReceiverSource`` raises on ``Config(**fields)`` with
+    the overrides, or "" when it builds."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.io import udp
+    out = {}
+    for i, (over, use_native) in enumerate(cases):
+        try:
+            udp.UdpReceiverSource(Config(**{**fields, **over}),
+                                  use_native=use_native).close()
+            out[str(i)] = ""
+        except ValueError as e:
+            out[str(i)] = str(e)
+    return out
+
+
+def ref_paced_pipeline(fields: dict, stream: np.ndarray, segments: int,
+                       pace_s: float, out_dir: str) -> dict:
+    """:func:`paced_pipeline` on the JAX package's source and
+    ``Pipeline``."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.io import udp
+    from srtb_tpu.pipeline.runtime import Pipeline
+    return paced_pipeline(udp, Pipeline, Config(**fields), stream, segments,
+                          pace_s, out_dir)
+
+
+def ref_write_signal_script(fields: dict, script: list, segment_bytes: int,
+                            out_dir: str) -> dict:
+    """The JAX package's ``WriteSignalSink`` fed the scripted pushes
+    (:func:`scripted_pushes`); returns the files it wrote and their
+    bytes, and the sink's queues after each push."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.io.writers import WriteSignalSink
+    from srtb_tpu.pipeline.work import SegmentResultWork, SegmentWork
+    return scripted_pushes(WriteSignalSink(Config(**fields)),
+                           SegmentResultWork, SegmentWork, script,
+                           segment_bytes, out_dir)
+
+
+def scripted_pushes(sink, result_cls, segment_cls, script: list,
+                    segment_bytes: int, out_dir: str) -> dict:
+    """Push ``script``'s (timestamp, has_signal, stream) segments into a
+    candidate writer with real-time input: segment i's bytes are i + 1
+    repeated and its packet counter is 100 + i, with no waterfall and no
+    detection (the writer's capture policy alone).  Returns the files
+    written, by name with their bytes, and the positive and negative
+    queue lengths after each push."""
+    import os
+    queues = []
+    for i, (ts, positive, stream) in enumerate(script):
+        seg = segment_cls(data=np.full(segment_bytes, i + 1, np.uint8),
+                          timestamp=int(ts), udp_packet_counter=100 + i,
+                          data_stream_id=int(stream))
+        sink.push(result_cls(segment=seg), bool(positive))
+        queues.append((len(sink.recent_positive_timestamps),
+                       len(sink.recent_negative_works)))
+    names = sorted(os.listdir(out_dir))
+    res = {"files": np.array(names), "queues": np.array(queues)}
+    for name in names:
+        res[f"bin/{name}"] = np.fromfile(os.path.join(out_dir, name),
+                                         dtype=np.uint8)
+    return res
+
+
+def ref_main_source(argv: list) -> dict:
+    """The input ``srtb-main`` selects for ``argv`` (the pipeline replaced
+    by a stub that records its source's class): its exit code and the
+    class name ("" for a run that built no pipeline, "file" for the
+    pipeline's own file reader)."""
+    from srtb_tpu.pipeline.runtime import PipelineStats
+    from srtb_tpu.tools import main as M
+    chosen = []
+
+    class Stub:
+        def __init__(self, cfg, source=None, sinks=None, **_kw):
+            chosen.append("file" if source is None
+                          else type(source).__name__)
+            self.source, self.sinks = source, []
+
+        def run(self):
+            return PipelineStats()
+
+        def close(self):
+            if self.source is not None:
+                self.source.close()
+    M.Pipeline = Stub
+    rc = M.main(list(argv))
+    return {"rc": rc, "source": chosen[0] if chosen else ""}
+
+
 def _main(req: str, out: str) -> None:
     _apply_jax_shim()
     with open(req, "rb") as f:
