@@ -42,8 +42,16 @@ result lines are printed:
    samples per segment with ``use_pallas = 1`` (the reference's staged
    plan), at 2^27 with ``fft_strategy = pallas`` twice, with the fused
    tail (``auto``) and without (``off``), the example cfg as shipped
-   (2^30, ``use_pallas = 0``: the staged plan with B3), at 2^27 with
-   ``fft_strategy = pallas2`` (B9/B10), and at 2^30 with the fused tail
+   (2^30, ``use_pallas = 0``: the staged plan with B3; and ``gui_enable =
+   1``: one waterfall frame a segment rendered on the card, the pulse
+   segment's held to a float64 render of its dumped waterfall on the
+   card, the intensity within 1e-5 relative, the pixmap equal but at
+   colour steps and edges, with the render's and the PNG's ms), the
+   staged 2^30 plan again with ``quality_stats = 1`` (``quality_2^30``:
+   each segment's quality vector held to the float64 oracle of the
+   spectrum and waterfall of a dispatch on the card, its timeline
+   complete, its decisions and candidate bytes staged_2^30's), at 2^27
+   with ``fft_strategy = pallas2`` (B9/B10), and at 2^30 with the fused tail
    and ``SRTB_STAGED_ROWS_IMPL=pallas2`` twice, front-fused (B11/B12) and
    not (K1, B9, B10, K2); then the multi-stream formats: 2 × 2^30 2-bit
    ``interleaved_samples_2`` with ``use_pallas = 1`` (the de-interleave,
@@ -136,6 +144,12 @@ MAIN_PATHS = (
     ("staged_2^30", LOG2_N, PALLAS_ON, "staged:four_step+ring",
      {"unpack_subbyte_window": 1, "rfi_s1_dedisperse": 1, "sk_stats": 1,
       "sk_apply_timeseries": 1}, {}),
+    # staged_2^30 with the quality epilogue at its defaults (every 8th
+    # bin and sample, 64 coarse bins)
+    ("quality_2^30", LOG2_N, PALLAS_ON + "quality_stats = 1\n",
+     "staged:four_step+ring",
+     {"unpack_subbyte_window": 1, "rfi_s1_dedisperse": 1, "sk_stats": 1,
+      "sk_apply_timeseries": 1}, {}),
     ("fused_2^27", LOG2_N_ROWS, PALLAS_27,
      "fused:pallas+ftail+skzap+ring",
      {"unpack_subbyte_planes_window": 1, "fft_rows": 2,
@@ -146,7 +160,8 @@ MAIN_PATHS = (
       "rfi_s1_dedisperse": 1, "fft_rows_stats": 1,
       "sk_apply_timeseries": 1}, {}),
     # the example cfg as shipped: use_pallas = use_pallas_sk = 0, no
-    # reserve; the reference's stage (c) runs XLA stage 1 and B3
+    # reserve, gui_enable = 1; the reference's stage (c) runs XLA stage 1
+    # and B3, and the GUI tap renders one waterfall frame a segment
     ("shipped_2^30", LOG2_N, "", "staged:four_step",
      {"unpack_subbyte_window": 1, "dedisperse": 1}, {}),
     ("pallas2_2^27", LOG2_N_ROWS, PALLAS2_27,
@@ -190,6 +205,24 @@ MAIN_PATHS = (
      + PALLAS_27, "fused:pallas+ftail+skzap+ring",
      {"fft_rows": 2, "rfi_s1_dedisperse": 2, "fft_rows_skzap": 2}, {}),
 )
+
+
+# the paths that run the cfg's own gui_enable (every other path sets
+# gui_enable = 0, so that its numbers stay comparable with earlier runs)
+GUI_PATHS = ("shipped_2^30",)
+# the paths whose candidate files are hashed, to compare their bytes
+DIGEST_PATHS = ("staged_2^30", "quality_2^30")
+# the same paths measured without the GUI and without the quality
+# epilogue (PERF.md section 5; H100 80GB HBM3, 700 W), printed beside
+# the numbers with them
+SHIPPED_PEAK_GB_NO_GUI = 21.88
+SHIPPED_MSAMPLES_NO_GUI = (551.4, 683.0)
+STAGED_PEAK_GB = 18.25
+# the display's gates: the float intensity within RENDER_RTOL of a float64
+# render, the pixmap equal but within BOUNDARY of a truncation step or of
+# the [0, 1] edges
+RENDER_RTOL = 1e-5
+BOUNDARY = 1e-5
 
 
 def say(msg: str) -> None:
@@ -1550,17 +1583,20 @@ def input_file(cfg, label: str, made: dict) -> Path:
     return data
 
 
-def path_cfg(out_dir: Path, extra: str, log2_n: int, label: str):
+def path_cfg(out_dir: Path, extra: str, log2_n: int, label: str,
+             gui: bool = False):
     """The example cfg with ``extra`` written to ``out_dir/smoke.cfg``
-    (outputs to ``out_dir/out_*``, deterministic timestamps), its old
-    outputs removed; returns the parsed config and the file's text."""
+    (outputs to ``out_dir/out_*``, deterministic timestamps, ``gui_enable
+    = 0`` unless ``gui``: then the cfg's own, and its frames
+    ``out_dir/waterfall_s*``), its old outputs removed; returns the parsed
+    config and the file's text."""
     from srtb_tpu_torch.config import Config
     out_dir.mkdir(parents=True, exist_ok=True)
-    for old in out_dir.glob("out_*"):
+    for old in [*out_dir.glob("out_*"), *out_dir.glob("waterfall_s*")]:
         old.unlink()
     text = CFG_EXAMPLE.read_text()
-    text += (f"\ngui_enable = 0\n"
-             f"baseband_output_file_prefix = {out_dir}/out_\n"
+    text += ("\n" + ("" if gui else "gui_enable = 0\n")
+             + f"baseband_output_file_prefix = {out_dir}/out_\n"
              "deterministic_timestamps = 1\n" + extra)
     (out_dir / "smoke.cfg").write_text(text)
     cfg = Config()
@@ -1607,7 +1643,8 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
     import torch
     from srtb_tpu_torch import kernels as K
     out_dir = OUT_DIR / label
-    cfg, text = path_cfg(out_dir, extra, log2_n, label)
+    cfg, text = path_cfg(out_dir, extra, log2_n, label,
+                         gui=label in GUI_PATHS)
     data = input_file(cfg, label, made)
     K.reset_launch_counts()
     stats, pipe, wall = run_cli(out_dir, text, data, env)
@@ -1663,13 +1700,278 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
     names = [os.path.basename(p) for f in written
              for p in [f.bin_path, *f.npy_paths, *f.tim_paths]]
     say(f"main path {label}: candidates {names}")
+    digests = _digests(pipe) if label in DIGEST_PATHS else None
+    if label in GUI_PATHS:
+        check_gui(card, label, pipe, stats, out_dir, peak)
     for files in written:  # the waterfall dumps, checked: free the disk
         for p in files.npy_paths:
             os.unlink(p)
     say(f"main path {label}: engine " + engine_numbers(stats))
     check_dispatch_syncs(pipe, label)
     return {"counts": counts, "stats": stats, "pipe": pipe, "data": data,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "digests": digests}
+
+
+def _digests(pipe) -> dict:
+    """The SHA-256 of every candidate file of a run, by name."""
+    import hashlib
+    out = {}
+    for name, path in _candidate_files(pipe).items():
+        h = hashlib.sha256()
+        with open(path, "rb") as f:
+            while chunk := f.read(1 << 26):
+                h.update(chunk)
+        out[name] = h.hexdigest()
+    return out
+
+
+# ---------------------------------------------------------------- display
+
+def pixmap64(x):
+    """The colormap in float64 arithmetic (numpy int64 ARGB words)."""
+    import numpy as np
+    from srtb_tpu_torch.ops import spectrum as sp
+    xc = np.clip(x, 0.0, 1.0)
+    out = np.zeros(x.shape, dtype=np.int64)
+    for shift in (24, 16, 8, 0):
+        c0, c1 = (sp.COLOR_0 >> shift) & 0xFF, (sp.COLOR_1 >> shift) & 0xFF
+        out |= ((1.0 - xc) * c0 + xc * c1).astype(np.int64) << shift
+    return np.where((x >= 0) & (x <= 1), out, sp.COLOR_OVERFLOW)
+
+
+def pixmap_mismatches(got, x64) -> dict:
+    """``got`` (uint32 ARGB) against the float64 intensity ``x64`` under
+    the boundary rule, channel by channel: a channel may differ only
+    within BOUNDARY of one of its truncation steps or of the [0, 1]
+    edges; the alpha channel, whose lerp is the constant 255 (a step at
+    every intensity), may read 254 or 255 in range.  Returns the counts:
+    pixels off the rule, pixels at a colour boundary, alpha-254 pixels."""
+    import numpy as np
+    want = pixmap64(x64)
+    lo, hi = pixmap64(x64 - BOUNDARY), pixmap64(x64 + BOUNDARY)
+    in_range = (x64 >= 0) & (x64 <= 1)
+    edge = ((x64 - BOUNDARY >= 0) & (x64 - BOUNDARY <= 1)) != \
+        ((x64 + BOUNDARY >= 0) & (x64 + BOUNDARY <= 1))
+    off = np.zeros(x64.shape, dtype=bool)
+    near_any = edge.copy()
+    for shift in (16, 8, 0):
+        near = edge | (((lo >> shift) & 0xFF) != ((hi >> shift) & 0xFF))
+        near_any |= near
+        off |= (((got >> shift) & 0xFF) != ((want >> shift) & 0xFF)) \
+            & ~near
+    alpha = got >> 24
+    off |= ~edge & np.where(in_range, ~np.isin(alpha, (254, 255)),
+                            alpha != 0xFF)
+    return {"off_rule": int(off.sum()), "at_boundary": int(near_any.sum()),
+            "alpha_254": int((in_range & (alpha == 254)).sum())}
+
+
+def read_png(path):
+    """The ARGB32 uint32 [h, w] pixmap of a PNG as ``write_png`` writes
+    it (one IDAT, RGBA8, filter byte 0)."""
+    import struct
+    import zlib
+    import numpy as np
+    data = Path(path).read_bytes()
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        chunks[data[pos + 4:pos + 8]] = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    w, h = struct.unpack(">II", chunks[b"IHDR"][:8])
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]),
+                         dtype=np.uint8).reshape(h, 1 + 4 * w)
+    rgba = rows[:, 1:].reshape(h, w, 4).astype(np.uint32)
+    return (rgba[..., 3] << 24) | (rgba[..., 0] << 16) | \
+        (rgba[..., 1] << 8) | rgba[..., 2]
+
+
+def render64(wf, out_h: int, out_w: int):
+    """The float64 render of a complex64 waterfall [F, T] on its device:
+    float64 power, float64 weights and products, the reference's
+    normalization (skipped at a mean below float32's eps); numpy [out_h,
+    out_w]."""
+    import numpy as np
+    import torch
+    from srtb_tpu_torch.ops import spectrum as sp
+    f_len, t_len = wf.shape
+    ri = torch.view_as_real(wf)
+    power = torch.empty(wf.shape, dtype=torch.float64, device=wf.device)
+    for r in range(0, f_len, 256):
+        p = ri[r:r + 256].to(torch.float64)
+        torch.sum(p * p, dim=-1, out=power[r:r + 256])
+        del p
+    w_freq = torch.from_numpy(sp.freq_area_weights(
+        f_len, out_h, dtype=np.float64)).to(wf.device)
+    img = w_freq @ power
+    del power
+    w_time = torch.from_numpy(sp.time_interp_weights(
+        t_len, out_w, dtype=np.float64)).to(wf.device)
+    img = img @ w_time
+    del w_time
+    avg = float(img.mean())
+    if avg > np.finfo(np.float32).eps:
+        img = img / (2.0 * avg)
+    return img.cpu().numpy()
+
+
+def check_gui(card: str, label: str, pipe, stats, out_dir: Path,
+              peak: int) -> None:
+    """The cfg as shipped renders one frame a segment: exactly
+    ``waterfall_s0_<n>.png`` for n < segments; the pulse segment's frame
+    held to a float64 render on the card of the same waterfall (its
+    ``.npy`` dump): the port's float intensity (the renderer's on that
+    waterfall) within RENDER_RTOL of it, the PNG's pixmap equal to its
+    colours under the boundary rule.  Then the render's device ms and the
+    PNG's encode-and-write ms, the peak and the rate against those
+    without the GUI."""
+    import numpy as np
+    import torch
+    from srtb_tpu_torch.gui import waterfall as GW
+    from srtb_tpu_torch.ops import spectrum as sp
+    cfg = pipe.cfg
+    frames = sorted(p.name for p in out_dir.glob("waterfall_*"))
+    want = [f"waterfall_s0_{i:06d}.png" for i in range(stats.segments)]
+    if frames != want:
+        fail(f"{label}: frames {frames}, expected {want}")
+    npy = pipe.sink.written[0].npy_paths[0]
+    wf = torch.from_numpy(np.load(npy)).to("cuda")
+    h, w = cfg.gui_pixmap_height, cfg.gui_pixmap_width
+    service = next(s.service for s in pipe.sinks
+                   if hasattr(s, "service"))
+    renderer = service.renderer
+    if tuple(renderer.w_time.shape) != (wf.shape[1], w) or \
+            tuple(renderer.w_freq.shape) != (h, wf.shape[0]):
+        fail(f"{label}: renderer geometry {tuple(renderer.w_freq.shape)} "
+             f"x {tuple(renderer.w_time.shape)} for a waterfall "
+             f"{tuple(wf.shape)}")
+    got = read_png(out_dir / want[1])
+    x32 = renderer.intensity(wf).cpu().numpy()
+    rerender = sp.generate_pixmap(torch.from_numpy(x32))
+    x64 = render64(wf, h, w)
+    zero = x64 == 0
+    rel = np.abs(x32.astype(np.float64) - x64) / np.where(zero, 1.0,
+                                                          np.abs(x64))
+    if (x32[zero] != 0).any() or float(rel.max()) > RENDER_RTOL:
+        fail(f"{label}: intensity off the float64 render by "
+             f"{float(rel.max()):.3e} relative (gate {RENDER_RTOL:g})")
+    counts = pixmap_mismatches(got, x64)
+    if counts["off_rule"]:
+        fail(f"{label}: {counts['off_rule']} pixels of {want[1]} differ "
+             "from the float64 render away from a boundary")
+    say(f"main path {label}: GUI frames {frames}; {want[1]} (the pulse "
+        f"segment) against a float64 render on the card: intensity max "
+        f"relative error {float(rel.max()):.3e} (gate {RENDER_RTOL:g}), "
+        f"{int(zero.sum())} exact zeros; pixmap equal but at boundaries: "
+        f"{counts['at_boundary']} pixels within {BOUNDARY:g} of a colour "
+        f"step or edge, {counts['alpha_254']} pixels of alpha 254 (the "
+        f"float32 lerp of the constant 255), 0 off the rule; a re-render "
+        f"of the dump differs from the frame at "
+        f"{int((rerender != got).sum())} pixels")
+    render_ms = cuda_ms(lambda: renderer.render(wf), 3)
+    intensity_ms = cuda_ms(lambda: renderer.intensity(wf), 3)
+    tmp = out_dir / "png_timing.png"
+    t0 = time.perf_counter()
+    for _ in range(3):
+        GW.write_png(str(tmp), got)
+    png_ms = (time.perf_counter() - t0) / 3 * 1e3
+    tmp.unlink()
+    del wf
+    torch.cuda.empty_cache()
+    msamples = stats.msamples_per_sec
+    say(f"main path {label}: GUI render {render_ms:.3f} ms a segment "
+        f"(CUDA events: power, the two float32 products, normalize, "
+        f"colormap and the pixmap's copy to the host; the intensity alone "
+        f"{intensity_ms:.3f} ms), PNG encode and write {png_ms:.3f} ms "
+        f"(host, {h} x {w}); peak at window "
+        f"{stats.extras['inflight_segments']} {peak / 1e9:.2f} GB against "
+        f"{SHIPPED_PEAK_GB_NO_GUI} GB without the GUI; "
+        f"{msamples:.1f} Msamples/s against {SHIPPED_MSAMPLES_NO_GUI[0]}-"
+        f"{SHIPPED_MSAMPLES_NO_GUI[1]} without it; card {card}")
+
+
+def phase_quality(run, card: str) -> dict:
+    """quality_2^30: the timeline holds one dict a segment, and each
+    segment's vector, from one dispatch on the card (the spectrum the
+    epilogue read and the waterfall copied from it), is held to the float64
+    oracle: the counts behind zap_frac, the occupancy row, dead_frac and
+    hot_frac exactly, every other slot within 1e-5 relative.  Then the
+    epilogue's device ms and the peak against staged_2^30's."""
+    import numpy as np
+    import torch
+    from srtb_tpu_torch.io.file_input import make_file_source
+    from srtb_tpu_torch.pipeline import segment as SEG
+    from srtb_tpu_torch.quality import stats as Q
+    from srtb_tpu_torch.utils.bufferpool import BufferPool
+    pipe, stats = run["pipe"], run["stats"]
+    cfg, sp = pipe.cfg, pipe.processor
+    timeline = stats.extras.get("quality", [])
+    if [d["segment"] for d in timeline] != list(range(stats.segments)):
+        fail(f"quality_2^30: timeline segments "
+             f"{[d['segment'] for d in timeline]}, {stats.segments} run")
+    bins, dead, hot, k = sp.quality_params
+    pool = BufferPool("quality check", pinned=True)
+    src = make_file_source(cfg, buffer_pool=pool)
+    spectrum_stats = Q.spectrum_stats
+    errors, ms = [], {}
+    for i, seg in enumerate(src):
+        seen = []
+
+        def recording(spec, *args):
+            seen.append(spec.clone())
+            return spectrum_stats(spec, *args)
+        SEG.Q.spectrum_stats = recording
+        try:
+            wf, res = sp.process(seg.data)
+        finally:
+            SEG.Q.spectrum_stats = spectrum_stats
+        pool.release(seg.data)
+        got = res.quality.cpu().numpy()
+        spec = seen[0]
+        if i == 0:
+            ms["spectrum half"] = cuda_ms(
+                lambda: Q.spectrum_stats(spec, bins, k), 5)
+            ms["waterfall half"] = cuda_ms(
+                lambda: Q.waterfall_stats(wf, dead, hot, k), 5)
+        want = Q.quality_stats_oracle(spec.cpu().numpy(), wf.cpu().numpy(),
+                                      bins, dead, hot, subsample=k)
+        del spec, wf, res, seen
+        exact = [Q.IDX_ZAP_FRAC, Q.IDX_DEAD_FRAC, Q.IDX_HOT_FRAC,
+                 *range(Q.N_SCALARS, Q.N_SCALARS + bins)]
+        rest = [j for j in range(got.shape[-1]) if j not in exact]
+        if not np.array_equal(got[:, exact], want[:, exact]):
+            fail(f"quality_2^30: segment {i}: counts differ from the "
+                 f"oracle: {got[:, exact]} vs {want[:, exact]}")
+        rel = float((np.abs(got[:, rest].astype(np.float64) - want[:, rest])
+                     / np.abs(want[:, rest]).clip(1e-30)).max())
+        if rel > 1e-5:
+            fail(f"quality_2^30: segment {i}: {rel:.3e} relative off the "
+                 "oracle (gate 1e-5)")
+        errors.append(rel)
+        for key, idx in (("zap_frac", Q.IDX_ZAP_FRAC),
+                         ("sk_mean", Q.IDX_SK_MEAN)):
+            if timeline[i][key] != round(float(got[0, idx]), 5):
+                fail(f"quality_2^30: segment {i}: the run's {key} "
+                     f"{timeline[i][key]}, this dispatch's {got[0, idx]}")
+        say(f"quality_2^30: segment {i}: vector against the float64 "
+            f"oracle: counts exact, other slots {rel:.3e} relative (gate "
+            f"1e-5); zap_frac {got[0, Q.IDX_ZAP_FRAC]:.6f}, bandpass mean "
+            f"{got[0, Q.IDX_BANDPASS_MEAN]:.6f} var "
+            f"{got[0, Q.IDX_BANDPASS_VAR]:.6e}, sk mean "
+            f"{got[0, Q.IDX_SK_MEAN]:.6f} max {got[0, Q.IDX_SK_MAX]:.6f}, "
+            f"dead {got[0, Q.IDX_DEAD_FRAC]}, hot {got[0, Q.IDX_HOT_FRAC]}")
+    src.close()
+    pool.free_all()
+    torch.cuda.empty_cache()
+    peak = run["peak_bytes"]
+    say(f"quality_2^30: epilogue {ms['spectrum half']:.3f} + "
+        f"{ms['waterfall half']:.3f} ms a segment (CUDA events; every "
+        f"{k}th bin and sample, {bins} coarse bins); peak at window "
+        f"{stats.extras['inflight_segments']} {peak / 1e9:.2f} GB against "
+        f"staged_2^30's {STAGED_PEAK_GB} GB without the epilogue; "
+        f"timeline "
+        f"{len(timeline)} dicts; card {card}")
+    return {"epilogue_ms": ms, "max_rel": max(errors)}
 
 
 def check_dispatch_syncs(pipe, label: str) -> None:
@@ -2756,6 +3058,20 @@ def _compare_with_file_mode(card, label, lines, log2_n, files, pipe,
         f"candidates {extra}; card {card}")
 
 
+def check_same_candidates(staged: dict, quality: dict) -> None:
+    """The quality epilogue changes nothing the search decides or writes:
+    quality_2^30's decisions and candidate bytes are staged_2^30's."""
+    a, b = staged["stats"], quality["stats"]
+    if (a.segments, a.signals) != (b.segments, b.signals) or \
+            staged["digests"] != quality["digests"]:
+        fail(f"quality_2^30: decisions ({b.segments}, {b.signals}) or "
+             f"candidate files {quality['digests']} differ from "
+             f"staged_2^30's ({a.segments}, {a.signals}) "
+             f"{staged['digests']}")
+    say(f"quality_2^30: decisions and candidate bytes equal staged_2^30's "
+        f"({sorted(quality['digests'])})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2789,6 +3105,7 @@ def main() -> int:
             "dualpol_2^30_chain_ms": breakdowns["dualpol_2^30"]["chain_ms"]})
     breakdown_30 = {
         "staged_2^30": phase_breakdown,
+        "quality_2^30": lambda run: phase_quality(run, card),
         "shipped_2^30": phase_breakdown_shipped,
         "staged_pallas2_2^30": phase_breakdown_staged_rows,
         "ffuse_2^30": ffuse,
@@ -2803,6 +3120,7 @@ def main() -> int:
             breakdowns[label] = breakdown_30[label](runs[label])
             del runs[label]["pipe"]
             say(f"card memory after {label}: {free_card()}")
+    check_same_candidates(runs["staged_2^30"], runs["quality_2^30"])
     fused = phase_breakdown_rows(runs["fused_2^27"], runs["unfused_2^27"])
     phase_breakdown_pallas2(runs["pallas2_2^27"], fused["chain_ms"])
     phase_breakdown_gznupsr(runs["gznupsr_2^27"], fused["chain_ms"])
@@ -2829,6 +3147,7 @@ def main() -> int:
                    for label, run in runs.items()}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
+    lap("all phases")
     print(card, flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,20 @@
 """Synthetic baseband generation (port of ``srtb_tpu/io/synth.py``).
 
 Gaussian noise plus impulses dispersed by the inverse of the
-dedispersion chirp, quantized to the digitizer's bit width.  Everything
-runs in PyTorch on the given device with an explicit ``torch.Generator``,
-so a 2^30-sample segment is made on the card in a second instead of the
-minutes a host FFT of that length takes.
+dedispersion chirp, quantized to the digitizer's bit width.  Two makers:
+
+- :func:`make_dispersed_baseband` runs in PyTorch on the given device with
+  an explicit ``torch.Generator``, so a 2^30-sample segment is made on
+  the card in a second instead of the minutes a host FFT of that length
+  takes (``chip_smoke.py``'s inputs);
+- :func:`make_dispersed_baseband_host` is the reference's own generator,
+  numpy float64 with ``default_rng(seed)``: the same arguments give the
+  same bytes as ``srtb-make-baseband`` (``tools/make_baseband.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from srtb_tpu_torch.ops import dedisperse as dd
@@ -96,3 +102,65 @@ def make_dispersed_baseband(n: int, f_min: float, bandwidth: float,
         x += torch.fft.irfft(spec, n)
         del spec
     return quantize(x, nbits)
+
+
+# ---------------------------------------------------------------- host
+# The reference's numpy generator, for byte-identical files.
+
+def pack_subbyte_host(values: np.ndarray, nbits: int) -> np.ndarray:
+    """Pack small unsigned ints MSB-first into bytes (numpy), the inverse
+    of the unpack for nbits in {1, 2, 4}."""
+    per_byte = 8 // nbits
+    v = np.asarray(values, dtype=np.uint8).reshape(-1, per_byte)
+    out = np.zeros(v.shape[0], dtype=np.uint16)
+    for j in range(per_byte):
+        out |= (v[:, j].astype(np.uint16) & ((1 << nbits) - 1)) \
+            << (8 - nbits * (j + 1))
+    return out.astype(np.uint8)
+
+
+def quantize_host(sig: np.ndarray, nbits: int) -> np.ndarray:
+    """The byte stream of an ``nbits``-per-sample unsigned baseband from a
+    zero-mean float signal (numpy; scale to ~3 sigma, offset to
+    mid-scale, clip), 1, 2, 4, 8 or 16 bits."""
+    levels = 1 << abs(nbits)
+    if nbits == 1:
+        return pack_subbyte_host((sig > 0).astype(np.uint8), 1)
+    mid = levels / 2
+    scale = (levels / 2 - 0.5) / 3.0
+    q = np.clip(np.round(sig / sig.std() * scale + mid), 0, levels - 1)
+    q = q.astype(np.uint8 if abs(nbits) <= 8 else np.uint16)
+    if nbits in (2, 4):
+        return pack_subbyte_host(q, nbits)
+    if nbits == 8:
+        return q.astype(np.uint8)
+    if nbits == 16:
+        return q.astype("<u2").view(np.uint8)
+    raise ValueError(f"unsupported nbits {nbits}")
+
+
+def make_dispersed_baseband_host(n: int, f_min: float, bandwidth: float,
+                                 dm: float, pulse_positions, nbits: int = 8,
+                                 pulse_amp: float = 40.0,
+                                 pulse_width: int = 32,
+                                 seed: int = 0) -> np.ndarray:
+    """Real-valued baseband of ``n`` samples: unit noise + dispersed
+    impulses at ``pulse_positions``, quantized to ``nbits``, in numpy
+    float64 from ``default_rng(seed)``; the packed uint8 byte stream."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n)
+    pulse = np.zeros(n)
+    if np.isscalar(pulse_positions):
+        pulse_positions = [pulse_positions]
+    for pos in pulse_positions:
+        pos = int(pos)
+        pulse[pos:pos + pulse_width] += \
+            pulse_amp * rng.standard_normal(min(pulse_width, n - pos))
+    n_spec = n // 2
+    f_c = f_min + bandwidth
+    df = bandwidth / n_spec
+    chirp = dd.chirp_factor_host(n_spec, f_min, df, f_c, dm)
+    spec = np.fft.rfft(pulse)
+    spec[:n_spec] *= np.conj(chirp)  # disperse (medium = inverse chirp)
+    sig = x + np.fft.irfft(spec, n)
+    return quantize_host(sig, nbits)

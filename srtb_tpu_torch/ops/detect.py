@@ -55,6 +55,9 @@ class DetectResult(NamedTuple):
     signal_counts: torch.Tensor      # [S, n_boxcars] int32
     boxcar_series: torch.Tensor      # [S, n_boxcars, T] f32, zero tail
     snr_peaks: torch.Tensor          # [S, n_boxcars] f32
+    # the quality vector [S, 7 + 2B] f32 when Config.quality_stats is on
+    # (quality/stats.py), else None
+    quality: torch.Tensor | None = None
 
 
 def time_series_error_gates(k_ch: int, t_len: int, ts_raw_max: float,

@@ -55,6 +55,7 @@ from srtb_tpu_torch.io.writers import (WriteAllSink, WriteSignalSink,
 from srtb_tpu_torch.pipeline import framework as fw
 from srtb_tpu_torch.pipeline.segment import SegmentProcessor
 from srtb_tpu_torch.pipeline.work import SegmentResultWork
+from srtb_tpu_torch.quality.stats import QualityMonitor
 from srtb_tpu_torch.utils import termination
 from srtb_tpu_torch.utils.bufferpool import BufferPool
 from srtb_tpu_torch.utils.logging import log
@@ -103,7 +104,9 @@ UNPORTED_RUNTIME = (
     ("fault_plan", "ROADMAP A7: fault injection"),
     ("segment_deadline_s", "ROADMAP A7: segment deadlines and the "
                            "watchdog"),
-    ("canary_every_segments", "ROADMAP A4: the canary"),
+    ("canary_every_segments", "ROADMAP A9: the canary, whose results "
+                              "go to detection health, the SLO and "
+                              "incident bundles"),
     ("telemetry_journal_path", "ROADMAP A9: the span journal"),
     ("events_dump_path", "ROADMAP A9: the flight recorder"),
     ("incident_dir", "ROADMAP A9: incident bundles"),
@@ -177,6 +180,8 @@ class Pipeline:
                 cfg, writer_pool=self._owned_writer_pool,
                 host_pool=BufferPool("npy", pinned=on_card))]
         self.stats = PipelineStats()
+        # the quality vectors' consumer (None unless quality_stats)
+        self.quality = QualityMonitor.from_config(cfg)
         # drain-order indices of the segments the gate called positive
         self.positive_segments: list[int] = []
         # the ring's device-resident carry (None = cold) and the seq of
@@ -256,7 +261,8 @@ class Pipeline:
         time between its dispatch returning and this fetch starting, the
         time the engine hid under the card's work; its device seconds run
         from dispatch start to fetch end (exact in the serial leg, an
-        upper bound in a window)."""
+        upper bound in a window).  A quality vector goes to the monitor
+        here, in drain order."""
         extras = self.stats.extras
         t0 = time.perf_counter()
         hidden = max(0.0, t0 - item.t_dispatched)
@@ -267,6 +273,9 @@ class Pipeline:
         stage_s["dispatch"] += item.dispatch_s
         stage_s["overlap"] += hidden
         stage_s["fetch"] += fetch_s
+        if self.quality is not None and item.det.quality is not None:
+            self.quality.observe(item.det.quality.numpy(),
+                                 segment=len(extras["device_s_per_segment"]))
         extras["device_s_per_segment"].append(
             item.dispatch_s + hidden + fetch_s)
         extras["overlap_hidden_s_per_segment"].append(hidden)
@@ -332,7 +341,9 @@ class Pipeline:
         pushes, summed on whichever thread ran them, and ``drain``: the
         writer pool's final flush); per segment, in drain order,
         ``device_s_per_segment`` (the first carries one-time set-up),
-        ``overlap_hidden_s_per_segment`` and ``h2d_bytes_per_segment``."""
+        ``overlap_hidden_s_per_segment`` and ``h2d_bytes_per_segment``;
+        with ``quality_stats``, ``quality``: the monitor's timeline, one
+        dict a segment in drain order (the last ``TIMELINE_SPANS``)."""
         cfg = self.cfg
         window = max(1, int(cfg.inflight_segments or 1))
         stats = self.stats
@@ -448,6 +459,8 @@ class Pipeline:
             self._drain_sinks()
             stage_s["drain"] += time.perf_counter() - t0
         stats.elapsed_s = time.perf_counter() - start
+        if self.quality is not None:
+            stats.extras["quality"] = self.quality.timeline()
         # a UDP source's loss counters (ref: metrics packets_total and
         # packets_lost)
         for name in ("packets_total", "packets_lost"):

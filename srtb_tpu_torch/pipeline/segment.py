@@ -127,6 +127,7 @@ from srtb_tpu_torch.ops import fft as F
 from srtb_tpu_torch.ops import rfi
 from srtb_tpu_torch.ops import unpack as U
 from srtb_tpu_torch.ops import window as W
+from srtb_tpu_torch.quality import stats as Q
 from srtb_tpu_torch.utils.device import resolve_device
 from srtb_tpu_torch.utils.logging import log
 
@@ -291,8 +292,6 @@ def check_plan(cfg: Config) -> None:
     def no(what: str, item: str) -> None:
         raise NotImplementedError(f"{what} is not ported yet ({item})")
 
-    if cfg.quality_stats:
-        no("quality_stats", "ROADMAP A4: quality statistics")
     if cfg.search_mode != "single_pulse":
         no(f"search_mode = {cfg.search_mode}",
            "ROADMAP A5: periodicity search")
@@ -398,6 +397,14 @@ class SegmentProcessor:
         self.ring_cold_dispatches = 0
         self.ring_warm_dispatches = 0
         self._copy_stream = None
+        # the quality epilogue's (coarse bins, dead and hot thresholds,
+        # subsample), as the reference reads them; None: off
+        self.quality_params = None
+        if cfg.quality_stats:
+            self.quality_params = (int(cfg.quality_coarse_bins or 64),
+                                   float(cfg.quality_dead_threshold),
+                                   float(cfg.quality_hot_threshold),
+                                   int(cfg.quality_subsample or 1))
         log.debug(f"[segment] n={n} spectrum={self.n_spectrum} "
                   f"channels={self.channel_count} watfft={self.watfft_len} "
                   f"reserved={self.nsamps_reserved} plan={self.plan_name} "
@@ -707,7 +714,8 @@ class SegmentProcessor:
     def run_device(self, raw: torch.Tensor
                    ) -> tuple[torch.Tensor, det.DetectResult]:
         """The chain on one segment's device-resident bytes, enqueued on
-        the current stream: no host read, no synchronisation."""
+        the current stream: no host read, no synchronisation.  With
+        ``quality_stats`` the result carries the quality vector."""
         cfg = self.cfg
         spec = self._spectrum(raw)
         if self._plain_s1:
@@ -718,16 +726,38 @@ class SegmentProcessor:
                 rfi.mitigate_rfi_average_and_normalize(
                     spec, cfg.mitigate_rfi_average_method_threshold,
                     self.norm_coeff), self.rfi_zap)
+            # the reference's quality tap: the spectrum before the chirp
+            q_spec = self._spectrum_quality(spec)
             out = torch.empty_like(spec)
             for s in range(spec.shape[0]):
                 dedisperse(spec[s], self.f_min, self.df, self.f_c, cfg.dm,
                            out=out[s])
             spec = out
-        elif not self.fused_tail:
-            # stage 1 + manual mask + chirp: K2 after a mean-power reduction
-            spec = self._k2(spec, rfi_threshold(
-                spec, cfg.mitigate_rfi_average_method_threshold))
-        return self._waterfall_detect(spec)
+        else:
+            if not self.fused_tail:
+                # stage 1 + manual mask + chirp: K2 after a mean-power
+                # reduction
+                spec = self._k2(spec, rfi_threshold(
+                    spec, cfg.mitigate_rfi_average_method_threshold))
+            q_spec = self._spectrum_quality(spec)
+        wf, result = self._waterfall_detect(spec)
+        if q_spec is not None:
+            _bins, dead, hot, k = self.quality_params
+            result = result._replace(quality=Q.pack_stats(
+                q_spec, Q.waterfall_stats(wf, dead, hot, k)))
+        return wf, result
+
+    def _spectrum_quality(self, spec: torch.Tensor):
+        """The spectrum half of the quality vector (None when off),
+        computed as soon as the spectrum the reference reads exists: after
+        stage 1 and the manual mask (the chirp is unit-modulus, so before
+        or after it the bins' powers agree to rounding and their zeros
+        exactly), so that no spectrum is held for the epilogue; the
+        waterfall half follows the SK zap (:meth:`run_device`)."""
+        if self.quality_params is None:
+            return None
+        bins, _dead, _hot, k = self.quality_params
+        return Q.spectrum_stats(spec, bins, k)
 
     def run_device_ring(self, raw: torch.Tensor):
         """The ring's step on a staged segment, warm or cold (the bytes

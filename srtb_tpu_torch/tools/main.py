@@ -68,6 +68,32 @@ def make_source(cfg):
     return udp.UdpReceiverSource(cfg)
 
 
+def make_waterfall_service(cfg, device=None):
+    """The reference's waterfall service for ``cfg``: the engine's
+    waterfall geometry, frames into the output prefix's directory."""
+    from srtb_tpu_torch.gui.waterfall import WaterfallService
+    n_spec = cfg.baseband_input_count // 2
+    nchan = min(cfg.spectrum_channel_count, n_spec)
+    out_dir = os.path.dirname(cfg.baseband_output_file_prefix) or "."
+    return WaterfallService(cfg, in_freq=nchan, in_time=n_spec // nchan,
+                            out_dir=out_dir, device=device)
+
+
+class WaterfallTap:
+    """The sink after the writers that feeds the waterfall service: every
+    segment's waterfall is pushed and rendered at once, on whichever
+    thread runs the sinks (the ``sink_drain`` thread with a window, its
+    launches on the sink's copy stream after the segment's event)."""
+
+    def __init__(self, service):
+        self.service = service
+
+    def push(self, work, has_signal):
+        if work.waterfall is not None:
+            self.service.push(work.waterfall, work.segment.data_stream_id)
+            self.service.render_pending()
+
+
 def run(argv=None) -> tuple[PipelineStats, Pipeline]:
     """Parse the options, run the search on the selected input, and
     return the run's statistics and the finished pipeline (its sink lists
@@ -75,15 +101,16 @@ def run(argv=None) -> tuple[PipelineStats, Pipeline]:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _pop_device(argv)
     cfg = Config.from_args(argv)
-    if cfg.gui_enable or cfg.gui_http_port:
-        raise NotImplementedError(
-            "the waterfall GUI is not ported yet (ROADMAP A4); run with "
-            "--gui_enable 0")
     if cfg.dm_list:
         raise NotImplementedError(
             "the multi-DM search is not ported yet (ROADMAP A5)")
+    if cfg.gui_http_port and not cfg.gui_enable:
+        # a live viewer port only makes sense with frames being rendered
+        log.info("[main] gui_http_port set: enabling the waterfall service")
+        cfg.gui_enable = True
     log.info(f"[main] nsamps_reserved = {dd.nsamps_reserved(cfg)}")
     source = make_source(cfg)
+    gui_server = None
     try:
         pipe = Pipeline(cfg, source=source, device=device)
     except BaseException:
@@ -91,9 +118,25 @@ def run(argv=None) -> tuple[PipelineStats, Pipeline]:
             source.close()
         raise
     try:
+        if cfg.gui_enable:
+            service = make_waterfall_service(cfg, pipe.processor.device)
+            pipe.sinks.append(WaterfallTap(service))
+        if cfg.gui_http_port:
+            from srtb_tpu_torch.gui.server import WaterfallHTTPServer
+            from srtb_tpu_torch.resilience.supervisor import Supervisor
+            # the configured restart budget covers the viewer; it is
+            # best-effort, so it restarts whatever the error
+            gui_server = WaterfallHTTPServer(
+                service.out_dir, port=cfg.gui_http_port,
+                supervisor=Supervisor(
+                    "gui_server", max_restarts=cfg.supervisor_max_restarts,
+                    window_s=cfg.supervisor_window_s,
+                    restart_fatal=True)).start()
         stats = pipe.run()
     finally:
         pipe.close()
+        if gui_server is not None:
+            gui_server.stop()
     log.info(f"[main] done: {stats.segments} segments, "
              f"{stats.signals} with signal, "
              f"{stats.msamples_per_sec:.1f} Msamples/s")

@@ -1,0 +1,65 @@
+"""Generate a synthetic dispersed-pulse baseband file (port of
+``srtb_tpu/tools/make_baseband.py``, ``srtb-torch-make-baseband``).
+
+The reference's tool does no device work: its generator is numpy float64
+from ``default_rng(seed)``.  This one runs the port's copy of that
+generator (``io/synth.make_dispersed_baseband_host``), so the same
+arguments write the same bytes:
+
+    python -m srtb_tpu_torch.tools.make_baseband --out /tmp/demo.bin \\
+        --n "2 ** 22" --freq_low 1405 --bandwidth 64 --dm 60 \\
+        --pulses "2**20, 3*2**20" --nbits 2
+
+then search it with matching options:
+
+    python -m srtb_tpu_torch.tools.main --input_file_path /tmp/demo.bin \\
+        --baseband_input_count "2 ** 21" --baseband_input_bits 2 \\
+        --baseband_freq_low 1405 --baseband_bandwidth 64 --dm 60 ...
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from srtb_tpu_torch.io.synth import make_dispersed_baseband_host
+from srtb_tpu_torch.utils.expression import parse_expression
+from srtb_tpu_torch.utils.logging import log
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--out", required=True)
+    p.add_argument("--n", default="2 ** 22",
+                   help="total samples (expression ok)")
+    p.add_argument("--freq_low", default="1405")
+    p.add_argument("--bandwidth", default="64")
+    p.add_argument("--dm", default="60")
+    p.add_argument("--pulses", default="",
+                   help="comma-separated sample positions (expressions); "
+                        "default: one pulse mid-file")
+    p.add_argument("--nbits", type=int, default=8,
+                   choices=[1, 2, 4, 8, 16])
+    p.add_argument("--pulse_amp", type=float, default=40.0)
+    p.add_argument("--pulse_width", type=int, default=32)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    n = int(parse_expression(args.n))
+    positions = [int(parse_expression(s)) for s in args.pulses.split(",")
+                 if s.strip()] or [n // 2]
+    data = make_dispersed_baseband_host(
+        n, float(parse_expression(args.freq_low)),
+        float(parse_expression(args.bandwidth)),
+        float(parse_expression(args.dm)), positions, nbits=args.nbits,
+        pulse_amp=args.pulse_amp, pulse_width=args.pulse_width,
+        seed=args.seed)
+    data.tofile(args.out)
+    log.info(f"[make_baseband] wrote {data.nbytes} bytes "
+             f"({n} samples @ {args.nbits} bit, dm {args.dm}, "
+             f"pulses at {positions}) -> {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,48 @@
+"""Offline time-series plotting helper (port of
+``srtb_tpu/tools/plot_tim.py``, ref: src/plot_tim.py;
+``srtb-torch-plot-tim``).
+
+Reads the raw float32 ``.tim`` boxcar series the candidate writer dumps:
+with matplotlib, plots each to ``<file>.png``; without it, prints each
+series' length, maximum, mean and standard deviation.
+
+Usage:
+  python -m srtb_tpu_torch.tools.plot_tim [GLOB ...]
+"""
+
+from __future__ import annotations
+
+import glob
+import sys
+
+import numpy as np
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    paths = []
+    for pattern in (argv or ["*.tim"]):
+        paths.extend(glob.glob(pattern))
+    for p in sorted(paths):
+        ts = np.fromfile(p, dtype="<f4")
+        out_path = p + ".png"
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            print(f"{p}: n={ts.size} max={ts.max():.3f} "
+                  f"mean={ts.mean():.3f} std={ts.std():.3f}")
+            continue
+        fig, ax = plt.subplots(figsize=(12, 4))
+        ax.plot(ts, linewidth=0.5)
+        ax.set_xlabel("time sample")
+        ax.set_ylabel("power (mean-subtracted)")
+        fig.savefig(out_path, dpi=120)
+        plt.close(fig)
+        print(out_path)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,18 +1,24 @@
 """The port's ``srtb-torch-main`` against the JAX package's ``srtb-main``:
 both search one synthetic 2-bit file of three overlapping segments with a
-dispersed pulse in the middle one, with deterministic timestamps, and
-must flag the same segments and write the same artifacts."""
+dispersed pulse in the middle one, with deterministic timestamps and the
+waterfall GUI on, and must flag the same segments and write the same
+artifacts and waterfall frames."""
 
 import os
+import socket
 
 import numpy as np
 import pytest
+import torch
 
+from srtb_tpu_torch.gui import server as GS
+from srtb_tpu_torch.gui import waterfall as GW
 from srtb_tpu_torch.io import formats
 from srtb_tpu_torch.io.writers import WriteSignalSink
 from srtb_tpu_torch.ops import dedisperse as dd
 from srtb_tpu_torch.ops import detect as det
 from srtb_tpu_torch.tools import main as M
+from test_torch_display import assert_pixmaps_match, intensity64, read_png
 from test_torch_ref import run_reference
 from test_torch_segment import slice_config, stream_bytes
 
@@ -56,24 +62,41 @@ def make_case(tmp, fmt: str = "simple", bits: int = 2):
     return argv, nres
 
 
+def recording_pushes(mp: pytest.MonkeyPatch) -> list:
+    """Record every waterfall the port's GUI tap pushes (wf_ri [2, S, F,
+    T] float32 and the stream id)."""
+    pushed = []
+    push = GW.WaterfallService.push
+
+    def recording(self, wf, data_stream_id=0):
+        ri = torch.view_as_real(wf).movedim(-1, 0)
+        pushed.append((ri.numpy().copy(), data_stream_id))
+        return push(self, wf, data_stream_id)
+    mp.setattr(GW.WaterfallService, "push", recording)
+    return pushed
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pipeline")
     argv, nres = make_case(tmp)
-    argv += ["--writer_thread_count", "0"]
+    argv += ["--writer_thread_count", "0", "--gui_enable", "1"]
     dirs = {}
     for who in ("port", "ref"):
         dirs[who] = tmp / who
         dirs[who].mkdir()
     ref = run_reference(
-        [{"key": "main", "fn": "test_torch_ref:pipeline_main",
+        [{"key": "main", "fn": "test_torch_ref:pipeline_main_gui",
           "args": [argv + ["--baseband_output_file_prefix",
                            f"{dirs['ref']}/out_"], str(dirs["ref"])]}],
         tmp)
-    stats, pipe = M.run(argv + ["--baseband_output_file_prefix",
-                                f"{dirs['port']}/out_", "--device", "cpu"])
+    with pytest.MonkeyPatch.context() as mp:
+        pushed = recording_pushes(mp)
+        stats, pipe = M.run(argv + ["--baseband_output_file_prefix",
+                                    f"{dirs['port']}/out_", "--device",
+                                    "cpu"])
     return {"ref": ref, "stats": stats, "pipe": pipe, "dirs": dirs,
-            "nres": nres}
+            "nres": nres, "pushed": pushed}
 
 
 def test_same_segments_and_artifacts(runs):
@@ -150,11 +173,69 @@ def test_candidate_contents(runs):
     assert os.path.dirname(files.npy_paths[0]) == str(dirs["port"])
 
 
-def test_cli_device_option_and_missing_file(tmp_path):
+def test_cli_device_option_and_missing_file(tmp_path, runs):
     argv = ["--input_file_path", str(tmp_path / "missing.bin"), "--device",
             "cpu", "--config_file_name", str(tmp_path / "none.cfg")]
     assert M.main(list(argv)) == 1
     parsed = list(argv)
     assert M._pop_device(parsed) == "cpu" and "--device" not in parsed
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        M.run(argv + ["--gui_enable", "1"])
+    # gui_enable 1: one frame a segment, named and coloured as the
+    # reference's (the boundary rule, between the two packages' float64
+    # renders of their own waterfalls), candidates as above
+    ref, dirs = runs["ref"], runs["dirs"]
+    frames = sorted(n for n in os.listdir(dirs["port"])
+                    if n.startswith("waterfall_"))
+    assert frames == [f"waterfall_s0_{i:06d}.png" for i in range(3)]
+    assert frames == [n for n in ref["main/files"].tolist()
+                      if n.startswith("waterfall_")]
+    pushed = runs["pushed"]
+    assert len(pushed) == 3 and int(ref["main/pushed/2/stream"]) == 0
+    cfg = runs["pipe"].cfg
+    h, w = cfg.gui_pixmap_height, cfg.gui_pixmap_width
+    for i, name in enumerate(frames):
+        got = read_png(np.fromfile(dirs["port"] / name, dtype=np.uint8))
+        want = read_png(ref[f"main/png/{name}"])
+        wf_port, stream = pushed[i]
+        wf_ref = ref[f"main/pushed/{i}/wf_ri"]
+        assert stream == 0 and wf_port.shape == wf_ref.shape
+        x_port, x_ref = (intensity64(
+            wf[0, 0].astype(np.float64) ** 2
+            + wf[1, 0].astype(np.float64) ** 2, h, w)
+            for wf in (wf_port, wf_ref))
+        assert_pixmaps_match(got, want, x_port, name, x_ref)
+        renderer = GW.WaterfallRenderer(*wf_port.shape[2:], h, w,
+                                        device="cpu")
+        assert np.array_equal(got, renderer.render(torch.complex(
+            torch.from_numpy(wf_port[0, 0]),
+            torch.from_numpy(wf_port[1, 0]))))
+
+
+def free_tcp_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_gui_http_port_turns_the_gui_on(tmp_path, monkeypatch):
+    """``gui_http_port`` with ``gui_enable 0``: the reference's rule turns
+    the GUI on, the viewer serves the frames' directory on that port
+    during the run and its thread is joined after it."""
+    argv, _nres = make_case(tmp_path)
+    servers = []
+    init = GS.WaterfallHTTPServer.__init__
+
+    def recording(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        servers.append(self)
+    monkeypatch.setattr(GS.WaterfallHTTPServer, "__init__", recording)
+    port = free_tcp_port()
+    stats, pipe = M.run(argv + [
+        "--gui_http_port", str(port), "--writer_thread_count", "0",
+        "--baseband_output_file_prefix", f"{tmp_path}/out_",
+        "--device", "cpu"])
+    assert pipe.cfg.gui_enable and stats.segments == 3
+    assert len(servers) == 1 and servers[0].port == port
+    assert not servers[0]._thread.is_alive()
+    assert sorted(n for n in os.listdir(tmp_path)
+                  if n.startswith("waterfall_")) == [
+        f"waterfall_s0_{i:06d}.png" for i in range(3)]

@@ -349,7 +349,236 @@ def pipeline_main(argv: list, out_dir: str) -> dict:
             res[f"tim/{name}"] = np.fromfile(path, dtype="<f4")
         elif name.endswith(".npy"):
             res[f"npy/{name}"] = np.load(path)
+        elif name.endswith(".png"):
+            res[f"png/{name}"] = np.fromfile(path, dtype=np.uint8)
     return res
+
+
+def pipeline_main_gui(argv: list, out_dir: str) -> dict:
+    """:func:`pipeline_main` with every waterfall the GUI tap pushes
+    recorded (``pushed/<i>``: wf_ri [2, S, F, T] and its stream id)."""
+    from srtb_tpu.gui.waterfall import WaterfallService
+    pushed = []
+    push = WaterfallService.push
+
+    def recording(self, wf_ri, data_stream_id=0):
+        pushed.append({"wf_ri": np.asarray(wf_ri),
+                       "stream": data_stream_id})
+        return push(self, wf_ri, data_stream_id)
+    WaterfallService.push = recording
+    try:
+        res = pipeline_main(argv, out_dir)
+    finally:
+        WaterfallService.push = push
+    res["pushed"] = pushed
+    return res
+
+
+# ------------------------------------------------------------ display
+# The JAX package's waterfall, viewer and display tools, for
+# tests/test_torch_display.py.
+
+def render_waterfall(wf_ri: np.ndarray, out_h: int, out_w: int) -> dict:
+    """``WaterfallRenderer(F, T, out_h, out_w).render`` of one stream's
+    ``wf_ri [2, F, T]``, with the float intensity the colormap reads
+    (its ``_render_impl`` before ``generate_pixmap``)."""
+    import jax.numpy as jnp
+    from srtb_tpu.gui.waterfall import WaterfallRenderer
+    from srtb_tpu.ops import spectrum as sp
+    r = WaterfallRenderer(wf_ri.shape[1], wf_ri.shape[2], out_h, out_w)
+    x = jnp.asarray(wf_ri)
+    power = x[0] ** 2 + x[1] ** 2
+    img = sp.normalize_by_average(
+        sp.resample_spectrum(power, r.w_freq, r.w_time))
+    return {"pixmap": r.render(wf_ri), "intensity": img}
+
+
+def png_bytes(argb: np.ndarray, path: str) -> dict:
+    """``write_png`` of ``argb`` to ``path``; the file's bytes."""
+    from srtb_tpu.gui.waterfall import write_png
+    write_png(path, argb)
+    return {"bytes": np.fromfile(path, dtype=np.uint8)}
+
+
+def scroll_script(scroller_cls, in_freq: int, width: int, height: int,
+                  script: list) -> dict:
+    """A ``ScrollingWaterfall`` of ``scroller_cls`` driven by ``script``:
+    ("push", power [in_freq]) or ("consume", None) steps.  Returns the
+    request size before each step, each consume's count, ``lines_total``
+    after each step and the final render."""
+    sw = scroller_cls(in_freq, width, height)
+    sizes, taken, totals = [], [], []
+    for op, arg in script:
+        sizes.append(sw.scheduler.get_next_request_size())
+        if op == "push":
+            sw.push_spectrum(arg)
+        else:
+            taken.append(sw.consume())
+        totals.append(sw.lines_total)
+    return {"sizes": np.array(sizes), "taken": np.array(taken),
+            "totals": np.array(totals), "render": sw.render()}
+
+
+def ref_scroll_script(*args) -> dict:
+    """:func:`scroll_script` on the JAX package's scroller."""
+    from srtb_tpu.gui.waterfall import ScrollingWaterfall
+    return scroll_script(ScrollingWaterfall, *args)
+
+
+def ref_waterfall_service(fields: dict, in_freq: int, in_time: int,
+                          pushes: list, out_dir: str) -> dict:
+    """The JAX package's ``WaterfallService`` on ``Config(**fields)``: each
+    (wf_ri [2, S, F, T], stream) pushed and ``render_pending`` called;
+    returns the paths returned and every file under ``out_dir`` with its
+    bytes."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.gui.waterfall import WaterfallService
+    svc = WaterfallService(Config(**fields), in_freq, in_time,
+                           out_dir=out_dir)
+    returned = []
+    for wf_ri, stream in pushes:
+        svc.push(wf_ri, stream)
+        returned.append(os.path.basename(svc.render_pending() or ""))
+    names = sorted(os.listdir(out_dir))
+    res = {"returned": np.array(returned), "files": np.array(names)}
+    for name in names:
+        res[f"png/{name}"] = np.fromfile(os.path.join(out_dir, name),
+                                         dtype=np.uint8)
+    return res
+
+
+VIEWER_TIMEOUT_S = 10.0
+
+
+def viewer_responses(server_cls, directory: str, paths: list,
+                     **kwargs) -> dict:
+    """``server_cls(directory, port=0, **kwargs)`` started on an OS-chosen
+    port, one GET of each path (each bounded at ``VIEWER_TIMEOUT_S``), then
+    stopped: each response's status, content type and body, and whether
+    the serve thread ended."""
+    import urllib.error
+    import urllib.request
+    server = server_cls(directory, port=0, **kwargs).start()
+    res = {}
+    try:
+        for i, path in enumerate(paths):
+            url = f"http://127.0.0.1:{server.port}{path}"
+            try:
+                with urllib.request.urlopen(
+                        url, timeout=VIEWER_TIMEOUT_S) as r:
+                    code, ctype, body = r.status, r.headers.get(
+                        "Content-Type", ""), r.read()
+            except urllib.error.HTTPError as e:
+                code, ctype, body = e.code, e.headers.get(
+                    "Content-Type", "") or "", e.read()
+            res[str(i)] = {"status": code, "type": ctype,
+                           "body": np.frombuffer(body, dtype=np.uint8)}
+    finally:
+        server.stop()
+    res["thread_ended"] = not server._thread.is_alive()
+    return res
+
+
+def ref_viewer_responses(directory: str, paths: list) -> dict:
+    """:func:`viewer_responses` on the JAX package's server."""
+    from srtb_tpu.gui.server import WaterfallHTTPServer
+    return viewer_responses(WaterfallHTTPServer, directory, paths)
+
+
+class block_matplotlib:
+    """``import matplotlib`` raises ImportError inside the block."""
+
+    def __enter__(self):
+        self.saved = {k: sys.modules[k] for k in list(sys.modules)
+                      if k == "matplotlib" or k.startswith("matplotlib.")}
+        for k in self.saved:
+            del sys.modules[k]
+        sys.modules["matplotlib"] = None
+
+    def __exit__(self, *exc):
+        del sys.modules["matplotlib"]
+        sys.modules.update(self.saved)
+
+
+def ref_plot_spectrum_fallback(path: str) -> dict:
+    """The JAX package's ``plot_spectrum.plot_one`` with matplotlib
+    blocked: the PNG it writes, by bytes."""
+    from srtb_tpu.tools.plot_spectrum import plot_one
+    with block_matplotlib():
+        out = plot_one(path)
+    return {"name": os.path.basename(out),
+            "bytes": np.fromfile(out, dtype=np.uint8)}
+
+
+def run_printing(main, argv: list, matplotlib: bool) -> dict:
+    """``main(argv)`` with its standard output captured, matplotlib
+    blocked unless ``matplotlib``: the exit code and the text."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    block = contextlib.nullcontext() if matplotlib else block_matplotlib()
+    with block, contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    return {"rc": rc, "stdout": buf.getvalue()}
+
+
+def ref_plot_tim(argv: list, matplotlib: bool) -> dict:
+    """:func:`run_printing` of the JAX package's ``plot_tim.main``."""
+    from srtb_tpu.tools.plot_tim import main
+    return run_printing(main, argv, matplotlib)
+
+
+def ref_make_baseband(argv: list) -> dict:
+    """``srtb-make-baseband`` on ``argv`` (its ``--out`` file's bytes)."""
+    from srtb_tpu.tools.make_baseband import main
+    rc = main(list(argv))
+    out = argv[argv.index("--out") + 1]
+    return {"rc": rc, "bytes": np.fromfile(out, dtype=np.uint8)}
+
+
+def ref_running_mean(data: np.ndarray, windowsize: int,
+                     ave: np.ndarray) -> dict:
+    """The JAX package's ``running_mean`` on device arrays (its scan
+    indexes them with traced indices)."""
+    import jax.numpy as jnp
+    from srtb_tpu.ops.running_mean import running_mean
+    out, fin = running_mean(jnp.asarray(data), windowsize, jnp.asarray(ave))
+    return {"out": out, "ave": fin}
+
+
+def supervisor_script(supervisor_cls, max_restarts: int, window_s: float,
+                      times: list) -> dict:
+    """A ``restart_fatal`` supervisor of ``supervisor_cls`` on a clock
+    that reads ``times`` in turn: ``should_restart`` at each time (one
+    clock read each), then the restarts inside the window."""
+    clock_values = []
+
+    def clock():
+        return clock_values.pop(0)
+    sup = supervisor_cls("test", max_restarts=max_restarts,
+                         window_s=window_s, restart_fatal=True, clock=clock)
+    decisions = []
+    for t in times:
+        clock_values.append(t)
+        decisions.append(sup.should_restart(RuntimeError("crash")))
+    return {"decisions": np.array(decisions), "restarts": sup.restarts}
+
+
+def ref_supervisor_script(*args) -> dict:
+    """:func:`supervisor_script` on the JAX package's supervisor."""
+    from srtb_tpu.resilience.supervisor import Supervisor
+    return supervisor_script(Supervisor, *args)
+
+
+def quality_monitor_script(fields: dict, vectors: list) -> dict:
+    """The JAX package's ``QualityMonitor.from_config`` observing each
+    vector in turn: the dicts, as JSON, and the timeline."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.quality.stats import QualityMonitor
+    mon = QualityMonitor.from_config(Config(**fields))
+    outs = [mon.observe(v, segment=i) for i, v in enumerate(vectors)]
+    return {"json": json.dumps(outs),
+            "timeline": json.dumps(mon.timeline())}
 
 
 # ------------------------------------------------------------ UDP harness

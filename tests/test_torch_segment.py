@@ -577,10 +577,14 @@ A2_BUILDS = {
 
 def test_unported_settings_raise(ref):
     cfg = slice_config(1 << 12, 32, 0.0)
-    for change in ({"quality_stats": True}, {"search_mode": "periodicity"},
+    for change in ({"search_mode": "periodicity"},
                    {"micro_batch_segments": 2}):
         with pytest.raises(NotImplementedError):
             SegmentProcessor(cfg.replace(**change), device="cpu")
+    # the quality epilogue builds now, at the reference's defaults
+    # (tests/test_torch_quality.py holds its vectors)
+    assert SegmentProcessor(cfg.replace(quality_stats=True),
+                            device="cpu").quality_params == (64, 0.1, 10.0, 8)
     # the ingest ring: "on" builds the ring plan, "off" leaves it out,
     # and "on" without a reserved tail raises as in the reference
     rcfg = CASES["n16_ch32"][0]
