@@ -82,7 +82,31 @@ result lines are printed:
    seconds by stage, overlap-hidden seconds and H2D bytes per segment
    and peak memory; the candidate files of all runs must be identical in
    name and bytes;
-8. live: the AF_PACKET ring receiver once on loopback (or the reason it
+8. batch: micro-batch (``micro_batch_segments``) on fused_2^27 on the
+   window phase's 8-segment file at B = 2 (window 2) and B = 4 (window
+   4), the ingest ring on and off: each run's candidate files identical
+   in name and bytes to the window phase's first (B = 1, defaults) run's,
+   the plan the reference's, the launches a segment the table's, the H2D
+   bytes a segment the stride model (the first batch's segments whole,
+   then strides), one dispatch a batch, and one batch dispatched again
+   under ``set_sync_debug_mode("error")``; gznupsr_2^27 (two streams) at
+   B = 2 against B = 1; Msamples/s beside B = 1's, the peaks and the wall
+   seconds by stage; then ``torch.profiler`` over fused_2^27's 8 segments
+   at B = 1 and B = 2: the device's busy and idle share of the traced
+   window, its longest idle gaps with the host frames that held them, the
+   top device operations and the host's labelled seconds by stage;
+9. durability: the port's SIGKILL crash soak
+   (``srtb_tpu_torch/tools/crash_soak.py``) with fused_2^27's cfg on a
+   file of 4 segments (the pulse in segments 1 and 2), the checkpoint and
+   the run manifest armed, each life of the run a child process on the
+   card: the kill plan ``ckpt_stall@1,rename@1`` at B = 1 (the writer
+   pool) and ``ckpt_stall@2`` at B = 2 (a kill inside a batch;
+   synchronous writes, so its resume must skip a replayed push), each
+   gated: every kill landed, ``fsck`` clean, the output set equal to the golden run's
+   by SHA-256, no orphan temp; then fsck's selftest, a probe of
+   ``fdatasync``, ``fsync`` of a file and a directory and ``os.replace``,
+   and an allocation on the card after the kills;
+10. live: the AF_PACKET ring receiver once on loopback (or the reason it
    cannot run: it needs CAP_NET_RAW), then ``srtb-torch-main``'s default
    input, UDP packets: a loopback sender process streams
    ``fastmb_roach2`` packets at the J1644-4559 rate (32 MB/s a port)
@@ -1507,10 +1531,11 @@ def phase_kernels(copy_gbps: float) -> list:
 
 
 def make_input_file(cfg, path: Path, segments: int = 2,
-                    pulse_segment: int = 1, seed: int = 100) -> dict:
+                    pulse_segment=1, seed: int = 100) -> dict:
     """``segments`` segments of the cfg's format and sample width made on
     the card, a dispersed pulse in stream 0 of segment ``pulse_segment``
-    (None: nowhere) and noise elsewhere: each stream quantized apart from
+    (a tuple: of each of those segments; None: nowhere) and noise
+    elsewhere: each stream quantized apart from
     its own generator seed, then interleaved in the format's own layout.
     Segment k >= 1 is the tail of segment k - 1 and the first stride of
     block k; the last block is one byte short, so the overlap-save reader
@@ -1532,6 +1557,8 @@ def make_input_file(cfg, path: Path, segments: int = 2,
     # 2 * channel_count samples each, i.e. the first n - 2 nres samples
     # (the reference's trim): aim at the middle of the searched span
     pulse_at = (n - 3 * nres) // 2
+    pulses = (() if pulse_segment is None else (pulse_segment,)
+              if isinstance(pulse_segment, int) else tuple(pulse_segment))
     with open(path, "wb") as f:
         for i in range(segments):
             rows = []
@@ -1540,7 +1567,7 @@ def make_input_file(cfg, path: Path, segments: int = 2,
                     seed + i + 1000 * s)
                 rows.append(synth.make_dispersed_baseband(
                     n, cfg.baseband_freq_low, cfg.baseband_bandwidth, cfg.dm,
-                    [pulse_at] if i == pulse_segment and s == 0 else [],
+                    [pulse_at] if i in pulses and s == 0 else [],
                     nbits=cfg.baseband_input_bits, pulse_amp=40.0,
                     pulse_width=32, device="cuda", generator=gen))
             block = synth.interleave_streams(
@@ -1555,8 +1582,8 @@ def make_input_file(cfg, path: Path, segments: int = 2,
     info = {"format": fmt.name, "streams": streams, "segment_bytes": seg,
             "reserved_bytes": reserved, "segments": segments,
             "pulse_segment": pulse_segment}
-    if pulse_segment is not None:
-        info[f"pulse_sample_in_segment_{pulse_segment}"] = nres + pulse_at
+    for i in pulses:
+        info[f"pulse_sample_in_segment_{i}"] = nres + pulse_at
     return info
 
 
@@ -2060,7 +2087,7 @@ def _same_bytes(a: str, b: str) -> bool:
     return True
 
 
-def phase_window(card: str) -> dict:
+def phase_window(card: str, keep: str = "fused_2^27") -> dict:
     """The in-flight engine against the serial leg, and the ring on
     against off at the window, on longer files: each path of
     ``WINDOW_PATHS`` runs at ``WINDOW_SETTINGS`` in the order of
@@ -2068,7 +2095,8 @@ def phase_window(card: str) -> dict:
     overlap-hidden seconds and H2D bytes per segment and peak memory; the
     candidate files of every run must be identical in name and bytes to
     the first run's, and the pulse segment (if any) the only positive
-    one."""
+    one.  The input file and the first run's candidate files of path
+    ``keep`` stay for the batch phase (``data``, ``first``)."""
     import shutil
     import torch
     out = {}
@@ -2123,8 +2151,9 @@ def phase_window(card: str) -> dict:
                 "stage_s": stats.extras["stage_s"]})
             del pipe
             free_card()
-        data.unlink()
-        shutil.rmtree(OUT_DIR / f"window_{label}_0")
+        if label != keep:
+            data.unlink()
+            shutil.rmtree(OUT_DIR / f"window_{label}_0")
         summary = {name: {
             "msamples_per_s": [r["msamples_per_s"] for r in rs],
             "elapsed_s": [r["elapsed_s"] for r in rs],
@@ -2135,6 +2164,471 @@ def phase_window(card: str) -> dict:
             f"in {compare_s:.1f} s); summary "
             + json.dumps(summary) + f"; card {card}")
         out[label] = summary
+        if label == keep:
+            out[label] = dict(summary, data=data, first=first)
+    return out
+
+
+# ------------------------------------------------------------ micro-batch
+
+# the batch phase's runs of fused_2^27 on the window phase's 8-segment
+# file: (name, micro_batch_segments, inflight_segments, ingest_ring)
+BATCH_SETTINGS = (("b2", 2, 2, "auto"), ("b2_ring_off", 2, 2, "off"),
+                  ("b4", 4, 4, "auto"), ("b4_ring_off", 4, 4, "off"))
+
+
+def _main_path(label: str) -> tuple:
+    """The ``MAIN_PATHS`` entry of ``label``."""
+    return next(p for p in MAIN_PATHS if p[0] == label)
+
+
+def _same_candidates(label: str, got: dict, want: dict) -> None:
+    """Fail unless two runs' candidate files agree in name and bytes."""
+    if sorted(got) != sorted(want):
+        fail(f"{label}: candidate files {sorted(got)}, expected "
+             f"{sorted(want)}")
+    for name, path in got.items():
+        if not _same_bytes(path, want[name]):
+            fail(f"{label}: {name} differs from the single dispatches'")
+
+
+def run_batch_path(card: str, label: str, tag: str, data: Path,
+                   segments: int, b: int, window: int, ring: str,
+                   want: dict, positives: list) -> dict:
+    """One micro-batched run of main path ``label`` on ``data``: its
+    candidate files against ``want`` (a B = 1 run's, by name) byte for
+    byte, the plan the reference's, the launches a segment the plan's
+    table, the H2D bytes a segment the stride model (the first batch
+    cold, whole segments; every later one warm, B strides), one dispatch
+    a batch; prints Msamples/s, the peak and the engine's wall seconds by
+    stage.  Returns the run's numbers and the pipeline."""
+    import torch
+    from srtb_tpu_torch import kernels as K
+    _l, log2_n, extra, plan, per_segment, env = _main_path(label)
+    out_dir = OUT_DIR / f"batch_{label}_{tag}"
+    cfg, text = path_cfg(out_dir, extra + (
+        f"micro_batch_segments = {b}\ninflight_segments = {window}\n"
+        f"ingest_ring = {ring}\n"), log2_n, label)
+    K.reset_launch_counts()
+    stats, pipe, wall = run_cli(out_dir, text, data, env)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    proc = pipe.processor
+    ex = stats.extras
+    say(f"batch {label} {tag} (B = {b}, window {window}, ring {ring}): "
+        f"plan {proc.plan_name}, {stats.segments} segments in "
+        f"{ex['dispatches']} dispatches, positive {pipe.positive_segments},"
+        f" {stats.msamples_per_sec:.1f} Msamples/s ({stats.elapsed_s:.3f} "
+        f"s, {wall:.3f} s with set-up), max_memory_allocated {peak} bytes "
+        f"({peak / 1e9:.2f} GB); card {card}; engine "
+        + engine_numbers(stats))
+    want_plan = plan if ring == "auto" else plan.removesuffix("+ring")
+    if proc.plan_name != want_plan:
+        fail(f"batch {label} {tag}: plan {proc.plan_name}, expected "
+             f"{want_plan}")
+    if stats.segments != segments or pipe.positive_segments != positives:
+        fail(f"batch {label} {tag}: {stats.segments} segments, positive "
+             f"{pipe.positive_segments}; expected {segments} and "
+             f"{positives}")
+    if ex["dispatches"] != segments // b:
+        fail(f"batch {label} {tag}: {ex['dispatches']} dispatches for "
+             f"{segments} segments at B = {b}")
+    for name, count in counts.items():
+        if count != per_segment.get(name, 0) * segments:
+            fail(f"batch {label} {tag}: kernel {name} launched {count} "
+                 f"times for {segments} segments, the table says "
+                 f"{per_segment.get(name, 0)} a segment")
+    seg = proc.stride_bytes + proc.reserved_bytes
+    h2d = ([seg] * b + [proc.stride_bytes] * (segments - b)
+           if ring == "auto" else [seg] * segments)
+    if ex["h2d_bytes_per_segment"] != h2d:
+        fail(f"batch {label} {tag}: H2D bytes a segment "
+             f"{ex['h2d_bytes_per_segment']}, the stride model {h2d}")
+    _same_candidates(f"batch {label} {tag}", _candidate_files(pipe), want)
+    return {"msamples_per_s": stats.msamples_per_sec,
+            "elapsed_s": stats.elapsed_s, "peak_bytes": peak,
+            "stage_s": ex["stage_s"], "counts": counts, "pipe": pipe,
+            "out_dir": out_dir}
+
+
+def check_batch_syncs(pipe, b: int, label: str) -> None:
+    """One batch of the run's first B segments dispatched again under
+    ``torch.cuda.set_sync_debug_mode("error")``: no call of the uploads,
+    the lanes or the result copies may synchronise with the card.  Then
+    the lanes' decisions, which must be the run's."""
+    import torch
+    from srtb_tpu_torch.io.file_input import make_file_source
+    from srtb_tpu_torch.pipeline.runtime import has_signal
+    from srtb_tpu_torch.utils.bufferpool import BufferPool
+    pool = BufferPool("batch dispatch check", pinned=True)
+    src = make_file_source(pipe.cfg, buffer_pool=pool)
+    segs = [next(src) for _ in range(b)]
+    src.close()
+    pipe._ring_invalidate()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        items = pipe._dispatch_batch(segs, [0] * b, 0)
+    except RuntimeError as e:
+        fail(f"{label}: a batch dispatch synchronised with the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    items[-1].done.synchronize()
+    decisions = [has_signal(pipe.cfg, item.det,
+                            frequency_bin_count=item.wf.shape[-2])
+                 for item in items]
+    pipe._ring_invalidate()
+    del items
+    for seg in segs:
+        pool.release(seg.data)
+    pool.free_all()
+    want = [i in pipe.positive_segments for i in range(b)]
+    if decisions != want:
+        fail(f"{label}: decisions {decisions} of the checked batch, the "
+             f"run's {want}")
+    say(f"{label}: one batch of {b} dispatched under "
+        f"set_sync_debug_mode('error'): no synchronising call; decisions "
+        f"{decisions}")
+
+
+@contextlib.contextmanager
+def engine_labels():
+    """``torch.profiler.record_function`` labels around the engine's host
+    stages (set-up, read, dispatch, fetch, sink, the final drain, close),
+    for a profiled run only: the engine's methods are wrapped here and
+    restored after."""
+    import torch
+    from srtb_tpu_torch.io import file_input as FI
+    from srtb_tpu_torch.pipeline import runtime as R
+    wrapped = ((R.Pipeline, "__init__", "srtb:setup"),
+               (R.Pipeline, "close", "srtb:close"),
+               (FI.DeterministicTimestampReader, "__next__", "srtb:read"),
+               (R.Pipeline, "_dispatch_segment", "srtb:dispatch"),
+               (R.Pipeline, "_dispatch_batch", "srtb:dispatch"),
+               (R.Pipeline, "_fetch_inflight", "srtb:fetch"),
+               (R.Pipeline, "_drain_body", "srtb:sink"),
+               (R.Pipeline, "_drain_sinks", "srtb:drain"))
+    saved = [(cls, name, cls.__dict__[name]) for cls, name, _l in wrapped]
+
+    def labelled(fn, label):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return inner
+
+    for cls, name, label in wrapped:
+        setattr(cls, name, labelled(cls.__dict__[name], label))
+    try:
+        yield
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_summary(trace: Path, top: int = 6, names: dict | None = None
+                  ) -> dict:
+    """From a ``torch.profiler`` chrome trace: the traced window (first to
+    last event), the device's busy share (the union of its kernels,
+    copies and sets over the window) and idle share, the longest idle
+    gaps each with the host frames that held it (the ``srtb:`` labels and
+    the innermost host operation open at the gap's middle, by thread),
+    the device operations with the most time, and the host's labelled
+    seconds by stage and thread (``names`` names threads by id)."""
+    names = names or {}
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                  e["name"]) for e in events
+                 if e.get("cat") in DEVICE_CATEGORIES)
+    host = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"],
+             e.get("tid"), e.get("cat")) for e in events
+            if e.get("cat") in ("user_annotation", "cpu_op",
+                                "cuda_runtime", "cuda_driver")]
+    if not dev:
+        return {"device_events": 0}
+    t0 = min(dev[0][0], min(h[0] for h in host))
+    t1 = max(max(d[1] for d in dev), max(h[1] for h in host))
+    busy, gaps, cur_s, cur_e = 0.0, [], dev[0][0], dev[0][1]
+    if cur_s > t0:
+        gaps.append((t0, cur_s))
+    for a, z, _n in dev[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            gaps.append((cur_e, a))
+            cur_s, cur_e = a, z
+        else:
+            cur_e = max(cur_e, z)
+    busy += cur_e - cur_s
+    if t1 > cur_e:
+        gaps.append((cur_e, t1))
+
+    def frames(mid):
+        by_thread = {}
+        for a, z, name, tid, cat in host:
+            if a <= mid <= z:
+                by_thread.setdefault(tid, []).append((z - a, name, cat))
+        out = []
+        for tid, opens in by_thread.items():
+            labels = [n for _d, n, c in sorted(opens, reverse=True)
+                      if c == "user_annotation"]
+            inner = min(opens)[1]
+            out.append(f"{names.get(tid, f'thread {tid}')}: "
+                       f"{' > '.join(labels) or '-'} [{inner}]")
+        return out or ["no host frame open"]
+
+    longest = sorted(gaps, key=lambda g: g[0] - g[1])[:top]
+    ops: dict = {}
+    for a, z, name in dev:
+        ops[name] = ops.get(name, 0.0) + (z - a)
+    labelled: dict = {}
+    for a, z, name, tid, cat in host:
+        if cat == "user_annotation" and name.startswith("srtb:"):
+            key = f"{name} ({names.get(tid, f'thread {tid}')})"
+            labelled[key] = labelled.get(key, 0.0) + (z - a) / 1e6
+    return {
+        "window_s": (t1 - t0) / 1e6, "device_busy_s": busy / 1e6,
+        "device_busy_share": busy / (t1 - t0),
+        "device_idle_share": 1 - busy / (t1 - t0),
+        "device_events": len(dev),
+        "longest_idle_gaps": [
+            {"ms": (z - a) / 1e3, "at_s": (a - t0) / 1e6,
+             "host": frames((a + z) / 2)} for a, z in longest],
+        "top_device_ops_ms": {
+            name[:240]: t / 1e3 for name, t in sorted(
+                ops.items(), key=lambda kv: -kv[1])[:top]},
+        "host_labelled_s": labelled}
+
+
+def profile_batch(card: str, label: str, data: Path, b: int) -> dict:
+    """``torch.profiler`` (CPU and CUDA activity, every thread where this
+    torch can: the sink thread's too) over a whole run of ``label`` on
+    ``data`` at B = ``b`` (window max(2, b)), its chrome trace under
+    ``build/chip_smoke/``, and :func:`trace_summary`."""
+    import threading
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    kwargs, all_threads = {}, True
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        kwargs["experimental_config"] = _ExperimentalConfig(
+            profile_all_threads=True)
+    except (ImportError, TypeError):
+        all_threads = False  # this torch traces the calling thread only
+    _l, log2_n, extra, _plan, _per, env = _main_path(label)
+    out_dir = OUT_DIR / f"profile_{label}_b{b}"
+    cfg, text = path_cfg(out_dir, extra + (
+        f"micro_batch_segments = {b}\ninflight_segments = {max(2, b)}\n"),
+        log2_n, label)
+    with engine_labels(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA],
+                                  **kwargs) as prof:
+        stats, pipe, wall = run_cli(out_dir, text, data, env)
+        torch.cuda.synchronize()
+    trace = out_dir / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    summary = trace_summary(trace, names={
+        threading.get_native_id(): "engine thread"})
+    summary.update(all_threads=all_threads,
+                   msamples_per_s=stats.msamples_per_sec,
+                   elapsed_s=stats.elapsed_s, wall_s=wall,
+                   stage_s=stats.extras["stage_s"],
+                   trace_bytes=trace.stat().st_size)
+    say(f"profile {label} B = {b}: " + json.dumps(summary)
+        + f"; card {card}")
+    if not summary["device_events"]:
+        say(f"profile {label} B = {b}: torch.profiler recorded no device "
+            "activity on this machine; the busy share is not measured")
+    for files in pipe.sink.written:
+        for p in files.npy_paths:
+            os.unlink(p)
+    trace.unlink()
+    return summary
+
+
+def phase_batch(card: str, window: dict, runs: dict) -> dict:
+    """Micro-batch on the card: fused_2^27 on the window phase's 8-segment
+    file (the pulse in segment 5) at B = 2 (window 2) and B = 4 (window
+    4), the ring auto and off, each run's candidate files byte for byte
+    the window phase's first (B = 1, defaults) run's, with the plan, the
+    launches, the H2D stride model and the dispatch count gated
+    (:func:`run_batch_path`); one batch re-dispatched under the sync
+    check; gznupsr_2^27 (two streams) at B = 2 against B = 1 on its main
+    path file; then ``torch.profiler`` over the 8 segments at B = 1 and
+    B = 2 (:func:`profile_batch`).  ``counts`` holds each gated run's
+    launches, by path."""
+    import shutil
+    w = window["fused_2^27"]
+    data, first = w["data"], w["first"]
+    out = {"b1_msamples_per_s": w["default"]["msamples_per_s"],
+           "b1_peak_bytes": w["default"]["peak_bytes"], "counts": {}}
+    for tag, b, win, ring in BATCH_SETTINGS:
+        run = run_batch_path(card, "fused_2^27", tag, data, 8, b, win,
+                             ring, first, [5])
+        if tag == "b2":
+            check_batch_syncs(run["pipe"], b, "batch fused_2^27 b2")
+        shutil.rmtree(run.pop("out_dir"))
+        del run["pipe"]
+        out["counts"][f"batch_fused_2^27_{tag}"] = run.pop("counts")
+        out[tag] = run
+        free_card()
+    say("batch fused_2^27: Msamples/s at B = 1 (window phase, defaults) "
+        f"{out['b1_msamples_per_s']}, B = 2 "
+        f"{[out[t]['msamples_per_s'] for t in ('b2', 'b2_ring_off')]}, "
+        f"B = 4 {[out[t]['msamples_per_s'] for t in ('b4', 'b4_ring_off')]}"
+        f" (ring auto, off); peaks B = 1 {out['b1_peak_bytes']}, B = 2 "
+        f"{out['b2']['peak_bytes']}, B = 4 {out['b4']['peak_bytes']} bytes;"
+        f" card {card}")
+    # two streams: B = 1 against B = 2 on the main path's 2-segment file
+    gz = runs["gznupsr_2^27"]["data"]
+    _l, log2_n, extra, _plan, _per, env = _main_path("gznupsr_2^27")
+    out_dir = OUT_DIR / "batch_gznupsr_2^27_single"
+    _cfg, text = path_cfg(out_dir, extra, log2_n, "gznupsr_2^27")
+    _stats, pipe1, _wall = run_cli(out_dir, text, gz, env)
+    gz_run = run_batch_path(card, "gznupsr_2^27", "b2", gz, 2, 2, 2,
+                            "auto", _candidate_files(pipe1), [1])
+    shutil.rmtree(gz_run.pop("out_dir"))
+    shutil.rmtree(out_dir)
+    del gz_run["pipe"], pipe1
+    out["counts"]["batch_gznupsr_2^27_b2"] = gz_run.pop("counts")
+    out["gznupsr_b2"] = gz_run
+    free_card()
+    for b in (1, 2):
+        out[f"profile_b{b}"] = profile_batch(card, "fused_2^27", data, b)
+        free_card()
+    data.unlink()
+    shutil.rmtree(OUT_DIR / "window_fused_2^27_0")
+    return out
+
+
+# ------------------------------------------------------------- durability
+
+DURABILITY_SEGMENTS = 4
+DURABILITY_PULSES = (1, 2)
+# (B, kill plan, writer_thread_count: None keeps the cfg's pool of 2,
+# whose last commits of a segment land at its next submit or drain, so
+# a stall kill rolls that segment back; 0 writes synchronously, so the
+# kill leaves its group committed and the resume skips the replay)
+DURABILITY_SOAKS = ((1, "ckpt_stall@1,rename@1", None),
+                    (2, "ckpt_stall@2", 0))
+
+
+def probe_durable_syscalls(d: Path) -> dict:
+    """Whether the file system under ``d`` does what the manifest's
+    protocol needs: ``fdatasync`` and ``fsync`` of a file, ``fsync`` of
+    its directory, and an ``os.replace`` over an existing file; each
+    "ok" or the error."""
+    out = {}
+    tmp, final = d / "probe.tmp", d / "probe"
+    final.write_bytes(b"old")
+
+    def attempt(name, fn):
+        try:
+            fn()
+            out[name] = "ok"
+        except OSError as e:
+            out[name] = f"{type(e).__name__}: {e}"
+
+    with open(tmp, "wb") as f:
+        f.write(b"new")
+        f.flush()
+        attempt("fdatasync(file)", lambda: os.fdatasync(f.fileno()))
+        attempt("fsync(file)", lambda: os.fsync(f.fileno()))
+    attempt("os.replace", lambda: os.replace(tmp, final))
+    out["replaced"] = final.read_bytes() == b"new"
+
+    def dir_fsync():
+        fd = os.open(d, os.O_RDONLY | getattr(os, "O_DIRECTORY", 0))
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+
+    attempt("fsync(directory)", dir_fsync)
+    final.unlink()
+    return out
+
+
+def phase_durability(card: str) -> dict:
+    """Durable exactly-once runs on the card: fused_2^27's cfg on a file
+    of 4 segments with the pulse in segments 1 and 2, deterministic
+    timestamps, the checkpoint and the manifest armed, through the port's
+    crash soak (``srtb_tpu_torch/tools/crash_soak.py``, a child process a
+    life of the run on the card): the kill plan ``ckpt_stall@1,rename@1``
+    at B = 1 with the cfg's writer pool, then ``ckpt_stall@2`` at B = 2 (a
+    kill inside a batch) with synchronous writes, whose resume must skip
+    the killed segment's committed push, against the same golden run; each soak's gate (fsck clean, the
+    output set the golden run's by SHA-256, every kill landed, no
+    orphan).  Then fsck's selftest, the file system probe and an
+    allocation on the card after the kills."""
+    import dataclasses
+    import shutil
+    import torch
+    from srtb_tpu_torch.tools import crash_soak as CS
+    from srtb_tpu_torch.tools import fsck as FS
+    _l, log2_n, extra, _plan, _per, _env = _main_path("fused_2^27")
+    root = OUT_DIR / "durability"
+    if root.exists():
+        shutil.rmtree(root)
+    cfg, _text = path_cfg(root / "cfg", extra, log2_n, "durability")
+    data = root / "input.bin"
+    t0 = time.perf_counter()
+    info = make_input_file(cfg, data, DURABILITY_SEGMENTS, DURABILITY_PULSES)
+    say(f"durability: input {data.relative_to(ROOT)} ({info}) made in "
+        f"{time.perf_counter() - t0:.1f} s; syscalls "
+        + json.dumps(probe_durable_syscalls(root)))
+    base = dataclasses.asdict(cfg)
+    out, golden = {}, None
+    for b, plan, writers in DURABILITY_SOAKS:
+        t0 = time.perf_counter()
+        try:
+            rep = CS.run_soak(kill_plan=plan, micro_batch=b, device=None,
+                              writer_threads=writers,
+                              tmpdir=str(root / f"b{b}"),
+                              base_cfg=base, input_path=str(data),
+                              golden=golden)
+        except CS.SoakFailure as e:
+            fail(f"durability B = {b} ({plan}): {e}")
+        golden = rep.pop("golden")
+        if golden["segments"] != DURABILITY_SEGMENTS or \
+                golden["signals"] != len(DURABILITY_PULSES):
+            fail(f"durability: golden run {golden['segments']} segments, "
+                 f"{golden['signals']} positive")
+        final = rep["children"][-1]
+        pool = (f"writer pool of {cfg.writer_thread_count}" if writers is None
+                else "synchronous writes")
+        if writers == 0 and rep["replayed_skips"] < 1:
+            fail(f"durability B = {b} ({plan}, {pool}): the kill left the "
+                 "segment's group committed, yet no resume skipped it")
+        say(f"durability B = {b}, {pool}, kill plan {plan}: passed in "
+            f"{time.perf_counter() - t0:.1f} s; kills landed "
+            f"{rep['sigkills']}/{len(rep['plan'])}, replayed_skips "
+            f"{rep['replayed_skips']}, rolled_back_intents "
+            f"{rep['rolled_back_intents']}, recovered_segments "
+            f"{rep['recovered_segments']}, fsck records "
+            f"{rep['fsck_records']}, {rep['artifacts']} artifacts equal to "
+            "the golden run's by SHA-256; lives (kind, killed, wall s): "
+            + json.dumps([(c["kind"], c["killed"], c["wall_s"])
+                          for c in rep["children"]])
+            + "; checkpoint drain-and-fsync s a segment (last life) "
+            + json.dumps(final["stats"]["checkpoint_s"])
+            + f"; card {card}")
+        out[f"b{b}"] = rep
+    selftest = FS.selftest()
+    if selftest:
+        fail(f"durability: fsck selftest not sharp: {selftest}")
+    x = torch.ones(1 << 20, device="cuda")
+    usable = float(x.sum().item()) == float(1 << 20)
+    say("durability: fsck selftest sharp (a forged CRC, a deleted "
+        "artifact, bit rot and a checkpoint ahead of the manifest all "
+        f"fail it); the card after {sum(r['sigkills'] for r in out.values())}"
+        f" SIGKILLed children holding a CUDA context: usable {usable}")
+    if not usable:
+        fail("durability: the card is not usable after the kills")
+    shutil.rmtree(root)
     return out
 
 
@@ -3128,8 +3622,14 @@ def main() -> int:
         run.pop("pipe", None)
     free_card()
     lap("main paths and breakdowns")
-    phase_window(card)
+    window = phase_window(card)
     lap("window")
+    batch = phase_batch(card, window, runs)
+    for label, counts in batch["counts"].items():
+        runs[label] = {"counts": counts}
+    lap("batch")
+    phase_durability(card)
+    lap("durability")
     check_packet_ring(card)
     for label, log2_n, extra, segments, pulse, ports, per_segment \
             in LIVE_PATHS:

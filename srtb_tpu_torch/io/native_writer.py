@@ -1,5 +1,4 @@
-"""Asynchronous writer pool (port of ``srtb_tpu/io/native_writer.py``,
-without the run manifest's commit hooks, ROADMAP A6).
+"""Asynchronous writer pool (port of ``srtb_tpu/io/native_writer.py``).
 
 The reference writes candidates asynchronously from two
 boost::asio::thread_pools so the pipeline never blocks on disk: baseband
@@ -9,6 +8,17 @@ the port's equivalent: submission copies the payload, so the caller may
 reuse its buffer at once, and ``drain()`` blocks until everything queued
 has reached the filesystem.  A one-thread pool also appends in
 submission order (``append=True``), the baseband recorder's stream.
+
+The run manifest's hooks (``io/manifest.py``): ``pre_publish``, the
+publish barrier, runs at submit on the native pool (its rename happens
+in C++) and between the temp write and the rename on the Python pool;
+``on_done``, the commit, fires only once that job's bytes reached the
+filesystem at their verified length.  The native pool reports each
+job's completion (its id, written or failed) into a queue that
+:meth:`AsyncWriterPool.poll` reads on the caller's thread (each submit
+and each drain poll it), so no callback runs on a C++ writer thread; a
+failed job's commit never fires, and its artifact is rolled back and
+regenerated on resume.
 
 The pool runs the port's own C++ (``srtb_tpu_torch/native/
 file_writer.cpp``), built with the host compiler at first use
@@ -44,7 +54,12 @@ def native_library() -> ctypes.CDLL:
     lib.srtb_writer_submit.restype = ctypes.c_int32
     lib.srtb_writer_submit.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
-        ctypes.c_uint64, ctypes.c_int32, ctypes.c_int32]
+        ctypes.c_uint64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_uint64)]
+    lib.srtb_writer_poll.restype = ctypes.c_int32
+    lib.srtb_writer_poll.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32]
     lib.srtb_writer_drain.restype = None
     lib.srtb_writer_drain.argtypes = [ctypes.c_void_p]
     for name in ("srtb_writer_jobs_done", "srtb_writer_bytes_written",
@@ -134,6 +149,9 @@ class AsyncWriterPool:
         self._py_errors = 0
         self._py_jobs = 0
         self._py_bytes = 0
+        # the native pool's jobs whose commit waits for the poll: id ->
+        # on_done
+        self._pending_done: dict[int, object] = {}
         if prefer_native:
             self._lib = native_library()
             self._h = self._lib.srtb_writer_create(self.n_threads,
@@ -159,14 +177,17 @@ class AsyncWriterPool:
         return self._h is not None
 
     def submit(self, path: str, data, *, fsync: bool = False,
-               append: bool = False) -> None:
+               append: bool = False, on_done=None,
+               pre_publish=None) -> None:
         """Queue one write.  ``data`` is bytes or a numpy array; it is
         copied at submission, so the caller may reuse its buffer.  With
         ``max_queued_bytes`` > 0 a submit waits while the queued copies
         would exceed the cap; a payload larger than the cap waits for an
         empty queue and is then taken whole.  ``append`` needs a
         one-thread pool: with more workers the appends' order would not
-        be the submissions'."""
+        be the submissions'.  ``on_done`` (the manifest's commit) fires
+        once the job's bytes are on disk; ``pre_publish`` (its publish
+        barrier) runs before the job can publish (module docstring)."""
         if append and self.n_threads > 1:
             raise ValueError(
                 "append=True needs n_threads=1 (ordered appends)")
@@ -174,12 +195,18 @@ class AsyncWriterPool:
             if isinstance(data, np.ndarray) else \
             np.frombuffer(bytes(data), dtype=np.uint8)
         if self._h is not None:
+            if pre_publish is not None:
+                pre_publish()
             ptr = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+            job = ctypes.c_uint64(0)
             rc = self._lib.srtb_writer_submit(
                 self._h, path.encode(), ptr, buf.size, 1 if fsync else 0,
-                1 if append else 0)
+                1 if append else 0, ctypes.byref(job))
             if rc != 0:
                 raise RuntimeError(f"srtb_writer_submit failed for {path}")
+            if on_done is not None:
+                self._pending_done[job.value] = on_done
+            self.poll()
             return
         payload = buf.tobytes()  # copy at submit, like the native pool
         with self._space:
@@ -193,10 +220,11 @@ class AsyncWriterPool:
             self._futures = [f for f in self._futures
                              if not f.done() or f.exception() is not None]
             self._futures.append(self._pool.submit(
-                self._py_write, path, payload, fsync, append))
+                self._py_write, path, payload, fsync, append, on_done,
+                pre_publish))
 
     def _py_write(self, path: str, payload: bytes, fsync: bool,
-                  append: bool) -> None:
+                  append: bool, on_done=None, pre_publish=None) -> None:
         # the accounting runs for any exception, or the backpressure
         # window would shrink for good and later submits block forever
         ok = False
@@ -209,7 +237,12 @@ class AsyncWriterPool:
                         os.fdatasync(f.fileno())
             else:
                 from srtb_tpu_torch.io.writers import atomic_write
-                atomic_write(path, payload, fsync=fsync)
+                atomic_write(path, payload, fsync=fsync,
+                             pre_rename=pre_publish)
+            # the commit, once the bytes landed; a failing commit leaves
+            # the artifact uncommitted (rolled back on resume)
+            if on_done is not None:
+                on_done()
             ok = True
         except OSError:
             pass  # counted below; surfaced by raise_new_errors()
@@ -223,10 +256,32 @@ class AsyncWriterPool:
                 self._queued_bytes -= len(payload)
                 self._space.notify_all()
 
+    def poll(self) -> int:
+        """Fire the commits of the native pool's finished jobs that were
+        written (a failed job's commit is dropped); returns how many
+        finished jobs were read.  Runs on the caller's thread."""
+        if self._h is None:
+            return 0
+        n_max = 64
+        ids = (ctypes.c_uint64 * n_max)()
+        oks = (ctypes.c_int32 * n_max)()
+        total = 0
+        while True:
+            n = self._lib.srtb_writer_poll(self._h, ids, oks, n_max)
+            for i in range(n):
+                on_done = self._pending_done.pop(ids[i], None)
+                if on_done is not None and oks[i]:
+                    on_done()
+            total += n
+            if n < n_max:
+                return total
+
     def drain(self) -> None:
-        """Block until every submitted job has been written (or failed)."""
+        """Block until every submitted job has been written (or failed),
+        and fire the written jobs' commits."""
         if self._h is not None:
             self._lib.srtb_writer_drain(self._h)
+            self.poll()
             return
         with self._lock:
             futures, self._futures = self._futures, []
@@ -264,6 +319,8 @@ class AsyncWriterPool:
         process."""
         if self._h is not None:
             if drain:
+                if self._pending_done:
+                    self.drain()  # the deferred commits
                 self._finalizer()  # idempotent drain + destroy
             else:
                 self._finalizer.detach()

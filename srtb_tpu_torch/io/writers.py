@@ -1,6 +1,5 @@
 """Output writers: candidate capture (.bin/.npy/.tim) and write-all mode
-(port of ``srtb_tpu/io/writers.py``, without the run manifest, ROADMAP
-A6).
+(port of ``srtb_tpu/io/writers.py``).
 
 Files are byte-compatible with the reference's:
 - ``<prefix><counter>.bin``      raw baseband bytes of the segment
@@ -22,6 +21,16 @@ Every candidate file is written to ``<path>.srtb_tmp`` and renamed into
 place, so a reader never sees a torn candidate; a run that died between
 the two leaves an orphan temp, which :func:`recover_orphan_temps` sweeps
 at the next start.
+
+With a run manifest bound (``bind_manifest``, ``io/manifest.py``) every
+artifact logs its intent before its temp write and its commit (length,
+content CRC32) once it is published, under the ``(stream, segment,
+sink)`` key the pipeline sets per push (``set_manifest_key``).  A
+synchronous candidate writer publishes one segment's artifacts together
+behind one publish barrier (``manifest.sync``); the writer pool runs the
+barrier at submit and the commit once the job's bytes are on disk.
+``WriteAllSink`` logs each append with the file's length before it, so
+recovery can cut a torn append back to the committed prefix.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from __future__ import annotations
 import io
 import os
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass
 
@@ -102,11 +112,22 @@ def fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def atomic_write(path: str, payload, *, fsync: bool = False) -> None:
+# crash-window steering hook of the durability harnesses
+# (tools/crash_soak.py, the tests): when set, called with the
+# destination path after the temp write and before the rename, so a kill
+# landing inside it is a deterministic mid-rename crash.  None in
+# production (one global read a write).
+_PRE_RENAME_HOOK = None
+
+
+def atomic_write(path: str, payload, *, fsync: bool = False,
+                 pre_rename=None) -> None:
     """Crash-consistent write: temp + flush (+ fdatasync) + atomic rename
     (+ the directory's fsync, with the same ``fsync`` knob).  A failed
-    write drops its temp.  The native pool (native/file_writer.cpp) runs
-    the same sequence with the same suffix."""
+    write drops its temp.  ``pre_rename`` is the manifest's publish
+    barrier (``RunManifest.sync``), run between the temp write and the
+    rename.  The native pool (native/file_writer.cpp) runs the same
+    sequence with the same suffix."""
     tmp = path + TMP_SUFFIX
     try:
         with open(tmp, "wb") as f:
@@ -114,6 +135,10 @@ def atomic_write(path: str, payload, *, fsync: bool = False) -> None:
             f.flush()
             if fsync:
                 os.fdatasync(f.fileno())
+        if pre_rename is not None:
+            pre_rename()
+        if _PRE_RENAME_HOOK is not None:
+            _PRE_RENAME_HOOK(path)
         os.replace(tmp, path)
         if fsync:
             fsync_dir(path)
@@ -123,6 +148,47 @@ def atomic_write(path: str, payload, *, fsync: bool = False) -> None:
         except OSError:
             pass  # never created
         raise
+
+
+def manifest_stage(manifest, key, path: str, data: np.ndarray):
+    """Stage one atomic artifact write against the run manifest: log the
+    intent now, before any byte reaches the temp file, and return the
+    commit callback to fire once the rename has published the artifact
+    (synchronously, or from the writer pool's completion poll).  The
+    content CRC32 (the deep fsck check) is skipped with
+    ``manifest_hash = 0``.  None when no manifest is bound."""
+    if manifest is None or key is None:
+        return None
+    buf = np.ascontiguousarray(data)
+    length = int(buf.nbytes)
+    crc = zlib.crc32(buf) if manifest.hash_content else None
+    manifest.intent(key, path)
+
+    def commit():
+        manifest.commit(key, path, length, crc)
+
+    return commit
+
+
+def stage_write(path: str, payload, *, fsync: bool = False) -> str:
+    """The first half of :func:`atomic_write`: the temp (+ fdatasync),
+    not published.  Returns the temp's path; the caller renames after
+    its publish barrier, so one barrier covers a segment's artifacts
+    (``WriteSignalSink._publish_staged``)."""
+    tmp = path + TMP_SUFFIX
+    try:
+        with open(tmp, "wb") as f:
+            f.write(payload)
+            f.flush()
+            if fsync:
+                os.fdatasync(f.fileno())
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass  # never created
+        raise
+    return tmp
 
 
 def _npy_header(shape: tuple) -> bytes:
@@ -190,12 +256,29 @@ class WriteSignalSink:
         self.recent_positive_timestamps: deque[int] = deque()
         self.recent_negative_works: deque[SegmentResultWork] = deque()
         self.written: list[CandidateFiles] = []
+        # the run manifest (None: off) and the (stream, segment, sink) key
+        # the pipeline sets before each push
+        self.manifest = None
+        self._manifest_key = None
+        # the open segment transaction of a synchronous writer with a
+        # manifest: (path, temp, fsync, commit) of each staged artifact,
+        # published together behind one barrier; None when none is open
+        self._tx_staged = None
+        # whether the last push wrote an artifact (the pipeline seals a
+        # manifest "done" record only then)
+        self.last_push_wrote = False
         # check directory writability up front
         # (ref: write_signal_pipe.hpp:62-75)
         check_path = cfg.baseband_output_file_prefix + ".check"
         with open(check_path, "wb"):
             pass
         os.unlink(check_path)
+
+    def bind_manifest(self, manifest) -> None:
+        self.manifest = manifest
+
+    def set_manifest_key(self, key) -> None:
+        self._manifest_key = key
 
     def _overlap_window_ns(self) -> float:
         # 0.45 of a segment duration, in ns (ref: write_signal_pipe.hpp:84-86)
@@ -209,6 +292,7 @@ class WriteSignalSink:
 
     def push(self, work: SegmentResultWork, has_signal: bool) -> None:
         """Feed one processed segment; writes to disk when warranted."""
+        self.last_push_wrote = False
         real_time = self.cfg.input_file_path == ""
         w = self._overlap_window_ns()
         ts = work.segment.timestamp
@@ -241,7 +325,22 @@ class WriteSignalSink:
         if counter == NO_UDP_PACKET_COUNTER:
             counter = work.segment.timestamp
         base = self.cfg.baseband_output_file_prefix + str(counter)
+        self.last_push_wrote = True
         log.info(f"[write_signal] begin writing, file_counter = {counter}")
+        # a synchronous writer with a manifest opens the segment's
+        # transaction: temps first, then one barrier and the renames
+        if self.manifest is not None and self._manifest_key is not None \
+                and self.pool is None:
+            self._tx_staged = []
+        try:
+            self._write_artifacts(work, base)
+            self._publish_staged()
+        except BaseException:
+            self._tx_abort()
+            raise
+        log.info(f"[write_signal] finished writing, file_counter = {counter}")
+
+    def _write_artifacts(self, work: SegmentResultWork, base: str) -> None:
         bin_path = base + ".bin"
         # the baseband is fdatasync'd, as the reference's is
         # (write_signal_pipe.hpp:187-197); the spectra are not
@@ -255,10 +354,13 @@ class WriteSignalSink:
                 wf = wf[None]
             for i in range(wf.shape[0]):
                 # the first free index (ref: 230-235); with a pool, the
-                # queued but maybe unwritten paths count as taken
+                # queued but maybe unwritten paths count as taken, and so
+                # do the open transaction's staged ones
+                staged = {p for p, *_ in self._tx_staged or ()}
                 j = i
                 while (os.path.exists(f"{base}.{j}.npy")
-                       or f"{base}.{j}.npy" in self._assigned_paths):
+                       or f"{base}.{j}.npy" in self._assigned_paths
+                       or f"{base}.{j}.npy" in staged):
                     j += 1
                 path = f"{base}.{j}.npy"
                 payload = _npy_bytes(wf[i], self.host_pool)
@@ -288,10 +390,52 @@ class WriteSignalSink:
                             path, series[s, bi, :valid].astype("<f4"))
                         tim_paths.append(path)
         self.written.append(CandidateFiles(bin_path, npy_paths, tim_paths))
-        log.info(f"[write_signal] finished writing, file_counter = {counter}")
+
+    def _publish_staged(self) -> None:
+        """Close the segment's transaction: one publish barrier (every
+        pending intent durable), then rename and commit each staged
+        artifact.  A crash before the barrier leaves only temps, between
+        it and a rename temps with durable intents (both rolled back),
+        after a rename a committed or regenerable artifact: never an
+        untracked final file."""
+        staged, self._tx_staged = self._tx_staged, None
+        if not staged:
+            return
+        self.manifest.sync()
+        try:
+            for path, tmp, fsync, commit in staged:
+                if _PRE_RENAME_HOOK is not None:
+                    _PRE_RENAME_HOOK(path)
+                os.replace(tmp, path)
+                if fsync:
+                    fsync_dir(path)
+                if commit is not None:
+                    commit()
+        except BaseException:
+            for _path, tmp, _fsync, _commit in staged:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass  # already renamed
+            raise
+
+    def _tx_abort(self) -> None:
+        staged, self._tx_staged = self._tx_staged, None
+        for _path, tmp, _fsync, _commit in staged or ():
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass  # this artifact never reached its temp write
 
     def _write_bytes(self, path: str, data: np.ndarray, *,
                      fsync: bool = False) -> None:
+        commit = manifest_stage(self.manifest, self._manifest_key, path,
+                                data)
+        barrier = self.manifest.sync if commit is not None else None
+        if self._tx_staged is not None:
+            tmp = stage_write(path, data, fsync=fsync)
+            self._tx_staged.append((path, tmp, fsync, commit))
+            return
         if self.pool is not None:
             if path in self._assigned_paths:
                 # the same target queued again: flush first, so that the
@@ -299,9 +443,12 @@ class WriteSignalSink:
                 self.pool.drain()
                 self._assigned_paths.clear()
             self._assigned_paths.add(path)
-            self.pool.submit(path, data, fsync=fsync)
+            self.pool.submit(path, data, fsync=fsync, on_done=commit,
+                             pre_publish=barrier)
             return
-        atomic_write(path, data, fsync=fsync)
+        atomic_write(path, data, fsync=fsync, pre_rename=barrier)
+        if commit is not None:
+            commit()
 
     def drain(self) -> None:
         """Wait for queued writes to land (a no-op when synchronous);
@@ -317,20 +464,47 @@ class WriteSignalSink:
 class WriteAllSink:
     """Unconditional append of each segment's baseband minus the reserved
     tail to one file (ref: pipeline/write_file_pipe.hpp:41-94, selected
-    by ``baseband_write_all``).  Synchronous, as in the reference."""
+    by ``baseband_write_all``).  Synchronous, as in the reference.  With a
+    manifest each append logs its intent with the file's length before
+    it, and its commit once written: the committed prefix."""
+
+    # every push appends: the pipeline always seals its "done" record
+    last_push_wrote = True
 
     def __init__(self, cfg: Config, reserved_bytes: int):
         self.reserved_bytes = reserved_bytes
         self.path = cfg.baseband_output_file_prefix + "stream0.bin"
         self._f = open(self.path, "ab")
+        self.manifest = None
+        self._manifest_key = None
+        # the file's length after the appends made so far
+        self._append_off = 0
+
+    def bind_manifest(self, manifest) -> None:
+        self.manifest = manifest
+        # recovery already cut a torn tail: the size is the committed
+        # prefix
+        self._append_off = os.path.getsize(self.path)
+
+    def set_manifest_key(self, key) -> None:
+        self._manifest_key = key
 
     def push(self, work: SegmentResultWork, has_signal: bool = False) -> None:
         data = work.segment.data
         end = len(data) - self.reserved_bytes
         if end <= 0:
             end = len(data)
-        self._f.write(np.ascontiguousarray(data[:end]).tobytes())
+        chunk = np.ascontiguousarray(data[:end])
+        m, key = self.manifest, self._manifest_key
+        if m is not None and key is not None:
+            off = self._append_off
+            crc = zlib.crc32(chunk) if m.hash_content else None
+            m.intent(key, self.path, mode="append", offset=off)
+        self._f.write(chunk)
         self._f.flush()
+        if m is not None and key is not None:
+            m.commit(key, self.path, chunk.nbytes, crc, offset=off)
+            self._append_off = off + chunk.nbytes
 
     def drain(self) -> None:
         """Nothing is queued: every append is written at its push."""

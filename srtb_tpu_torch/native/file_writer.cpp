@@ -10,6 +10,12 @@
 // shared_ptr-owned work semantics.  Appends land in submission order on
 // a one-thread pool (the baseband recorder's ordered stream).
 //
+// Each job has an id (returned by submit); a finished job's id and
+// whether its bytes reached the filesystem at their full length go to a
+// completion queue that the caller polls (srtb_writer_poll) from its own
+// thread.  The run manifest's commit records follow that queue, one job
+// at a time, without a callback into Python from the writer threads.
+//
 // Exposed as a plain C interface for Python ctypes.  Built with the host
 // compiler at first use (srtb_tpu_torch/kernels/build.py,
 // build_host_library) into build/srtb_tpu_torch/.
@@ -28,11 +34,13 @@
 #include <new>
 #include <string>
 #include <thread>
+#include <utility>
 #include <vector>
 
 namespace {
 
 struct WriteJob {
+  uint64_t id = 0;
   std::string path;
   std::vector<uint8_t> data;
   bool fsync = false;
@@ -42,6 +50,9 @@ struct WriteJob {
 struct WriterPool {
   std::vector<std::thread> threads;
   std::deque<WriteJob> jobs;
+  // finished jobs not yet polled: (id, 1 written / 0 failed)
+  std::deque<std::pair<uint64_t, int32_t>> completed;
+  uint64_t next_id = 1;
   std::mutex mu;
   std::condition_variable cv_push;   // signalled when a job arrives / stop
   std::condition_variable cv_drain;  // signalled when a job completes
@@ -66,10 +77,12 @@ struct WriterPool {
         job = std::move(jobs.front());
         jobs.pop_front();
       }
-      if (!write_one(job)) errors.fetch_add(1);
+      const bool ok = write_one(job);
+      if (!ok) errors.fetch_add(1);
       jobs_done.fetch_add(1);
       {
         std::lock_guard<std::mutex> lk(mu);
+        completed.emplace_back(job.id, ok ? 1 : 0);
         in_flight--;
         queued_bytes -= job.data.size();
       }
@@ -104,6 +117,11 @@ struct WriterPool {
     // the reference fdatasync()s candidate baseband so a captured transient
     // survives a crash of the host (ref: write_signal_pipe.hpp:187-197)
     if (ok && job.fsync && fdatasync(fd) != 0) ok = false;
+    // a whole-file job is verified at its length before it is published
+    struct stat st;
+    if (ok && !job.append &&
+        (fstat(fd, &st) != 0 || (uint64_t)st.st_size != job.data.size()))
+      ok = false;
     if (close(fd) != 0) ok = false;
     if (!job.append) {
       if (ok) ok = std::rename(path.c_str(), job.path.c_str()) == 0;
@@ -139,11 +157,12 @@ WriterPool* srtb_writer_create(int32_t n_threads,
 
 // Enqueue one write (`append_flag`: append to the file in place, else
 // a whole-file temp + rename); copies `data` so the caller may reuse its
-// buffer.  Returns 0 on success, -1 if the pool is stopping or
-// allocation failed.
+// buffer.  Stores the job's id in `*job_id` (when not null).  Returns 0
+// on success, -1 if the pool is stopping or allocation failed.
 int32_t srtb_writer_submit(WriterPool* pool, const char* path,
                            const uint8_t* data, uint64_t nbytes,
-                           int32_t fsync_flag, int32_t append_flag) {
+                           int32_t fsync_flag, int32_t append_flag,
+                           uint64_t* job_id) {
   if (!pool || !path) return -1;
   WriteJob job;
   job.path = path;
@@ -170,6 +189,8 @@ int32_t srtb_writer_submit(WriterPool* pool, const char* path,
       if (pool->stopping) rc = -1;
     }
     if (rc == 0) {
+      job.id = pool->next_id++;
+      if (job_id) *job_id = job.id;
       pool->queued_bytes += job.data.size();
       pool->jobs.push_back(std::move(job));
       pool->in_flight++;
@@ -189,6 +210,21 @@ int32_t srtb_writer_submit(WriterPool* pool, const char* path,
 void srtb_writer_drain(WriterPool* pool) {
   std::unique_lock<std::mutex> lk(pool->mu);
   pool->cv_drain.wait(lk, [&] { return pool->in_flight == 0; });
+}
+
+// Move up to `max` finished jobs' ids and results (1 = written at full
+// length, 0 = failed) into `ids` / `oks`, oldest first; returns how many.
+int32_t srtb_writer_poll(WriterPool* pool, uint64_t* ids, int32_t* oks,
+                         int32_t max) {
+  std::lock_guard<std::mutex> lk(pool->mu);
+  int32_t n = 0;
+  while (n < max && !pool->completed.empty()) {
+    ids[n] = pool->completed.front().first;
+    oks[n] = pool->completed.front().second;
+    pool->completed.pop_front();
+    n++;
+  }
+  return n;
 }
 
 uint64_t srtb_writer_jobs_done(WriterPool* pool) {

@@ -28,11 +28,36 @@ The engine, as the reference's:
 ``inflight_segments = 1`` is the fully serial leg: read, dispatch,
 blocking fetch and sink, one segment at a time, on one thread.
 
-The reference's resilience layers (retry, watchdog, healer, degradation,
-supervisor: ROADMAP A7), its telemetry (A9), its manifest and checkpoint
-(A6) and micro-batching (A3) are later slices: their settings keep their
-defaults here, and a setting that would change what a run writes raises
-``NotImplementedError`` (:func:`check_runtime`).
+Micro-batch (``micro_batch_segments`` = B > 1, the fused plans): the
+engine's unit is B segments.  A batch is admitted only when all B fit
+the window; its B reads are uploaded and run in one dispatch
+(``SegmentProcessor.stage_batch`` / ``run_batch``), warm with the ring
+only when the whole batch is stream-adjacent (its first segment
+continues the carry, each member its predecessor), else cold; its
+segments drain as separate items that share the batch's ``done`` event,
+each with its own source offset (so a checkpoint after a partly drained
+batch resumes at the first undrained segment) and an even share of the
+batch's host time.  A tail shorter than B runs as single dispatches.
+
+Durability (``checkpoint_path``, ``run_manifest_path``, each armed by
+itself or both): the manifest opens first and runs its recovery (with
+the checkpoint file's count as the floor hint), before the checkpoint
+loads, the file reader starts at the checkpoint's offset, the sinks open
+the output prefix and the orphan-temp sweep runs; the sinks log their
+artifacts under the key ``(data_stream_id, drain index)``, the drain
+index continuing across resumes, and a push whose group the manifest
+holds as committed is skipped (``replayed_skips``); after each drained
+segment the sinks are drained and the checkpoint updated (the manifest's
+``ckpt`` record sealed first).  ``fault_plan`` steers the crash windows
+at the reference's six sites (``ingest``, ``h2d``, ``dispatch``,
+``fetch``, ``sink_write``, ``checkpoint``: :meth:`Pipeline._op`), with
+the actions ``stall`` and ``fatal`` (``resilience/faults.py``).
+
+The reference's other resilience layers (retry, watchdog, healer,
+degradation, supervisor: ROADMAP A7) and its telemetry (A9) are later
+slices: their settings keep their defaults here, and a setting that
+would change what a run writes raises ``NotImplementedError``
+(:func:`check_runtime`).
 """
 
 from __future__ import annotations
@@ -44,18 +69,21 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
-import numpy as np
 import torch
 
 from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.io.file_input import make_file_source
+from srtb_tpu_torch.io.manifest import RunManifest
 from srtb_tpu_torch.io.native_writer import AsyncWriterPool
 from srtb_tpu_torch.io.writers import (WriteAllSink, WriteSignalSink,
                                        recover_orphan_temps, to_host)
 from srtb_tpu_torch.pipeline import framework as fw
-from srtb_tpu_torch.pipeline.segment import SegmentProcessor
+from srtb_tpu_torch.pipeline.checkpoint import StreamCheckpoint
+from srtb_tpu_torch.pipeline.segment import (BATCH_NEEDS_FUSED,
+                                             SegmentProcessor)
 from srtb_tpu_torch.pipeline.work import SegmentResultWork
 from srtb_tpu_torch.quality.stats import QualityMonitor
+from srtb_tpu_torch.resilience.faults import FaultInjector
 from srtb_tpu_torch.utils import termination
 from srtb_tpu_torch.utils.bufferpool import BufferPool
 from srtb_tpu_torch.utils.logging import log
@@ -98,10 +126,8 @@ def has_signal(cfg: Config, detect_result, stream: int | None = None,
 
 # settings of later slices that would change what a run reads or writes:
 # (field, ROADMAP item); each raises when set away from its default
+# (a fault_plan's actions are checked by resilience/faults.py)
 UNPORTED_RUNTIME = (
-    ("checkpoint_path", "ROADMAP A6: the checkpoint"),
-    ("run_manifest_path", "ROADMAP A6: the run manifest"),
-    ("fault_plan", "ROADMAP A7: fault injection"),
     ("segment_deadline_s", "ROADMAP A7: segment deadlines and the "
                            "watchdog"),
     ("canary_every_segments", "ROADMAP A9: the canary, whose results "
@@ -126,8 +152,10 @@ def check_runtime(cfg: Config) -> None:
 class InFlight(NamedTuple):
     """One dispatched segment: its results (the detection already on its
     way to pinned host memory), the event after its last copy (None on
-    the CPU, where a dispatch completes before it returns), and the
-    dispatch's own numbers."""
+    the CPU, where a dispatch completes before it returns; a batch's
+    segments share one), the dispatch's own numbers, the source's offset
+    after this segment's read (the checkpoint's resume point) and its
+    index in dispatch order (the fault sites' index)."""
     seg: Any
     wf: torch.Tensor
     det: Any
@@ -135,6 +163,8 @@ class InFlight(NamedTuple):
     t_dispatched: float
     dispatch_s: float
     h2d_bytes: int
+    offset_after: int = 0
+    index: int = 0
 
 
 class Fetched(NamedTuple):
@@ -143,6 +173,8 @@ class Fetched(NamedTuple):
     wf: torch.Tensor
     det: Any
     done: torch.cuda.Event | None
+    offset_after: int = 0
+    index: int = 0
 
 
 class Pipeline:
@@ -157,18 +189,43 @@ class Pipeline:
     def __init__(self, cfg: Config, source=None, device=None):
         check_runtime(cfg)
         self.cfg = cfg
+        # the fault plan (None: off); raises for what is not ported
+        self.faults = FaultInjector.from_plan(
+            cfg.fault_plan, stream=cfg.stream_name,
+            retry_max_attempts=cfg.retry_max_attempts)
         self.processor = SegmentProcessor(cfg, device=device)
         on_card = self.processor.device.type == "cuda"
+        # the run manifest opens first and runs its recovery (torn tail
+        # cut, uncommitted groups rolled back, the done-set rebuilt),
+        # before the checkpoint loads and the sinks open the prefix; the
+        # checkpoint FILE's count is its floor hint, so a WAL that lost
+        # its ckpt records rolls back nothing the resume will not redo
+        self.manifest = None
+        if cfg.run_manifest_path:
+            hint = 0
+            if cfg.checkpoint_path:
+                state = (StreamCheckpoint._load(cfg.checkpoint_path)
+                         or StreamCheckpoint._load(
+                             cfg.checkpoint_path + ".bak") or {})
+                hint = int(state.get("segments_done", 0))
+            self.manifest = RunManifest.open(
+                cfg.run_manifest_path, fsync=bool(cfg.manifest_fsync),
+                hash_content=bool(cfg.manifest_hash),
+                checkpoint_floor_hint=hint)
+        self.checkpoint = None
+        if cfg.checkpoint_path:
+            self.checkpoint = StreamCheckpoint(cfg.checkpoint_path,
+                                               manifest=self.manifest)
         if source is None:
             if not cfg.input_file_path:
                 raise ValueError("no input_file_path and no source given")
+            start = None
+            if self.checkpoint is not None and self.checkpoint.segments_done:
+                start = self.checkpoint.file_offset_bytes
             source = make_file_source(
-                cfg, buffer_pool=BufferPool("segments", pinned=on_card))
+                cfg, buffer_pool=BufferPool("segments", pinned=on_card),
+                start_offset_bytes=start)
         self.source = source
-        # a run that died between a temp write and its rename left
-        # orphans: sweep them before the sinks open the prefix
-        if cfg.baseband_output_file_prefix:
-            recover_orphan_temps(cfg.baseband_output_file_prefix)
         self._owned_writer_pool = None
         if cfg.baseband_write_all:
             self.sinks = [WriteAllSink(cfg, self.processor.reserved_bytes)]
@@ -179,6 +236,16 @@ class Pipeline:
             self.sinks = [WriteSignalSink(
                 cfg, writer_pool=self._owned_writer_pool,
                 host_pool=BufferPool("npy", pinned=on_card))]
+        if self.manifest is not None:
+            for sink in self.sinks:
+                bind = getattr(sink, "bind_manifest", None)
+                if bind is not None:
+                    bind(self.manifest)
+        # a run that died between a temp write and its rename left
+        # orphans: sweep them (after the manifest's recovery removed the
+        # temps its WAL names) before the sinks write to the prefix
+        if cfg.baseband_output_file_prefix:
+            recover_orphan_temps(cfg.baseband_output_file_prefix)
         self.stats = PipelineStats()
         # the quality vectors' consumer (None unless quality_stats)
         self.quality = QualityMonitor.from_config(cfg)
@@ -214,41 +281,105 @@ class Pipeline:
                 and seg.seq == prev[1] + 1
                 and getattr(seg, "data_stream_id", 0) == prev[0])
 
-    def _dispatch_ring(self, seg):
+    def _op(self, site: str, index: int, fn):
+        """One guarded operation: the fault plan's hook at (site, index)
+        fires first (a stall, or a fatal raise), then ``fn``.  With no
+        plan this is a plain call."""
+        faults = self.faults
+        if faults is not None and faults.armed(site):
+            faults.fire(site, index)
+        return fn()
+
+    def _to_host(self, dets: list):
+        """Start the detection results' copies to pinned host memory and
+        record the event after them (None on the CPU)."""
         proc = self.processor
-        carry, self._ring_carry = self._ring_carry, None
-        if not self._ring_adjacent(seg):
-            carry = None  # cold: a full upload
-        out, self._ring_carry = proc.run_device_ring(
-            proc.stage_input(seg.data, carry=carry))
-        self._ring_prev = ((getattr(seg, "data_stream_id", 0), seg.seq)
-                           if seg.seq >= 0 else None)
-        return out
+        if proc.device.type != "cuda":
+            return dets, None
+        dets = [det._replace(**{
+            name: value.to("cpu", non_blocking=True)
+            for name, value in det._asdict().items()
+            if isinstance(value, torch.Tensor)}) for det in dets]
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(proc.device))
+        return dets, done
 
     # ------------------------------------------- dispatch and fetch
 
-    def _dispatch_segment(self, seg) -> InFlight:
-        """Upload one segment and enqueue its chain, then the detection
-        results' copies to pinned host memory and the ``done`` event.
-        Reads nothing on the host: it returns before the card is done."""
+    def _dispatch_segment(self, seg, offset_after: int = 0,
+                          index: int = 0) -> InFlight:
+        """Upload one segment (the ``h2d`` site) and enqueue its chain
+        (the ``dispatch`` site), then the detection results' copies to
+        pinned host memory and the ``done`` event.  Reads nothing on the
+        host: it returns before the card is done."""
         proc = self.processor
         t0 = time.perf_counter()
         h2d0 = proc.h2d_bytes
         if proc.ring:
-            wf, det = self._dispatch_ring(seg)
+            carry, self._ring_carry = self._ring_carry, None
+            if not self._ring_adjacent(seg):
+                carry = None  # cold: a full upload
+            staged = self._op("h2d", index,
+                              lambda: proc.stage_input(seg.data, carry=carry))
+            (wf, det), self._ring_carry = self._op(
+                "dispatch", index, lambda: proc.run_device_ring(staged))
+            self._ring_prev = ((getattr(seg, "data_stream_id", 0), seg.seq)
+                               if seg.seq >= 0 else None)
         else:
-            wf, det = proc.run_device(proc.stage_input(seg.data))
-        done = None
-        if proc.device.type == "cuda":
-            det = det._replace(**{
-                name: value.to("cpu", non_blocking=True)
-                for name, value in det._asdict().items()
-                if isinstance(value, torch.Tensor)})
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(proc.device))
+            staged = self._op("h2d", index,
+                              lambda: proc.stage_input(seg.data))
+            wf, det = self._op("dispatch", index,
+                               lambda: proc.run_device(staged))
+        (det,), done = self._to_host([det])
         t1 = time.perf_counter()
         return InFlight(seg, wf, det, done, t1, t1 - t0,
-                        proc.h2d_bytes - h2d0)
+                        proc.h2d_bytes - h2d0, offset_after, index)
+
+    def _dispatch_batch(self, segs: list, offsets: list,
+                        first_index: int) -> list[InFlight]:
+        """B segments in one dispatch, under the first segment's
+        ``dispatch`` site (one dispatch, one failure domain): their
+        uploads into one device tensor, the chain a lane at a time, the
+        results' copies and one ``done`` event.  With the ring the batch
+        is warm only when it is stream-adjacent as a whole.  Returns one
+        item a segment, each with its own offset and an even share of the
+        host time and of the uploaded bytes."""
+        proc = self.processor
+        t0 = time.perf_counter()
+        h2d0 = proc.h2d_bytes
+        datas = [seg.data for seg in segs]
+        if proc.ring:
+            chain_ok = self._ring_adjacent(segs[0]) and all(
+                b.seq == a.seq + 1
+                and getattr(b, "data_stream_id", 0)
+                == getattr(a, "data_stream_id", 0)
+                for a, b in zip(segs, segs[1:]))
+            carry, self._ring_carry = self._ring_carry, None
+            if not chain_ok:
+                carry = None
+
+            def run():
+                staged = proc.stage_batch(datas, carry=carry)
+                if carry is None:
+                    return proc.run_batch_cold(staged)
+                return proc.run_batch_ring(staged)
+
+            lanes, self._ring_carry = self._op("dispatch", first_index, run)
+            last = segs[-1]
+            self._ring_prev = ((getattr(last, "data_stream_id", 0), last.seq)
+                               if last.seq >= 0 else None)
+        else:
+            lanes = self._op("dispatch", first_index,
+                             lambda: proc.run_batch(proc.stage_batch(datas)))
+        dets, done = self._to_host([det for _wf, det in lanes])
+        t1 = time.perf_counter()
+        b = len(segs)
+        per_seg = (t1 - t0) / b
+        h2d_each = (proc.h2d_bytes - h2d0) // b
+        return [InFlight(seg, wf, det, done, t1, per_seg, h2d_each, off,
+                         first_index + i)
+                for i, (seg, (wf, _d), det, off)
+                in enumerate(zip(segs, lanes, dets, offsets))]
 
     @staticmethod
     def _ready(item: InFlight) -> bool:
@@ -266,8 +397,9 @@ class Pipeline:
         extras = self.stats.extras
         t0 = time.perf_counter()
         hidden = max(0.0, t0 - item.t_dispatched)
-        if item.done is not None:
-            item.done.synchronize()
+        done = item.done
+        self._op("fetch", item.index,
+                 lambda: done.synchronize() if done is not None else None)
         fetch_s = time.perf_counter() - t0
         stage_s = extras["stage_s"]
         stage_s["dispatch"] += item.dispatch_s
@@ -280,7 +412,8 @@ class Pipeline:
             item.dispatch_s + hidden + fetch_s)
         extras["overlap_hidden_s_per_segment"].append(hidden)
         extras["h2d_bytes_per_segment"].append(item.h2d_bytes)
-        return Fetched(item.seg, item.wf, item.det, item.done)
+        return Fetched(item.seg, item.wf, item.det, item.done,
+                       item.offset_after, item.index)
 
     # ------------------------------------------------ the sink side
 
@@ -300,31 +433,78 @@ class Pipeline:
             self._sink_copy_stream.wait_event(done)
             yield
 
+    def _push_sinks(self, item: Fetched, positive: bool,
+                    seg_key: tuple | None) -> None:
+        """Push one segment to every sink.  ``seg_key`` is the manifest's
+        ``(data_stream_id, drain index)`` (None without a manifest): a
+        sink whose group the manifest holds as committed (the crash came
+        between its commit and the covering checkpoint) is skipped,
+        counted as a replayed skip; every other sink logs its artifacts
+        under ``(stream, index, "<position>:<class>")`` and, when it
+        wrote one, seals a ``done`` record."""
+        work = SegmentResultWork(segment=item.seg, waterfall=item.wf,
+                                 detect=item.det)
+        m = self.manifest
+        for i, sink in enumerate(self.sinks):
+            key = None
+            if m is not None and seg_key is not None:
+                key = (seg_key[0], seg_key[1], f"{i}:{type(sink).__name__}")
+                if m.is_done(key):
+                    m.replayed_skips += 1
+                    log.info(f"[manifest] segment {seg_key[1]} sink "
+                             f"{key[2]}: already committed, skipping "
+                             "replay")
+                    continue
+                set_key = getattr(sink, "set_manifest_key", None)
+                if set_key is not None:
+                    set_key(key)
+            sink.push(work, positive)
+            # an empty push seals nothing: a replayed negative segment
+            # writes nothing again
+            if key is not None and getattr(sink, "last_push_wrote", True):
+                m.sink_done(key)
+
     def _drain_body(self, item: Fetched, drained: list) -> None:
         """The sink half of one segment: the detection gate, the sink
-        pushes, then the segment's buffer back to the source's pool (its
-        upload finished before its event).  On the sink thread with a
-        window, inline in the serial leg."""
+        pushes (the ``sink_write`` site), the segment's buffer back to the
+        source's pool (its upload finished before its event; a batch's
+        before the batch's event), then with a checkpoint the sinks'
+        drain and the checkpoint's update (the ``checkpoint`` site).  On
+        the sink thread with a window, inline in the serial leg."""
         cfg = self.cfg
+        extras = self.stats.extras
         positive = has_signal(cfg, item.det,
                               frequency_bin_count=item.wf.shape[-2])
         if positive:
             self.stats.signals += 1
             self.positive_segments.append(drained[0])
             log.info(f"[pipeline] signal detected in segment {drained[0]}")
+        # the manifest's key: the drain index, which continues across
+        # resumes, so a replayed segment lands on its first life's key
+        seg_key = None if self.manifest is None else (
+            getattr(item.seg, "data_stream_id", 0), drained[0])
         t0 = time.perf_counter()
         with self._sink_stream(item.done):
-            for sink in self.sinks:
-                sink.push(SegmentResultWork(segment=item.seg,
-                                            waterfall=item.wf,
-                                            detect=item.det), positive)
-        self.stats.extras["stage_s"]["sink"] += time.perf_counter() - t0
+            self._op("sink_write", item.index,
+                     lambda: self._push_sinks(item, positive, seg_key))
+        extras["stage_s"]["sink"] += time.perf_counter() - t0
         # no sink keeps the segment past its push: the write-signal sink's
         # piggyback queue holds a real-time negative only until the
         # re-check in the same push pops it (ref: write_signal_pipe.hpp
         # 122-140), so the queue is empty between pushes
         self.source.pool.release(item.seg.data)
         drained[0] += 1
+        if self.checkpoint is not None:
+            # a checkpointed segment is durable: the queued writes land
+            # before the update records it
+            t0 = time.perf_counter()
+            self._op("checkpoint", item.index,
+                     lambda: (self._drain_sinks(),
+                              self.checkpoint.update(drained[0],
+                                                     item.offset_after)))
+            dt = time.perf_counter() - t0
+            extras["stage_s"]["checkpoint"] += dt
+            extras["checkpoint_s_per_segment"].append(dt)
 
     def _drain_sinks(self) -> None:
         for sink in self.sinks:
@@ -339,21 +519,40 @@ class Pipeline:
         seconds by stage land in ``stats.extras["stage_s"]`` (``read``,
         ``dispatch``, ``overlap``, ``fetch``, ``sink``: the sink side's
         pushes, summed on whichever thread ran them, and ``drain``: the
-        writer pool's final flush); per segment, in drain order,
+        writer pool's final flush, and ``checkpoint``: the drains and
+        updates after each segment); per segment, in drain order,
         ``device_s_per_segment`` (the first carries one-time set-up),
-        ``overlap_hidden_s_per_segment`` and ``h2d_bytes_per_segment``;
-        with ``quality_stats``, ``quality``: the monitor's timeline, one
-        dict a segment in drain order (the last ``TIMELINE_SPANS``)."""
+        ``overlap_hidden_s_per_segment``, ``h2d_bytes_per_segment`` and,
+        with a checkpoint, ``checkpoint_s_per_segment``; ``dispatches``
+        (a batch is one); with a manifest, ``manifest``: its recovery and
+        replay counts; with ``quality_stats``, ``quality``: the monitor's
+        timeline, one dict a segment in drain order (the last
+        ``TIMELINE_SPANS``).
+
+        ``micro_batch_segments`` above the window, or above 1 on the
+        staged plan, raises ``ValueError`` before any read."""
         cfg = self.cfg
         window = max(1, int(cfg.inflight_segments or 1))
+        batch = max(1, int(cfg.micro_batch_segments or 1))
+        if batch > window:
+            raise ValueError(
+                f"micro_batch_segments={batch} exceeds "
+                f"inflight_segments={window}: a batch dispatch must fit "
+                "the in-flight window")
+        if batch > 1 and self.processor.staged:
+            raise ValueError(BATCH_NEEDS_FUSED)
         stats = self.stats
         stats.extras.update(
             stage_s=dict.fromkeys(("read", "dispatch", "overlap", "fetch",
-                                   "sink", "drain"), 0.0),
+                                   "sink", "drain", "checkpoint"), 0.0),
             device_s_per_segment=[], overlap_hidden_s_per_segment=[],
-            h2d_bytes_per_segment=[], inflight_segments=window)
+            h2d_bytes_per_segment=[], checkpoint_s_per_segment=[],
+            inflight_segments=window, micro_batch_segments=batch,
+            dispatches=0)
         stage_s = stats.extras["stage_s"]
+        n_samples = cfg.baseband_input_count
         start = time.perf_counter()
+        # a resumed run is a fresh process: its carry starts cold
         self._ring_invalidate()
 
         # a segment is live from dispatch until its sink completes; the
@@ -370,7 +569,9 @@ class Pipeline:
             with live_lock:
                 live[0] += n
 
-        drained = [0]
+        # the drain index continues the checkpoint's count
+        drained = [self.checkpoint.segments_done
+                   if self.checkpoint is not None else 0]
 
         def sink_f(_stop, item):
             try:
@@ -406,18 +607,44 @@ class Pipeline:
             return not exhausted[0] and (max_segments is None
                                          or stats.segments < max_segments)
 
+        def ingest_one(index: int):
+            """One read (the ``ingest`` site): the segment and the
+            source's offset after it, or None at the source's end."""
+            t0 = time.perf_counter()
+            seg = self._op("ingest", index, lambda: next(it, None))
+            stage_s["read"] += time.perf_counter() - t0
+            if seg is None:
+                exhausted[0] = True
+                return None
+            return seg, getattr(self.source, "logical_offset", 0)
+
         def fill_window() -> None:
-            while live_count() < window and want_more() and sink_alive():
-                t0 = time.perf_counter()
-                seg = next(it, None)
-                stage_s["read"] += time.perf_counter() - t0
-                if seg is None:
-                    exhausted[0] = True
+            # the unit is the batch: admitted only when all of it fits
+            while live_count() + batch <= window and want_more() \
+                    and sink_alive():
+                first = stats.segments
+                budget = batch if max_segments is None else \
+                    min(batch, max_segments - first)
+                got = []
+                while len(got) < budget:
+                    one = ingest_one(first + len(got))
+                    if one is None:
+                        break
+                    got.append(one)
+                if not got:
                     return
-                pending.append(self._dispatch_segment(seg))
-                live_add(1)
-                stats.segments += 1
-                stats.samples += cfg.baseband_input_count
+                if batch > 1 and len(got) == batch:
+                    segs, offsets = map(list, zip(*got))
+                    items = self._dispatch_batch(segs, offsets, first)
+                    stats.extras["dispatches"] += 1
+                else:  # one segment, or a tail shorter than the batch
+                    items = [self._dispatch_segment(seg, off, first + i)
+                             for i, (seg, off) in enumerate(got)]
+                    stats.extras["dispatches"] += len(items)
+                pending.extend(items)
+                live_add(len(items))
+                stats.segments += len(items)
+                stats.samples += n_samples * len(items)
 
         def drain_oldest() -> bool:
             return emit(self._fetch_inflight(pending.popleft()))
@@ -437,8 +664,9 @@ class Pipeline:
                         break
                 if not pending:
                     continue
-                # window full (or source done): block on the oldest
-                if live_count() >= window or not want_more():
+                # no room for the next unit (or source done): block on
+                # the oldest
+                if live_count() + batch > window or not want_more():
                     if not drain_oldest():
                         break
             while pending and sink_alive():
@@ -459,6 +687,8 @@ class Pipeline:
             self._drain_sinks()
             stage_s["drain"] += time.perf_counter() - t0
         stats.elapsed_s = time.perf_counter() - start
+        if self.manifest is not None:
+            stats.extras["manifest"] = self.manifest.counters()
         if self.quality is not None:
             stats.extras["quality"] = self.quality.timeline()
         # a UDP source's loss counters (ref: metrics packets_total and
@@ -491,11 +721,14 @@ class Pipeline:
     def close(self) -> None:
         """Release the run's resources: the source, the writer pool the
         pipeline owns (abandoned, not drained, after a wedged sink), the
-        write-all file and the pinned segment buffers."""
+        run manifest, the write-all file and the pinned segment
+        buffers."""
         self.source.close()
         if self._owned_writer_pool is not None:
             self._owned_writer_pool.close(drain=not self._sink_wedged)
             self._owned_writer_pool = None
+        if self.manifest is not None:
+            self.manifest.close()
         for sink in self.sinks:
             close = getattr(sink, "close", None)
             if close is not None:

@@ -99,6 +99,16 @@ next carry.  The assembled bytes are the segment's own, so warm and cold
 steps give bit-identical results.
 :meth:`process` stays the serial entry: one pageable upload and the
 chain.
+
+Micro-batch (``micro_batch_segments`` = B > 1, the fused plans only, as
+in the reference): one dispatch runs B segments.  The reference vmaps
+its fused plan over a leading batch axis; here :meth:`stage_batch`
+uploads each segment from its pinned buffer into its row of one device
+``[B, bytes]`` tensor on the copy stream (or, warm, B strides behind the
+carry into one window ``carry ++ new_0 ++ ... ++ new_{B-1}`` whose
+overlapping views are the B segments), and :meth:`run_batch` runs the
+chain once a lane, in lane order, so each lane launches the kernels a
+single dispatch launches and gives its bits.
 """
 
 from __future__ import annotations
@@ -161,6 +171,10 @@ STAGED_MIN_N = 1 << 30
 # Largest n/2 at which fused_tail = "auto" fuses the bankless plans
 # (staged, or use_pallas) in the reference.
 FUSED_TAIL_DF64_MAX_SPECTRUM = 1 << 27
+
+# the reference's refusal of a micro-batch on the staged plan
+BATCH_NEEDS_FUSED = ("micro_batch_segments > 1 requires the fused plan "
+                     "(staged segments are already dispatch-amortized)")
 
 STRATEGIES = ("auto", "monolithic", "four_step", "mxu", "pallas", "pallas2")
 
@@ -295,8 +309,6 @@ def check_plan(cfg: Config) -> None:
     if cfg.search_mode != "single_pulse":
         no(f"search_mode = {cfg.search_mode}",
            "ROADMAP A5: periodicity search")
-    if cfg.micro_batch_segments > 1:
-        no("micro_batch_segments > 1", "ROADMAP A3: micro-batching")
     if cfg.fft_strategy not in STRATEGIES:
         raise ValueError(f"unknown fft_strategy {cfg.fft_strategy!r}")
 
@@ -673,17 +685,7 @@ class SegmentProcessor:
         ``raw[reserved_bytes:]`` is uploaded, behind a device copy of
         the carry into the buffer's head.  On the CPU both are plain
         copies."""
-        if not (isinstance(raw, np.ndarray) and raw.dtype == np.uint8
-                and raw.flags["C_CONTIGUOUS"]
-                and raw.shape == (self._segment_bytes,)):
-            raise ValueError(
-                f"segment must be contiguous uint8 [{self._segment_bytes}]"
-                f" bytes, got {type(raw).__name__} "
-                f"{getattr(raw, 'dtype', None)} {np.shape(raw)}")
-        src = torch.from_numpy(raw)
-        if self.device.type == "cuda" and not src.is_pinned():
-            raise ValueError("segment bytes must be pinned host memory "
-                             "for an asynchronous upload")
+        src = self._upload_source(raw)
         if carry is not None:
             if not self.ring:
                 raise ValueError("a carry requires the ingest ring "
@@ -708,6 +710,23 @@ class SegmentProcessor:
         compute.wait_stream(self._copy_stream)
         dev.record_stream(compute)
         return dev
+
+    def _upload_source(self, raw: np.ndarray) -> torch.Tensor:
+        """One segment's host bytes as a tensor to upload from: contiguous
+        uint8 of the segment's size, pinned on the card, else
+        ``ValueError``."""
+        if not (isinstance(raw, np.ndarray) and raw.dtype == np.uint8
+                and raw.flags["C_CONTIGUOUS"]
+                and raw.shape == (self._segment_bytes,)):
+            raise ValueError(
+                f"segment must be contiguous uint8 [{self._segment_bytes}]"
+                f" bytes, got {type(raw).__name__} "
+                f"{getattr(raw, 'dtype', None)} {np.shape(raw)}")
+        src = torch.from_numpy(raw)
+        if self.device.type == "cuda" and not src.is_pinned():
+            raise ValueError("segment bytes must be pinned host memory "
+                             "for an asynchronous upload")
+        return src
 
     # -------------------------------------------------- device execution
 
@@ -769,3 +788,128 @@ class SegmentProcessor:
             raise ValueError("ingest ring disabled for this plan "
                              "(Config.ingest_ring / no reserved tail)")
         return self.run_device(raw), raw[self.stride_bytes:]
+
+    # ------------------------------------------------------ micro-batch
+
+    def _check_batch(self, raw, width: int) -> None:
+        """The reference's batch checks: the fused plan only, and a
+        ``[B, width]`` array of bytes."""
+        if self.staged:
+            raise ValueError(BATCH_NEEDS_FUSED)
+        if raw.ndim != 2 or raw.shape[1] != width:
+            raise ValueError(
+                f"batch must be [B, {width}] bytes, got {tuple(raw.shape)}")
+
+    def _batch_on_device(self, raws, width: int) -> torch.Tensor:
+        if isinstance(raws, np.ndarray):
+            raws = torch.from_numpy(np.ascontiguousarray(raws,
+                                                         dtype=np.uint8))
+        self._check_batch(raws, width)
+        return raws.to(self.device)
+
+    def stage_batch(self, raws: list, carry: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+        """Start the uploads of B segments' bytes (each contiguous uint8,
+        pinned on the card, as :meth:`stage_input` takes them) and return
+        them on the device at once: cold, one ``[B, segment_bytes]``
+        tensor, segment i in row i; warm (``carry``, the ring), the
+        window ``carry ++ new_0 ++ ... ++ new_{B-1}`` of the B strides'
+        new bytes behind the carry, flat, whose overlapping views are the
+        B segments (:meth:`run_batch_ring`).  The copies run on the copy
+        stream and the compute stream waits for them, as in
+        :meth:`stage_input`; a batch counts one cold or warm ring
+        dispatch."""
+        if self.staged:
+            raise ValueError(BATCH_NEEDS_FUSED)
+        seg, res = self._segment_bytes, self.reserved_bytes
+        srcs = [self._upload_source(raw) for raw in raws]
+        if carry is not None:
+            srcs = [src[res:] for src in srcs]
+        if carry is not None:
+            if not self.ring:
+                raise ValueError("a carry requires the ingest ring "
+                                 "(Config.ingest_ring)")
+            self.ring_warm_dispatches += 1
+        elif self.ring:
+            self.ring_cold_dispatches += 1
+        self.h2d_bytes += sum(s.nbytes for s in srcs)
+        if self.device.type != "cuda":
+            if carry is None:
+                return torch.stack(srcs)
+            return torch.cat([carry, *srcs])
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            if carry is None:
+                dev = torch.empty(len(srcs), seg, dtype=torch.uint8,
+                                  device=self.device)
+                for row, src in zip(dev, srcs):
+                    row.copy_(src, non_blocking=True)
+            else:
+                stride = self.stride_bytes
+                dev = torch.empty(res + len(srcs) * stride,
+                                  dtype=torch.uint8, device=self.device)
+                dev[:res].copy_(carry)
+                for i, src in enumerate(srcs):
+                    dev[res + i * stride:res + (i + 1) * stride].copy_(
+                        src, non_blocking=True)
+        compute.wait_stream(self._copy_stream)
+        dev.record_stream(compute)
+        return dev
+
+    def run_batch(self, raws: torch.Tensor) -> list:
+        """The chain on B device-resident segments ``raws [B, bytes]``, a
+        lane at a time in lane order, enqueued on the current stream: a
+        list of B ``(waterfall, detect)``, each lane's bits a single
+        dispatch's."""
+        return [self.run_device(raw) for raw in raws]
+
+    def run_batch_cold(self, raws: torch.Tensor):
+        """The ring's cold batch step: :meth:`run_batch` and the next
+        carry, the last segment's reserved tail (a view of ``raws``)."""
+        if not self.ring:
+            raise ValueError("ingest ring disabled for this plan "
+                             "(Config.ingest_ring / no reserved tail)")
+        return self.run_batch(raws), raws[-1, self.stride_bytes:]
+
+    def run_batch_ring(self, window: torch.Tensor):
+        """The ring's warm batch step on a window from
+        :meth:`stage_batch`: segment i is ``window[i * stride :][:bytes]``
+        (views, no copy); the next carry is the window's last
+        ``reserved_bytes``."""
+        if not self.ring:
+            raise ValueError("ingest ring disabled for this plan "
+                             "(Config.ingest_ring / no reserved tail)")
+        seg, stride = self._segment_bytes, self.stride_bytes
+        b = (window.numel() - self.reserved_bytes) // stride
+        lanes = [self.run_device(window[i * stride:i * stride + seg])
+                 for i in range(b)]
+        return lanes, window[window.numel() - self.reserved_bytes:]
+
+    def process_batch(self, raws) -> list:
+        """Micro-batch: B segments ``raws [B, bytes]`` (numpy or torch)
+        in one dispatch; a list of B ``(waterfall, detect)`` on the
+        processor's device."""
+        return self.run_batch(self._batch_on_device(raws,
+                                                    self._segment_bytes))
+
+    def process_batch_ring(self, carry: torch.Tensor, news):
+        """Micro-batch warm ring step: the device ``carry`` plus B stride
+        uploads ``news [B, stride_bytes]`` run B overlapped segments.
+        Returns ``(lanes, next_carry)``."""
+        if not self.ring:
+            raise ValueError("ingest ring disabled for this plan "
+                             "(Config.ingest_ring / no reserved tail)")
+        news = self._batch_on_device(news, self.stride_bytes)
+        return self.run_batch_ring(torch.cat([carry, news.reshape(-1)]))
+
+    def process_batch_cold(self, raws):
+        """Micro-batch cold ring step: B whole segments, the lanes and
+        the re-armed carry; counts one cold dispatch a batch."""
+        if not self.ring:
+            raise ValueError("ingest ring disabled for this plan "
+                             "(Config.ingest_ring / no reserved tail)")
+        self.ring_cold_dispatches += 1
+        return self.run_batch_cold(self._batch_on_device(
+            raws, self._segment_bytes))

@@ -16,8 +16,13 @@ the run is interrupted.  The run takes the
 reference's defaults: an in-flight window of ``inflight_segments`` (2),
 a writer pool of ``writer_thread_count`` threads (2) owned by the
 pipeline, and ``ingest_ring = auto``; ``baseband_write_all`` appends
-every segment's baseband instead of writing candidates.  Ends with the
-same ``[main] done: N segments, M with signal, X Msamples/s`` line.
+every segment's baseband instead of writing candidates.
+``micro_batch_segments`` (B segments a dispatch, the fused plans),
+``checkpoint_path`` and ``run_manifest_path`` (a resumable, exactly-once
+run: start it again with the same arguments after a crash),
+``manifest_fsync``, ``manifest_hash`` and ``fault_plan`` (the actions
+``stall`` and ``fatal``) pass through as in ``srtb-main``.  Ends with
+the same ``[main] done: N segments, M with signal, X Msamples/s`` line.
 """
 
 from __future__ import annotations

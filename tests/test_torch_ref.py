@@ -939,6 +939,74 @@ def ref_main_source(argv: list) -> dict:
     return {"rc": rc, "source": chosen[0] if chosen else ""}
 
 
+def segment_batch(fields: dict, raws: np.ndarray, news: np.ndarray, window_name: str = "rectangle",
+                  env: dict | None = None) -> dict:
+    """The reference's micro-batch steps on one processor: its plan,
+    ``process_batch(raws)``, ``process_batch_cold(raws)`` (with the next
+    carry) and ``process_batch_ring(carry, news)`` from the cold step's
+    carry (with its next carry)."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.pipeline.segment import SegmentProcessor
+    with environ(env):
+        sp = SegmentProcessor(Config(**fields), window_name=window_name)
+        wf, det = sp.process_batch(raws)
+        out = {"plan": sp.plan_name, "batch": {"wf_ri": wf, "detect": det}}
+        (wf, det), carry = sp.process_batch_cold(raws)
+        # fetched before the ring step consumes (donates) the carry
+        out["cold"] = {"wf_ri": np.asarray(wf), "detect": det,
+                       "carry": np.asarray(carry)}
+        (wf, det), carry = sp.process_batch_ring(carry, news)
+        out["ring"] = {"wf_ri": wf, "detect": det, "carry": carry}
+    return out
+
+
+def manifest_records(records: list) -> dict:
+    """The reference's ``record_crc`` and ``encode_record`` of each
+    record."""
+    from srtb_tpu.io import manifest as M
+    return {"crc": np.array([M.record_crc(r) for r in records],
+                            dtype=np.int64),
+            "encoded": np.array([M.encode_record(r).decode()
+                                 for r in records])}
+
+
+def recover_dir(manifest_path: str, hint: int = 0) -> dict:
+    """The reference's ``recover`` on a run directory, applied: its
+    report (paths relative to the manifest's directory) and every file
+    left in the directory with its bytes."""
+    from srtb_tpu.io import manifest as M
+    rep = M.recover(manifest_path, apply=True, checkpoint_floor_hint=hint)
+    d = os.path.dirname(manifest_path)
+    return {"report": json.dumps(report_fields(rep, d)),
+            "files": json.dumps(dir_bytes(d))}
+
+
+def report_fields(rep, d: str) -> dict:
+    """A RecoveryReport as plain JSON, the directory ``d`` cut from its
+    paths (so two copies of one run directory compare)."""
+    def rel(text):
+        return str(text).replace(d + os.sep, "")
+    return {"done": sorted(list(k) for k in rep.done),
+            "last_checkpoint": rep.last_checkpoint,
+            "truncated_bytes": rep.truncated_bytes,
+            "rolled_back": [rel(a) for a in rep.rolled_back],
+            "rolled_back_intents": rep.rolled_back_intents,
+            "missing": [rel(m) for m in rep.missing],
+            "recovered_segments": rep.recovered_segments}
+
+
+def dir_bytes(d: str) -> dict:
+    """name -> hex bytes of every file in ``d``."""
+    return {name: open(os.path.join(d, name), "rb").read().hex()
+            for name in sorted(os.listdir(d))}
+
+
+def fsck_dir(manifest_path: str, checkpoint_path: str) -> dict:
+    """The reference's ``fsck`` report of a run directory."""
+    from srtb_tpu.tools.fsck import fsck
+    return {"report": json.dumps(fsck(manifest_path, checkpoint_path))}
+
+
 def _main(req: str, out: str) -> None:
     _apply_jax_shim()
     with open(req, "rb") as f:

@@ -577,10 +577,13 @@ A2_BUILDS = {
 
 def test_unported_settings_raise(ref):
     cfg = slice_config(1 << 12, 32, 0.0)
-    for change in ({"search_mode": "periodicity"},
-                   {"micro_batch_segments": 2}):
-        with pytest.raises(NotImplementedError):
-            SegmentProcessor(cfg.replace(**change), device="cpu")
+    with pytest.raises(NotImplementedError):
+        SegmentProcessor(cfg.replace(search_mode="periodicity"),
+                         device="cpu")
+    # the micro-batch builds now (ROADMAP A3; tests/test_torch_batch.py
+    # holds its lanes to the reference's)
+    sp = SegmentProcessor(cfg.replace(micro_batch_segments=2), device="cpu")
+    assert sp.plan_name == SegmentProcessor(cfg, device="cpu").plan_name
     # the quality epilogue builds now, at the reference's defaults
     # (tests/test_torch_quality.py holds its vectors)
     assert SegmentProcessor(cfg.replace(quality_stats=True),
