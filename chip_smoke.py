@@ -1717,13 +1717,8 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
                                 and not any(".s1." in t for t in tims)):
             fail(f"{label}: the pulse is in stream 0 only, the series are "
                  f"{tims}")
-    for name, count in counts.items():
-        want = per_segment.get(name, 0) * stats.segments
-        if count != want:
-            fail(f"{label}: kernel {name} launched {count} times for "
-                 f"{stats.segments} segments, the plan's table says {want}")
-    say(f"main path {label}: launches per segment as the plan's table "
-        + json.dumps({k: v / stats.segments for k, v in counts.items()}))
+    _check_launches(f"main path {label}", counts, per_segment,
+                    stats.segments)
     names = [os.path.basename(p) for f in written
              for p in [f.bin_path, *f.npy_paths, *f.tim_paths]]
     say(f"main path {label}: candidates {names}")
@@ -2072,7 +2067,8 @@ WINDOW_TURNS = ("default", "ring_off", "serial", "ring_off", "default")
 def _candidate_files(pipe) -> dict:
     """Every candidate file of a run, by name."""
     return {os.path.basename(p): p for files in pipe.sink.written
-            for p in [files.bin_path, *files.npy_paths, *files.tim_paths]}
+            for p in [files.bin_path, *files.npy_paths, *files.tim_paths,
+                      *files.fold_paths]}
 
 
 def _same_bytes(a: str, b: str) -> bool:
@@ -3552,6 +3548,438 @@ def _compare_with_file_mode(card, label, lines, log2_n, files, pipe,
         f"candidates {extra}; card {card}")
 
 
+# ------------------------------------------------------------ search modes
+
+# the periodicity path: the example cfg as shipped (no reserve) in the
+# periodicity mode with the kernels on; its input's second segment holds
+# PERIODIC_PULSES pulses PERIODIC_SPACING samples apart from
+# PERIODIC_SPACING / 2 (the fundamental is bin 16 of T = 2^18 exactly),
+# each PERIODIC_WIDTH samples of noise at PERIODIC_AMP times the noise's
+# amplitude: a duty cycle of 1/64, weak enough that the cfg's SK threshold
+# of 1.05 keeps every channel
+PERIODIC_EXTRA = ("search_mode = periodicity\nuse_pallas = 1\n"
+                  "use_pallas_sk = 1\n")
+PERIODIC_PULSES = 16
+PERIODIC_SPACING = 1 << 26
+PERIODIC_WIDTH = 1 << 20
+PERIODIC_AMP = 0.5
+PERIODIC_FUNDAMENTAL = 16
+# K1, K2, K3 and K4 once a segment
+PERIODIC_LAUNCHES = {"unpack_subbyte_window": 1, "rfi_s1_dedisperse": 1,
+                     "sk_stats": 1, "sk_apply_timeseries": 1}
+# the DM search: examples/j1644_dmsearch.sh's eight trials around
+# J1644-4559's -478.80
+DM_TRIALS = (-380.0, -430.0, -465.0, -478.80, -495.0, -530.0, -580.0,
+             -650.0)
+DMSEARCH_EXTRA = ("use_pallas = 1\nuse_pallas_sk = 1\ndm_list = "
+                  + ", ".join(f"{d:.2f}" for d in DM_TRIALS) + "\n")
+# K1 once a segment, B3, K3 and K4 once a trial
+DMSEARCH_LAUNCHES = {"unpack_subbyte_window": 1,
+                     "dedisperse": len(DM_TRIALS),
+                     "sk_stats": len(DM_TRIALS),
+                     "sk_apply_timeseries": len(DM_TRIALS)}
+# the correlator's inputs: two 8-bit files of 2^30 samples, the second
+# the first delayed by CORR_LAG samples plus independent noise
+CORR_LOG2_N = 30
+CORR_LAG = 12345
+CORR_RTOL = 1e-4
+
+
+def make_periodic_input(cfg, path: Path) -> dict:
+    """Two segments of the cfg's 2-bit samples made on the card (no
+    reserve, so they do not overlap): noise, then the pulse train."""
+    import torch
+    from srtb_tpu_torch.io import synth
+    n = cfg.baseband_input_count
+    positions = [PERIODIC_SPACING // 2 + j * PERIODIC_SPACING
+                 for j in range(PERIODIC_PULSES)]
+    with open(path, "wb") as f:
+        for i, pulses in enumerate(([], positions)):
+            gen = torch.Generator(device="cuda").manual_seed(300 + i)
+            f.write(synth.make_dispersed_baseband(
+                n, cfg.baseband_freq_low, cfg.baseband_bandwidth, cfg.dm,
+                pulses, nbits=cfg.baseband_input_bits,
+                pulse_amp=PERIODIC_AMP, pulse_width=PERIODIC_WIDTH,
+                device="cuda", generator=gen).cpu().numpy().tobytes())
+            torch.cuda.empty_cache()
+    return {"segments": 2, "pulse_segment": 1, "pulses": PERIODIC_PULSES,
+            "spacing": PERIODIC_SPACING, "width": PERIODIC_WIDTH,
+            "amp": PERIODIC_AMP}
+
+
+def _check_launches(label: str, counts: dict, per_segment: dict,
+                    segments: int) -> None:
+    """Fail unless every kernel launched ``per_segment`` times a segment
+    (0 when it is not listed) over the run's ``segments``."""
+    for name, count in counts.items():
+        want = per_segment.get(name, 0) * segments
+        if count != want:
+            fail(f"{label}: kernel {name} launched {count} times for "
+                 f"{segments} segments, the plan's table says {want}")
+    say(f"{label}: launches per segment as the plan's table "
+        + json.dumps({k: v / segments for k, v in counts.items()}))
+
+
+def phase_periodicity(card: str) -> dict:
+    """periodicity_2^30: ``srtb-torch-main`` in the periodicity mode on the
+    pulse-train file, then again at ``inflight_segments = 1``: the plan,
+    the launches, the decisions (the boxcar's and the periodicity gate's
+    apart), the candidates on the train's comb, the fold's peak, the
+    ``.fold.npy`` and ``.cand.json`` written, both segments dispatched
+    again under the sync check (:func:`check_dispatch_syncs`) and every
+    candidate file of the two runs equal by SHA-256; the periodicity
+    module's ms on the card, and two folds of one series equal bit for
+    bit."""
+    import torch
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.ops import periodicity as P
+    from srtb_tpu_torch.pipeline.runtime import has_signal
+    label = "periodicity_2^30"
+    runs = {}
+    data = OUT_DIR / "inputs" / f"{label}.bin"
+    for setting, extra in (("default", ""),
+                           ("serial", "inflight_segments = 1\n")):
+        out_dir = OUT_DIR / f"{label}_{setting}"
+        cfg, text = path_cfg(out_dir, PERIODIC_EXTRA + extra, LOG2_N, label)
+        if not data.exists():
+            data.parent.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            info = make_periodic_input(cfg, data)
+            say(f"{label}: input {data.relative_to(ROOT)} "
+                f"({data.stat().st_size} bytes, {info}) made in "
+                f"{time.perf_counter() - t0:.1f} s")
+        K.reset_launch_counts()
+        stats, pipe, wall = run_cli(out_dir, text, data, {})
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        sp = pipe.processor
+        say(f"{label} {setting}: plan {sp.plan_name}, {stats.segments} "
+            f"segments, positive {pipe.positive_segments}, "
+            f"{stats.msamples_per_sec:.1f} Msamples/s ({stats.elapsed_s:.2f}"
+            f" s, {wall:.2f} s with set-up), max_memory_allocated {peak} "
+            f"bytes ({peak / 1e9:.2f} GB); launches {counts}; card {card}")
+        if sp.plan_name != "staged:four_step+period":
+            fail(f"{label}: plan {sp.plan_name}")
+        if stats.segments != 2 or pipe.positive_segments != [1]:
+            fail(f"{label}: positive {pipe.positive_segments} of "
+                 f"{stats.segments}; expected [1] of 2")
+        _check_launches(f"{label} {setting}", counts, PERIODIC_LAUNCHES, 2)
+        files = pipe.sink.written[0]
+        names = sorted(os.path.basename(p) for p in files.fold_paths)
+        if len(names) != 2 or not all(os.path.getsize(p) for p in
+                                      files.fold_paths):
+            fail(f"{label}: fold and candidate files {names}")
+        runs[setting] = {"counts": counts, "digests": _digests(pipe),
+                         "stats": stats, "pipe": pipe, "peak": peak}
+        if setting == "default":
+            cfg0 = cfg.replace(input_file_path=str(data))
+            check_dispatch_syncs(pipe, label)
+        for f in pipe.sink.written:  # the 4 GiB waterfall dumps: hashed
+            for p in f.npy_paths:
+                os.unlink(p)
+    a, b = runs["default"]["digests"], runs["serial"]["digests"]
+    if a != b:
+        fail(f"{label}: candidate files of the two runs differ: {a} {b}")
+    say(f"{label}: candidate files of the default and the serial run "
+        f"equal by SHA-256 ({sorted(a)})")
+    # the decisions by hand, on each segment: the boxcar's own and the
+    # periodicity gate's, the candidates and the fold
+    sp = runs["default"]["pipe"].processor
+    segs, pool = _segments_pinned(cfg0)
+    out = {}
+    for i, seg in enumerate(segs):
+        wf, res = sp.run_device(sp.stage_input(seg.data))
+        del wf
+        boxcar = bool((res.signal_counts.sum() > 0).item()) and bool(
+            (res.zero_count < cfg0.signal_detect_channel_threshold
+             * sp.channel_count).all().item())
+        gate = res.positive_gate(cfg0).tolist()
+        bins = res.candidate_bins[0].tolist()
+        snr = res.candidate_snr[0].tolist()
+        prof = res.folded_profiles[0, 0].float()
+        ratio = float(prof.abs().max() / prof.abs().median())
+        say(f"{label}: segment {i}: boxcar fired on its own {boxcar} "
+            f"(signal_counts {res.signal_counts[0].tolist()}, zero_count "
+            f"{int(res.zero_count[0])}), periodicity gate {gate} (margin "
+            f"{cfg0.periodicity_snr_threshold} over ln(trials "
+            f"{res.candidate_trials})), has_signal "
+            f"{has_signal(cfg0, res, frequency_bin_count=sp.channel_count)}"
+            f", candidates {bins} snr {snr} harmonics "
+            f"{res.candidate_harmonics[0].tolist()}, fold peak / median "
+            f"|profile| {ratio:.2f}")
+        out[i] = (bins, ratio, res.time_series[0].clone())
+        pool.release(seg.data)
+    pool.free_all()
+    bins, ratio, ts = out[1]
+    if bins[0] not in (PERIODIC_FUNDAMENTAL, 2 * PERIODIC_FUNDAMENTAL) or \
+            any(b % PERIODIC_FUNDAMENTAL for b in bins):
+        fail(f"{label}: candidates {bins} off the train's comb")
+    if not ratio > 3.0:
+        fail(f"{label}: fold peak {ratio:.2f} x the median |profile|")
+    # the module on the card: its time, and the fold's fixed order
+    ms = cuda_ms(lambda: P.periodicity_search(ts, 8, 4, 64), 5)
+    bins_t = torch.tensor([PERIODIC_FUNDAMENTAL, 3, 1000], device="cuda")
+    f1, f2 = P.fold(ts, bins_t, 64), P.fold(ts, bins_t, 64)
+    if not torch.equal(f1, f2):
+        fail(f"{label}: two folds of one series differ")
+    say(f"{label}: periodicity_search at T = {ts.shape[-1]} (harmonics 8, "
+        f"4 candidates, 64 fold bins) {ms:.3f} ms; two folds of one "
+        f"series equal bit for bit; card {card}")
+    for r in runs.values():
+        r.pop("pipe")
+    return {"counts": runs["default"]["counts"], "module_ms": ms,
+            "peak": runs["default"]["peak"],
+            "msamples_per_s": [r["stats"].msamples_per_sec
+                               for r in runs.values()]}
+
+
+def _segments_pinned(cfg):
+    """The file's segments in pinned buffers (and the pool that holds
+    them)."""
+    from srtb_tpu_torch.io.file_input import make_file_source
+    from srtb_tpu_torch.utils.bufferpool import BufferPool
+    pool = BufferPool("segments", pinned=True)
+    src = make_file_source(cfg, buffer_pool=pool)
+    segs = list(src)
+    src.close()
+    return segs, pool
+
+
+def phase_dmsearch(card: str, made: dict) -> dict:
+    """dmsearch_2^30: ``srtb-torch-main`` with the eight trials of
+    ``examples/j1644_dmsearch.sh`` on the cfg's file with the pulse at
+    -478.80 in segment 1: the launches, the record, the matched trial
+    against a single-DM staged processor of the same cfg on the same
+    segments, the trial loop dispatched under ``set_sync_debug_mode
+    ("error")``, the peak memory at 1 and at 8 trials, the stages of one
+    segment, and ``srtb-torch-plot-dm-curve`` on the record."""
+    import contextlib
+    import io
+    import torch
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.parallel.segment_dist import DistSegmentProcessor
+    from srtb_tpu_torch.pipeline.segment import SegmentProcessor
+    from srtb_tpu_torch.tools import plot_dm_curve as PD
+    label = "dmsearch_2^30"
+    out_dir = OUT_DIR / label
+    cfg, text = path_cfg(out_dir, DMSEARCH_EXTRA, LOG2_N, label)
+    if tuple(cfg.dm_list) != DM_TRIALS or cfg.dm not in cfg.dm_list:
+        fail(f"{label}: dm_list {cfg.dm_list}, dm {cfg.dm}")
+    data = input_file(cfg, label, made)
+    K.reset_launch_counts()
+    stats, search, wall = run_cli(out_dir, text, data, {})
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(search.trials_path) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    say(f"{label}: plan {search.processor.processor.plan_name} (the DM "
+        f"tail's), {stats.segments} segments, {stats.signals} with signal, "
+        f"{stats.msamples_per_sec:.1f} Msamples/s ({stats.elapsed_s:.2f} s,"
+        f" {wall:.2f} s with set-up), max_memory_allocated {peak} bytes "
+        f"({peak / 1e9:.2f} GB); launches {counts}; card {card}")
+    for rec in records:
+        say(f"{label}: record " + json.dumps(rec))
+    _check_launches(label, counts, DMSEARCH_LAUNCHES, stats.segments)
+    if stats.segments != 2 or len(records) != 2 or \
+            records[1]["best_dm"] != cfg.dm:
+        fail(f"{label}: segment 1's best dm "
+             f"{records[-1]['best_dm'] if records else None}, expected "
+             f"{cfg.dm}")
+    # the matched trial against the single-DM staged processor
+    i = cfg.dm_list.index(cfg.dm)
+    single = SegmentProcessor(cfg.replace(dm_list=[]))
+    segs, pool = _segments_pinned(cfg.replace(input_file_path=str(data)))
+    for k, seg in enumerate(segs):
+        _wf, det = single.run_device(single.stage_input(seg.data))
+        del _wf
+        want = (int(det.signal_counts.sum()), int(det.zero_count.max()))
+        got = (records[k]["signal_counts"][i], records[k]["zero_counts"][i])
+        if got != want:
+            fail(f"{label}: segment {k}'s trial {cfg.dm}: counts and zero "
+                 f"count {got}, the single-DM staged processor's {want}")
+    say(f"{label}: the {cfg.dm} trial's counts and zero counts equal the "
+        f"single-DM staged processor's ({single.plan_name}) on both "
+        "segments")
+    del single
+    free_card()
+    # the trial loop under the sync check, and the peaks at 1 and 8 trials
+    peaks = {}
+    for trials in ((cfg.dm,), DM_TRIALS):
+        dist = DistSegmentProcessor(cfg, dm_list=list(trials))
+        sp = dist.processor
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        staged = sp.stage_input(segs[1].data)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = dist.run_device(staged)
+        except RuntimeError as e:
+            fail(f"{label}: the trial loop synchronised with the card: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        peaks[len(trials)] = torch.cuda.max_memory_allocated()
+        if len(trials) == len(DM_TRIALS):
+            peak_snr = res.snr_peaks.reshape(len(trials), -1).amax(-1)
+            if peak_snr.tolist() != records[1]["peak_snr"]:
+                fail(f"{label}: the re-dispatch's peaks {peak_snr.tolist()}"
+                     f", the run's {records[1]['peak_snr']}")
+        del res, staged, dist, sp
+        free_card()
+    say(f"{label}: {len(DM_TRIALS)} trials dispatched under "
+        "set_sync_debug_mode('error'): no synchronising call; peak memory "
+        f"of one segment at n_dm = 1 {peaks[1]} bytes "
+        f"({peaks[1] / 1e9:.2f} GB), at n_dm = {len(DM_TRIALS)} "
+        f"{peaks[len(DM_TRIALS)]} bytes "
+        f"({peaks[len(DM_TRIALS)] / 1e9:.2f} GB); card {card}")
+    if peaks[len(DM_TRIALS)] > 1.05 * peaks[1]:
+        fail(f"{label}: peak memory grows with the trials: {peaks}")
+    breakdown = phase_breakdown_dmsearch(cfg, segs[1].data)
+    for seg in segs:
+        pool.release(seg.data)
+    pool.free_all()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = PD.main([search.trials_path])
+    for line in buf.getvalue().splitlines():
+        say(f"{label}: plot-dm-curve: {line}")
+    # the curve printed (no matplotlib), or the plot's path
+    text = buf.getvalue()
+    if rc != 0 or not ("<- best" in text or text.rstrip().endswith(".png")):
+        fail(f"{label}: srtb-torch-plot-dm-curve returned {rc}: {text}")
+    return {"counts": counts, "peaks": peaks, "breakdown": breakdown,
+            "peak": peak, "msamples_per_s": stats.msamples_per_sec}
+
+
+def phase_breakdown_dmsearch(cfg, pinned) -> dict:
+    """One segment of the DM search by stage, CUDA events: the front once
+    (K1, the R2C, stage 1 and the mask), then one trial's B3, waterfall
+    C2C, K3 + verdict + K4 and detect, beside the trial loop (every
+    trial) and the whole segment."""
+    import torch
+    from srtb_tpu_torch.kernels import sk as KS
+    from srtb_tpu_torch.ops import detect as det
+    from srtb_tpu_torch.ops import fft as F
+    from srtb_tpu_torch.ops import rfi
+    from srtb_tpu_torch.parallel.segment_dist import DistSegmentProcessor
+    dist = DistSegmentProcessor(cfg)
+    sp = dist.processor
+    raw = sp.stage_input(pinned)
+    ms = {}
+    ms["K1 unpack"] = cuda_ms(lambda: sp._unpack(raw), 5)
+    x = sp._unpack(raw)
+    ms["R2C"] = cuda_ms(lambda: F.rfft_drop_nyquist(x), 3)
+    spec = F.rfft_drop_nyquist(x)
+    del x
+    thr = cfg.mitigate_rfi_average_method_threshold
+    ms["stage 1 + mask"] = cuda_ms(lambda: rfi.mitigate_rfi_manual(
+        rfi.mitigate_rfi_average_and_normalize(spec, thr, sp.norm_coeff),
+        dist.rfi_zap), 3)
+    del spec
+    front = cuda_ms(lambda: dist.front(raw), 3)
+    clean = dist.front(raw)
+    buf = torch.empty_like(clean)
+    ms["B3 (one trial)"] = cuda_ms(lambda: dist.chirp(clean, cfg.dm, buf), 5)
+    ms["waterfall C2C (one trial)"] = cuda_ms(
+        lambda: F.waterfall_c2c(buf, sp.channel_count, sp.watfft_dewindow), 3)
+    wf = F.waterfall_c2c(buf, sp.channel_count, sp.watfft_dewindow)[0]
+    sk_thr = cfg.mitigate_rfi_spectral_kurtosis_threshold
+    out = torch.empty_like(wf)
+    ms["K3 + verdict + K4 (one trial)"] = cuda_ms(
+        lambda: KS.sk_zap_timeseries(wf, sk_thr, out=out), 5)
+    _o, zc, ts = KS.sk_zap_timeseries(wf, sk_thr, out=out)
+    del wf, out, _o
+    t = det.trimmed_length(sp.watfft_len, sp.time_reserved_count)
+    ms["detect (one trial)"] = cuda_ms(lambda: det.detect_from_time_series(
+        ts[None, :t], zc[None], cfg.signal_detect_signal_noise_threshold,
+        cfg.signal_detect_max_boxcar_length), 5)
+
+    def loop():
+        for dm in dist.dm_list:
+            sp._waterfall_detect(dist.chirp(clean, dm, buf))
+    trial_loop = cuda_ms(loop, 2)
+    whole = cuda_ms(lambda: dist.run_device(raw), 2)
+    del clean, buf
+    torch.cuda.empty_cache()
+    return _breakdown_line("dmsearch_2^30", ms, whole, cfg, {
+        "front_ms (as one)": front,
+        f"trial_loop_ms ({len(dist.dm_list)} trials)": trial_loop,
+        "trial_ms (loop / trials)": trial_loop / len(dist.dm_list)})
+
+
+def phase_correlator(card: str) -> dict:
+    """correlator_2^30: two 8-bit files of 2^30 samples made on the card,
+    the second the first delayed by CORR_LAG samples plus independent
+    noise; ``srtb-torch-correlator`` on them (its ms by CUDA events
+    beside its wall seconds), the peak at the lag's half and ``corr.bin``
+    within CORR_RTOL of its largest value of a complex128 ``torch.fft``
+    computation on the card."""
+    import numpy as np
+    import torch
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.tools import correlator as C
+    label = "correlator_2^30"
+    out_dir = OUT_DIR / label
+    out_dir.mkdir(parents=True, exist_ok=True)
+    n = 1 << CORR_LOG2_N
+    gen = torch.Generator(device="cuda").manual_seed(500)
+    s = torch.randn(n + CORR_LAG, device="cuda", generator=gen) * 30.0
+
+    def q(v):
+        return torch.clamp(torch.round(v + 128.0), 0, 255).to(torch.uint8)
+    x1 = q(s[CORR_LAG:])
+    x2 = q(s[:n] + 10.0 * torch.randn(n, device="cuda", generator=gen))
+    del s
+    paths = [out_dir / name for name in ("pol_1.bin", "pol_2.bin",
+                                         "corr.bin")]
+    for x, p in zip((x1, x2), paths):
+        x.cpu().numpy().tofile(p)
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: C.correlate_device(x1, x2), 3)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if C.main([str(p) for p in paths]) != 0:
+        fail(f"{label}: srtb-torch-correlator failed")
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    got = np.fromfile(paths[2], dtype="<f4")
+    if got.size != n // 2 or paths[2].stat().st_size != 2 * n:
+        fail(f"{label}: corr.bin holds {got.size} values")
+    # complex128 on the card, the same function
+    f1 = torch.fft.rfft(x1.to(torch.float64))[:n // 2]
+    f2 = torch.fft.rfft(x2.to(torch.float64))[:n // 2]
+    del x1, x2
+    want = torch.abs(torch.fft.ifft(float(n) ** -1.5 * f1 * torch.conj(f2),
+                                    norm="forward"))
+    del f1, f2
+    got_d = torch.from_numpy(got).to("cuda", torch.float64)
+    err = float((got_d - want).abs().max())
+    top = float(want.max())
+    peak_at = int(torch.argmax(got_d))
+    del got_d, want
+    torch.cuda.empty_cache()
+    expect = (n - CORR_LAG) // 2
+    say(f"{label}: corr.bin {got.size} float32 values, peak at index "
+        f"{peak_at} (the second file delayed by {CORR_LAG} samples: "
+        f"expected (n - lag) / 2 = {expect}, the lag's half counted back "
+        f"from the end), max |corr - complex128| {err:.3e} of max "
+        f"{top:.6e} ({err / top:.3e}); correlate on the card {ms:.3f} ms, "
+        f"the command {wall:.2f} s (reads, writes), max_memory_allocated "
+        f"{peak} bytes ({peak / 1e9:.2f} GB); launches {counts}; card "
+        f"{card}")
+    if abs(peak_at - expect) > 1:
+        fail(f"{label}: peak at {peak_at}, expected {expect} +- 1")
+    if not err <= CORR_RTOL * top:
+        fail(f"{label}: corr.bin off the complex128 result by {err:.3e} "
+             f"of {top:.3e}")
+    for p in paths:
+        p.unlink()
+    return {"counts": counts, "ms": ms, "wall_s": wall, "peak": peak}
+
+
 def check_same_candidates(staged: dict, quality: dict) -> None:
     """The quality epilogue changes nothing the search decides or writes:
     quality_2^30's decisions and candidate bytes are staged_2^30's."""
@@ -3622,6 +4050,13 @@ def main() -> int:
         run.pop("pipe", None)
     free_card()
     lap("main paths and breakdowns")
+    runs["periodicity_2^30"] = phase_periodicity(card)
+    free_card()
+    runs["dmsearch_2^30"] = phase_dmsearch(card, made)
+    free_card()
+    runs["correlator_2^30"] = phase_correlator(card)
+    free_card()
+    lap("search modes")
     window = phase_window(card)
     lap("window")
     batch = phase_batch(card, window, runs)

@@ -9,6 +9,9 @@ Files are byte-compatible with the reference's:
 - ``<prefix><counter>.<boxcar>.tim``  float32 boxcar time series, and
   ``<prefix><counter>.s<stream>.<boxcar>.tim`` when a segment holds more
   than one stream (ref: write_signal_pipe.hpp:249-280);
+- the extra artifacts a search mode's result names (``extra_artifacts``:
+  the periodicity mode's ``<prefix><counter>[.s<stream>].fold.npy`` and
+  ``.cand.json``), after the series, in the same transaction;
 - the "piggybank" policy writes a negative segment that lies within 0.45
   segment of a recent positive (real-time input only, an empty
   ``input_file_path``: the other polarization's receiver, ref:
@@ -40,7 +43,7 @@ import os
 import time
 import zlib
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -228,12 +231,23 @@ def _npy_bytes(wf, pool=None) -> np.ndarray:
     return buf
 
 
+def _npy_array_bytes(arr: np.ndarray) -> np.ndarray:
+    """A host array in .npy format as one uint8 buffer, what ``np.save``
+    writes (the reference's generic ``_npy_bytes``)."""
+    bio = io.BytesIO()
+    np.save(bio, arr)
+    return np.frombuffer(bio.getvalue(), dtype=np.uint8)
+
+
 @dataclass
 class CandidateFiles:
     """Paths written for one positive segment."""
     bin_path: str
     npy_paths: list
     tim_paths: list
+    # the periodicity mode only: <base>[.sN].fold.npy folded profiles and
+    # <base>[.sN].cand.json candidate tables
+    fold_paths: list = field(default_factory=list)
 
 
 class WriteSignalSink:
@@ -389,7 +403,22 @@ class WriteSignalSink:
                         self._write_bytes(
                             path, series[s, bi, :valid].astype("<f4"))
                         tim_paths.append(path)
-        self.written.append(CandidateFiles(bin_path, npy_paths, tim_paths))
+
+        # a registered mode's own artifacts (the periodicity mode's folded
+        # profiles and candidate table, pipeline/periodicity.py): (path,
+        # array) pairs that ride the same temp + rename (+ manifest)
+        # transaction as every other artifact
+        fold_paths = []
+        extra = (getattr(work.detect, "extra_artifacts", None)
+                 if work.detect is not None else None)
+        if extra is not None:
+            for path, payload in extra(base):
+                if path.endswith(".npy"):
+                    payload = _npy_array_bytes(payload)
+                self._write_bytes(path, payload)
+                fold_paths.append(path)
+        self.written.append(CandidateFiles(bin_path, npy_paths, tim_paths,
+                                           fold_paths))
 
     def _publish_staged(self) -> None:
         """Close the segment's transaction: one publish barrier (every

@@ -1,6 +1,8 @@
 """Streaming runtime: reader -> device segment processor -> sinks (port of
-``srtb_tpu/pipeline/runtime.py``: ``PipelineStats``, ``has_signal`` and
-``Pipeline`` with its in-flight segment engine).
+``srtb_tpu/pipeline/runtime.py``: ``PipelineStats``, ``has_signal``,
+``Pipeline`` with its in-flight segment engine, and ``DMSearchPipeline``,
+the DM-trial search of ``dm_list``).  ``Pipeline`` builds the processor
+of the configured search mode (``pipeline/registry.py``).
 
 The engine, as the reference's:
 
@@ -63,24 +65,28 @@ would change what a run writes raises ``NotImplementedError``
 from __future__ import annotations
 
 import contextlib
+import json
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from srtb_tpu_torch.config import Config
-from srtb_tpu_torch.io.file_input import make_file_source
+from srtb_tpu_torch.io.file_input import (BasebandFileReader,
+                                          make_file_source)
 from srtb_tpu_torch.io.manifest import RunManifest
 from srtb_tpu_torch.io.native_writer import AsyncWriterPool
 from srtb_tpu_torch.io.writers import (WriteAllSink, WriteSignalSink,
                                        recover_orphan_temps, to_host)
+from srtb_tpu_torch.parallel.segment_dist import DistSegmentProcessor
 from srtb_tpu_torch.pipeline import framework as fw
+from srtb_tpu_torch.pipeline import registry
 from srtb_tpu_torch.pipeline.checkpoint import StreamCheckpoint
-from srtb_tpu_torch.pipeline.segment import (BATCH_NEEDS_FUSED,
-                                             SegmentProcessor)
+from srtb_tpu_torch.pipeline.segment import BATCH_NEEDS_FUSED
 from srtb_tpu_torch.pipeline.work import SegmentResultWork
 from srtb_tpu_torch.quality.stats import QualityMonitor
 from srtb_tpu_torch.resilience.faults import FaultInjector
@@ -106,8 +112,10 @@ def has_signal(cfg: Config, detect_result, stream: int | None = None,
                frequency_bin_count: int | None = None) -> bool:
     """The reference's gate, per stream: negative when too many channels
     are zapped (ref: signal_detect_pipe.hpp:343-345), else positive when
-    any boxcar fired.  ``stream`` asks for one stream's verdict; without
-    it the segment is positive when any stream is.
+    any boxcar fired, or the result's own ``positive_gate`` (a registered
+    mode's rule, ``pipeline/registry.py``) says so.  ``stream`` asks for
+    one stream's verdict; without it the segment is positive when any
+    stream is.
     ``frequency_bin_count`` is the row count of the waterfall the
     detection ran on (falls back to the configured channel count)."""
     zero_count = to_host(detect_result.zero_count)
@@ -118,7 +126,13 @@ def has_signal(cfg: Config, detect_result, stream: int | None = None,
     freq_bins = (frequency_bin_count if frequency_bin_count is not None
                  else cfg.spectrum_channel_count)
     ok = zero_count < cfg.signal_detect_channel_threshold * freq_bins
-    per_stream = ok & (counts.sum(axis=-1) > 0)
+    fired = counts.sum(axis=-1) > 0
+    # a registered mode's own positive rule (the periodicity mode's
+    # trials-corrected candidate gate) extends the verdict, per stream
+    gate = getattr(detect_result, "positive_gate", None)
+    if gate is not None:
+        fired = fired | np.asarray(gate(cfg)).reshape(fired.shape)
+    per_stream = ok & fired
     if stream is not None:
         return bool(per_stream[stream])
     return bool(per_stream.any())
@@ -193,7 +207,8 @@ class Pipeline:
         self.faults = FaultInjector.from_plan(
             cfg.fault_plan, stream=cfg.stream_name,
             retry_max_attempts=cfg.retry_max_attempts)
-        self.processor = SegmentProcessor(cfg, device=device)
+        # the processor of the configured search mode (the registry)
+        self.processor = registry.build_processor(cfg, device=device)
         on_card = self.processor.device.type == "cuda"
         # the run manifest opens first and runs its recovery (torn tail
         # cut, uncommitted groups rolled back, the done-set rebuilt),
@@ -736,6 +751,95 @@ class Pipeline:
             host_pool = getattr(sink, "host_pool", None)
             if host_pool is not None:
                 host_pool.free_all()
+        self.source.pool.free_all()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class DMSearchPipeline:
+    """The streaming DM search (the reference's ``DMSearchPipeline``):
+    every segment runs the DM-trial step (``parallel/segment_dist.py``)
+    over the trial list ``cfg.dm_list``; each segment's per-trial
+    summaries are appended to ``<prefix>dm_trials.jsonl`` as the
+    reference's record (the same keys in the same order), and the best
+    trial of a positive segment is logged.  The segments come from
+    ``source`` (any source ``tools/main.make_source`` gives) or the
+    configured input file.  One segment at a time: its bytes uploaded
+    (pinned, on the copy stream, on the card), every trial enqueued, then
+    one fetch of the summaries."""
+
+    def __init__(self, cfg: Config, source=None, mesh=None, device=None):
+        self.cfg = cfg
+        self.dm_list = list(cfg.dm_list) or [cfg.dm]
+        self.processor = DistSegmentProcessor(cfg, mesh, self.dm_list,
+                                              device=device)
+        if source is None:
+            if not cfg.input_file_path:
+                raise ValueError("no input_file_path and no source given")
+            # the wall-clock reader, as the reference's DM search reads
+            source = BasebandFileReader(cfg, buffer_pool=BufferPool(
+                "segments", pinned=self.processor.device.type == "cuda"))
+        self.source = source
+        self.trials_path = cfg.baseband_output_file_prefix + \
+            "dm_trials.jsonl"
+        self.stats = PipelineStats()
+
+    def run(self, max_segments: int | None = None) -> PipelineStats:
+        cfg = self.cfg
+        sp = self.processor.processor
+        n_dm = len(self.dm_list)
+        start = time.perf_counter()
+        with open(self.trials_path, "a") as trials_file:
+            for i, seg in enumerate(self.source):
+                try:
+                    if max_segments is not None and i >= max_segments:
+                        break
+                    res = self.processor.run_device(sp.stage_input(seg.data))
+                    # one fetch a segment, after the last trial
+                    peaks, counts, zero = (to_host(x) for x in (
+                        res.snr_peaks, res.signal_counts, res.zero_count))
+                finally:
+                    self.source.pool.release(seg.data)
+                # reduce over (stream, boxcar) to per-trial quantities
+                peaks = peaks.reshape(n_dm, -1)
+                counts = counts.reshape(n_dm, -1)
+                zero = zero.reshape(n_dm, -1).max(axis=-1)
+                ok = zero < (cfg.signal_detect_channel_threshold
+                             * cfg.spectrum_channel_count)
+                fired = counts.sum(axis=-1) > 0
+                # rank trials by raw peak SNR: a matched trial concentrates
+                # the pulse and may trip the SK zap gate, which only means
+                # "be cautious", not "not the best DM"
+                best = int(np.argmax(peaks.max(axis=-1)))
+                record = {
+                    "segment": i,
+                    "timestamp": seg.timestamp,
+                    "best_dm": self.dm_list[best],
+                    "best_snr": float(peaks[best].max()),
+                    "dm_list": self.dm_list,
+                    "peak_snr": peaks.max(axis=-1).tolist(),
+                    "signal_counts": counts.sum(axis=-1).tolist(),
+                    "zero_counts": zero.tolist(),
+                }
+                trials_file.write(json.dumps(record) + "\n")
+                trials_file.flush()
+                if bool((ok & fired).any()):
+                    self.stats.signals += 1
+                    log.info(f"[dm_search] segment {i}: best dm "
+                             f"{record['best_dm']} "
+                             f"snr {record['best_snr']:.1f}")
+                self.stats.segments += 1
+                self.stats.samples += cfg.baseband_input_count
+        self.stats.elapsed_s = time.perf_counter() - start
+        return self.stats
+
+    def close(self) -> None:
+        """Close the source and free its segment buffers."""
+        self.source.close()
         self.source.pool.free_all()
 
     def __enter__(self):

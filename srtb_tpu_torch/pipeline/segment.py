@@ -137,6 +137,7 @@ from srtb_tpu_torch.ops import fft as F
 from srtb_tpu_torch.ops import rfi
 from srtb_tpu_torch.ops import unpack as U
 from srtb_tpu_torch.ops import window as W
+from srtb_tpu_torch.pipeline import registry
 from srtb_tpu_torch.quality import stats as Q
 from srtb_tpu_torch.utils.device import resolve_device
 from srtb_tpu_torch.utils.logging import log
@@ -302,13 +303,9 @@ def sk_tiling_ok(nfreq: int, ntime: int) -> bool:
 
 
 def check_plan(cfg: Config) -> None:
-    """Raise for settings the port does not implement yet."""
-    def no(what: str, item: str) -> None:
-        raise NotImplementedError(f"{what} is not ported yet ({item})")
-
-    if cfg.search_mode != "single_pulse":
-        no(f"search_mode = {cfg.search_mode}",
-           "ROADMAP A5: periodicity search")
+    """Raise for settings no plan takes: an unregistered ``search_mode``
+    (as ``registry.resolve_mode`` raises) or an unknown ``fft_strategy``."""
+    registry.resolve_mode(cfg)
     if cfg.fft_strategy not in STRATEGIES:
         raise ValueError(f"unknown fft_strategy {cfg.fft_strategy!r}")
 

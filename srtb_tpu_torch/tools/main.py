@@ -21,8 +21,13 @@ every segment's baseband instead of writing candidates.
 ``checkpoint_path`` and ``run_manifest_path`` (a resumable, exactly-once
 run: start it again with the same arguments after a crash),
 ``manifest_fsync``, ``manifest_hash`` and ``fault_plan`` (the actions
-``stall`` and ``fatal``) pass through as in ``srtb-main``.  Ends with
-the same ``[main] done: N segments, M with signal, X Msamples/s`` line.
+``stall`` and ``fatal``) pass through as in ``srtb-main``, and so does
+``search_mode = periodicity`` (the harmonic-summed search and folded
+profiles, ``.fold.npy`` and ``.cand.json`` beside a positive's dumps).
+Ends with the same ``[main] done: N segments, M with signal, X
+Msamples/s`` line.  A ``dm_list`` runs the DM-trial search instead
+(``DMSearchPipeline``: one ``<prefix>dm_trials.jsonl`` record a
+segment), ending with ``[main] dm search done: ...``.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ import sys
 
 from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.ops import dedisperse as dd
-from srtb_tpu_torch.pipeline.runtime import Pipeline, PipelineStats
+from srtb_tpu_torch.pipeline.runtime import (DMSearchPipeline, Pipeline,
+                                             PipelineStats)
 from srtb_tpu_torch.utils.logging import log
 from srtb_tpu_torch.utils.termination import install_termination_handler
 
@@ -99,16 +105,36 @@ class WaterfallTap:
             self.service.render_pending()
 
 
+def run_dm_search(cfg, device=None
+                  ) -> tuple[PipelineStats, DMSearchPipeline]:
+    """The DM-trial search of ``cfg.dm_list`` on the selected input
+    (the reference's ``dm_list`` branch): one record a segment in
+    ``<prefix>dm_trials.jsonl``."""
+    source = make_source(cfg)
+    try:
+        search = DMSearchPipeline(cfg, source=source, device=device)
+    except BaseException:
+        if source is not None:
+            source.close()
+        raise
+    with search:
+        stats = search.run()
+    log.info(f"[main] dm search done: {stats.segments} segments, "
+             f"{stats.signals} with signal; trials in "
+             f"{search.trials_path}")
+    return stats, search
+
+
 def run(argv=None) -> tuple[PipelineStats, Pipeline]:
     """Parse the options, run the search on the selected input, and
     return the run's statistics and the finished pipeline (its sink lists
-    what it wrote)."""
+    what it wrote); with ``dm_list``, the DM search's statistics and
+    its ``DMSearchPipeline`` (:func:`run_dm_search`)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _pop_device(argv)
     cfg = Config.from_args(argv)
     if cfg.dm_list:
-        raise NotImplementedError(
-            "the multi-DM search is not ported yet (ROADMAP A5)")
+        return run_dm_search(cfg, device)
     if cfg.gui_http_port and not cfg.gui_enable:
         # a live viewer port only makes sense with frames being rendered
         log.info("[main] gui_http_port set: enabling the waterfall service")

@@ -349,8 +349,9 @@ def pipeline_main(argv: list, out_dir: str) -> dict:
             res[f"tim/{name}"] = np.fromfile(path, dtype="<f4")
         elif name.endswith(".npy"):
             res[f"npy/{name}"] = np.load(path)
-        elif name.endswith(".png"):
-            res[f"png/{name}"] = np.fromfile(path, dtype=np.uint8)
+        elif name.endswith((".png", ".json")):
+            res[f"{name.rsplit('.', 1)[1]}/{name}"] = np.fromfile(
+                path, dtype=np.uint8)
     return res
 
 
@@ -1005,6 +1006,231 @@ def fsck_dir(manifest_path: str, checkpoint_path: str) -> dict:
     """The reference's ``fsck`` report of a run directory."""
     from srtb_tpu.tools.fsck import fsck
     return {"report": json.dumps(fsck(manifest_path, checkpoint_path))}
+
+
+def periodicity_ops(series: list, harmonics: int, top_k: int,
+                    n_bins: int, min_bin: int) -> dict:
+    """The JAX package's periodicity ops on each series: the power
+    spectrum, the harmonic sums, the candidate search, the folds at its
+    bins and the whole search (jitted, as the processor traces it)."""
+    import jax
+    import jax.numpy as jnp
+    from srtb_tpu.ops import periodicity as P
+    levels = P.harmonic_levels(harmonics)
+    out = {"levels": np.asarray(levels)}
+    for i, ts in enumerate(series):
+        x = jnp.asarray(ts)
+        bins, snr, harm = P.candidate_search(x, levels, top_k,
+                                             min_bin=min_bin)
+        search = jax.jit(lambda v: P.periodicity_search(
+            v, harmonics, top_k, n_bins, min_bin=min_bin))(x)
+        out[str(i)] = {
+            "power": P.power_spectrum(x),
+            "sums": P.harmonic_sum(P.power_spectrum(x), levels),
+            "bins": bins, "snr": snr, "harmonics": harm,
+            "folds": jnp.stack([P.fold(x, b, n_bins) for b in bins]),
+            "search": search}
+    return out
+
+
+def fold_guard(lengths: list, n_bins: int) -> dict:
+    """For each series length, whether the JAX package's ``fold`` refuses
+    it (its uint32 phase guard) and the message."""
+    import jax.numpy as jnp
+    from srtb_tpu.ops import periodicity as P
+    out = []
+    for t in lengths:
+        try:
+            P.fold(jnp.zeros(t, jnp.float32), jnp.int32(1), n_bins)
+            out.append("")
+        except ValueError as e:
+            out.append(str(e))
+    return {"messages": np.array(out)}
+
+
+def periodicity_processor(fields: dict, raws: list,
+                          staged: bool | None = None,
+                          batch: bool = False) -> dict:
+    """The reference's ``registry.build_processor`` on ``fields`` (the
+    periodicity mode): its plan, and per segment of ``raws`` the result,
+    the gate's verdicts (the segment's and each stream's), the journal
+    payload and the extra artifacts (path suffix and bytes); with
+    ``batch``, ``process_batch`` of all of them (lane i of each field)."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.io.writers import _npy_bytes
+    from srtb_tpu.pipeline import registry
+    from srtb_tpu.pipeline.runtime import has_signal
+    cfg = Config(**fields)
+    kwargs = {} if staged is None else {"staged": staged}
+    sp = registry.build_processor(cfg, **kwargs)
+    out = {"plan": sp.plan_name}
+    if batch:
+        wf, det = sp.process_batch(np.stack(raws))
+        out["batch"] = det
+        return out
+    for i, raw in enumerate(raws):
+        wf, det = sp.process(raw)
+        det = type(det)(*[np.asarray(v) if hasattr(v, "shape") else v
+                          for v in det])
+        streams = det.zero_count.shape[0]
+        arts = {}
+        for path, payload in det.extra_artifacts("BASE"):
+            if path.endswith(".npy"):
+                payload = _npy_bytes(payload)
+            arts[path] = np.asarray(payload, dtype=np.uint8)
+        out[str(i)] = {
+            "detect": det, "wf_ri": wf,
+            "has_signal": has_signal(cfg, det,
+                                     frequency_bin_count=wf.shape[-2]),
+            "by_stream": np.array([has_signal(
+                cfg, det, stream=s, frequency_bin_count=wf.shape[-2])
+                for s in range(streams)]),
+            "gate": np.asarray(det.positive_gate(cfg)),
+            "span": json.dumps(det.span_extra()),
+            "artifacts": json.dumps({k: v.tobytes().hex()
+                                     for k, v in arts.items()})}
+    return out
+
+
+def periodicity_gate_cases(cases: list) -> dict:
+    """``has_signal`` of the reference's ``PeriodicityResult`` built as
+    its tests build one (no boxcar hit, the given candidate scores and
+    trial counts), at each case's ``periodicity_snr_threshold``."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.pipeline.periodicity import PeriodicityResult
+    from srtb_tpu.pipeline.runtime import has_signal
+    out = []
+    for snr, trials, thr in cases:
+        snr = np.asarray(snr, np.float32)
+        k = snr.shape[-1]
+        res = PeriodicityResult(
+            zero_count=np.zeros(1, np.int32),
+            time_series=np.zeros((1, 8), np.float32),
+            boxcar_lengths=(1,),
+            signal_counts=np.zeros((1, 3), np.int32),
+            boxcar_series=np.zeros((1, 1, 8), np.float32),
+            snr_peaks=np.zeros((1, 3), np.float32),
+            candidate_bins=np.zeros((1, k), np.int32),
+            candidate_snr=snr,
+            candidate_harmonics=np.ones((1, k), np.int32),
+            folded_profiles=np.zeros((1, k, 4), np.float32),
+            candidate_trials=tuple(trials))
+        out.append(has_signal(Config(search_mode="periodicity",
+                                     periodicity_snr_threshold=thr), res))
+    return {"verdicts": np.array(out)}
+
+
+def dm_grid_search(fields: dict, raw: np.ndarray, dm_list: list) -> dict:
+    """The reference's DM grid as its tests run it: the cleaned spectrum
+    (unpack, R2C, stage 1 without the chirp), the host chirp bank on a
+    one-device ``dm`` mesh, ``dm_trial_search`` and ``best_trial``."""
+    import jax.numpy as jnp
+    from srtb_tpu.config import Config
+    from srtb_tpu.ops import dedisperse as dd
+    from srtb_tpu.ops import fft as F
+    from srtb_tpu.ops import rfi
+    from srtb_tpu.ops import unpack as U
+    from srtb_tpu.parallel import dm_grid
+    from srtb_tpu.parallel import mesh as M
+    from srtb_tpu.pipeline.segment import SegmentProcessor
+    cfg = Config(**fields)
+    proc = SegmentProcessor(cfg.replace(dm=0.0))
+    spec = F.segment_rfft(U.unpack(jnp.asarray(raw),
+                                   cfg.baseband_input_bits))
+    spec = rfi.mitigate_rfi_average_and_normalize(
+        spec, cfg.mitigate_rfi_average_method_threshold, proc.norm_coeff)
+    spec_ri = jnp.stack([jnp.real(spec), jnp.imag(spec)])
+    f_min, f_c, df = dd.spectrum_frequencies(cfg, proc.n_spectrum)
+    mesh = M.dm_mesh(1)
+    bank = dm_grid.build_chirp_bank(dm_list, proc.n_spectrum, f_min, df,
+                                    f_c)
+    res = dm_grid.dm_trial_search(
+        spec_ri, bank, dm_list, mesh, channel_count=proc.channel_count,
+        time_reserved_count=proc.time_reserved_count,
+        snr_threshold=cfg.signal_detect_signal_noise_threshold,
+        max_boxcar_length=cfg.signal_detect_max_boxcar_length,
+        sk_threshold=cfg.mitigate_rfi_spectral_kurtosis_threshold)
+    idx, snr = dm_grid.best_trial(res)
+    return {"spectrum_ri": spec_ri, "bank": bank, "result": res,
+            "best": np.array([idx]), "best_snr": np.array([snr])}
+
+
+def one_device_mesh():
+    """The reference's (dm 1, seq 1) mesh on its first device (the pytest
+    process's XLA_FLAGS give the runner eight virtual CPU devices, and
+    ``make_mesh(1, 1)`` would take them all)."""
+    import jax
+    from srtb_tpu.parallel import mesh as M
+    return M.make_mesh(1, 1, devices=jax.devices()[:1])
+
+
+def dist_segment(fields: dict, raw: np.ndarray, dm_list: list,
+                 window_name: str = "rectangle") -> dict:
+    """The reference's ``DistSegmentProcessor`` on a (dm 1, seq 1) mesh."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.parallel.segment_dist import DistSegmentProcessor
+    dist = DistSegmentProcessor(Config(**fields), one_device_mesh(),
+                                dm_list=dm_list, window_name=window_name)
+    return {"result": dist.process(raw)}
+
+
+def dm_search_pipeline(fields: dict) -> dict:
+    """The reference's ``DMSearchPipeline(cfg, mesh=...).run()`` on one
+    device: its statistics and the records it appended."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.pipeline.runtime import DMSearchPipeline
+    pipe = DMSearchPipeline(Config(**fields), mesh=one_device_mesh())
+    stats = pipe.run()
+    with open(pipe.trials_path) as f:
+        lines = [ln for ln in f.read().splitlines() if ln]
+    return {"segments": stats.segments, "signals": stats.signals,
+            "records": np.array(lines)}
+
+
+def refusals(cases: list) -> dict:
+    """The exception type and message the reference raises for each case:
+    ``("dist", fields, dm_list)`` builds a ``DistSegmentProcessor`` on a
+    (dm 1, seq 1) mesh, ``("mode", fields)`` resolves the search mode."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.parallel.segment_dist import DistSegmentProcessor
+    from srtb_tpu.pipeline import registry
+    out = []
+    for kind, fields, *rest in cases:
+        try:
+            if kind == "dist":
+                DistSegmentProcessor(Config(**fields), one_device_mesh(),
+                                     dm_list=rest[0])
+            else:
+                registry.resolve_mode(Config(**fields))
+            out.append("")
+        except Exception as e:  # the case's refusal, reported
+            out.append(f"{type(e).__name__}: {e}")
+    return {"messages": np.array(out)}
+
+
+def correlate(x1: np.ndarray, x2: np.ndarray) -> dict:
+    """The JAX package's ``correlator.correlate`` and its ``main`` on
+    files (``corr.bin``'s bytes)."""
+    import tempfile
+    from srtb_tpu.tools import correlator as C
+    with tempfile.TemporaryDirectory() as d:
+        paths = [os.path.join(d, name) for name in ("a.bin", "b.bin",
+                                                    "corr.bin")]
+        x1.view(np.uint8).tofile(paths[0])
+        x2.view(np.uint8).tofile(paths[1])
+        rc = C.main(paths)
+        corr_bin = np.fromfile(paths[2], dtype=np.uint8)
+    return {"corr": C.correlate(x1, x2), "rc": rc, "corr_bin": corr_bin}
+
+
+def ref_plot_dm_curve(argv: list, matplotlib: bool) -> dict:
+    """:func:`run_printing` of the JAX package's ``plot_dm_curve.main``,
+    and the exception it raises (without matplotlib it raises)."""
+    from srtb_tpu.tools.plot_dm_curve import main
+    try:
+        return run_printing(main, argv, matplotlib)
+    except ImportError as e:
+        return {"error": type(e).__name__}
 
 
 def _main(req: str, out: str) -> None:

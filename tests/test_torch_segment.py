@@ -577,8 +577,14 @@ A2_BUILDS = {
 
 def test_unported_settings_raise(ref):
     cfg = slice_config(1 << 12, 32, 0.0)
-    with pytest.raises(NotImplementedError):
-        SegmentProcessor(cfg.replace(search_mode="periodicity"),
+    # the periodicity mode builds now (ROADMAP A5; tests/test_torch_
+    # periodicity.py holds it to the reference), and an unregistered mode
+    # raises as the reference's registry does
+    assert SegmentProcessor(cfg.replace(search_mode="periodicity"),
+                            device="cpu").plan_name == \
+        SegmentProcessor(cfg, device="cpu").plan_name
+    with pytest.raises(ValueError, match="unknown search_mode"):
+        SegmentProcessor(cfg.replace(search_mode="acceleration"),
                          device="cpu")
     # the micro-batch builds now (ROADMAP A3; tests/test_torch_batch.py
     # holds its lanes to the reference's)
