@@ -122,7 +122,35 @@ result lines are printed:
    the ring's warm dispatches and the peak memory; every received slot
    must equal the file's (lost ones zero, their count the source's
    loss), the launches the table's, and with no packet lost each port's
-   decisions and candidate bytes those of a file-mode run of its file.
+   decisions and candidate bytes those of a file-mode run of its file,
+   less what the degradation ladder (armed, as the reference arms it)
+   shed: its level by segment, its transitions and ``shed_waterfalls``
+   are printed, and the shed dumps listed;
+11. resilience (between batch and durability): (a) fused_2^27 at B = 2
+   on the window phase's 8 segments with an out-of-memory or a kernel
+   build fault injected at the dispatch or the fetch of segments 0-5,
+   which walks the demotion ladder to the monolithic floor (each rung's
+   plan, chain ms, peak and launches, measured first; the walk's rungs
+   the ladder's, six demotions, the decisions and the baseband bytes the
+   clean run's, the pulse segment's waterfall and series on the floor
+   the clean plan's within the segment tests' gates), the chaos soak from a fixed seed on the card and its
+   selftest; (b) a real out-of-memory: staged_pallas2_2^30, serial, under
+   ``torch.cuda.set_per_process_memory_fraction`` 1 GB under rung 0's
+   peak, recovered by demotion to the first rung that fits (the peak
+   under the cap, the bytes those of an uncapped run on that rung, the
+   pulse segment's waterfall and series those of the main path's run on
+   rung 0 within the same gates, the seconds from the fault to the first dispatch on the new rung); (c) a
+   real sticky fault: a child process whose chain asserts on the card,
+   classified ``halt``, escalated with ``ReinitBudgetExceeded`` and a
+   nonzero exit, then resumed by a fresh process from its checkpoint to
+   the output set of an uninterrupted run (SHA-256); (d) a kernel build
+   fault at ffuse_2^30's first fetch, which takes the front_fuse rung
+   (B11 and B12 before it, K1, B9, B10 and K2 after it), transient faults
+   at four sites retried (``retries_total`` 4, the clean run's bytes), a
+   chain wedged behind a spin on the compute stream requeued once by the
+   watchdog (an injected fetch stall requeues nothing); and fused_2^27
+   with every layer off and armed, ten pairs in turns.  Every other run of the
+   script must have needed no demotion, reinit, retry or requeue.
 
 The last two lines are the kernels' JSON record and the result line.
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -1646,6 +1674,7 @@ def run_cli(out_dir: Path, text: str, data: Path, env: dict):
     t0 = time.perf_counter()
     with path_env(env):
         stats, pipe = M.run(["--config_file_name", str(cfg_path)])
+    check_no_recovery(f"{out_dir.name} run", stats)
     return stats, pipe, time.perf_counter() - t0
 
 
@@ -1725,13 +1754,17 @@ def phase_main_path(card: str, label: str, log2_n: int, extra: str,
     digests = _digests(pipe) if label in DIGEST_PATHS else None
     if label in GUI_PATHS:
         check_gui(card, label, pipe, stats, out_dir, peak)
-    for files in written:  # the waterfall dumps, checked: free the disk
-        for p in files.npy_paths:
-            os.unlink(p)
+    candidates = _candidate_files(pipe)
+    if label != OOM_PATH:
+        # the waterfall dumps, checked: free the disk (the real OOM's
+        # check reads its path's)
+        for files in written:
+            for p in files.npy_paths:
+                os.unlink(p)
     say(f"main path {label}: engine " + engine_numbers(stats))
     check_dispatch_syncs(pipe, label)
     return {"counts": counts, "stats": stats, "pipe": pipe, "data": data,
-            "peak_bytes": peak, "digests": digests}
+            "peak_bytes": peak, "digests": digests, "files": candidates}
 
 
 def _digests(pipe) -> dict:
@@ -2495,8 +2528,6 @@ def phase_batch(card: str, window: dict, runs: dict) -> dict:
     for b in (1, 2):
         out[f"profile_b{b}"] = profile_batch(card, "fused_2^27", data, b)
         free_card()
-    data.unlink()
-    shutil.rmtree(OUT_DIR / "window_fused_2^27_0")
     return out
 
 
@@ -2594,6 +2625,9 @@ def phase_durability(card: str) -> dict:
             fail(f"durability: golden run {golden['segments']} segments, "
                  f"{golden['signals']} positive")
         final = rep["children"][-1]
+        if any(final["stats"]["recovered"].values()):
+            fail(f"durability B = {b}: the last life recovered from faults "
+                 f"nobody injected: {final['stats']['recovered']}")
         pool = (f"writer pool of {cfg.writer_thread_count}" if writers is None
                 else "synchronous writes")
         if writers == 0 and rep["replayed_skips"] < 1:
@@ -2626,6 +2660,804 @@ def phase_durability(card: str) -> dict:
         fail("durability: the card is not usable after the kills")
     shutil.rmtree(root)
     return out
+
+
+# ------------------------------------------------------------- resilience
+
+# the real out-of-memory's path (its main path run keeps its waterfall
+# dump for the check of the demoted run's)
+OOM_PATH = "staged_pallas2_2^30"
+# the ladder walk: fused_2^27 at B = 2 on the window phase's 8-segment file
+# (the pulse in segment 5); an out-of-memory or a kernel build fault at
+# the dispatch or the fetch of each of segments 0-5 walks the six rungs
+# down to the monolithic floor
+RESILIENCE_WALK = ("dispatch:oom@0,fetch:compile_fail@1,"
+                   "dispatch:compile_fail@2,fetch:oom@3,dispatch:oom@4,"
+                   "fetch:compile_fail@5")
+RESILIENCE_SOAK_SEED = 7
+# the retries: a transient fault at three sites and a corruption at the
+# sink, each retried once (the default three attempts)
+RESILIENCE_RETRIES = ("ingest:raise@1,h2d:raise@2,fetch:raise@3,"
+                      "sink_write:corrupt@4")
+# the watchdog: the chain of segment WEDGE_SEGMENT queued behind a
+# WEDGE_S-second spin on the compute stream (the watchdog cannot cancel
+# it; its requeue runs behind it), and an injected fetch stall, which
+# sleeps after the readiness probe in both packages and trips nothing
+WEDGE_SEGMENT = 3
+WEDGE_S = 1.5
+WATCHDOG_DEADLINE_S = 1.0
+WATCHDOG_STALL = "fetch:stall=1.5@6"
+# the sticky fault: the child process asserts on the card inside the chain
+# of segment STICKY_SEGMENT
+STICKY_SEGMENT = 1
+STICKY_MARK = "STICKY_RESULT "
+RESILIENCE_COUNTERS = ("plan_demotions", "plan_promotions", "device_reinits",
+                       "retries_total", "data_loss_total",
+                       "watchdog_requeues", "faults_injected",
+                       "segments_dropped", "worker_restarts")
+
+
+def check_no_recovery(label: str, stats) -> None:
+    """Fail unless a run needed none of the resilience layers: no
+    demotion, reinit, retry or watchdog requeue (the ladder is armed by
+    default, and a quiet demotion past a kernel must not pass a path)."""
+    ex = stats.extras
+    used = {k: ex.get(k, 0) for k in ("plan_demotions", "device_reinits",
+                                      "retries_total", "watchdog_requeues")}
+    if any(used.values()):
+        fail(f"{label}: the run recovered from faults nobody injected: "
+             f"{used}")
+
+
+def _counters(pipe) -> dict:
+    return {k: pipe.counters.get(k) for k in RESILIENCE_COUNTERS}
+
+
+def rung_table(card: str, label: str, cfg, env: dict) -> list:
+    """Each rung of ``cfg``'s demotion ladder (rung 0 the configured
+    plan) built as a processor on the card: its plan, the peak memory of
+    its first dispatch on one random segment (the module caches of device
+    tables emptied first: a rung's first dispatch builds its own), then
+    the chain's device ms and peak on the same segment, and the kernels
+    it launches."""
+    import torch
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.pipeline import registry
+    from srtb_tpu_torch.resilience.demote import ladder_rungs
+    out = []
+    with path_env(env):
+        rungs = [("full", cfg, None)] + [(r.step, r.cfg, r.staged)
+                                         for r in ladder_rungs(cfg)]
+        seg = cfg.segment_bytes(1)
+        host = torch.randint(0, 256, (seg,), dtype=torch.uint8,
+                             generator=torch.Generator().manual_seed(3))
+        host = host.pin_memory()
+        for level, (step, rcfg, staged) in enumerate(rungs):
+            free_card()
+            torch.cuda.reset_peak_memory_stats()
+            proc = registry.build_processor(rcfg, staged=staged)
+            raw = proc.stage_input(host.numpy())
+            proc.run_device(raw)
+            torch.cuda.synchronize()
+            first = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            ms = cuda_ms(lambda: proc.run_device(raw), 1)
+            counts = {k: v // 2 for k, v in K.launch_counts().items() if v}
+            row = {"level": level, "step": step, "plan": proc.plan_name,
+                   "staged": staged, "cfg": rcfg, "chain_ms": ms,
+                   "first_peak_bytes": first,
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": counts}
+            say(f"resilience rung {label} {level} ({step}): plan "
+                f"{proc.plan_name}, chain {ms:.3f} ms, peak "
+                f"{row['peak_bytes']} bytes "
+                f"({row['peak_bytes'] / 1e9:.2f} GB; the first dispatch "
+                f"{first / 1e9:.2f} GB), launches a segment "
+                f"{json.dumps(counts)}; card {card}")
+            out.append(row)
+            del proc, raw
+        del host
+    free_card()
+    return out
+
+
+def _recording(pipe) -> dict:
+    """Wrap a pipeline's processor swap, its dispatch and the healer's
+    demotion: each installed rung's plan and the launches made on the rung
+    before it, the time of the first device fault, and the time of the
+    first dispatch after it returned on the final rung."""
+    from srtb_tpu_torch import kernels as K
+    rec = {"plans": [pipe.processor.plan_name], "launches": [],
+           "t_fault": None, "t_recovered": None}
+    swap = pipe._swap_processor
+
+    def recording_swap(newp):
+        rec["launches"].append(K.launch_counts())
+        K.reset_launch_counts()
+        rec["plans"].append(newp.plan_name)
+        swap(newp)
+    pipe._swap_processor = recording_swap
+    h = pipe.healer
+    demote, reinit = h.demote, h.reinit
+
+    def timed(fn):
+        def wrapper(*args):
+            if rec["t_fault"] is None:
+                rec["t_fault"] = time.perf_counter()
+            return fn(*args)
+        return wrapper
+    h.demote, h.reinit = timed(demote), timed(reinit)
+    dispatch = pipe._dispatch_segment
+
+    def timed_dispatch(*args, **kwargs):
+        item = dispatch(*args, **kwargs)
+        if rec["t_fault"] is not None and rec["t_recovered"] is None:
+            rec["t_recovered"] = time.perf_counter()
+        return item
+    pipe._dispatch_segment = timed_dispatch
+    return rec
+
+
+def _run_pipeline(cfg, data: Path, env: dict, setup=None,
+                  staged: bool | None = None):
+    """``Pipeline(cfg)`` on ``data`` (the run's statistics, the pipeline
+    and what ``setup(pipe)`` returned), the launch counts zeroed just
+    before the run; ``staged`` is the processor's argument (a rung's); the
+    pipeline is closed."""
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.pipeline import registry
+    from srtb_tpu_torch.pipeline.runtime import Pipeline
+    cfg = cfg.replace(input_file_path=str(data))
+    with path_env(env):
+        pipe = Pipeline(cfg, processor=None if staged is None else
+                        registry.build_processor(cfg, staged=staged))
+        extra = setup(pipe) if setup is not None else None
+        K.reset_launch_counts()
+        try:
+            stats = pipe.run()
+        finally:
+            pipe.close()
+    return stats, pipe, extra
+
+
+# a stage-1 bin whose float64 power is within this fraction of the
+# threshold may be zapped by one plan and kept by another (the edge of
+# tests/test_torch_segment.py's float64 spectrum test)
+S1_EDGE = 1e-5
+# the segment tests' waterfall gate, a fraction of the largest value
+WF_GATE = 2e-5
+
+
+def _segment_bytes(cfg, data: Path, index: int):
+    """Segment ``index`` of ``data`` under ``cfg``, its bytes on the
+    card."""
+    import torch
+    from srtb_tpu_torch.io.file_input import make_file_source
+    src = make_file_source(cfg.replace(input_file_path=str(data)))
+    try:
+        for i, seg in enumerate(src):
+            if i == index:
+                return torch.from_numpy(seg.data).to("cuda")
+    finally:
+        src.close()
+    fail(f"{data} holds no segment {index}")
+
+
+def _edge_slack(cfg, raw, rows: int, row_len: int):
+    """Each waterfall row's slack [rows] for stage-1 decisions at the
+    threshold: the float64 spectrum of the segment (the plain unpack,
+    exact; the default rectangle window; R2C without the Nyquist bin), the
+    bins whose power is within ``S1_EDGE`` of the threshold, and for each
+    row the sum of those bins' normalized magnitudes, the most that
+    zapping or keeping them moves a sample of the row (an unnormalized
+    backward C2C)."""
+    import torch
+    from srtb_tpu_torch.kernels import unpack as KU
+    from srtb_tpu_torch.ops import rfi
+    x = KU.unpack_subbyte_window_plain(raw, cfg.baseband_input_bits)
+    spec = torch.fft.rfft(x.to(torch.float64))[:-1]
+    del x
+    mag = spec.abs()
+    del spec
+    p = mag * mag
+    ratio = p / (cfg.mitigate_rfi_average_method_threshold * p.mean())
+    del p
+    idx = torch.nonzero((ratio - 1).abs() <= S1_EDGE)[:, 0]
+    del ratio
+    idx = idx[idx < rows * row_len]
+    norm = rfi.normalization_coefficient(mag.shape[0], rows)
+    slack = torch.zeros(rows, dtype=torch.float64, device=mag.device)
+    slack.index_add_(0, idx // row_len, mag[idx] * norm)
+    return slack, int(idx.numel())
+
+
+def check_demoted_dumps(label: str, cfg, data: Path, pulse: int, got: dict,
+                        clean: dict) -> dict:
+    """The pulse segment's waterfall dump (.npy) and boxcar-1 series
+    (.1.tim) from a run that ended on a demoted rung, against the clean
+    plan's, within the gates ``tests/test_torch_segment.py`` holds every
+    plan to: each waterfall row within ``WF_GATE`` of the largest value,
+    plus the row's slack for stage-1 bins at the threshold
+    (:func:`_edge_slack`; a row the SK zap took in one run only must hold
+    such a bin), and the series within ``time_series_error_gates`` of the
+    waterfall error found.  The files' names (the decisions) must be
+    equal.  Returns the errors."""
+    import numpy as np
+    import torch
+    from srtb_tpu_torch.ops import detect as det
+    npys = sorted(n for n in got if n.endswith(".npy"))
+    tims = sorted(n for n in got if n.endswith(".1.tim"))
+    if not npys or not tims or len(npys) != 1 \
+            or npys != sorted(n for n in clean if n.endswith(".npy")) \
+            or sorted(n for n in got if n.endswith(".tim")) \
+            != sorted(n for n in clean if n.endswith(".tim")):
+        fail(f"{label}: dumps {sorted(got)}, the clean plan's "
+             f"{sorted(clean)}: one waterfall and a boxcar-1 series each")
+    g = np.load(got[npys[0]], mmap_mode="r")
+    c = np.load(clean[npys[0]], mmap_mode="r")
+    if g.shape != c.shape or g.ndim != 2:
+        fail(f"{label}: waterfall {g.shape} against {c.shape}")
+    rows, row_len = c.shape
+    slack, edge_bins = _edge_slack(cfg, _segment_bytes(cfg, data, pulse),
+                                   rows, row_len)
+    ts_got = np.fromfile(got[tims[0]], dtype="<f4")
+    ts_clean = np.fromfile(clean[tims[0]], dtype="<f4")
+    t = ts_clean.shape[0]
+    err = torch.zeros(rows, dtype=torch.float64, device="cuda")
+    sk_differs = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    top, power = 0.0, torch.zeros(t, dtype=torch.float64, device="cuda")
+    step = max(1, (1 << 27) // row_len)
+    for r in range(0, rows, step):
+        a = torch.from_numpy(np.array(g[r:r + step])).cuda()
+        b = torch.from_numpy(np.array(c[r:r + step])).cuda()
+        err[r:r + step] = (a - b).abs().amax(-1).double()
+        sk_differs[r:r + step] = (a == 0).all(-1) != (b == 0).all(-1)
+        top = max(top, float(b.abs().amax()))
+        power += (b[:, :t].abs().double() ** 2).sum(0)
+        del a, b
+    gate = WF_GATE * top + slack
+    bad = (err > gate) | (sk_differs & (slack == 0))
+    if bool(bad.any()):
+        r = int(torch.nonzero(bad)[0, 0])
+        fail(f"{label}: {int(bad.sum())} waterfall rows off the clean "
+             f"plan's beyond the gate; row {r}: {float(err[r]):.4e} against "
+             f"{float(gate[r]):.4e} ({WF_GATE} x {top:.4e} + slack "
+             f"{float(slack[r]):.4e})")
+    wf_err = float(err.max())
+    ts_gate = sum(det.time_series_error_gates(rows, t, float(power.max()),
+                                              wf_err))
+    ts_err = float(np.abs(ts_got.astype(np.float64) - ts_clean).max())
+    if ts_got.shape != ts_clean.shape or ts_err > ts_gate:
+        fail(f"{label}: the boxcar-1 series off the clean plan's by "
+             f"{ts_err:.4e} (gate {ts_gate:.4e})")
+    out = {"edge_bins": edge_bins, "rows_with_slack": int((slack > 0).sum()),
+           "sk_rows_differ": int(sk_differs.sum()),
+           "wf_err_max": wf_err, "wf_err_strict_rows_max": float(
+               err[slack == 0].max()) if bool((slack == 0).any()) else 0.0,
+           "wf_gate_strict": WF_GATE * top, "ts_err": ts_err,
+           "ts_gate": ts_gate}
+    say(f"{label}: the pulse segment's waterfall and boxcar-1 series "
+        f"against the clean plan's, within the segment tests' gates: "
+        + json.dumps(out))
+    del err, sk_differs, power, slack
+    free_card()
+    return out
+
+
+def resilience_walk(card: str, window: dict) -> dict:
+    """(a) The injected ladder walk on fused_2^27 at B = 2 over the window
+    phase's 8 segments: ``RESILIENCE_WALK`` demotes once a fault, down to
+    the monolithic floor; each rung's plan and launches, the decisions
+    and the baseband bytes of the window phase's first run.  Then the
+    chaos soak on the card and its selftest."""
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.tools import chaos_soak as CS
+    w = window["fused_2^27"]
+    _l, log2_n, extra, _plan, _per, env = _main_path("fused_2^27")
+    out_dir = OUT_DIR / "resilience_walk"
+    cfg, _text = path_cfg(out_dir, extra + "micro_batch_segments = 2\n"
+                          f"fault_plan = {RESILIENCE_WALK}\n", log2_n,
+                          "resilience_walk")
+    rungs = rung_table(card, "fused_2^27", cfg.replace(fault_plan=""), env)
+    t0 = time.perf_counter()
+    stats, pipe, rec = _run_pipeline(cfg, w["data"], env, _recording)
+    rec["launches"].append(K.launch_counts())
+    wall = time.perf_counter() - t0
+    counters = _counters(pipe)
+    injected = len(RESILIENCE_WALK.split(","))
+    say(f"resilience walk fused_2^27 (B = 2, 8 segments, plan "
+        f"{RESILIENCE_WALK}): {wall:.2f} s; the rungs and the launches on "
+        "each "
+        + json.dumps([{"plan": p, "launches": {k: v for k, v in c.items()
+                                               if v}}
+                      for p, c in zip(rec["plans"], rec["launches"])])
+        + f"; counters {json.dumps(counters)}; positive "
+        f"{pipe.positive_segments}; card {card}")
+    want_plans = [r["plan"] for r in rungs]
+    if rec["plans"] != want_plans:
+        fail(f"resilience walk: rungs {rec['plans']}, the ladder's "
+             f"{want_plans}")
+    if counters["plan_demotions"] != injected \
+            or counters["faults_injected"] != injected:
+        fail(f"resilience walk: {counters['plan_demotions']} demotions, "
+             f"{counters['faults_injected']} faults fired, {injected} "
+             "injected")
+    if stats.segments != 8 or pipe.positive_segments != [5]:
+        fail(f"resilience walk: {stats.segments} segments, positive "
+             f"{pipe.positive_segments}; the clean run's: 8 and [5]")
+    got = _candidate_files(pipe)
+    bins = sorted(n for n in got if n.endswith(".bin"))
+    if bins != sorted(n for n in w["first"] if n.endswith(".bin")) or \
+            not all(_same_bytes(got[n], w["first"][n]) for n in bins):
+        fail(f"resilience walk: baseband dumps {bins} differ from the "
+             "clean run's")
+    say(f"resilience walk: decisions the clean run's, baseband dumps "
+        f"{bins} equal in bytes")
+    dumps = check_demoted_dumps(
+        f"resilience walk (the floor {rec['plans'][-1]} against "
+        f"{rec['plans'][0]})", cfg, w["data"], 5, got, w["first"])
+    import shutil
+    shutil.rmtree(out_dir)
+    free_card()
+    t0 = time.perf_counter()
+    try:
+        rep = CS.run_soak(seed=RESILIENCE_SOAK_SEED, segments=6, faults=4,
+                          log2n=LOG2_N_ROWS - 13,
+                          tmpdir=str(OUT_DIR / "resilience_soak"))
+    except CS.SoakFailure as e:
+        fail(f"resilience chaos soak: {e}")
+    say(f"resilience chaos soak (seed {RESILIENCE_SOAK_SEED}, 2^"
+        f"{LOG2_N_ROWS - 13} samples): gate passed in "
+        f"{time.perf_counter() - t0:.1f} s: " + json.dumps(rep))
+    t0 = time.perf_counter()
+    sharp = CS.selftest()
+    if sharp:
+        fail(f"resilience chaos soak selftest not sharp: {sharp}")
+    say("resilience chaos soak selftest: an injected fatal fault and an "
+        "out-of-memory with healing off fail the gate, one out-of-memory "
+        f"with healing armed passes ({time.perf_counter() - t0:.1f} s)")
+    shutil.rmtree(OUT_DIR / "resilience_soak", ignore_errors=True)
+    return {"counts": rec["launches"], "rungs": rungs,
+            "plans": rec["plans"], "dumps": dumps}
+
+
+def resilience_real_oom(card: str, made: dict, clean: dict) -> dict:
+    """(b) A real out-of-memory: staged_pallas2_2^30, serial (so that
+    every segment runs on the rung that survives), under
+    ``torch.cuda.set_per_process_memory_fraction``: the cap 1 GB under the
+    peak of rung 0's first dispatch, above the first rung whose first
+    dispatch peaks 3 GB under it (each rung measured here, its module
+    caches of device tables built by that dispatch: B9's twiddle table
+    alone is 8 GiB at 2^30, and the later chains' peaks leave it out), so
+    that rung 0 raises a real ``torch.cuda.OutOfMemoryError`` on segment
+    0 and the ladder walks to a rung that fits.  Gates: the run completes, demotes, stays under
+    the cap and ends on that rung; its candidate bytes equal an uncapped
+    run started on that rung's cfg, and its pulse segment's waterfall and
+    series the main path's (``clean``, its candidate files, rung 0)
+    within the segment tests' gates; the seconds from the fault to the
+    first dispatch on the new rung."""
+    import shutil
+    import torch
+    _l, log2_n, extra, _plan, _per, env = _main_path(OOM_PATH)
+    out_dir = OUT_DIR / "resilience_oom"
+    cfg, _text = path_cfg(out_dir, extra + "inflight_segments = 1\n",
+                          log2_n, "resilience_oom")
+    data = input_file(cfg, OOM_PATH, made)
+    rungs = rung_table(card, OOM_PATH, cfg, env)
+    peak0 = rungs[0]["first_peak_bytes"]
+    fit = next((r for r in rungs[1:]
+                if r["first_peak_bytes"] < peak0 - 3e9), None)
+    if fit is None:
+        fail("resilience oom: no rung of staged_pallas2_2^30 peaks 3 GB "
+             f"below rung 0's {peak0} bytes")
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = peak0 - 1e9
+    free_card()
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        stats, pipe, rec = _run_pipeline(cfg, data, env, _recording)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    peak = torch.cuda.max_memory_allocated()
+    counters = _counters(pipe)
+    recovery_s = rec["t_recovered"] - rec["t_fault"] \
+        if rec["t_recovered"] else None
+    say(f"resilience oom staged_pallas2_2^30 (serial, cap {cap:.0f} bytes "
+        f"= {cap / 1e9:.2f} GB, {cap / total:.4f} of the card): rungs "
+        f"{rec['plans']}, counters {json.dumps(counters)}, peak {peak} "
+        f"bytes ({peak / 1e9:.2f} GB), positive {pipe.positive_segments}, "
+        f"{stats.msamples_per_sec:.1f} Msamples/s; from the first "
+        f"out-of-memory to the first dispatch on the new rung "
+        f"{recovery_s} s; card {card}")
+    if counters["plan_demotions"] < 1 or peak > cap:
+        fail(f"resilience oom: {counters['plan_demotions']} demotions, "
+             f"peak {peak} of cap {cap:.0f}")
+    if rec["plans"][-1] != fit["plan"]:
+        fail(f"resilience oom: ended on {rec['plans'][-1]}, the first rung "
+             f"below the cap is {fit['plan']}")
+    if stats.segments != 2 or pipe.positive_segments != [1]:
+        fail(f"resilience oom: {stats.segments} segments, positive "
+             f"{pipe.positive_segments}")
+    got = _candidate_files(pipe)
+    free_card()
+    direct_dir = OUT_DIR / "resilience_oom_direct"
+    direct_dir.mkdir(parents=True, exist_ok=True)
+    dcfg = fit["cfg"].replace(
+        baseband_output_file_prefix=f"{direct_dir}/out_")
+    dstats, dpipe, _ = _run_pipeline(dcfg, data, env, staged=fit["staged"])
+    check_no_recovery("resilience oom direct run", dstats)
+    if dpipe.processor.plan_name != fit["plan"]:
+        fail(f"resilience oom: the direct run took {dpipe.processor.plan_name}")
+    _same_candidates("resilience oom (against the uncapped run on "
+                     f"{fit['plan']})", got, _candidate_files(dpipe))
+    say(f"resilience oom: candidate files {sorted(got)} equal in bytes to "
+        f"an uncapped run on {fit['plan']}")
+    shutil.rmtree(direct_dir)
+    del dpipe
+    free_card()
+    dumps = check_demoted_dumps(
+        f"resilience oom ({fit['plan']} against the main path's "
+        f"{rec['plans'][0]})", cfg, data, 1, got, clean)
+    shutil.rmtree(out_dir)
+    for name, path in clean.items():
+        if name.endswith(".npy"):
+            os.unlink(path)
+    return {"counts": rec["launches"], "recovery_s": recovery_s,
+            "cap_bytes": cap, "peak_bytes": peak, "rungs": rungs,
+            "dumps": dumps}
+
+
+def sticky_child(argv: list) -> int:
+    """The sticky fault's child (``chip_smoke.py --sticky-child CFG
+    INJECT``): the pipeline of the JSON config ``CFG`` with a device-side
+    assert triggered inside the chain of segment ``INJECT`` (< 0: none, a
+    plain resume); prints the outcome after ``STICKY_MARK`` and exits 1
+    when the run raised."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from srtb_tpu_torch.config import Config
+    from srtb_tpu_torch.pipeline import segment as S
+    from srtb_tpu_torch.pipeline.runtime import Pipeline
+    from srtb_tpu_torch.resilience import errors as E
+    cfg_path, inject = argv[0], int(argv[1])
+    with open(cfg_path) as f:
+        cfg = Config(**json.load(f))
+    calls = [0]
+    run_device = S.SegmentProcessor.run_device
+
+    def asserting_run_device(self, raw):
+        calls[0] += 1
+        if calls[0] == inject + 1:
+            # an index past the end, checked on the card: a device-side
+            # assert, which kills the CUDA context for the process
+            x = torch.zeros(4, device=raw.device)
+            x[torch.tensor([10], device=raw.device)]
+        return run_device(self, raw)
+    S.SegmentProcessor.run_device = asserting_run_device
+    out = {"error": "", "cause": "", "kind": None}
+    pipe = Pipeline(cfg)
+    reinit = pipe.healer.reinit
+
+    def reporting_reinit(exc):
+        # each reinit decision as it is made, should the process die later
+        newp = reinit(exc)
+        print(f"STICKY_REINIT {E.classify_device(exc)} "
+              f"{'rebuilt' if newp is not None else 'budget spent'}",
+              flush=True)
+        return newp
+    pipe.healer.reinit = reporting_reinit
+    try:
+        stats = pipe.run()
+        out["segments"] = stats.segments
+    except BaseException as e:  # noqa: BLE001 - reported
+        cause = e.__cause__ or e
+        out.update(error=type(e).__name__, cause=type(cause).__name__,
+                   kind=E.classify_device(cause),
+                   message=str(cause).splitlines()[0][:200])
+    out["counters"] = {k: pipe.counters.get(k) for k in RESILIENCE_COUNTERS}
+    print(STICKY_MARK + json.dumps(out), flush=True)
+    if out["error"]:
+        # the run is lost, its outputs durable: on a dead context torch
+        # aborts the process from the destructors of its pinned buffers,
+        # so end it here, as a crash would
+        os._exit(1)
+    pipe.close()
+    return 0
+
+
+def _sticky_run(cfg_path: Path, inject: int) -> dict:
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--sticky-child",
+         str(cfg_path), str(inject)], capture_output=True, text=True,
+        timeout=600)
+    # beside the run directory, whose output set the gate compares
+    log = cfg_path.parent.parent / f"{cfg_path.parent.name}_{inject}.log"
+    log.write_text(proc.stdout + proc.stderr)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(STICKY_MARK)]
+    decisions = [ln.split(" ", 1)[1] for ln in proc.stdout.splitlines()
+                 if ln.startswith("STICKY_REINIT ")]
+    if not lines and decisions and decisions[-1] == "halt budget spent" \
+            and proc.returncode:
+        # torch aborted the process after the escalation was decided (it
+        # frees pinned results from a destructor, which raises on a dead
+        # context): the decisions tell the run's end
+        return {"error": "ReinitBudgetExceeded", "cause": "AcceleratorError",
+                "kind": "halt", "decisions": decisions,
+                "aborted_after_escalation": True, "rc": proc.returncode,
+                "counters": {"device_reinits": decisions.count(
+                    "halt rebuilt")}}
+    if not lines:
+        heal = [ln[:160] for ln in (proc.stdout + proc.stderr).splitlines()
+                if "[selfheal]" in ln or "[supervisor]" in ln
+                or "STICKY_REINIT" in ln or "Error" in ln]
+        fail(f"resilience sticky: the child printed no result (rc "
+             f"{proc.returncode}); its engine's lines {heal[-12:]}; "
+             f"stderr {proc.stderr[-1500:]}")
+    return dict(json.loads(lines[-1][len(STICKY_MARK):]),
+                rc=proc.returncode, decisions=decisions)
+
+
+def resilience_sticky(card: str) -> dict:
+    """(c) A real sticky fault: fused_2^27's cfg on a file of 4 segments
+    (the pulse in segments 1 and 2) with the checkpoint and the run
+    manifest, in a child process whose chain of segment 1 asserts on the
+    card; the port must classify the error ``halt``, and the run end with
+    ``ReinitBudgetExceeded`` and a nonzero exit (a reinit cannot revive a
+    dead context).  A fresh process then resumes from the checkpoint, and
+    the run directory's output set must equal an uninterrupted run's (in
+    this process) by SHA-256 (the crash soak's snapshot)."""
+    import dataclasses
+    import shutil
+    from srtb_tpu_torch.config import Config
+    from srtb_tpu_torch.tools import crash_soak as CRS
+    _l, log2_n, extra, _plan, _per, env = _main_path("fused_2^27")
+    root = OUT_DIR / "resilience_sticky"
+    if root.exists():
+        shutil.rmtree(root)
+    cfg, _text = path_cfg(root / "cfg", extra, log2_n, "resilience_sticky")
+    data = root / "input.bin"
+    make_input_file(cfg, data, DURABILITY_SEGMENTS, DURABILITY_PULSES)
+    out = {}
+    for tag in ("golden", "faulted"):
+        d = root / tag
+        d.mkdir()
+        fields = dataclasses.asdict(cfg.replace(
+            input_file_path=str(data),
+            baseband_output_file_prefix=f"{d}/out_",
+            checkpoint_path=str(d / "ck.json"),
+            run_manifest_path=str(d / "manifest.jsonl")))
+        (d / "cfg.json").write_text(json.dumps(fields))
+    t0 = time.perf_counter()
+    gcfg = Config(**json.loads((root / "golden" / "cfg.json").read_text()))
+    gstats, _gpipe, _ = _run_pipeline(gcfg, data, env)
+    golden = {"error": "", "rc": 0, "segments": gstats.segments}
+    faulted = _sticky_run(root / "faulted" / "cfg.json", STICKY_SEGMENT)
+    t1 = time.perf_counter()
+    resumed = _sticky_run(root / "faulted" / "cfg.json", -1)
+    t2 = time.perf_counter()
+    want = CRS.snapshot_outputs(str(root / "golden"))
+    got = CRS.snapshot_outputs(str(root / "faulted"))
+    say(f"resilience sticky fused_2^27: golden {json.dumps(golden)}; "
+        f"faulted {json.dumps(faulted)}; resumed {json.dumps(resumed)}; "
+        f"the faulted life and the resume {t1 - t0:.1f} s and "
+        f"{t2 - t1:.1f} s; output set {sorted(got)}; card {card}")
+    if golden["error"] or golden["rc"]:
+        fail(f"resilience sticky: the golden run failed: {golden}")
+    if faulted["error"] != "ReinitBudgetExceeded" or \
+            faulted["kind"] != "halt" or not faulted["rc"]:
+        fail(f"resilience sticky: the faulted run ended {faulted}; "
+             "expected ReinitBudgetExceeded after a halt, nonzero exit")
+    if resumed["error"] or resumed["rc"]:
+        fail(f"resilience sticky: the resume failed: {resumed}")
+    if got != want:
+        fail(f"resilience sticky: the resumed output set differs from the "
+             f"uninterrupted run's: {got} against {want}")
+    say(f"resilience sticky: classified {faulted['kind']} "
+        f"({faulted['cause']}), escalated {faulted['error']} after "
+        f"{faulted['counters']['device_reinits']} reinits; the resumed "
+        f"output set equals the uninterrupted run's by SHA-256 "
+        f"({len(got)} files)")
+    shutil.rmtree(root)
+    return out
+
+
+def _wedging(pipe, segment: int) -> None:
+    """Queue ``WEDGE_S`` seconds of spin (``torch.cuda._sleep``, its
+    cycles a second measured first) on the compute stream before the chain
+    of dispatch ``segment``, the first time only: that segment's ``done``
+    event stays incomplete past the watchdog's deadline."""
+    import torch
+    probe = int(1e8)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    end.synchronize()
+    cycles = int(WEDGE_S * probe / (start.elapsed_time(end) / 1e3))
+    proc = pipe.processor
+    run = proc.run_device_ring
+    calls = [0]
+
+    def wedged(raw):
+        calls[0] += 1
+        if calls[0] == segment + 1:
+            torch.cuda._sleep(cycles)
+        return run(raw)
+    proc.run_device_ring = wedged
+
+
+def resilience_front_retry_watchdog(card: str, window: dict,
+                                    runs: dict) -> dict:
+    """(d) One injected kernel build fault at the fetch of segment 0 on
+    ffuse_2^30 takes the ``front_fuse`` rung (B11 and B12 before it, K1,
+    B9, B10 and K2 after it); on fused_2^27's 8 segments, the transient
+    faults of ``RESILIENCE_RETRIES`` under the default retries (the
+    candidate bytes the clean run's, ``retries_total`` 4); then the
+    watchdog: a segment's chain wedged behind a spin on the compute
+    stream is requeued once, and an injected fetch stall requeues
+    nothing; the bytes again the clean run's."""
+    import shutil
+    counts = {}
+    _l, log2_n, extra, plan, _per, env = _main_path("ffuse_2^30")
+    out_dir = OUT_DIR / "resilience_ffuse"
+    cfg, _text = path_cfg(out_dir, extra + "fault_plan = "
+                          "fetch:compile_fail@0\n", log2_n,
+                          "resilience_ffuse")
+    stats, pipe, rec = _run_pipeline(cfg, runs["ffuse_2^30"]["data"], env,
+                                     _recording)
+    from srtb_tpu_torch import kernels as K
+    rec["launches"].append(K.launch_counts())
+    say(f"resilience ffuse_2^30 (fetch:compile_fail@0): rungs and "
+        "launches "
+        + json.dumps([{"plan": p, "launches": {k: v for k, v in c.items()
+                                               if v}}
+                      for p, c in zip(rec["plans"], rec["launches"])])
+        + f"; counters {json.dumps(_counters(pipe))}; positive "
+        f"{pipe.positive_segments}; card {card}")
+    first, second = rec["launches"]
+    if rec["plans"] != [plan, plan.replace("+ffuse", "")] or \
+            not (first["fft2_pass1_front"] and first["fft2_pass2_spectrum"]
+                 and second["fft2_pass1"] and second["fft2_pass2"]
+                 and not second["fft2_pass1_front"]) or \
+            pipe.positive_segments != [1]:
+        fail(f"resilience ffuse: rungs {rec['plans']}, launches "
+             f"{rec['launches']}, positive {pipe.positive_segments}")
+    counts["resilience_ffuse_2^30"] = {
+        k: first[k] + second[k] for k in first}
+    shutil.rmtree(out_dir)
+    free_card()
+    w = window["fused_2^27"]
+    _l, log2_n, extra, _plan, _per, env = _main_path("fused_2^27")
+    for tag, lines, setup in (
+            ("retries", f"fault_plan = {RESILIENCE_RETRIES}\n", None),
+            ("watchdog", f"segment_deadline_s = {WATCHDOG_DEADLINE_S}\n"
+             "segment_watchdog_requeues = 2\n"
+             f"fault_plan = {WATCHDOG_STALL}\n",
+             lambda pipe: _wedging(pipe, WEDGE_SEGMENT))):
+        out_dir = OUT_DIR / f"resilience_{tag}"
+        cfg, _text = path_cfg(out_dir, extra + lines, log2_n,
+                              f"resilience_{tag}")
+        t0 = time.perf_counter()
+        stats, pipe, _ = _run_pipeline(cfg, w["data"], env, setup)
+        c = _counters(pipe)
+        counts[f"resilience_{tag}"] = K.launch_counts()
+        say(f"resilience {tag} fused_2^27: {time.perf_counter() - t0:.2f} "
+            f"s, counters {json.dumps(c)}, positive "
+            f"{pipe.positive_segments}; card {card}")
+        want = ({"retries_total": 4, "data_loss_total": 1,
+                 "watchdog_requeues": 0} if tag == "retries" else
+                {"retries_total": 0, "watchdog_requeues": 1})
+        if any(c[k] != v for k, v in want.items()) or \
+                c["plan_demotions"] or pipe.positive_segments != [5]:
+            fail(f"resilience {tag}: counters {c}, expected {want}; "
+                 f"positive {pipe.positive_segments}")
+        _same_candidates(f"resilience {tag}", _candidate_files(pipe),
+                         w["first"])
+        say(f"resilience {tag}: candidate files equal in bytes to the "
+            "window phase's first run")
+        shutil.rmtree(out_dir)
+        free_card()
+    return counts
+
+
+# every resilience layer off (the defaults arm them all)
+RESILIENCE_OFF = ("plan_ladder = off\ndevice_reinit_max = 0\n"
+                  "degrade_enable = 0\nsupervisor_max_restarts = 0\n"
+                  "retry_max_attempts = 1\n")
+
+
+# armed against off: this many pairs, in turns off, armed, armed, off
+ARMED_PAIRS = 10
+
+
+def resilience_armed_vs_off(card: str, window: dict) -> dict:
+    """fused_2^27 over the window phase's 8 segments with every
+    resilience layer off and armed (the defaults), ``ARMED_PAIRS`` pairs
+    in turns off, armed, armed, off: Msamples/s of each, each pair's
+    relative difference, the engine's host seconds a segment by stage on
+    each side, the candidate files of each equal in bytes to the window
+    phase's first run's."""
+    import shutil
+    import numpy as np
+    w = window["fused_2^27"]
+    _l, log2_n, extra, _plan, _per, env = _main_path("fused_2^27")
+    rates = {"off": [], "armed": []}
+    stages = {"off": {}, "armed": {}}
+    # a first run that is not counted: on an H100 the first run after
+    # the real OOM's phase ran at a fifth of the others' rate
+    tags = ("warm-up",) + ("off", "armed", "armed", "off") * (
+        ARMED_PAIRS // 2)
+    for turn, tag in enumerate(tags):
+        out_dir = OUT_DIR / f"resilience_{tag}_{turn}"
+        cfg, text = path_cfg(out_dir, extra + (RESILIENCE_OFF if tag == "off"
+                                               else ""), log2_n,
+                             f"resilience_{tag}")
+        stats, pipe, _wall = run_cli(out_dir, text, w["data"], env)
+        if tag in rates:
+            rates[tag].append(stats.msamples_per_sec)
+            for k, v in stats.extras["stage_s"].items():
+                stages[tag].setdefault(k, []).append(v / stats.segments)
+        _same_candidates(f"resilience {tag} (turn {turn})",
+                         _candidate_files(pipe), w["first"])
+        shutil.rmtree(out_dir)
+        del pipe
+        free_card()
+    off, armed = np.array(rates["off"]), np.array(rates["armed"])
+    diff = (armed - off) / off
+    summary = {"pairs": len(diff), "median_off": float(np.median(off)),
+               "median_armed": float(np.median(armed)),
+               "pair_diff_median": float(np.median(diff)),
+               "pair_diff_min": float(diff.min()),
+               "pair_diff_max": float(diff.max()),
+               "armed_slower_pairs": int((diff < 0).sum()),
+               "stage_ms_a_segment": {
+                   tag: {k: float(np.median(v)) * 1e3
+                         for k, v in by.items()}
+                   for tag, by in stages.items()}}
+    say(f"resilience fused_2^27, 8 segments, every layer off and armed in "
+        f"turns: Msamples/s {json.dumps(rates)}; {json.dumps(summary)}; "
+        f"candidate bytes equal; card {card}")
+    return {**rates, **summary}
+
+
+def phase_resilience(card: str, window: dict, runs: dict, made: dict
+                     ) -> dict:
+    """The resilience layers on the card (ROADMAP A7): (a) the injected
+    ladder walk and the chaos soak, (b) a real out-of-memory recovered by
+    demotion, (c) a real sticky fault escalated and resumed in a new
+    process, (d) the front-fuse rung, the retries and the watchdog, then
+    every layer armed against every layer off.  Returns the launch counts
+    by run and the numbers."""
+    import shutil
+    t0 = time.perf_counter()
+    walk = resilience_walk(card, window)
+    t1 = time.perf_counter()
+    oom = resilience_real_oom(card, made, runs[OOM_PATH]["files"])
+    t2 = time.perf_counter()
+    resilience_sticky(card)
+    t3 = time.perf_counter()
+    counts = resilience_front_retry_watchdog(card, window, runs)
+    t4 = time.perf_counter()
+    rates = resilience_armed_vs_off(card, window)
+    t5 = time.perf_counter()
+    say(f"resilience: seconds (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) "
+        f"{t3 - t2:.1f}, (d) {t4 - t3:.1f}, armed against off "
+        f"{t5 - t4:.1f}; card {card}")
+    for name, part in (("walk", walk), ("oom", oom)):
+        total = {}
+        for c in part["counts"]:
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        counts[f"resilience_{name}"] = total
+    w = window["fused_2^27"]
+    w["data"].unlink()
+    shutil.rmtree(OUT_DIR / "window_fused_2^27_0")
+    return {"counts": counts, "oom_recovery_s": oom["recovery_s"],
+            "armed_vs_off": rates}
 
 
 STAGED_FRONT = ("unpack K1", "rfft", "mean power", "rfi + chirp K2")
@@ -3266,14 +4098,18 @@ class LiveTap:
         self.copies = []
 
 
-def _candidate_bytes_equal(live_files, file_files) -> list:
+def _candidate_bytes_equal(live_files, file_files,
+                           shed_dumps: bool = False) -> list:
     """Pairs of candidate files (.bin, each .npy, each .tim by its
-    suffix after the counter or timestamp) whose bytes differ."""
-    def by_suffix(files):
+    suffix after the counter or timestamp) whose bytes differ;
+    ``shed_dumps``: the live run withheld the waterfall dumps (the
+    degradation ladder's level 1), so file mode's are left out."""
+    def by_suffix(files, npy=True):
         base = files.bin_path[:-len(".bin")]
         return {p[len(base):]: p for p in
-                [files.bin_path, *files.npy_paths, *files.tim_paths]}
-    live, ref = by_suffix(live_files), by_suffix(file_files)
+                [files.bin_path, *(files.npy_paths if npy else ()),
+                 *files.tim_paths]}
+    live, ref = by_suffix(live_files), by_suffix(file_files, not shed_dumps)
     if sorted(live) != sorted(ref):
         return [f"files {sorted(live)} against {sorted(ref)}"]
     return [live[k] for k in live if not _same_bytes(live[k], ref[k])]
@@ -3429,6 +4265,17 @@ def phase_live_path(card: str, label: str, log2_n: int, extra: str,
     say(f"live {label}: engine " + engine_numbers(stats))
     say(f"live {label}: segments (port, index, counter, positive, lost) "
         + json.dumps(tap.records))
+    ex = stats.extras
+    levels = ex["degrade_levels"]
+    steps = [(i, a, b) for i, (a, b) in enumerate(zip([0] + levels, levels))
+             if a != b]
+    say(f"live {label}: the degradation ladder (degrade_enable "
+        f"{cfg.degrade_enable}): level by segment {levels}, transitions "
+        f"(segment, from, to) {steps}, shed_waterfalls "
+        f"{ex.get('shed_waterfalls', 0)}, shed_baseband "
+        f"{ex.get('shed_baseband', 0)}, segments_dropped "
+        f"{ex.get('segments_dropped', 0)}; card {card}")
+    check_no_recovery(f"live {label}", stats)
     if stats.segments != segments * ports:
         fail(f"{label}: {stats.segments} segments")
     if tap.failures:
@@ -3458,7 +4305,8 @@ def phase_live_path(card: str, label: str, log2_n: int, extra: str,
                                                 if r[3]]:
         fail(f"{label}: the pulse's segment {pulse} on port 0 is not "
              f"positive live (positives {pipe.positive_segments})")
-    _compare_with_file_mode(card, label, lines, log2_n, files, pipe, tap)
+    _compare_with_file_mode(card, label, lines, log2_n, files, pipe, tap,
+                            levels)
     for files_ in pipe.sink.written:
         for p in files_.npy_paths:
             os.unlink(p)
@@ -3496,17 +4344,21 @@ def _bounded_run(pipe, sources, segments: int, label: str,
 
 
 def _compare_with_file_mode(card, label, lines, log2_n, files, pipe,
-                            tap) -> None:
+                            tap, levels: list) -> None:
     """Each port's file through ``srtb-torch-main`` in file mode, held
     against the live run on the segments that lost no packet
     (``tap.clean``): their positives must be the live run's for that
     port, and each positive's candidate bytes the live candidate's of the
     same segment (named by packet counter live, by timestamp in file
-    mode).  A live candidate with no file-mode twin must be a piggyback
-    (another port's negative written beside a positive) or a segment
-    that lost packets."""
+    mode), less what the live run's degradation ladder shed (``levels``,
+    the level of each segment in the tap's order: at 1 its waterfall
+    dumps, at 2 its candidate files; each shed listed).  A live candidate
+    with no file-mode twin must be a piggyback (another port's negative
+    written beside a positive) or a segment that lost packets."""
     stride_packets = tap.stride // LIVE_PAYLOAD
     clean = tap.clean
+    level_of = {(r[0], r[1]): lv for r, lv in zip(tap.records, levels)}
+    shed = []
     live_by_name = {os.path.basename(f.bin_path): f
                     for f in pipe.sink.written}
     matched = set()
@@ -3524,9 +4376,16 @@ def _compare_with_file_mode(card, label, lines, log2_n, files, pipe,
             if (p, k) not in clean:
                 continue
             name = f"out_{LIVE_COUNTER0[p] + k * stride_packets}.bin"
+            level = level_of.get((p, k), 0)
+            if level >= 2:
+                shed.append((p, k, "candidates", name))
+                continue
+            if level == 1:
+                shed.append((p, k, "waterfall dumps", name))
             if name not in live_by_name:
                 fail(f"{label} port {p}: no live candidate {name}")
-            bad = _candidate_bytes_equal(live_by_name[name], ffiles)
+            bad = _candidate_bytes_equal(live_by_name[name], ffiles,
+                                         shed_dumps=level == 1)
             if bad:
                 fail(f"{label} port {p} segment {k}: live candidate files "
                      f"differ from file mode's: {bad}")
@@ -3544,8 +4403,9 @@ def _compare_with_file_mode(card, label, lines, log2_n, files, pipe,
     compared = sorted(clean)
     say(f"live {label}: on the {len(compared)} of {len(tap.records)} "
         f"segments that lost nothing {compared}, decisions and candidate "
-        f"bytes equal file mode's ({sorted(matched)}); other live "
-        f"candidates {extra}; card {card}")
+        f"bytes equal file mode's ({sorted(matched)}), less what the "
+        f"degradation ladder shed (port, segment, what, candidate) {shed}; "
+        f"other live candidates {extra}; card {card}")
 
 
 # ------------------------------------------------------------ search modes
@@ -4063,6 +4923,10 @@ def main() -> int:
     for label, counts in batch["counts"].items():
         runs[label] = {"counts": counts}
     lap("batch")
+    res = phase_resilience(card, window, runs, made)
+    runs.update({label: {"counts": counts}
+                 for label, counts in res["counts"].items()})
+    lap("resilience")
     phase_durability(card)
     lap("durability")
     check_packet_ring(card)
@@ -4094,4 +4958,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--loopback-sender"]:
         sys.exit(loopback_sender(sys.argv[2:]))
+    if sys.argv[1:2] == ["--sticky-child"]:
+        sys.exit(sticky_child(sys.argv[2:]))
     sys.exit(main())

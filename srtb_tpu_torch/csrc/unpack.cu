@@ -180,3 +180,9 @@ SRTB_EXPORT int srtb_unpack_subbyte_planes_window(const void* in,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// cudaGetErrorName of a launch function's return code, for the Python
+// wrappers' KernelLaunchError (the error taxonomy classifies by name).
+SRTB_EXPORT const char* srtb_cuda_error_name(int rc) {
+  return cudaGetErrorName(static_cast<cudaError_t>(rc));
+}

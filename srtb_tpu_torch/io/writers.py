@@ -259,6 +259,10 @@ class WriteSignalSink:
     write_signal_pipe.hpp:159-206); call ``drain()`` before reading the
     files back.  Without one, every write is synchronous."""
 
+    # the degradation ladder skips this sink at level 2
+    # (resilience/degrade.py)
+    sheddable = True
+
     def __init__(self, cfg: Config, writer_pool=None, host_pool=None):
         self.cfg = cfg
         self.pool = writer_pool
@@ -496,6 +500,8 @@ class WriteAllSink:
     by ``baseband_write_all``).  Synchronous, as in the reference.  With a
     manifest each append logs its intent with the file's length before
     it, and its commit once written: the committed prefix."""
+
+    sheddable = True  # the degradation ladder skips it at level 2
 
     # every push appends: the pipeline always seals its "done" record
     last_push_wrote = True

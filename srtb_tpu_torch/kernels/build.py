@@ -63,14 +63,35 @@ _SIGNATURES = {
 }
 
 
+class KernelBuildError(RuntimeError):
+    """The kernel library did not build (``nvcc`` missing, a source that
+    does not compile or link): a ``compile`` device fault to the error
+    taxonomy (``resilience/errors.py``), which the engine escalates as a
+    ``KernelFault`` and never demotes."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A launch function reported a CUDA error: ``code`` is the
+    ``cudaError_t`` value and ``cuda_name`` its ``cudaGetErrorName``
+    (``resilience/errors.py`` classifies by the name)."""
+
+    def __init__(self, kernel: str, code: int, cuda_name: str):
+        super().__init__(f"{kernel}: CUDA error {code} ({cuda_name}) at "
+                         "launch")
+        self.kernel = kernel
+        self.code = int(code)
+        self.cuda_name = cuda_name
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the port's "
-                       "CUDA kernels cannot be built on this machine")
+    raise KernelBuildError("nvcc not found (PATH, $CUDA_HOME/bin): the "
+                           "port's CUDA kernels cannot be built on this "
+                           "machine")
 
 
 def _sources() -> tuple[list[Path], str]:
@@ -115,7 +136,7 @@ def build(verbose: bool = False) -> Path:
                     proc.kill()
                     proc.wait()
         if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
         objs = [str(tmp / (src.stem + ".o")) for src in sources]
         out_so = tmp / lib.name
         res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o",
@@ -123,7 +144,7 @@ def build(verbose: bool = False) -> Path:
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                              text=True)
         if res.returncode:
-            raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
+            raise KernelBuildError(f"nvcc link failed:\n{res.stdout}")
         os.replace(out_so, lib)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -172,14 +193,18 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    lib.srtb_cuda_error_name.argtypes = [_I32]
+    lib.srtb_cuda_error_name.restype = ctypes.c_char_p
     return lib
 
 
 def check(rc: int, name: str) -> None:
-    """Raise when a launch function reports a CUDA error (a refused
-    launch never runs, and a later synchronize would not report it)."""
+    """Raise :class:`KernelLaunchError` when a launch function reports a
+    CUDA error (a refused launch never runs, and a later synchronize
+    would not report it)."""
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+        cuda_name = library().srtb_cuda_error_name(rc).decode()
+        raise KernelLaunchError(name, rc, cuda_name)
 
 
 def stream_of(t) -> int:

@@ -1,8 +1,9 @@
 """Streaming runtime: reader -> device segment processor -> sinks (port of
 ``srtb_tpu/pipeline/runtime.py``: ``PipelineStats``, ``has_signal``,
-``Pipeline`` with its in-flight segment engine, and ``DMSearchPipeline``,
-the DM-trial search of ``dm_list``).  ``Pipeline`` builds the processor
-of the configured search mode (``pipeline/registry.py``).
+``Pipeline`` with its in-flight segment engine and its resilience layers,
+and ``DMSearchPipeline``, the DM-trial search of ``dm_list``).
+``Pipeline`` builds the processor of the configured search mode
+(``pipeline/registry.py``).
 
 The engine, as the reference's:
 
@@ -34,40 +35,58 @@ Micro-batch (``micro_batch_segments`` = B > 1, the fused plans): the
 engine's unit is B segments.  A batch is admitted only when all B fit
 the window; its B reads are uploaded and run in one dispatch
 (``SegmentProcessor.stage_batch`` / ``run_batch``), warm with the ring
-only when the whole batch is stream-adjacent (its first segment
-continues the carry, each member its predecessor), else cold; its
-segments drain as separate items that share the batch's ``done`` event,
-each with its own source offset (so a checkpoint after a partly drained
-batch resumes at the first undrained segment) and an even share of the
-batch's host time.  A tail shorter than B runs as single dispatches.
+only when the whole batch is stream-adjacent, else cold; its segments
+drain as separate items that share the batch's ``done`` event, each with
+its own source offset and an even share of the batch's host time.  A
+tail shorter than B runs as single dispatches.
 
-Durability (``checkpoint_path``, ``run_manifest_path``, each armed by
-itself or both): the manifest opens first and runs its recovery (with
-the checkpoint file's count as the floor hint), before the checkpoint
-loads, the file reader starts at the checkpoint's offset, the sinks open
-the output prefix and the orphan-temp sweep runs; the sinks log their
-artifacts under the key ``(data_stream_id, drain index)``, the drain
-index continuing across resumes, and a push whose group the manifest
-holds as committed is skipped (``replayed_skips``); after each drained
-segment the sinks are drained and the checkpoint updated (the manifest's
-``ckpt`` record sealed first).  ``fault_plan`` steers the crash windows
-at the reference's six sites (``ingest``, ``h2d``, ``dispatch``,
-``fetch``, ``sink_write``, ``checkpoint``: :meth:`Pipeline._op`), with
-the actions ``stall`` and ``fatal`` (``resilience/faults.py``).
+Durability (``checkpoint_path``, ``run_manifest_path``): the manifest
+opens first and runs its recovery, the checkpoint loads, the file reader
+starts at its offset, the sinks log their artifacts under ``(data
+stream, drain index)`` and skip what the manifest holds as committed;
+after each drained segment the sinks are drained and the checkpoint
+updated.
 
-The reference's other resilience layers (retry, watchdog, healer,
-degradation, supervisor: ROADMAP A7) and its telemetry (A9) are later
-slices: their settings keep their defaults here, and a setting that
-would change what a run writes raises ``NotImplementedError``
-(:func:`check_runtime`).
+Resilience (``resilience/``), armed by the reference's defaults:
+
+- every operation at the six sites (``ingest``, ``h2d``, ``dispatch``,
+  ``fetch``, ``sink_write``, ``checkpoint``) runs the fault plan's hook,
+  then the retry policy (:meth:`Pipeline._op`);
+- a device fault at a dispatch or fetch (an out-of-memory, a kernel
+  build or launch fault, a dead context: ``resilience/errors.py``) walks
+  the plan-demotion ladder or reinitializes the processor
+  (``resilience/demote.py``) and re-dispatches the segment cold from its
+  pinned host buffer, which stays with the segment until its sink ends; a
+  failed micro-batch finishes as single cold dispatches and the engine's
+  unit follows the healer;
+- the segment watchdog (``segment_deadline_s`` with
+  ``segment_watchdog_requeues``) re-dispatches a drain head that is not
+  ready within the deadline, on the same compute stream: it cannot cancel
+  a kernel, so it helps with host-side stalls, and a true device hang
+  ends in ``WatchdogEscalation``; with the deadline alone, a blocking
+  fetch past it aborts the process;
+- on a real-time source (no ``input_file_path``) the degradation ladder
+  (``resilience/degrade.py``) withholds the waterfall dumps at level 1
+  and skips the sheddable writers at level 2, each shed counted once
+  under replay; a wedged sink sheds segments as accounted loss;
+- the ``sink_drain`` pipe is supervised (``supervisor_max_restarts``): a
+  crash that is not fatal restarts it, its item replayed inline first
+  (exactly once with the manifest).
+
+The counters (``resilience/counters.py``) land in ``stats.extras``.  The
+reference's telemetry (journal, flight recorder, incident bundles,
+``/metrics``) is ROADMAP A9: its settings raise (:func:`check_runtime`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
+import signal
 import threading
 import time
+import traceback
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple
@@ -89,7 +108,16 @@ from srtb_tpu_torch.pipeline.checkpoint import StreamCheckpoint
 from srtb_tpu_torch.pipeline.segment import BATCH_NEEDS_FUSED
 from srtb_tpu_torch.pipeline.work import SegmentResultWork
 from srtb_tpu_torch.quality.stats import QualityMonitor
+from srtb_tpu_torch.resilience.counters import Counters
+from srtb_tpu_torch.resilience.degrade import DegradationLadder
+from srtb_tpu_torch.resilience.demote import ComputeHealer
+from srtb_tpu_torch.resilience.errors import (DEVICE_HALT, LadderExhausted,
+                                              ReinitBudgetExceeded,
+                                              WatchdogEscalation,
+                                              kernel_fault)
 from srtb_tpu_torch.resilience.faults import FaultInjector
+from srtb_tpu_torch.resilience.retry import RetryPolicy, retry_call
+from srtb_tpu_torch.resilience.supervisor import Supervisor
 from srtb_tpu_torch.utils import termination
 from srtb_tpu_torch.utils.bufferpool import BufferPool
 from srtb_tpu_torch.utils.logging import log
@@ -138,12 +166,32 @@ def has_signal(cfg: Config, detect_result, stream: int | None = None,
     return bool(per_stream.any())
 
 
+def _abort_on_deadline(deadline_s: float) -> None:  # pragma: no cover
+    log.error(
+        f"[pipeline] device sync exceeded segment_deadline_s={deadline_s}: "
+        "the card is wedged; aborting")
+    os.kill(os.getpid(), signal.SIGABRT)
+
+
+def sync_with_deadline(deadline_s: float, fn):
+    """Run a blocking device sync under a fail-fast deadline (seconds,
+    <= 0 disables): on expiry the process aborts (a loud stack through
+    the termination handler, not a silent hang)."""
+    if not deadline_s or deadline_s <= 0:
+        return fn()
+    timer = threading.Timer(deadline_s,
+                            lambda: _abort_on_deadline(deadline_s))
+    timer.daemon = True
+    timer.start()
+    try:
+        return fn()
+    finally:
+        timer.cancel()
+
+
 # settings of later slices that would change what a run reads or writes:
 # (field, ROADMAP item); each raises when set away from its default
-# (a fault_plan's actions are checked by resilience/faults.py)
 UNPORTED_RUNTIME = (
-    ("segment_deadline_s", "ROADMAP A7: segment deadlines and the "
-                           "watchdog"),
     ("canary_every_segments", "ROADMAP A9: the canary, whose results "
                               "go to detection health, the SLO and "
                               "incident bundles"),
@@ -182,13 +230,18 @@ class InFlight(NamedTuple):
 
 
 class Fetched(NamedTuple):
-    """A drained segment on its way to the sinks."""
+    """A drained segment on its way to the sinks, with the degradation
+    level observed when it was emitted and its done-set: the sinks that
+    already took it and the ``"stats"`` and ``"wf"`` markers, so a retried
+    or replayed drain counts and pushes exactly once."""
     seg: Any
     wf: torch.Tensor
     det: Any
     done: torch.cuda.Event | None
     offset_after: int = 0
     index: int = 0
+    degrade_level: int = 0
+    sinks_done: set | None = None
 
 
 class Pipeline:
@@ -198,18 +251,37 @@ class Pipeline:
     of its ``pool``, pinned on the card (the file reader the pipeline
     builds is).  The pipeline owns its writer pool
     (``writer_thread_count`` threads; none at 0, when every write is
-    synchronous), as the reference's builds it."""
+    synchronous), as the reference's builds it.  ``sinks`` and
+    ``processor`` replace the configured ones (the tests' capture sinks
+    and stub processors)."""
 
-    def __init__(self, cfg: Config, source=None, device=None):
+    def __init__(self, cfg: Config, source=None, device=None, sinks=None,
+                 processor=None):
         check_runtime(cfg)
         self.cfg = cfg
-        # the fault plan (None: off); raises for what is not ported
+        # the resilience layers' counters (stats.extras at run end),
+        # shared with a source that counts its own loss (a drop-oldest
+        # buffer, io/backpressure.py: the degradation ladder reads it)
+        counters = getattr(source, "counters", None)
+        self.counters = (counters if isinstance(counters, Counters)
+                         else Counters())
+        # the fault plan (None: off) and the retry policy (None: off)
         self.faults = FaultInjector.from_plan(
-            cfg.fault_plan, stream=cfg.stream_name,
-            retry_max_attempts=cfg.retry_max_attempts)
+            cfg.fault_plan, stream=cfg.stream_name, counters=self.counters)
+        self.retry = RetryPolicy.from_config(cfg)
         # the processor of the configured search mode (the registry)
-        self.processor = registry.build_processor(cfg, device=device)
+        if processor is None:
+            processor = registry.build_processor(cfg, device=device)
+        self.processor = processor
         on_card = self.processor.device.type == "cuda"
+        # the plan-demotion ladder and the device reinit (None: both off)
+        self.healer = ComputeHealer.from_config(cfg, self._plan_factory,
+                                                counters=self.counters)
+        if self.healer is not None:
+            self.healer.bind_base(getattr(self.processor, "staged", None))
+            self.counters.set("active_plan", self._plan_of(self.processor))
+        self._ladder = (DegradationLadder.from_config(cfg, self.counters)
+                        if cfg.degrade_enable else None)
         # the run manifest opens first and runs its recovery (torn tail
         # cut, uncommitted groups rolled back, the done-set rebuilt),
         # before the checkpoint loads and the sinks open the prefix; the
@@ -242,15 +314,17 @@ class Pipeline:
                 start_offset_bytes=start)
         self.source = source
         self._owned_writer_pool = None
-        if cfg.baseband_write_all:
-            self.sinks = [WriteAllSink(cfg, self.processor.reserved_bytes)]
-        else:
-            if cfg.writer_thread_count > 0:
-                self._owned_writer_pool = AsyncWriterPool(
-                    cfg.writer_thread_count)
-            self.sinks = [WriteSignalSink(
-                cfg, writer_pool=self._owned_writer_pool,
-                host_pool=BufferPool("npy", pinned=on_card))]
+        if sinks is None:
+            if cfg.baseband_write_all:
+                sinks = [WriteAllSink(cfg, self.processor.reserved_bytes)]
+            else:
+                if cfg.writer_thread_count > 0:
+                    self._owned_writer_pool = AsyncWriterPool(
+                        cfg.writer_thread_count)
+                sinks = [WriteSignalSink(
+                    cfg, writer_pool=self._owned_writer_pool,
+                    host_pool=BufferPool("npy", pinned=on_card))]
+        self.sinks = sinks
         if self.manifest is not None:
             for sink in self.sinks:
                 bind = getattr(sink, "bind_manifest", None)
@@ -274,6 +348,20 @@ class Pipeline:
         # set when the bounded shutdown gave up on a wedged sink: close()
         # then abandons the writer pool instead of draining it
         self._sink_wedged = False
+        # bumped after every completed sink push: the wedge detectors'
+        # progress signal
+        self._sink_heartbeat = 0
+        # serializes the accounted/abandoned handoff between a wedged sink
+        # worker and the bounded shutdown
+        self._handoff_lock = threading.Lock()
+        # (step, plan name) of each processor the healer installed
+        self.plan_history: list[tuple[str, str]] = []
+        # what a halt's healing drops, kept until the run ends (None: no
+        # halt seen): after a sticky CUDA error torch aborts the process
+        # from a tensor's destructor when it frees memory an event guards
+        # (a staged buffer recorded on the compute stream), so nothing is
+        # freed before the run escalates
+        self._halted = None
 
     @property
     def sink(self):
@@ -284,26 +372,43 @@ class Pipeline:
 
     def _ring_invalidate(self) -> None:
         """Drop the carry: the next dispatch is cold."""
+        self._keep_if_halted(self._ring_carry)
         self._ring_carry = None
         self._ring_prev = None
+
+    def _keep_if_halted(self, *objs) -> None:
+        """After a halt, hold ``objs`` until the run ends (``_halted``)."""
+        if self._halted is not None:
+            self._halted.extend(o for o in objs if o is not None)
 
     def _ring_adjacent(self, seg) -> bool:
         """Whether ``seg`` is the stream-adjacent successor of the last
         dispatched segment, so that its overlap head IS the carry.
         Unstamped segments (seq < 0) are never warm."""
         prev = self._ring_prev
-        return (prev is not None and seg.seq >= 0
+        return (prev is not None and getattr(seg, "seq", -1) >= 0
                 and seg.seq == prev[1] + 1
                 and getattr(seg, "data_stream_id", 0) == prev[0])
 
     def _op(self, site: str, index: int, fn):
         """One guarded operation: the fault plan's hook at (site, index)
-        fires first (a stall, or a fatal raise), then ``fn``.  With no
-        plan this is a plain call."""
+        fires first, then ``fn`` under the retry policy.  With no plan
+        and no retries this is a plain call.  A retried operation is
+        idempotent at its site: an upload re-copies the pinned bytes, a
+        dispatch re-enqueues the chain on the same staged tensor (a warm
+        one on the same carry, which the staging copied and did not
+        consume), a fetch re-synchronizes the same event, and a sink push
+        skips the sinks that already took the segment."""
         faults = self.faults
         if faults is not None and faults.armed(site):
-            faults.fire(site, index)
-        return fn()
+            inner = fn
+
+            def fn():
+                faults.fire(site, index)
+                return inner()
+        if self.retry is None:
+            return fn()
+        return retry_call(fn, self.retry, site, counters=self.counters)
 
     def _to_host(self, dets: list):
         """Start the detection results' copies to pinned host memory and
@@ -319,27 +424,81 @@ class Pipeline:
         done.record(torch.cuda.current_stream(proc.device))
         return dets, done
 
+    # -------------------------------------------- the healer's hooks
+
+    @staticmethod
+    def _plan_of(proc) -> str:
+        return str(getattr(proc, "plan_name", type(proc).__name__))
+
+    def _plan_factory(self, cfg, staged):
+        """A replacement processor for the healer (a demotion rung, the
+        promotion probe or a reinit), through the registry (the
+        ``search_mode`` rung changes the processor class), on the current
+        processor's device.  The current processor is retired and the
+        allocator's cache emptied first: after an out-of-memory the new
+        rung must not meet the old rung's tables and cached blocks, or it
+        fails again and the ladder burns rungs for nothing.  A card's
+        pending work is waited for first: on a context a sticky fault
+        killed that wait raises, and nothing is built on it."""
+        old = self.processor
+        device = old.device
+        if device.type == "cuda":
+            # a context a sticky fault killed fails here, before anything
+            # is freed or built on it (the heal counts it as one more halt)
+            torch.cuda.synchronize(device)
+        self._ring_invalidate()
+        retire = getattr(old, "retire", None)
+        if retire is not None:
+            retire()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return registry.build_processor(cfg, device=device, staged=staged)
+
+    def _swap_processor(self, newp) -> None:
+        """Install a replacement processor (the factory retired the old
+        one): the ring's carry belongs to the old plan, so the next
+        dispatch is cold."""
+        old, self.processor = self.processor, newp
+        self._ring_invalidate()
+        retire = getattr(old, "retire", None)
+        if retire is not None and old is not newp \
+                and not getattr(old, "_retired", False):
+            retire()
+        h = self.healer
+        step = h.active_step if h is not None else "full"
+        plan = self._plan_of(newp)
+        self.plan_history.append((step, plan))
+        self.counters.set("active_plan", plan)
+
     # ------------------------------------------- dispatch and fetch
 
     def _dispatch_segment(self, seg, offset_after: int = 0,
-                          index: int = 0) -> InFlight:
+                          index: int = 0, requeue: bool = False) -> InFlight:
         """Upload one segment (the ``h2d`` site) and enqueue its chain
         (the ``dispatch`` site), then the detection results' copies to
         pinned host memory and the ``done`` event.  Reads nothing on the
-        host: it returns before the card is done."""
+        host: it returns before the card is done.  ``requeue`` (a watchdog
+        requeue, a healed re-dispatch) isolates the dispatch from the
+        ring: it is cold, and its carry is adopted only when the ring was
+        down on entry (the requeued segment is then the stream's
+        frontier)."""
         proc = self.processor
         t0 = time.perf_counter()
         h2d0 = proc.h2d_bytes
         if proc.ring:
-            carry, self._ring_carry = self._ring_carry, None
-            if not self._ring_adjacent(seg):
-                carry = None  # cold: a full upload
+            ring_down = self._ring_prev is None and self._ring_carry is None
+            carry = None if requeue or not self._ring_adjacent(seg) \
+                else self._ring_carry
+            if carry is not None:
+                self._ring_carry = None
             staged = self._op("h2d", index,
                               lambda: proc.stage_input(seg.data, carry=carry))
-            (wf, det), self._ring_carry = self._op(
+            (wf, det), next_carry = self._op(
                 "dispatch", index, lambda: proc.run_device_ring(staged))
-            self._ring_prev = ((getattr(seg, "data_stream_id", 0), seg.seq)
-                               if seg.seq >= 0 else None)
+            if not requeue or ring_down:
+                self._ring_carry = next_carry
+                self._ring_prev = ((getattr(seg, "data_stream_id", 0),
+                                    seg.seq) if seg.seq >= 0 else None)
         else:
             staged = self._op("h2d", index,
                               lambda: proc.stage_input(seg.data))
@@ -403,18 +562,21 @@ class Pipeline:
 
     def _fetch_inflight(self, item: InFlight) -> Fetched:
         """Wait for one dispatched segment (its detection results are on
-        the host then) and record its numbers: ``overlap`` is the host
-        time between its dispatch returning and this fetch starting, the
-        time the engine hid under the card's work; its device seconds run
-        from dispatch start to fetch end (exact in the serial leg, an
-        upper bound in a window).  A quality vector goes to the monitor
-        here, in drain order."""
+        the host then; the ``fetch`` site, under ``segment_deadline_s``)
+        and record its numbers: ``overlap`` is the host time between its
+        dispatch returning and this fetch starting, the time the engine
+        hid under the card's work; its device seconds run from dispatch
+        start to fetch end (exact in the serial leg, an upper bound in a
+        window).  A quality vector goes to the monitor here, in drain
+        order."""
         extras = self.stats.extras
         t0 = time.perf_counter()
         hidden = max(0.0, t0 - item.t_dispatched)
         done = item.done
-        self._op("fetch", item.index,
-                 lambda: done.synchronize() if done is not None else None)
+        deadline_s = float(self.cfg.segment_deadline_s or 0.0)
+        self._op("fetch", item.index, lambda: sync_with_deadline(
+            deadline_s,
+            lambda: done.synchronize() if done is not None else None))
         fetch_s = time.perf_counter() - t0
         stage_s = extras["stage_s"]
         stage_s["dispatch"] += item.dispatch_s
@@ -450,17 +612,32 @@ class Pipeline:
 
     def _push_sinks(self, item: Fetched, positive: bool,
                     seg_key: tuple | None) -> None:
-        """Push one segment to every sink.  ``seg_key`` is the manifest's
-        ``(data_stream_id, drain index)`` (None without a manifest): a
-        sink whose group the manifest holds as committed (the crash came
-        between its commit and the covering checkpoint) is skipped,
-        counted as a replayed skip; every other sink logs its artifacts
-        under ``(stream, index, "<position>:<class>")`` and, when it
-        wrote one, seals a ``done`` record."""
-        work = SegmentResultWork(segment=item.seg, waterfall=item.wf,
+        """Push one segment to every sink.  At degradation level 1 the
+        waterfall is withheld from every sink, at level 2 the
+        ``sheddable`` sinks are skipped, each shed counted
+        (``shed_waterfalls``, ``shed_baseband``).  ``item.sinks_done``
+        holds the sinks that already took the segment (skipped when a
+        retry or a replay re-enters) and the ``"wf"`` marker that keeps
+        the waterfall shed's count exactly once.  ``seg_key`` is the
+        manifest's ``(data_stream_id, drain index)`` (None without a
+        manifest): a sink whose group the manifest holds as committed is
+        skipped, counted as a replayed skip; every other sink logs its
+        artifacts under ``(stream, index, "<position>:<class>")`` and,
+        when it wrote one, seals a ``done`` record."""
+        done = item.sinks_done
+        wf = item.wf
+        if item.degrade_level >= 1 and wf is not None:
+            wf = None
+            if done is None or "wf" not in done:
+                self.counters.add("shed_waterfalls")
+                if done is not None:
+                    done.add("wf")
+        work = SegmentResultWork(segment=item.seg, waterfall=wf,
                                  detect=item.det)
         m = self.manifest
         for i, sink in enumerate(self.sinks):
+            if done is not None and i in done:
+                continue
             key = None
             if m is not None and seg_key is not None:
                 key = (seg_key[0], seg_key[1], f"{i}:{type(sink).__name__}")
@@ -469,7 +646,15 @@ class Pipeline:
                     log.info(f"[manifest] segment {seg_key[1]} sink "
                              f"{key[2]}: already committed, skipping "
                              "replay")
+                    if done is not None:
+                        done.add(i)
                     continue
+            if item.degrade_level >= 2 and getattr(sink, "sheddable", False):
+                self.counters.add("shed_baseband")
+                if done is not None:
+                    done.add(i)
+                continue
+            if key is not None:
                 set_key = getattr(sink, "set_manifest_key", None)
                 if set_key is not None:
                     set_key(key)
@@ -478,6 +663,16 @@ class Pipeline:
             # writes nothing again
             if key is not None and getattr(sink, "last_push_wrote", True):
                 m.sink_done(key)
+            self._sink_heartbeat += 1
+            if done is not None:
+                done.add(i)
+
+    def _release(self, seg) -> None:
+        """The segment's buffer back to the source's pool (no sink keeps
+        a segment past its push)."""
+        pool = getattr(self.source, "pool", None)
+        if pool is not None:
+            pool.release(seg.data)
 
     def _drain_body(self, item: Fetched, drained: list) -> None:
         """The sink half of one segment: the detection gate, the sink
@@ -485,12 +680,17 @@ class Pipeline:
         source's pool (its upload finished before its event; a batch's
         before the batch's event), then with a checkpoint the sinks'
         drain and the checkpoint's update (the ``checkpoint`` site).  On
-        the sink thread with a window, inline in the serial leg."""
+        the sink thread with a window, inline in the serial leg.  The
+        item's done-set keeps the signal count and the pushes exactly
+        once when a crashed drain is replayed."""
         cfg = self.cfg
         extras = self.stats.extras
+        done = item.sinks_done
         positive = has_signal(cfg, item.det,
                               frequency_bin_count=item.wf.shape[-2])
-        if positive:
+        if positive and (done is None or "stats" not in done):
+            if done is not None:
+                done.add("stats")
             self.stats.signals += 1
             self.positive_segments.append(drained[0])
             log.info(f"[pipeline] signal detected in segment {drained[0]}")
@@ -507,8 +707,13 @@ class Pipeline:
         # piggyback queue holds a real-time negative only until the
         # re-check in the same push pops it (ref: write_signal_pipe.hpp
         # 122-140), so the queue is empty between pushes
-        self.source.pool.release(item.seg.data)
-        drained[0] += 1
+        self._release(item.seg)
+        with self._handoff_lock:
+            if done is not None and "abandoned" in done:
+                # the bounded shutdown counted this segment as dropped
+                # while this thread was wedged mid-push
+                return
+            drained[0] += 1
         if self.checkpoint is not None:
             # a checkpointed segment is durable: the queued writes land
             # before the update records it
@@ -527,6 +732,12 @@ class Pipeline:
             if drain is not None:
                 drain()  # the writer pool: wait for the disk
 
+    def _account_dropped(self, n: int = 1) -> None:
+        """``n`` whole shed segments: the counter and the loss window
+        (the degradation ladder's level-3 signal)."""
+        self.counters.add("segments_dropped", n)
+        self.counters.window_add("segments_dropped", n)
+
     # --------------------------------------------------- the engine
 
     def run(self, max_segments: int | None = None) -> PipelineStats:
@@ -542,10 +753,20 @@ class Pipeline:
         (a batch is one); with a manifest, ``manifest``: its recovery and
         replay counts; with ``quality_stats``, ``quality``: the monitor's
         timeline, one dict a segment in drain order (the last
-        ``TIMELINE_SPANS``).
+        ``TIMELINE_SPANS``); and the resilience counters
+        (``resilience/counters.py``), also when the run raises.
 
         ``micro_batch_segments`` above the window, or above 1 on the
         staged plan, raises ``ValueError`` before any read."""
+        try:
+            stats = self._run_engine(max_segments)
+        finally:
+            self.stats.extras.update(self.counters.snapshot())
+        # the run outlived its halts: the context lives, free what they held
+        self._halted = None
+        return stats
+
+    def _run_engine(self, max_segments: int | None) -> PipelineStats:
         cfg = self.cfg
         window = max(1, int(cfg.inflight_segments or 1))
         batch = max(1, int(cfg.micro_batch_segments or 1))
@@ -554,7 +775,7 @@ class Pipeline:
                 f"micro_batch_segments={batch} exceeds "
                 f"inflight_segments={window}: a batch dispatch must fit "
                 "the in-flight window")
-        if batch > 1 and self.processor.staged:
+        if batch > 1 and getattr(self.processor, "staged", False):
             raise ValueError(BATCH_NEEDS_FUSED)
         stats = self.stats
         stats.extras.update(
@@ -563,12 +784,13 @@ class Pipeline:
             device_s_per_segment=[], overlap_hidden_s_per_segment=[],
             h2d_bytes_per_segment=[], checkpoint_s_per_segment=[],
             inflight_segments=window, micro_batch_segments=batch,
-            dispatches=0)
+            dispatches=0, degrade_levels=[])
         stage_s = stats.extras["stage_s"]
         n_samples = cfg.baseband_input_count
         start = time.perf_counter()
         # a resumed run is a fresh process: its carry starts cold
         self._ring_invalidate()
+        counters = self.counters
 
         # a segment is live from dispatch until its sink completes; the
         # window bounds that count, so at most W waterfalls are on the
@@ -588,39 +810,150 @@ class Pipeline:
         drained = [self.checkpoint.segments_done
                    if self.checkpoint is not None else 0]
 
+        # the sink pipe's supervisor: a crash that is not fatal restarts
+        # it, its item replayed inline first (journal order kept)
+        use_sink_pipe = window > 1
+        supervisor = None
+        if use_sink_pipe and int(cfg.supervisor_max_restarts or 0) > 0:
+            supervisor = Supervisor(
+                "sink_drain", max_restarts=cfg.supervisor_max_restarts,
+                window_s=cfg.supervisor_window_s, counter="worker_restarts",
+                counters=counters)
+        current = [None]   # the item the sink worker is processing
+        progress = [0]     # drained[0] when that item started
+
         def sink_f(_stop, item):
+            current[0] = item
+            progress[0] = drained[0]
             try:
                 self._drain_body(item, drained)
             finally:
-                live_add(-1)
+                # an item abandoned by the bounded shutdown had its live
+                # slot released there
+                if "abandoned" not in item.sinks_done:
+                    live_add(-1)
+                self._keep_if_halted(item)
+            current[0] = None
 
         stop = fw.StopToken()
         q_sink = fw.WorkQueue(capacity=window)
         sink_pipe = (fw.start_pipe(sink_f, q_sink, None, stop, "sink_drain")
-                     if window > 1 else None)
+                     if use_sink_pipe else None)
+
+        # set while the engine unwinds from a failure: the shutdown then
+        # restarts and replays nothing (the run is ending, and after a
+        # sticky fault a replay would fail again in its place)
+        unwinding = [False]
 
         def sink_alive() -> bool:
-            return sink_pipe is None or sink_pipe.exception is None
-
-        def emit(fetched) -> bool:
-            if sink_pipe is None:
-                sink_f(stop, fetched)
+            """True while the sink side can make progress; restarts a
+            supervised crashed pipe as a side effect."""
+            nonlocal sink_pipe
+            if sink_pipe is None or sink_pipe.exception is None:
                 return True
-            # bounded push: blocks while the queue is full (the engine's
-            # backpressure), bails out if the sink thread died
-            while not q_sink.push_lossy(fetched):
-                if not sink_alive():
+            if supervisor is None or unwinding[0] or \
+                    not supervisor.should_restart(sink_pipe.exception):
+                return False
+            failed, current[0] = current[0], None
+            if failed is not None and failed is not fw.SENTINEL:
+                if drained[0] == progress[0]:
+                    # the crash came before the item was accounted: replay
+                    # it inline before the new pipe pops (its live slot
+                    # was released by sink_f's finally; the done-set and
+                    # the manifest keep its pushes exactly once); a second
+                    # failure here propagates
+                    self._drain_body(failed, drained)
+                else:
+                    log.warning(
+                        "[supervisor] sink_drain crashed after its "
+                        "segment was accounted; skipping replay (the "
+                        "next checkpoint covers it)")
+            sink_pipe = fw.start_pipe(sink_f, q_sink, None, stop,
+                                      "sink_drain")
+            return True
+
+        watchdog_max = int(cfg.segment_watchdog_requeues or 0)
+        deadline_s = float(cfg.segment_deadline_s or 0.0)
+        watchdog = watchdog_max > 0 and deadline_s > 0
+        # the degradation ladder's pressure flag: the engine waited on
+        # the sink since the last emit
+        sink_wait = [False]
+        # shedding is for liveness: a real-time source only (a file run
+        # throttles its reader losslessly)
+        real_time = not cfg.input_file_path
+
+        def shed_segment(seg, in_flight: bool) -> None:
+            """Account one shed segment as loss, break the ring's chain,
+            free its window slot (``in_flight``) and its buffer."""
+            self._account_dropped()
+            self._ring_invalidate()
+            if in_flight:
+                live_add(-1)
+            self._release(seg)
+
+        def push_sink(item) -> bool:
+            """Bounded push to the sink pipe: blocks while the queue is
+            full (the engine's backpressure), bails out if the sink died;
+            with the watchdog on a real-time source, a sink wedged (no
+            push completed) past the deadline sheds this segment as
+            accounted loss."""
+            t0 = time.perf_counter()
+            progress0 = (drained[0], self._sink_heartbeat)
+            while not q_sink.push_lossy(item):
+                sink_wait[0] = True
+                if not sink_alive() or stop.stop_requested:
                     return False
+                if watchdog and real_time and item is not fw.SENTINEL:
+                    cur = (drained[0], self._sink_heartbeat)
+                    if cur != progress0:
+                        t0, progress0 = time.perf_counter(), cur
+                    elif time.perf_counter() - t0 > deadline_s:
+                        log.error(
+                            "[watchdog] sink pipe wedged past "
+                            f"{deadline_s:g}s with no drain progress: "
+                            "shedding segment as accounted loss")
+                        shed_segment(item.seg, in_flight=True)
+                        return True
                 time.sleep(0.002)
             return True
 
+        def emit(fetched: Fetched) -> bool:
+            # one degradation-ladder observation an emitted segment, on
+            # the engine's side: did the engine wait on the sink since the
+            # last emit (a full queue at push, or the window parked in the
+            # sink's backlog), and is accounted loss happening?  The level
+            # rides with the item
+            level = 0
+            if self._ladder is not None:
+                if not real_time:
+                    occupancy = 0.0
+                elif sink_wait[0]:
+                    occupancy = 1.0
+                else:
+                    occupancy = (q_sink.qsize() / window
+                                 if sink_pipe is not None else 0.0)
+                sink_wait[0] = False
+                level = self._ladder.observe(
+                    occupancy, counters.window_sum("segments_dropped") > 0)
+                stats.extras["degrade_levels"].append(level)
+            fetched = fetched._replace(degrade_level=level,
+                                       sinks_done=set())
+            if sink_pipe is None:
+                try:
+                    self._drain_body(fetched, drained)
+                finally:
+                    live_add(-1)
+                return True
+            return push_sink(fetched)
+
         pending: deque[InFlight] = deque()
         it = iter(self.source)
+        dispatched = [0]
         exhausted = [False]
 
         def want_more() -> bool:
             return not exhausted[0] and (max_segments is None
-                                         or stats.segments < max_segments)
+                                         or dispatched[0] < max_segments)
 
         def ingest_one(index: int):
             """One read (the ``ingest`` site): the segment and the
@@ -633,13 +966,125 @@ class Pipeline:
                 return None
             return seg, getattr(self.source, "logical_offset", 0)
 
+        # the dispatch unit follows the healer: the micro_batch rung
+        # drops it to 1, a promotion restores it
+        def cur_unit() -> int:
+            if self.healer is not None:
+                return min(window, self.healer.micro_batch)
+            return batch
+
+        # ---- the healer's handlers, reached only from exceptions
+
+        def reinit_and_redispatch(exc) -> bool:
+            """A halt: a processor rebuilt at the current rung, and every
+            in-flight segment re-dispatched cold from its pinned buffer,
+            in dispatch order."""
+            newp = self.healer.reinit(exc)
+            if newp is None:
+                return False
+            self._swap_processor(newp)
+            for i in range(len(pending)):
+                old = pending[i]
+                self._keep_if_halted(old)
+                pending[i] = dispatch_one(old.seg, old.offset_after,
+                                          old.index, requeue=True)
+            return True
+
+        def heal(exc) -> bool:
+            """True when a device fault was recovered (the processor may
+            have been swapped); False propagates the original failure (not
+            a device fault, or healing off); a spent budget raises the
+            typed FATAL escalation."""
+            h = self.healer
+            if h is None:
+                return False
+            kind = h.classify(exc)
+            if kind is None:
+                return False
+            def settle(e, kind) -> None:
+                # no rung stands in for a kernel of the port that fails
+                own = kernel_fault(e)
+                if own is not None:
+                    raise own from e
+                # an out-of-memory's or a build fault's failed chain: free
+                # what its frames hold before a new rung allocates (the
+                # traceback stays printable); a halt's: hold it (the
+                # context may be dead, see _halted)
+                if kind == DEVICE_HALT:
+                    if self._halted is None:
+                        self._halted = []
+                    self._halted.append(e)
+                else:
+                    traceback.clear_frames(e.__traceback__)
+            settle(exc, kind)
+            while True:
+                # a rebuild (or a re-dispatch) that fails the same way is
+                # one more reinit or demotion: on a dead CUDA context the
+                # reinit budget runs out, and the run escalates
+                try:
+                    if kind == DEVICE_HALT:
+                        if reinit_and_redispatch(exc):
+                            return True
+                        raise ReinitBudgetExceeded(
+                            "device halt beyond reinit recovery "
+                            "(device_reinit_max budget spent or "
+                            f"disabled): {exc}") from exc
+                    newp = h.demote(exc, kind)
+                    if newp is None:
+                        raise LadderExhausted(
+                            "device fault survived every demotion rung: "
+                            f"{exc}") from exc
+                    self._swap_processor(newp)
+                    return True
+                except (ReinitBudgetExceeded, LadderExhausted):
+                    raise
+                except BaseException as e:  # noqa: BLE001 - classified
+                    again = h.classify(e)
+                    if again is None:
+                        raise
+                    settle(e, again)
+                    exc, kind = e, again
+
+        def guarded(fn):
+            """``fn()``, or the failure it raised (the caller heals it
+            after leaving the ``except`` block, so the failed chain's
+            frames are gone before a new rung allocates)."""
+            try:
+                return fn(), None
+            except BaseException as e:  # noqa: BLE001 - classified
+                return None, e
+
+        def dispatch_one(seg, offset_after, index, requeue=False):
+            """One dispatch with self-healing: a device fault demotes or
+            reinitializes and re-dispatches the same segment cold."""
+            while True:
+                item, err = guarded(lambda: self._dispatch_segment(
+                    seg, offset_after, index, requeue=requeue))
+                if err is None:
+                    return item
+                if not heal(err):
+                    raise err
+                err = None
+                requeue = True
+
+        def maybe_promote() -> None:
+            h = self.healer
+            if h is not None and h.promote_due():
+                newp = h.promote()
+                if newp is not None:
+                    self._swap_processor(newp)
+
         def fill_window() -> None:
             # the unit is the batch: admitted only when all of it fits
-            while live_count() + batch <= window and want_more() \
+            while live_count() + cur_unit() <= window and want_more() \
                     and sink_alive():
-                first = stats.segments
-                budget = batch if max_segments is None else \
-                    min(batch, max_segments - first)
+                maybe_promote()
+                b = cur_unit()
+                if live_count() + b > window:
+                    return  # a promotion restored a unit that no longer fits
+                first = dispatched[0]
+                budget = b if max_segments is None else \
+                    min(b, max_segments - first)
                 got = []
                 while len(got) < budget:
                     one = ingest_one(first + len(got))
@@ -648,31 +1093,136 @@ class Pipeline:
                     got.append(one)
                 if not got:
                     return
-                if batch > 1 and len(got) == batch:
+                if b > 1 and len(got) == b:
                     segs, offsets = map(list, zip(*got))
-                    items = self._dispatch_batch(segs, offsets, first)
-                    stats.extras["dispatches"] += 1
+                    items, err = guarded(
+                        lambda: self._dispatch_batch(segs, offsets, first))
+                    if err is not None:
+                        if not heal(err):
+                            raise err
+                        err = None
+                        # the healed plan may not batch: these segments
+                        # finish as single cold dispatches
+                        items = [dispatch_one(seg, off, first + i,
+                                              requeue=True)
+                                 for i, (seg, off) in enumerate(got)]
+                        stats.extras["dispatches"] += len(items)
+                    else:
+                        stats.extras["dispatches"] += 1
                 else:  # one segment, or a tail shorter than the batch
-                    items = [self._dispatch_segment(seg, off, first + i)
+                    items = [dispatch_one(seg, off, first + i)
                              for i, (seg, off) in enumerate(got)]
                     stats.extras["dispatches"] += len(items)
                 pending.extend(items)
                 live_add(len(items))
+                dispatched[0] += len(items)
                 stats.segments += len(items)
                 stats.samples += n_samples * len(items)
 
-        def drain_oldest() -> bool:
-            return emit(self._fetch_inflight(pending.popleft()))
+        requeue_counts: dict[int, int] = {}
 
+        def watchdog_wait() -> bool:
+            """The segment watchdog: poll the drain head's readiness up
+            to the deadline, counted from when the engine starts waiting
+            on it; on expiry re-dispatch it cold from its pinned buffer
+            (the card cannot cancel the enqueued chain, so the requeue
+            runs behind it), up to ``segment_watchdog_requeues`` times,
+            then escalate.  False when the sink died while waiting."""
+            item = pending[0]
+            waited_since = time.perf_counter()
+            while not self._ready(item):
+                if not sink_alive() or stop.stop_requested:
+                    return False
+                if time.perf_counter() - waited_since >= deadline_s:
+                    index = item.index
+                    used = requeue_counts.get(index, 0)
+                    if used >= watchdog_max:
+                        raise WatchdogEscalation(
+                            f"segment {index} fetch still not ready "
+                            f"after {deadline_s:g}s at the drain head "
+                            f"and {used} requeue(s): device wedged")
+                    requeue_counts[index] = used + 1
+                    counters.add("watchdog_requeues")
+                    log.warning(
+                        f"[watchdog] segment {index} in-flight past "
+                        f"{deadline_s:g}s (fetch never ready): "
+                        f"re-dispatching ({used + 1}/{watchdog_max})")
+                    self._ring_invalidate()
+                    pending[0] = None
+                    item = dispatch_one(item.seg, item.offset_after, index,
+                                        requeue=True)
+                    pending[0] = item
+                    waited_since = time.perf_counter()
+                else:
+                    time.sleep(min(0.005, deadline_s / 20))
+            return True
+
+        def drain_oldest() -> bool:
+            if watchdog and not watchdog_wait():
+                return False
+            item = pending.popleft()
+            while True:
+                fetched, err = guarded(lambda: self._fetch_inflight(item))
+                if err is None:
+                    break
+                if not heal(err):
+                    raise err
+                err = None
+                # the faulted segment's results died with the fault: re-
+                # dispatch it cold under the (demoted or rebuilt) plan
+                seg, off, idx = item.seg, item.offset_after, item.index
+                item = None
+                item = dispatch_one(seg, off, idx, requeue=True)
+            h = self.healer
+            if h is not None:
+                h.note_healthy()
+            return emit(fetched)
+
+        # the watchdog's state for a fully parked window: [since, progress]
+        parked = [None, (drained[0], self._sink_heartbeat)]
+
+        def shed_ingest() -> bool:
+            """A wedged sink with the whole window parked: keep draining
+            the source, each undispatched segment accounted as loss (it
+            still takes its dispatch index).  False: the source is
+            done."""
+            one = ingest_one(dispatched[0])
+            if one is None:
+                return False
+            dispatched[0] += 1
+            log.error("[watchdog] sink wedged with a full in-flight "
+                      "window: shedding ingested segment as accounted "
+                      "loss")
+            shed_segment(one[0], in_flight=False)
+            return True
+
+        sink_wedged = False
         try:
             while sink_alive():
                 fill_window()
                 if not pending:
-                    if want_more() and live_count() > 0:
-                        # the whole window waits in the sink's backlog
-                        time.sleep(0.002)
+                    if not want_more():
+                        break
+                    if live_count() == 0:
+                        # the sink freed the whole window after
+                        # fill_window looked (the reference ends its run
+                        # here, segments unread): fill it again
                         continue
-                    break
+                    if sink_alive():
+                        # the whole window waits in the sink's backlog
+                        sink_wait[0] = True
+                        if watchdog and real_time:
+                            now = time.perf_counter()
+                            cur = (drained[0], self._sink_heartbeat)
+                            if parked[0] is None or cur != parked[1]:
+                                parked[0], parked[1] = now, cur
+                            elif now - parked[0] > deadline_s:
+                                if not shed_ingest():
+                                    break
+                                continue
+                        time.sleep(0.002)
+                    continue
+                parked[0] = None
                 # everything already complete goes to the sinks, in order
                 while pending and sink_alive() and self._ready(pending[0]):
                     if not drain_oldest():
@@ -681,20 +1231,25 @@ class Pipeline:
                     continue
                 # no room for the next unit (or source done): block on
                 # the oldest
-                if live_count() + batch > window or not want_more():
+                if live_count() + cur_unit() > window or not want_more():
                     if not drain_oldest():
                         break
             while pending and sink_alive():
                 if not drain_oldest():
                     break
+        except BaseException:
+            unwinding[0] = True
+            raise
         finally:
             if sink_pipe is not None:
-                self._stop_sink(sink_pipe, q_sink, sink_alive)
+                sink_wedged = self._stop_sink(
+                    sink_pipe, q_sink, sink_alive, stop, current, progress,
+                    drained, shed_segment, live_add)
                 stop.request_stop()
             self._ring_invalidate()
         if sink_pipe is not None and sink_pipe.exception is not None:
             raise sink_pipe.exception
-        if self._sink_wedged:
+        if sink_wedged:
             log.error("[pipeline] skipping the sink drain: the sink pipe "
                       "is wedged (queued writes were NOT flushed)")
         else:
@@ -715,23 +1270,43 @@ class Pipeline:
                  f"{stats.msamples_per_sec:.1f} Msamples/s")
         return stats
 
-    def _stop_sink(self, sink_pipe, q_sink, sink_alive) -> None:
+    def _stop_sink(self, sink_pipe, q_sink, sink_alive, stop, current,
+                   progress, drained, shed_segment, live_add) -> bool:
         """End the sink pipe: the sentinel after every queued item, then
         a join bounded by ``shutdown_join_timeout_s`` (0: wait for it).
-        A sink still alive then is reported with its stack, and
-        ``close()`` will not wait on its writes."""
+        A sink still alive then is reported with its stack, its queued
+        items and the item it holds (if not yet accounted) are counted
+        as dropped, ``close()`` will not wait on its writes, and True is
+        returned."""
         join_s = float(self.cfg.shutdown_join_timeout_s or 0)
         t0 = time.perf_counter()
         while not q_sink.push_lossy(fw.SENTINEL):
-            if not sink_alive() or (
+            if not sink_alive() or stop.stop_requested or (
                     join_s > 0 and time.perf_counter() - t0 > join_s):
                 break
             time.sleep(0.002)
-        if not sink_pipe.join(join_s if join_s > 0 else None):
-            self._sink_wedged = True
-            termination.report_wedged(
-                [sink_pipe.thread],
-                f"pipeline shutdown ({join_s:g}s join timeout)")
+        if sink_pipe.join(join_s if join_s > 0 else None):
+            return False
+        self._sink_wedged = True
+        termination.report_wedged(
+            [sink_pipe.thread],
+            f"pipeline shutdown ({join_s:g}s join timeout)")
+        while True:
+            leftover = q_sink.try_pop()
+            if leftover is None:
+                break
+            if leftover is not fw.SENTINEL:
+                shed_segment(leftover.seg, in_flight=True)
+        held = current[0]
+        if held is not None and held is not fw.SENTINEL:
+            with self._handoff_lock:
+                if drained[0] == progress[0]:
+                    held.sinks_done.add("abandoned")
+                    self._account_dropped()
+                    live_add(-1)
+        log.error("[pipeline] wedged sink: still-queued segments "
+                  "accounted as segments_dropped")
+        return True
 
     def close(self) -> None:
         """Release the run's resources: the source, the writer pool the
@@ -751,7 +1326,9 @@ class Pipeline:
             host_pool = getattr(sink, "host_pool", None)
             if host_pool is not None:
                 host_pool.free_all()
-        self.source.pool.free_all()
+        pool = getattr(self.source, "pool", None)
+        if pool is not None:
+            pool.free_all()
 
     def __enter__(self):
         return self

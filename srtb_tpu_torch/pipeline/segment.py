@@ -659,6 +659,30 @@ class SegmentProcessor:
             cfg.signal_detect_max_boxcar_length)
         return wf, result
 
+    # ---------------------------------------------------- retirement
+
+    _retired = False
+
+    def retire(self) -> None:
+        """Disarm a processor the pipeline has replaced (a demotion, a
+        promotion probe or a device reinit, ``resilience/demote.py``): a
+        stray dispatch through it raises, and its device tables (window,
+        masks, the front-fused constants) are dropped, so the allocator
+        can hand their memory to the replacement."""
+        self._retired = True
+        for name, value in list(vars(self).items()):
+            if isinstance(value, torch.Tensor) or (
+                    isinstance(value, tuple) and value
+                    and all(isinstance(v, torch.Tensor) for v in value)):
+                setattr(self, name, None)
+
+    def _check_live(self) -> None:
+        if self._retired:
+            raise RuntimeError(
+                f"SegmentProcessor ({self.plan_name}) is retired: the "
+                "pipeline replaced it (plan demotion, promotion or device "
+                "reinit); a stray dispatch must not run on it")
+
     def process(self, raw) -> tuple[torch.Tensor, det.DetectResult]:
         """Run one segment, serially.  ``raw`` is the segment's uint8
         bytes (numpy or torch).  Returns ``(waterfall complex64 [S, F,
@@ -682,6 +706,7 @@ class SegmentProcessor:
         ``raw[reserved_bytes:]`` is uploaded, behind a device copy of
         the carry into the buffer's head.  On the CPU both are plain
         copies."""
+        self._check_live()
         src = self._upload_source(raw)
         if carry is not None:
             if not self.ring:
@@ -732,6 +757,7 @@ class SegmentProcessor:
         """The chain on one segment's device-resident bytes, enqueued on
         the current stream: no host read, no synchronisation.  With
         ``quality_stats`` the result carries the quality vector."""
+        self._check_live()
         cfg = self.cfg
         spec = self._spectrum(raw)
         if self._plain_s1:
@@ -816,6 +842,7 @@ class SegmentProcessor:
         stream and the compute stream waits for them, as in
         :meth:`stage_input`; a batch counts one cold or warm ring
         dispatch."""
+        self._check_live()
         if self.staged:
             raise ValueError(BATCH_NEEDS_FUSED)
         seg, res = self._segment_bytes, self.reserved_bytes

@@ -1,6 +1,5 @@
 """Deterministic fault injection, ``Config.fault_plan`` (port of
-``srtb_tpu/resilience/faults.py``, the part the durability tests steer
-their crash windows with).
+``srtb_tpu/resilience/faults.py``).
 
 Plan syntax (comma-separated entries)::
 
@@ -12,19 +11,27 @@ Plan syntax (comma-separated entries)::
 - ``site``    one of ``ingest``, ``h2d``, ``dispatch``, ``fetch``,
               ``sink_write``, ``checkpoint``, the hook points of
               ``pipeline/runtime.py`` (``Pipeline._op``);
-- ``action``  ``stall=SECONDS`` (sleeps) or ``fatal``
-              (:class:`InjectedFatal`, ends the run);
+- ``action``  ``raise`` (:class:`InjectedFault`, transient: retried),
+              ``fatal`` (:class:`InjectedFatal`, ends the run),
+              ``corrupt`` (:class:`InjectedCorruption`, data loss:
+              retried and counted), ``stall=SECONDS`` (sleeps), or a
+              device fault at a device site (``h2d``, ``dispatch``,
+              ``fetch``): ``oom``, ``compile_fail`` or ``device_halt``;
 - ``index``   the segment the fault fires on, in dispatch order within
               the run, 0-based, the same space at every site (a resumed
               run counts from its own first segment).
 
-Each armed fault fires once.  The reference's other actions (``raise``,
-``corrupt``, and the device faults ``oom``, ``compile_fail`` and
-``device_halt``) are recovered by its retry layer and its demotion
-ladder, which the port does not have yet: a plan naming one raises
-``NotImplementedError`` (ROADMAP A7), as does any plan with
-``retry_max_attempts > 1``, since a retry the port does not perform
-would change what the plan's run does.
+The device actions raise what the card raises, tagged ``[injected fault
+at ...]``: ``torch.cuda.OutOfMemoryError``, the kernel library's
+``KernelBuildError``, and ``torch.AcceleratorError`` with torch's message
+for a device-side assert.  They travel the recognition path of a real
+fault (``resilience/errors.classify_device`` reads the type and the
+message), as the reference's renamed ``XlaRuntimeError`` stand-in does.
+The tag is what lets an injected ``compile_fail`` demote: a real build or
+launch fault of the port's own kernels escalates instead
+(``errors.kernel_fault``).
+
+Each armed fault fires once; ``faults_injected`` counts the fires.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 
+from srtb_tpu_torch.resilience.errors import (INJECTED_TAG, DataLossError,
+                                              FatalError, TransientError)
 from srtb_tpu_torch.utils.logging import log
 
 SITES = ("ingest", "h2d", "dispatch", "fetch", "sink_write",
@@ -39,12 +48,35 @@ SITES = ("ingest", "h2d", "dispatch", "fetch", "sink_write",
 DEVICE_ACTIONS = ("oom", "compile_fail", "device_halt")
 ACTIONS = ("raise", "fatal", "corrupt", "stall") + DEVICE_ACTIONS
 DEVICE_SITES = ("h2d", "dispatch", "fetch")
-# the actions whose outcome does not depend on a retry layer
-PORTED_ACTIONS = ("fatal", "stall")
 
 
-class InjectedFatal(RuntimeError):
+class InjectedFault(TransientError):
+    """A scheduled transient fault."""
+
+
+class InjectedFatal(FatalError):
     """A scheduled fatal fault."""
+
+
+class InjectedCorruption(DataLossError):
+    """A scheduled data-loss fault."""
+
+
+def device_fault(action: str, spec) -> BaseException:
+    """The exception the card raises for a device action, tagged with
+    the plan entry: an allocation that does not fit, a kernel library
+    that does not build, a device-side assert (sticky on a real card)."""
+    import torch
+    from srtb_tpu_torch.kernels.build import KernelBuildError
+    tag = f"{INJECTED_TAG}{spec}]"
+    if action == "oom":
+        return torch.cuda.OutOfMemoryError(
+            "CUDA out of memory. Tried to allocate 64.00 GiB. " + tag)
+    if action == "compile_fail":
+        return KernelBuildError(f"nvcc failed: {tag}")
+    return torch.AcceleratorError(
+        "CUDA error: device-side assert triggered\nCUDA kernel errors "
+        "might be asynchronously reported at some other API call. " + tag)
 
 
 @dataclass
@@ -111,7 +143,8 @@ class FaultInjector:
     """Armed fault sites; ``fire`` is the hook the pipeline calls with
     the current segment index."""
 
-    def __init__(self, specs: list[FaultSpec]):
+    def __init__(self, specs: list[FaultSpec], counters=None):
+        self.counters = counters
         self._by_site: dict[str, dict[int, FaultSpec]] = {}
         for s in specs:
             site = self._by_site.setdefault(s.site, {})
@@ -123,45 +156,41 @@ class FaultInjector:
 
     @classmethod
     def from_plan(cls, text: str, stream: str = "",
-                  retry_max_attempts: int = 1) -> "FaultInjector | None":
+                  counters=None) -> "FaultInjector | None":
         """None for an empty plan, or when every entry is scoped to
-        another stream.  Raises ``NotImplementedError`` for an action the
-        port does not inject and for a plan run with retries (ROADMAP
-        A7)."""
+        another stream.  ``counters`` (a ``Counters``) receives
+        ``faults_injected``."""
         if not text or not text.strip():
             return None
         specs = [s for s in parse_plan(text)
                  if s.stream is None or s.stream == stream]
         if not specs:
             return None
-        for s in specs:
-            if s.action not in PORTED_ACTIONS:
-                raise NotImplementedError(
-                    f"fault_plan action {s.action!r} ({s}) is not ported "
-                    "yet (ROADMAP A7: its recovery is the retry layer "
-                    "and the demotion ladder)")
-        if int(retry_max_attempts or 1) > 1:
-            raise NotImplementedError(
-                "a fault_plan with retry_max_attempts > 1 is not ported "
-                "yet (ROADMAP A7: the retry layer); set "
-                "retry_max_attempts = 1")
-        return cls(specs)
+        return cls(specs, counters)
 
     def armed(self, site: str) -> bool:
         return site in self._by_site
 
     def fire(self, site: str, index: int) -> None:
-        """Stall or raise if a fault is scheduled at (site, index) and
+        """Raise or stall if a fault is scheduled at (site, index) and
         has not fired yet."""
         spec = self._by_site.get(site, {}).get(index)
         if spec is None or spec.fired:
             return
         spec.fired = True
+        if self.counters is not None:
+            self.counters.add("faults_injected")
         log.warning(f"[faults] firing {spec}")
         if spec.action == "stall":
             time.sleep(spec.arg)
             return
-        raise InjectedFatal(f"injected fatal fault at {spec}")
+        if spec.action == "fatal":
+            raise InjectedFatal(f"injected fatal fault at {spec}")
+        if spec.action == "corrupt":
+            raise InjectedCorruption(f"injected corruption at {spec}")
+        if spec.action in DEVICE_ACTIONS:
+            raise device_fault(spec.action, spec)
+        raise InjectedFault(f"injected transient fault at {spec}")
 
     def unfired(self) -> list[FaultSpec]:
         """Specs that never fired."""

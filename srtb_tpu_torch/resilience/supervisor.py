@@ -1,13 +1,15 @@
 """Bounded-restart supervision for crashed workers (port of
 ``srtb_tpu/resilience/supervisor.py``).
 
-A :class:`Supervisor` gives a supervised component (the viewer's serve
-thread) a restart budget: ``max_restarts`` within a sliding window of
-``window_s`` seconds, then it escalates.  The reference also classifies
-the crash (fatal crashes escalate at once unless ``restart_fatal``); that
-taxonomy is ROADMAP A7's, so until it is ported only ``restart_fatal=True``
-supervisors exist, and they restart whatever the error.  The reference's
-restart counters and flight-recorder events wait for ROADMAP A9.
+A :class:`Supervisor` gives a supervised component (the engine's
+``sink_drain`` pipe, the viewer's serve thread) a restart budget: crashes
+classified transient, data-loss or device are restarted while the budget
+inside the sliding window lasts; fatal crashes (unless ``restart_fatal``)
+and spent budgets escalate to the clean shutdown.  The same budget bounds
+the demotion ladder's device reinits (``resilience/demote.py``).  Each
+approved restart adds one to ``counter`` (and ``<counter>_<name>``) in
+the given ``Counters``; the reference's restart events wait for ROADMAP
+A9.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import collections
 import time
 
+from srtb_tpu_torch.resilience.errors import FATAL, classify
 from srtb_tpu_torch.utils.logging import log
 
 
@@ -24,20 +27,20 @@ class Supervisor:
     ``should_restart(exc)`` is the whole protocol: the owner of the
     worker calls it when the worker dies; True means "spawn a
     replacement" (the restart is counted against the window), False
-    means "escalate" (budget exhausted within ``window_s``)."""
+    means "escalate" (a fatal crash, or the budget spent within
+    ``window_s``).  ``restart_fatal=True`` restarts whatever the crash,
+    for best-effort components such as the viewer."""
 
     def __init__(self, name: str, max_restarts: int = 3,
                  window_s: float = 60.0, restart_fatal: bool = False,
-                 clock=time.monotonic):
-        if not restart_fatal:
-            raise NotImplementedError(
-                "a supervisor that classifies crashes (restart_fatal="
-                "False) needs the error taxonomy, not ported yet (ROADMAP "
-                "A7)")
+                 clock=time.monotonic, counter: str | None = None,
+                 counters=None):
         self.name = name
         self.max_restarts = int(max_restarts)
         self.window_s = float(window_s)
         self.restart_fatal = restart_fatal
+        self.counter = counter
+        self.counters = counters
         self._clock = clock
         self._restarts: collections.deque[float] = collections.deque()
 
@@ -50,6 +53,10 @@ class Supervisor:
             self._restarts.popleft()
 
     def should_restart(self, exc: BaseException) -> bool:
+        if not self.restart_fatal and classify(exc) == FATAL:
+            log.error(f"[supervisor] {self.name}: fatal {exc!r}; "
+                      "escalating (not restartable)")
+            return False
         now = self._clock()
         self._expire(now)
         if len(self._restarts) >= self.max_restarts:
@@ -59,6 +66,9 @@ class Supervisor:
                 " escalating to clean shutdown")
             return False
         self._restarts.append(now)
+        if self.counter and self.counters is not None:
+            self.counters.add(self.counter)
+            self.counters.add(f"{self.counter}_{self.name}")
         log.warning(
             f"[supervisor] {self.name}: crashed with {exc!r}; "
             f"restarting ({len(self._restarts)}/{self.max_restarts} "

@@ -113,6 +113,9 @@ def _child_main(cfg_path: str, device: str | None, stall_rename_at: int,
         "segments": stats.segments, "signals": stats.signals,
         "elapsed_s": stats.elapsed_s,
         "checkpoint_s": stats.extras["checkpoint_s_per_segment"],
+        "recovered": {k: stats.extras.get(k, 0) for k in (
+            "plan_demotions", "device_reinits", "retries_total",
+            "watchdog_requeues")},
         **counters}), flush=True)
     return 0
 
@@ -144,8 +147,8 @@ def _child_cfg(base: dict, input_path: str, run_dir: str,
                micro_batch: int = 1) -> dict:
     """``base`` (Config fields) for one child: its input, its run
     directory's outputs, checkpoint and manifest, deterministic
-    timestamps, the fault plan (retries off: the port has none) and the
-    micro-batch (the window widened to hold it)."""
+    timestamps, the fault plan and the micro-batch (the window widened to
+    hold it)."""
     cfg = dict(base)
     cfg.update(
         input_file_path=input_path,
@@ -153,7 +156,7 @@ def _child_cfg(base: dict, input_path: str, run_dir: str,
         checkpoint_path=os.path.join(run_dir, "ck.json"),
         run_manifest_path=os.path.join(run_dir, "manifest.jsonl"),
         deterministic_timestamps=True, fault_plan=fault_plan,
-        retry_max_attempts=1, micro_batch_segments=micro_batch,
+        micro_batch_segments=micro_batch,
         inflight_segments=max(int(cfg.get("inflight_segments", 2) or 1),
                               micro_batch),
         gui_enable=False)

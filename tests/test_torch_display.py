@@ -609,14 +609,14 @@ def test_running_mean(ref, window):
 
 def test_supervisor_budget(ref):
     """``max_restarts`` within ``window_s``, the reference's decisions on
-    the same clock; a classifying supervisor waits for ROADMAP A7."""
+    the same clock; a classifying supervisor (the default) escalates a
+    fatal crash at once."""
     got = supervisor_script(Supervisor, 3, 60.0, SUPERVISOR_TIMES)
     for key in ("decisions", "restarts"):
         assert np.array_equal(got[key], ref[f"supervisor/{key}"]), key
     assert got["decisions"].tolist() == [True, True, True, False, False,
                                          True, True, True, True]
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Supervisor("x")
+    assert not Supervisor("x").should_restart(RuntimeError("crash"))
 
 
 def test_test_gui_tool(ref, tmp_path):

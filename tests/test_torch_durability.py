@@ -30,7 +30,9 @@ from srtb_tpu_torch.io import writers
 from srtb_tpu_torch.io.synth import make_dispersed_baseband
 from srtb_tpu_torch.pipeline.checkpoint import StreamCheckpoint
 from srtb_tpu_torch.pipeline.runtime import Pipeline
-from srtb_tpu_torch.resilience.faults import FaultInjector, InjectedFatal
+from srtb_tpu_torch.resilience import errors as E
+from srtb_tpu_torch.resilience.faults import (FaultInjector, InjectedFatal,
+                                              parse_plan)
 from srtb_tpu_torch.tools import crash_soak as CS
 from srtb_tpu_torch.tools import fsck as FS
 from srtb_tpu_torch.tools import main as M
@@ -599,21 +601,26 @@ def test_native_pool_commits_only_written_jobs(tmp_path):
     ("fetch:corrupt@2", False), ("h2d:compile_fail@0", False),
     ("dispatch:device_halt@0", False)])
 def test_fault_plan_actions(plan, allowed):
-    """stall and fatal are injected; the actions whose recovery is the
-    retry layer or the demotion ladder raise, naming ROADMAP A7, as does
-    any plan with retries."""
+    """Every action is injected (the plan no longer depends on
+    ``retry_max_attempts``): stall and fatal (``allowed``: the actions the
+    durability tests steer their crash windows with) stall or end the
+    run; the others raise what the retry layer (transient, data loss) or
+    the demotion ladder (device) recovers."""
+    inj = FaultInjector.from_plan(plan)
     if allowed:
-        inj = FaultInjector.from_plan(plan)
         assert inj.armed("checkpoint") and inj.armed("sink_write")
         inj.fire("checkpoint", 0)
         with pytest.raises(InjectedFatal):
             inj.fire("sink_write", 3)
         assert inj.unfired() == []
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            FaultInjector.from_plan(plan, retry_max_attempts=3)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            FaultInjector.from_plan(plan, retry_max_attempts=1)
+        spec = parse_plan(plan)[0]
+        with pytest.raises(Exception) as info:
+            inj.fire(spec.site, spec.index)
+        assert inj.unfired() == []
+        assert E.classify(info.value) == {
+            "raise": E.TRANSIENT, "corrupt": E.DATA_LOSS}.get(
+                spec.action, E.DEVICE)
     with pytest.raises(ValueError):
         FaultInjector.from_plan("nowhere:fatal@1")
 

@@ -37,9 +37,13 @@ import numpy as np
 REPO = Path(__file__).resolve().parents[1]
 
 
-def run_reference(jobs: list[dict], tmp_dir) -> dict[str, np.ndarray]:
+def run_reference(jobs: list[dict], tmp_dir,
+                  compile_cache: bool = False) -> dict[str, np.ndarray]:
     """Run ``jobs`` in one reference interpreter; returns the flattened
-    results.  Raises with the runner's output when it fails."""
+    results.  Raises with the runner's output when it fails.
+    ``compile_cache`` gives the interpreter a JAX compilation cache under
+    ``tmp_dir``, so jobs that build many processors of the same plans
+    compile each program once."""
     tmp_dir = Path(tmp_dir)
     req = tmp_dir / "reference_jobs.pkl"
     out = tmp_dir / "reference_out.npz"
@@ -47,6 +51,10 @@ def run_reference(jobs: list[dict], tmp_dir) -> dict[str, np.ndarray]:
         pickle.dump(jobs, f)
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
+    if compile_cache:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_dir / "jax_cache")
+        env["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "0"
+        env["JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES"] = "0"
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(REPO), env.get("PYTHONPATH", "")) if p)
     proc = subprocess.run([sys.executable, __file__, str(req), str(out)],
@@ -1233,8 +1241,262 @@ def ref_plot_dm_curve(argv: list, matplotlib: bool) -> dict:
         return {"error": type(e).__name__}
 
 
+# the resilience counters both packages keep (the reference in its
+# metrics registry, the port in Pipeline.counters)
+RESILIENCE_COUNTERS = (
+    "plan_demotions", "plan_promotions", "device_reinits",
+    "plan_ladder_level", "retries_total", "retries_ingest", "retries_h2d",
+    "retries_dispatch", "retries_fetch", "retries_sink_write",
+    "retries_checkpoint", "data_loss_total", "watchdog_requeues",
+    "segments_dropped", "shed_waterfalls", "shed_baseband", "degrade_level",
+    "degrade_steps", "degrade_recoveries", "faults_injected",
+    "worker_restarts", "worker_restarts_sink_drain")
+
+
+def ladder_plan_names(fields: dict, env: dict | None = None,
+                      base_staged: bool | None = None,
+                      ladder: str = "auto") -> dict:
+    """The reference's demotion rungs of a config: each rung's step, its
+    staged argument and its plan name (composed as
+    :func:`resolved_plan_name` composes it, ``+period`` for the
+    periodicity mode)."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.resilience.demote import ladder_rungs, parse_ladder
+    with environ(env):
+        rungs = ladder_rungs(Config(**fields), base_staged,
+                             parse_ladder(ladder))
+    plans = []
+    for r in rungs:
+        name = resolved_plan_name(dataclasses.asdict(r.cfg), env,
+                                  staged=r.staged)["plan"]
+        if str(r.cfg.search_mode).lower() == "periodicity":
+            name += "+period"
+        plans.append(name)
+    return {"steps": np.array([r.step for r in rungs] or [""]),
+            "staged": np.array([str(r.staged) for r in rungs] or [""]),
+            "plans": np.array(plans or [""])}
+
+
+class CaptureSink:
+    """Each pushed segment's decisions and time series, and its gate
+    verdict (the chaos soak's capture sink)."""
+
+    def __init__(self):
+        self.out = []
+
+    def push(self, work, positive):
+        det = work.detect
+        wf = work.waterfall
+        if wf is not None:
+            wf = np.asarray(wf.cpu() if hasattr(wf, "cpu") else wf)
+            if not np.iscomplexobj(wf):  # the reference's (re, im) stack
+                wf = wf[0] + 1j * wf[1]
+        self.out.append((np.asarray(det.signal_counts).copy(),
+                         np.asarray(det.zero_count).copy(),
+                         np.asarray(det.time_series).copy(),
+                         bool(positive), wf))
+
+    def arrays(self) -> dict:
+        if not self.out:
+            return {"segments": 0}
+        res = {"segments": len(self.out),
+               "signal_counts": np.stack([o[0] for o in self.out]),
+               "zero_count": np.stack([o[1] for o in self.out]),
+               "time_series": np.stack([o[2] for o in self.out]),
+               "positive": np.array([o[3] for o in self.out])}
+        if all(o[4] is not None for o in self.out):
+            res["waterfall"] = np.stack([o[4] for o in self.out]).astype(
+                np.complex64)
+        return res
+
+
+def resilience_run(pipeline_cls, cfg, counters_of, capture: bool = True,
+                   source=None, max_segments=None, **kwargs) -> dict:
+    """One run of ``pipeline_cls(cfg, ...)``, with a capture sink or the
+    configured writers: its captured decisions, the files under the
+    output prefix's directory, its counters (``counters_of(pipe, name)``),
+    the plans the healer installed, the degradation level of each emitted
+    segment, and the name of the exception that ended it ("" when it
+    completed)."""
+    sink = CaptureSink()
+    if capture:
+        kwargs["sinks"] = [sink]
+    pipe = pipeline_cls(cfg, source=source, **kwargs)
+    plans, levels = [], []
+    swap = pipe._swap_processor
+
+    def recording_swap(newp):
+        plans.append(str(newp.plan_name))
+        swap(newp)
+    pipe._swap_processor = recording_swap
+    ladder = getattr(pipe, "_ladder", None)
+    if ladder is not None:
+        observe = ladder.observe
+
+        def recording_observe(*args):
+            level = observe(*args)
+            levels.append(level)
+            return level
+        ladder.observe = recording_observe
+    error = ""
+    try:
+        with pipe:
+            pipe.run(max_segments)
+    except Exception as e:  # noqa: BLE001 - reported by name
+        error = type(e).__name__
+    out_dir = os.path.dirname(cfg.baseband_output_file_prefix)
+    ckpt = {}
+    if cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
+        with open(cfg.checkpoint_path) as f:
+            state = json.load(f)
+        ckpt = {k: state[k] for k in ("segments_done", "file_offset_bytes")}
+    res = {"error": error, "checkpoint": ckpt, "plans": np.array(plans or [""]),
+           "levels": np.array(levels, dtype=np.int64),
+           "files": np.array(sorted(
+               f for f in os.listdir(out_dir)
+               if f.startswith(os.path.basename(
+                   cfg.baseband_output_file_prefix))) or [""]),
+           "unfired": len(pipe.faults.unfired()) if pipe.faults else 0,
+           "counters": {k: float(counters_of(pipe, k))
+                        for k in RESILIENCE_COUNTERS}}
+    res.update(sink.arrays())
+    return res
+
+
+def ref_resilience_run(fields: dict, capture: bool = True,
+                       source_fields: dict | None = None,
+                       max_segments=None) -> dict:
+    """:func:`resilience_run` on the reference's ``Pipeline``; with
+    ``source_fields`` the source is a file reader of that config (a
+    stand-in for a live source when ``fields`` has no input file)."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.io.file_input import make_file_source
+    from srtb_tpu.pipeline.runtime import Pipeline
+    from srtb_tpu.utils.metrics import metrics
+    metrics.reset()
+    source = None
+    if source_fields is not None:
+        source = make_file_source(Config(**source_fields))
+    try:
+        return resilience_run(Pipeline, Config(**fields),
+                              lambda _pipe, k: metrics.get(k), capture,
+                              source=source, max_segments=max_segments)
+    finally:
+        metrics.reset()
+
+
+def ref_parse_plans(texts: list) -> dict:
+    """The reference's ``parse_plan`` of each text: its entries printed,
+    or the name of the exception it raises."""
+    from srtb_tpu.resilience.faults import parse_plan
+    out = []
+    for text in texts:
+        try:
+            out.append(",".join(str(s) for s in parse_plan(text)))
+        except ValueError as e:
+            out.append(type(e).__name__)
+    return {"specs": np.array(out)}
+
+
+def ref_backoffs(sites: list, attempts: int, base: float, cap: float
+                 ) -> dict:
+    """The reference's ``RetryPolicy.backoff`` for each (site, attempt)."""
+    from srtb_tpu.resilience.retry import RetryPolicy
+    p = RetryPolicy(max_attempts=attempts + 1, backoff_base_s=base,
+                    backoff_max_s=cap)
+    return {"backoff": np.array([[p.backoff(s, a)
+                                  for a in range(1, attempts + 1)]
+                                 for s in sites])}
+
+
+def degrade_script(ladder_cls, high: float, low: float, hold: int,
+                   observations: list) -> dict:
+    """A degradation ladder's levels over (occupancy, loss) observations."""
+    ladder = ladder_cls(high=high, low=low, hold=hold)
+    return {"levels": np.array([ladder.observe(o, bool(loss))
+                                for o, loss in observations])}
+
+
+def ref_degrade_script(*args) -> dict:
+    from srtb_tpu.resilience.degrade import DegradationLadder
+    return degrade_script(DegradationLadder, *args)
+
+
+def classifying_supervisor_script(supervisor_cls, errors, max_restarts: int,
+                                  times: list) -> dict:
+    """A classifying supervisor's decisions on a clock reading ``times``
+    for the crashes ``errors`` (one each)."""
+    clock_values = list(times)
+    sup = supervisor_cls("test", max_restarts=max_restarts, window_s=60.0,
+                         clock=lambda: clock_values.pop(0))
+    return {"decisions": np.array([sup.should_restart(e) for e in errors]),
+            "restarts": sup.restarts}
+
+
+def ref_classifying_supervisor(kinds: list, max_restarts: int,
+                               times: list) -> dict:
+    """:func:`classifying_supervisor_script` on the reference's
+    supervisor with its own error types (``transient``, ``fatal``,
+    ``data_loss``, ``device``, ``plain``)."""
+    from srtb_tpu.resilience import errors as E
+    from srtb_tpu.resilience.supervisor import Supervisor
+    make = {"transient": E.TransientError, "fatal": E.FatalError,
+            "data_loss": E.DataLossError, "device": E.DeviceOOM,
+            "plain": RuntimeError}
+    return classifying_supervisor_script(
+        Supervisor, [make[k]("crash") for k in kinds], max_restarts, times)
+
+
+def drop_oldest_script(buffer_cls, n: int, capacity: int) -> dict:
+    """A drop-oldest buffer of ``capacity`` over ``n`` segments, consumed
+    only after its pump has read them all: the timestamps it yields, its
+    drop count and its drops by stream."""
+    from types import SimpleNamespace
+    source = (SimpleNamespace(data=np.zeros(4, np.uint8), timestamp=i,
+                              data_stream_id=i % 2) for i in range(n))
+    buf = buffer_cls(source, capacity=capacity)
+    buf._thread.join(30)
+    got = [seg.timestamp for seg in buf]
+    buf.close()
+    return {"yielded": np.array(got), "dropped": buf.dropped,
+            "by_stream": np.array(sorted(buf.dropped_by_stream.items()))}
+
+
+def ref_drop_oldest_script(*args) -> dict:
+    from srtb_tpu.io.backpressure import DropOldestSegmentBuffer
+    return drop_oldest_script(DropOldestSegmentBuffer, *args)
+
+
+def _refill_reference_window() -> None:
+    """The JAX package's engine ends a run early, its source unread, when
+    the sink thread drains the whole in-flight window between two of the
+    engine thread's looks at it (``Pipeline._run_engine``'s parked-window
+    branch, ROADMAP C2); the port's engine fills the window again there.
+    In this interpreter the reference's engine is recompiled from its own
+    source with that branch changed the port's way, so a comparison run
+    never depends on a thread race (nothing under ``srtb_tpu/`` is
+    edited)."""
+    import inspect
+    import textwrap
+    from srtb_tpu.pipeline import runtime as R
+    parked = "if want_more() and live_count() > 0 and sink_alive():"
+    lines, first = inspect.getsourcelines(R.Pipeline._run_engine)
+    src = "".join(lines)
+    assert src.count(parked) == 1, "the parked-window branch moved"
+    line = next(x for x in lines if parked in x)
+    pad = line[:line.index(parked)]
+    src = src.replace(line, f"{pad}if want_more() and live_count() == 0:\n"
+                            f"{pad}    continue\n{line}")
+    code = compile("\n" * (first - 1) + textwrap.dedent(src), R.__file__,
+                   "exec")
+    scope: dict = {}
+    exec(code, R.__dict__, scope)
+    R.Pipeline._run_engine = scope["_run_engine"]
+
+
 def _main(req: str, out: str) -> None:
     _apply_jax_shim()
+    _refill_reference_window()
     with open(req, "rb") as f:
         jobs = pickle.load(f)
     results: dict = {}

@@ -320,22 +320,22 @@ def test_ring_warm_equals_cold_every_format(fmt):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
-# the settings still refused, naming their ROADMAP item: the fault
-# actions whose recovery is the retry layer (A7), a ported action with
-# retries, the watchdog, the canary and the span journal
+# the settings still refused, naming their ROADMAP item: the canary and
+# the span journal
 UNPORTED_SETTINGS = {
-    "fault_plan": ("fault_plan", "dispatch:oom@1"),
-    "fault_plan_with_retries": ("fault_plan", "checkpoint:stall=1@0"),
-    "segment_deadline_s": ("segment_deadline_s", "5"),
     "canary_every_segments": ("canary_every_segments", "4"),
     "telemetry_journal_path": ("telemetry_journal_path", "journal"),
 }
-# the settings that raised before the micro-batch (A3) and durability
-# (A6b) slice, and now run
+# the settings that raised before the micro-batch (A3), durability (A6b)
+# and resilience (A7) slices, and now run: a device fault the ladder
+# recovers, a stall under the default retries, the segment deadline
 NOW_PORTED = {
     "checkpoint_path": ["--checkpoint_path", "ck.json"],
     "run_manifest_path": ["--run_manifest_path", "manifest.jsonl"],
     "micro_batch_segments": ["--micro_batch_segments", "2"],
+    "fault_plan": ["--fault_plan", "dispatch:oom@1"],
+    "fault_plan_with_retries": ["--fault_plan", "checkpoint:stall=0.01@0"],
+    "segment_deadline_s": ["--segment_deadline_s", "30"],
 }
 
 
@@ -343,8 +343,9 @@ NOW_PORTED = {
                          + sorted(NOW_PORTED))
 def test_unported_runtime_settings_raise(tmp_path, case):
     """What is still unported raises ``NotImplementedError`` naming its
-    ROADMAP item; the checkpoint, the run manifest and the micro-batch
-    run and find the pulse."""
+    ROADMAP item; the checkpoint, the run manifest, the micro-batch, a
+    fault plan (an injected out-of-memory demotes once) and the segment
+    deadline run and find the pulse."""
     argv, _nres = make_case(tmp_path)
     out = ["--device", "cpu", "--baseband_output_file_prefix",
            f"{tmp_path}/out_"]
@@ -356,11 +357,13 @@ def test_unported_runtime_settings_raise(tmp_path, case):
             M.run(argv + [f"--{key}", value] + out)
         return
     flag, value = NOW_PORTED[case]
-    if case != "micro_batch_segments":
+    if case in ("checkpoint_path", "run_manifest_path"):
         value = str(tmp_path / value)
     stats, pipe = M.run(argv + [flag, value] + out)
     assert stats.segments == 3 and pipe.positive_segments == [1]
-    assert os.path.exists(value) or case == "micro_batch_segments"
+    if case in ("checkpoint_path", "run_manifest_path"):
+        assert os.path.exists(value)
+    assert stats.extras.get("plan_demotions", 0) == (case == "fault_plan")
 
 
 # ------------------------------------------------------------ unit cases
