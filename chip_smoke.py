@@ -141,7 +141,8 @@ result lines are printed:
    pulse segment's waterfall and series those of the main path's run on
    rung 0 within the same gates, the seconds from the fault to the first dispatch on the new rung); (c) a
    real sticky fault: a child process whose chain asserts on the card,
-   classified ``halt``, escalated with ``ReinitBudgetExceeded`` and a
+   and one whose sink thread meets the assert before the engine,
+   each classified ``halt``, escalated with ``ReinitBudgetExceeded`` and a
    nonzero exit, then resumed by a fresh process from its checkpoint to
    the output set of an uninterrupted run (SHA-256); (d) a kernel build
    fault at ffuse_2^30's first fetch, which takes the front_fuse rung
@@ -283,6 +284,8 @@ def say(msg: str) -> None:
 
 def fail(msg: str) -> None:
     say(f"FAIL: {msg}")
+    # on standard error too, where the engine's log ends
+    print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -1661,9 +1664,20 @@ def path_cfg(out_dir: Path, extra: str, log2_n: int, label: str,
     return cfg, text
 
 
+def fresh_telemetry() -> None:
+    """Empty the process-global metrics registry and disarm the flight
+    recorder (the next pipeline arms a new one from its config)."""
+    from srtb_tpu_torch.utils import events
+    from srtb_tpu_torch.utils.metrics import metrics
+    metrics.reset()
+    events.configure(False)
+
+
 def run_cli(out_dir: Path, text: str, data: Path, env: dict):
     """``srtb-torch-main`` on ``data`` with the cfg ``text``, after a
-    synchronize and a reset of the peak memory; returns the run's
+    synchronize, a reset of the peak memory and of the process-global
+    metrics registry and flight recorder (each run counts and records
+    from nothing, as its own process would); returns the run's
     statistics, the finished pipeline and the host wall seconds."""
     import torch
     from srtb_tpu_torch.tools import main as M
@@ -1671,6 +1685,7 @@ def run_cli(out_dir: Path, text: str, data: Path, env: dict):
     cfg_path.write_text(text + f"input_file_path = {data}\n")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    fresh_telemetry()
     t0 = time.perf_counter()
     with path_env(env):
         stats, pipe = M.run(["--config_file_name", str(cfg_path)])
@@ -2323,19 +2338,16 @@ def check_batch_syncs(pipe, b: int, label: str) -> None:
 @contextlib.contextmanager
 def engine_labels():
     """``torch.profiler.record_function`` labels around the engine's host
-    stages (set-up, read, dispatch, fetch, sink, the final drain, close),
-    for a profiled run only: the engine's methods are wrapped here and
-    restored after."""
+    stages it does not label itself (set-up, read, the final drain,
+    close; the engine records ``srtb:ingest``, ``srtb:dispatch``,
+    ``srtb:fetch`` and ``srtb:sink``), for a profiled run only: the
+    engine's methods are wrapped here and restored after."""
     import torch
     from srtb_tpu_torch.io import file_input as FI
     from srtb_tpu_torch.pipeline import runtime as R
     wrapped = ((R.Pipeline, "__init__", "srtb:setup"),
                (R.Pipeline, "close", "srtb:close"),
                (FI.DeterministicTimestampReader, "__next__", "srtb:read"),
-               (R.Pipeline, "_dispatch_segment", "srtb:dispatch"),
-               (R.Pipeline, "_dispatch_batch", "srtb:dispatch"),
-               (R.Pipeline, "_fetch_inflight", "srtb:fetch"),
-               (R.Pipeline, "_drain_body", "srtb:sink"),
                (R.Pipeline, "_drain_sinks", "srtb:drain"))
     saved = [(cls, name, cls.__dict__[name]) for cls, name, _l in wrapped]
 
@@ -2687,9 +2699,11 @@ WEDGE_SEGMENT = 3
 WEDGE_S = 1.5
 WATCHDOG_DEADLINE_S = 1.0
 WATCHDOG_STALL = "fetch:stall=1.5@6"
-# the sticky fault: the child process asserts on the card inside the chain
-# of segment STICKY_SEGMENT
-STICKY_SEGMENT = 1
+# the sticky fault, where and at which index: the child process asserts on
+# the card inside the chain of segment 1 ("chain"), or its sink thread does
+# so at its first push and waits on the card, so that the sink meets the
+# halt before the engine ("sink")
+STICKY_AT = {"chain": 1, "sink": 0}
 STICKY_MARK = "STICKY_RESULT "
 RESILIENCE_COUNTERS = ("plan_demotions", "plan_promotions", "device_reinits",
                        "retries_total", "data_loss_total",
@@ -2710,7 +2724,10 @@ def check_no_recovery(label: str, stats) -> None:
 
 
 def _counters(pipe) -> dict:
-    return {k: pipe.counters.get(k) for k in RESILIENCE_COUNTERS}
+    """The resilience counters of the metrics registry (the run's own:
+    :func:`_run_pipeline` resets it)."""
+    from srtb_tpu_torch.utils.metrics import metrics
+    return {k: metrics.get(k) for k in RESILIENCE_COUNTERS}
 
 
 def rung_table(card: str, label: str, cfg, env: dict) -> list:
@@ -2803,12 +2820,14 @@ def _run_pipeline(cfg, data: Path, env: dict, setup=None,
                   staged: bool | None = None):
     """``Pipeline(cfg)`` on ``data`` (the run's statistics, the pipeline
     and what ``setup(pipe)`` returned), the launch counts zeroed just
-    before the run; ``staged`` is the processor's argument (a rung's); the
-    pipeline is closed."""
+    before the run and the telemetry (:func:`fresh_telemetry`) before
+    the pipeline is built; ``staged`` is the processor's argument (a
+    rung's); the pipeline is closed."""
     from srtb_tpu_torch import kernels as K
     from srtb_tpu_torch.pipeline import registry
     from srtb_tpu_torch.pipeline.runtime import Pipeline
     cfg = cfg.replace(input_file_path=str(data))
+    fresh_telemetry()
     with path_env(env):
         pipe = Pipeline(cfg, processor=None if staged is None else
                         registry.build_processor(cfg, staged=staged))
@@ -3111,10 +3130,12 @@ def resilience_real_oom(card: str, made: dict, clean: dict) -> dict:
 
 def sticky_child(argv: list) -> int:
     """The sticky fault's child (``chip_smoke.py --sticky-child CFG
-    INJECT``): the pipeline of the JSON config ``CFG`` with a device-side
-    assert triggered inside the chain of segment ``INJECT`` (< 0: none, a
-    plain resume); prints the outcome after ``STICKY_MARK`` and exits 1
-    when the run raised."""
+    INJECT [WHERE]``): the pipeline of the JSON config ``CFG`` with a
+    device-side assert triggered inside the chain of segment ``INJECT``
+    (WHERE ``chain``, the default) or by the sink thread at push
+    ``INJECT``, which then waits on the card (``sink``); ``INJECT`` < 0:
+    none, a plain resume.  Prints the outcome after ``STICKY_MARK`` and
+    exits 1 when the run raised."""
     sys.path.insert(0, str(ROOT))
     import torch
     from srtb_tpu_torch.config import Config
@@ -3122,20 +3143,36 @@ def sticky_child(argv: list) -> int:
     from srtb_tpu_torch.pipeline.runtime import Pipeline
     from srtb_tpu_torch.resilience import errors as E
     cfg_path, inject = argv[0], int(argv[1])
+    where = argv[2] if len(argv) > 2 else "chain"
     with open(cfg_path) as f:
         cfg = Config(**json.load(f))
     calls = [0]
-    run_device = S.SegmentProcessor.run_device
 
-    def asserting_run_device(self, raw):
-        calls[0] += 1
-        if calls[0] == inject + 1:
-            # an index past the end, checked on the card: a device-side
-            # assert, which kills the CUDA context for the process
-            x = torch.zeros(4, device=raw.device)
-            x[torch.tensor([10], device=raw.device)]
-        return run_device(self, raw)
-    S.SegmentProcessor.run_device = asserting_run_device
+    def device_assert(device) -> None:
+        # an index past the end, checked on the card: a device-side
+        # assert, which kills the CUDA context for the process
+        x = torch.zeros(4, device=device)
+        x[torch.tensor([10], device=device)]
+
+    if where == "chain":
+        run_device = S.SegmentProcessor._chain
+
+        def asserting_run_device(self, raw):
+            calls[0] += 1
+            if calls[0] == inject + 1:
+                device_assert(raw.device)
+            return run_device(self, raw)
+        S.SegmentProcessor._chain = asserting_run_device
+    else:
+        push_sinks = Pipeline._push_sinks
+
+        def asserting_push(self, item, positive, seg_key):
+            calls[0] += 1
+            if calls[0] == inject + 1:
+                device_assert(self.processor.device)
+                torch.cuda.synchronize(self.processor.device)
+            return push_sinks(self, item, positive, seg_key)
+        Pipeline._push_sinks = asserting_push
     out = {"error": "", "cause": "", "kind": None}
     pipe = Pipeline(cfg)
     reinit = pipe.healer.reinit
@@ -3156,7 +3193,8 @@ def sticky_child(argv: list) -> int:
         out.update(error=type(e).__name__, cause=type(cause).__name__,
                    kind=E.classify_device(cause),
                    message=str(cause).splitlines()[0][:200])
-    out["counters"] = {k: pipe.counters.get(k) for k in RESILIENCE_COUNTERS}
+    from srtb_tpu_torch.utils.metrics import metrics
+    out["counters"] = {k: metrics.get(k) for k in RESILIENCE_COUNTERS}
     print(STICKY_MARK + json.dumps(out), flush=True)
     if out["error"]:
         # the run is lost, its outputs durable: on a dead context torch
@@ -3167,11 +3205,12 @@ def sticky_child(argv: list) -> int:
     return 0
 
 
-def _sticky_run(cfg_path: Path, inject: int) -> dict:
+def _sticky_run(cfg_path: Path, inject: int, where: str = "chain"
+                ) -> dict:
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--sticky-child",
-         str(cfg_path), str(inject)], capture_output=True, text=True,
-        timeout=600)
+         str(cfg_path), str(inject), where], capture_output=True,
+        text=True, timeout=600)
     # beside the run directory, whose output set the gate compares
     log = cfg_path.parent.parent / f"{cfg_path.parent.name}_{inject}.log"
     log.write_text(proc.stdout + proc.stderr)
@@ -3200,15 +3239,24 @@ def _sticky_run(cfg_path: Path, inject: int) -> dict:
                 rc=proc.returncode, decisions=decisions)
 
 
+def _log_tail(cfg_path: Path, inject: int, n: int = 1500) -> str:
+    """The end of a sticky child's log (``_sticky_run`` wrote it), for a
+    failure's message."""
+    log = cfg_path.parent.parent / f"{cfg_path.parent.name}_{inject}.log"
+    return log.read_text()[-n:] if log.exists() else "(no log)"
+
+
 def resilience_sticky(card: str) -> dict:
     """(c) A real sticky fault: fused_2^27's cfg on a file of 4 segments
     (the pulse in segments 1 and 2) with the checkpoint and the run
     manifest, in a child process whose chain of segment 1 asserts on the
-    card; the port must classify the error ``halt``, and the run end with
-    ``ReinitBudgetExceeded`` and a nonzero exit (a reinit cannot revive a
-    dead context).  A fresh process then resumes from the checkpoint, and
-    the run directory's output set must equal an uninterrupted run's (in
-    this process) by SHA-256 (the crash soak's snapshot)."""
+    card, and in one whose sink thread meets the assert first (at its
+    first push); the port must classify the error ``halt``, and the run
+    end with ``ReinitBudgetExceeded`` and a nonzero exit (a reinit cannot
+    revive a dead context).  A fresh process then resumes each from its
+    checkpoint, and each run directory's output set must equal an
+    uninterrupted run's (in this process) by SHA-256 (the crash soak's
+    snapshot)."""
     import dataclasses
     import shutil
     from srtb_tpu_torch.config import Config
@@ -3221,7 +3269,7 @@ def resilience_sticky(card: str) -> dict:
     data = root / "input.bin"
     make_input_file(cfg, data, DURABILITY_SEGMENTS, DURABILITY_PULSES)
     out = {}
-    for tag in ("golden", "faulted"):
+    for tag in ("golden",) + tuple(STICKY_AT):
         d = root / tag
         d.mkdir()
         fields = dataclasses.asdict(cfg.replace(
@@ -3230,36 +3278,45 @@ def resilience_sticky(card: str) -> dict:
             checkpoint_path=str(d / "ck.json"),
             run_manifest_path=str(d / "manifest.jsonl")))
         (d / "cfg.json").write_text(json.dumps(fields))
-    t0 = time.perf_counter()
     gcfg = Config(**json.loads((root / "golden" / "cfg.json").read_text()))
     gstats, _gpipe, _ = _run_pipeline(gcfg, data, env)
     golden = {"error": "", "rc": 0, "segments": gstats.segments}
-    faulted = _sticky_run(root / "faulted" / "cfg.json", STICKY_SEGMENT)
-    t1 = time.perf_counter()
-    resumed = _sticky_run(root / "faulted" / "cfg.json", -1)
-    t2 = time.perf_counter()
-    want = CRS.snapshot_outputs(str(root / "golden"))
-    got = CRS.snapshot_outputs(str(root / "faulted"))
-    say(f"resilience sticky fused_2^27: golden {json.dumps(golden)}; "
-        f"faulted {json.dumps(faulted)}; resumed {json.dumps(resumed)}; "
-        f"the faulted life and the resume {t1 - t0:.1f} s and "
-        f"{t2 - t1:.1f} s; output set {sorted(got)}; card {card}")
     if golden["error"] or golden["rc"]:
         fail(f"resilience sticky: the golden run failed: {golden}")
-    if faulted["error"] != "ReinitBudgetExceeded" or \
-            faulted["kind"] != "halt" or not faulted["rc"]:
-        fail(f"resilience sticky: the faulted run ended {faulted}; "
-             "expected ReinitBudgetExceeded after a halt, nonzero exit")
-    if resumed["error"] or resumed["rc"]:
-        fail(f"resilience sticky: the resume failed: {resumed}")
-    if got != want:
-        fail(f"resilience sticky: the resumed output set differs from the "
-             f"uninterrupted run's: {got} against {want}")
-    say(f"resilience sticky: classified {faulted['kind']} "
-        f"({faulted['cause']}), escalated {faulted['error']} after "
-        f"{faulted['counters']['device_reinits']} reinits; the resumed "
-        f"output set equals the uninterrupted run's by SHA-256 "
-        f"({len(got)} files)")
+    want = CRS.snapshot_outputs(str(root / "golden"))
+    for where, at in STICKY_AT.items():
+        cfg_path = root / where / "cfg.json"
+        t0 = time.perf_counter()
+        faulted = _sticky_run(cfg_path, at, where)
+        t1 = time.perf_counter()
+        resumed = _sticky_run(cfg_path, -1)
+        t2 = time.perf_counter()
+        got = CRS.snapshot_outputs(str(root / where))
+        say(f"resilience sticky fused_2^27 ({where}): golden "
+            f"{json.dumps(golden)}; faulted {json.dumps(faulted)}; resumed "
+            f"{json.dumps(resumed)}; the faulted life and the resume "
+            f"{t1 - t0:.1f} s and {t2 - t1:.1f} s; output set "
+            f"{sorted(got)}; card {card}")
+        if faulted["error"] != "ReinitBudgetExceeded" or \
+                faulted["kind"] != "halt" or not faulted["rc"]:
+            fail(f"resilience sticky ({where}): the faulted run ended "
+                 f"{faulted}; expected ReinitBudgetExceeded after a halt, "
+                 "nonzero exit; its log ends " + _log_tail(cfg_path, at))
+        if resumed["error"] or resumed["rc"]:
+            fail(f"resilience sticky ({where}): the resume failed: "
+                 f"{resumed}; its log ends " + _log_tail(cfg_path, -1))
+        if got != want:
+            fail(f"resilience sticky ({where}): the resumed output set "
+                 f"differs from the uninterrupted run's: {got} against "
+                 f"{want}")
+        restarts = faulted["counters"].get("worker_restarts")
+        say(f"resilience sticky ({where}): classified {faulted['kind']} "
+            f"({faulted['cause']}), escalated {faulted['error']} after "
+            f"{faulted['counters']['device_reinits']} reinits and "
+            f"{restarts} sink restarts; the resumed output set equals the "
+            f"uninterrupted run's by SHA-256 ({len(got)} files)")
+        out[where] = {"faulted_s": t1 - t0, "resume_s": t2 - t1,
+                      "sink_restarts": restarts}
     shutil.rmtree(root)
     return out
 
@@ -3282,11 +3339,11 @@ def _wedging(pipe, segment: int) -> None:
     run = proc.run_device_ring
     calls = [0]
 
-    def wedged(raw):
+    def wedged(raw, warm=True):
         calls[0] += 1
         if calls[0] == segment + 1:
             torch.cuda._sleep(cycles)
-        return run(raw)
+        return run(raw, warm=warm)
     proc.run_device_ring = wedged
 
 
@@ -3422,6 +3479,224 @@ def resilience_armed_vs_off(card: str, window: dict) -> dict:
         f"turns: Msamples/s {json.dumps(rates)}; {json.dumps(summary)}; "
         f"candidate bytes equal; card {card}")
     return {**rates, **summary}
+
+
+# ---------------------------------------------------------- observability
+
+# every observability setting of the port, armed ("{d}": the run's output
+# directory): the span journal, the flight recorder's dump, a profile
+# capture of the first segment, the H100's HBM peak for the roofline
+# gauges (PERF.md's bounds' 3.35 TB/s) and three SLO objectives
+OBS_ARMED = ("telemetry_journal_path = {d}/spans.jsonl\n"
+             "events_dump_path = {d}/events.jsonl\n"
+             "profile_capture_segments = 1\n"
+             "profile_capture_dir = {d}/profile\n"
+             "hbm_peak_gbps = 3350\n"
+             "slo_latency_ms = 1000\nslo_loss_budget = 0.01\n"
+             "slo_staleness_s = 60\n")
+# and off: no journal, dump, capture or objective, the recorder disarmed
+OBS_OFF = "events_enable = 0\n"
+OBS_PAIRS = 4
+
+
+@contextlib.contextmanager
+def timed_capture(seconds: dict):
+    """``ProfileCapture.start`` and ``stop`` timed into ``seconds``
+    (lists by name) inside the block."""
+    from srtb_tpu_torch.utils import tracing
+    saved = tracing.ProfileCapture.start, tracing.ProfileCapture.stop
+
+    def timed(name, fn):
+        def inner(self, *args):
+            was_active = self.active
+            t0 = time.perf_counter()
+            out = fn(self, *args)
+            if name == "start" or (was_active and not self.active):
+                seconds.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return inner
+    tracing.ProfileCapture.start = timed("start", saved[0])
+    tracing.ProfileCapture.stop = timed("stop", saved[1])
+    try:
+        yield
+    finally:
+        tracing.ProfileCapture.start, tracing.ProfileCapture.stop = saved
+
+
+def _scrape(directory: Path, path: str) -> tuple:
+    """One GET of the viewer on a free localhost port: status, body."""
+    import urllib.error
+    import urllib.request
+    from srtb_tpu_torch.gui.server import WaterfallHTTPServer
+    server = WaterfallHTTPServer(str(directory)).start()
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}{path}", timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+    finally:
+        server.stop()
+
+
+def obs_staged(card: str, made: dict) -> dict:
+    """staged_2^30 on its main path's two segments (the pulse in segment
+    1) with every observability setting armed: each span's stages,
+    device ms and roofline fields, the flight recorder's events by type,
+    ``/metrics`` and ``/healthz`` scraped in-process, the profile's
+    trace; then the dispatch check with the recorder armed and a profile
+    capture running."""
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.utils.tracing import ProfileCapture
+    label, log2_n, extra, plan, per_segment, env = _main_path("staged_2^30")
+    out_dir = OUT_DIR / "obs_staged_2^30"
+    cfg, text = path_cfg(out_dir, extra + OBS_ARMED.format(d=out_dir),
+                         log2_n, "obs_staged_2^30")
+    data = input_file(cfg, label, made)
+    K.reset_launch_counts()
+    capture_s: dict = {}
+    with timed_capture(capture_s):
+        stats, pipe, wall = run_cli(out_dir, text, data, env)
+    counts = K.launch_counts()
+    if stats.segments != 2 or pipe.positive_segments != [1]:
+        fail(f"observability staged_2^30: {stats.segments} segments, "
+             f"positive {pipe.positive_segments}")
+    _check_launches("observability staged_2^30", counts, per_segment,
+                    stats.segments)
+    spans = [json.loads(line) for line in
+             (out_dir / "spans.jsonl").read_text().splitlines()]
+    if [s["segment"] for s in spans] != [0, 1] or \
+            [s["dump"] for s in spans] != [False, True]:
+        fail(f"observability staged_2^30: spans {spans}")
+    for s in spans:
+        for key in ("device_ms", "achieved_msamps", "roofline_frac"):
+            if not s.get(key, 0) > 0:
+                fail(f"observability staged_2^30: span {s['segment']} "
+                     f"has no {key}")
+        say(f"observability staged_2^30: span {s['segment']}: stages_ms "
+            f"{json.dumps(s['stages_ms'])}, device_ms {s['device_ms']}, "
+            f"achieved_msamps {s['achieved_msamps']}, roofline_frac "
+            f"{s['roofline_frac']} (hbm_passes "
+            f"{pipe.processor.hbm_passes}, peak {cfg.hbm_peak_gbps} GB/s), "
+            f"plan {s['active_plan']}, trace {s['trace_id']}; card {card}")
+    evs = [json.loads(line) for line in
+           (out_dir / "events.jsonl").read_text().splitlines()]
+    by_type: dict = {}
+    for e in evs:
+        by_type[e["type"]] = by_type.get(e["type"], 0) + 1
+    for t in ("stage.ingest", "stage.dispatch", "stage.fetch", "stage.sink"):
+        if by_type.get(t) != 2:
+            fail(f"observability staged_2^30: {by_type.get(t)} {t} events")
+    say(f"observability staged_2^30: {len(evs)} events by type "
+        f"{json.dumps(by_type, sort_keys=True)}")
+    status, prom = _scrape(out_dir, "/metrics")
+    jstatus, snap = _scrape(out_dir, "/metrics.json")
+    hstatus, health = _scrape(out_dir, "/healthz")
+    snap = json.loads(snap)
+    if status != 200 or jstatus != 200 or hstatus != 200 or \
+            snap.get("segments") != 2 or snap.get("signals") != 1:
+        fail(f"observability staged_2^30: /metrics {status}, /metrics.json "
+             f"{jstatus} ({snap.get('segments')} segments), /healthz "
+             f"{hstatus}")
+    say(f"observability staged_2^30: /metrics {status}, "
+        f"{len(prom.splitlines())} lines; /metrics.json segments "
+        f"{snap['segments']}, signals {snap['signals']}, plan_compiles "
+        f"{snap['plan_compiles']}, compile_seconds "
+        f"{snap['compile_seconds']:.3f}, roofline_frac "
+        f"{snap['roofline_frac']:.4f}; /healthz {hstatus} "
+        f"{json.loads(health)['status']}")
+    trace = out_dir / "profile" / "trace.json"
+    tevs = json.loads(trace.read_text())["traceEvents"]
+    device = sum(1 for e in tevs if e.get("cat") in DEVICE_CATEGORIES)
+    stages = sorted({e["name"] for e in tevs
+                     if e.get("cat") == "user_annotation"
+                     and str(e.get("name", "")).startswith("srtb:")})
+    side = json.loads((out_dir / "profile" / "capture.json").read_text())
+    if not device or "srtb:dispatch" not in stages or side["segments"] != 1:
+        fail(f"observability staged_2^30: trace {device} device events, "
+             f"stages {stages}, sidecar {side}")
+    say(f"observability staged_2^30: trace {trace.relative_to(ROOT)} "
+        f"({trace.stat().st_size} bytes, {len(tevs)} events, {device} on "
+        f"the device, stages {stages}); capture start "
+        f"{capture_s['start'][0]:.3f} s, stop and export "
+        f"{capture_s['stop'][0]:.3f} s; trace_ids "
+        f"{side['first_trace_id']}..{side['last_trace_id']}; card {card}")
+    sync_capture = ProfileCapture(str(out_dir / "profile_sync"), 1)
+    sync_capture.start()
+    try:
+        check_dispatch_syncs(pipe, "observability staged_2^30 (recorder "
+                                   "armed, profiler running)")
+    finally:
+        sync_capture.stop()
+    for files in pipe.sink.written:
+        for p in files.npy_paths:
+            os.unlink(p)
+    return {"spans": spans, "events": by_type, "capture_s": capture_s}
+
+
+def obs_armed_vs_off(card: str, window: dict) -> dict:
+    """fused_2^27 over the window phase's 8 segments with every
+    observability setting off and armed, ``OBS_PAIRS`` pairs in turns
+    off, armed, armed, off after a warm-up: Msamples/s of each, each
+    pair's relative difference, the host ms a segment by stage, the
+    profile capture's start and stop seconds, the candidate files of each
+    equal in bytes to the window phase's first run's."""
+    import shutil
+    import numpy as np
+    w = window["fused_2^27"]
+    _l, log2_n, extra, _plan, _per, env = _main_path("fused_2^27")
+    rates = {"off": [], "armed": []}
+    stages = {"off": {}, "armed": {}}
+    capture_s: dict = {}
+    tags = ("warm-up",) + ("off", "armed", "armed", "off") * (OBS_PAIRS // 2)
+    for turn, tag in enumerate(tags):
+        out_dir = OUT_DIR / f"obs_{tag}_{turn}"
+        settings = OBS_OFF if tag == "off" else OBS_ARMED.format(d=out_dir)
+        cfg, text = path_cfg(out_dir, extra + settings, log2_n,
+                             f"obs_{tag}")
+        with timed_capture(capture_s if tag == "armed" else {}):
+            stats, pipe, _wall = run_cli(out_dir, text, w["data"], env)
+        if tag in rates:
+            rates[tag].append(stats.msamples_per_sec)
+            for k, v in stats.extras["stage_s"].items():
+                stages[tag].setdefault(k, []).append(v / stats.segments)
+        _same_candidates(f"observability {tag} (turn {turn})",
+                         _candidate_files(pipe), w["first"])
+        shutil.rmtree(out_dir)
+        del pipe
+        free_card()
+    off, armed = np.array(rates["off"]), np.array(rates["armed"])
+    diff = (armed - off) / off
+    summary = {"pairs": len(diff), "median_off": float(np.median(off)),
+               "median_armed": float(np.median(armed)),
+               "pair_diff_median": float(np.median(diff)),
+               "pair_diff_min": float(diff.min()),
+               "pair_diff_max": float(diff.max()),
+               "armed_slower_pairs": int((diff < 0).sum()),
+               "capture_start_s": capture_s.get("start", []),
+               "capture_stop_s": capture_s.get("stop", []),
+               "stage_ms_a_segment": {
+                   tag: {k: float(np.median(v)) * 1e3
+                         for k, v in by.items()}
+                   for tag, by in stages.items()}}
+    say(f"observability fused_2^27, 8 segments, every setting off and "
+        f"armed in turns: Msamples/s {json.dumps(rates)}; "
+        f"{json.dumps(summary)}; candidate bytes equal; card {card}")
+    return {**rates, **summary}
+
+
+def phase_observability(card: str, window: dict, made: dict) -> dict:
+    """The observability layer on the card (ROADMAP A9a): staged_2^30
+    with every setting armed (:func:`obs_staged`), then fused_2^27 armed
+    against off (:func:`obs_armed_vs_off`)."""
+    t0 = time.perf_counter()
+    staged = obs_staged(card, made)
+    t1 = time.perf_counter()
+    rates = obs_armed_vs_off(card, window)
+    t2 = time.perf_counter()
+    say(f"observability: seconds staged_2^30 {t1 - t0:.1f}, armed against "
+        f"off {t2 - t1:.1f}; card {card}")
+    return {"staged": staged, "rates": rates}
 
 
 def phase_resilience(card: str, window: dict, runs: dict, made: dict
@@ -4207,6 +4482,7 @@ def phase_live_path(card: str, label: str, log2_n: int, extra: str,
              "recvmmsg one")
     rcvbuf = sources[0].receiver.rcvbuf_bytes
     rmem_max = Path("/proc/sys/net/core/rmem_max").read_text().strip()
+    fresh_telemetry()
     pipe = Pipeline(cfg, source=src)
     sender = None
     try:
@@ -4923,6 +5199,8 @@ def main() -> int:
     for label, counts in batch["counts"].items():
         runs[label] = {"counts": counts}
     lap("batch")
+    phase_observability(card, window, made)
+    lap("observability")
     res = phase_resilience(card, window, runs, made)
     runs.update({label: {"counts": counts}
                  for label, counts in res["counts"].items()})

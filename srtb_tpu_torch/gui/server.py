@@ -9,9 +9,13 @@ place, pause/resume, a history scrubber over the retained frames, zoom and
 brightness/contrast.  The page, ``/frames.json`` and the frames are
 byte-identical to the reference's for the same directory.
 
-The reference's ``/metrics``, ``/metrics.json`` and ``/healthz`` read its
-telemetry (ROADMAP A9) and ``/fleet`` its fleet status (ROADMAP A8); here
-they answer 501 naming that item, so the page's metrics bar stays empty.
+``/metrics`` (the Prometheus text exposition) and ``/metrics.json`` serve
+the metrics registry (``utils/metrics.py``), each after the SLO tracker's
+evaluation; ``/healthz`` serves ``utils/telemetry.health``: 200 while the
+last segment is younger than ``health_stale_after_s`` (or before the
+first), 503 once it is older, with the per-stream breakdown.  All three
+answer as the reference's.  ``/fleet`` (the fleet's status, ROADMAP A8)
+answers 501 naming that item.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ import re
 import threading
 
 from srtb_tpu_torch.resilience.supervisor import Supervisor
-from srtb_tpu_torch.utils import termination
+from srtb_tpu_torch.utils import slo, telemetry, termination
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 _INDEX_TEMPLATE = """<!DOCTYPE html>
 <html><head><title>srtb_tpu waterfall</title>
@@ -149,15 +154,13 @@ contrast <input class="contrast" type="range" min="20" max="300"
 
 # endpoints of later slices: path -> the ROADMAP item they wait for
 UNPORTED_ENDPOINTS = {
-    "/metrics": "ROADMAP A9: telemetry",
-    "/metrics.json": "ROADMAP A9: telemetry",
-    "/healthz": "ROADMAP A9: telemetry and the SLO",
     "/fleet": "ROADMAP A8: the fleet's status",
 }
 
 
 class _Handler(http.server.BaseHTTPRequestHandler):
     directory = "."
+    health_stale_after_s = 30.0
 
     def log_message(self, *args):  # quiet
         pass
@@ -197,6 +200,24 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             pass
 
     def _do_get(self):
+        if self.path in ("/metrics", "/metrics.json"):
+            # the SLO gauges refreshed right before the scrape (a no-op
+            # when no objective is armed)
+            slo.evaluate()
+            if self.path == "/metrics.json":
+                self._send(200, "application/json", (json.dumps(
+                    metrics.snapshot(), sort_keys=True) + "\n").encode())
+            else:
+                self._send(200, "text/plain; version=0.0.4",
+                           metrics.prometheus().encode())
+            return
+        if self.path == "/healthz":
+            # last-segment-age staleness: 503 while no segment came for
+            # health_stale_after_s, without help from a stuck thread
+            h = telemetry.health(stale_after_s=self.health_stale_after_s)
+            self._send(200 if h["ok"] else 503, "application/json",
+                       (json.dumps(h, sort_keys=True) + "\n").encode())
+            return
         if self.path in UNPORTED_ENDPOINTS:
             self._send(501, "text/plain", (
                 f"{self.path} is not ported yet "
@@ -243,8 +264,11 @@ class WaterfallHTTPServer:
     joins the thread."""
 
     def __init__(self, directory: str, port: int = 0,
-                 address: str = "127.0.0.1", supervisor=None):
-        handler = type("Handler", (_Handler,), {"directory": directory})
+                 address: str = "127.0.0.1",
+                 health_stale_after_s: float = 30.0, supervisor=None):
+        handler = type("Handler", (_Handler,), {
+            "directory": directory,
+            "health_stale_after_s": float(health_stale_after_s)})
         self._httpd = http.server.ThreadingHTTPServer((address, port),
                                                       handler)
         self.port = self._httpd.server_address[1]

@@ -6,8 +6,10 @@ running and the excess must surface as accounted loss, never as silent
 latency or a stalled receiver.  :class:`DropOldestSegmentBuffer` pulls the
 wrapped source on its own thread into a bounded deque; when the consumer
 falls behind and the deque is full, the oldest buffered segment is
-dropped and counted (``segments_dropped`` and its loss window, the signal
-of the degradation ladder's level 3), keeping the freshest data.
+dropped and counted in the metrics registry (``segments_dropped``, its
+loss window, the signal of the degradation ladder's level 3, and its
+twin labeled with the originating stream), keeping the freshest data.
+``<name>_depth`` gauges the buffer's fill.
 """
 
 from __future__ import annotations
@@ -15,9 +17,9 @@ from __future__ import annotations
 import collections
 import threading
 
-from srtb_tpu_torch.resilience.counters import Counters
 from srtb_tpu_torch.utils import termination
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 
 class DropOldestSegmentBuffer:
@@ -31,15 +33,13 @@ class DropOldestSegmentBuffer:
     """
 
     def __init__(self, source, capacity: int = 4,
-                 name: str = "segment_buffer", stream: str = "",
-                 counters: Counters | None = None):
+                 name: str = "segment_buffer", stream: str = ""):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.source = source
         self.capacity = int(capacity)
         self.name = name
         self.stream = stream
-        self.counters = counters if counters is not None else Counters()
         self.dropped = 0
         # drops by origin (the stream label, else the victim's
         # data_stream_id)
@@ -62,12 +62,14 @@ class DropOldestSegmentBuffer:
                     if len(self._buf) >= self.capacity:
                         victim = self._buf.popleft()
                         self.dropped += 1
-                        self.counters.add("segments_dropped")
-                        self.counters.window_add("segments_dropped")
+                        metrics.add("segments_dropped")
+                        metrics.window("segments_dropped").add(1)
                         origin = self.stream or str(
                             getattr(victim, "data_stream_id", 0))
                         self.dropped_by_stream[origin] = \
                             self.dropped_by_stream.get(origin, 0) + 1
+                        metrics.add("segments_dropped",
+                                    labels={"stream": origin})
                         # a pooled source's buffer goes back to its pool:
                         # the pipeline releases only what it drains
                         pool = getattr(self.source, "pool", None)
@@ -77,7 +79,7 @@ class DropOldestSegmentBuffer:
                             f"[{self.name}] consumer behind: dropped "
                             f"oldest segment ({self.dropped} total)")
                     self._buf.append(seg)
-                    self.counters.set(f"{self.name}_depth", len(self._buf))
+                    metrics.set(f"{self.name}_depth", len(self._buf))
                     self._cv.notify()
         except BaseException as e:  # noqa: BLE001 - to the consumer
             with self._cv:
@@ -111,7 +113,7 @@ class DropOldestSegmentBuffer:
                     raise StopIteration
                 self._cv.wait()
             seg = self._buf.popleft()
-            self.counters.set(f"{self.name}_depth", len(self._buf))
+            metrics.set(f"{self.name}_depth", len(self._buf))
             return seg
 
     def close(self) -> None:

@@ -1,5 +1,5 @@
 """Baseband file reader with overlap-save (port of
-``srtb_tpu/io/file_input.py``, without its metrics).
+``srtb_tpu/io/file_input.py``).
 
 Mirrors read_file_pipe (ref: pipeline/read_file_pipe.hpp:31-127):
 - skip ``input_file_offset_bytes`` first;
@@ -18,6 +18,9 @@ Each segment's buffer comes from the reader's ``pool``
 directly); whoever consumes a segment returns its buffer there when done
 with it.  The retained tail is a copy, so no handed-out buffer is held
 by the reader.
+
+Each read counts ``file_bytes_read`` (and its window) and sets the
+pool's ``segment_pool_*`` gauges in the metrics registry.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from srtb_tpu_torch.ops import dedisperse as dd
 from srtb_tpu_torch.pipeline.work import SegmentWork
 from srtb_tpu_torch.utils.bufferpool import BufferPool
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 
 class BasebandFileReader:
@@ -84,6 +88,14 @@ class BasebandFileReader:
             self._carry.head_into(buf)
         # a short final read stays zero-padded (ref: read_file_pipe.hpp:76)
         buf[reserved + got:] = 0
+        # ingest telemetry: read throughput and the pool's occupancy
+        metrics.add("file_bytes_read", got)
+        metrics.window("file_bytes_read").add(got)
+        pool_stats = self.pool.stats()
+        metrics.set("segment_pool_cached_blocks",
+                    pool_stats["cached_blocks"])
+        metrics.set("segment_pool_cached_bytes", pool_stats["cached_bytes"])
+        metrics.set("segment_pool_in_use", pool_stats["in_use"])
         self.logical_offset += self.segment_bytes
         if got < self.segment_bytes - reserved:
             # final partial segment: emit zero-padded, then stop

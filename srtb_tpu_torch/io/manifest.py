@@ -48,11 +48,14 @@ manifest is armed) reconciles WAL vs filesystem:
 
 ``recovered_segments`` counts distinct segments whose complete groups
 lie at/after the checkpoint — the segments rescued from the
-duplicate-on-resume window.  The reference counts it, with
+duplicate-on-resume window.  It is counted, with
 ``rolled_back_intents``, ``manifest_loss_flags`` and the pipeline's
-``replayed_skips``, in its metrics registry (ROADMAP A9); the port keeps
-these counts on the :class:`RunManifest` and the :class:`RecoveryReport`,
-and the pipeline copies them into ``PipelineStats.extras``.
+``replayed_skips``, in the metrics registry, as the reference counts
+them; the :class:`RunManifest` and the :class:`RecoveryReport` keep the
+same counts, and the pipeline copies them into ``PipelineStats.extras``.
+Every WAL record also lands on the flight recorder (``manifest.intent``,
+``commit``, ``done``, ``ckpt``; ``manifest.loss`` for each loss flag), on
+the thread's current trace.
 
 Trust ends at the first bad CRC.  A record forged or bit-rotted in the
 MIDDLE of the WAL truncates everything after it: later commits are
@@ -78,7 +81,9 @@ import time
 import zlib
 from dataclasses import dataclass, field
 
+from srtb_tpu_torch.utils import events
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 # same temp suffix as io/writers.atomic_write: an uncommitted intent's
 # in-flight temp is <path> + TMP_SUFFIX
@@ -453,7 +458,10 @@ def recover(manifest_path: str, apply: bool = True,
             f"[manifest] rolled back {report.rolled_back_intents} "
             f"uncommitted intent(s) from an interrupted run: "
             f"{report.rolled_back}")
+    if report.missing:
+        metrics.add("manifest_loss_flags", len(report.missing))
     for msg in report.missing:
+        events.emit("manifest.loss", trace=0, info=msg[:200])
         log.error(f"[manifest] DATA LOSS: {msg}")
     return report
 
@@ -550,7 +558,10 @@ class RunManifest:
         m.recovered_segments = report.recovered_segments
         m.rolled_back_intents = report.rolled_back_intents
         m.manifest_loss_flags = len(report.missing)
+        if report.rolled_back_intents:
+            metrics.add("rolled_back_intents", report.rolled_back_intents)
         if report.recovered_segments:
+            metrics.add("recovered_segments", report.recovered_segments)
             log.warning(
                 f"[manifest] recovered {report.recovered_segments} "
                 "committed segment(s) beyond the checkpoint; their "
@@ -604,6 +615,8 @@ class RunManifest:
         if offset is not None:
             rec["off"] = int(offset)
         self._append(rec)
+        events.emit("manifest.intent", seg=int(key[1]),
+                    info=f"{key[2]}:{os.path.basename(path)}")
 
     def commit(self, key, path: str, length: int,
                crc32: int | None = None,
@@ -615,11 +628,14 @@ class RunManifest:
         if offset is not None:
             rec["off"] = int(offset)
         self._append(rec)
+        events.emit("manifest.commit", seg=int(key[1]),
+                    info=f"{key[2]}:{os.path.basename(path)}")
 
     def sink_done(self, key) -> None:
         self._append({"t": "done", **self._key_fields(key)})
         with self._lock:
             self._done.add(tuple(key))
+        events.emit("manifest.done", seg=int(key[1]), info=str(key[2]))
 
     def checkpoint(self, segments_done: int,
                    file_offset_bytes: int) -> None:
@@ -627,6 +643,8 @@ class RunManifest:
         # record before it, and the checkpoint file rename follows it
         self._append({"t": "ckpt", "segments_done": int(segments_done),
                       "offset": int(file_offset_bytes)}, durable=True)
+        events.emit("manifest.ckpt", seg=int(segments_done),
+                    info=f"offset={int(file_offset_bytes)}")
 
     # -- replay-skip query -----------------------------------------
 

@@ -28,9 +28,11 @@ counter.  Where the port differs from the reference:
   receiver on the main thread lets the interpreter run a SIGINT or
   SIGTERM handler even when no packet comes;
 - **loss counters**: ``packets_total`` and ``packets_lost`` are counted
-  by the source (the pipeline reports them in ``stats.extras``) with the
-  reference's ``[udp_receiver] lost ...`` warning; the metrics registry
-  is a later slice (ROADMAP A9).
+  by the source (the pipeline reports them in ``stats.extras``) and, as
+  the reference counts them, in the metrics registry with their 10 s
+  windows (``packet_loss_rate_window``) and the lost packets' twin
+  labeled by stream, with the reference's ``[udp_receiver] lost ...``
+  warning.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from srtb_tpu_torch.pipeline.work import SegmentWork
 from srtb_tpu_torch.utils import termination
 from srtb_tpu_torch.utils.bufferpool import BufferPool
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 COUNTER_LE64 = 0
 COUNTER_VDIF67 = 1
@@ -868,6 +871,15 @@ class UdpReceiverSource:
             self._carry.retain(buf)
         self.packets_total += total
         self.packets_lost += lost
+        metrics.add("packets_total", total)
+        metrics.add("packets_lost", lost)
+        metrics.window("packets_total").add(total)
+        metrics.window("packets_lost").add(lost)
+        if lost:
+            # whose packets: the stream's name, else the receiver's id
+            origin = (str(self.cfg.stream_name or "")
+                      or str(self.data_stream_id))
+            metrics.add("packets_lost", lost, labels={"stream": origin})
         if lost:
             log.warning(f"[udp_receiver] lost {lost}/{total} packets "
                         f"({lost / total:.2%})")

@@ -52,6 +52,7 @@ from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.pipeline.work import (NO_UDP_PACKET_COUNTER,
                                           SegmentResultWork)
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 TMP_SUFFIX = ".srtb_tmp"
 
@@ -91,6 +92,7 @@ def recover_orphan_temps(prefix: str,
             except OSError as e:
                 log.warning(f"[recover] cannot remove orphan {p}: {e}")
     if removed:
+        metrics.add("orphan_temps_removed", len(removed))
         log.warning(f"[recover] removed {len(removed)} orphaned temp "
                     f"file(s) from an interrupted run: "
                     f"{[os.path.basename(p) for p in removed]}")

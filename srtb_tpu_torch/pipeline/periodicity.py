@@ -14,8 +14,8 @@ single-pulse consumer (``has_signal``, the writers) keeps working, and
 three hooks on the result carry the mode's own rules into that shared
 code: ``positive_gate`` (the engine's verdict), ``extra_artifacts``
 (the candidate writer's ``.fold.npy`` and ``.cand.json``) and
-``span_extra`` (the journal's candidate table; the journal is ROADMAP
-A9, so only the tests read it yet).  The mode is registered in
+``span_extra`` (the candidate table the span journal writes into each
+segment's record).  The mode is registered in
 ``pipeline/registry.py``.
 """
 

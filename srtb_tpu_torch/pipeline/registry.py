@@ -21,8 +21,8 @@ every kernel lives in one library), the ``fused_tail`` rung turns
 kernel build fault: that ladder ends in ``LadderExhausted``.
 
 The reference's registry also holds the plan families (for its HLO
-auditor, ROADMAP A9) and the fleet's ``plan_cache_key`` (A8); they come
-with those items.
+auditor, which is JAX's and stays unported, ROADMAP A9e) and the fleet's
+``plan_cache_key`` (A8, which brings it).
 """
 
 from __future__ import annotations

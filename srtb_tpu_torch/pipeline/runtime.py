@@ -73,9 +73,27 @@ Resilience (``resilience/``), armed by the reference's defaults:
   crash that is not fatal restarts it, its item replayed inline first
   (exactly once with the manifest).
 
-The counters (``resilience/counters.py``) land in ``stats.extras``.  The
-reference's telemetry (journal, flight recorder, incident bundles,
-``/metrics``) is ROADMAP A9: its settings raise (:func:`check_runtime`).
+Observability (``utils/``), wired where the reference wires it:
+
+- every host stage (``ingest``, ``dispatch``, ``overlap``, ``fetch``,
+  ``sink``) lands in the ``stage_seconds{stage=...}`` histogram and runs
+  under ``torch.profiler.record_function("srtb:<stage>")``;
+- each drained segment bumps ``segments``, ``samples`` and ``signals``
+  with their windows, stamps ``/healthz``'s liveness, feeds the SLO
+  tracker, observes its device seconds (the engine's own per-segment
+  measurement, read at drain: no device value is read at dispatch) and
+  sets the live roofline gauges from the plan's ``hbm_passes`` floor,
+  and, with ``telemetry_journal_path``, writes one schema-11 span;
+- a segment's ``trace_id`` is stamped at ingest, and the flight recorder
+  (``events_enable``) takes its stage edges and every resilience
+  decision; ``events_dump_path`` receives the dump when the pipeline
+  closes, also after a run that raised;
+- ``profile_capture_segments`` records the first N segments with
+  ``torch.profiler``.
+
+The resilience counters live in the registry (``utils/metrics.py``) and
+are copied into ``stats.extras`` at the end of a run, also when it
+raises.
 """
 
 from __future__ import annotations
@@ -108,7 +126,6 @@ from srtb_tpu_torch.pipeline.checkpoint import StreamCheckpoint
 from srtb_tpu_torch.pipeline.segment import BATCH_NEEDS_FUSED
 from srtb_tpu_torch.pipeline.work import SegmentResultWork
 from srtb_tpu_torch.quality.stats import QualityMonitor
-from srtb_tpu_torch.resilience.counters import Counters
 from srtb_tpu_torch.resilience.degrade import DegradationLadder
 from srtb_tpu_torch.resilience.demote import ComputeHealer
 from srtb_tpu_torch.resilience.errors import (DEVICE_HALT, LadderExhausted,
@@ -118,9 +135,12 @@ from srtb_tpu_torch.resilience.errors import (DEVICE_HALT, LadderExhausted,
 from srtb_tpu_torch.resilience.faults import FaultInjector
 from srtb_tpu_torch.resilience.retry import RetryPolicy, retry_call
 from srtb_tpu_torch.resilience.supervisor import Supervisor
-from srtb_tpu_torch.utils import termination
+from srtb_tpu_torch.utils import events, slo, telemetry, termination
 from srtb_tpu_torch.utils.bufferpool import BufferPool
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
+from srtb_tpu_torch.utils.tracing import (ProfileCapture, StageTimer,
+                                          trace_annotation)
 
 
 @dataclass
@@ -192,15 +212,33 @@ def sync_with_deadline(deadline_s: float, fn):
 # settings of later slices that would change what a run reads or writes:
 # (field, ROADMAP item); each raises when set away from its default
 UNPORTED_RUNTIME = (
-    ("canary_every_segments", "ROADMAP A9: the canary, whose results "
+    ("canary_every_segments", "ROADMAP A9b: the canary, whose results "
                               "go to detection health, the SLO and "
                               "incident bundles"),
-    ("telemetry_journal_path", "ROADMAP A9: the span journal"),
-    ("events_dump_path", "ROADMAP A9: the flight recorder"),
-    ("incident_dir", "ROADMAP A9: incident bundles"),
-    ("perf_ledger_path", "ROADMAP A9: the perf ledger"),
-    ("profile_capture_segments", "ROADMAP A9: profile capture"),
+    ("incident_dir", "ROADMAP A9b: incident bundles"),
+    ("perf_ledger_path", "ROADMAP A9c: the perf ledger"),
+    ("sanitize", "ROADMAP A9d: the runtime sanitizer"),
 )
+# more than one process joins a process group in the reference
+UNPORTED_PROCESSES = "ROADMAP A8: parallel/* on torch.distributed"
+
+# the resilience counters a run copies into ``stats.extras`` (with the
+# ``retries_<site>`` and ``worker_restarts_<name>`` families)
+EXTRAS_COUNTERS = (
+    "plan_demotions", "plan_promotions", "device_reinits",
+    "plan_ladder_level", "retries_total", "data_loss_total",
+    "watchdog_requeues", "segments_dropped", "shed_waterfalls",
+    "shed_baseband", "degrade_level", "degrade_steps",
+    "degrade_recoveries", "faults_injected", "worker_restarts")
+EXTRAS_PREFIXES = ("retries_", "worker_restarts_")
+
+
+def check_processes(cfg: Config) -> None:
+    """Raise for ``distributed_num_processes > 1``."""
+    if int(cfg.distributed_num_processes or 1) > 1:
+        raise NotImplementedError(
+            f"distributed_num_processes={cfg.distributed_num_processes} "
+            f"is not ported yet ({UNPORTED_PROCESSES})")
 
 
 def check_runtime(cfg: Config) -> None:
@@ -209,6 +247,14 @@ def check_runtime(cfg: Config) -> None:
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"{name} is not ported yet ({item})")
+    check_processes(cfg)
+
+
+def counters_snapshot() -> dict:
+    """The resilience counters the registry holds now, by name."""
+    snap = metrics.snapshot()
+    return {k: v for k, v in snap.items()
+            if k in EXTRAS_COUNTERS or k.startswith(EXTRAS_PREFIXES)}
 
 
 class InFlight(NamedTuple):
@@ -216,8 +262,9 @@ class InFlight(NamedTuple):
     way to pinned host memory), the event after its last copy (None on
     the CPU, where a dispatch completes before it returns; a batch's
     segments share one), the dispatch's own numbers, the source's offset
-    after this segment's read (the checkpoint's resume point) and its
-    index in dispatch order (the fault sites' index)."""
+    after this segment's read (the checkpoint's resume point), its
+    index in dispatch order (the fault sites' index) and its read's
+    seconds (the span's ``ingest``)."""
     seg: Any
     wf: torch.Tensor
     det: Any
@@ -227,13 +274,17 @@ class InFlight(NamedTuple):
     h2d_bytes: int
     offset_after: int = 0
     index: int = 0
+    ingest_s: float = 0.0
 
 
 class Fetched(NamedTuple):
     """A drained segment on its way to the sinks, with the degradation
     level observed when it was emitted and its done-set: the sinks that
     already took it and the ``"stats"`` and ``"wf"`` markers, so a retried
-    or replayed drain counts and pushes exactly once."""
+    or replayed drain counts and pushes exactly once.  Its telemetry
+    rides along: the span's host stages so far, the seconds the engine
+    hid under the card's work, its device seconds, the window's depths
+    when it was drained and its quality dict (None when off)."""
     seg: Any
     wf: torch.Tensor
     det: Any
@@ -242,6 +293,12 @@ class Fetched(NamedTuple):
     index: int = 0
     degrade_level: int = 0
     sinks_done: set | None = None
+    span: dict | None = None
+    hidden_s: float = 0.0
+    device_s: float | None = None
+    queue_depth: int = 0
+    inflight_depth: int = 0
+    quality: dict | None = None
 
 
 class Pipeline:
@@ -259,15 +316,20 @@ class Pipeline:
                  processor=None):
         check_runtime(cfg)
         self.cfg = cfg
-        # the resilience layers' counters (stats.extras at run end),
-        # shared with a source that counts its own loss (a drop-oldest
-        # buffer, io/backpressure.py: the degradation ladder reads it)
-        counters = getattr(source, "counters", None)
-        self.counters = (counters if isinstance(counters, Counters)
-                         else Counters())
+        # the stream's name labels its series (unnamed: flat series only)
+        self.stream = str(cfg.stream_name or "")
+        self._stream_labels = ({"stream": self.stream}
+                               if self.stream else None)
+        # the flight recorder and the SLO tracker are process-global:
+        # this config arms or disarms them
+        events.configure(enabled=bool(cfg.events_enable),
+                         ring_size=int(cfg.events_ring_size or 0)
+                         or events.DEFAULT_RING_SIZE)
+        self._events_enabled = bool(cfg.events_enable)
+        self._slo_armed = slo.configure(cfg) is not None
         # the fault plan (None: off) and the retry policy (None: off)
-        self.faults = FaultInjector.from_plan(
-            cfg.fault_plan, stream=cfg.stream_name, counters=self.counters)
+        self.faults = FaultInjector.from_plan(cfg.fault_plan,
+                                              stream=self.stream)
         self.retry = RetryPolicy.from_config(cfg)
         # the processor of the configured search mode (the registry)
         if processor is None:
@@ -275,12 +337,11 @@ class Pipeline:
         self.processor = processor
         on_card = self.processor.device.type == "cuda"
         # the plan-demotion ladder and the device reinit (None: both off)
-        self.healer = ComputeHealer.from_config(cfg, self._plan_factory,
-                                                counters=self.counters)
+        self.healer = ComputeHealer.from_config(cfg, self._plan_factory)
         if self.healer is not None:
             self.healer.bind_base(getattr(self.processor, "staged", None))
-            self.counters.set("active_plan", self._plan_of(self.processor))
-        self._ladder = (DegradationLadder.from_config(cfg, self.counters)
+        self.active_plan = self._plan_of(self.processor)
+        self._ladder = (DegradationLadder.from_config(cfg)
                         if cfg.degrade_enable else None)
         # the run manifest opens first and runs its recovery (torn tail
         # cut, uncommitted groups rolled back, the done-set rebuilt),
@@ -336,6 +397,25 @@ class Pipeline:
         if cfg.baseband_output_file_prefix:
             recover_orphan_temps(cfg.baseband_output_file_prefix)
         self.stats = PipelineStats()
+        # every host stage's timing also lands in a histogram, so
+        # /metrics carries live p50/p95/p99 per stage
+        self.stage_timer = StageTimer(
+            on_stage=lambda name, dt: metrics.histogram(
+                "stage_seconds", labels={"stage": name}).observe(dt))
+        # the compile families exist from the first scrape (zero so far)
+        for fam in ("compile_seconds", "plan_compiles", "aot_cache_hits",
+                    "aot_cache_misses"):
+            metrics.add(fam, 0.0)
+            if self._stream_labels is not None:
+                metrics.add(fam, 0.0, labels=self._stream_labels)
+        # the first N segments under torch.profiler (None: off)
+        self.profile_capture = ProfileCapture.from_config(cfg)
+        self.journal = None
+        if cfg.telemetry_journal_path:
+            self.journal = telemetry.SpanJournal(
+                cfg.telemetry_journal_path,
+                max_bytes=int(cfg.telemetry_journal_max_bytes),
+                compress=bool(cfg.telemetry_journal_compress))
         # the quality vectors' consumer (None unless quality_stats)
         self.quality = QualityMonitor.from_config(cfg)
         # drain-order indices of the segments the gate called positive
@@ -370,8 +450,32 @@ class Pipeline:
 
     # ------------------------------------------------------ the ring
 
+    @property
+    def events(self):
+        """The live process-global flight recorder, or None when this
+        pipeline's config disarmed it (read each time: a later pipeline
+        may rearm the hub at another ring size)."""
+        return events.hub if self._events_enabled else None
+
+    @property
+    def slo(self):
+        """The live process-global SLO tracker, or None when disarmed."""
+        return slo.tracker if self._slo_armed else None
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """One named host stage: the stage timer (and its histogram) and
+        a ``srtb:<name>`` range on a profile's timeline."""
+        with trace_annotation(f"srtb:{name}"), \
+                self.stage_timer.stage(name):
+            yield
+
     def _ring_invalidate(self) -> None:
         """Drop the carry: the next dispatch is cold."""
+        if self._ring_carry is not None and self.events is not None:
+            # a live carry is dropped: the warm chain breaks here
+            self.events.emit("ring.invalidate", trace=events.current()[0],
+                             stream=self.stream)
         self._keep_if_halted(self._ring_carry)
         self._ring_carry = None
         self._ring_prev = None
@@ -380,6 +484,19 @@ class Pipeline:
         """After a halt, hold ``objs`` until the run ends (``_halted``)."""
         if self._halted is not None:
             self._halted.extend(o for o in objs if o is not None)
+
+    def _keep_if_dead(self, item) -> None:
+        """Hold a drained item (``_halted``) when its card's context died
+        before the engine thread saw the halt: its event's query raises,
+        and freeing its pinned results would abort the process from a
+        destructor.  The sink thread asks before it drops each item."""
+        if self._halted is None and item.done is not None:
+            try:
+                item.done.query()
+            except RuntimeError:  # torch.AcceleratorError: a dead context
+                if self._halted is None:
+                    self._halted = []
+        self._keep_if_halted(item)
 
     def _ring_adjacent(self, seg) -> bool:
         """Whether ``seg`` is the stream-adjacent successor of the last
@@ -408,7 +525,7 @@ class Pipeline:
                 return inner()
         if self.retry is None:
             return fn()
-        return retry_call(fn, self.retry, site, counters=self.counters)
+        return retry_call(fn, self.retry, site)
 
     def _to_host(self, dets: list):
         """Start the detection results' copies to pinned host memory and
@@ -468,12 +585,13 @@ class Pipeline:
         step = h.active_step if h is not None else "full"
         plan = self._plan_of(newp)
         self.plan_history.append((step, plan))
-        self.counters.set("active_plan", plan)
+        self.active_plan = plan
 
     # ------------------------------------------- dispatch and fetch
 
     def _dispatch_segment(self, seg, offset_after: int = 0,
-                          index: int = 0, requeue: bool = False) -> InFlight:
+                          index: int = 0, requeue: bool = False
+                          ) -> InFlight:
         """Upload one segment (the ``h2d`` site) and enqueue its chain
         (the ``dispatch`` site), then the detection results' copies to
         pinned host memory and the ``done`` event.  Reads nothing on the
@@ -481,8 +599,13 @@ class Pipeline:
         requeue, a healed re-dispatch) isolates the dispatch from the
         ring: it is cold, and its carry is adopted only when the ring was
         down on entry (the requeued segment is then the stream's
-        frontier)."""
+        frontier).  The ``dispatch`` stage and its event time the
+        whole."""
         proc = self.processor
+        tid = getattr(seg, "trace_id", 0)
+        ev = self.events
+        if ev is not None:
+            events.set_current(tid, self.stream)
         t0 = time.perf_counter()
         h2d0 = proc.h2d_bytes
         if proc.ring:
@@ -491,26 +614,37 @@ class Pipeline:
                 else self._ring_carry
             if carry is not None:
                 self._ring_carry = None
-            staged = self._op("h2d", index,
-                              lambda: proc.stage_input(seg.data, carry=carry))
-            (wf, det), next_carry = self._op(
-                "dispatch", index, lambda: proc.run_device_ring(staged))
+            elif ev is not None:
+                ev.emit("ring.cold", trace=tid, stream=self.stream,
+                        seg=index, info="requeue" if requeue else "")
+            with trace_annotation("srtb:dispatch"):
+                staged = self._op("h2d", index, lambda: proc.stage_input(
+                    seg.data, carry=carry))
+                (wf, det), next_carry = self._op(
+                    "dispatch", index, lambda: proc.run_device_ring(
+                        staged, warm=carry is not None))
             if not requeue or ring_down:
                 self._ring_carry = next_carry
                 self._ring_prev = ((getattr(seg, "data_stream_id", 0),
                                     seg.seq) if seg.seq >= 0 else None)
         else:
-            staged = self._op("h2d", index,
-                              lambda: proc.stage_input(seg.data))
-            wf, det = self._op("dispatch", index,
-                               lambda: proc.run_device(staged))
+            with trace_annotation("srtb:dispatch"):
+                staged = self._op("h2d", index,
+                                  lambda: proc.stage_input(seg.data))
+                wf, det = self._op("dispatch", index,
+                                   lambda: proc.run_device(staged))
         (det,), done = self._to_host([det])
         t1 = time.perf_counter()
+        self.stage_timer.record("dispatch", t1 - t0)
+        if ev is not None:
+            ev.emit("stage.dispatch", trace=tid, stream=self.stream,
+                    seg=index, dur=t1 - t0,
+                    info="requeue" if requeue else "")
         return InFlight(seg, wf, det, done, t1, t1 - t0,
                         proc.h2d_bytes - h2d0, offset_after, index)
 
-    def _dispatch_batch(self, segs: list, offsets: list,
-                        first_index: int) -> list[InFlight]:
+    def _dispatch_batch(self, segs: list, offsets: list, first_index: int,
+                        ingests: list | None = None) -> list[InFlight]:
         """B segments in one dispatch, under the first segment's
         ``dispatch`` site (one dispatch, one failure domain): their
         uploads into one device tensor, the chain a lane at a time, the
@@ -522,6 +656,7 @@ class Pipeline:
         t0 = time.perf_counter()
         h2d0 = proc.h2d_bytes
         datas = [seg.data for seg in segs]
+        ev = self.events
         if proc.ring:
             chain_ok = self._ring_adjacent(segs[0]) and all(
                 b.seq == a.seq + 1
@@ -538,29 +673,40 @@ class Pipeline:
                     return proc.run_batch_cold(staged)
                 return proc.run_batch_ring(staged)
 
-            lanes, self._ring_carry = self._op("dispatch", first_index, run)
+            with trace_annotation("srtb:dispatch"):
+                lanes, self._ring_carry = self._op("dispatch", first_index,
+                                                   run)
             last = segs[-1]
             self._ring_prev = ((getattr(last, "data_stream_id", 0), last.seq)
                                if last.seq >= 0 else None)
         else:
-            lanes = self._op("dispatch", first_index,
-                             lambda: proc.run_batch(proc.stage_batch(datas)))
+            with trace_annotation("srtb:dispatch"):
+                lanes = self._op("dispatch", first_index, lambda:
+                                 proc.run_batch(proc.stage_batch(datas)))
         dets, done = self._to_host([det for _wf, det in lanes])
         t1 = time.perf_counter()
         b = len(segs)
         per_seg = (t1 - t0) / b
         h2d_each = (proc.h2d_bytes - h2d0) // b
+        for i, seg in enumerate(segs):
+            self.stage_timer.record("dispatch", per_seg)
+            if ev is not None:
+                ev.emit("stage.dispatch", trace=getattr(seg, "trace_id", 0),
+                        stream=self.stream, seg=first_index + i,
+                        dur=per_seg, info=f"batch={b}")
         return [InFlight(seg, wf, det, done, t1, per_seg, h2d_each, off,
-                         first_index + i)
-                for i, (seg, (wf, _d), det, off)
-                in enumerate(zip(segs, lanes, dets, offsets))]
+                         first_index + i, ing)
+                for i, (seg, (wf, _d), det, off, ing)
+                in enumerate(zip(segs, lanes, dets, offsets,
+                                 ingests or [0.0] * b))]
 
     @staticmethod
     def _ready(item: InFlight) -> bool:
         """The non-blocking probe: has the segment's event completed?"""
         return item.done is None or item.done.query()
 
-    def _fetch_inflight(self, item: InFlight) -> Fetched:
+    def _fetch_inflight(self, item: InFlight, queue_depth: int = 0,
+                        inflight_depth: int = 0) -> Fetched:
         """Wait for one dispatched segment (its detection results are on
         the host then; the ``fetch`` site, under ``segment_deadline_s``)
         and record its numbers: ``overlap`` is the host time between its
@@ -568,29 +714,46 @@ class Pipeline:
         hid under the card's work; its device seconds run from dispatch
         start to fetch end (exact in the serial leg, an upper bound in a
         window).  A quality vector goes to the monitor here, in drain
-        order."""
+        order.  ``queue_depth`` and ``inflight_depth`` are the window's
+        depths at this drain, for the journal."""
         extras = self.stats.extras
+        tid = getattr(item.seg, "trace_id", 0)
+        ev = self.events
+        if ev is not None:
+            events.set_current(tid, self.stream)
         t0 = time.perf_counter()
         hidden = max(0.0, t0 - item.t_dispatched)
+        self.stage_timer.record("overlap", hidden)
         done = item.done
         deadline_s = float(self.cfg.segment_deadline_s or 0.0)
-        self._op("fetch", item.index, lambda: sync_with_deadline(
-            deadline_s,
-            lambda: done.synchronize() if done is not None else None))
-        fetch_s = time.perf_counter() - t0
+        with self._stage("fetch"):
+            self._op("fetch", item.index, lambda: sync_with_deadline(
+                deadline_s,
+                lambda: done.synchronize() if done is not None else None))
+        fetch_s = self.stage_timer.last["fetch"]
+        if ev is not None:
+            ev.emit("stage.fetch", trace=tid, stream=self.stream,
+                    seg=item.index, dur=fetch_s)
         stage_s = extras["stage_s"]
         stage_s["dispatch"] += item.dispatch_s
         stage_s["overlap"] += hidden
         stage_s["fetch"] += fetch_s
+        quality = None
         if self.quality is not None and item.det.quality is not None:
-            self.quality.observe(item.det.quality.numpy(),
-                                 segment=len(extras["device_s_per_segment"]))
-        extras["device_s_per_segment"].append(
-            item.dispatch_s + hidden + fetch_s)
+            quality = self.quality.observe(
+                item.det.quality.numpy(),
+                segment=len(extras["device_s_per_segment"]))
+        device_s = item.dispatch_s + hidden + fetch_s
+        extras["device_s_per_segment"].append(device_s)
         extras["overlap_hidden_s_per_segment"].append(hidden)
         extras["h2d_bytes_per_segment"].append(item.h2d_bytes)
+        span = {"ingest": item.ingest_s, "dispatch": item.dispatch_s,
+                "fetch": fetch_s}
         return Fetched(item.seg, item.wf, item.det, item.done,
-                       item.offset_after, item.index)
+                       item.offset_after, item.index, span=span,
+                       hidden_s=hidden, device_s=device_s,
+                       queue_depth=queue_depth,
+                       inflight_depth=inflight_depth, quality=quality)
 
     # ------------------------------------------------ the sink side
 
@@ -629,7 +792,7 @@ class Pipeline:
         if item.degrade_level >= 1 and wf is not None:
             wf = None
             if done is None or "wf" not in done:
-                self.counters.add("shed_waterfalls")
+                self._count("shed_waterfalls")
                 if done is not None:
                     done.add("wf")
         work = SegmentResultWork(segment=item.seg, waterfall=wf,
@@ -643,6 +806,7 @@ class Pipeline:
                 key = (seg_key[0], seg_key[1], f"{i}:{type(sink).__name__}")
                 if m.is_done(key):
                     m.replayed_skips += 1
+                    metrics.add("replayed_skips")
                     log.info(f"[manifest] segment {seg_key[1]} sink "
                              f"{key[2]}: already committed, skipping "
                              "replay")
@@ -650,7 +814,7 @@ class Pipeline:
                         done.add(i)
                     continue
             if item.degrade_level >= 2 and getattr(sink, "sheddable", False):
-                self.counters.add("shed_baseband")
+                self._count("shed_baseband")
                 if done is not None:
                     done.add(i)
                 continue
@@ -666,6 +830,12 @@ class Pipeline:
             self._sink_heartbeat += 1
             if done is not None:
                 done.add(i)
+
+    def _count(self, name: str, n: float = 1) -> None:
+        """Add to a flat counter and to its stream-labeled twin."""
+        metrics.add(name, n)
+        if self._stream_labels is not None:
+            metrics.add(name, n, labels=self._stream_labels)
 
     def _release(self, seg) -> None:
         """The segment's buffer back to the source's pool (no sink keeps
@@ -686,6 +856,12 @@ class Pipeline:
         cfg = self.cfg
         extras = self.stats.extras
         done = item.sinks_done
+        ev = self.events
+        tid = getattr(item.seg, "trace_id", 0)
+        if ev is not None:
+            # the sink thread's context: the manifest's records and the
+            # sink-side retries below attribute to this segment
+            events.set_current(tid, self.stream)
         positive = has_signal(cfg, item.det,
                               frequency_bin_count=item.wf.shape[-2])
         if positive and (done is None or "stats" not in done):
@@ -698,11 +874,15 @@ class Pipeline:
         # resumes, so a replayed segment lands on its first life's key
         seg_key = None if self.manifest is None else (
             getattr(item.seg, "data_stream_id", 0), drained[0])
-        t0 = time.perf_counter()
-        with self._sink_stream(item.done):
+        with self._sink_stream(item.done), self._stage("sink"):
             self._op("sink_write", item.index,
                      lambda: self._push_sinks(item, positive, seg_key))
-        extras["stage_s"]["sink"] += time.perf_counter() - t0
+        sink_s = self.stage_timer.last["sink"]
+        extras["stage_s"]["sink"] += sink_s
+        if ev is not None:
+            ev.emit("stage.sink", trace=tid, stream=self.stream,
+                    seg=item.index, dur=sink_s,
+                    info="dump" if positive else "")
         # no sink keeps the segment past its push: the write-signal sink's
         # piggyback queue holds a real-time negative only until the
         # re-check in the same push pops it (ref: write_signal_pipe.hpp
@@ -714,6 +894,8 @@ class Pipeline:
                 # while this thread was wedged mid-push
                 return
             drained[0] += 1
+        self._record_segment(drained[0] - 1, item, positive,
+                             dict(item.span or {}, sink=sink_s))
         if self.checkpoint is not None:
             # a checkpointed segment is durable: the queued writes land
             # before the update records it
@@ -732,11 +914,102 @@ class Pipeline:
             if drain is not None:
                 drain()  # the writer pool: wait for the disk
 
-    def _account_dropped(self, n: int = 1) -> None:
+    def _account_dropped(self, n: int = 1, trace: int | None = None
+                         ) -> None:
         """``n`` whole shed segments: the counter and the loss window
-        (the degradation ladder's level-3 signal)."""
-        self.counters.add("segments_dropped", n)
-        self.counters.window_add("segments_dropped", n)
+        (the degradation ladder's level-3 signal), the SLO's loss and a
+        ``shed.segment`` event on the shed segment's trace (``trace``;
+        None: the thread's current one)."""
+        self._count("segments_dropped", n)
+        metrics.window("segments_dropped").add(n)
+        if self.slo is not None:
+            self.slo.note_dropped(self.stream, n)
+        ev = self.events
+        if ev is not None:
+            ev.emit("shed.segment",
+                    trace=trace if trace is not None
+                    else events.current()[0],
+                    stream=self.stream, info=f"n={n}")
+
+    # ----------------------------------------------------- telemetry
+
+    def _device_time_account(self, device_s: float, n_samples: int
+                             ) -> tuple:
+        """One drained segment's device seconds: the ``device_seconds``
+        histogram and the live roofline gauges, achieved Msamples/s and
+        modelled GB/s over those seconds and their fraction of
+        ``hbm_peak_gbps``.  The traffic model is the plan's
+        ``hbm_passes`` floor, and the device seconds an upper bound on
+        the card's busy time, so the gauges are lower bounds.  Returns
+        (achieved_msamps, roofline_frac) for the span, (None, None)
+        for a processor without the plan model."""
+        metrics.histogram("device_seconds").observe(device_s)
+        if self._stream_labels is not None:
+            metrics.histogram("device_seconds",
+                              labels=self._stream_labels).observe(device_s)
+        proc = self.processor
+        passes = getattr(proc, "hbm_passes", None)
+        n_spec = getattr(proc, "n_spectrum", None)
+        if passes is None or n_spec is None or device_s <= 0:
+            return None, None
+        seg_bytes = getattr(proc, "_segment_bytes", self.cfg.segment_bytes(1))
+        gbps = (seg_bytes + 8.0 * n_spec * passes) / device_s / 1e9
+        msamps = n_samples / device_s / 1e6
+        frac = gbps / float(self.cfg.hbm_peak_gbps or 819.0)
+        for name, val in (("achieved_msamps", msamps),
+                          ("achieved_gbps", gbps),
+                          ("roofline_frac", frac)):
+            metrics.set(name, val)
+            if self._stream_labels is not None:
+                metrics.set(name, val, labels=self._stream_labels)
+        return msamps, frac
+
+    def _record_segment(self, index: int, item: Fetched, positive: bool,
+                        span: dict) -> None:
+        """One drained segment's telemetry (drain index ``index``): the
+        lifetime counters and their windows, the liveness stamp, the
+        device-time and roofline accounting, the profile capture's
+        count, the SLO and, with the journal, one span."""
+        n_samples = self.cfg.baseband_input_count
+        seg = item.seg
+        metrics.add("segments")
+        metrics.add("samples", n_samples)
+        if positive:
+            metrics.add("signals")
+        metrics.window("segments").add(1)
+        metrics.window("samples").add(n_samples)
+        if self._stream_labels is not None:
+            metrics.add("segments", labels=self._stream_labels)
+            metrics.add("samples", n_samples, labels=self._stream_labels)
+        telemetry.mark_segment(self.stream or None)
+        msamps = frac = None
+        if item.device_s is not None:
+            msamps, frac = self._device_time_account(item.device_s,
+                                                     n_samples)
+        tid = getattr(seg, "trace_id", 0)
+        if self.profile_capture is not None:
+            self.profile_capture.note_segment(index, tid)
+        if self.slo is not None:
+            # the latency objective scores the host stages' sum
+            self.slo.note_segment(self.stream, sum(span.values()))
+        if self.journal is None:
+            return
+        # a registered mode's own payload (the periodicity candidates)
+        # and the quality dict ride in the span's extra sections
+        span_extra = getattr(item.det, "span_extra", None)
+        extra = span_extra() if span_extra is not None else None
+        if item.quality is not None:
+            extra = dict(extra or {}, quality=item.quality)
+        self.journal.write(telemetry.segment_span(
+            index, span, item.queue_depth,
+            int(to_host(item.det.signal_counts).sum()), positive, n_samples,
+            timestamp_ns=getattr(seg, "timestamp", 0), extra=extra,
+            overlap_hidden_s=item.hidden_s,
+            inflight_depth=item.inflight_depth,
+            active_plan=self._plan_of(self.processor),
+            stream=self.stream or None, trace_id=tid or None,
+            device_s=item.device_s, achieved_msamps=msamps,
+            roofline_frac=frac))
 
     # --------------------------------------------------- the engine
 
@@ -753,15 +1026,18 @@ class Pipeline:
         (a batch is one); with a manifest, ``manifest``: its recovery and
         replay counts; with ``quality_stats``, ``quality``: the monitor's
         timeline, one dict a segment in drain order (the last
-        ``TIMELINE_SPANS``); and the resilience counters
-        (``resilience/counters.py``), also when the run raises.
+        ``TIMELINE_SPANS``); and the resilience counters of the metrics
+        registry (``EXTRAS_COUNTERS``; ``active_plan`` too with the
+        healer), also when the run raises.
 
         ``micro_batch_segments`` above the window, or above 1 on the
         staged plan, raises ``ValueError`` before any read."""
         try:
             stats = self._run_engine(max_segments)
         finally:
-            self.stats.extras.update(self.counters.snapshot())
+            self.stats.extras.update(counters_snapshot())
+            if self.healer is not None:
+                self.stats.extras["active_plan"] = self.active_plan
         # the run outlived its halts: the context lives, free what they held
         self._halted = None
         return stats
@@ -788,9 +1064,12 @@ class Pipeline:
         stage_s = stats.extras["stage_s"]
         n_samples = cfg.baseband_input_count
         start = time.perf_counter()
+        if self.profile_capture is not None:
+            # armed before the first dispatch: the capture covers the
+            # kernels' builds and the first N segments
+            self.profile_capture.start()
         # a resumed run is a fresh process: its carry starts cold
         self._ring_invalidate()
-        counters = self.counters
 
         # a segment is live from dispatch until its sink completes; the
         # window bounds that count, so at most W waterfalls are on the
@@ -805,6 +1084,10 @@ class Pipeline:
         def live_add(n: int) -> None:
             with live_lock:
                 live[0] += n
+                metrics.set("inflight_depth", live[0])
+                if self._stream_labels is not None:
+                    metrics.set("inflight_depth", live[0],
+                                labels=self._stream_labels)
 
         # the drain index continues the checkpoint's count
         drained = [self.checkpoint.segments_done
@@ -817,8 +1100,7 @@ class Pipeline:
         if use_sink_pipe and int(cfg.supervisor_max_restarts or 0) > 0:
             supervisor = Supervisor(
                 "sink_drain", max_restarts=cfg.supervisor_max_restarts,
-                window_s=cfg.supervisor_window_s, counter="worker_restarts",
-                counters=counters)
+                window_s=cfg.supervisor_window_s)
         current = [None]   # the item the sink worker is processing
         progress = [0]     # drained[0] when that item started
 
@@ -832,7 +1114,7 @@ class Pipeline:
                 # slot released there
                 if "abandoned" not in item.sinks_done:
                     live_add(-1)
-                self._keep_if_halted(item)
+                self._keep_if_dead(item)
             current[0] = None
 
         stop = fw.StopToken()
@@ -845,15 +1127,41 @@ class Pipeline:
         # sticky fault a replay would fail again in its place)
         unwinding = [False]
 
+        def sink_halt(exc) -> bool:
+            """Whether ``exc``, met on the sink side, is a device halt:
+            the sink's copies run on the card, so a sticky fault can
+            reach the sink before the engine sees it."""
+            h = self.healer
+            return h is not None and h.classify(exc) == DEVICE_HALT
+
+        def drain_inline(item) -> None:
+            """The sink half on the engine's thread (the serial leg, a
+            crashed pipe's replay).  A device halt there is healed as the
+            engine's own and the segment drained again: on a context that
+            a sticky fault killed every reinit fails, and the run ends
+            ``ReinitBudgetExceeded`` once the budget is spent."""
+            while True:
+                try:
+                    self._drain_body(item, drained)
+                    return
+                except BaseException as e:  # noqa: BLE001 - classified
+                    if not sink_halt(e):
+                        raise
+                    err = e
+                heal(err)
+
         def sink_alive() -> bool:
             """True while the sink side can make progress; restarts a
-            supervised crashed pipe as a side effect."""
+            supervised crashed pipe as a side effect (a device halt that
+            crashed it is healed first)."""
             nonlocal sink_pipe
             if sink_pipe is None or sink_pipe.exception is None:
                 return True
             if supervisor is None or unwinding[0] or \
                     not supervisor.should_restart(sink_pipe.exception):
                 return False
+            if sink_halt(sink_pipe.exception):
+                heal(sink_pipe.exception)
             failed, current[0] = current[0], None
             if failed is not None and failed is not fw.SENTINEL:
                 if drained[0] == progress[0]:
@@ -861,8 +1169,8 @@ class Pipeline:
                     # it inline before the new pipe pops (its live slot
                     # was released by sink_f's finally; the done-set and
                     # the manifest keep its pushes exactly once); a second
-                    # failure here propagates
-                    self._drain_body(failed, drained)
+                    # failure here propagates, a halt once healed
+                    drain_inline(failed)
                 else:
                     log.warning(
                         "[supervisor] sink_drain crashed after its "
@@ -885,7 +1193,7 @@ class Pipeline:
         def shed_segment(seg, in_flight: bool) -> None:
             """Account one shed segment as loss, break the ring's chain,
             free its window slot (``in_flight``) and its buffer."""
-            self._account_dropped()
+            self._account_dropped(trace=getattr(seg, "trace_id", 0))
             self._ring_invalidate()
             if in_flight:
                 live_add(-1)
@@ -934,13 +1242,14 @@ class Pipeline:
                                  if sink_pipe is not None else 0.0)
                 sink_wait[0] = False
                 level = self._ladder.observe(
-                    occupancy, counters.window_sum("segments_dropped") > 0)
+                    occupancy,
+                    metrics.window("segments_dropped").sum() > 0)
                 stats.extras["degrade_levels"].append(level)
             fetched = fetched._replace(degrade_level=level,
                                        sinks_done=set())
             if sink_pipe is None:
                 try:
-                    self._drain_body(fetched, drained)
+                    drain_inline(fetched)
                 finally:
                     live_add(-1)
                 return True
@@ -956,15 +1265,32 @@ class Pipeline:
                                          or dispatched[0] < max_segments)
 
         def ingest_one(index: int):
-            """One read (the ``ingest`` site): the segment and the
-            source's offset after it, or None at the source's end."""
+            """One read (the ``ingest`` site): the segment, the source's
+            offset after it and the read's seconds, or None at the
+            source's end (that last read is not an ``ingest`` stage).
+            The segment's trace id is stamped here."""
             t0 = time.perf_counter()
-            seg = self._op("ingest", index, lambda: next(it, None))
-            stage_s["read"] += time.perf_counter() - t0
+            with trace_annotation("srtb:ingest"):
+                seg = self._op("ingest", index, lambda: next(it, None))
+            dt = time.perf_counter() - t0
+            stage_s["read"] += dt
             if seg is None:
                 exhausted[0] = True
                 return None
-            return seg, getattr(self.source, "logical_offset", 0)
+            self.stage_timer.record("ingest", dt)
+            ev = self.events
+            if ev is not None:
+                tid = getattr(seg, "trace_id", 0)
+                if not tid:
+                    tid = events.next_trace_id()
+                    try:
+                        seg.trace_id = tid
+                    except AttributeError:  # a read-only stub segment
+                        pass
+                events.set_current(tid, self.stream)
+                ev.emit("stage.ingest", trace=tid, stream=self.stream,
+                        seg=index, dur=dt)
+            return seg, getattr(self.source, "logical_offset", 0), dt
 
         # the dispatch unit follows the healer: the micro_batch rung
         # drops it to 1, a promotion restores it
@@ -987,7 +1313,8 @@ class Pipeline:
                 old = pending[i]
                 self._keep_if_halted(old)
                 pending[i] = dispatch_one(old.seg, old.offset_after,
-                                          old.index, requeue=True)
+                                          old.index, requeue=True,
+                                          ingest_s=old.ingest_s)
             return True
 
         def heal(exc) -> bool:
@@ -1001,7 +1328,10 @@ class Pipeline:
             kind = h.classify(exc)
             if kind is None:
                 return False
+
             def settle(e, kind) -> None:
+                events.emit("fault.device",
+                            info=f"{kind}:{type(e).__name__}")
                 # no rung stands in for a kernel of the port that fails
                 own = kernel_fault(e)
                 if own is not None:
@@ -1054,14 +1384,15 @@ class Pipeline:
             except BaseException as e:  # noqa: BLE001 - classified
                 return None, e
 
-        def dispatch_one(seg, offset_after, index, requeue=False):
+        def dispatch_one(seg, offset_after, index, requeue=False,
+                         ingest_s=0.0):
             """One dispatch with self-healing: a device fault demotes or
             reinitializes and re-dispatches the same segment cold."""
             while True:
                 item, err = guarded(lambda: self._dispatch_segment(
                     seg, offset_after, index, requeue=requeue))
                 if err is None:
-                    return item
+                    return item._replace(ingest_s=ingest_s)
                 if not heal(err):
                     raise err
                 err = None
@@ -1075,6 +1406,9 @@ class Pipeline:
                     self._swap_processor(newp)
 
         def fill_window() -> None:
+            if self.profile_capture is not None:
+                # a capture the sink thread completed stops here
+                self.profile_capture.poll()
             # the unit is the batch: admitted only when all of it fits
             while live_count() + cur_unit() <= window and want_more() \
                     and sink_alive():
@@ -1094,9 +1428,9 @@ class Pipeline:
                 if not got:
                     return
                 if b > 1 and len(got) == b:
-                    segs, offsets = map(list, zip(*got))
-                    items, err = guarded(
-                        lambda: self._dispatch_batch(segs, offsets, first))
+                    segs, offsets, ingests = map(list, zip(*got))
+                    items, err = guarded(lambda: self._dispatch_batch(
+                        segs, offsets, first, ingests))
                     if err is not None:
                         if not heal(err):
                             raise err
@@ -1104,14 +1438,15 @@ class Pipeline:
                         # the healed plan may not batch: these segments
                         # finish as single cold dispatches
                         items = [dispatch_one(seg, off, first + i,
-                                              requeue=True)
-                                 for i, (seg, off) in enumerate(got)]
+                                              requeue=True, ingest_s=ing)
+                                 for i, (seg, off, ing) in enumerate(got)]
                         stats.extras["dispatches"] += len(items)
                     else:
                         stats.extras["dispatches"] += 1
                 else:  # one segment, or a tail shorter than the batch
-                    items = [dispatch_one(seg, off, first + i)
-                             for i, (seg, off) in enumerate(got)]
+                    items = [dispatch_one(seg, off, first + i,
+                                          ingest_s=ing)
+                             for i, (seg, off, ing) in enumerate(got)]
                     stats.extras["dispatches"] += len(items)
                 pending.extend(items)
                 live_add(len(items))
@@ -1136,13 +1471,20 @@ class Pipeline:
                 if time.perf_counter() - waited_since >= deadline_s:
                     index = item.index
                     used = requeue_counts.get(index, 0)
+                    tid = getattr(item.seg, "trace_id", 0)
                     if used >= watchdog_max:
+                        events.emit("watchdog.escalate", trace=tid,
+                                    stream=self.stream, seg=index,
+                                    info=f"requeues={used}")
                         raise WatchdogEscalation(
                             f"segment {index} fetch still not ready "
                             f"after {deadline_s:g}s at the drain head "
                             f"and {used} requeue(s): device wedged")
                     requeue_counts[index] = used + 1
-                    counters.add("watchdog_requeues")
+                    metrics.add("watchdog_requeues")
+                    events.emit("watchdog.requeue", trace=tid,
+                                stream=self.stream, seg=index,
+                                info=f"attempt={used + 1}")
                     log.warning(
                         f"[watchdog] segment {index} in-flight past "
                         f"{deadline_s:g}s (fetch never ready): "
@@ -1150,7 +1492,7 @@ class Pipeline:
                     self._ring_invalidate()
                     pending[0] = None
                     item = dispatch_one(item.seg, item.offset_after, index,
-                                        requeue=True)
+                                        requeue=True, ingest_s=item.ingest_s)
                     pending[0] = item
                     waited_since = time.perf_counter()
                 else:
@@ -1160,9 +1502,13 @@ class Pipeline:
         def drain_oldest() -> bool:
             if watchdog and not watchdog_wait():
                 return False
+            # the depths at this drain, this item included: dispatched
+            # and not fetched, and dispatched and not through its sink
+            depth, live_now = len(pending), live_count()
             item = pending.popleft()
             while True:
-                fetched, err = guarded(lambda: self._fetch_inflight(item))
+                fetched, err = guarded(lambda: self._fetch_inflight(
+                    item, depth, live_now))
                 if err is None:
                     break
                 if not heal(err):
@@ -1171,8 +1517,9 @@ class Pipeline:
                 # the faulted segment's results died with the fault: re-
                 # dispatch it cold under the (demoted or rebuilt) plan
                 seg, off, idx = item.seg, item.offset_after, item.index
+                ing = item.ingest_s
                 item = None
-                item = dispatch_one(seg, off, idx, requeue=True)
+                item = dispatch_one(seg, off, idx, requeue=True, ingest_s=ing)
             h = self.healer
             if h is not None:
                 h.note_healthy()
@@ -1193,6 +1540,8 @@ class Pipeline:
             log.error("[watchdog] sink wedged with a full in-flight "
                       "window: shedding ingested segment as accounted "
                       "loss")
+            events.emit("shed.ingest", trace=getattr(one[0], "trace_id", 0),
+                        stream=self.stream, seg=dispatched[0] - 1)
             shed_segment(one[0], in_flight=False)
             return True
 
@@ -1246,7 +1595,12 @@ class Pipeline:
                     sink_pipe, q_sink, sink_alive, stop, current, progress,
                     drained, shed_segment, live_add)
                 stop.request_stop()
+            metrics.set("inflight_depth", 0)
             self._ring_invalidate()
+            if self.profile_capture is not None:
+                # a run shorter than N segments, or one that raised,
+                # still writes a valid trace
+                self.profile_capture.stop()
         if sink_pipe is not None and sink_pipe.exception is not None:
             raise sink_pipe.exception
         if sink_wedged:
@@ -1302,7 +1656,8 @@ class Pipeline:
             with self._handoff_lock:
                 if drained[0] == progress[0]:
                     held.sinks_done.add("abandoned")
-                    self._account_dropped()
+                    self._account_dropped(
+                        trace=getattr(held.seg, "trace_id", 0))
                     live_add(-1)
         log.error("[pipeline] wedged sink: still-queued segments "
                   "accounted as segments_dropped")
@@ -1311,8 +1666,12 @@ class Pipeline:
     def close(self) -> None:
         """Release the run's resources: the source, the writer pool the
         pipeline owns (abandoned, not drained, after a wedged sink), the
-        run manifest, the write-all file and the pinned segment
-        buffers."""
+        run manifest, the write-all file and the pinned segment buffers;
+        close the journal and write the flight recorder's dump
+        (``events_dump_path``: the last ``events_ring_size`` events a
+        thread), also after a run that raised."""
+        if self.profile_capture is not None:
+            self.profile_capture.stop()
         self.source.close()
         if self._owned_writer_pool is not None:
             self._owned_writer_pool.close(drain=not self._sink_wedged)
@@ -1329,6 +1688,17 @@ class Pipeline:
         pool = getattr(self.source, "pool", None)
         if pool is not None:
             pool.free_all()
+        if self.journal is not None:
+            self.journal.close()
+            self.journal = None
+        dump_path = self.cfg.events_dump_path
+        if dump_path and self.events is not None:
+            try:
+                n = self.events.dump_jsonl(dump_path)
+                log.info(f"[events] {n} flight-recorder events -> "
+                         f"{dump_path}")
+            except OSError as e:
+                log.warning(f"[events] dump to {dump_path} failed: {e}")
 
     def __enter__(self):
         return self
@@ -1342,10 +1712,11 @@ class DMSearchPipeline:
     every segment runs the DM-trial step (``parallel/segment_dist.py``)
     over the trial list ``cfg.dm_list``; each segment's per-trial
     summaries are appended to ``<prefix>dm_trials.jsonl`` as the
-    reference's record (the same keys in the same order), and the best
-    trial of a positive segment is logged.  The segments come from
-    ``source`` (any source ``tools/main.make_source`` gives) or the
-    configured input file.  One segment at a time: its bytes uploaded
+    reference's record (the same keys in the same order), the best
+    trial of a positive segment is logged, and the segment counts in the
+    metrics registry and stamps ``/healthz``'s liveness.  The segments
+    come from ``source`` (any source ``tools/main.make_source`` gives) or
+    the configured input file.  One segment at a time: its bytes uploaded
     (pinned, on the copy stream, on the card), every trial enqueued, then
     one fetch of the summaries."""
 
@@ -1411,6 +1782,11 @@ class DMSearchPipeline:
                              f"snr {record['best_snr']:.1f}")
                 self.stats.segments += 1
                 self.stats.samples += cfg.baseband_input_count
+                metrics.add("segments")
+                metrics.add("samples", cfg.baseband_input_count)
+                metrics.window("segments").add(1)
+                metrics.window("samples").add(cfg.baseband_input_count)
+                telemetry.mark_segment()  # /healthz liveness
         self.stats.elapsed_s = time.perf_counter() - start
         return self.stats
 

@@ -114,6 +114,7 @@ single dispatch launches and gives its bits.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -141,6 +142,7 @@ from srtb_tpu_torch.pipeline import registry
 from srtb_tpu_torch.quality import stats as Q
 from srtb_tpu_torch.utils.device import resolve_device
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 
 def unpack_streams(raw: torch.Tensor, variant: str, nbits: int,
@@ -302,6 +304,20 @@ def sk_tiling_ok(nfreq: int, ntime: int) -> bool:
     return not (nfreq % rows or ntime % 128 or ntime % tb or tb % 128)
 
 
+def hbm_passes(fused_tail: bool, skzap: bool, front_fuse: bool) -> int:
+    """The plan's floor of spectrum-sized HBM sweeps (reads or writes) a
+    segment, the reference's traffic model of its roofline gauges: the
+    R2C's read and write (2), stage 1 and the chirp's (2, folded into
+    the fused tail), the waterfall FFT's (2) and the SK and detection
+    re-read (1, folded into the skzap kernel); a front-fused plan's
+    floor is its two sweeps of the blocked intermediate (2).  Which
+    kernels run a group changes the traffic only upward from this
+    floor, so the gauges stay lower bounds."""
+    if front_fuse:
+        return 2
+    return 2 + (0 if fused_tail else 2) + 2 + (0 if skzap else 1)
+
+
 def check_plan(cfg: Config) -> None:
     """Raise for settings no plan takes: an unregistered ``search_mode``
     (as ``registry.resolve_mode`` raises) or an unknown ``fft_strategy``."""
@@ -354,6 +370,8 @@ class SegmentProcessor:
         self._skzap = bool(
             self.fused_tail and cfg.use_pallas and cfg.use_pallas_sk
             and KF.supported(self.watfft_len, self.channel_count))
+        self.hbm_passes = hbm_passes(self.fused_tail, self._skzap,
+                                     self.front_fuse)
         self._len_cap = cfg.fft_len_cap or None
 
         win = W.window_coefficients(window_name, n)
@@ -402,9 +420,16 @@ class SegmentProcessor:
         self.stride_bytes = self._segment_bytes - self.reserved_bytes
         self.ring = self._resolve_ring()
         # uploads by stage_input: bytes, and the ring's cold and warm steps
+        # (the registry counts h2d_bytes and ring_cold_dispatches too)
         self.h2d_bytes = 0
         self.ring_cold_dispatches = 0
         self.ring_warm_dispatches = 0
+        # the program families this processor has dispatched once (the
+        # first dispatch of each is timed as its compile), and the
+        # stream's labels for their counters
+        self._dispatched_programs: set[str] = set()
+        stream = str(cfg.stream_name or "")
+        self._metric_labels = {"stream": stream} if stream else None
         self._copy_stream = None
         # the quality epilogue's (coarse bins, dead and hot thresholds,
         # subsample), as the reference reads them; None: off
@@ -715,8 +740,8 @@ class SegmentProcessor:
             src = src[self.reserved_bytes:]
             self.ring_warm_dispatches += 1
         elif self.ring:
-            self.ring_cold_dispatches += 1
-        self.h2d_bytes += src.nbytes
+            self._count_cold()
+        self._count_h2d(src.nbytes)
         if self.device.type != "cuda":
             return src.clone() if carry is None else torch.cat([carry, src])
         if self._copy_stream is None:
@@ -732,6 +757,15 @@ class SegmentProcessor:
         compute.wait_stream(self._copy_stream)
         dev.record_stream(compute)
         return dev
+
+    def _count_h2d(self, nbytes: int) -> None:
+        self.h2d_bytes += nbytes
+        metrics.add("h2d_bytes", nbytes)
+
+    def _count_cold(self) -> None:
+        """One full upload under the ring (the first segment, a break)."""
+        self.ring_cold_dispatches += 1
+        metrics.add("ring_cold_dispatches")
 
     def _upload_source(self, raw: np.ndarray) -> torch.Tensor:
         """One segment's host bytes as a tensor to upload from: contiguous
@@ -752,11 +786,39 @@ class SegmentProcessor:
 
     # -------------------------------------------------- device execution
 
+    def _timed_first(self, name: str, fn):
+        """``fn()``, the first dispatch of program family ``name`` on
+        this processor timed as its compile: its host wall clock (the
+        launches' enqueue and the kernels' builds at first use, not the
+        card's execution) adds to ``compile_seconds`` and one to
+        ``plan_compiles``, and sets ``last_compile_ms``, as the
+        reference counts its first-dispatch trace and compile.  Marked
+        only after ``fn`` returned: a failed first dispatch leaves the
+        family to its retry."""
+        if name in self._dispatched_programs:
+            return fn()
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        self._dispatched_programs.add(name)
+        metrics.add("plan_compiles")
+        metrics.add("compile_seconds", dt)
+        metrics.set("last_compile_ms", dt * 1e3)
+        if self._metric_labels is not None:
+            metrics.add("plan_compiles", labels=self._metric_labels)
+            metrics.add("compile_seconds", dt, labels=self._metric_labels)
+        return out
+
     def run_device(self, raw: torch.Tensor
                    ) -> tuple[torch.Tensor, det.DetectResult]:
         """The chain on one segment's device-resident bytes, enqueued on
         the current stream: no host read, no synchronisation.  With
         ``quality_stats`` the result carries the quality vector."""
+        return self._timed_first("staged" if self.staged else "fused",
+                                 lambda: self._chain(raw))
+
+    def _chain(self, raw: torch.Tensor
+               ) -> tuple[torch.Tensor, det.DetectResult]:
         self._check_live()
         cfg = self.cfg
         spec = self._spectrum(raw)
@@ -801,16 +863,21 @@ class SegmentProcessor:
         bins, _dead, _hot, k = self.quality_params
         return Q.spectrum_stats(spec, bins, k)
 
-    def run_device_ring(self, raw: torch.Tensor):
+    def run_device_ring(self, raw: torch.Tensor, warm: bool = True):
         """The ring's step on a staged segment, warm or cold (the bytes
-        are the segment's own either way, so are the results).  Returns
-        ``((waterfall, detect), next_carry)``: ``next_carry`` is the
-        segment's reserved tail, a view of ``raw`` that the caller hands
-        to the next warm ``stage_input``."""
+        are the segment's own either way, so are the results; ``warm``
+        names the program family, ``ring`` or ``ring_cold``, staged
+        ``staged_ring``/``staged_ring_cold``, as the reference's).
+        Returns ``((waterfall, detect), next_carry)``: ``next_carry`` is
+        the segment's reserved tail, a view of ``raw`` that the caller
+        hands to the next warm ``stage_input``."""
         if not self.ring:
             raise ValueError("ingest ring disabled for this plan "
                              "(Config.ingest_ring / no reserved tail)")
-        return self.run_device(raw), raw[self.stride_bytes:]
+        family = ("staged_" if self.staged else "") + (
+            "ring" if warm else "ring_cold")
+        return (self._timed_first(family, lambda: self._chain(raw)),
+                raw[self.stride_bytes:])
 
     # ------------------------------------------------------ micro-batch
 
@@ -855,8 +922,8 @@ class SegmentProcessor:
                                  "(Config.ingest_ring)")
             self.ring_warm_dispatches += 1
         elif self.ring:
-            self.ring_cold_dispatches += 1
-        self.h2d_bytes += sum(s.nbytes for s in srcs)
+            self._count_cold()
+        self._count_h2d(sum(s.nbytes for s in srcs))
         if self.device.type != "cuda":
             if carry is None:
                 return torch.stack(srcs)
@@ -887,7 +954,10 @@ class SegmentProcessor:
         lane at a time in lane order, enqueued on the current stream: a
         list of B ``(waterfall, detect)``, each lane's bits a single
         dispatch's."""
-        return [self.run_device(raw) for raw in raws]
+        return self._timed_first("batch", lambda: self._lanes(raws))
+
+    def _lanes(self, raws) -> list:
+        return [self._chain(raw) for raw in raws]
 
     def run_batch_cold(self, raws: torch.Tensor):
         """The ring's cold batch step: :meth:`run_batch` and the next
@@ -895,7 +965,8 @@ class SegmentProcessor:
         if not self.ring:
             raise ValueError("ingest ring disabled for this plan "
                              "(Config.ingest_ring / no reserved tail)")
-        return self.run_batch(raws), raws[-1, self.stride_bytes:]
+        return (self._timed_first("batch_cold", lambda: self._lanes(raws)),
+                raws[-1, self.stride_bytes:])
 
     def run_batch_ring(self, window: torch.Tensor):
         """The ring's warm batch step on a window from
@@ -907,8 +978,8 @@ class SegmentProcessor:
                              "(Config.ingest_ring / no reserved tail)")
         seg, stride = self._segment_bytes, self.stride_bytes
         b = (window.numel() - self.reserved_bytes) // stride
-        lanes = [self.run_device(window[i * stride:i * stride + seg])
-                 for i in range(b)]
+        lanes = self._timed_first("batch_ring", lambda: self._lanes(
+            [window[i * stride:i * stride + seg] for i in range(b)]))
         return lanes, window[window.numel() - self.reserved_bytes:]
 
     def process_batch(self, raws) -> list:
@@ -934,6 +1005,6 @@ class SegmentProcessor:
         if not self.ring:
             raise ValueError("ingest ring disabled for this plan "
                              "(Config.ingest_ring / no reserved tail)")
-        self.ring_cold_dispatches += 1
+        self._count_cold()
         return self.run_batch_cold(self._batch_on_device(
             raws, self._segment_bytes))

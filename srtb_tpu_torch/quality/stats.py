@@ -33,8 +33,9 @@ so the device vector follows the float64 golden model
 :func:`quality_stats_oracle`: the zero counts behind ``zap_frac`` and the
 occupancy row, and the channel counts behind ``dead_frac`` and
 ``hot_frac``, are exact.  :class:`QualityMonitor` is the host side: the
-EWMA bandpass-drift detector, the per-segment dict and a bounded
-timeline (its ``quality_*`` gauges wait for ROADMAP A9).
+``quality_*`` gauges, the EWMA bandpass-drift detector
+(``quality_drift_score``, ``quality_drift_alerts``), the per-segment
+dict (the journal's ``quality`` section) and a bounded timeline.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ import math
 import numpy as np
 import torch
 
+from srtb_tpu_torch.utils.metrics import metrics
+
 # scalar slots ahead of the two coarse maps (see module docstring)
 IDX_ZAP_FRAC = 0
 IDX_BANDPASS_MEAN = 1
@@ -54,6 +57,16 @@ IDX_SK_MAX = 4
 IDX_DEAD_FRAC = 5
 IDX_HOT_FRAC = 6
 N_SCALARS = 7
+# the scalar fields' gauges (the reference's names)
+SCALAR_GAUGES = (
+    ("quality_zap_fraction", IDX_ZAP_FRAC),
+    ("quality_bandpass_mean", IDX_BANDPASS_MEAN),
+    ("quality_bandpass_var", IDX_BANDPASS_VAR),
+    ("quality_sk_mean", IDX_SK_MEAN),
+    ("quality_sk_max", IDX_SK_MAX),
+    ("quality_dead_frac", IDX_DEAD_FRAC),
+    ("quality_hot_frac", IDX_HOT_FRAC),
+)
 
 DEFAULT_COARSE_BINS = 64
 
@@ -271,10 +284,11 @@ TIMELINE_SPANS = 64
 
 
 class QualityMonitor:
-    """Host-side consumer of the packed quality vector: the bandpass
+    """Host-side consumer of the packed quality vector: the gauges (with
+    their ``stream``-labeled twins for a named stream), the bandpass
     drift detector, the per-segment dict (the reference's journal dict)
     and a bounded timeline.  ``None`` when ``Config.quality_stats`` is
-    off.  The reference's ``quality_*`` gauges wait for ROADMAP A9."""
+    off."""
 
     def __init__(self, drift_alpha: float = 0.05,
                  drift_threshold: float = 4.0, stream: str = ""):
@@ -301,6 +315,18 @@ class QualityMonitor:
             v = v[None, :]
         mean = v.mean(axis=0)
         score, alert = self.drift.observe(mean[IDX_BANDPASS_MEAN])
+        lbl = {"stream": self.stream} if self.stream else None
+        for gname, idx in SCALAR_GAUGES:
+            metrics.set(gname, float(mean[idx]))
+            if lbl:
+                metrics.set(gname, float(mean[idx]), labels=lbl)
+        metrics.set("quality_drift_score", score)
+        if lbl:
+            metrics.set("quality_drift_score", score, labels=lbl)
+        if alert:
+            metrics.add("quality_drift_alerts")
+            if lbl:
+                metrics.add("quality_drift_alerts", labels=lbl)
         b = (mean.shape[0] - N_SCALARS) // 2
         out = {
             "zap_frac": round(float(mean[IDX_ZAP_FRAC]), 5),

@@ -14,9 +14,10 @@ wait on the sink, read as occupancy 1.0; else the sink queue's fraction)
 on a real-time source only (a file run throttles its reader losslessly),
 and whether accounted segment loss happened in the recent window.
 Hysteresis (``hold`` observations above ``high`` / below ``low``) keeps
-one slow flush from thrashing it.  Counted: ``degrade_level``,
-``degrade_steps``, ``degrade_recoveries``; the engine counts the sheds
-(``shed_waterfalls``, ``shed_baseband``).
+one slow flush from thrashing it.  Counted in the metrics registry:
+``degrade_level`` (with its ``stream``-labeled twin for a named stream),
+``degrade_steps``, ``degrade_recoveries``, each step a ``degrade`` event;
+the engine counts the sheds (``shed_waterfalls``, ``shed_baseband``).
 
 The reference's ``FleetShedPolicy`` serves its fleet only and comes with
 ROADMAP A8.
@@ -24,8 +25,9 @@ ROADMAP A8.
 
 from __future__ import annotations
 
-from srtb_tpu_torch.resilience.counters import Counters
+from srtb_tpu_torch.utils import events
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 LEVELS = ("full", "shed_waterfall", "shed_baseband", "shed_segments")
 
@@ -35,7 +37,7 @@ class DegradationLadder:
     sink backlog and loss a drained segment."""
 
     def __init__(self, high: float = 0.9, low: float = 0.25,
-                 hold: int = 3, counters: Counters | None = None):
+                 hold: int = 3, stream: str = ""):
         if not 0.0 <= low < high <= 1.0:
             raise ValueError(f"need 0 <= low < high <= 1, got "
                              f"low={low} high={high}")
@@ -45,16 +47,20 @@ class DegradationLadder:
         self.level = 0
         self._above = 0
         self._below = 0
-        self.counters = counters if counters is not None else Counters()
-        self.counters.set("degrade_level", 0)
+        self._labels = {"stream": str(stream)} if stream else None
+        self._set_gauge(0)
 
     @classmethod
-    def from_config(cls, cfg, counters: Counters | None = None
-                    ) -> "DegradationLadder":
+    def from_config(cls, cfg) -> "DegradationLadder":
         return cls(high=float(getattr(cfg, "degrade_queue_high", 0.9)),
                    low=float(getattr(cfg, "degrade_queue_low", 0.25)),
                    hold=int(getattr(cfg, "degrade_hold_segments", 3)),
-                   counters=counters)
+                   stream=str(getattr(cfg, "stream_name", "") or ""))
+
+    def _set_gauge(self, level: int) -> None:
+        metrics.set("degrade_level", level)
+        if self._labels is not None:
+            metrics.set("degrade_level", level, labels=self._labels)
 
     def observe(self, occupancy: float, loss_active: bool) -> int:
         """One observation; returns the (possibly updated) level."""
@@ -71,7 +77,11 @@ class DegradationLadder:
         if self._above >= self.hold and self.level < len(LEVELS) - 1:
             self.level += 1
             self._above = 0
-            self.counters.add("degrade_steps")
+            metrics.add("degrade_steps")
+            events.emit("degrade",
+                        stream=(self._labels or {}).get("stream"),
+                        info=f"{LEVELS[self.level - 1]}->"
+                             f"{LEVELS[self.level]}")
             log.warning(
                 f"[degrade] sustained pressure (occupancy "
                 f"{occupancy:.2f}, loss={loss_active}): stepping up to "
@@ -79,8 +89,12 @@ class DegradationLadder:
         elif self._below >= self.hold and self.level > 0:
             self.level -= 1
             self._below = 0
-            self.counters.add("degrade_recoveries")
+            metrics.add("degrade_recoveries")
+            events.emit("degrade",
+                        stream=(self._labels or {}).get("stream"),
+                        info=f"{LEVELS[self.level + 1]}->"
+                             f"{LEVELS[self.level]}")
             log.info(f"[degrade] pressure cleared: recovering to level "
                      f"{self.level} ({LEVELS[self.level]})")
-        self.counters.set("degrade_level", self.level)
+        self._set_gauge(self.level)
         return self.level

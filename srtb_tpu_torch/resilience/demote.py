@@ -32,8 +32,10 @@ process resuming from the checkpoint (``checkpoint_path``,
 **Promotion probe.**  With ``promote_after_segments = N > 0``, N healthy
 drained segments on a demoted plan promote one rung back up.
 
-Counted: ``plan_demotions``, ``plan_promotions``, ``device_reinits``, the
-``plan_ladder_level`` gauge (``resilience/counters.py``).
+Counted in the metrics registry: ``plan_demotions``, ``plan_promotions``,
+``device_reinits`` and the ``plan_ladder_level`` gauge (each with its
+``stream``-labeled twin for a named stream), each transition a
+``heal.demote``, ``heal.promote`` or ``heal.reinit`` event.
 """
 
 from __future__ import annotations
@@ -41,10 +43,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from srtb_tpu_torch.pipeline import registry
-from srtb_tpu_torch.resilience.counters import Counters
 from srtb_tpu_torch.resilience.errors import classify_device
 from srtb_tpu_torch.resilience.supervisor import Supervisor
+from srtb_tpu_torch.utils import events
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 # the canonical rung order, read from the registry
 LADDER_ORDER = registry.ladder_order()
@@ -103,8 +106,7 @@ class ComputeHealer:
 
     def __init__(self, cfg, factory, steps: tuple[str, ...] = None,
                  base_staged: bool | None = None, promote_after: int = 0,
-                 reinit_max: int = 0, reinit_window_s: float = 300.0,
-                 counters: Counters | None = None):
+                 reinit_max: int = 0, reinit_window_s: float = 300.0):
         if steps is None:
             steps = parse_ladder(getattr(cfg, "plan_ladder", "auto"))
         self._cfg = cfg
@@ -115,18 +117,17 @@ class ComputeHealer:
         self._level = 0
         self._healthy = 0
         self.promote_after = int(promote_after)
-        self.counters = counters if counters is not None else Counters()
         self._reinit = None
         if int(reinit_max) > 0:
             self._reinit = Supervisor(
                 "device_reinit", max_restarts=int(reinit_max),
-                window_s=float(reinit_window_s))
-        self.counters.set("plan_ladder_level", 0)
+                window_s=float(reinit_window_s), counter=None)
+        stream = str(getattr(cfg, "stream_name", "") or "")
+        self._labels = {"stream": stream} if stream else None
+        self._mark(None)
 
     @classmethod
-    def from_config(cls, cfg, factory,
-                    counters: Counters | None = None
-                    ) -> "ComputeHealer | None":
+    def from_config(cls, cfg, factory) -> "ComputeHealer | None":
         """None when both mechanisms are off: ``plan_ladder = off`` and
         ``device_reinit_max = 0``."""
         steps = parse_ladder(getattr(cfg, "plan_ladder", "auto"))
@@ -139,13 +140,22 @@ class ComputeHealer:
                               or 0),
             reinit_max=reinit_max,
             reinit_window_s=float(getattr(cfg, "device_reinit_window_s",
-                                          300.0)),
-            counters=counters)
+                                          300.0)))
 
     def _mark(self, counter: str | None) -> None:
+        """Count ``counter`` (None: none) and set the ladder gauge."""
         if counter is not None:
-            self.counters.add(counter)
-        self.counters.set("plan_ladder_level", self._level)
+            metrics.add(counter)
+        metrics.set("plan_ladder_level", self._level)
+        if self._labels is not None:
+            if counter is not None:
+                metrics.add(counter, labels=self._labels)
+            metrics.set("plan_ladder_level", self._level,
+                        labels=self._labels)
+
+    @property
+    def _stream(self) -> str | None:
+        return (self._labels or {}).get("stream")
 
     # ------------------------------------------------------- state
 
@@ -201,6 +211,8 @@ class ComputeHealer:
         self._healthy = 0
         rung = self._rungs[self._level - 1]
         self._mark("plan_demotions")
+        events.emit("heal.demote", stream=self._stream,
+                    info=f"{rung.step}@{self._level} ({kind})")
         log.warning(
             f"[selfheal] device fault ({kind}) — demoting to ladder "
             f"rung {self._level}/{len(self._rungs)} ({rung.step}): "
@@ -212,7 +224,11 @@ class ComputeHealer:
         when the reinit budget is spent within the window."""
         if self._reinit is None or not self._reinit.should_restart(exc):
             return None
-        self.counters.add("device_reinits")
+        metrics.add("device_reinits")
+        if self._labels is not None:
+            metrics.add("device_reinits", labels=self._labels)
+        events.emit("heal.reinit", stream=self._stream,
+                    info=f"{self.active_step}@{self._level}")
         log.warning(
             f"[selfheal] device halt — reinitializing at ladder rung "
             f"{self._level} ({self.active_step}): {exc!r}")
@@ -237,6 +253,8 @@ class ComputeHealer:
         self._level -= 1
         self._healthy = 0
         self._mark("plan_promotions")
+        events.emit("heal.promote", stream=self._stream,
+                    info=f"{self.active_step}@{self._level}")
         log.info(
             f"[selfheal] {self.promote_after} healthy segments — "
             f"promotion probe back to rung {self._level} "

@@ -41,7 +41,9 @@ from dataclasses import dataclass, field
 
 from srtb_tpu_torch.resilience.errors import (INJECTED_TAG, DataLossError,
                                               FatalError, TransientError)
+from srtb_tpu_torch.utils import events
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 SITES = ("ingest", "h2d", "dispatch", "fetch", "sink_write",
          "checkpoint")
@@ -143,8 +145,7 @@ class FaultInjector:
     """Armed fault sites; ``fire`` is the hook the pipeline calls with
     the current segment index."""
 
-    def __init__(self, specs: list[FaultSpec], counters=None):
-        self.counters = counters
+    def __init__(self, specs: list[FaultSpec]):
         self._by_site: dict[str, dict[int, FaultSpec]] = {}
         for s in specs:
             site = self._by_site.setdefault(s.site, {})
@@ -155,31 +156,31 @@ class FaultInjector:
             site[s.index] = s
 
     @classmethod
-    def from_plan(cls, text: str, stream: str = "",
-                  counters=None) -> "FaultInjector | None":
+    def from_plan(cls, text: str, stream: str = ""
+                  ) -> "FaultInjector | None":
         """None for an empty plan, or when every entry is scoped to
-        another stream.  ``counters`` (a ``Counters``) receives
-        ``faults_injected``."""
+        another stream."""
         if not text or not text.strip():
             return None
         specs = [s for s in parse_plan(text)
                  if s.stream is None or s.stream == stream]
         if not specs:
             return None
-        return cls(specs, counters)
+        return cls(specs)
 
     def armed(self, site: str) -> bool:
         return site in self._by_site
 
     def fire(self, site: str, index: int) -> None:
         """Raise or stall if a fault is scheduled at (site, index) and
-        has not fired yet."""
+        has not fired yet.  Counted per fire (``faults_injected``, a
+        ``fault.injected`` event)."""
         spec = self._by_site.get(site, {}).get(index)
         if spec is None or spec.fired:
             return
         spec.fired = True
-        if self.counters is not None:
-            self.counters.add("faults_injected")
+        metrics.add("faults_injected")
+        events.emit("fault.injected", seg=index, info=str(spec))
         log.warning(f"[faults] firing {spec}")
         if spec.action == "stall":
             time.sleep(spec.arg)

@@ -21,7 +21,9 @@ import zlib
 from dataclasses import dataclass
 
 from srtb_tpu_torch.resilience.errors import DATA_LOSS, TRANSIENT, classify
+from srtb_tpu_torch.utils import events
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 
 @dataclass(frozen=True)
@@ -59,10 +61,10 @@ class RetryPolicy:
         return base * (1.0 + self.jitter * (2.0 * h - 1.0))
 
 
-def retry_call(fn, policy: RetryPolicy, site: str, sleep=time.sleep,
-               counters=None):
-    """Run ``fn`` under ``policy``, counting into ``counters`` (a
-    :class:`~srtb_tpu_torch.resilience.counters.Counters`, or None).
+def retry_call(fn, policy: RetryPolicy, site: str, sleep=time.sleep):
+    """Run ``fn`` under ``policy``, counting ``retries_total``,
+    ``retries_<site>`` and ``data_loss_total`` (a ``retry`` event an
+    attempt, on the thread's current trace).
     Raises the last failure when it is not TRANSIENT or DATA_LOSS, when
     the attempts are spent, or when the next backoff would cross the
     deadline.  The path without a failure is one try/except."""
@@ -77,8 +79,9 @@ def retry_call(fn, policy: RetryPolicy, site: str, sleep=time.sleep,
         if cat not in (TRANSIENT, DATA_LOSS):
             # FATAL escalates; DEVICE goes to the demotion ladder
             raise exc
-        if cat == DATA_LOSS and counters is not None:
-            counters.add("data_loss_total")
+        if cat == DATA_LOSS:
+            # the retry may succeed, but the loss itself happened
+            metrics.add("data_loss_total")
         if attempt >= policy.max_attempts:
             log.error(f"[resilience] {site}: {exc!r} — retry budget "
                       f"({policy.max_attempts} attempts) exhausted")
@@ -89,9 +92,9 @@ def retry_call(fn, policy: RetryPolicy, site: str, sleep=time.sleep,
             log.error(f"[resilience] {site}: {exc!r} — retry deadline "
                       f"{policy.deadline_s}s would be exceeded")
             raise exc
-        if counters is not None:
-            counters.add("retries_total")
-            counters.add(f"retries_{site}")
+        metrics.add("retries_total")
+        metrics.add(f"retries_{site}")
+        events.emit("retry", info=f"{site}:{cat}:{attempt}")
         log.warning(
             f"[resilience] {site}: {cat} {exc!r}; retrying "
             f"({attempt}/{policy.max_attempts - 1}) in "

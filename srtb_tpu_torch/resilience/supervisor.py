@@ -6,10 +6,10 @@ A :class:`Supervisor` gives a supervised component (the engine's
 classified transient, data-loss or device are restarted while the budget
 inside the sliding window lasts; fatal crashes (unless ``restart_fatal``)
 and spent budgets escalate to the clean shutdown.  The same budget bounds
-the demotion ladder's device reinits (``resilience/demote.py``).  Each
-approved restart adds one to ``counter`` (and ``<counter>_<name>``) in
-the given ``Counters``; the reference's restart events wait for ROADMAP
-A9.
+the demotion ladder's device reinits (``resilience/demote.py``, which
+counts nothing here).  Each approved restart adds one to ``counter``
+(``worker_restarts`` by default, None: none) and ``<counter>_<name>`` in
+the metrics registry, and emits a ``supervisor.restart`` event.
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ import collections
 import time
 
 from srtb_tpu_torch.resilience.errors import FATAL, classify
+from srtb_tpu_torch.utils import events
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 
 class Supervisor:
@@ -33,14 +35,13 @@ class Supervisor:
 
     def __init__(self, name: str, max_restarts: int = 3,
                  window_s: float = 60.0, restart_fatal: bool = False,
-                 clock=time.monotonic, counter: str | None = None,
-                 counters=None):
+                 clock=time.monotonic,
+                 counter: str | None = "worker_restarts"):
         self.name = name
         self.max_restarts = int(max_restarts)
         self.window_s = float(window_s)
         self.restart_fatal = restart_fatal
         self.counter = counter
-        self.counters = counters
         self._clock = clock
         self._restarts: collections.deque[float] = collections.deque()
 
@@ -66,9 +67,11 @@ class Supervisor:
                 " escalating to clean shutdown")
             return False
         self._restarts.append(now)
-        if self.counter and self.counters is not None:
-            self.counters.add(self.counter)
-            self.counters.add(f"{self.counter}_{self.name}")
+        if self.counter:
+            metrics.add(self.counter)
+            metrics.add(f"{self.counter}_{self.name}")
+        events.emit("supervisor.restart",
+                    info=f"{self.name}:{len(self._restarts)}")
         log.warning(
             f"[supervisor] {self.name}: crashed with {exc!r}; "
             f"restarting ({len(self._restarts)}/{self.max_restarts} "

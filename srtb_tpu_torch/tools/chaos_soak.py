@@ -141,13 +141,18 @@ class _CaptureSink:
 
 
 def _run(cfg, device):
+    """One run from a fresh metrics registry: its stats, captures,
+    counters, unfired specs and installed plans."""
     from srtb_tpu_torch.pipeline.runtime import Pipeline
+    from srtb_tpu_torch.utils.metrics import metrics
+    metrics.reset()
     sink = _CaptureSink()
     with Pipeline(cfg, sinks=[sink], device=device) as pipe:
         stats = pipe.run()
         unfired = pipe.faults.unfired() if pipe.faults else []
-        counters = {k: pipe.counters.get(k) for k in _COUNTERS}
+        counters = {k: metrics.get(k) for k in _COUNTERS}
         plans = [plan for _step, plan in pipe.plan_history]
+    metrics.reset()
     return stats, sink, counters, unfired, plans
 
 

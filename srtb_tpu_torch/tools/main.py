@@ -24,7 +24,12 @@ run: start it again with the same arguments after a crash),
 ``stall`` and ``fatal``) pass through as in ``srtb-main``, and so does
 ``search_mode = periodicity`` (the harmonic-summed search and folded
 profiles, ``.fold.npy`` and ``.cand.json`` beside a positive's dumps).
-Ends with the same ``[main] done: N segments, M with signal, X
+The observability settings pass through as well:
+``telemetry_journal_path`` (one span a segment), ``events_dump_path``
+(the flight recorder's dump at the end), ``profile_capture_segments``
+(a torch.profiler trace of the first segments) and the ``slo_*``
+objectives, which ``gui_http_port``'s ``/metrics`` and ``/healthz``
+report.  Ends with the same ``[main] done: N segments, M with signal, X
 Msamples/s`` line.  A ``dm_list`` runs the DM-trial search instead
 (``DMSearchPipeline``: one ``<prefix>dm_trials.jsonl`` record a
 segment), ending with ``[main] dm search done: ...``.
@@ -38,7 +43,7 @@ import sys
 from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.ops import dedisperse as dd
 from srtb_tpu_torch.pipeline.runtime import (DMSearchPipeline, Pipeline,
-                                             PipelineStats)
+                                             PipelineStats, check_processes)
 from srtb_tpu_torch.utils.logging import log
 from srtb_tpu_torch.utils.termination import install_termination_handler
 
@@ -133,6 +138,7 @@ def run(argv=None) -> tuple[PipelineStats, Pipeline]:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _pop_device(argv)
     cfg = Config.from_args(argv)
+    check_processes(cfg)
     if cfg.dm_list:
         return run_dm_search(cfg, device)
     if cfg.gui_http_port and not cfg.gui_enable:
@@ -140,6 +146,9 @@ def run(argv=None) -> tuple[PipelineStats, Pipeline]:
         log.info("[main] gui_http_port set: enabling the waterfall service")
         cfg.gui_enable = True
     log.info(f"[main] nsamps_reserved = {dd.nsamps_reserved(cfg)}")
+    if cfg.telemetry_journal_path:
+        log.info("[main] segment-span journal -> "
+                 f"{cfg.telemetry_journal_path}")
     source = make_source(cfg)
     gui_server = None
     try:
@@ -159,6 +168,7 @@ def run(argv=None) -> tuple[PipelineStats, Pipeline]:
             # best-effort, so it restarts whatever the error
             gui_server = WaterfallHTTPServer(
                 service.out_dir, port=cfg.gui_http_port,
+                health_stale_after_s=cfg.health_stale_after_s,
                 supervisor=Supervisor(
                     "gui_server", max_restarts=cfg.supervisor_max_restarts,
                     window_s=cfg.supervisor_window_s,

@@ -1,0 +1,257 @@
+"""Causal segment tracing and the always-on flight recorder (port of
+``srtb_tpu/utils/events.py``).
+
+- every :class:`~srtb_tpu_torch.pipeline.work.SegmentWork` carries a
+  ``trace_id``, stamped at ingest by the pipeline from
+  :func:`next_trace_id`;
+- every layer that touches a segment emits a typed, monotonic-clocked
+  event onto the hub: the stage edges (ingest, dispatch, fetch, sink),
+  retry attempts, device-fault classifications, the healer's demote,
+  promote and reinit decisions, the degradation ladder, sheds, watchdog
+  requeues, supervisor restarts, the ring's cold re-arms and the run
+  manifest's intent, commit, done and ckpt records;
+- the hub IS the flight recorder: a bounded ring of the last N events
+  per thread (the emit path touches only thread-local state; the shards
+  merge in time order on :meth:`EventHub.dump`), written as JSONL to
+  ``Config.events_dump_path`` at the end of a run.
+
+Cost: off (``events_enable = 0``), call sites hold ``None`` and pay one
+attribute read and a None check; module-level :func:`emit` is one global
+read and a None check.  Armed, each shard preallocates its
+``ring_size`` slots once and an emit overwrites one slot in place with
+one small tuple, so the recorder is O(ring size) however long the run.
+
+The hub is process-global, like the metrics registry: the last pipeline
+constructed arms or disarms it for the whole process.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import threading
+import time
+
+# ---------------------------------------------------------------------
+# event taxonomy (the reference's names; the port emits these):
+#
+#   stage.ingest / stage.dispatch / stage.fetch / stage.sink
+#       one per segment per stage edge; ``dur`` is the stage seconds
+#   ring.cold / ring.invalidate
+#       ingest-ring warm/cold transitions (warm is the steady state and
+#       is implied between a cold re-arm and the next invalidation)
+#   retry
+#       one per retry attempt; info = "site:category:attempt"
+#   fault.injected
+#       a Config.fault_plan entry fired; info = the spec string
+#   fault.device
+#       a dispatch/fetch failure classified as a device fault;
+#       info = "kind:ExcType"
+#   heal.demote / heal.promote / heal.reinit
+#       self-healing ladder decisions; info = "step@level" / "level"
+#   degrade
+#       sink-side degradation ladder level change; info = "old->new"
+#   shed.segment / shed.ingest
+#       whole-segment loss decisions (a wedged sink, a parked window)
+#   watchdog.requeue / watchdog.escalate
+#       in-flight segment re-dispatch and its escalation
+#   supervisor.restart
+#       a bounded-restart supervisor approved a worker restart;
+#       info = "name:count"
+#   manifest.intent / manifest.commit / manifest.done / manifest.ckpt
+#       durable-output WAL records; info = "sink:file" / "offset=..."
+#   manifest.loss
+#       recovery flagged unrecoverable loss (fsck-grade)
+#   slo
+#       an SLO objective changed state; info = "objective:old->new"
+# ---------------------------------------------------------------------
+
+DEFAULT_RING_SIZE = 4096
+
+_trace_counter = itertools.count(1)
+
+
+def next_trace_id() -> int:
+    """Process-unique causal id for one segment's journey.  Stamped
+    onto ``SegmentWork.trace_id`` at ingest; every event a subsystem
+    emits while working on that segment carries it, across threads."""
+    return next(_trace_counter)
+
+
+# total shard bound: memory stays O(MAX_SHARDS x ring_size) however
+# many worker threads a long-lived process churns through (every
+# pipeline run starts a sink thread).  When
+# a new thread would exceed it, DEAD threads' shards are evicted
+# oldest-registration-first — live threads are never evicted, and
+# recently-dead shards (the post-mortem evidence a dump
+# wants) survive until the bound actually forces them out.
+MAX_SHARDS = 64
+
+
+class _Shard:
+    """One thread's ring: ``ring_size`` preallocated slots overwritten
+    in place.  Only its owning thread writes; dump() reads without a
+    lock (a torn read of a slot being overwritten yields either the
+    old or the new tuple — tuple assignment is atomic under the GIL)."""
+
+    __slots__ = ("slots", "i", "n", "thread", "thread_obj")
+
+    def __init__(self, n: int, thread):
+        self.slots = [None] * n
+        self.i = 0
+        self.n = n
+        self.thread = thread.name
+        self.thread_obj = thread
+
+
+class EventHub:
+    """The flight recorder: per-thread ring shards + a merge-on-dump
+    view.  ``emit`` is the single write path; all fields are scalars
+    (no per-event dict), packed as one tuple:
+
+        (t_monotonic, etype, trace_id, stream, seg, dur_s, info)
+    """
+
+    def __init__(self, ring_size: int = DEFAULT_RING_SIZE):
+        if ring_size <= 0:
+            raise ValueError("ring_size must be positive")
+        self.ring_size = int(ring_size)
+        self._tls = threading.local()
+        self._shards: list[_Shard] = []
+        self._lock = threading.Lock()
+        # monotonic->wall mapping captured once, so dumps/exports can
+        # place events on the epoch timeline without per-event clock
+        # syscalls beyond the one monotonic read
+        self.mono0 = time.monotonic()
+        self.wall0 = time.time()
+
+    # ------------------------------------------------------ hot path
+
+    def _shard(self) -> _Shard:
+        sh = getattr(self._tls, "shard", None)
+        if sh is None:
+            sh = _Shard(self.ring_size, threading.current_thread())
+            self._tls.shard = sh
+            with self._lock:
+                if len(self._shards) >= MAX_SHARDS:
+                    # evict dead threads' shards, oldest first
+                    dead = [s for s in self._shards
+                            if not s.thread_obj.is_alive()]
+                    for victim in dead[:len(self._shards)
+                                       - MAX_SHARDS + 1]:
+                        self._shards.remove(victim)
+                self._shards.append(sh)
+        return sh
+
+    def emit(self, etype: str, trace: int = 0, stream: str = "",
+             seg: int = -1, dur: float = 0.0, info: str = "") -> None:
+        sh = getattr(self._tls, "shard", None)
+        if sh is None:
+            sh = self._shard()
+        sh.slots[sh.i % sh.n] = (time.monotonic(), etype, trace,
+                                 stream, seg, dur, info)
+        sh.i += 1
+
+    # ----------------------------------------------------- dump side
+
+    def dump(self, trace: int | None = None) -> list[dict]:
+        """Merged view of every shard, oldest first.  ``trace`` filters
+        to one segment's causal story.  Reads are lock-light: the
+        shard list is copied under the lock, slots are read live (a
+        slot overwritten mid-dump yields a valid tuple either way)."""
+        with self._lock:
+            shards = list(self._shards)
+        out = []
+        for sh in shards:
+            n, i = sh.n, sh.i
+            start = max(0, i - n)
+            for k in range(start, i):
+                ev = sh.slots[k % n]
+                if ev is None:
+                    continue
+                if trace is not None and ev[2] != trace:
+                    continue
+                out.append({
+                    "t": ev[0],
+                    "ts": self.wall0 + (ev[0] - self.mono0),
+                    "type": ev[1],
+                    "trace": ev[2],
+                    "stream": ev[3],
+                    "seg": ev[4],
+                    "dur_ms": round(ev[5] * 1e3, 4),
+                    "info": ev[6],
+                    "thread": sh.thread,
+                })
+        out.sort(key=lambda e: e["t"])
+        return out
+
+    def dump_jsonl(self, path: str,
+                   trace: int | None = None) -> int:
+        """Write a dump to ``path`` (one JSON object per line, the
+        reference's format).  Returns the record count."""
+        evs = self.dump(trace=trace)
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            for ev in evs:
+                f.write(json.dumps(ev, sort_keys=True) + "\n")
+        return len(evs)
+
+
+# ---------------------------------------------------------------------
+# process-global hub + ambient trace context
+# ---------------------------------------------------------------------
+
+# the always-on default: the flight recorder exists from import so the
+# recent past is reconstructable even before any Pipeline configures it
+hub: EventHub | None = EventHub()
+
+_ambient = threading.local()
+
+
+def configure(enabled: bool = True,
+              ring_size: int = DEFAULT_RING_SIZE) -> None:
+    """Arm/disarm the process-global hub.  Arming with the hub already
+    live at the same ring size KEEPS it (and its recent events) — a
+    process constructing N pipelines must not wipe the recorder N
+    times."""
+    global hub
+    if not enabled:
+        hub = None
+        return
+    if hub is None or hub.ring_size != int(ring_size):
+        hub = EventHub(ring_size=ring_size)
+
+
+def set_current(trace: int, stream: str = "") -> None:
+    """Bind the ambient (thread-local) causal context: events emitted
+    by subsystems that don't thread a trace id through their API
+    (retry backoffs, manifest records, heal decisions) attach to the
+    segment whose work this thread is currently doing."""
+    _ambient.trace = trace
+    _ambient.stream = stream
+
+
+def current() -> tuple[int, str]:
+    return (getattr(_ambient, "trace", 0),
+            getattr(_ambient, "stream", ""))
+
+
+def emit(etype: str, trace: int | None = None, stream: str | None = None,
+         seg: int = -1, dur: float = 0.0, info: str = "") -> None:
+    """Module-level emit with ambient-context fallback: ``trace=None``
+    /``stream=None`` resolve from :func:`set_current`.  One global
+    read + None check when the recorder is off."""
+    h = hub
+    if h is None:
+        return
+    if trace is None or stream is None:
+        at, astream = current()
+        if trace is None:
+            trace = at
+        if stream is None:
+            stream = astream
+    h.emit(etype, trace=trace, stream=stream, seg=seg, dur=dur,
+           info=info)

@@ -1,0 +1,531 @@
+"""The metrics registry (port of ``srtb_tpu/utils/metrics.py``).
+
+Typed instruments, as the reference keeps them:
+
+- flat **counters/gauges** (``add``/``set``), optionally labeled;
+- bounded-bucket **histograms** with interpolated p50/p95/p99 (the
+  per-stage host wall clock, ``stage_seconds{stage=...}``, and the
+  per-segment ``device_seconds``);
+- **sliding windows** for rates over the last N seconds (a stalled
+  pipeline shows 0 segments/s at once instead of a slowly decaying
+  lifetime average).
+
+One process-global registry (:data:`metrics`) feeds the JSON snapshot
+(``/metrics.json``), the Prometheus text exposition (``/metrics``) and
+the span journal (``utils/telemetry.py``).  Names, HELP lines, the
+derived series and the text output are the reference's, byte for byte
+(the one HELP line that names the profiler names torch's).  Tests and
+the soaks call :meth:`Metrics.reset` between runs.
+"""
+
+from __future__ import annotations
+
+import bisect
+import collections
+import json
+import math
+import re
+import threading
+import time
+
+# Exponential-ish bounds from 0.5 ms to 2 min: host stage times span
+# ~1 ms (sink push) to ~minutes (a 2^30 cold compile inside the first
+# dispatch); the overflow bucket catches anything slower.
+DEFAULT_TIME_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0)
+
+
+class Histogram:
+    """Bounded-bucket histogram (Prometheus cumulative-bucket semantics)
+    with linearly interpolated quantiles.
+
+    ``bounds`` are upper bucket edges; one overflow bucket is implicit.
+    Quantiles interpolate within the owning bucket (the first bucket
+    interpolates from 0, the overflow bucket clamps to the highest
+    finite edge — the same convention as PromQL's histogram_quantile,
+    so the /metrics view and the in-process view agree).
+    """
+
+    __slots__ = ("name", "labels", "bounds", "_counts", "sum", "count",
+                 "_lock")
+
+    def __init__(self, name: str, buckets=DEFAULT_TIME_BUCKETS,
+                 labels: dict | None = None):
+        if not buckets:
+            raise ValueError("histogram needs at least one bucket edge")
+        self.name = name
+        self.labels = dict(labels or {})
+        self.bounds = tuple(sorted(float(b) for b in buckets))
+        self._counts = [0] * (len(self.bounds) + 1)
+        self.sum = 0.0
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        i = bisect.bisect_left(self.bounds, value)
+        with self._lock:
+            self._counts[i] += 1
+            self.sum += value
+            self.count += 1
+
+    def quantile(self, q: float) -> float:
+        """Interpolated q-quantile (q in [0, 1]); NaN when empty."""
+        with self._lock:
+            counts = list(self._counts)
+            total = self.count
+        if total == 0:
+            return math.nan
+        rank = q * total
+        cum = 0.0
+        for i, c in enumerate(counts):
+            if cum + c >= rank and c > 0:
+                if i >= len(self.bounds):       # overflow bucket
+                    return self.bounds[-1]
+                lo = self.bounds[i - 1] if i > 0 else 0.0
+                hi = self.bounds[i]
+                return lo + (hi - lo) * (rank - cum) / c
+            cum += c
+        return self.bounds[-1]
+
+    def percentiles(self) -> dict:
+        return {"p50": self.quantile(0.50), "p95": self.quantile(0.95),
+                "p99": self.quantile(0.99)}
+
+    def cumulative_buckets(self) -> list[tuple[float, int]]:
+        """[(upper_edge, cumulative_count)] including (+inf, total)."""
+        with self._lock:
+            counts = list(self._counts)
+        out = []
+        cum = 0
+        for edge, c in zip(self.bounds, counts):
+            cum += c
+            out.append((edge, cum))
+        out.append((math.inf, cum + counts[-1]))
+        return out
+
+
+class SlidingWindow:
+    """Sum/rate of increments over the trailing ``window_s`` seconds.
+
+    A lifetime average hides a stall for minutes; the window answers
+    "what is the pipeline doing *now*".  ``clock`` is injectable for
+    deterministic tests.
+    """
+
+    __slots__ = ("name", "window_s", "_clock", "_events", "_start",
+                 "_lock")
+
+    def __init__(self, name: str, window_s: float = 10.0,
+                 clock=time.monotonic):
+        if window_s <= 0:
+            raise ValueError("window_s must be positive")
+        self.name = name
+        self.window_s = float(window_s)
+        self._clock = clock
+        self._events: collections.deque = collections.deque()
+        self._start = clock()
+        self._lock = threading.Lock()
+
+    def _prune(self, now: float) -> None:
+        cutoff = now - self.window_s
+        while self._events and self._events[0][0] < cutoff:
+            self._events.popleft()
+
+    def add(self, value: float = 1.0) -> None:
+        now = self._clock()
+        with self._lock:
+            self._events.append((now, value))
+            self._prune(now)
+
+    def sum(self) -> float:
+        now = self._clock()
+        with self._lock:
+            self._prune(now)
+            return float(sum(v for _, v in self._events))
+
+    def rate(self) -> float:
+        """Per-second rate over the window (over the elapsed time while
+        younger than one window, so early readings aren't diluted)."""
+        now = self._clock()
+        with self._lock:
+            self._prune(now)
+            total = sum(v for _, v in self._events)
+        denom = min(self.window_s, max(now - self._start, 1e-9))
+        return float(total) / denom
+
+
+def _label_key(labels: dict | None) -> tuple:
+    return tuple(sorted((labels or {}).items()))
+
+
+class Metrics:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counters: dict[str, float] = {}
+        # labeled scalar series (multi-tenant fleet: the same counter
+        # name per stream, e.g. segments_dropped{stream="beam3"}),
+        # keyed (name, sorted-label-items).  Deliberately SEPARATE
+        # from the flat series: a labeled bump never moves the
+        # process-wide total — call sites that want both bump both,
+        # so single-stream dashboards keep their exact semantics.
+        self._labeled: dict[tuple, float] = {}
+        self._histograms: dict[tuple, Histogram] = {}
+        self._windows: dict[str, SlidingWindow] = {}
+        self._start = time.monotonic()
+
+    def add(self, name: str, value: float = 1.0,
+            labels: dict | None = None) -> None:
+        with self._lock:
+            if labels:
+                key = (name, _label_key(labels))
+                self._labeled[key] = self._labeled.get(key, 0.0) + value
+            else:
+                self._counters[name] = (self._counters.get(name, 0.0)
+                                        + value)
+
+    def set(self, name: str, value: float,
+            labels: dict | None = None) -> None:
+        with self._lock:
+            if labels:
+                self._labeled[(name, _label_key(labels))] = value
+            else:
+                self._counters[name] = value
+
+    def get(self, name: str, labels: dict | None = None) -> float:
+        with self._lock:
+            if labels:
+                return self._labeled.get((name, _label_key(labels)),
+                                         0.0)
+            return self._counters.get(name, 0.0)
+
+    def labeled_series(self, name: str) -> list:
+        """[(labels_dict, value)] for every labeled series of ``name``
+        (sorted by label key for determinism)."""
+        with self._lock:
+            out = [(lk, v) for (n, lk), v in self._labeled.items()
+                   if n == name]
+        return [(dict(lk), v) for lk, v in sorted(out)]
+
+    def by_label(self, name: str, label: str = "stream") -> dict:
+        """label-value -> metric value over the labeled series of
+        ``name`` (e.g. per-stream loss: ``by_label(
+        "segments_dropped")`` -> {"beam3": 2.0, ...})."""
+        return {d[label]: v for d, v in self.labeled_series(name)
+                if label in d}
+
+    def histogram(self, name: str, buckets=DEFAULT_TIME_BUCKETS,
+                  labels: dict | None = None) -> Histogram:
+        """Get-or-create; (name, labels) identify the series.  Buckets
+        are fixed at creation (first caller wins, like Prometheus
+        clients)."""
+        key = (name, _label_key(labels))
+        with self._lock:
+            h = self._histograms.get(key)
+            if h is None:
+                h = self._histograms[key] = Histogram(
+                    name, buckets=buckets, labels=labels)
+        return h
+
+    def window(self, name: str, window_s: float = 10.0) -> SlidingWindow:
+        """Get-or-create a sliding-window rate (first caller fixes the
+        window length)."""
+        with self._lock:
+            w = self._windows.get(name)
+            if w is None:
+                w = self._windows[name] = SlidingWindow(
+                    name, window_s=window_s)
+        return w
+
+    def reset(self) -> None:
+        """Clear all instruments and restart the clock (tests; a fresh
+        observation run)."""
+        with self._lock:
+            self._counters.clear()
+            self._labeled.clear()
+            self._histograms.clear()
+            self._windows.clear()
+            self._start = time.monotonic()
+
+    def _scalar_series(self):
+        """Counters + derived scalars (lifetime and windowed loss rate,
+        lifetime Msamples/s, elapsed), plus the instrument lists — ONE
+        computation shared by snapshot() and prometheus() so the JSON
+        and Prometheus views can never drift apart."""
+        with self._lock:
+            out = dict(self._counters)
+            labeled = dict(self._labeled)
+            hists = list(self._histograms.values())
+            windows = list(self._windows.values())
+        elapsed = time.monotonic() - self._start
+        out["elapsed_s"] = elapsed
+        if "samples" in out and elapsed > 0:
+            out["msamples_per_sec"] = out["samples"] / elapsed / 1e6
+        if "packets_total" in out and out["packets_total"] > 0:
+            out["packet_loss_rate"] = (
+                out.get("packets_lost", 0.0) / out["packets_total"])
+        by_name = {w.name: w for w in windows}
+        if "packets_total" in by_name and "packets_lost" in by_name:
+            total_w = by_name["packets_total"].sum()
+            if total_w > 0:
+                out["packet_loss_rate_window"] = (
+                    by_name["packets_lost"].sum() / total_w)
+        # pool-wide aggregates: any family with device-labeled series
+        # grows flat _pool_sum/_pool_max twins (sum/max across pool
+        # members) — the control tower's "whole fleet" view, rendered
+        # as ordinary families with their own contiguous HELP/TYPE
+        # pairs so strict expfmt parsers stay happy
+        pool: dict[str, list] = {}
+        for (n, lk), v in labeled.items():
+            if any(k == "device" for k, _v in lk):
+                pool.setdefault(n, []).append(v)
+        for n, vals in pool.items():
+            out[n + "_pool_sum"] = float(sum(vals))
+            out[n + "_pool_max"] = float(max(vals))
+        return out, labeled, windows, hists
+
+    def snapshot(self) -> dict:
+        out, labeled, windows, hists = self._scalar_series()
+        for (name, lk), v in sorted(labeled.items()):
+            out[name + self._prom_labels(dict(lk))] = v
+        for w in windows:
+            out[f"{w.name}_per_sec_{w.window_s:g}s"] = w.rate()
+        for h in hists:
+            base = "_".join([h.name] + [str(v) for _, v
+                                        in sorted(h.labels.items())])
+            if h.count:
+                p = h.percentiles()
+                out[f"{base}_p50"] = p["p50"]
+                out[f"{base}_p95"] = p["p95"]
+                out[f"{base}_p99"] = p["p99"]
+                out[f"{base}_mean"] = h.sum / h.count
+            out[f"{base}_count"] = h.count
+        return out
+
+    def to_json(self) -> str:
+        return json.dumps(self.snapshot(), sort_keys=True)
+
+    # ---- Prometheus text exposition (format version 0.0.4) ----
+
+    # HELP text per family (exposition-format conformance: every
+    # family gets a # HELP + # TYPE pair; unknown names fall back to
+    # a generic line so third-party counters are still conformant).
+    # Newlines/backslashes would need escaping per the format — keep
+    # these single-line.
+    _HELP = {
+        "segments": "Segments drained end-to-end (lifetime)",
+        "samples": "Baseband samples processed (lifetime)",
+        "signals": "Segments whose detection gate fired",
+        "segments_dropped": "Whole segments shed as accounted loss",
+        "packets_total": "UDP packets expected (counter-derived)",
+        "packets_lost": "UDP packets lost (counter gaps)",
+        "packet_loss_rate": "Lifetime packet loss fraction",
+        "packet_loss_rate_window": "Windowed packet loss fraction",
+        "msamples_per_sec": "Lifetime megasamples per second",
+        "elapsed_s": "Seconds since registry start/reset",
+        "inflight_depth": "Dispatched-through-sink segments in flight",
+        "degrade_level": "Sink-side degradation ladder level",
+        "plan_ladder_level": "Compute demotion ladder level",
+        "plan_demotions": "Self-healing plan demotions",
+        "plan_promotions": "Self-healing promotion probes taken",
+        "device_reinits": "Backend reinitializations after halts",
+        "retries_total": "Guarded-operation retries (all sites)",
+        "watchdog_requeues": "In-flight segments cancelled+requeued",
+        "worker_restarts": "Supervised worker restarts",
+        "shed_waterfalls": "Waterfall dumps withheld by degradation",
+        "shed_baseband": "Sheddable sink pushes skipped",
+        "data_loss_total": "Data-loss-classified faults (retried)",
+        "faults_injected": "Deterministic fault-plan firings",
+        "h2d_bytes": "Host-to-device bytes staged",
+        "ring_cold_dispatches": "Ingest-ring cold (full-upload) "
+                                "dispatches",
+        "recovered_segments": "Segments rescued by manifest recovery",
+        "replayed_skips": "Sink pushes skipped as already committed",
+        "rolled_back_intents": "Uncommitted artifacts rolled back",
+        "manifest_loss_flags": "Unrecoverable-loss flags from "
+                               "manifest recovery",
+        "incident_bundles": "Incident bundles written",
+        "incidents_suppressed": "Incident dumps suppressed "
+                                "(rate/count bound)",
+        "incident_dump_failures": "Incident bundle writes that failed",
+        "slo_burn_rate": "SLO error-budget burn rate (1.0 = spending "
+                         "exactly the budget)",
+        "slo_state": "SLO objective state (0 ok / 1 degraded / "
+                     "2 burning)",
+        "fleet_plan_compiles": "Shared plan-cache processor builds",
+        "fleet_plan_cache_hits": "Shared plan-cache hits",
+        "fleet_admitted": "Streams admitted by the fleet gate",
+        "fleet_queued": "Streams queued behind fleet capacity",
+        "fleet_rejected": "Streams rejected by admission",
+        "fleet_running": "Streams currently running in the fleet",
+        "fleet_queued_depth": "Streams waiting in the admission queue",
+        "fleet_sheds": "Fleet fairness force-shed transitions",
+        "batched_dispatches": "Cross-stream batched device dispatches",
+        "batched_segments": "Segments dispatched inside a "
+                            "cross-stream batch",
+        "batch_size": "Formed cross-stream batch sizes (histogram)",
+        "fleet_idle_waits": "Idle scheduler rounds parked on the "
+                            "event-driven wakeup",
+        "fleet_pool_size": "Pool members the fleet places lanes "
+                           "across",
+        "fleet_device_state": "Pool member state (0 ok / 1 draining "
+                              "/ 2 halted)",
+        "fleet_device_lanes": "Live lanes placed on a pool member",
+        "fleet_readmitted": "Live-migration re-admissions on a "
+                            "target pool member",
+        "fleet_batch_device_guard": "Batch offers re-routed solo by "
+                                    "the post-migration membership "
+                                    "guard",
+        "migrations": "Lane live-migrations between pool members",
+        "device_drains": "Pool members drained (halt, SLO rebalance "
+                         "source, rolling restart)",
+        "fleet_restores": "Fleet fairness restore transitions",
+        "fleet_shed_streams": "Streams currently force-shed",
+        "fleet_streams_total": "Streams submitted to the fleet",
+        "stage_seconds": "Per-stage host wall clock (seconds)",
+        "device_seconds": "Per-segment dispatch-to-ready device wall "
+                          "(upper bound)",
+        "achieved_msamps": "Last segment device-time Msamples/s "
+                           "(lower bound)",
+        "achieved_gbps": "Last segment modeled HBM GB/s over device "
+                         "time (lower bound)",
+        "roofline_frac": "Last segment achieved_gbps over the "
+                         "configured HBM peak (lower bound)",
+        "compile_seconds": "Cumulative trace+compile wall "
+                           "(first-dispatch upper bound + AOT-miss "
+                           "compiles)",
+        "last_compile_ms": "Most recent trace+compile event "
+                           "(milliseconds)",
+        "plan_compiles": "First-dispatch trace+compile events",
+        "aot_cache_hits": "AOT executable cache loads (no compile)",
+        "aot_cache_misses": "AOT executable cache misses (compiled + "
+                            "persisted)",
+        "profile_captures": "On-demand torch.profiler captures written",
+        "quality_zap_fraction": "Fraction of spectrum bins zapped by "
+                                "RFI mitigation (last segment)",
+        "quality_bandpass_mean": "Mean coarse-bandpass power "
+                                 "(last segment)",
+        "quality_bandpass_var": "Coarse-bandpass power variance "
+                                "(last segment)",
+        "quality_sk_mean": "Mean spectral-kurtosis estimate over "
+                           "channels (last segment)",
+        "quality_sk_max": "Max spectral-kurtosis estimate over "
+                          "channels (last segment)",
+        "quality_dead_frac": "Fraction of channels below the dead "
+                             "threshold (last segment)",
+        "quality_hot_frac": "Fraction of channels above the hot "
+                            "threshold (last segment)",
+        "quality_drift_score": "Bandpass EWMA drift score in sigmas "
+                               "(last segment)",
+        "quality_drift_alerts": "Bandpass drift-detector alerts",
+        "canary_injected": "Pulse-injection canaries injected",
+        "canary_checked": "Canary recoveries checked at drain",
+        "canary_failed": "Canary sensitivity-gate failures",
+        "canary_last_snr": "Recovered S/N of the last checked canary",
+        "canary_expected_snr": "Expected canary S/N reference "
+                               "(configured or auto-calibrated)",
+        "canary_sensitivity_ratio": "Last recovered/expected canary "
+                                    "S/N ratio",
+        "detection_health_state": "End-to-end detection health "
+                                  "(0 ok / 1 degraded)",
+        "last_segment_monotonic": "Monotonic stamp of the last "
+                                  "drained segment",
+        "last_segment_unix": "Wall-clock stamp of the last drained "
+                             "segment",
+        "segment_pool_in_use": "Reader buffer-pool buffers in use",
+        "file_bytes_read": "Bytes read from baseband input files",
+    }
+
+    @classmethod
+    def _help_line(cls, prom_name: str, bare: str) -> str:
+        text = cls._HELP.get(bare)
+        if text is None and bare.startswith("retries_"):
+            text = f"Guarded-operation retries at site {bare[8:]}"
+        elif text is None and bare.startswith("worker_restarts_"):
+            text = f"Supervised restarts of component {bare[16:]}"
+        elif text is None and bare.endswith("_per_sec"):
+            text = f"Windowed rate of {bare[:-8]} per second"
+        elif text is None and bare.endswith("_pool_sum"):
+            text = f"Sum of {bare[:-9]} across pool members"
+        elif text is None and bare.endswith("_pool_max"):
+            text = f"Max of {bare[:-9]} across pool members"
+        if text is None:
+            text = "srtb_tpu runtime metric"
+        return f"# HELP {prom_name} {text}"
+
+    @staticmethod
+    def _prom_name(name: str) -> str:
+        return "srtb_" + re.sub(r"[^a-zA-Z0-9_]", "_", name)
+
+    @staticmethod
+    def _prom_labels(labels: dict) -> str:
+        if not labels:
+            return ""
+        def esc(v):
+            return str(v).replace("\\", r"\\").replace('"', r'\"') \
+                         .replace("\n", r"\n")
+        inner = ",".join(f'{k}="{esc(v)}"'
+                         for k, v in sorted(labels.items()))
+        return "{" + inner + "}"
+
+    def prometheus(self) -> str:
+        """Render every instrument in the Prometheus text format: flat
+        counters/gauges as gauges (we don't track which are monotonic),
+        windows as gauges, histograms with cumulative ``_bucket``/
+        ``_sum``/``_count`` series.  The scalar set matches
+        /metrics.json exactly (derived series like packet_loss_rate
+        and msamples_per_sec included), so an alert written against
+        either endpoint sees the other's values too."""
+        scalars, labeled, windows, hists = self._scalar_series()
+        lines = []
+
+        def val(v: float) -> str:
+            return f"{v:.17g}"
+
+        labeled_by_name: dict[str, list] = {}
+        for (n, lk), v in sorted(labeled.items()):
+            labeled_by_name.setdefault(n, []).append((lk, v))
+        for k in sorted(scalars):
+            name = self._prom_name(k)
+            lines.append(self._help_line(name, k))
+            lines.append(f"# TYPE {name} gauge")
+            lines.append(f"{name} {val(scalars[k])}")
+            # labeled samples of the SAME family must stay adjacent
+            # to the flat sample: the exposition format requires one
+            # contiguous group per metric (strict parsers reject a
+            # re-opened family)
+            for lk, v in labeled_by_name.pop(k, []):
+                lines.append(
+                    f"{name}{self._prom_labels(dict(lk))} {val(v)}")
+        for bare in sorted(labeled_by_name):
+            name = self._prom_name(bare)
+            lines.append(self._help_line(name, bare))
+            lines.append(f"# TYPE {name} gauge")
+            for lk, v in labeled_by_name[bare]:
+                lines.append(
+                    f"{name}{self._prom_labels(dict(lk))} {val(v)}")
+        for w in windows:
+            name = self._prom_name(w.name) + "_per_sec"
+            lines.append(self._help_line(name, w.name + "_per_sec"))
+            lines.append(f"# TYPE {name} gauge")
+            lines.append(
+                f'{name}{{window_s="{w.window_s:g}"}} {val(w.rate())}')
+        for hname in sorted({h.name for h in hists}):
+            name = self._prom_name(hname)
+            lines.append(self._help_line(name, hname))
+            lines.append(f"# TYPE {name} histogram")
+            for h in hists:
+                if h.name != hname:
+                    continue
+                for edge, cum in h.cumulative_buckets():
+                    le = "+Inf" if math.isinf(edge) else f"{edge:g}"
+                    labels = dict(h.labels, le=le)
+                    lines.append(
+                        f"{name}_bucket{self._prom_labels(labels)} {cum}")
+                lbl = self._prom_labels(h.labels)
+                lines.append(f"{name}_sum{lbl} {val(h.sum)}")
+                lines.append(f"{name}_count{lbl} {h.count}")
+        return "\n".join(lines) + "\n"
+
+
+metrics = Metrics()

@@ -13,6 +13,7 @@ channel's truncation step or of the [0, 1] edges, where two float32
 computations may round to either side.  Float intensities are held to
 the float64 computation within 1e-5 relative."""
 
+import json
 import os
 import struct
 import zlib
@@ -29,6 +30,7 @@ from srtb_tpu_torch.ops import spectrum as sp
 from srtb_tpu_torch.resilience.supervisor import Supervisor
 from srtb_tpu_torch.tools import make_baseband, plot_spectrum, plot_tim
 from srtb_tpu_torch.tools import test_gui
+from srtb_tpu_torch.utils.metrics import metrics
 from test_torch_ref import (block_matplotlib, run_printing, run_reference,
                             scroll_script, supervisor_script,
                             viewer_responses)
@@ -507,16 +509,31 @@ def _response(res: dict, i: int) -> tuple:
 def test_viewer(ref, frames_dir):
     """The viewer on an OS-chosen port against the reference's on the same
     directory: the page, /frames.json and the frames byte for byte, 404
-    for a missing or non-frame file, 501 naming the ROADMAP item for the
-    metrics, health and fleet endpoints; ``stop()`` joins the thread."""
+    for a missing or non-frame file; /metrics, /metrics.json and /healthz
+    with the reference's status and content types (their bodies are each
+    process's own registry: the Prometheus text, the snapshot, an idle
+    pipeline's health), and 501 naming ROADMAP A8 for /fleet; ``stop()``
+    joins the thread."""
+    metrics.reset()
     got = viewer_responses(WaterfallHTTPServer, str(frames_dir),
                            VIEWER_PATHS)
     assert got["thread_ended"]
     for i, path in enumerate(VIEWER_PATHS):
         status, ctype, body = _response(got, i)
-        if path in ("/metrics", "/metrics.json", "/healthz", "/fleet"):
-            item = "A8" if path == "/fleet" else "A9"
-            assert status == 501 and f"ROADMAP {item}" in body.decode()
+        if path == "/fleet":
+            assert status == 501 and "ROADMAP A8" in body.decode()
+            continue
+        if path in ("/metrics", "/metrics.json", "/healthz"):
+            want = _response(_sub(ref, "viewer"), i)
+            assert (status, ctype) == want[:2] == (200, ctype), path
+            text = body.decode()
+            if path == "/metrics":
+                assert ctype == "text/plain; version=0.0.4"
+                assert "# TYPE srtb_elapsed_s gauge" in text
+            elif path == "/metrics.json":
+                assert "elapsed_s" in json.loads(text)
+            else:
+                assert json.loads(text)["status"] == "idle"
             continue
         assert (status, ctype, body) == _response(_sub(ref, "viewer"),
                                                   i), path

@@ -27,15 +27,17 @@ from srtb_tpu_torch.ops import fft as F
 from srtb_tpu_torch.pipeline import segment as seg
 from srtb_tpu_torch.pipeline.runtime import Pipeline
 from srtb_tpu_torch.resilience import errors as E
-from srtb_tpu_torch.resilience.counters import Counters
 from srtb_tpu_torch.resilience.degrade import DegradationLadder
 from srtb_tpu_torch.resilience.demote import ladder_rungs, parse_ladder
 from srtb_tpu_torch.resilience.faults import (FaultInjector, device_fault,
                                               parse_plan)
 from srtb_tpu_torch.resilience.retry import RetryPolicy, retry_call
 from srtb_tpu_torch.resilience.supervisor import Supervisor
-from test_torch_ref import (classifying_supervisor_script, degrade_script,
-                            drop_oldest_script, environ, resilience_run,
+from srtb_tpu_torch.utils import events
+from srtb_tpu_torch.utils.metrics import metrics
+from test_torch_ref import (RESILIENCE_LAYERS, classifying_supervisor_script,
+                            degrade_script, drop_oldest_script, environ,
+                            resilience_registry_script, resilience_run,
                             run_reference)
 from test_torch_segment import slice_config
 
@@ -183,6 +185,9 @@ def ref(tmp_path_factory, live_input):
                      "fn": "test_torch_ref:ladder_plan_names",
                      "args": [fields, env, staged,
                               RUNG_LADDER.get(name, "auto")]})
+    jobs += [{"key": f"registry/{layer}",
+              "fn": "test_torch_ref:resilience_registry_script",
+              "args": ["srtb_tpu", layer]} for layer in RESILIENCE_LAYERS]
     jobs.append({"key": "live", "fn": "test_torch_ref:ref_resilience_run",
                  "args": [_live_fields(live_input, "ref", True)],
                  "kwargs": {"capture": False, "source_fields":
@@ -290,10 +295,23 @@ def test_backoff_equals_reference(ref):
     assert RetryPolicy.from_config(Config()).max_attempts == 3
 
 
-def test_retry_call_counts_and_never_retries_device():
-    """Transient and data-loss failures retry (data loss counted), a
-    device fault or a fatal one propagates at once."""
-    c = Counters()
+@pytest.fixture
+def registry():
+    """The process-global metrics registry, fresh, and a fresh flight
+    recorder."""
+    saved = events.hub
+    metrics.reset()
+    events.hub = events.EventHub()
+    yield metrics
+    metrics.reset()
+    events.hub = saved
+
+
+def test_retry_call_counts_and_never_retries_device(registry):
+    """Transient and data-loss failures retry (data loss counted in the
+    registry, a ``retry`` event an attempt), a device fault or a fatal
+    one propagates at once."""
+    c = registry
     p = RetryPolicy(max_attempts=3, backoff_base_s=0.0)
     calls = []
 
@@ -302,8 +320,7 @@ def test_retry_call_counts_and_never_retries_device():
         if len(calls) < 3:
             raise E.DataLossError("torn")
         return 7
-    assert retry_call(flaky, p, "fetch", sleep=lambda s: None,
-                      counters=c) == 7
+    assert retry_call(flaky, p, "fetch", sleep=lambda s: None) == 7
     assert (c.get("retries_total"), c.get("retries_fetch"),
             c.get("data_loss_total")) == (2, 2, 2)
     for exc in (torch.cuda.OutOfMemoryError("CUDA out of memory"),
@@ -314,12 +331,15 @@ def test_retry_call_counts_and_never_retries_device():
             calls.append(1)
             raise exc
         with pytest.raises(type(exc)):
-            retry_call(fail, p, "dispatch", sleep=lambda s: None, counters=c)
+            retry_call(fail, p, "dispatch", sleep=lambda s: None)
         assert len(calls) == 1
     with pytest.raises(E.TransientError):
         retry_call(lambda: (_ for _ in ()).throw(E.TransientError("x")),
-                   p, "ingest", sleep=lambda s: None, counters=c)
+                   p, "ingest", sleep=lambda s: None)
     assert c.get("retries_ingest") == 2
+    assert [e["info"] for e in events.hub.dump()] == [
+        "fetch:data_loss:1", "fetch:data_loss:2", "ingest:transient:1",
+        "ingest:transient:2"]
 
 
 def test_parse_plan_equals_reference(ref):
@@ -333,23 +353,25 @@ def test_parse_plan_equals_reference(ref):
         assert got == want, text
 
 
-def test_fault_actions_fire_once_and_count():
-    """Each armed fault fires once and is counted; the stream selector
-    keeps another stream's entries out."""
-    c = Counters()
+def test_fault_actions_fire_once_and_count(registry):
+    """Each armed fault fires once and is counted in the registry, with a
+    ``fault.injected`` event; the stream selector keeps another stream's
+    entries out."""
+    c = registry
     inj = FaultInjector.from_plan(
-        "ingest:raise@0,fetch:stall=0.01@1,other:dispatch:oom@0",
-        counters=c)
+        "ingest:raise@0,fetch:stall=0.01@1,other:dispatch:oom@0")
     assert not inj.armed("dispatch")
     with pytest.raises(E.TransientError):
         inj.fire("ingest", 0)
     inj.fire("ingest", 0)
     inj.fire("fetch", 1)
     assert c.get("faults_injected") == 2 and inj.unfired() == []
+    assert [(e["type"], e["seg"]) for e in events.hub.dump()] == [
+        ("fault.injected", 0), ("fault.injected", 1)]
     assert FaultInjector.from_plan("other:dispatch:oom@0") is None
 
 
-def test_classifying_supervisor_equals_reference(ref):
+def test_classifying_supervisor_equals_reference(ref, registry):
     """A fatal crash escalates at once; transient, data-loss and device
     crashes restart within the budget; the window expires old restarts:
     the reference's decisions on the same clock."""
@@ -361,10 +383,11 @@ def test_classifying_supervisor_equals_reference(ref):
         SUPERVISOR_TIMES)
     assert np.array_equal(got["decisions"], ref["supervisor/decisions"])
     assert got["restarts"] == int(ref["supervisor/restarts"])
-    c = Counters()
-    sup = Supervisor("sink_drain", counter="worker_restarts", counters=c)
+    metrics.reset()
+    sup = Supervisor("sink_drain")
     assert sup.should_restart(E.TransientError("x"))
-    assert c.get("worker_restarts_sink_drain") == 1 and sup.restarts == 1
+    assert registry.get("worker_restarts_sink_drain") == 1
+    assert registry.get("worker_restarts") == 1 and sup.restarts == 1
 
 
 @pytest.mark.parametrize("name", sorted(DEGRADE))
@@ -386,16 +409,27 @@ def test_drop_oldest_buffer_equals_reference(ref):
     assert np.array_equal(got["by_stream"], ref["drop/by_stream"])
 
 
-def test_drop_oldest_loss_feeds_the_pipeline_counters():
-    """A pipeline over a drop-oldest buffer shares its counters, so the
-    degradation ladder's loss window sees the buffer's drops."""
-    c = Counters()
-    buf = DropOldestSegmentBuffer(iter(()), counters=c)
-    buf._thread.join(5)
-    c.add("segments_dropped")
-    c.window_add("segments_dropped")
-    assert c.window_sum("segments_dropped") == 1.0
-    buf.close()
+def test_drop_oldest_loss_feeds_the_pipeline_counters(registry):
+    """The buffer's drops land in the registry's ``segments_dropped`` and
+    its loss window, which the degradation ladder reads, and in the
+    twin labeled by the originating stream."""
+    got = drop_oldest_script(DropOldestSegmentBuffer, 10, 3)
+    assert got["dropped"] == 7
+    assert registry.get("segments_dropped") == 7.0
+    assert registry.window("segments_dropped").sum() == 7.0
+    assert registry.by_label("segments_dropped") == dict(
+        (k, float(v)) for k, v in got["by_stream"].tolist())
+
+
+@pytest.mark.parametrize("layer", RESILIENCE_LAYERS)
+def test_resilience_registry_and_events_equal_reference(ref, registry,
+                                                        layer):
+    """Each layer's counters and gauges (with their stream-labeled twins)
+    and its flight-recorder events, for the same script: the
+    reference's."""
+    got = resilience_registry_script("srtb_tpu_torch", layer)
+    assert got["snapshot"] == str(ref[f"registry/{layer}/snapshot"])
+    assert got["events"].tolist() == ref[f"registry/{layer}/events"].tolist()
 
 
 # ------------------------------------------------------ the ladder rungs
@@ -468,7 +502,7 @@ def test_every_ladder_step_is_covered():
 
 # ------------------------------------------- degradation on a live run
 
-def test_live_degradation_matches_reference(ref, live_input):
+def test_live_degradation_matches_reference(ref, registry, live_input):
     """A real-time run (no input file; a file reader stands in for the
     live source) whose every sink push stalls: the engine waits on the
     sink, and both packages' degradation ladders climb alike — the same
@@ -478,7 +512,7 @@ def test_live_degradation_matches_reference(ref, live_input):
     source = make_file_source(Config(**_live_fields(live_input, "port",
                                                     False)))
     got = resilience_run(Pipeline, cfg,
-                         lambda pipe, k: pipe.counters.get(k),
+                         lambda pipe, k: metrics.get(k),
                          capture=False, source=source, device="cpu")
     assert got["error"] == "" and str(ref["live/error"]) == ""
     assert got["levels"].tolist() == ref["live/levels"].tolist()

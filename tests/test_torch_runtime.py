@@ -14,6 +14,7 @@ multi-stream formats: two-stream files (``interleaved_samples_2``
 both mains at the serial leg, the defaults and write-all, the per-stream
 gate, and the ring's warm steps at every format."""
 
+import json
 import os
 import threading
 import time
@@ -29,8 +30,9 @@ from srtb_tpu_torch.pipeline import framework as fw
 from srtb_tpu_torch.pipeline import runtime as R
 from srtb_tpu_torch.pipeline.segment import SegmentProcessor
 from srtb_tpu_torch.tools import main as M
-from srtb_tpu_torch.utils import termination
+from srtb_tpu_torch.utils import events, slo, termination
 from srtb_tpu_torch.utils.bufferpool import BufferPool
+from srtb_tpu_torch.utils.metrics import metrics
 from test_torch_pipeline import (check_candidate_contents, make_case,
                                  reference_arrays)
 from test_torch_ref import run_reference
@@ -320,50 +322,104 @@ def test_ring_warm_equals_cold_every_format(fmt):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
-# the settings still refused, naming their ROADMAP item: the canary and
-# the span journal
+# the settings still refused: (field, value, the ROADMAP item named)
 UNPORTED_SETTINGS = {
-    "canary_every_segments": ("canary_every_segments", "4"),
-    "telemetry_journal_path": ("telemetry_journal_path", "journal"),
+    "canary_every_segments": ("canary_every_segments", "4", "A9b"),
+    "incident_dir": ("incident_dir", "incidents", "A9b"),
+    "perf_ledger_path": ("perf_ledger_path", "ledger.jsonl", "A9c"),
+    "sanitize": ("sanitize", "1", "A9d"),
+    "distributed_num_processes": ("distributed_num_processes", "2", "A8"),
 }
-# the settings that raised before the micro-batch (A3), durability (A6b)
-# and resilience (A7) slices, and now run: a device fault the ladder
-# recovers, a stall under the default retries, the segment deadline
+# the settings that raised before the micro-batch (A3), durability (A6b),
+# resilience (A7) and observability (A9a) slices, and now run: a device
+# fault the ladder recovers, a stall under the default retries, the
+# segment deadline, the span journal, the events dump and a profile
+# capture ("{tmp}" is the test's directory)
 NOW_PORTED = {
-    "checkpoint_path": ["--checkpoint_path", "ck.json"],
-    "run_manifest_path": ["--run_manifest_path", "manifest.jsonl"],
+    "checkpoint_path": ["--checkpoint_path", "{tmp}/ck.json"],
+    "run_manifest_path": ["--run_manifest_path", "{tmp}/manifest.jsonl"],
     "micro_batch_segments": ["--micro_batch_segments", "2"],
     "fault_plan": ["--fault_plan", "dispatch:oom@1"],
     "fault_plan_with_retries": ["--fault_plan", "checkpoint:stall=0.01@0"],
     "segment_deadline_s": ["--segment_deadline_s", "30"],
+    "telemetry_journal_path": ["--telemetry_journal_path",
+                               "{tmp}/spans.jsonl",
+                               "--telemetry_journal_max_bytes", "100000"],
+    "events_dump_path": ["--events_dump_path", "{tmp}/events.jsonl",
+                         "--events_ring_size", "64"],
+    "profile_capture_segments": ["--profile_capture_segments", "1",
+                                 "--profile_capture_dir", "{tmp}/profile"],
 }
+
+
+@pytest.fixture
+def fresh_metrics():
+    """The process-global registry, flight recorder and SLO tracker
+    fresh around a run (``stats.extras`` copies the registry's
+    counters)."""
+    saved = events.hub
+    metrics.reset()
+    slo.reset()
+    events.configure(False)
+    yield
+    metrics.reset()
+    events.hub = saved
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED_SETTINGS)
                          + sorted(NOW_PORTED))
-def test_unported_runtime_settings_raise(tmp_path, case):
+def test_unported_runtime_settings_raise(tmp_path, fresh_metrics, case):
     """What is still unported raises ``NotImplementedError`` naming its
-    ROADMAP item; the checkpoint, the run manifest, the micro-batch, a
-    fault plan (an injected out-of-memory demotes once) and the segment
-    deadline run and find the pulse."""
+    ROADMAP item, before any input is read; the checkpoint, the run
+    manifest, the micro-batch, a fault plan (an injected out-of-memory
+    demotes once), the segment deadline, the span journal (one schema-11
+    span a segment), the events dump (each segment's stage edges) and a
+    profile capture (a torch.profiler trace whose user annotations hold
+    the stage names) run and find the pulse."""
     argv, _nres = make_case(tmp_path)
     out = ["--device", "cpu", "--baseband_output_file_prefix",
            f"{tmp_path}/out_"]
     if case in UNPORTED_SETTINGS:
-        key, value = UNPORTED_SETTINGS[case]
-        if key == "telemetry_journal_path":
-            value = str(tmp_path / value)
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            M.run(argv + [f"--{key}", value] + out)
+        key, value, item = UNPORTED_SETTINGS[case]
+        reads = []
+        opened = R.make_file_source
+
+        def recording(*args, **kwargs):
+            reads.append(args)
+            return opened(*args, **kwargs)
+        R.make_file_source = recording
+        try:
+            with pytest.raises(NotImplementedError,
+                               match=f"ROADMAP {item}\\b"):
+                M.run(argv + [f"--{key}", value] + out)
+        finally:
+            R.make_file_source = opened
+        assert reads == []
         return
-    flag, value = NOW_PORTED[case]
-    if case in ("checkpoint_path", "run_manifest_path"):
-        value = str(tmp_path / value)
-    stats, pipe = M.run(argv + [flag, value] + out)
+    flags = [a.replace("{tmp}", str(tmp_path)) for a in NOW_PORTED[case]]
+    stats, pipe = M.run(argv + flags + out)
     assert stats.segments == 3 and pipe.positive_segments == [1]
     if case in ("checkpoint_path", "run_manifest_path"):
-        assert os.path.exists(value)
+        assert os.path.exists(flags[1])
     assert stats.extras.get("plan_demotions", 0) == (case == "fault_plan")
+    if case == "telemetry_journal_path":
+        with open(flags[1]) as f:
+            spans = [json.loads(line) for line in f]
+        assert [s["segment"] for s in spans] == [0, 1, 2]
+        assert [s["dump"] for s in spans] == [False, True, False]
+        assert all(s["v"] == 11 for s in spans)
+    if case == "events_dump_path":
+        with open(flags[1]) as f:
+            types = [json.loads(line)["type"] for line in f]
+        for t in ("stage.ingest", "stage.dispatch", "stage.fetch",
+                  "stage.sink"):
+            assert types.count(t) == 3, t
+    if case == "profile_capture_segments":
+        with open(os.path.join(flags[3], "trace.json")) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "user_annotation"}
+        assert {"srtb:ingest", "srtb:dispatch", "srtb:fetch",
+                "srtb:sink"} <= names
 
 
 # ------------------------------------------------------------ unit cases

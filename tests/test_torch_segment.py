@@ -27,6 +27,7 @@ import torch
 
 from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.io import formats, synth
+from srtb_tpu_torch.kernels import fft_rows as KF
 from srtb_tpu_torch.ops import dedisperse as dd
 from srtb_tpu_torch.ops import detect as det
 from srtb_tpu_torch.ops import fft as F
@@ -561,6 +562,27 @@ def test_plan_resolution_matches_reference(ref, name):
             assert got == str(ref[f"resolve/{name}/{key}"]), key
     assert F.resolve_strategy(cfg.baseband_input_count, cfg.fft_strategy) \
         == str(ref[f"resolve/{name}/strategy"])
+
+
+@pytest.mark.parametrize("name", sorted(RESOLVE))
+def test_hbm_passes_match_reference(ref, name):
+    """The plan's ``hbm_passes`` floor (the roofline gauges' traffic
+    model) is the reference's for every plan the resolution names."""
+    cfg = _resolve_config(name)
+    staged = seg.staged_resolves(cfg)
+    with environ(RESOLVE_ENV.get(name, {})):
+        try:
+            tail = seg.fused_tail_resolves(cfg, staged)
+            ffuse = seg.front_fuse_resolves(cfg, staged)
+        except ValueError:
+            assert int(ref[f"resolve/{name}/hbm_passes"]) == -1
+            return
+    n = cfg.baseband_input_count
+    channels = min(cfg.spectrum_channel_count, n // 2)
+    skzap = bool(tail and cfg.use_pallas and cfg.use_pallas_sk
+                 and KF.supported(n // 2 // channels, channels))
+    assert seg.hbm_passes(tail, skzap, ffuse) == int(
+        ref[f"resolve/{name}/hbm_passes"])
 
 
 # the settings the port refused before the multi-stream formats (ROADMAP

@@ -24,9 +24,10 @@ from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.io.file_input import make_file_source
 from srtb_tpu_torch.kernels.build import KernelBuildError, KernelLaunchError
 from srtb_tpu_torch.ops import detect as det
-from srtb_tpu_torch.pipeline.runtime import Pipeline
+from srtb_tpu_torch.pipeline.runtime import Fetched, Pipeline
 from srtb_tpu_torch.resilience import errors as E
 from srtb_tpu_torch.tools import chaos_soak as CS
+from srtb_tpu_torch.utils.metrics import metrics
 from test_torch_ref import CaptureSink, resilience_run, run_reference
 from test_torch_resilience import engine_fields, write_pulsed_input
 
@@ -148,14 +149,17 @@ def port(work):
     for name, (_o, capture, max_segments) in SCENARIOS.items():
         fields = _fields(base, name)
         fields["input_file_path"] = str(work / "bb.bin")
+        metrics.reset()  # each run's counters from zero, as the reference's
         out[name] = resilience_run(
-            Pipeline, Config(**fields), lambda pipe, k: pipe.counters.get(k),
+            Pipeline, Config(**fields), lambda pipe, k: metrics.get(k),
             capture, max_segments=max_segments, device="cpu")
     source = make_file_source(Config(**_both_fields(base, "both", False)))
+    metrics.reset()
     out["both"] = resilience_run(
         Pipeline, Config(**_both_fields(base, "both", True)),
-        lambda pipe, k: pipe.counters.get(k), False, source=source,
+        lambda pipe, k: metrics.get(k), False, source=source,
         device="cpu")
+    metrics.reset()
     return out
 
 
@@ -305,6 +309,7 @@ def test_watchdog_requeues_then_demotes(work, tmp_path, monkeypatch):
                                  segment_deadline_s=0.2,
                                  segment_watchdog_requeues=2))
     sink = CaptureSink()
+    metrics.reset()
     pipe = Pipeline(cfg, sinks=[sink], device="cpu")
     seg0 = {"dispatches": 0}
     to_host = pipe._to_host
@@ -326,9 +331,9 @@ def test_watchdog_requeues_then_demotes(work, tmp_path, monkeypatch):
     monkeypatch.setattr(pipe, "_dispatch_segment", counting_dispatch)
     with pipe:
         stats = pipe.run()
-    assert pipe.counters.get("watchdog_requeues") == 1
-    assert pipe.counters.get("plan_demotions") == 1
-    assert pipe.counters.get("segments_dropped") == 0
+    assert metrics.get("watchdog_requeues") == 1
+    assert metrics.get("plan_demotions") == 1
+    assert metrics.get("segments_dropped") == 0
     assert stats.segments == len(sink.out) == _segments_of_input(work)
 
 
@@ -346,13 +351,14 @@ def test_watchdog_escalates_after_its_requeues(work, monkeypatch):
     cfg = Config(**engine_fields(work, "wd_esc", inflight_segments=2,
                                  segment_deadline_s=0.05,
                                  segment_watchdog_requeues=1))
+    metrics.reset()
     pipe = Pipeline(cfg, sinks=[CaptureSink()], device="cpu")
     to_host = pipe._to_host
     monkeypatch.setattr(pipe, "_to_host",
                         lambda dets: (to_host(dets)[0], _NeverReady()))
     with pipe, pytest.raises(E.WatchdogEscalation):
         pipe.run()
-    assert pipe.counters.get("watchdog_requeues") == 1
+    assert metrics.get("watchdog_requeues") == 1
 
 
 class _InstantSink:
@@ -389,14 +395,70 @@ def test_retired_processor_refuses_a_dispatch(work):
     it raises, and its device tables are dropped."""
     cfg = Config(**engine_fields(work, "retire",
                                  fault_plan="dispatch:device_halt@1"))
+    metrics.reset()
     with Pipeline(cfg, sinks=[CaptureSink()], device="cpu") as pipe:
         old = pipe.processor
         pipe.run()
         assert pipe.processor is not old
-    assert pipe.counters.get("device_reinits") == 1
+    assert metrics.get("device_reinits") == 1
     with pytest.raises(RuntimeError, match="retired"):
         old.run_device(torch.zeros(old._segment_bytes, dtype=torch.uint8))
     assert old.window is None and old.watfft_dewindow is None
+
+
+def test_a_drained_item_is_held_when_its_context_died(work):
+    """The sink thread holds an item whose event's query raises (the
+    card's context died before the engine saw the halt: freeing its
+    pinned results would abort the process), and lets a healthy one go;
+    after a halt every item is held."""
+    class Event:
+        def __init__(self, dead):
+            self.dead = dead
+
+        def query(self):
+            if self.dead:
+                raise torch.AcceleratorError(
+                    "CUDA error: device-side assert triggered")
+            return True
+
+    cfg = Config(**engine_fields(work, "held"))
+    with Pipeline(cfg, sinks=[CaptureSink()], device="cpu") as pipe:
+        alive = Fetched(None, None, None, Event(False))
+        pipe._keep_if_dead(alive)
+        assert pipe._halted is None
+        dead = Fetched(None, None, None, Event(True))
+        pipe._keep_if_dead(dead)
+        assert pipe._halted == [dead]
+        pipe._keep_if_dead(alive)
+        assert pipe._halted == [dead, alive]
+
+
+@pytest.mark.parametrize("inflight", [1, 2])
+def test_a_halt_met_first_by_the_sink_escalates(work, inflight):
+    """A sticky halt that the sink side meets before the engine (its
+    copies run on the card) is the healer's, as the engine's own: every
+    reinit fails the same way, and the run ends ``ReinitBudgetExceeded``
+    once the budget is spent, in the serial leg and behind the sink pipe
+    (whose supervisor restarts it and replays the segment first)."""
+    class DeadSink(CaptureSink):
+        def push(self, work, positive):
+            if self.out:
+                raise torch.AcceleratorError(
+                    "CUDA error: device-side assert triggered")
+            super().push(work, positive)
+
+    cfg = Config(**engine_fields(work, f"sink_halt_{inflight}",
+                                 inflight_segments=inflight,
+                                 retry_max_attempts=1))
+    metrics.reset()
+    sink = DeadSink()
+    with Pipeline(cfg, sinks=[sink], device="cpu") as pipe, \
+            pytest.raises(E.ReinitBudgetExceeded) as info:
+        pipe.run()
+    assert isinstance(info.value.__cause__, torch.AcceleratorError)
+    assert len(sink.out) == 1
+    assert metrics.get("device_reinits") == cfg.device_reinit_max
+    assert metrics.get("worker_restarts") == (inflight > 1)
 
 
 @pytest.mark.parametrize("site,exc", [
@@ -413,6 +475,7 @@ def test_a_real_kernel_fault_escalates_without_demoting(work, monkeypatch,
     may do its work in plain PyTorch in its place (an injected
     ``compile_fail`` demotes, see the scenarios above)."""
     cfg = Config(**engine_fields(work, f"kf_{site}", inflight_segments=2))
+    metrics.reset()
     pipe = Pipeline(cfg, sinks=[CaptureSink()], device="cpu")
     target = "_dispatch_segment" if site == "dispatch" else "_fetch_inflight"
     real = getattr(pipe, target)
@@ -430,7 +493,7 @@ def test_a_real_kernel_fault_escalates_without_demoting(work, monkeypatch,
     name = getattr(exc, "kernel", "kernel library")
     assert name in str(info.value)
     for key in ("plan_demotions", "device_reinits", "retries_total"):
-        assert pipe.counters.get(key) == 0
+        assert metrics.get(key) == 0
 
 
 def test_chaos_soak_gate_passes_on_a_seeded_plan(tmp_path):
