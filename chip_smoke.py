@@ -143,15 +143,38 @@ result lines are printed:
    real sticky fault: a child process whose chain asserts on the card,
    and one whose sink thread meets the assert before the engine,
    each classified ``halt``, escalated with ``ReinitBudgetExceeded`` and a
-   nonzero exit, then resumed by a fresh process from its checkpoint to
-   the output set of an uninterrupted run (SHA-256); (d) a kernel build
+   nonzero exit, leaving one ``reinit_budget_exceeded`` incident bundle
+   (the metrics, events and config snapshots, the halt in its events,
+   the dump's seconds), then resumed by a fresh process from its
+   checkpoint to the output set of an uninterrupted run (SHA-256); (d) a
+   kernel build
    fault at ffuse_2^30's first fetch, which takes the front_fuse rung
    (B11 and B12 before it, K1, B9, B10 and K2 after it), transient faults
    at four sites retried (``retries_total`` 4, the clean run's bytes), a
    chain wedged behind a spin on the compute stream requeued once by the
    watchdog (an injected fetch stall requeues nothing); and fused_2^27
    with every layer off and armed, ten pairs in turns.  Every other run of the
-   script must have needed no demotion, reinit, retry or requeue.
+   script must have needed no demotion, reinit, retry or requeue;
+12. health (between observability and resilience): the canary's delta
+   at 2^27 built on the card against the host's float64 build (a count
+   may differ by one, at a half-count tie only; the ties counted), the
+   2^30 delta's build seconds, peak and one injection's device ms; then
+   canary_2^30, staged_2^30's cfg at 8 bits (``CANARY_AMP`` counts) on a
+   file of 4 noise segments made on the card: (a) the canary every
+   second segment with the quality epilogue, the write-all sink, the
+   journal, the events dump, the run manifest and the incident
+   directory: segments 1 and 3 injected, checked and passed (the first
+   calibrating), nothing positive, both flagged in the spans and the
+   manifest, ``/healthz``'s detection ``ok``, the launches the table's,
+   the recovered S/N, and ``telemetry_report`` and ``quality_report`` in
+   both formats on its journal; (b) the canary off: the write-all file
+   equal to (a)'s by SHA-256 and segments 0 and 2's detection results
+   bit-identical; a second pair off then on, Msamples/s of all four;
+   (c) two segments with 61 of the band's 64 MHz zapped and the expected
+   S/N pinned to (a)'s: the check fails, detection degraded, one
+   ``canary_sensitivity`` bundle holding the failed verdict and the
+   quality timeline, the dump's seconds, ``trace_export --validate`` on
+   it.  The phase prints its seconds and deletes its files.
 
 The last two lines are the kernels' JSON record and the result line.
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -3185,6 +3208,18 @@ def sticky_child(argv: list) -> int:
               flush=True)
         return newp
     pipe.healer.reinit = reporting_reinit
+    if pipe.incidents is not None:
+        dump = pipe.incidents.dump
+
+        def reporting_dump(*args, **kwargs):
+            # the escalation's bundle, timed, as it is written (on a dead
+            # context: it must touch nothing on the card)
+            t0 = time.perf_counter()
+            path = dump(*args, **kwargs)
+            print(f"STICKY_INCIDENT {time.perf_counter() - t0:.6f} "
+                  f"{os.path.basename(path or '')}", flush=True)
+            return path
+        pipe.incidents.dump = reporting_dump
     try:
         stats = pipe.run()
         out["segments"] = stats.segments
@@ -3218,6 +3253,8 @@ def _sticky_run(cfg_path: Path, inject: int, where: str = "chain"
              if ln.startswith(STICKY_MARK)]
     decisions = [ln.split(" ", 1)[1] for ln in proc.stdout.splitlines()
                  if ln.startswith("STICKY_REINIT ")]
+    bundles = [ln.split(" ")[1:] for ln in proc.stdout.splitlines()
+               if ln.startswith("STICKY_INCIDENT ")]
     if not lines and decisions and decisions[-1] == "halt budget spent" \
             and proc.returncode:
         # torch aborted the process after the escalation was decided (it
@@ -3226,6 +3263,7 @@ def _sticky_run(cfg_path: Path, inject: int, where: str = "chain"
         return {"error": "ReinitBudgetExceeded", "cause": "AcceleratorError",
                 "kind": "halt", "decisions": decisions,
                 "aborted_after_escalation": True, "rc": proc.returncode,
+                "bundles": bundles,
                 "counters": {"device_reinits": decisions.count(
                     "halt rebuilt")}}
     if not lines:
@@ -3236,7 +3274,7 @@ def _sticky_run(cfg_path: Path, inject: int, where: str = "chain"
              f"{proc.returncode}); its engine's lines {heal[-12:]}; "
              f"stderr {proc.stderr[-1500:]}")
     return dict(json.loads(lines[-1][len(STICKY_MARK):]),
-                rc=proc.returncode, decisions=decisions)
+                rc=proc.returncode, decisions=decisions, bundles=bundles)
 
 
 def _log_tail(cfg_path: Path, inject: int, n: int = 1500) -> str:
@@ -3244,6 +3282,30 @@ def _log_tail(cfg_path: Path, inject: int, n: int = 1500) -> str:
     failure's message."""
     log = cfg_path.parent.parent / f"{cfg_path.parent.name}_{inject}.log"
     return log.read_text()[-n:] if log.exists() else "(no log)"
+
+
+def check_sticky_bundle(where: str, inc: Path, faulted: dict,
+                        card: str) -> None:
+    """The faulted child's escalation left one ``reinit_budget_exceeded``
+    bundle, written after the real halt (its events hold the halt's
+    ``fault.device``), with the metrics, events and config snapshots."""
+    bundles = sorted(p.name for p in inc.iterdir()) if inc.exists() else []
+    if bundles != ["incident_000_reinit_budget_exceeded"]:
+        fail(f"resilience sticky ({where}): incident bundles {bundles}")
+    b = inc / bundles[0]
+    files = sorted(os.listdir(b))
+    evs = [json.loads(line) for line in
+           (b / "events.jsonl").read_text().splitlines()]
+    halts = [e["info"] for e in evs if e["type"] == "fault.device"
+             and e["info"].startswith("halt")]
+    if not {"metrics.json", "events.jsonl", "config.json"} <= set(files) \
+            or not halts:
+        fail(f"resilience sticky ({where}): bundle files {files}, halt "
+             f"events {halts}")
+    say(f"resilience sticky ({where}): bundle {b.name} with {files}, "
+        f"{len(evs)} events (halts {halts}); dumped in "
+        f"{[x[0] for x in faulted.get('bundles', [])]} s after the halt; "
+        f"card {card}")
 
 
 def resilience_sticky(card: str) -> dict:
@@ -3272,11 +3334,16 @@ def resilience_sticky(card: str) -> dict:
     for tag in ("golden",) + tuple(STICKY_AT):
         d = root / tag
         d.mkdir()
+        # the faulted runs' escalation bundles, beside the run directory
+        # (whose output set the gate compares)
+        incidents = str(root / f"{tag}_incidents") if tag != "golden" \
+            else ""
         fields = dataclasses.asdict(cfg.replace(
             input_file_path=str(data),
             baseband_output_file_prefix=f"{d}/out_",
             checkpoint_path=str(d / "ck.json"),
-            run_manifest_path=str(d / "manifest.jsonl")))
+            run_manifest_path=str(d / "manifest.jsonl"),
+            incident_dir=incidents, incident_min_interval_s=0.0))
         (d / "cfg.json").write_text(json.dumps(fields))
     gcfg = Config(**json.loads((root / "golden" / "cfg.json").read_text()))
     gstats, _gpipe, _ = _run_pipeline(gcfg, data, env)
@@ -3302,6 +3369,8 @@ def resilience_sticky(card: str) -> dict:
             fail(f"resilience sticky ({where}): the faulted run ended "
                  f"{faulted}; expected ReinitBudgetExceeded after a halt, "
                  "nonzero exit; its log ends " + _log_tail(cfg_path, at))
+        check_sticky_bundle(where, root / f"{where}_incidents", faulted,
+                            card)
         if resumed["error"] or resumed["rc"]:
             fail(f"resilience sticky ({where}): the resume failed: "
                  f"{resumed}; its log ends " + _log_tail(cfg_path, -1))
@@ -3697,6 +3766,419 @@ def phase_observability(card: str, window: dict, made: dict) -> dict:
     say(f"observability: seconds staged_2^30 {t1 - t0:.1f}, armed against "
         f"off {t2 - t1:.1f}; card {card}")
     return {"staged": staged, "rates": rates}
+
+
+# ---- health (ROADMAP A9b): the pulse-injection canary and incident bundles
+
+# canary_2^30: staged_2^30's cfg lines at 8 bits (the 8-bit unpack is
+# torch's: no K1)
+CANARY_EXTRA = PALLAS_ON + "baseband_input_bits = 8\n"
+CANARY_PLAN = "staged:four_step+ring"
+CANARY_LAUNCHES = {"rfi_s1_dedisperse": 1, "sk_stats": 1,
+                   "sk_apply_timeseries": 1}
+CANARY_SEGMENTS = 4
+# the burst's per-sample amplitude in counts: at the cfg's DM the default
+# 25 disperses over ~2e7 samples below half a count everywhere, and its
+# delta is all zero (ROADMAP C5); 400 keeps a delta of about half a
+# count rms
+CANARY_AMP = 400.0
+CANARY_ARMED = ("canary_every_segments = {every}\ncanary_amp = {amp}\n"
+                "quality_stats = 1\nbaseband_write_all = {write_all}\n"
+                "telemetry_journal_path = {d}/spans.jsonl\n"
+                "events_dump_path = {d}/events.jsonl\n"
+                "run_manifest_path = {d}/manifest.jsonl\n"
+                "incident_dir = {d}/incidents\n"
+                "incident_min_interval_s = 0\n")
+# leg (c): 61 of the band's 64 MHz (1373 - 1437) zapped
+CANARY_ZAP = "mitigate_rfi_freq_list = 1375-1436\n"
+# the delta check: the card's build against the host's at 2^27; a count
+# may differ only where the float64 value is this close to a half count
+DELTA_LOG2_N = 27
+HALF_COUNT_TIE = 1e-6
+
+
+def make_noise_file(cfg, path: Path, segments: int, seed: int = 1644
+                    ) -> int:
+    """``segments`` segments of 8-bit ``simple`` bytes, normal(128, 8)
+    clipped to [0, 255] and truncated (numpy's ``astype``), made on the
+    card from a seeded generator: one continuous stream, one byte short of
+    ``segments`` overlapping segments (the reader emits exactly that
+    many).  Returns the stride in bytes."""
+    import torch
+    from srtb_tpu_torch.ops import dedisperse as dd
+    n = cfg.baseband_input_count
+    stride = n - dd.nsamps_reserved(cfg)
+    size = n + (segments - 1) * stride - 1
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    chunk = 1 << 28
+    with open(path, "wb") as f:
+        for a in range(0, size, chunk):
+            x = torch.randn(min(chunk, size - a), generator=gen,
+                            device="cuda")
+            f.write(x.mul_(8.0).add_(128.0).clamp_(0, 255).to(
+                torch.uint8).cpu().numpy().tobytes())
+            del x
+    return stride
+
+
+def file_sha256(path: Path) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def recorded_detections(out: dict):
+    """Each drained segment's detection results, by drain index: the
+    SHA-256 of the host copies of its fields (inside the block)."""
+    import hashlib
+    from srtb_tpu_torch.io.writers import to_host
+    from srtb_tpu_torch.pipeline import runtime as R
+    body = R.Pipeline._drain_body
+
+    def recording(self, item, drained):
+        h = hashlib.sha256()
+        for name in ("signal_counts", "zero_count", "snr_peaks",
+                     "time_series"):
+            h.update(to_host(getattr(item.det, name)).tobytes())
+        out[drained[0]] = h.hexdigest()
+        return body(self, item, drained)
+    R.Pipeline._drain_body = recording
+    try:
+        yield
+    finally:
+        R.Pipeline._drain_body = body
+
+
+@contextlib.contextmanager
+def timed_dumps(seconds: list):
+    """Each incident bundle's dump, timed into ``seconds`` (inside the
+    block)."""
+    from srtb_tpu_torch.utils.incidents import IncidentRecorder
+    dump = IncidentRecorder.dump
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = dump(self, *args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return out
+    IncidentRecorder.dump = timed
+    try:
+        yield
+    finally:
+        IncidentRecorder.dump = dump
+
+
+def _printed(main, argv: list) -> tuple[int, str]:
+    """A tool's ``main(argv)``: its exit code and what it printed."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def health_delta_check(card: str, root: Path) -> dict:
+    """The canary's delta at 2^27 (the cfg's band and DM, its reserve,
+    ``CANARY_AMP``) built on the card against the same build in float64 on
+    the host: a position may differ by one count only, and only where the
+    host's float64 value lies within ``HALF_COUNT_TIE`` of a half count
+    (cuFFT's and the host FFT's rounding on opposite sides of it); prints
+    the count of such ties and both builds' seconds."""
+    import torch
+    from srtb_tpu_torch.ops import dedisperse as dd
+    from srtb_tpu_torch.quality.canary import CanaryController
+    cfg, _text = path_cfg(
+        root / "delta", CANARY_EXTRA + "canary_every_segments = 2\n"
+        f"canary_amp = {CANARY_AMP}\n"
+        f"baseband_input_count = 2 ** {DELTA_LOG2_N}\n", DELTA_LOG2_N,
+        "canary delta")
+    n, reserved = cfg.baseband_input_count, dd.nsamps_reserved(cfg)
+    card_c = CanaryController(cfg, n, reserved, device="cuda")
+    host_c = CanaryController(cfg, n, reserved, device="cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = card_c.ensure_delta()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = host_c.ensure_delta()
+    t2 = time.perf_counter()
+    got = got.cpu()
+    diff = (got != want).nonzero().flatten()
+    ties = 0
+    if diff.numel():
+        sig = host_c.dispersed_pulse()[diff]
+        off_half = (sig.abs() - sig.abs().floor() - 0.5).abs()
+        steps = (got[diff].to(torch.int32) - want[diff].to(torch.int32)).abs()
+        if int(steps.max()) != 1 or float(off_half.max()) > HALF_COUNT_TIE:
+            fail(f"health delta 2^{DELTA_LOG2_N}: {diff.numel()} positions "
+                 f"differ, by up to {int(steps.max())} counts, up to "
+                 f"{float(off_half.max()):.3e} from a half count")
+        ties = diff.numel()
+    nonzero = int((want != 0).sum())
+    if not nonzero or got[:reserved].any() or got[n - reserved:].any():
+        fail(f"health delta 2^{DELTA_LOG2_N}: {nonzero} nonzero counts, "
+             "or counts inside the reserved spans")
+    out = {"n": n, "reserved": reserved, "nonzero": nonzero,
+           "max_count": int(want.abs().max()), "half_count_ties": ties,
+           "card_s": t1 - t0, "host_s": t2 - t1, "t0": card_c.t0}
+    say(f"health delta 2^{DELTA_LOG2_N} (amp {CANARY_AMP}, dm {cfg.dm}): "
+        f"card build against the host's float64 build: {ties} positions "
+        f"differ by one count at a half-count tie (within "
+        f"{HALF_COUNT_TIE:g}), the rest equal; {json.dumps(out)}; card "
+        f"{card}")
+    return out
+
+
+def health_delta_2_30(card: str, cfg) -> dict:
+    """The 2^30 delta alone on the card: its build's seconds, the
+    device's peak above what was allocated before it, and the device ms of
+    one injection into a segment's bytes (``inject_``, CUDA events)."""
+    import torch
+    from srtb_tpu_torch.ops import dedisperse as dd
+    from srtb_tpu_torch.quality.canary import CanaryController
+    free_card()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    c = CanaryController(cfg, cfg.baseband_input_count,
+                         dd.nsamps_reserved(cfg), device="cuda")
+    t0 = time.perf_counter()
+    d = c.ensure_delta()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    out = {"build_s": build_s,
+           "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "kept_gb": d.numel() * d.element_size() / 1e9,
+           "nonzero": int((d != 0).sum()),
+           "rms_counts": float(d.float().pow(2).mean().sqrt()),
+           "max_count": int(d.abs().max()), "t0": c.t0}
+    raw = torch.randint(0, 256, (cfg.baseband_input_count,),
+                        dtype=torch.uint8, device="cuda")
+    out["inject_ms"] = cuda_ms(lambda: c.inject_(raw), 10)
+    del c, d, raw
+    free_card()
+    say(f"health delta 2^30 on the card: {json.dumps(out)}; card {card}")
+    return out
+
+
+def _health_leg(card: str, root: Path, tag: str, extra: str, data: Path,
+                env: dict, dets: dict) -> tuple:
+    """One canary_2^30 run (``srtb-torch-main``) of the cfg lines
+    ``extra`` under ``root/tag``: its statistics, pipeline, launch counts
+    and the seconds of its bundle dumps."""
+    import torch
+    from srtb_tpu_torch import kernels as K
+    out_dir = root / tag
+    cfg, text = path_cfg(out_dir, extra.format(d=out_dir), LOG2_N,
+                         f"canary_2^30 ({tag})")
+    dump_s: list = []
+    K.reset_launch_counts()
+    with recorded_detections(dets), timed_dumps(dump_s):
+        stats, pipe, wall = run_cli(out_dir, text, data, env)
+    counts = K.launch_counts()
+    if pipe.processor.plan_name != CANARY_PLAN:
+        fail(f"health canary_2^30 ({tag}): plan "
+             f"{pipe.processor.plan_name}, want {CANARY_PLAN}")
+    _check_launches(f"health canary_2^30 ({tag})", counts, CANARY_LAUNCHES,
+                    stats.segments)
+    say(f"health canary_2^30 ({tag}): {stats.segments} segments, "
+        f"{stats.signals} signals, {stats.msamples_per_sec:.1f} Msamples/s,"
+        f" wall {wall:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
+    return cfg, stats, pipe, counts, dump_s
+
+
+def phase_health(card: str) -> dict:
+    """The health layer on the card (ROADMAP A9b), the path canary_2^30:
+    staged_2^30's cfg lines at 8 bits, on a file of 4 noise segments made
+    on the card.  The delta at 2^27 against the host's build and at 2^30
+    alone (:func:`health_delta_check`, :func:`health_delta_2_30`); then
+    (a) the canary every second segment with the quality epilogue, the
+    write-all sink, the journal, the events dump, the run manifest and
+    the incident directory: segments 1 and 3 injected, checked and
+    passed, the first calibrating, nothing positive, the spans and the
+    manifest flag both, ``/healthz`` reports detection ``ok``, the
+    launches the table's; (b) the same with the canary off: the write-all
+    file equal to (a)'s by SHA-256, segments 0 and 2's detection results
+    bit-identical to (a)'s; (c) two segments with 61 of 64 MHz zapped and
+    the expectation pinned to (a)'s S/N: the check fails, detection
+    degraded, one ``canary_sensitivity`` bundle whose ``extra.json`` holds
+    the failed verdict and the quality timeline, ``trace_export
+    --validate`` on it, and ``telemetry_report`` and ``quality_report`` in
+    both formats on (a)'s journal.  Returns the launch counts."""
+    import shutil
+    from srtb_tpu_torch.tools import quality_report as QR
+    from srtb_tpu_torch.tools import telemetry_report as TR
+    from srtb_tpu_torch.tools import trace_export as TE
+    from srtb_tpu_torch.utils.metrics import metrics
+    t_start = time.perf_counter()
+    root = OUT_DIR / "health"
+    if root.exists():
+        shutil.rmtree(root)
+    _l, _log2_n, _extra, _plan, _per, env = _main_path("staged_2^30")
+    delta27 = health_delta_check(card, root)
+    armed = CANARY_EXTRA + CANARY_ARMED.format(every=2, amp=CANARY_AMP,
+                                               write_all=1, d="{d}")
+    cfg_a, _text = path_cfg(root / "a", armed.format(d=root / "a"),
+                            LOG2_N, "canary_2^30")
+    delta30 = health_delta_2_30(card, cfg_a)
+    data = root / "input.bin"
+    t0 = time.perf_counter()
+    stride = make_noise_file(cfg_a, data, CANARY_SEGMENTS)
+    say(f"health canary_2^30: input {data.relative_to(ROOT)} "
+        f"({data.stat().st_size} bytes, 4 segments of 8-bit noise, stride "
+        f"{stride}) made in {time.perf_counter() - t0:.1f} s")
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the canary armed
+    dets_a: dict = {}
+    _cfg, stats_a, pipe_a, counts, _d = _health_leg(
+        card, root, "a", armed, data, env, dets_a)
+    add(counts)
+    m = {k: metrics.get(k) for k in (
+        "canary_injected", "canary_checked", "canary_failed",
+        "canary_last_snr", "canary_expected_snr",
+        "canary_sensitivity_ratio", "detection_health_state",
+        "incident_bundles")}
+    spans = [json.loads(line) for line in
+             (root / "a" / "spans.jsonl").read_text().splitlines()]
+    canary = [s.get("canary") for s in spans]
+    recs = [json.loads(line) for line in
+            (root / "a" / "manifest.jsonl").read_text().splitlines()]
+    marked = [r["abs"] for r in recs if r.get("t") == "canary"]
+    hstatus, health = _scrape(root / "a", "/healthz")
+    detection = json.loads(health).get("detection") or {}
+    if stats_a.segments != CANARY_SEGMENTS or stats_a.signals != 0 or \
+            m["canary_injected"] != 2 or m["canary_checked"] != 2 or \
+            m["canary_failed"] != 0 or m["incident_bundles"] != 0:
+        fail(f"health canary_2^30 (a): {stats_a.segments} segments, "
+             f"{stats_a.signals} signals, {json.dumps(m)}")
+    if [c is not None for c in canary] != [False, True, False, True] or \
+            not canary[1].get("calibrated") or not canary[3].get("ok") or \
+            marked != [1, 3]:
+        fail(f"health canary_2^30 (a): span canaries {canary}, manifest "
+             f"canary records at {marked}")
+    if hstatus != 200 or detection.get("state") != "ok":
+        fail(f"health canary_2^30 (a): /healthz {hstatus} {health}")
+    snr = canary[1]["snr"]
+    say(f"health canary_2^30 (a): recovered S/N {canary[1]['snr']} "
+        f"(segment 1, calibrating) and {canary[3]['snr']} (segment 3, "
+        f"ratio {canary[3]['ratio']}); spans' detections "
+        f"{[s['detections'] for s in spans]}; manifest canary records at "
+        f"{marked}; /healthz {hstatus} detection {json.dumps(detection)}; "
+        f"card {card}")
+    wa = root / "a" / "out_stream0.bin"
+    sha_a = file_sha256(wa)
+    wa.unlink()
+    reports = {}
+    for tool, main in (("telemetry_report", TR.main),
+                       ("quality_report", QR.main)):
+        for fmt in ("md", "json"):
+            rc, text = _printed(main, [str(root / "a" / "spans.jsonl"),
+                                       "--format", fmt])
+            if rc or not text.strip():
+                fail(f"health: {tool} --format {fmt} exited {rc}")
+            reports[f"{tool} {fmt}"] = len(text)
+            if tool == "quality_report" and fmt == "md" and \
+                    "## Canary" not in text:
+                fail(f"health: quality_report's Markdown has no Canary "
+                     f"section: {text[:400]}")
+            if fmt == "json":
+                json.loads(text)
+    say(f"health: telemetry_report and quality_report on (a)'s journal, "
+        f"characters printed {json.dumps(reports)}")
+    del pipe_a
+    free_card()
+    # (b) the canary off
+    dets_b: dict = {}
+    off = CANARY_EXTRA + CANARY_ARMED.format(every=0, amp=CANARY_AMP,
+                                             write_all=1, d="{d}")
+    _cfg, stats_b, pipe_b, counts, _d = _health_leg(
+        card, root, "b", off, data, env, dets_b)
+    add(counts)
+    wa = root / "b" / "out_stream0.bin"
+    sha_b = file_sha256(wa)
+    wa.unlink()
+    if sha_b != sha_a or any(dets_b[i] != dets_a[i] for i in (0, 2)) or \
+            metrics.get("canary_injected"):
+        fail(f"health canary_2^30 (b): write-all SHA-256 {sha_b} against "
+             f"(a)'s {sha_a}; detections {dets_b} against {dets_a}")
+    say(f"health canary_2^30 (b): the write-all file equals (a)'s by "
+        f"SHA-256 ({sha_a}); segments 0 and 2's detection results "
+        f"bit-identical to (a)'s; Msamples/s canary on "
+        f"{stats_a.msamples_per_sec:.1f}, off "
+        f"{stats_b.msamples_per_sec:.1f}; card {card}")
+    del pipe_b
+    free_card()
+    # the canary's cost: a second pair in the other order, off then on
+    # (run (a) was the first on this geometry in a process that ran none
+    # before it)
+    rates = {"on": [stats_a.msamples_per_sec],
+             "off": [stats_b.msamples_per_sec]}
+    for tag, text in (("b2", off), ("a2", armed)):
+        _cfg, stats, pipe, counts, _d = _health_leg(
+            card, root, tag, text, data, env, {})
+        add(counts)
+        rates["on" if tag == "a2" else "off"].append(stats.msamples_per_sec)
+        (root / tag / "out_stream0.bin").unlink()
+        del pipe
+        free_card()
+    diffs = [(on - off) / off for on, off in zip(rates["on"], rates["off"])]
+    say(f"health canary_2^30: Msamples/s canary on {rates['on']}, off "
+        f"{rates['off']} (turns on, off, off, on); the on run's difference "
+        f"a pair {[round(x, 4) for x in diffs]}; card {card}")
+    # (c) degraded: two segments, most of the band zapped
+    os.truncate(data, cfg_a.baseband_input_count + stride - 1)
+    degraded = CANARY_EXTRA + CANARY_ARMED.format(
+        every=2, amp=CANARY_AMP, write_all=0, d="{d}") + CANARY_ZAP + \
+        f"canary_expected_snr = {snr}\n"
+    _cfg, stats_c, pipe_c, counts, dump_s = _health_leg(
+        card, root, "c", degraded, data, env, {})
+    add(counts)
+    failed = metrics.get("canary_failed")
+    state = metrics.get("detection_health_state")
+    hstatus, health = _scrape(root / "c", "/healthz")
+    detection = json.loads(health).get("detection") or {}
+    inc = root / "c" / "incidents"
+    bundles = sorted(p.name for p in inc.iterdir()) if inc.exists() else []
+    if stats_c.segments != 2 or failed < 1 or state != 1 or \
+            detection.get("state") != "degraded" or \
+            bundles != ["incident_000_canary_sensitivity"]:
+        fail(f"health canary_2^30 (c): {stats_c.segments} segments, "
+             f"canary_failed {failed}, detection_health_state {state}, "
+             f"/healthz {health}, bundles {bundles}")
+    bundle = inc / bundles[0]
+    extra = json.loads((bundle / "extra.json").read_text())
+    if extra["canary"].get("ok") is not False or \
+            not extra.get("quality_timeline"):
+        fail(f"health canary_2^30 (c): extra.json {json.dumps(extra)[:600]}")
+    rc, text = _printed(TE.main, [str(bundle), "--validate"])
+    if rc:
+        fail(f"health: trace_export --validate on {bundle.name} exited {rc}")
+    say(f"health canary_2^30 (c): verdict {json.dumps(extra['canary'])}; "
+        f"quality timeline {len(extra['quality_timeline'])} segment(s); "
+        f"bundle files {sorted(os.listdir(bundle))}; dumped in "
+        f"{[round(s, 4) for s in dump_s]} s; /healthz detection "
+        f"{json.dumps(detection)}; trace_export: {text.strip()}; card {card}")
+    del pipe_c
+    shutil.rmtree(root)
+    free_card()
+    seconds = time.perf_counter() - t_start
+    out = {"delta_2^27": delta27, "delta_2^30": delta30,
+           "msamples_on": rates["on"], "msamples_off": rates["off"],
+           "pair_diff": diffs, "snr": snr, "dump_s": dump_s,
+           "seconds": seconds}
+    say(f"health: {json.dumps(out)}; the phase took {seconds:.1f} s; "
+        f"card {card}")
+    return {"counts": total, **out}
 
 
 def phase_resilience(card: str, window: dict, runs: dict, made: dict
@@ -5201,6 +5683,8 @@ def main() -> int:
     lap("batch")
     phase_observability(card, window, made)
     lap("observability")
+    runs["canary_2^30"] = {"counts": phase_health(card)["counts"]}
+    lap("health")
     res = phase_resilience(card, window, runs, made)
     runs.update({label: {"counts": counts}
                  for label, counts in res["counts"].items()})

@@ -241,7 +241,8 @@ def scan_manifest(path: str) -> ManifestScan:
             scan.groups.setdefault(key, Group()).done = True
         elif t == "ckpt":
             scan.checkpoints.append(rec)
-        # "run" records (run/resume stamps) carry no recovery state
+        # "run" records (run/resume stamps) and "canary" flags carry no
+        # recovery state
     return scan
 
 
@@ -636,6 +637,19 @@ class RunManifest:
         with self._lock:
             self._done.add(tuple(key))
         events.emit("manifest.done", seg=int(key[1]), info=str(key[2]))
+
+    def canary(self, stream: int, seg: int, abs_index: int,
+               ok: bool = True) -> None:
+        """Flag a pulse-injection canary segment (quality/canary.py):
+        offline consumers can prove the quarantine — which drain indices
+        carried a synthetic pulse, and whether each passed the
+        sensitivity gate.  Carries no recovery state; the scanner (and
+        fsck) skip it like the "run" stamp."""
+        self._append({"t": "canary", "stream": int(stream),
+                      "seg": int(seg), "abs": int(abs_index),
+                      "ok": bool(ok)})
+        events.emit("manifest.canary", seg=int(seg),
+                    info=f"abs={int(abs_index)} ok={bool(ok)}")
 
     def checkpoint(self, segments_done: int,
                    file_offset_bytes: int) -> None:

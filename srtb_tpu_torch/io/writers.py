@@ -508,6 +508,13 @@ class WriteAllSink:
     # every push appends: the pipeline always seals its "done" record
     last_push_wrote = True
 
+    # canary quarantine (pipeline/runtime._push_sinks): this sink appends
+    # the PRISTINE segment bytes — the injected pulse never reaches them —
+    # and its output is one contiguous byte stream, so skipping a canary
+    # segment would corrupt the append continuity, not protect anything.
+    # Every other sink is skipped for a canary segment
+    canary_exempt = True
+
     def __init__(self, cfg: Config, reserved_bytes: int):
         self.reserved_bytes = reserved_bytes
         self.path = cfg.baseband_output_file_prefix + "stream0.bin"

@@ -91,6 +91,23 @@ Observability (``utils/``), wired where the reference wires it:
 - ``profile_capture_segments`` records the first N segments with
   ``torch.profiler``.
 
+Health (``quality/canary.py``, ``utils/incidents.py``), wired where the
+reference wires it:
+
+- ``canary_every_segments`` = N > 0 (8-bit ``simple`` input) adds the
+  canary's dispersed pulse to every N-th segment's bytes on the card,
+  after their upload (:meth:`Pipeline._canary_inject`; the schedule
+  continues across resumes); at drain its recovered S/N is checked,
+  journaled as the span's ``canary`` extra and flagged in the run
+  manifest, the segment is forced negative and only ``canary_exempt``
+  sinks (the write-all sink, which appends the pristine bytes) take it;
+  a failed check emits ``canary.regression`` and dumps a
+  ``canary_sensitivity`` bundle;
+- ``incident_dir`` receives a bundle at every escalation: a manifest
+  recovery that flagged loss, ``reinit_budget_exceeded``,
+  ``ladder_exhausted``, ``watchdog_escalation``, ``sink_wedge`` (a wedged
+  sink pipe, a window parked behind it) and ``sink_wedge_shutdown``.
+
 The resilience counters live in the registry (``utils/metrics.py``) and
 are copied into ``stats.extras`` at the end of a run, also when it
 raises.
@@ -119,12 +136,14 @@ from srtb_tpu_torch.io.manifest import RunManifest
 from srtb_tpu_torch.io.native_writer import AsyncWriterPool
 from srtb_tpu_torch.io.writers import (WriteAllSink, WriteSignalSink,
                                        recover_orphan_temps, to_host)
+from srtb_tpu_torch.ops.dedisperse import nsamps_reserved
 from srtb_tpu_torch.parallel.segment_dist import DistSegmentProcessor
 from srtb_tpu_torch.pipeline import framework as fw
 from srtb_tpu_torch.pipeline import registry
 from srtb_tpu_torch.pipeline.checkpoint import StreamCheckpoint
 from srtb_tpu_torch.pipeline.segment import BATCH_NEEDS_FUSED
 from srtb_tpu_torch.pipeline.work import SegmentResultWork
+from srtb_tpu_torch.quality.canary import CanaryController
 from srtb_tpu_torch.quality.stats import QualityMonitor
 from srtb_tpu_torch.resilience.degrade import DegradationLadder
 from srtb_tpu_torch.resilience.demote import ComputeHealer
@@ -137,6 +156,7 @@ from srtb_tpu_torch.resilience.retry import RetryPolicy, retry_call
 from srtb_tpu_torch.resilience.supervisor import Supervisor
 from srtb_tpu_torch.utils import events, slo, telemetry, termination
 from srtb_tpu_torch.utils.bufferpool import BufferPool
+from srtb_tpu_torch.utils.incidents import IncidentRecorder
 from srtb_tpu_torch.utils.logging import log
 from srtb_tpu_torch.utils.metrics import metrics
 from srtb_tpu_torch.utils.tracing import (ProfileCapture, StageTimer,
@@ -212,10 +232,6 @@ def sync_with_deadline(deadline_s: float, fn):
 # settings of later slices that would change what a run reads or writes:
 # (field, ROADMAP item); each raises when set away from its default
 UNPORTED_RUNTIME = (
-    ("canary_every_segments", "ROADMAP A9b: the canary, whose results "
-                              "go to detection health, the SLO and "
-                              "incident bundles"),
-    ("incident_dir", "ROADMAP A9b: incident bundles"),
     ("perf_ledger_path", "ROADMAP A9c: the perf ledger"),
     ("sanitize", "ROADMAP A9d: the runtime sanitizer"),
 )
@@ -283,8 +299,8 @@ class Fetched(NamedTuple):
     already took it and the ``"stats"`` and ``"wf"`` markers, so a retried
     or replayed drain counts and pushes exactly once.  Its telemetry
     rides along: the span's host stages so far, the seconds the engine
-    hid under the card's work, its device seconds, the window's depths
-    when it was drained and its quality dict (None when off)."""
+    hid under the card's work, its device seconds and the window's depths
+    when it was drained."""
     seg: Any
     wf: torch.Tensor
     det: Any
@@ -298,7 +314,6 @@ class Fetched(NamedTuple):
     device_s: float | None = None
     queue_depth: int = 0
     inflight_depth: int = 0
-    quality: dict | None = None
 
 
 class Pipeline:
@@ -326,6 +341,8 @@ class Pipeline:
                          ring_size=int(cfg.events_ring_size or 0)
                          or events.DEFAULT_RING_SIZE)
         self._events_enabled = bool(cfg.events_enable)
+        # incident bundles on escalation (None: off)
+        self.incidents = IncidentRecorder.from_config(cfg)
         self._slo_armed = slo.configure(cfg) is not None
         # the fault plan (None: off) and the retry policy (None: off)
         self.faults = FaultInjector.from_plan(cfg.fault_plan,
@@ -356,10 +373,19 @@ class Pipeline:
                          or StreamCheckpoint._load(
                              cfg.checkpoint_path + ".bak") or {})
                 hint = int(state.get("segments_done", 0))
+            loss0 = metrics.get("manifest_loss_flags")
             self.manifest = RunManifest.open(
                 cfg.run_manifest_path, fsync=bool(cfg.manifest_fsync),
                 hash_content=bool(cfg.manifest_hash),
                 checkpoint_floor_hint=hint)
+            if metrics.get("manifest_loss_flags") > loss0:
+                # loss surfaced during startup recovery: bundle the
+                # evidence before the run overwrites the recent past (the
+                # recovery's events are on the ring)
+                self._incident(
+                    "manifest_loss",
+                    reason="manifest recovery flagged unrecoverable "
+                           "data loss (see events.jsonl)")
         self.checkpoint = None
         if cfg.checkpoint_path:
             self.checkpoint = StreamCheckpoint(cfg.checkpoint_path,
@@ -418,6 +444,21 @@ class Pipeline:
                 compress=bool(cfg.telemetry_journal_compress))
         # the quality vectors' consumer (None unless quality_stats)
         self.quality = QualityMonitor.from_config(cfg)
+        # the pulse-injection canary (None: off, or an input it cannot
+        # inject into); its delta is built now, on the processor's device,
+        # before the run's first allocations
+        self.canary = CanaryController.from_config(
+            cfg, n_samples=cfg.baseband_input_count,
+            reserved_samples=nsamps_reserved(cfg),
+            device=self.processor.device)
+        if self.canary is not None:
+            self.canary.ensure_delta()
+            if self.processor.device.type == "cuda":
+                torch.cuda.empty_cache()
+        # the canary schedule's base: the drain count a run resumes from,
+        # so that "every N-th segment" names the same segments across
+        # resumes (the dispatch index restarts at 0 every run)
+        self._canary_base = 0
         # drain-order indices of the segments the gate called positive
         self.positive_segments: list[int] = []
         # the ring's device-resident carry (None = cold) and the seq of
@@ -461,6 +502,93 @@ class Pipeline:
     def slo(self):
         """The live process-global SLO tracker, or None when disarmed."""
         return slo.tracker if self._slo_armed else None
+
+    def _incident(self, kind: str, reason: str = "",
+                  trace: int | None = None,
+                  extra: dict | None = None) -> None:
+        """Dump an incident bundle (nothing when ``incident_dir`` is off;
+        best-effort, rate-limited and bounded by the recorder).  It reads
+        host state only, so it may run after a sticky fault killed the
+        card's context.  ``extra`` lands as the bundle's ``extra.json``."""
+        if self.incidents is not None:
+            self.incidents.dump(
+                kind, reason=reason, trace=trace, stream=self.stream,
+                cfg=self.cfg, processor=self.processor,
+                journal_path=self.cfg.telemetry_journal_path, extra=extra)
+
+    # ------------------------------------------- the pulse-injection canary
+
+    def _canary_prepare(self, seg, index: int) -> None:
+        """Dispatch-side canary hook: on a scheduled segment (absolute
+        index ``_canary_base + index``) attach the injection mark
+        (``seg.canary``).  Idempotent: a watchdog requeue or a healed
+        re-dispatch finds the mark already set, so the segment is
+        injected into its every staging but counted once."""
+        c = self.canary
+        if c is None or getattr(seg, "canary", None) is not None:
+            return
+        mark = c.schedule(self._canary_base + index, len(seg.data))
+        if mark is None:
+            return
+        try:
+            seg.canary = mark
+        except AttributeError:  # read-only stub segments: no canary
+            log.warning("[canary] segment cannot carry the injection "
+                        "mark; skipping")
+
+    def _canary_inject(self, seg, raw: torch.Tensor) -> torch.Tensor:
+        """The bytes the chain reads (the reference's ``_device_bytes``):
+        a marked segment's staged bytes ``raw`` get the canary's delta, on
+        the device, in place; the segment's host buffer, which the sinks
+        read, stays pristine.  The delta is zero over the head and tail
+        reserved bytes, so the ring's carry in the head, and the tail that
+        becomes the next carry, are untouched."""
+        if getattr(seg, "canary", None) is not None:
+            self.canary.inject_(raw)
+        return raw
+
+    def _canary_drain(self, seg, det, sinks_done: set,
+                      drain_index: int) -> bool:
+        """Drain-side canary handling: score the recovered S/N against the
+        expected reference, flag the segment in the run manifest, and
+        escalate a sensitivity regression as an incident bundle with the
+        recent quality timeline attached.  Exactly once under sink retry
+        and supervisor replay, by the ``"canary"`` marker in
+        ``sinks_done``.  Returns the QUARANTINED verdict — always False:
+        a synthetic pulse never counts as science (no ``signals``, no
+        candidate files)."""
+        if "canary" in sinks_done:
+            return False
+        sinks_done.add("canary")
+        mark = seg.canary
+        verdict = None
+        if self.canary is not None:
+            verdict = self.canary.check(mark["segment"],
+                                        to_host(det.snr_peaks))
+        seg.canary_verdict = verdict  # the span's canary extra
+        if self.manifest is not None:
+            self.manifest.canary(
+                getattr(seg, "data_stream_id", 0), drain_index,
+                mark["segment"],
+                ok=bool(verdict.get("ok", True)) if verdict else True)
+        if verdict is not None and not verdict.get("ok", True):
+            tid = getattr(seg, "trace_id", 0)
+            if self.events is not None:
+                self.events.emit("canary.regression", trace=tid,
+                                 stream=self.stream, seg=mark["segment"],
+                                 info=f"ratio={verdict.get('ratio')}")
+            self._incident(
+                "canary_sensitivity",
+                reason=(f"canary segment {mark['segment']}: recovered "
+                        f"S/N {verdict.get('snr')} is "
+                        f"{verdict.get('ratio')}x the expected "
+                        f"{verdict.get('expected')}"),
+                trace=tid,
+                extra={"canary": dict(mark, **verdict),
+                       "quality_timeline": (self.quality.timeline()
+                                            if self.quality is not None
+                                            else [])})
+        return False
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -606,6 +734,7 @@ class Pipeline:
         ev = self.events
         if ev is not None:
             events.set_current(tid, self.stream)
+        self._canary_prepare(seg, index)
         t0 = time.perf_counter()
         h2d0 = proc.h2d_bytes
         if proc.ring:
@@ -618,8 +747,8 @@ class Pipeline:
                 ev.emit("ring.cold", trace=tid, stream=self.stream,
                         seg=index, info="requeue" if requeue else "")
             with trace_annotation("srtb:dispatch"):
-                staged = self._op("h2d", index, lambda: proc.stage_input(
-                    seg.data, carry=carry))
+                staged = self._op("h2d", index, lambda: self._canary_inject(
+                    seg, proc.stage_input(seg.data, carry=carry)))
                 (wf, det), next_carry = self._op(
                     "dispatch", index, lambda: proc.run_device_ring(
                         staged, warm=carry is not None))
@@ -629,8 +758,8 @@ class Pipeline:
                                     seg.seq) if seg.seq >= 0 else None)
         else:
             with trace_annotation("srtb:dispatch"):
-                staged = self._op("h2d", index,
-                                  lambda: proc.stage_input(seg.data))
+                staged = self._op("h2d", index, lambda: self._canary_inject(
+                    seg, proc.stage_input(seg.data)))
                 wf, det = self._op("dispatch", index,
                                    lambda: proc.run_device(staged))
         (det,), done = self._to_host([det])
@@ -653,10 +782,27 @@ class Pipeline:
         item a segment, each with its own offset and an even share of the
         host time and of the uploaded bytes."""
         proc = self.processor
+        for i, seg in enumerate(segs):
+            self._canary_prepare(seg, first_index + i)
         t0 = time.perf_counter()
         h2d0 = proc.h2d_bytes
         datas = [seg.data for seg in segs]
         ev = self.events
+
+        def lanes_injected(staged, warm: bool):
+            """The staged batch with each marked lane injected: a row of
+            the cold ``[B, bytes]`` tensor, or the lane's view of the warm
+            window (lane interiors do not overlap: the delta is zero over
+            the shared reserved spans)."""
+            if self.canary is None:
+                return staged
+            for i, seg in enumerate(segs):
+                lane = (staged[i * proc.stride_bytes:][
+                    :proc.reserved_bytes + proc.stride_bytes]
+                    if warm else staged[i])
+                self._canary_inject(seg, lane)
+            return staged
+
         if proc.ring:
             chain_ok = self._ring_adjacent(segs[0]) and all(
                 b.seq == a.seq + 1
@@ -668,7 +814,8 @@ class Pipeline:
                 carry = None
 
             def run():
-                staged = proc.stage_batch(datas, carry=carry)
+                staged = lanes_injected(proc.stage_batch(datas, carry=carry),
+                                        carry is not None)
                 if carry is None:
                     return proc.run_batch_cold(staged)
                 return proc.run_batch_ring(staged)
@@ -682,7 +829,8 @@ class Pipeline:
         else:
             with trace_annotation("srtb:dispatch"):
                 lanes = self._op("dispatch", first_index, lambda:
-                                 proc.run_batch(proc.stage_batch(datas)))
+                                 proc.run_batch(lanes_injected(
+                                     proc.stage_batch(datas), False)))
         dets, done = self._to_host([det for _wf, det in lanes])
         t1 = time.perf_counter()
         b = len(segs)
@@ -713,8 +861,7 @@ class Pipeline:
         dispatch returning and this fetch starting, the time the engine
         hid under the card's work; its device seconds run from dispatch
         start to fetch end (exact in the serial leg, an upper bound in a
-        window).  A quality vector goes to the monitor here, in drain
-        order.  ``queue_depth`` and ``inflight_depth`` are the window's
+        window).  ``queue_depth`` and ``inflight_depth`` are the window's
         depths at this drain, for the journal."""
         extras = self.stats.extras
         tid = getattr(item.seg, "trace_id", 0)
@@ -738,11 +885,6 @@ class Pipeline:
         stage_s["dispatch"] += item.dispatch_s
         stage_s["overlap"] += hidden
         stage_s["fetch"] += fetch_s
-        quality = None
-        if self.quality is not None and item.det.quality is not None:
-            quality = self.quality.observe(
-                item.det.quality.numpy(),
-                segment=len(extras["device_s_per_segment"]))
         device_s = item.dispatch_s + hidden + fetch_s
         extras["device_s_per_segment"].append(device_s)
         extras["overlap_hidden_s_per_segment"].append(hidden)
@@ -753,7 +895,7 @@ class Pipeline:
                        item.offset_after, item.index, span=span,
                        hidden_s=hidden, device_s=device_s,
                        queue_depth=queue_depth,
-                       inflight_depth=inflight_depth, quality=quality)
+                       inflight_depth=inflight_depth)
 
     # ------------------------------------------------ the sink side
 
@@ -798,8 +940,18 @@ class Pipeline:
         work = SegmentResultWork(segment=item.seg, waterfall=wf,
                                  detect=item.det)
         m = self.manifest
+        canary = getattr(item.seg, "canary", None) is not None
         for i, sink in enumerate(self.sinks):
             if done is not None and i in done:
+                continue
+            if canary and not getattr(sink, "canary_exempt", False):
+                # quarantine: results derived from the injected bytes (the
+                # waterfall, the detection series) never become science
+                # artifacts.  Only ``canary_exempt`` sinks take the
+                # segment: the write-all sink appends the PRISTINE bytes
+                # and must keep its byte stream continuous
+                if done is not None:
+                    done.add(i)
                 continue
             key = None
             if m is not None and seg_key is not None:
@@ -864,6 +1016,12 @@ class Pipeline:
             events.set_current(tid, self.stream)
         positive = has_signal(cfg, item.det,
                               frequency_bin_count=item.wf.shape[-2])
+        if getattr(item.seg, "canary", None) is not None:
+            # quarantine: the canary's recovered S/N is scored and
+            # journaled, then the segment is forced NEGATIVE
+            positive = self._canary_drain(
+                item.seg, item.det, done if done is not None else set(),
+                drained[0])
         if positive and (done is None or "stats" not in done):
             if done is not None:
                 done.add("stats")
@@ -969,7 +1127,9 @@ class Pipeline:
         """One drained segment's telemetry (drain index ``index``): the
         lifetime counters and their windows, the liveness stamp, the
         device-time and roofline accounting, the profile capture's
-        count, the SLO and, with the journal, one span."""
+        count, the SLO, the quality vector to its monitor (in drain order,
+        after the segment's canary check, as the reference observes it)
+        and, with the journal, one span."""
         n_samples = self.cfg.baseband_input_count
         seg = item.seg
         metrics.add("segments")
@@ -992,14 +1152,26 @@ class Pipeline:
         if self.slo is not None:
             # the latency objective scores the host stages' sum
             self.slo.note_segment(self.stream, sum(span.values()))
+        quality = None
+        if self.quality is not None and item.det.quality is not None:
+            quality = self.quality.observe(to_host(item.det.quality),
+                                           segment=index)
         if self.journal is None:
             return
         # a registered mode's own payload (the periodicity candidates)
         # and the quality dict ride in the span's extra sections
         span_extra = getattr(item.det, "span_extra", None)
         extra = span_extra() if span_extra is not None else None
-        if item.quality is not None:
-            extra = dict(extra or {}, quality=item.quality)
+        if quality is not None:
+            extra = dict(extra or {}, quality=quality)
+        # the canary's flag: the full verdict when this life's drain
+        # scored it; the bare injection mark on a replayed drain (its
+        # exactly-once check was done by an earlier attempt)
+        verdict = getattr(seg, "canary_verdict", None)
+        if verdict is None and getattr(seg, "canary", None) is not None:
+            verdict = {"injected": True, "segment": seg.canary["segment"]}
+        if verdict is not None:
+            extra = dict(extra or {}, canary=verdict)
         self.journal.write(telemetry.segment_span(
             index, span, item.queue_depth,
             int(to_host(item.det.signal_counts).sum()), positive, n_samples,
@@ -1089,9 +1261,11 @@ class Pipeline:
                     metrics.set("inflight_depth", live[0],
                                 labels=self._stream_labels)
 
-        # the drain index continues the checkpoint's count
+        # the drain index continues the checkpoint's count, and so does
+        # the canary's schedule
         drained = [self.checkpoint.segments_done
                    if self.checkpoint is not None else 0]
+        self._canary_base = drained[0]
 
         # the sink pipe's supervisor: a crash that is not fatal restarts
         # it, its item replayed inline first (journal order kept)
@@ -1220,6 +1394,11 @@ class Pipeline:
                             "[watchdog] sink pipe wedged past "
                             f"{deadline_s:g}s with no drain progress: "
                             "shedding segment as accounted loss")
+                        self._incident(
+                            "sink_wedge",
+                            trace=getattr(item.seg, "trace_id", 0),
+                            reason=f"sink pipe wedged > {deadline_s:g}s"
+                                   " with no drain progress")
                         shed_segment(item.seg, in_flight=True)
                         return True
                 time.sleep(0.002)
@@ -1355,12 +1534,18 @@ class Pipeline:
                     if kind == DEVICE_HALT:
                         if reinit_and_redispatch(exc):
                             return True
+                        self._incident(
+                            "reinit_budget_exceeded",
+                            reason=f"device halt beyond reinit budget: {exc}")
                         raise ReinitBudgetExceeded(
                             "device halt beyond reinit recovery "
                             "(device_reinit_max budget spent or "
                             f"disabled): {exc}") from exc
                     newp = h.demote(exc, kind)
                     if newp is None:
+                        self._incident(
+                            "ladder_exhausted",
+                            reason=f"device fault survived every rung: {exc}")
                         raise LadderExhausted(
                             "device fault survived every demotion rung: "
                             f"{exc}") from exc
@@ -1476,6 +1661,10 @@ class Pipeline:
                         events.emit("watchdog.escalate", trace=tid,
                                     stream=self.stream, seg=index,
                                     info=f"requeues={used}")
+                        self._incident(
+                            "watchdog_escalation", trace=tid,
+                            reason=f"segment {index} wedged through "
+                                   f"{used} requeue(s)")
                         raise WatchdogEscalation(
                             f"segment {index} fetch still not ready "
                             f"after {deadline_s:g}s at the drain head "
@@ -1540,6 +1729,10 @@ class Pipeline:
             log.error("[watchdog] sink wedged with a full in-flight "
                       "window: shedding ingested segment as accounted "
                       "loss")
+            self._incident(
+                "sink_wedge", trace=getattr(one[0], "trace_id", 0),
+                reason="whole window parked behind a wedged sink; "
+                       "shedding ingest as accounted loss")
             events.emit("shed.ingest", trace=getattr(one[0], "trace_id", 0),
                         stream=self.stream, seg=dispatched[0] - 1)
             shed_segment(one[0], in_flight=False)
@@ -1641,6 +1834,10 @@ class Pipeline:
             time.sleep(0.002)
         if sink_pipe.join(join_s if join_s > 0 else None):
             return False
+        self._incident(
+            "sink_wedge_shutdown",
+            reason=f"sink pipe still alive after the {join_s:g}s "
+                   "shutdown join budget")
         self._sink_wedged = True
         termination.report_wedged(
             [sink_pipe.thread],

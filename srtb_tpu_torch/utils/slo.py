@@ -23,9 +23,8 @@ process-wide series doubles as the solo pipeline's stream):
 - **sensitivity** (``slo_sensitivity_budget`` > 0 arms): a checked
   pulse-injection canary is *bad* when
   its recovered S/N falls below ``canary_min_ratio`` of the expected
-  reference; the budget is the allowed bad fraction of checks.
-  The canary is ROADMAP A9b: until it lands nothing calls
-  :meth:`SloTracker.note_canary`, and the objective stays at ``ok``.
+  reference; the budget is the allowed bad fraction of checks
+  (``quality/canary.py`` feeds it through :func:`note_canary`).
 
 Each objective is evaluated over TWO windows — ``slo_fast_window_s``
 (default 5 min) and ``slo_slow_window_s`` (default 1 h) — the standard

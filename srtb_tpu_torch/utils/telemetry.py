@@ -535,4 +535,23 @@ def health(stale_after_s: float = 30.0) -> dict:
         out["slo"] = slo_report
         out["slo_ok"] = all(v.get("ok", True)
                             for v in slo_report.values())
+    # detection health (quality/canary.py): present only once a
+    # pulse-injection canary has been CHECKED this process — a canary-off
+    # run (or one whose first canary hasn't drained) reports no detection
+    # section rather than a fake "ok".  NOT folded into liveness ``ok``:
+    # a sensitivity regression is an alerting concern (the incident
+    # bundle and the detection_health_state gauge), and restarting a
+    # pipeline that still drains segments would not fix the RFI
+    # environment or the broken subband that caused it.
+    if metrics.get("canary_checked"):
+        state = int(metrics.get("detection_health_state"))
+        out["detection"] = {
+            "state": "ok" if state == 0 else "degraded",
+            "canary_checked": int(metrics.get("canary_checked")),
+            "canary_failed": int(metrics.get("canary_failed")),
+            "last_snr": round(metrics.get("canary_last_snr"), 3),
+            "expected_snr": round(metrics.get("canary_expected_snr"), 3),
+            "sensitivity_ratio": round(
+                metrics.get("canary_sensitivity_ratio"), 4),
+        }
     return out

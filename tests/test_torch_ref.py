@@ -1881,6 +1881,440 @@ def ref_hbm_passes(flags: list) -> dict:
     return {"passes": np.array(out, dtype=np.int64)}
 
 
+# ------------------------------------------------- health (ROADMAP A9b)
+
+def _canary_module(pkg: str):
+    return importlib.import_module(f"{pkg}.quality.canary")
+
+
+def _config(pkg: str, fields: dict):
+    return importlib.import_module(f"{pkg}.config").Config(**fields)
+
+
+def _host(x) -> np.ndarray:
+    """numpy of a numpy array or a torch tensor."""
+    return np.asarray(x.cpu().numpy() if hasattr(x, "cpu") else x)
+
+
+def canary_delta(pkg: str, fields: dict, n: int, reserved: int) -> dict:
+    """``CanaryController._build_delta`` of ``pkg`` for ``n`` samples and
+    ``reserved`` reserved ones: the int16 delta and its t0."""
+    C = _canary_module(pkg)
+    c = C.CanaryController(_config(pkg, fields), n, reserved)
+    return {"delta": _host(c._build_delta()).astype(np.int16),
+            "t0": c.t0}
+
+
+def canary_prepare_script(pkg: str, fields: dict, n: int, reserved: int,
+                          steps: list) -> dict:
+    """``prepare`` of one controller of ``pkg`` on each ``(abs_index,
+    data)`` (uint8 arrays, one of them of the wrong size): the bytes
+    returned, whether they are the input object, the marks (JSON) and
+    ``canary_injected`` after each step."""
+    C = _canary_module(pkg)
+    M = _pkg(pkg, "metrics")
+    M.metrics.reset()
+    c = C.CanaryController(_config(pkg, fields), n, reserved)
+    out, same, marks, injected = [], [], [], []
+    for abs_index, data in steps:
+        got, mark = c.prepare(abs_index, data)
+        same.append(got is data)
+        out.append(np.asarray(got, dtype=np.uint8))
+        marks.append(json.dumps(mark, sort_keys=True))
+        injected.append(M.metrics.get("canary_injected"))
+    M.metrics.reset()
+    return {"bytes": np.concatenate(out), "same": np.array(same),
+            "marks": np.array(marks),
+            "injected": np.array(injected, dtype=np.float64)}
+
+
+def canary_gating(pkg: str, cases: list) -> dict:
+    """``CanaryController.from_config`` of ``pkg`` on each config's
+    fields: whether it arms."""
+    C = _canary_module(pkg)
+    return {"armed": np.array([
+        C.CanaryController.from_config(_config(pkg, f)) is not None
+        for f in cases])}
+
+
+CANARY_GAUGES = ("canary_injected", "canary_checked", "canary_failed",
+                 "canary_last_snr", "canary_expected_snr",
+                 "canary_sensitivity_ratio", "detection_health_state")
+
+
+def canary_check_script(pkg: str, fields: dict, peaks: list,
+                        slo_fields: dict) -> dict:
+    """``check`` of one controller of ``pkg`` over a sequence of S/N
+    peak arrays, the SLO armed from ``slo_fields``: each verdict (JSON),
+    the canary gauges, flat and ``stream``-labeled, after each check, the
+    SLO's sensitivity state at the end and ``health()``'s detection
+    section."""
+    C = _canary_module(pkg)
+    M = _pkg(pkg, "metrics")
+    S = _pkg(pkg, "slo")
+    T = _pkg(pkg, "telemetry")
+    M.metrics.reset()
+    S.reset()
+    cfg = _config(pkg, fields)
+    try:
+        S.configure(_config(pkg, dict(fields, **slo_fields)))
+        c = C.CanaryController.from_config(cfg, n_samples=1 << 12)
+        verdicts, gauges = [], []
+        lbl = {"stream": cfg.stream_name} if cfg.stream_name else None
+        for i, p in enumerate(peaks):
+            verdicts.append(json.dumps(c.check(2 * i + 1, np.asarray(p)),
+                                       sort_keys=True))
+            gauges.append([M.metrics.get(g) for g in CANARY_GAUGES]
+                          + [M.metrics.get(g, labels=lbl)
+                             for g in CANARY_GAUGES])
+        rep = S.evaluate() or {}
+        M.metrics.add("segments")
+        T.mark_segment(None)  # health() reports past its idle start
+        health = T.health(3600.0)
+        return {"verdicts": np.array(verdicts),
+                "gauges": np.array(gauges, dtype=np.float64),
+                "slo": json.dumps(rep, sort_keys=True),
+                "detection": json.dumps(health.get("detection"),
+                                        sort_keys=True),
+                "ok": bool(health["ok"])}
+    finally:
+        S.reset()
+        M.metrics.reset()
+
+
+def detection_health_script(pkg: str, script: list) -> dict:
+    """``health()`` of ``pkg`` from a fresh registry (SLO disarmed) after
+    each step: ``("check", ok)`` sets what a canary check sets,
+    ``("mark",)`` a drained segment."""
+    T = _pkg(pkg, "telemetry")
+    M = _pkg(pkg, "metrics")
+    _pkg(pkg, "slo").reset()
+    M.metrics.reset()
+    T._ADMITTED_STREAMS.clear()
+    reports = []
+    for op in script:
+        if op[0] == "check":
+            M.metrics.add("canary_checked")
+            if not op[1]:
+                M.metrics.add("canary_failed")
+            M.metrics.set("canary_last_snr", 12.3456 if op[1] else 2.5)
+            M.metrics.set("canary_expected_snr", 12.3456)
+            M.metrics.set("canary_sensitivity_ratio",
+                          1.0 if op[1] else 2.5 / 12.3456)
+            M.metrics.set("detection_health_state", 0 if op[1] else 1)
+        elif op[0] == "mark":
+            M.metrics.add("segments")
+            T.mark_segment(None)
+        rep = T.health(3600.0)
+        rep.pop("last_segment_age_s", None)
+        reports.append(json.dumps(rep, sort_keys=True))
+    M.metrics.reset()
+    return {"reports": np.array(reports)}
+
+
+HEALTH_COUNTERS = CANARY_GAUGES + (
+    "plan_demotions", "device_reinits", "watchdog_requeues",
+    "segments_dropped", "incident_bundles", "incidents_suppressed",
+    "incident_dump_failures", "signals", "segments")
+
+
+class WedgedSink:
+    """A sink whose first push blocks until released (a disk that stopped
+    answering)."""
+
+    def __init__(self):
+        import threading
+        self.release = threading.Event()
+
+    def push(self, work, positive):
+        self.release.wait(30.0)
+
+
+def _wedge_chain(pkg: str, pipe) -> None:
+    """Make every dispatched segment of ``pipe`` never become ready (a
+    wedged card): the reference's readiness probe, the port's event."""
+    if pkg == "srtb_tpu":
+        pipe._result_ready = lambda det_res: False
+        return
+
+    class NeverReady:
+        def query(self):
+            return False
+
+        def synchronize(self):
+            raise AssertionError("a wedged segment's results were read")
+    to_host = pipe._to_host
+    pipe._to_host = lambda dets: (to_host(dets)[0], NeverReady())
+
+
+def _bundles(directory: str) -> dict:
+    """Each incident bundle under ``directory``: its name, files,
+    ``incident.json`` (less its wall time and pid), ``plan.json`` and
+    ``extra.json``."""
+    out = {}
+    if not directory or not os.path.isdir(directory):
+        return out
+    for name in sorted(os.listdir(directory)):
+        d = os.path.join(directory, name)
+        rec = {"files": sorted(os.listdir(d))}
+        for f in ("incident.json", "plan.json", "extra.json"):
+            p = os.path.join(d, f)
+            if os.path.exists(p):
+                with open(p) as fh:
+                    rec[f] = json.load(fh)
+        inc = rec.get("incident.json")
+        if inc is not None:
+            inc.pop("ts")
+            inc.pop("pid")
+            inc["trace_id"] = inc["trace_id"] > 0
+        out[name] = rec
+    return out
+
+
+def health_run(pkg: str, fields: dict, max_segments=None,
+               source_fields: dict | None = None, wedge: str = "",
+               chain_log: list | None = None) -> dict:
+    """One ``Pipeline`` run of ``pkg`` on ``fields`` from a fresh registry,
+    SLO and flight recorder: the exception that ended it (its class name,
+    "" when it completed), its segment and signal counts, the journal's
+    span fields that are not times (JSON lines: segment, dump, detections
+    and the ``canary`` extra), the run manifest's canary records, the
+    SHA-256 of the write-all file, the health counters, ``health()``'s
+    detection section and the incident bundles (:func:`_bundles`, JSON).
+    ``source_fields`` makes the source a file reader of that config (a
+    live source's stand-in: ``fields`` has no input file).  ``wedge``:
+    "chain" makes every dispatch never ready, "sink" replaces the sinks by
+    a :class:`WedgedSink`.  ``chain_log`` (the port only) receives the
+    bytes each chain reads."""
+    import hashlib
+    R = importlib.import_module(f"{pkg}.pipeline.runtime")
+    T = _pkg(pkg, "telemetry")
+    M = _pkg(pkg, "metrics")
+    E = _pkg(pkg, "events")
+    I = _pkg(pkg, "incidents")
+    M.metrics.reset()
+    _pkg(pkg, "slo").reset()
+    E.configure(False)
+    I.IncidentRecorder._last_dump_by_dir.clear()
+    cfg = _config(pkg, fields)
+    kwargs = {"device": "cpu"} if pkg == "srtb_tpu_torch" else {}
+    if source_fields is not None:
+        kwargs["source"] = importlib.import_module(
+            f"{pkg}.io.file_input").make_file_source(
+                _config(pkg, source_fields))
+    sink = None
+    if wedge == "sink":
+        sink = WedgedSink()
+        kwargs["sinks"] = [sink]
+    restore = None
+    if chain_log is not None:
+        S = importlib.import_module(f"{pkg}.pipeline.segment")
+        chain = S.SegmentProcessor._chain
+
+        def logged(self, raw):
+            chain_log.append(raw.cpu().numpy().copy())
+            return chain(self, raw)
+        S.SegmentProcessor._chain = logged
+
+        def restore():
+            S.SegmentProcessor._chain = chain
+    error = ""
+    try:
+        pipe = R.Pipeline(cfg, **kwargs)
+        if wedge == "chain":
+            _wedge_chain(pkg, pipe)
+        with pipe:
+            stats = pipe.run(max_segments)
+    except Exception as e:  # noqa: BLE001 - reported by name
+        error = type(e).__name__
+        stats = None
+    finally:
+        if sink is not None:
+            sink.release.set()
+        if restore is not None:
+            restore()
+    spans = []
+    jp = cfg.telemetry_journal_path
+    if jp and os.path.exists(jp):
+        with open(jp) as f:
+            for line in f:
+                rec = json.loads(line)
+                spans.append(json.dumps(
+                    {k: rec.get(k) for k in ("segment", "dump",
+                                             "detections", "canary")},
+                    sort_keys=True))
+    canary_recs = []
+    if cfg.run_manifest_path and os.path.exists(cfg.run_manifest_path):
+        with open(cfg.run_manifest_path, "rb") as f:
+            for line in f.read().splitlines():
+                rec = json.loads(line)
+                if rec.get("t") == "canary":
+                    canary_recs.append(json.dumps(rec, sort_keys=True))
+    digest = ""
+    wa = cfg.baseband_output_file_prefix + "stream0.bin"
+    if cfg.baseband_write_all and os.path.exists(wa):
+        with open(wa, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+    health = T.health(3600.0)
+    prefix = cfg.baseband_output_file_prefix
+    files = sorted(f for f in os.listdir(os.path.dirname(prefix))
+                   if f.startswith(os.path.basename(prefix))) \
+        if prefix and os.path.isdir(os.path.dirname(prefix)) else []
+    out = {"error": error, "files": np.array(files or [""]),
+           "segments": stats.segments if stats is not None else -1,
+           "signals": stats.signals if stats is not None else -1,
+           "spans": np.array(spans or [""]),
+           "manifest": np.array(canary_recs or [""]),
+           "write_all": digest,
+           "counters": np.array([M.metrics.get(k) for k in HEALTH_COUNTERS],
+                                dtype=np.float64),
+           "detection": json.dumps(health.get("detection"),
+                                   sort_keys=True),
+           "bundles": json.dumps(_bundles(cfg.incident_dir),
+                                 sort_keys=True)}
+    M.metrics.reset()
+    E.configure(False)
+    return out
+
+
+def plant_manifest_loss(pkg: str, manifest_path: str) -> None:
+    """A run directory whose manifest committed segment 0's artifact and
+    sealed a checkpoint past it, and whose artifact is then gone: the
+    next recovery flags the loss."""
+    MF = importlib.import_module(f"{pkg}.io.manifest")
+    d = os.path.dirname(manifest_path)
+    art = os.path.join(d, "out_lost.npy")
+    with open(art, "wb") as f:
+        f.write(b"lost bytes")
+    m = MF.RunManifest(manifest_path)
+    key = (0, 0, "0:WriteSignalSink")
+    m.intent(key, art)
+    m.commit(key, art, 10)
+    m.sink_done(key)
+    m.checkpoint(1, 4096)
+    m.close()
+    os.unlink(art)
+
+
+def manifest_loss_run(pkg: str, fields: dict) -> dict:
+    """:func:`health_run` of ``pkg`` on a run directory with a planted
+    loss (:func:`plant_manifest_loss`)."""
+    plant_manifest_loss(pkg, fields["run_manifest_path"])
+    return health_run(pkg, fields)
+
+
+def ref_canary_prepare_of_file(fields: dict, path: str, stride: int,
+                               n_segments: int, base: int = 0) -> dict:
+    """The reference's ``prepare`` of each segment of the file at
+    ``path`` (segment i: ``stride * i`` on, ``baseband_input_count``
+    bytes; absolute index ``base + i``): the bytes its chain would
+    read."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.ops import dedisperse as dd
+    from srtb_tpu.quality.canary import CanaryController
+    cfg = Config(**fields)
+    n = cfg.baseband_input_count
+    c = CanaryController.from_config(
+        cfg, n_samples=n, reserved_samples=dd.nsamps_reserved(cfg))
+    raw = np.fromfile(path, dtype=np.uint8)
+    out = []
+    for i in range(n_segments):
+        seg = raw[i * stride:i * stride + n]
+        if len(seg) < n:  # the reader's zero-padded last segment
+            seg = np.concatenate([seg, np.zeros(n - len(seg), np.uint8)])
+        out.append(c.prepare(base + i, seg)[0])
+    return {"bytes": np.stack(out)}
+
+
+def incident_recorder_script(pkg: str, directory: str, max_bundles: int,
+                             min_interval_s: float, steps: list) -> dict:
+    """An ``IncidentRecorder`` of ``pkg`` on a fake clock over
+    ``directory`` (a ``*.srtb_tmp`` leftover planted there first):
+    ``("dump", kind, reason)``, ``("tick", seconds)``, ``("clear",)``
+    (the operator empties the directory) and ``("break",)`` (the
+    directory becomes a file: every later dump fails).  Returns each
+    dump's result (its name, or "" when suppressed or failed), the
+    counters after each step and the directory listing at the end."""
+    import shutil
+    I = _pkg(pkg, "incidents")
+    M = _pkg(pkg, "metrics")
+    E = _pkg(pkg, "events")
+    M.metrics.reset()
+    I.IncidentRecorder._last_dump_by_dir.clear()
+    os.makedirs(os.path.join(directory, "incident_007_x.srtb_tmp"))
+    clock = FakeClock()
+    results, counters = [], []
+    with fake_time(I, clock):
+        rec = I.IncidentRecorder(directory, max_bundles=max_bundles,
+                                 min_interval_s=min_interval_s)
+        swept = sorted(os.listdir(directory))
+        for op in steps:
+            if op[0] == "dump":
+                got = rec.dump(op[1], reason=op[2], extra={"step": op[1]})
+                results.append(os.path.basename(got) if got else "")
+            elif op[0] == "tick":
+                clock.advance(op[1])
+            elif op[0] == "clear":
+                for name in os.listdir(directory):
+                    shutil.rmtree(os.path.join(directory, name))
+            elif op[0] == "break":
+                shutil.rmtree(directory)
+                with open(directory, "w") as f:
+                    f.write("not a directory\n")
+            counters.append([M.metrics.get(k) for k in (
+                "incident_bundles", "incidents_suppressed",
+                "incident_dump_failures")])
+    listing = (sorted(os.listdir(directory))
+               if os.path.isdir(directory) else [])
+    evs = [e["info"] for e in (E.hub.dump() if E.hub else [])
+           if e["type"] == "incident"]
+    M.metrics.reset()
+    return {"results": np.array(results),
+            "counters": np.array(counters, dtype=np.float64),
+            "swept": np.array(swept or [""]),
+            "listing": np.array(listing or [""]),
+            "events": np.array(evs or [""])}
+
+
+def report_outputs(pkg: str, journals: list, event_dumps: list,
+                   bin_s: float) -> dict:
+    """``pkg``'s ``telemetry_report`` and ``quality_report`` (md and json)
+    of each journal and its ``trace_export`` (``--validate`` and the
+    written document, its ``otherData.source`` removed) of each events
+    dump or bundle directory: everything each prints and writes."""
+    import contextlib
+    import io
+    import tempfile
+    tools = {name: importlib.import_module(f"{pkg}.tools.{name}")
+             for name in ("telemetry_report", "quality_report",
+                          "trace_export")}
+
+    def printed(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        return f"rc={rc}\n{buf.getvalue()}"
+    out = {}
+    for i, j in enumerate(journals):
+        for fmt in ("md", "json"):
+            out[f"telemetry/{i}/{fmt}"] = printed(
+                tools["telemetry_report"].main,
+                [j, "--format", fmt, "--bin", str(bin_s)])
+            out[f"quality/{i}/{fmt}"] = printed(
+                tools["quality_report"].main, [j, "--format", fmt])
+    for i, e in enumerate(event_dumps):
+        out[f"trace/{i}/validate"] = printed(tools["trace_export"].main,
+                                             [e, "--validate"])
+        with tempfile.TemporaryDirectory() as d:
+            dest = os.path.join(d, "trace.json")
+            printed(tools["trace_export"].main, [e, "--out", dest])
+            with open(dest) as f:
+                doc = json.load(f)
+        doc["otherData"].pop("source")
+        out[f"trace/{i}/doc"] = json.dumps(doc, sort_keys=True)
+    return out
+
+
 def _refill_reference_window() -> None:
     """The JAX package's engine ends a run early, its source unread, when
     the sink thread drains the whole in-flight window between two of the

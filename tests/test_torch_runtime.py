@@ -324,17 +324,17 @@ def test_ring_warm_equals_cold_every_format(fmt):
 
 # the settings still refused: (field, value, the ROADMAP item named)
 UNPORTED_SETTINGS = {
-    "canary_every_segments": ("canary_every_segments", "4", "A9b"),
-    "incident_dir": ("incident_dir", "incidents", "A9b"),
     "perf_ledger_path": ("perf_ledger_path", "ledger.jsonl", "A9c"),
     "sanitize": ("sanitize", "1", "A9d"),
     "distributed_num_processes": ("distributed_num_processes", "2", "A8"),
 }
 # the settings that raised before the micro-batch (A3), durability (A6b),
-# resilience (A7) and observability (A9a) slices, and now run: a device
-# fault the ladder recovers, a stall under the default retries, the
-# segment deadline, the span journal, the events dump and a profile
-# capture ("{tmp}" is the test's directory)
+# resilience (A7), observability (A9a) and health (A9b) slices, and now
+# run: a device fault the ladder recovers, a stall under the default
+# retries, the segment deadline, the span journal, the events dump, a
+# profile capture, the canary (refused loudly by the 2-bit input: it
+# injects only into 8-bit "simple" bytes) and the incident directory (no
+# escalation: no bundle) ("{tmp}" is the test's directory)
 NOW_PORTED = {
     "checkpoint_path": ["--checkpoint_path", "{tmp}/ck.json"],
     "run_manifest_path": ["--run_manifest_path", "{tmp}/manifest.jsonl"],
@@ -349,6 +349,8 @@ NOW_PORTED = {
                          "--events_ring_size", "64"],
     "profile_capture_segments": ["--profile_capture_segments", "1",
                                  "--profile_capture_dir", "{tmp}/profile"],
+    "canary_every_segments": ["--canary_every_segments", "2"],
+    "incident_dir": ["--incident_dir", "{tmp}/incidents"],
 }
 
 
@@ -373,9 +375,11 @@ def test_unported_runtime_settings_raise(tmp_path, fresh_metrics, case):
     ROADMAP item, before any input is read; the checkpoint, the run
     manifest, the micro-batch, a fault plan (an injected out-of-memory
     demotes once), the segment deadline, the span journal (one schema-11
-    span a segment), the events dump (each segment's stage edges) and a
+    span a segment), the events dump (each segment's stage edges), a
     profile capture (a torch.profiler trace whose user annotations hold
-    the stage names) run and find the pulse."""
+    the stage names), the canary (disabled, loudly, on this 2-bit input)
+    and the incident directory (created, and empty after a run that did
+    not escalate) run and find the pulse."""
     argv, _nres = make_case(tmp_path)
     out = ["--device", "cpu", "--baseband_output_file_prefix",
            f"{tmp_path}/out_"]
@@ -414,6 +418,10 @@ def test_unported_runtime_settings_raise(tmp_path, fresh_metrics, case):
         for t in ("stage.ingest", "stage.dispatch", "stage.fetch",
                   "stage.sink"):
             assert types.count(t) == 3, t
+    if case == "canary_every_segments":
+        assert pipe.canary is None and not metrics.get("canary_injected")
+    if case == "incident_dir":
+        assert os.listdir(flags[1]) == []
     if case == "profile_capture_segments":
         with open(os.path.join(flags[3], "trace.json")) as f:
             names = {e["name"] for e in json.load(f)["traceEvents"]
