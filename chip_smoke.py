@@ -3791,7 +3791,7 @@ RESILIENCE_OFF = ("plan_ladder = off\ndevice_reinit_max = 0\n"
 
 
 # armed against off: this many pairs, in turns off, armed, armed, off
-ARMED_PAIRS = 10
+ARMED_PAIRS = 4
 
 
 def resilience_armed_vs_off(card: str, window: dict) -> dict:
@@ -4484,7 +4484,6 @@ def phase_resilience(card: str, window: dict, runs: dict, made: dict
     process, (d) the front-fuse rung, the retries and the watchdog, then
     every layer armed against every layer off.  Returns the launch counts
     by run and the numbers."""
-    import shutil
     t0 = time.perf_counter()
     walk = resilience_walk(card, window)
     t1 = time.perf_counter()
@@ -4505,9 +4504,6 @@ def phase_resilience(card: str, window: dict, runs: dict, made: dict
             for k, v in c.items():
                 total[k] = total.get(k, 0) + v
         counts[f"resilience_{name}"] = total
-    w = window["fused_2^27"]
-    w["data"].unlink()
-    shutil.rmtree(OUT_DIR / "window_fused_2^27_0")
     return {"counts": counts, "oom_recovery_s": oom["recovery_s"],
             "armed_vs_off": rates}
 
@@ -5907,7 +5903,506 @@ def check_same_candidates(staged: dict, quality: dict) -> None:
         f"({sorted(quality['digests'])})")
 
 
+# ------------------------------------------------------------------ A9d
+
+# the threaded engine's paths: (label, the main path whose cfg it runs,
+# the window phase's file (True) or the main path's two-segment one)
+THREADED_PATHS = (("threaded_2^30", "staged_2^30", False),
+                  ("threaded_2^27", "fused_2^27", True))
+# the live harness at the cfg's geometry: real time, 4 segments, the pulse
+# in the first, the deadline armed
+E2E_LABEL = "e2e_live_2^30"
+E2E_SEGMENTS = 4
+E2E_PLAN = "staged:four_step"
+E2E_LAUNCHES = {"unpack_subbyte_window": 1, "dedisperse": 1}
+# the compiled-kernel cache's children: the fused_2^27 main path's cfg
+AOT_PATH = "fused_2^27"
+AOT_MARK = "AOT_RESULT "
+# the sanitized fused_2^27 runs: serial and the defaults (a window of 2)
+SANITIZE_SETTINGS = {"serial": "inflight_segments = 1\nwriter_thread_count "
+                               "= 0\ningest_ring = off\n", "window2": ""}
+# udp_soak: the pace (2x the 0.256 Gbps requirement) and the packets
+SOAK_PACE_GBPS = 0.512
+SOAK_PACKETS = 20000
+
+
+def _file_digests(files: dict) -> dict:
+    """The SHA-256 of each file of ``files`` (name -> path), by name."""
+    return {name: file_sha256(Path(path)) for name, path in files.items()}
+
+
+def _steady_record(ledger: Path) -> dict:
+    """The perf ledger's one "steady" record of a run."""
+    recs = [json.loads(line) for line in ledger.read_text().splitlines()]
+    if len(recs) != 1 or recs[0].get("source") != "steady":
+        fail(f"{ledger}: expected one steady record, got {recs}")
+    return recs[0]
+
+
+def a9d_threaded(card: str, window: dict, runs: dict) -> dict:
+    """(a) ``ThreadedPipeline`` on staged_2^30's cfg and two-segment file
+    and on fused_2^27's cfg and the window phase's 8-segment file: the
+    plan, the positives, the launches a segment, no recovery, the
+    candidate bytes equal by SHA-256 to the async engine's run of the same
+    file (staged_2^30's main path; the window phase's first fused_2^27
+    run), and the Msamples/s, peak and steady perf-ledger record."""
+    import shutil
+    import torch
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.pipeline.runtime import ThreadedPipeline
+    counts = {}
+    for label, main, windowed in THREADED_PATHS:
+        _l, log2_n, extra, plan, per_segment, env = _main_path(main)
+        out_dir = OUT_DIR / label
+        ledger = out_dir / "ledger.jsonl"
+        cfg, _text = path_cfg(out_dir, extra
+                              + f"perf_ledger_path = {ledger}\n", log2_n,
+                              label)
+        if ledger.exists():
+            ledger.unlink()
+        if windowed:
+            w = window[main]
+            data, want_files = w["data"], w["first"]
+            segments, positives = 8, [5]
+            want = _file_digests(want_files)
+        else:
+            data, want = runs[main]["data"], runs[main]["digests"]
+            segments, positives = 2, [1]
+        cfg = cfg.replace(input_file_path=str(data))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fresh_telemetry()
+        with path_env(env):
+            pipe = ThreadedPipeline(cfg)
+            K.reset_launch_counts()
+            try:
+                stats = pipe.run()
+            finally:
+                pipe.close()
+        counts[label] = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rec = _steady_record(ledger)
+        say(f"a9d {label}: ThreadedPipeline, plan "
+            f"{pipe.processor.plan_name}, {stats.segments} segments, "
+            f"positive {pipe.positive_segments}, "
+            f"{stats.msamples_per_sec:.1f} Msamples/s ({stats.elapsed_s:.3f}"
+            f" s), max_memory_allocated {peak} bytes ({peak / 1e9:.2f} GB);"
+            f" steady record {json.dumps(rec)}; card {card}")
+        say(f"a9d {label}: engine " + json.dumps(
+            {k: stats.extras[k] for k in ("engine", "stage_s",
+                                          "dispatches")}))
+        if pipe.processor.plan_name != plan:
+            fail(f"{label}: plan {pipe.processor.plan_name}, expected {plan}")
+        if stats.segments != segments or \
+                pipe.positive_segments != positives:
+            fail(f"{label}: {stats.segments} segments, positive "
+                 f"{pipe.positive_segments}; expected {segments} and "
+                 f"{positives}")
+        check_no_recovery(label, stats)
+        _check_launches(f"a9d {label}", counts[label], per_segment,
+                        stats.segments)
+        got = _file_digests(_candidate_files(pipe))
+        if got != want:
+            fail(f"{label}: candidate files {sorted(got)} differ by name or "
+                 f"SHA-256 from the async engine's {sorted(want)}")
+        say(f"a9d {label}: candidate bytes equal by SHA-256 to the async "
+            f"engine's ({len(got)} files: {sorted(got)})")
+        del pipe
+        shutil.rmtree(out_dir)
+        free_card()
+    return counts
+
+
+def a9d_e2e_live(card: str, runs: dict) -> dict:
+    """(b) ``python -m srtb_tpu_torch.tools.e2e_live`` at 2^30 / 2^11, real
+    time, 4 segments, the pulse in the first, /metrics served, the
+    deadline armed: the run completes, the plan and the launches a
+    segment are expected ones, the pulse's segment is positive, every
+    packet slot is accounted (received + lost); its loss beside
+    live_2^30's (the async engine, one port, the live phase)."""
+    import shutil
+    from srtb_tpu_torch.io import formats
+    from srtb_tpu_torch.tools import e2e_live as E
+    out_dir = OUT_DIR / "e2e_live"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    line = out_dir / "e2e.jsonl"
+    t0 = time.perf_counter()
+    rc = E.main(["--log2n", str(LOG2_N), "--log2chan", str(LOG2_CHANNELS),
+                 "--rate_x", "1.0", "--max_segments", str(E2E_SEGMENTS),
+                 "--pulse_segments", "1", "--deadline_s", "120",
+                 "--port", "0", "--prefix", f"{out_dir}/out_",
+                 "--out", str(line)])
+    wall = time.perf_counter() - t0
+    rec = json.loads(line.read_text().splitlines()[-1])
+    shown = {k: rec[k] for k in (
+        "segments", "seconds", "vs_realtime_window", "vs_realtime_lifetime",
+        "msamples_per_s_window", "packets_total", "packets_lost",
+        "loss_rate", "signals", "positive_segments", "plan", "launches",
+        "deadline_s", "card")}
+    shown["metrics_http"] = {k: rec["metrics_http"].get(k) for k in (
+        "segments", "packets_total", "packets_lost", "elapsed_s",
+        "msamples_per_sec")}
+    live_lost = runs.get("live_2^30", {}).get("lost")
+    say(f"a9d {E2E_LABEL}: rc {rc}, {wall:.1f} s with set-up; "
+        + json.dumps(shown) + f"; card {card}")
+    say(f"a9d {E2E_LABEL}: packets lost {rec['packets_lost']} of "
+        f"{rec['packets_total']} (ThreadedPipeline, the receive on its own "
+        f"thread, no waterfall dumps) against live_2^30's {live_lost} (the "
+        "async engine, the receive on the engine thread, the positive's "
+        "4 GiB dump) in this run (ROADMAP P7; no gate)")
+    fmt = formats.resolve("fastmb_roach2")
+    slots = E2E_SEGMENTS * (1 << LOG2_N) * 2 // 8 // fmt.payload_bytes
+    if rc != 0 or rec["segments"] != E2E_SEGMENTS:
+        fail(f"{E2E_LABEL}: rc {rc}, {rec['segments']} segments")
+    if rec["plan"] != E2E_PLAN:
+        fail(f"{E2E_LABEL}: plan {rec['plan']}, expected {E2E_PLAN}")
+    want = {k: v * E2E_SEGMENTS for k, v in E2E_LAUNCHES.items()}
+    if rec["launches"] != want:
+        fail(f"{E2E_LABEL}: launches {rec['launches']}, expected {want}")
+    if 0 not in rec["positive_segments"]:
+        fail(f"{E2E_LABEL}: the pulse's segment 0 is not positive "
+             f"({rec['positive_segments']})")
+    http = rec["metrics_http"]
+    if not (rec["packets_total"] == slots == http["packets_total"]
+            and 0 <= rec["packets_lost"] == http["packets_lost"] <= slots):
+        fail(f"{E2E_LABEL}: packets_total {rec['packets_total']} (served "
+             f"{http['packets_total']}), lost {rec['packets_lost']}: not "
+             f"the {slots} slots of {E2E_SEGMENTS} segments, received + "
+             "lost")
+    say(f"a9d {E2E_LABEL}: packets_total {slots} = received "
+        f"{slots - rec['packets_lost']} + lost {rec['packets_lost']}")
+    shutil.rmtree(out_dir)
+    free_card()
+    from srtb_tpu_torch import kernels as K
+    counts = dict.fromkeys(K.launch_counts(), 0)
+    counts.update(rec["launches"])
+    return {"counts": counts, "lost": rec["packets_lost"],
+            "vs_realtime_window": rec["vs_realtime_window"]}
+
+
+def _sync_debug_probe() -> dict:
+    """Which calls ``set_sync_debug_mode("error")`` refuses on this card:
+    an event's synchronize, a non-blocking copy into pinned memory, a
+    blocking ``.cpu()``, ``.item()`` and ``torch.cuda.synchronize``."""
+    import torch
+    x = torch.ones(1 << 20, device="cuda")
+    pinned = torch.empty(1 << 20, pin_memory=True)
+    ev = torch.cuda.Event()
+    calls = {
+        "event.synchronize": lambda: (ev.record(), ev.synchronize()),
+        "copy_(non_blocking) to pinned": lambda: pinned.copy_(
+            x, non_blocking=True),
+        "tensor.cpu()": lambda: x.cpu(),
+        "tensor.item()": lambda: x[0].item(),
+        "torch.cuda.synchronize()": torch.cuda.synchronize}
+    out = {}
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            out[name] = "allowed"
+        except RuntimeError as e:
+            out[name] = f"refused ({str(e).splitlines()[0][:60]})"
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
+def a9d_sanitize(card: str, window: dict) -> None:
+    """(c) ``sanitize = 1`` on fused_2^27 over the window phase's file,
+    serial and at window 2: candidate bytes the unsanitized run's, no
+    trip; a NaN seeded in the chain raises ``SanitizerError`` naming its
+    boundary, a sink's ``.cpu()`` of the device waterfall raises it too;
+    after each scope nothing is patched and the sync-debug mode is off.
+    Then the chain's ms sanitized against off, and which calls the
+    sync-debug mode refuses."""
+    import shutil
+    import numpy as np
+    import torch
+    from srtb_tpu_torch.analysis import sanitizer as S
+    from srtb_tpu_torch.io.writers import to_host
+    from srtb_tpu_torch.pipeline import segment as SEG
+    _l, log2_n, extra, plan, per_segment, env = _main_path("fused_2^27")
+    w = window["fused_2^27"]
+    for tag, setting in SANITIZE_SETTINGS.items():
+        out_dir = OUT_DIR / f"sanitize_{tag}"
+        cfg, _text = path_cfg(out_dir, extra + "sanitize = 1\n" + setting,
+                              log2_n, f"sanitize {tag}")
+        stats, pipe, _ = _run_pipeline(cfg, w["data"], env)
+        say(f"a9d sanitize {tag}: {stats.segments} segments, positive "
+            f"{pipe.positive_segments}, {stats.msamples_per_sec:.1f} "
+            f"Msamples/s ({stats.elapsed_s:.3f} s); no trip; card {card}")
+        if stats.segments != 8 or pipe.positive_segments != [5]:
+            fail(f"sanitize {tag}: {stats.segments} segments, positive "
+                 f"{pipe.positive_segments}")
+        check_no_recovery(f"sanitize {tag}", stats)
+        _same_candidates(f"sanitize {tag}", _candidate_files(pipe),
+                         w["first"])
+        if S.patched() or torch.cuda.get_sync_debug_mode():
+            fail(f"sanitize {tag}: the scope left torch patched or the "
+                 "sync-debug mode armed")
+        say(f"a9d sanitize {tag}: candidate bytes equal the unsanitized "
+            "run's; after the scope nothing patched, sync-debug mode 0")
+        shutil.rmtree(out_dir)
+    # the seeded trips, at window 2
+    out_dir = OUT_DIR / "sanitize_trips"
+    cfg, _text = path_cfg(out_dir, extra + "sanitize = 1\n", log2_n,
+                          "sanitize trips")
+    spectrum = SEG.SegmentProcessor._spectrum
+
+    def nan_spectrum(self, raw):
+        spec = spectrum(self, raw)
+        # fill_ of a Python number enqueues a kernel; an indexed
+        # assignment would copy a host scalar, a sync the armed dispatch
+        # refuses first
+        spec[0].narrow(0, 12345, 1).fill_(float("nan"))
+        return spec
+
+    class CpuSink:
+        """A sink that reads the device waterfall back itself."""
+
+        def push(self, work, positive):
+            work.waterfall.cpu()
+
+    trips = {"a NaN seeded after the spectrum": (
+                 "stage_a boundary", lambda: setattr(
+                     SEG.SegmentProcessor, "_spectrum", nan_spectrum),
+                 None),
+             "a sink's .cpu() of the device waterfall": (
+                 "implicit device->host transfer", None,
+                 lambda pipe: pipe.sinks.append(CpuSink()))}
+    for what, (want, patch, setup) in trips.items():
+        if patch is not None:
+            patch()
+        try:
+            _run_pipeline(cfg, w["data"], env, setup)
+            fail(f"sanitize: {what} did not trip the sanitizer")
+        except S.SanitizerError as e:
+            if want not in str(e):
+                fail(f"sanitize: {what} raised {e!r}, not naming {want!r}")
+            say(f"a9d sanitize: {what} raised SanitizerError: "
+                f"{str(e)[:160]}")
+        finally:
+            SEG.SegmentProcessor._spectrum = spectrum
+        if S.patched() or torch.cuda.get_sync_debug_mode():
+            fail(f"sanitize: after {what} torch is patched or the "
+                 "sync-debug mode armed")
+        free_card()
+    shutil.rmtree(out_dir)
+    # the chain alone, sanitized against off, on the file's first segment
+    raw = np.fromfile(w["data"], dtype=np.uint8,
+                      count=cfg.segment_bytes(1))
+    ms = {}
+    for tag, on in (("off", False), ("sanitized", True),
+                    ("off", False), ("sanitized", True)):
+        with path_env(env):
+            proc = SEG.SegmentProcessor(cfg.replace(sanitize=on))
+        dev = torch.from_numpy(raw).cuda()
+        ms.setdefault(tag, []).append(cuda_ms(
+            lambda: to_host(proc.run_device(dev)[1].signal_counts), 5))
+        del proc, dev
+        free_card()
+    probe = _sync_debug_probe()
+    say(f"a9d sanitize: fused_2^27 chain ms (one segment, 5 reps, turns) "
+        f"off {ms['off']}, sanitized {ms['sanitized']}; "
+        f"set_sync_debug_mode('error') refuses: {json.dumps(probe)}; "
+        f"card {card}")
+
+
+def aot_child(argv: list) -> int:
+    """``chip_smoke.py --aot-child CFG T_LAUNCH``: ``srtb-torch-main`` on
+    the cfg (its ``aot_plan_path`` set); prints the cache's counters, the
+    seconds from ``T_LAUNCH`` (the parent's clock at the launch) to the
+    first segment's result and the candidate files."""
+    cfg_path, t_launch = argv[0], float(argv[1])
+    sys.path.insert(0, str(ROOT))
+    from srtb_tpu_torch.pipeline import runtime as R
+    from srtb_tpu_torch.tools import main as M
+    from srtb_tpu_torch.utils.metrics import metrics
+    first = []
+    record = R.Pipeline._record_segment
+
+    def stamped(self, *args, **kwargs):
+        if not first:
+            first.append(time.time())
+        return record(self, *args, **kwargs)
+    R.Pipeline._record_segment = stamped
+    t_imported = time.time()
+    stats, pipe = M.run(["--config_file_name", cfg_path])
+    print(AOT_MARK + json.dumps({
+        "aot_active": pipe.processor.aot_active,
+        "hits": metrics.get("aot_cache_hits"),
+        "misses": metrics.get("aot_cache_misses"),
+        "plan_compiles": metrics.get("plan_compiles"),
+        "compile_seconds": metrics.get("compile_seconds"),
+        "import_s": t_imported - t_launch,
+        "first_result_s": first[0] - t_launch,
+        "segments": stats.segments,
+        "positive": pipe.positive_segments,
+        "files": _candidate_files(pipe)}), flush=True)
+    return 0
+
+
+def _aot_run(tag: str, cfg_text: str, data: Path, no_nvcc: bool) -> dict:
+    """One child of the compiled-kernel cache's check (``no_nvcc``: with
+    ``nvcc`` off its PATH and CUDA_HOME, so any build fails loudly)."""
+    out_dir = OUT_DIR / f"aot_{tag}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("out_*"):
+        old.unlink()
+    cfg_path = out_dir / "smoke.cfg"
+    cfg_path.write_text(cfg_text.replace(
+        str(OUT_DIR / "aot") + "/out_", f"{out_dir}/out_")
+        + f"input_file_path = {data}\n")
+    env = dict(os.environ)
+    if no_nvcc:
+        env["PATH"] = os.pathsep.join(
+            p for p in env.get("PATH", "").split(os.pathsep)
+            if not os.path.exists(os.path.join(p, "nvcc")))
+        env["CUDA_HOME"] = str(out_dir / "no_cuda_toolkit")
+    t_launch = time.time()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--aot-child",
+         str(cfg_path), repr(t_launch)], capture_output=True, text=True,
+        env=env, timeout=600)
+    lines = [x for x in proc.stdout.splitlines() if x.startswith(AOT_MARK)]
+    if proc.returncode or not lines:
+        fail(f"aot {tag}: child rc {proc.returncode}\n{proc.stdout[-3000:]}"
+             f"\n{proc.stderr[-3000:]}")
+    rec = json.loads(lines[-1][len(AOT_MARK):])
+    rec["wall_s"] = time.time() - t_launch
+    rec["digests"] = _file_digests(rec.pop("files"))
+    return rec
+
+
+def a9d_aot(card: str, runs: dict) -> None:
+    """(d) The compiled-kernel cache: two children on one fresh
+    ``aot_plan_path`` (fused_2^27's cfg and two-segment file): the cold
+    one builds into it (a miss, ``compile_seconds``), the warm one, with
+    ``nvcc`` unavailable, loads it (a hit, no new compile); then the entry
+    corrupted: a miss and a rebuild.  The seconds from each child's launch
+    to its first segment's result, and candidate bytes equal across the
+    three."""
+    import shutil
+    aot_dir = OUT_DIR / "aot" / "cache"
+    shutil.rmtree(OUT_DIR / "aot", ignore_errors=True)
+    _l, log2_n, extra, plan, per_segment, env = _main_path(AOT_PATH)
+    _cfg, text = path_cfg(OUT_DIR / "aot", extra
+                          + f"aot_plan_path = {aot_dir}\n", log2_n, "aot")
+    data = runs[AOT_PATH]["data"]
+    cold = _aot_run("cold", text, data, no_nvcc=False)
+    entries = sorted(aot_dir.glob("kernels.*.so"))
+    warm = _aot_run("warm", text, data, no_nvcc=True)
+    if len(entries) != 1:
+        fail(f"aot: the cache holds {entries}, expected one entry")
+    # a corrupt entry: the first 4 KiB of it, then garbage
+    blob = entries[0].read_bytes()
+    entries[0].write_bytes(blob[:4096] + b"\0garbage" * 64)
+    corrupt = _aot_run("corrupt", text, data, no_nvcc=False)
+    for tag, rec in (("cold", cold), ("warm", warm), ("corrupt", corrupt)):
+        shown = {k: v for k, v in rec.items() if k != "digests"}
+        say(f"aot {tag}: {json.dumps(shown)}; card {card}")
+    if not (cold["aot_active"] and cold["misses"] == 1 and cold["hits"] == 0
+            and cold["compile_seconds"] > 0 and cold["plan_compiles"] == 1):
+        fail(f"aot cold: expected one miss and one timed build: {cold}")
+    if not (warm["aot_active"] and warm["hits"] == 1 and warm["misses"] == 0
+            and warm["plan_compiles"] == 0):
+        fail(f"aot warm: expected one hit and no build: {warm}")
+    if not (corrupt["misses"] == 1 and corrupt["hits"] == 0
+            and corrupt["plan_compiles"] == 1):
+        fail(f"aot corrupt: expected a miss and a rebuild: {corrupt}")
+    if not (cold["digests"] == warm["digests"] == corrupt["digests"]
+            and cold["positive"] == warm["positive"] == corrupt["positive"]
+            == [1]):
+        fail("aot: candidate bytes or positives differ across the children")
+    say(f"aot: first segment's result {cold['first_result_s']:.2f} s after "
+        f"launch cold (build {cold['compile_seconds']:.2f} s), "
+        f"{warm['first_result_s']:.2f} s warm (nvcc unavailable, no build), "
+        f"{corrupt['first_result_s']:.2f} s after a corrupt entry (rebuilt "
+        f"in {corrupt['compile_seconds']:.2f} s); candidate bytes equal "
+        f"across the three ({sorted(cold['digests'])}); card {card}")
+    shutil.rmtree(OUT_DIR / "aot")
+    for tag in ("cold", "warm", "corrupt"):
+        shutil.rmtree(OUT_DIR / f"aot_{tag}")
+
+
+def a9d_udp_soak(card: str) -> None:
+    """(e) ``udp_soak``: the default receiver paced at 2x the 0.256 Gbps
+    requirement (zero loss, at least 1.5x the requirement), the AF_PACKET
+    ring where CAP_NET_RAW allows, and the unpaced ceiling (above 2x)."""
+    from srtb_tpu_torch.tools import udp_soak as U
+    paced = U.run_soak(SOAK_PACKETS, "auto", port=0,
+                       pace_gbps=SOAK_PACE_GBPS)
+    say(f"a9d udp_soak paced: {json.dumps(paced)}; card {card}")
+    if paced["lost"] or paced["gbps"] < 1.5 * U.REQUIRED_GBPS:
+        fail(f"udp_soak paced at {SOAK_PACE_GBPS} Gbps: lost "
+             f"{paced['lost']}, {paced['gbps']} Gbps")
+    try:
+        ring = U.run_soak(SOAK_PACKETS, "packet_ring", port=0,
+                          pace_gbps=SOAK_PACE_GBPS)
+        say(f"a9d udp_soak packet_ring: {json.dumps(ring)}; card {card}")
+    except (OSError, RuntimeError) as e:
+        say(f"a9d udp_soak packet_ring: not run ({e!r}; the AF_PACKET "
+            "ring needs CAP_NET_RAW)")
+    ceiling = U.run_soak(SOAK_PACKETS, "auto", port=0)
+    say(f"a9d udp_soak unpaced: {json.dumps(ceiling)}; card {card}")
+    if ceiling["gbps"] <= 2 * U.REQUIRED_GBPS:
+        fail(f"udp_soak unpaced: {ceiling['gbps']} Gbps, not above 2x "
+             "the requirement")
+
+
+def a9d_oracle(card: str) -> None:
+    """(f) ``production_oracle`` at 2^27 / 2^11: ``ok`` (every error
+    under the reference's gate); the host's RAM beside it."""
+    from srtb_tpu_torch.tools import production_oracle as PO
+    mem = {k: v.strip() for k, v in (
+        line.split(":", 1) for line in
+        Path("/proc/meminfo").read_text().splitlines()[:3])}
+    out = OUT_DIR / "production_oracle_torch.json"
+    t0 = time.perf_counter()
+    rc = PO.main(["--log2n", str(LOG2_N_ROWS), "--log2chan",
+                  str(LOG2_CHANNELS), "--out", str(out)])
+    rec = json.loads(out.read_text())
+    say(f"a9d production_oracle: rc {rc} in {time.perf_counter() - t0:.1f}"
+        f" s; host memory {mem}; " + json.dumps(rec))
+    if rc != 0 or not rec["ok"]:
+        fail(f"production_oracle at 2^{LOG2_N_ROWS}: not ok: {rec}")
+    out.unlink()
+    free_card()
+
+
+def phase_a9d(card: str, window: dict, runs: dict) -> dict:
+    """ROADMAP A9d on the card: (a) the threaded engine, (b) the live
+    harness, (c) the runtime sanitizer, (d) the compiled-kernel cache,
+    (e) the UDP soak, (f) the float64 oracle.  Returns the launch counts
+    of the threaded and live paths."""
+    t = [time.perf_counter()]
+    laps = {}
+
+    def lap(what):
+        laps[what] = round(time.perf_counter() - t[0], 1)
+        t[0] = time.perf_counter()
+    counts = a9d_threaded(card, window, runs)
+    lap("a")
+    e2e = a9d_e2e_live(card, runs)
+    counts[E2E_LABEL] = e2e["counts"]
+    lap("b")
+    a9d_sanitize(card, window)
+    lap("c")
+    a9d_aot(card, runs)
+    lap("d")
+    a9d_udp_soak(card)
+    lap("e")
+    a9d_oracle(card)
+    lap("f")
+    say(f"a9d: seconds by part {json.dumps(laps)}; card {card}")
+    return {"counts": counts}
+
+
 def main() -> int:
+    import shutil
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -6002,6 +6497,13 @@ def main() -> int:
             phase_live_path(card, f"{label}_no_pulse", log2_n, extra,
                             segments, None, ports, per_segment)
     lap("live")
+    a9d = phase_a9d(card, window, runs)
+    runs.update({label: {"counts": counts}
+                 for label, counts in a9d["counts"].items()})
+    # the window phase's fused_2^27 input and first run: every user done
+    window["fused_2^27"]["data"].unlink()
+    shutil.rmtree(OUT_DIR / "window_fused_2^27_0")
+    lap("a9d")
     for rec in recs:
         by_path = {label: run["counts"][rec["name"]]
                    for label, run in runs.items()}
@@ -6021,4 +6523,6 @@ if __name__ == "__main__":
         sys.exit(loopback_sender(sys.argv[2:]))
     if sys.argv[1:2] == ["--sticky-child"]:
         sys.exit(sticky_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--aot-child"]:
+        sys.exit(aot_child(sys.argv[2:]))
     sys.exit(main())

@@ -178,7 +178,9 @@ class Config:
     # plan's *compiled executables* across process restarts
     # (utils/aot_cache.py) — the warm-restart fallback for deployments
     # where the XLA compile cache is bypassed by a remote-compile
-    # service.  Off on CPU backends unless SRTB_AOT_ALLOW_CPU=1.
+    # service.  In the port: the nvcc-built kernel library, built or
+    # loaded at the processor's construction; off on the CPU, which has
+    # nothing to build.
     aot_plan_path: str = ""
     # segment R2C strategy:
     # auto | monolithic | four_step | mxu | pallas | pallas2

@@ -252,6 +252,15 @@ def _socket_rcvbuf(fd: int) -> int:
         s.close()
 
 
+def _socket_port(fd: int) -> int:
+    """The UDP port the socket ``fd`` is bound to."""
+    s = socket.socket(fileno=os.dup(fd))
+    try:
+        return s.getsockname()[1]
+    finally:
+        s.close()
+
+
 class NativeBlockReceiver:
     """Block receiver backed by the C++ recvmmsg implementation."""
 
@@ -289,6 +298,11 @@ class NativeBlockReceiver:
         """The socket's receive buffer as the kernel granted it."""
         return _socket_rcvbuf(self._lib.srtb_udp_rx_fd(self._h))
 
+    @property
+    def port(self) -> int:
+        """The port bound (the one the OS gave for port 0)."""
+        return _socket_port(self._lib.srtb_udp_rx_fd(self._h))
+
     def shutdown(self) -> None:
         """Wake a thread blocked in ``receive_block`` (it raises)."""
         if self._h:
@@ -324,6 +338,8 @@ class PacketRingReceiver:
                 f"cannot create AF_PACKET ring on {interface!r} "
                 f"(needs CAP_NET_RAW)")
         self.fmt = fmt
+        # the ring filters on the port given here: it takes no port 0
+        self.port = port
         # Hold the UDP port open (never read): without a bound socket the
         # kernel answers every datagram with ICMP port-unreachable, and a
         # *connected* sender then fails alternate send()s with
@@ -371,13 +387,19 @@ class _SocketReceiver:
 
     def _bind(self, addr: str, port: int, rcvbuf_bytes: int) -> None:
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if port:
+            # a fixed port may be shared; port 0 asks the OS for one of
+            # its own, and with SO_REUSEADDR its search may hand out a
+            # port that another SO_REUSEADDR socket holds
+            self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         try:
             self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
                                   rcvbuf_bytes)
         except OSError:
             pass
         self._sock.bind((addr, port))
+        # the port bound (the one the OS gave for port 0)
+        self.port = self._sock.getsockname()[1]
         self._shut = False
 
     def _recv(self, size: int) -> bytes:
@@ -843,9 +865,25 @@ class UdpReceiverSource:
         self.stride_bytes = self.segment_bytes - self.reserved_bytes
         self._carry = OverlapTailCarry(self.reserved_bytes,
                                        stamp_seq=seq_valid)
-        if buffer_pool is None:
+        self._own_pool = buffer_pool is None
+        if self._own_pool:
             _warm(self.pool, self.segment_bytes,
                   max(1, cfg.inflight_segments) + 2)
+
+    @property
+    def port(self) -> int:
+        """The port the receiver is bound to (the one the OS gave for a
+        configured port 0)."""
+        return self.receiver.port
+
+    def reserve_buffers(self, held: int) -> None:
+        """Allocate now the buffers of a consumer that holds up to
+        ``held`` segments at once, the one receiving included (the
+        threaded engine's graph): a pinned allocation between two
+        receives would overflow the socket buffer.  A pool passed in is
+        its maker's to fill."""
+        if self._own_pool:
+            _warm(self.pool, self.segment_bytes, held)
 
     def __iter__(self):
         return self
@@ -919,7 +957,8 @@ class MultiUdpSource:
                                           buffer_pool=self.pool)
                         for i in range(n)]
         capacity = 2 * n
-        if buffer_pool is None:
+        self._own_pool = buffer_pool is None
+        if self._own_pool:
             _warm(self.pool, self.sources[0].segment_bytes,
                   n + capacity + max(1, cfg.inflight_segments) + 1)
         self._stop = fw.StopToken()
@@ -948,6 +987,21 @@ class MultiUdpSource:
             self._pipes.append(fw.start_pipe(
                 make(src, cpu), None, self._queue, self._stop,
                 name=f"udp_receiver_{i}"))
+
+    @property
+    def ports(self) -> list[int]:
+        """The receivers' bound ports, in receiver order."""
+        return [src.port for src in self.sources]
+
+    def reserve_buffers(self, held: int) -> None:
+        """Allocate now the buffers of a consumer that holds up to
+        ``held`` segments at once, one being read included: the
+        receivers' own (one receiving on each thread, the queue's) and the
+        consumer's (a pool passed in is its maker's to fill)."""
+        if self._own_pool:
+            n = len(self.sources)
+            _warm(self.pool, self.sources[0].segment_bytes,
+                  n + 2 * n + held - 1)
 
     @property
     def packets_total(self) -> int:

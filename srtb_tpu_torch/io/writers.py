@@ -48,6 +48,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from srtb_tpu_torch.analysis.sanitizer import allow_transfers
 from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.pipeline.work import (NO_UDP_PACKET_COUNTER,
                                           SegmentResultWork)
@@ -59,9 +60,12 @@ TMP_SUFFIX = ".srtb_tmp"
 
 def to_host(x) -> np.ndarray:
     """A tensor (on any device) or array as a host numpy array.  A CUDA
-    tensor is copied on the calling thread's current stream."""
+    tensor is copied on the calling thread's current stream.  The port's
+    sanctioned fetch: the runtime sanitizer's tripwire lets it through
+    (``analysis/sanitizer.allow_transfers``)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        with allow_transfers():
+            return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
@@ -226,7 +230,8 @@ def _npy_bytes(wf, pool=None) -> np.ndarray:
     if isinstance(wf, torch.Tensor):
         src = torch.view_as_real(wf.detach().to(torch.complex64)
                                  .contiguous()).reshape(-1).view(torch.uint8)
-        torch.from_numpy(buf[h:]).copy_(src)
+        with allow_transfers():  # the sink's sanctioned copy
+            torch.from_numpy(buf[h:]).copy_(src)
     else:
         buf[h:] = np.ascontiguousarray(wf, dtype=np.complex64).view(
             np.uint8).reshape(-1)

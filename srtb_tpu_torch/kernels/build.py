@@ -10,6 +10,12 @@ the sources and flags: an edited source rebuilds, an unchanged one is
 reused.  Nothing is built when the package is imported — only at the
 first kernel launch, or by calling :func:`build`.
 
+The compiled-kernel cache (``utils/aot_cache.py``, ``aot_plan_path``)
+takes the same library through :func:`build_library` (a build into a
+given file) and :func:`load_library`, then makes it the process's
+library with :func:`install_library`: the kernels launch from it, and
+nothing is built at their first launch.
+
 :func:`build_host_library` takes the same route for host code: the host
 C++ compiler (``$CXX``, else ``g++``) builds a source of ``native/`` into
 a shared library beside the kernels', named by the source's hash.
@@ -18,12 +24,12 @@ a shared library beside the kernels', named by the source's hash.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -102,18 +108,34 @@ def _sources() -> tuple[list[Path], str]:
     return sources, digest.hexdigest()[:16]
 
 
+def sources_digest() -> str:
+    """The hash of ``csrc/`` and :data:`NVCC_FLAGS` that names the
+    library (and keys the compiled-kernel cache's entries)."""
+    return _sources()[1]
+
+
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into the shared library (if not built yet)
     and return its path.  ``verbose`` adds ``-Xptxas -v`` and prints the
     compiler's report of registers and spills per kernel."""
-    sources, digest = _sources()
-    lib = BUILD_DIR / f"libsrtb_tpu_torch_{digest}.so"
+    lib = BUILD_DIR / f"libsrtb_tpu_torch_{sources_digest()}.so"
     if lib.exists() and not verbose:
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return build_library(lib, verbose=verbose)
+
+
+def build_library(dest: Path, verbose: bool = False) -> Path:
+    """Compile every ``csrc/*.cu`` with ``nvcc`` (one process a source,
+    all at once), link the objects into one shared library and move it
+    to ``dest`` atomically (built in a temporary directory beside it,
+    then ``os.replace``); returns ``dest``.  Raises
+    :class:`KernelBuildError` when ``nvcc`` is missing or fails."""
+    dest = Path(dest)
+    sources, _digest = _sources()
+    dest.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     extra = ("-Xptxas", "-v") if verbose else ()
-    tmp = Path(tempfile.mkdtemp(prefix="build_", dir=BUILD_DIR))
+    tmp = Path(tempfile.mkdtemp(prefix="build_", dir=dest.parent))
     try:
         procs = []
         try:
@@ -138,17 +160,17 @@ def build(verbose: bool = False) -> Path:
         if failed:
             raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
         objs = [str(tmp / (src.stem + ".o")) for src in sources]
-        out_so = tmp / lib.name
+        out_so = tmp / dest.name
         res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o",
                               str(out_so), *objs],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                              text=True)
         if res.returncode:
             raise KernelBuildError(f"nvcc link failed:\n{res.stdout}")
-        os.replace(out_so, lib)
+        os.replace(out_so, dest)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return lib
+    return dest
 
 
 def _host_cxx() -> str:
@@ -185,10 +207,11 @@ def build_host_library(name: str) -> Path:
     return lib
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    lib = ctypes.CDLL(str(build()))
+def load_library(path) -> ctypes.CDLL:
+    """Load a kernel library and declare its functions' signatures;
+    raises (``OSError``, ``AttributeError``) for a file that is not a
+    whole library of these sources."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
@@ -196,6 +219,31 @@ def library() -> ctypes.CDLL:
     lib.srtb_cuda_error_name.argtypes = [_I32]
     lib.srtb_cuda_error_name.restype = ctypes.c_char_p
     return lib
+
+
+_library: ctypes.CDLL | None = None
+_library_lock = threading.Lock()
+
+
+def install_library(lib: ctypes.CDLL) -> None:
+    """Make ``lib`` the library every kernel launches from (the
+    compiled-kernel cache's, loaded by :func:`load_library`)."""
+    global _library
+    with _library_lock:
+        _library = lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library: the installed one, else the one under
+    ``build/`` (built on first use)."""
+    global _library
+    lib = _library
+    if lib is not None:
+        return lib
+    with _library_lock:
+        if _library is None:
+            _library = load_library(build())
+        return _library
 
 
 def check(rc: int, name: str) -> None:

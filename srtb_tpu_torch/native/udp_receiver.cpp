@@ -164,8 +164,13 @@ UdpRx* srtb_udp_rx_create(const char* addr, uint16_t port,
 
   rx->fd = socket(AF_INET, SOCK_DGRAM, 0);
   if (rx->fd < 0) { delete rx; return nullptr; }
-  int reuse = 1;
-  setsockopt(rx->fd, SOL_SOCKET, SO_REUSEADDR, &reuse, sizeof(reuse));
+  if (port != 0) {
+    // a fixed port may be shared; port 0 asks the OS for one of its own,
+    // and with SO_REUSEADDR its search may hand out a port that another
+    // SO_REUSEADDR socket holds
+    int reuse = 1;
+    setsockopt(rx->fd, SOL_SOCKET, SO_REUSEADDR, &reuse, sizeof(reuse));
+  }
   if (rcvbuf_bytes > 0) {
     // like the reference's max SO_RCVBUF tuning (README.md deployment notes)
     int v = (int)rcvbuf_bytes;

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from srtb_tpu_torch.analysis.sanitizer import allow_transfers
+
 # GUI colours (ref: config.hpp:60-68)
 OPAQUE = 0xFF000000
 COLOR_0 = 0x1F1E33 | OPAQUE
@@ -125,7 +127,8 @@ def generate_pixmap(intensity: torch.Tensor, color_0: int = COLOR_0,
                         torch.full((), color_overflow, dtype=torch.int64,
                                    device=x.device))
     words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-    return words.to(torch.int32).cpu().numpy().view(np.uint32)
+    with allow_transfers():  # the frame's sanctioned fetch
+        return words.to(torch.int32).cpu().numpy().view(np.uint32)
 
 
 # ----------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Streaming runtime: reader -> device segment processor -> sinks (port of
 ``srtb_tpu/pipeline/runtime.py``: ``PipelineStats``, ``has_signal``,
 ``Pipeline`` with its in-flight segment engine and its resilience layers,
-and ``DMSearchPipeline``, the DM-trial search of ``dm_list``).
+``ThreadedPipeline``, the thread-per-stage engine, and
+``DMSearchPipeline``, the DM-trial search of ``dm_list``).
 ``Pipeline`` builds the processor of the configured search mode
 (``pipeline/registry.py``).
 
@@ -111,6 +112,11 @@ reference wires it:
 The resilience counters live in the registry (``utils/metrics.py``) and
 are copied into ``stats.extras`` at the end of a run, also when it
 raises.
+
+With ``sanitize`` a run executes inside the runtime sanitizer's scope
+(``analysis/sanitizer.py``): the dispatch armed on the card, the drain
+boundary's NaN and contract checks, the thread owners of the window and
+the sink side, and the leaked-thread check at the end.
 """
 
 from __future__ import annotations
@@ -129,6 +135,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from srtb_tpu_torch.analysis.sanitizer import Sanitizer, allow_transfers
 from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.io.file_input import (BasebandFileReader,
                                           make_file_source)
@@ -230,11 +237,6 @@ def sync_with_deadline(deadline_s: float, fn):
         timer.cancel()
 
 
-# settings of later slices that would change what a run reads or writes:
-# (field, ROADMAP item); each raises when set away from its default
-UNPORTED_RUNTIME = (
-    ("sanitize", "ROADMAP A9d: the runtime sanitizer"),
-)
 # more than one process joins a process group in the reference
 UNPORTED_PROCESSES = "ROADMAP A8: parallel/* on torch.distributed"
 
@@ -255,15 +257,6 @@ def check_processes(cfg: Config) -> None:
         raise NotImplementedError(
             f"distributed_num_processes={cfg.distributed_num_processes} "
             f"is not ported yet ({UNPORTED_PROCESSES})")
-
-
-def check_runtime(cfg: Config) -> None:
-    """Raise for runtime settings the port does not implement yet."""
-    for name, item in UNPORTED_RUNTIME:
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"{name} is not ported yet ({item})")
-    check_processes(cfg)
 
 
 def counters_snapshot() -> dict:
@@ -325,12 +318,19 @@ class Pipeline:
     (``writer_thread_count`` threads; none at 0, when every write is
     synchronous), as the reference's builds it.  ``sinks`` and
     ``processor`` replace the configured ones (the tests' capture sinks
-    and stub processors)."""
+    and stub processors); ``keep_waterfall`` False hands the waterfall
+    only to sinks that declare ``wants_waterfall``."""
 
     def __init__(self, cfg: Config, source=None, device=None, sinks=None,
-                 processor=None):
-        check_runtime(cfg)
+                 processor=None, keep_waterfall: bool = True):
+        check_processes(cfg)
         self.cfg = cfg
+        # the waterfall goes to every sink, or (False) only to the sinks
+        # that declare ``wants_waterfall`` (a lossy GUI tap), so that the
+        # candidate writer dumps none
+        self.keep_waterfall = keep_waterfall
+        # the runtime sanitizer (None: off, and no hook site calls it)
+        self.sanitizer = Sanitizer() if cfg.sanitize else None
         # the stream's name labels its series (unnamed: flat series only)
         self.stream = str(cfg.stream_name or "")
         self._stream_labels = ({"stream": self.stream}
@@ -661,10 +661,11 @@ class Pipeline:
         proc = self.processor
         if proc.device.type != "cuda":
             return dets, None
-        dets = [det._replace(**{
-            name: value.to("cpu", non_blocking=True)
-            for name, value in det._asdict().items()
-            if isinstance(value, torch.Tensor)}) for det in dets]
+        with allow_transfers():  # the results' sanctioned copies
+            dets = [det._replace(**{
+                name: value.to("cpu", non_blocking=True)
+                for name, value in det._asdict().items()
+                if isinstance(value, torch.Tensor)}) for det in dets]
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(proc.device))
         return dets, done
@@ -715,6 +716,34 @@ class Pipeline:
         self.plan_history.append((step, plan))
         self.active_plan = plan
 
+    def _settle_fault(self, exc, kind: str) -> None:
+        """The first step of healing a device fault of ``kind``: an
+        event, a ``KernelFault`` raised for a failing kernel of the port
+        (no rung stands in for it), then the failed chain's frames freed
+        before a new rung allocates (the traceback stays printable), or
+        a halt's held (the context may be dead, see ``_halted``)."""
+        events.emit("fault.device", info=f"{kind}:{type(exc).__name__}")
+        own = kernel_fault(exc)
+        if own is not None:
+            raise own from exc
+        if kind == DEVICE_HALT:
+            if self._halted is None:
+                self._halted = []
+            self._halted.append(exc)
+        else:
+            traceback.clear_frames(exc.__traceback__)
+
+    def _demote(self, exc, kind: str) -> None:
+        """Install the ladder's next rung for a device fault, or raise
+        ``LadderExhausted`` (with its incident bundle) when none is left."""
+        newp = self.healer.demote(exc, kind)
+        if newp is None:
+            self._incident("ladder_exhausted",
+                           reason=f"device fault survived every rung: {exc}")
+            raise LadderExhausted("device fault survived every demotion "
+                                  f"rung: {exc}") from exc
+        self._swap_processor(newp)
+
     # ------------------------------------------- dispatch and fetch
 
     def _dispatch_segment(self, seg, offset_after: int = 0,
@@ -737,6 +766,33 @@ class Pipeline:
         self._canary_prepare(seg, index)
         t0 = time.perf_counter()
         h2d0 = proc.h2d_bytes
+        with self._dispatch_scope():
+            wf, det = self._enqueue_segment(seg, index, requeue)
+        (det,), done = self._to_host([det])
+        t1 = time.perf_counter()
+        self.stage_timer.record("dispatch", t1 - t0)
+        if ev is not None:
+            ev.emit("stage.dispatch", trace=tid, stream=self.stream,
+                    seg=index, dur=t1 - t0,
+                    info="requeue" if requeue else "")
+        return InFlight(seg, wf, det, done, t1, t1 - t0,
+                        proc.h2d_bytes - h2d0, offset_after, index)
+
+    def _dispatch_scope(self):
+        """The sanitizer's armed dispatch (``set_sync_debug_mode`` on the
+        card), or nothing when it is off."""
+        if self.sanitizer is None:
+            return contextlib.nullcontext()
+        return self.sanitizer.dispatch_scope(self.processor.device)
+
+    def _enqueue_segment(self, seg, index: int, requeue: bool):
+        """The upload (the ``h2d`` site) and the chain (the ``dispatch``
+        site) of one segment, the ring's carry taken and kept as
+        :meth:`_dispatch_segment` says; returns (waterfall, detection) on
+        the device."""
+        proc = self.processor
+        tid = getattr(seg, "trace_id", 0)
+        ev = self.events
         if proc.ring:
             ring_down = self._ring_prev is None and self._ring_carry is None
             carry = None if requeue or not self._ring_adjacent(seg) \
@@ -756,21 +812,12 @@ class Pipeline:
                 self._ring_carry = next_carry
                 self._ring_prev = ((getattr(seg, "data_stream_id", 0),
                                     seg.seq) if seg.seq >= 0 else None)
-        else:
-            with trace_annotation("srtb:dispatch"):
-                staged = self._op("h2d", index, lambda: self._canary_inject(
-                    seg, proc.stage_input(seg.data)))
-                wf, det = self._op("dispatch", index,
-                                   lambda: proc.run_device(staged))
-        (det,), done = self._to_host([det])
-        t1 = time.perf_counter()
-        self.stage_timer.record("dispatch", t1 - t0)
-        if ev is not None:
-            ev.emit("stage.dispatch", trace=tid, stream=self.stream,
-                    seg=index, dur=t1 - t0,
-                    info="requeue" if requeue else "")
-        return InFlight(seg, wf, det, done, t1, t1 - t0,
-                        proc.h2d_bytes - h2d0, offset_after, index)
+            return wf, det
+        with trace_annotation("srtb:dispatch"):
+            staged = self._op("h2d", index, lambda: self._canary_inject(
+                seg, proc.stage_input(seg.data)))
+            return self._op("dispatch", index,
+                            lambda: proc.run_device(staged))
 
     def _dispatch_batch(self, segs: list, offsets: list, first_index: int,
                         ingests: list | None = None) -> list[InFlight]:
@@ -820,14 +867,14 @@ class Pipeline:
                     return proc.run_batch_cold(staged)
                 return proc.run_batch_ring(staged)
 
-            with trace_annotation("srtb:dispatch"):
+            with trace_annotation("srtb:dispatch"), self._dispatch_scope():
                 lanes, self._ring_carry = self._op("dispatch", first_index,
                                                    run)
             last = segs[-1]
             self._ring_prev = ((getattr(last, "data_stream_id", 0), last.seq)
                                if last.seq >= 0 else None)
         else:
-            with trace_annotation("srtb:dispatch"):
+            with trace_annotation("srtb:dispatch"), self._dispatch_scope():
                 lanes = self._op("dispatch", first_index, lambda:
                                  proc.run_batch(lanes_injected(
                                      proc.stage_batch(datas), False)))
@@ -854,7 +901,8 @@ class Pipeline:
         return item.done is None or item.done.query()
 
     def _fetch_inflight(self, item: InFlight, queue_depth: int = 0,
-                        inflight_depth: int = 0) -> Fetched:
+                        inflight_depth: int = 0,
+                        device_time: bool = True) -> Fetched:
         """Wait for one dispatched segment (its detection results are on
         the host then; the ``fetch`` site, under ``segment_deadline_s``)
         and record its numbers: ``overlap`` is the host time between its
@@ -862,7 +910,9 @@ class Pipeline:
         hid under the card's work; its device seconds run from dispatch
         start to fetch end (exact in the serial leg, an upper bound in a
         window).  ``queue_depth`` and ``inflight_depth`` are the window's
-        depths at this drain, for the journal."""
+        depths at this drain, for the journal.  ``device_time`` False
+        (the threaded engine, whose dispatch and fetch run on two threads)
+        records no device seconds: the span omits ``device_ms``."""
         extras = self.stats.extras
         tid = getattr(item.seg, "trace_id", 0)
         ev = self.events
@@ -885,8 +935,10 @@ class Pipeline:
         stage_s["dispatch"] += item.dispatch_s
         stage_s["overlap"] += hidden
         stage_s["fetch"] += fetch_s
-        device_s = item.dispatch_s + hidden + fetch_s
-        extras["device_s_per_segment"].append(device_s)
+        device_s = None
+        if device_time:
+            device_s = item.dispatch_s + hidden + fetch_s
+            extras["device_s_per_segment"].append(device_s)
         extras["overlap_hidden_s_per_segment"].append(hidden)
         extras["h2d_bytes_per_segment"].append(item.h2d_bytes)
         span = {"ingest": item.ingest_s, "dispatch": item.dispatch_s,
@@ -939,6 +991,9 @@ class Pipeline:
                     done.add("wf")
         work = SegmentResultWork(segment=item.seg, waterfall=wf,
                                  detect=item.det)
+        # without keep_waterfall only the sinks that want it see it
+        light = work if self.keep_waterfall else SegmentResultWork(
+            segment=item.seg, waterfall=None, detect=item.det)
         m = self.manifest
         canary = getattr(item.seg, "canary", None) is not None
         for i, sink in enumerate(self.sinks):
@@ -974,7 +1029,8 @@ class Pipeline:
                 set_key = getattr(sink, "set_manifest_key", None)
                 if set_key is not None:
                     set_key(key)
-            sink.push(work, positive)
+            sink.push(work if getattr(sink, "wants_waterfall", False)
+                      else light, positive)
             # an empty push seals nothing: a replayed negative segment
             # writes nothing again
             if key is not None and getattr(sink, "last_push_wrote", True):
@@ -1014,8 +1070,10 @@ class Pipeline:
             # the sink thread's context: the manifest's records and the
             # sink-side retries below attribute to this segment
             events.set_current(tid, self.stream)
-        positive = has_signal(cfg, item.det,
-                              frequency_bin_count=item.wf.shape[-2])
+        if self.sanitizer is not None:
+            self._sanitize_check(item.wf, item.det)
+        positive = has_signal(cfg, item.det, frequency_bin_count=(
+            item.wf.shape[-2] if item.wf is not None else None))
         if getattr(item.seg, "canary", None) is not None:
             # quarantine: the canary's recovered S/N is scored and
             # journaled, then the segment is forced NEGATIVE
@@ -1065,6 +1123,19 @@ class Pipeline:
             dt = time.perf_counter() - t0
             extras["stage_s"]["checkpoint"] += dt
             extras["checkpoint_s_per_segment"].append(dt)
+
+    def _sanitize_check(self, wf, det) -> None:
+        """The sanitizer's checks at the drain boundary: NaN/Inf in the
+        detection result and the waterfall, and the drained waterfall's
+        contract (complex64 [streams, channels, time], the layout the
+        drain hands the sinks)."""
+        from srtb_tpu_torch.analysis import sanitizer as S
+        S.check_finite("detect result", det)
+        if wf is not None:
+            S.check_contract("drained waterfall", wf, ndim=3,
+                             lead=getattr(self.processor, "streams", None),
+                             dtype=torch.complex64)
+            S.check_finite("drained waterfall", wf)
 
     def _drain_sinks(self) -> None:
         for sink in self.sinks:
@@ -1203,9 +1274,18 @@ class Pipeline:
         healer), also when the run raises.
 
         ``micro_batch_segments`` above the window, or above 1 on the
-        staged plan, raises ``ValueError`` before any read."""
+        staged plan, raises ``ValueError`` before any read.
+
+        With ``Config.sanitize`` the whole run executes inside the
+        sanitizer's scope: the implicit-transfer tripwire armed, thread
+        owners tracked, and a leaked-thread check after the sink pipe
+        joins."""
         try:
-            stats = self._run_engine(max_segments)
+            if self.sanitizer is None:
+                stats = self._engine(max_segments)
+            else:
+                with self.sanitizer.run_scope(self.processor.device):
+                    stats = self._engine(max_segments)
         finally:
             self.stats.extras.update(counters_snapshot())
             if self.healer is not None:
@@ -1213,6 +1293,60 @@ class Pipeline:
         # the run outlived its halts: the context lives, free what they held
         self._halted = None
         return stats
+
+    def _engine(self, max_segments: int | None) -> PipelineStats:
+        """The engine :meth:`run` drives: the in-flight window here."""
+        return self._run_engine(max_segments)
+
+    def _init_extras(self, window: int, batch: int) -> None:
+        """The run's records in ``stats.extras`` (see :meth:`run`)."""
+        self.stats.extras.update(
+            stage_s=dict.fromkeys(("read", "dispatch", "overlap", "fetch",
+                                   "sink", "drain", "checkpoint"), 0.0),
+            device_s_per_segment=[], overlap_hidden_s_per_segment=[],
+            h2d_bytes_per_segment=[], checkpoint_s_per_segment=[],
+            inflight_segments=window, micro_batch_segments=batch,
+            dispatches=0, degrade_levels=[])
+
+    def _finish_extras(self) -> None:
+        """The records a finished run adds: the manifest's counts, the
+        quality timeline and a UDP source's loss counters (ref: metrics
+        packets_total and packets_lost)."""
+        extras = self.stats.extras
+        if self.manifest is not None:
+            extras["manifest"] = self.manifest.counters()
+        if self.quality is not None:
+            extras["quality"] = self.quality.timeline()
+        for name in ("packets_total", "packets_lost"):
+            if hasattr(self.source, name):
+                extras[name] = getattr(self.source, name)
+
+    def _ingest(self, it, index: int):
+        """One read (the ``ingest`` site): the segment, the source's
+        offset after it and the read's seconds, or None at the source's
+        end (that last read is not an ``ingest`` stage).  The segment's
+        trace id is stamped here."""
+        t0 = time.perf_counter()
+        with trace_annotation("srtb:ingest"):
+            seg = self._op("ingest", index, lambda: next(it, None))
+        dt = time.perf_counter() - t0
+        self.stats.extras["stage_s"]["read"] += dt
+        if seg is None:
+            return None
+        self.stage_timer.record("ingest", dt)
+        ev = self.events
+        if ev is not None:
+            tid = getattr(seg, "trace_id", 0)
+            if not tid:
+                tid = events.next_trace_id()
+                try:
+                    seg.trace_id = tid
+                except AttributeError:  # a read-only stub segment
+                    pass
+            events.set_current(tid, self.stream)
+            ev.emit("stage.ingest", trace=tid, stream=self.stream,
+                    seg=index, dur=dt)
+        return seg, getattr(self.source, "logical_offset", 0), dt
 
     def _run_engine(self, max_segments: int | None) -> PipelineStats:
         cfg = self.cfg
@@ -1226,14 +1360,9 @@ class Pipeline:
         if batch > 1 and getattr(self.processor, "staged", False):
             raise ValueError(BATCH_NEEDS_FUSED)
         stats = self.stats
-        stats.extras.update(
-            stage_s=dict.fromkeys(("read", "dispatch", "overlap", "fetch",
-                                   "sink", "drain", "checkpoint"), 0.0),
-            device_s_per_segment=[], overlap_hidden_s_per_segment=[],
-            h2d_bytes_per_segment=[], checkpoint_s_per_segment=[],
-            inflight_segments=window, micro_batch_segments=batch,
-            dispatches=0, degrade_levels=[])
+        self._init_extras(window, batch)
         stage_s = stats.extras["stage_s"]
+        san = self.sanitizer
         n_samples = cfg.baseband_input_count
         start = time.perf_counter()
         if self.profile_capture is not None:
@@ -1271,7 +1400,10 @@ class Pipeline:
         # it, its item replayed inline first (journal order kept)
         use_sink_pipe = window > 1
         supervisor = None
-        if use_sink_pipe and int(cfg.supervisor_max_restarts or 0) > 0:
+        # off under the sanitizer: its claim-on-first-use thread ownership
+        # does not admit a replacement sink thread
+        if use_sink_pipe and san is None \
+                and int(cfg.supervisor_max_restarts or 0) > 0:
             supervisor = Supervisor(
                 "sink_drain", max_restarts=cfg.supervisor_max_restarts,
                 window_s=cfg.supervisor_window_s)
@@ -1282,6 +1414,10 @@ class Pipeline:
             current[0] = item
             progress[0] = drained[0]
             try:
+                if san is not None:
+                    # the sink side is single-owner: the sink pipe's
+                    # thread, or the engine's in the serial leg
+                    san.assert_owner("sink_drain")
                 self._drain_body(item, drained)
             finally:
                 # an item abandoned by the bounded shutdown had its live
@@ -1316,6 +1452,8 @@ class Pipeline:
             ``ReinitBudgetExceeded`` once the budget is spent."""
             while True:
                 try:
+                    if san is not None:
+                        san.assert_owner("sink_drain")
                     self._drain_body(item, drained)
                     return
                 except BaseException as e:  # noqa: BLE001 - classified
@@ -1444,32 +1582,10 @@ class Pipeline:
                                          or dispatched[0] < max_segments)
 
         def ingest_one(index: int):
-            """One read (the ``ingest`` site): the segment, the source's
-            offset after it and the read's seconds, or None at the
-            source's end (that last read is not an ``ingest`` stage).
-            The segment's trace id is stamped here."""
-            t0 = time.perf_counter()
-            with trace_annotation("srtb:ingest"):
-                seg = self._op("ingest", index, lambda: next(it, None))
-            dt = time.perf_counter() - t0
-            stage_s["read"] += dt
-            if seg is None:
+            one = self._ingest(it, index)
+            if one is None:
                 exhausted[0] = True
-                return None
-            self.stage_timer.record("ingest", dt)
-            ev = self.events
-            if ev is not None:
-                tid = getattr(seg, "trace_id", 0)
-                if not tid:
-                    tid = events.next_trace_id()
-                    try:
-                        seg.trace_id = tid
-                    except AttributeError:  # a read-only stub segment
-                        pass
-                events.set_current(tid, self.stream)
-                ev.emit("stage.ingest", trace=tid, stream=self.stream,
-                        seg=index, dur=dt)
-            return seg, getattr(self.source, "logical_offset", 0), dt
+            return one
 
         # the dispatch unit follows the healer: the micro_batch rung
         # drops it to 1, a promotion restores it
@@ -1508,24 +1624,7 @@ class Pipeline:
             if kind is None:
                 return False
 
-            def settle(e, kind) -> None:
-                events.emit("fault.device",
-                            info=f"{kind}:{type(e).__name__}")
-                # no rung stands in for a kernel of the port that fails
-                own = kernel_fault(e)
-                if own is not None:
-                    raise own from e
-                # an out-of-memory's or a build fault's failed chain: free
-                # what its frames hold before a new rung allocates (the
-                # traceback stays printable); a halt's: hold it (the
-                # context may be dead, see _halted)
-                if kind == DEVICE_HALT:
-                    if self._halted is None:
-                        self._halted = []
-                    self._halted.append(e)
-                else:
-                    traceback.clear_frames(e.__traceback__)
-            settle(exc, kind)
+            self._settle_fault(exc, kind)
             while True:
                 # a rebuild (or a re-dispatch) that fails the same way is
                 # one more reinit or demotion: on a dead CUDA context the
@@ -1541,15 +1640,7 @@ class Pipeline:
                             "device halt beyond reinit recovery "
                             "(device_reinit_max budget spent or "
                             f"disabled): {exc}") from exc
-                    newp = h.demote(exc, kind)
-                    if newp is None:
-                        self._incident(
-                            "ladder_exhausted",
-                            reason=f"device fault survived every rung: {exc}")
-                        raise LadderExhausted(
-                            "device fault survived every demotion rung: "
-                            f"{exc}") from exc
-                    self._swap_processor(newp)
+                    self._demote(exc, kind)
                     return True
                 except (ReinitBudgetExceeded, LadderExhausted):
                     raise
@@ -1557,7 +1648,7 @@ class Pipeline:
                     again = h.classify(e)
                     if again is None:
                         raise
-                    settle(e, again)
+                    self._settle_fault(e, again)
                     exc, kind = e, again
 
         def guarded(fn):
@@ -1591,6 +1682,10 @@ class Pipeline:
                     self._swap_processor(newp)
 
         def fill_window() -> None:
+            if san is not None:
+                # the dispatch window (pending, the dispatch counters) is
+                # owned by the run()'s thread
+                san.assert_owner("inflight_window")
             if self.profile_capture is not None:
                 # a capture the sink thread completed stops here
                 self.profile_capture.poll()
@@ -1689,6 +1784,8 @@ class Pipeline:
             return True
 
         def drain_oldest() -> bool:
+            if san is not None:
+                san.assert_owner("inflight_window")
             if watchdog and not watchdog_wait():
                 return False
             # the depths at this drain, this item included: dispatched
@@ -1804,15 +1901,7 @@ class Pipeline:
             self._drain_sinks()
             stage_s["drain"] += time.perf_counter() - t0
         stats.elapsed_s = time.perf_counter() - start
-        if self.manifest is not None:
-            stats.extras["manifest"] = self.manifest.counters()
-        if self.quality is not None:
-            stats.extras["quality"] = self.quality.timeline()
-        # a UDP source's loss counters (ref: metrics packets_total and
-        # packets_lost)
-        for name in ("packets_total", "packets_lost"):
-            if hasattr(self.source, name):
-                stats.extras[name] = getattr(self.source, name)
+        self._finish_extras()
         self._perf_ledger_record()
         log.info(f"[pipeline] {stats.segments} segments, "
                  f"{stats.msamples_per_sec:.1f} Msamples/s")
@@ -1912,6 +2001,220 @@ class Pipeline:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class ThreadedPipeline(Pipeline):
+    """The thread-per-stage engine (port of the reference's
+    ``ThreadedPipeline``): three pipes of ``pipeline/framework.py`` over
+    bounded queues of capacity 2, the reference's pipe graph.
+
+    - ``source``: the reads (the ``ingest`` site), on a thread of its own,
+      so a receive never waits on the card or the sinks;
+    - ``device``: the upload and the chain of one segment at a time (the
+      ``h2d`` and ``dispatch`` sites, :meth:`Pipeline._dispatch_segment`
+      with the ingest ring), then the results' copies and the event;
+    - ``drain``: the fetch (the ``fetch`` site), the detection gate, the
+      sink pushes, the segment's buffer back to the source's pool
+      (:meth:`Pipeline._release`, for every source) and the checkpoint
+      (:meth:`Pipeline._drain_body`).
+
+    The reference's rules: a device fault at the dispatch walks the
+    plan-demotion ladder and re-dispatches the retained segment; a device
+    halt escalates (results already queued belong to the dead context and
+    this engine has no window to re-dispatch from: the async engine
+    covers reinit); the promotion probe runs before a dispatch, paced by
+    the drain's healthy segments; the completion wait is unbounded, and
+    only a drain wedged on one item with no sink progress is bounded by
+    ``shutdown_join_timeout_s``, after which the final sink drain is
+    skipped; journal spans omit ``device_ms`` (the dispatch and the fetch
+    run on two threads, so nothing measures the card's time); the canary
+    schedule continues across resumes; the steady perf-ledger record
+    comes at the end.  One segment a dispatch (``micro_batch_segments``
+    is the async engine's).  A segment is held from its read to its
+    drain by at most :data:`HELD_SEGMENTS` at once, and a source that
+    makes its own pool (``UdpReceiverSource``) allocates that many
+    buffers before the run."""
+
+    # the segments the graph holds at once: one being read, two queued
+    # for the device, one dispatching, two queued for the drain and one
+    # draining
+    HELD_SEGMENTS = 2 * fw.WORK_QUEUE_CAPACITY + 3
+
+    def __init__(self, cfg: Config, source=None, device=None, sinks=None,
+                 processor=None, keep_waterfall: bool = True):
+        super().__init__(cfg, source=source, device=device, sinks=sinks,
+                         processor=processor, keep_waterfall=keep_waterfall)
+        reserve = getattr(self.source, "reserve_buffers", None)
+        if reserve is not None:
+            reserve(self.HELD_SEGMENTS)
+
+    def _engine(self, max_segments: int | None) -> PipelineStats:
+        return self._run_threaded(max_segments)
+
+    def _heal_dispatch(self, exc) -> None:
+        """A dispatch's failure: a device fault the ladder covers installs
+        a cheaper rung (the caller re-dispatches); anything else, a halt
+        included (held, then raised), propagates."""
+        h = self.healer
+        kind = h.classify(exc) if h is not None else None
+        if kind is None:
+            raise exc
+        self._settle_fault(exc, kind)
+        if kind == DEVICE_HALT:
+            raise exc
+        self._demote(exc, kind)
+
+    def _run_threaded(self, max_segments: int | None) -> PipelineStats:
+        cfg = self.cfg
+        stats = self.stats
+        self._init_extras(1, 1)
+        stats.extras["engine"] = "threaded"
+        n_samples = cfg.baseband_input_count
+        start = time.perf_counter()
+        if self.profile_capture is not None:
+            self.profile_capture.start()
+        self._ring_invalidate()
+        it = iter(self.source)
+        count = [0]
+        drained = [self.checkpoint.segments_done
+                   if self.checkpoint is not None else 0]
+        # the canary's schedule continues across resumes, as the async
+        # engine's
+        self._canary_base = drained[0]
+        san = self.sanitizer
+
+        def source_f(_stop, _item):
+            if max_segments is not None and count[0] >= max_segments:
+                raise StopIteration
+            one = self._ingest(it, count[0])
+            if one is None:
+                raise StopIteration
+            count[0] += 1
+            # the ingest-order index rides along: every fault and retry
+            # site downstream addresses the segment by it
+            return one + (count[0] - 1,)
+
+        def device_f(_stop, item):
+            seg, offset_after, ingest_s, index = item
+            if san is not None:
+                # the dispatch state (the ingest ring, the processor
+                # swapped by a demotion or a promotion) is the device
+                # pipe's
+                san.assert_owner("inflight_window")
+            h = self.healer
+            if h is not None and h.promote_due():
+                # the promotion probe, paced by the drain's healthy
+                # segments (an off-by-one pacing slack is acceptable)
+                newp = h.promote()
+                if newp is not None:
+                    self._swap_processor(newp)
+            requeue = False
+            while True:
+                try:
+                    inflight = self._dispatch_segment(
+                        seg, offset_after, index, requeue=requeue)
+                    break
+                except BaseException as e:  # noqa: BLE001 - classified
+                    err = e
+                # outside the except block: the failed chain's frames are
+                # gone before a cheaper rung allocates
+                self._heal_dispatch(err)
+                err = None
+                requeue = True
+            stats.extras["dispatches"] += 1
+            stats.segments += 1
+            stats.samples += n_samples
+            return inflight._replace(ingest_s=ingest_s)
+
+        drain_busy = [False]
+
+        def drain_f(_stop, inflight):
+            drain_busy[0] = True
+            try:
+                if san is not None:
+                    # the sink side and the healer's pacing are the drain
+                    # pipe's
+                    san.assert_owner("sink_drain")
+                # +1: the item being drained was popped from q_res already
+                depth = q_res.qsize() + 1
+                fetched = self._fetch_inflight(inflight, depth, depth,
+                                               device_time=False)
+                if self.healer is not None:
+                    # the promotion probe's pacing (read by device_f)
+                    self.healer.note_healthy()
+                self._drain_body(fetched._replace(sinks_done=set()),
+                                 drained)
+            finally:
+                drain_busy[0] = False
+                # a context that died under this item keeps it (and the
+                # run escalates): freeing it would abort the process
+                self._keep_if_dead(inflight)
+            return None
+
+        stop = fw.StopToken()
+        q_seg = fw.WorkQueue()
+        q_res = fw.WorkQueue()
+        pipes = [fw.start_pipe(source_f, None, q_seg, stop, "source"),
+                 fw.start_pipe(device_f, q_seg, q_res, stop, "device"),
+                 fw.start_pipe(drain_f, q_res, None, stop, "drain")]
+        try:
+            # the completion wait lasts the whole observation, so it is not
+            # bounded by shutdown_join_timeout_s; that bounds only a wedge:
+            # the drain busy on one item with no sink progress for the
+            # whole budget.  A crashed source or device pipe forwards the
+            # sentinel, so the drain still ends
+            join_s = float(cfg.shutdown_join_timeout_s or 0)
+            last = (drained[0], self._sink_heartbeat)
+            t0 = time.perf_counter()
+            while not pipes[2].join(0.1 if join_s <= 0
+                                    else min(0.1, join_s / 10)):
+                if self.profile_capture is not None:
+                    # torch's profiler stops on the thread that started it
+                    self.profile_capture.poll()
+                if join_s <= 0:
+                    continue
+                cur = (drained[0], self._sink_heartbeat)
+                if not drain_busy[0] or cur != last:
+                    last, t0 = cur, time.perf_counter()
+                elif time.perf_counter() - t0 > join_s:
+                    break
+            wedged = fw.on_exit(stop, pipes)
+        finally:
+            stop.request_stop()
+            if self._halted is not None:
+                # a halt: what the queues hold belongs to a context that
+                # may be dead, so it is held until the run ends
+                for q in (q_seg, q_res):
+                    while (left := q.try_pop()) is not None:
+                        self._keep_if_halted(left)
+            self._ring_invalidate()
+            if self.profile_capture is not None:
+                self.profile_capture.stop()
+        if pipes[2] in wedged:
+            # the wedged drain owns the writer pool's work: its final drain
+            # would block on the stuck writes (a wedged source or device
+            # pipe does not cost the sinks their final flush)
+            self._sink_wedged = True
+            self._incident("sink_wedge_shutdown",
+                           reason="drain pipe wedged past the "
+                                  f"{cfg.shutdown_join_timeout_s:g}s "
+                                  "shutdown join budget")
+            log.error("[pipeline threaded] skipping the sink drain: "
+                      f"{[p.name for p in wedged]} wedged (queued writes "
+                      "were NOT flushed)")
+        for p in pipes:
+            if p.exception is not None:
+                raise p.exception
+        if not self._sink_wedged:
+            t0 = time.perf_counter()
+            self._drain_sinks()
+            stats.extras["stage_s"]["drain"] += time.perf_counter() - t0
+        stats.elapsed_s = time.perf_counter() - start
+        self._finish_extras()
+        self._perf_ledger_record()
+        log.info(f"[pipeline threaded] {stats.segments} segments, "
+                 f"{stats.msamples_per_sec:.1f} Msamples/s")
+        return stats
 
 
 class DMSearchPipeline:

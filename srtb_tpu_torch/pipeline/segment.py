@@ -479,10 +479,45 @@ class SegmentProcessor:
                                    float(cfg.quality_dead_threshold),
                                    float(cfg.quality_hot_threshold),
                                    int(cfg.quality_subsample or 1))
+        # the runtime sanitizer's boundary tripwires (``sanitize``): they
+        # change when the host waits, never what the chain computes, so
+        # they stay out of the plan signature
+        self._sanitize = bool(cfg.sanitize)
+        # the compiled-kernel cache (``aot_plan_path``): the kernel
+        # library built or loaded now, so that the first segment does not
+        # pay for the build
+        self.aot_active = False
+        if cfg.aot_plan_path:
+            if not self.enable_aot(cfg.aot_plan_path):
+                # the reference's text word for word; the port's cache
+                # has no opt-in on the CPU
+                log.warning(
+                    "[segment] aot_plan_path set but the AOT cache is "
+                    "inactive (CPU backend without SRTB_AOT_ALLOW_CPU=1)"
+                    " — restarts will recompile")
         log.debug(f"[segment] n={n} spectrum={self.n_spectrum} "
                   f"channels={self.channel_count} watfft={self.watfft_len} "
                   f"reserved={self.nsamps_reserved} plan={self.plan_name} "
                   f"device={self.device}")
+
+    def enable_aot(self, path: str) -> bool:
+        """Build or load the kernel library through the compiled-kernel
+        cache at ``path`` (``utils/aot_cache.py``, keyed by
+        :meth:`plan_signature`) and make it the library every kernel
+        launches from.  Returns False when the cache is off (on the CPU):
+        nothing is built or written, and the kernels build at their first
+        launch as before."""
+        from srtb_tpu_torch.kernels import build
+        from srtb_tpu_torch.utils.aot_cache import AotPlanCache
+        cache = AotPlanCache(path, device=self.device,
+                             labels=self._metric_labels)
+        if not cache.enabled():
+            return False
+        lib = cache.get_or_build("kernels", self.plan_signature())
+        if self.device.type == "cuda":
+            build.install_library(lib)
+        self.aot_active = True
+        return True
 
     @property
     def plan_name(self) -> str:
@@ -877,7 +912,9 @@ class SegmentProcessor:
         reference counts its first-dispatch trace and compile.  Marked
         only after ``fn`` returned: a failed first dispatch leaves the
         family to its retry."""
-        if name in self._dispatched_programs:
+        if name in self._dispatched_programs or self.aot_active:
+            # with the compiled-kernel cache the build happened (or was
+            # loaded) at construction: no first-dispatch compile to count
             return fn()
         t0 = time.perf_counter()
         out = fn()
@@ -904,6 +941,8 @@ class SegmentProcessor:
         self._check_live()
         cfg = self.cfg
         spec = self._spectrum(raw)
+        if self._sanitize:
+            self._boundary("stage_a boundary", spec)
         if self._plain_s1:
             # the reference's staged stage (c) without use_pallas: XLA
             # stage 1 + manual mask, then its chirp kernel (B3 here), once
@@ -926,12 +965,24 @@ class SegmentProcessor:
                 spec = self._k2(spec, rfi_threshold(
                     spec, cfg.mitigate_rfi_average_method_threshold))
             q_spec = self._spectrum_quality(spec)
+        if self._sanitize:
+            self._boundary("stage_b boundary", spec)
         wf, result = self._waterfall_detect(spec)
         if q_spec is not None:
             _bins, dead, hot, k = self.quality_params
             result = result._replace(quality=Q.pack_stats(
                 q_spec, Q.waterfall_stats(wf, dead, hot, k)))
         return wf, result
+
+    def _boundary(self, tag: str, spec: torch.Tensor) -> None:
+        """The runtime sanitizer's tripwires at a chain boundary (the
+        reference's staged stage ends: the spectrum after the R2C, and the
+        dedispersed spectrum the waterfall is made from): the complex64
+        [S, n/2] contract and no NaN/Inf.  Each waits for the card."""
+        from srtb_tpu_torch.analysis import sanitizer as S
+        S.check_contract(tag, spec, ndim=2, lead=self.streams,
+                         dtype=torch.complex64)
+        S.check_finite(tag, spec)
 
     def _spectrum_quality(self, spec: torch.Tensor):
         """The spectrum half of the quality vector (None when off),

@@ -30,10 +30,14 @@ does.  Knobs (environment, as the reference's): ``SRTB_BENCH_LOG2N``
 ``_FUSED_TAIL``, ``_FRONT_FUSE`` (auto), ``_RING`` (none), ``_REPS`` (5),
 ``_SEARCH_MODE`` (single_pulse), ``_TRACE_DIR`` (a torch.profiler trace
 of one steady-state segment), and ``SRTB_PERF_LEDGER`` / ``--ledger``
-(append the run to a perf ledger).  The fleet leg (``--fleet-batch``)
-waits for ROADMAP A8, ``SRTB_BENCH_AOT_DIR`` for A9d's compiled-kernel
-cache; ``SRTB_BENCH_AUDIT`` (the JAX package's HLO plan auditor) is not
-ported (A9e).
+(append the run to a perf ledger).  ``SRTB_BENCH_AOT_DIR`` is the AOT
+leg: the compiled-kernel cache (``aot_plan_path``) at that directory, so
+that run twice the second run's ``compile_s`` is the warm restart's (its
+timer starts before the processor's construction, where the cache builds
+or loads the kernel library; the line says ``aot_active`` and the
+cache's hit and miss counts).  The fleet leg (``--fleet-batch``) waits
+for ROADMAP A8; ``SRTB_BENCH_AUDIT`` (the JAX package's HLO plan
+auditor) is not ported (A9e).
 
 Usage: python -m srtb_tpu_torch.tools.bench [--overlap on|off]
            [--fused-tail auto|on|off] [--front-fuse auto|on|off]
@@ -125,10 +129,6 @@ def check_unported(args) -> None:
     if args.fleet_batch != "none":
         raise NotImplementedError(
             "--fleet-batch is not ported yet (ROADMAP A8: the fleet)")
-    if os.environ.get("SRTB_BENCH_AOT_DIR", ""):
-        raise NotImplementedError(
-            "SRTB_BENCH_AOT_DIR is not ported yet (ROADMAP A9d: the "
-            "compiled-kernel cache)")
     if int(os.environ.get("SRTB_BENCH_AUDIT", "0") or 0):
         raise NotImplementedError(
             "SRTB_BENCH_AUDIT is the JAX package's HLO plan auditor, "
@@ -162,6 +162,8 @@ def bench_config(n: int, channels: int, fused_tail: str, front_fuse: str,
                                               "0"))),
         fused_tail=fused_tail,
         front_fuse=front_fuse,
+        # the AOT leg: the compiled-kernel cache at this directory
+        aot_plan_path=os.environ.get("SRTB_BENCH_AOT_DIR", ""),
         search_mode=os.environ.get("SRTB_BENCH_SEARCH_MODE",
                                    "single_pulse"),
     )
@@ -194,12 +196,15 @@ def run_bench(device, overlap: str = "on", fused_tail: str = "auto",
         # here, not as a time of ~0
         res.signal_counts.cpu()
 
-    compiles0 = metrics.get("plan_compiles")
+    cache0 = {k: metrics.get(k) for k in
+              ("aot_cache_hits", "aot_cache_misses", "plan_compiles")}
     t0 = time.perf_counter()
     proc = registry.build_processor(
         cfg, device=device,
         staged=None if staged_env == "" else bool(int(staged_env)))
-    t_first = time.perf_counter()
+    # with the compiled-kernel cache engaged the build (or its load) ran
+    # in the construction: compile_s starts before it then
+    t_first = t0 if proc.aot_active else time.perf_counter()
     # warm-up: the first dispatch builds the kernels (nvcc at the
     # process's first launch) and the cuFFT plans; the ring legs warm
     # both of their steps
@@ -217,7 +222,7 @@ def run_bench(device, overlap: str = "on", fused_tail: str = "auto",
         sync(res)
     compile_s = time.perf_counter() - t_first
     compile_ms = (time.perf_counter() - t0) * 1e3
-    plan_compiles = int(metrics.get("plan_compiles") - compiles0)
+    cache = {k: int(metrics.get(k) - v) for k, v in cache0.items()}
     del wf, res
 
     trace_dir = os.environ.get("SRTB_BENCH_TRACE_DIR", "")
@@ -278,7 +283,9 @@ def run_bench(device, overlap: str = "on", fused_tail: str = "auto",
         "segment_time_s": round(dt, 5),
         "compile_s": round(compile_s, 2),
         "compile_ms": round(compile_ms, 1),
-        "plan_compiles": plan_compiles,
+        "aot_cache_hits": cache["aot_cache_hits"],
+        "aot_cache_misses": cache["aot_cache_misses"],
+        "plan_compiles": cache["plan_compiles"],
         "rep_seconds": rep_seconds,
         "model_gflops": round(flops / 1e9, 1),
         "achieved_gflops_s": round(flops / dt / 1e9, 1),
@@ -294,6 +301,9 @@ def run_bench(device, overlap: str = "on", fused_tail: str = "auto",
         "reps": reps,
         "launches": launches,
     }
+    if cfg.aot_plan_path:
+        # whether the cache engaged (it is off on the CPU)
+        out["aot_active"] = bool(proc.aot_active)
     if ring != "none":
         out["h2d_gb"] = round((proc.h2d_bytes - h2d_bytes0) / reps / 1e9, 4)
         out["h2d_hidden_ms"] = round(h2d_host_s / reps * 1e3, 2)

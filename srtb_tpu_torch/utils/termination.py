@@ -28,8 +28,10 @@ _installed = False
 
 # pools that outlive one pipeline run (owned by objects with their own
 # close()): the Python writer pool spawns its workers at the first
-# submit and joins them at close, after run() returns
-LEAK_ALLOW_PREFIXES = ("srtb-writer",)
+# submit and joins them at close, after run() returns; executor and
+# asyncio workers and a debugger's threads, as the reference allows
+LEAK_ALLOW_PREFIXES = ("ThreadPoolExecutor", "srtb-writer", "pydevd",
+                       "asyncio_")
 
 
 def tag_thread(thread: threading.Thread) -> None:
@@ -49,6 +51,17 @@ def tag_thread(thread: threading.Thread) -> None:
 def created_at(thread: threading.Thread) -> str | None:
     """The creation site stamped by :func:`tag_thread`, if any."""
     return getattr(thread, "_srtb_created_at", None)
+
+
+def describe_threads(threads) -> str:
+    """The threads by name, each with its creation site when known (the
+    leaked-thread report's attribution)."""
+    parts = []
+    for t in threads:
+        site = created_at(t)
+        parts.append(f"'{t.name}'"
+                     + (f" (created at {site})" if site else ""))
+    return ", ".join(parts)
 
 
 def thread_snapshot() -> set[int]:

@@ -32,7 +32,8 @@ SMALL_BENCH = {"SRTB_BENCH_LOG2N": "16", "SRTB_BENCH_LOG2CHAN": "5",
                "SRTB_BENCH_DM": "-1", "SRTB_BENCH_REPS": "3"}
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "platform", "device",
               "card", "log2n", "segment_time_s", "compile_s", "compile_ms",
-              "plan_compiles", "rep_seconds", "model_gflops",
+              "plan_compiles", "aot_cache_hits", "aot_cache_misses",
+              "rep_seconds", "model_gflops",
               "achieved_gflops_s", "model_hbm_gb", "achieved_gbps", "overlap",
               "plan", "hbm_passes", "fused_tail", "front_fuse", "ring",
               "search_mode", "reps", "launches", "pass"}
@@ -262,7 +263,6 @@ def test_bench_ring_legs_on_the_cpu(ring, capsys, monkeypatch,
 
 @pytest.mark.parametrize("knob,item", (
     (("--fleet-batch", "on"), "A8"),
-    ({"SRTB_BENCH_AOT_DIR": "/nonexistent/aot"}, "A9d"),
     ({"SRTB_BENCH_AUDIT": "1"}, "A9e")))
 def test_bench_refuses_later_slices(knob, item, capsys, monkeypatch):
     argv = ["--device", "cpu"]
@@ -275,6 +275,21 @@ def test_bench_refuses_later_slices(knob, item, capsys, monkeypatch):
     (line,) = _lines(capsys)
     assert f"ROADMAP {item}" in line["error"]
     assert "NotImplementedError" in line["error"]
+
+
+def test_bench_aot_leg_on_the_cpu(capsys, monkeypatch, fresh_metrics,
+                                  tmp_path):
+    """``SRTB_BENCH_AOT_DIR`` is the AOT leg (no longer refused): the
+    cache is off on the CPU, so the line says ``aot_active`` false with
+    no hit or miss, and nothing is written there."""
+    for k, v in SMALL_BENCH.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("SRTB_BENCH_AOT_DIR", str(tmp_path / "aot"))
+    assert B.main(["--device", "cpu"]) == 0
+    (line,) = _lines(capsys)
+    assert line["aot_active"] is False
+    assert line["aot_cache_hits"] == line["aot_cache_misses"] == 0
+    assert not (tmp_path / "aot").exists()
 
 
 @pytest.mark.parametrize("i", range(len(ROOFLINE)))

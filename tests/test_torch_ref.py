@@ -2348,6 +2348,98 @@ def plan_signature(fields: dict, env: dict | None = None,
             "trace_cfg_keys": np.array(SegmentProcessor._TRACE_CFG_KEYS)}
 
 
+
+# ------------------------------------------------------------------ A9d
+# The JAX package's threaded engine, sanitizer, float64 oracle and live
+# tools, for tests/test_torch_threaded.py, test_torch_sanitizer.py,
+# test_torch_aot.py and test_torch_live_tools.py.
+
+def ref_threaded_run(fields: dict, capture: bool = True,
+                     max_segments=None, journal: bool = False) -> dict:
+    """:func:`resilience_run` on the reference's ``ThreadedPipeline``;
+    with ``journal`` the spans of ``telemetry_journal_path`` too (their
+    keys, a span a row)."""
+    from srtb_tpu.config import Config
+    from srtb_tpu.pipeline.runtime import ThreadedPipeline
+    from srtb_tpu.utils.metrics import metrics
+    metrics.reset()
+    try:
+        res = resilience_run(ThreadedPipeline, Config(**fields),
+                             lambda _pipe, k: metrics.get(k), capture,
+                             max_segments=max_segments)
+    finally:
+        metrics.reset()
+    if journal:
+        with open(fields["telemetry_journal_path"]) as f:
+            spans = [json.loads(line) for line in f]
+        res["span_keys"] = json.dumps([sorted(s) for s in spans])
+    return res
+
+
+def sanitizer_messages(cases: list) -> dict:
+    """The reference sanitizer's verdict on each case: ``("finite", tag,
+    values)`` or ``("contract", tag, shape, dtype, kwargs)`` on a device
+    array; the message of the error raised ("" when none)."""
+    import jax.numpy as jnp
+    from srtb_tpu.analysis import sanitizer as S
+    out = {}
+    for i, case in enumerate(cases):
+        try:
+            if case[0] == "finite":
+                S.check_finite(case[1], jnp.asarray(np.array(case[2])))
+            else:
+                _kind, tag, shape, dtype, kwargs = case
+                S.check_contract(tag, jnp.zeros(shape, dtype), **kwargs)
+            out[str(i)] = ""
+        except S.SanitizerError as e:
+            out[str(i)] = str(e)
+    return out
+
+
+def oracle_outputs(raws: dict, nbits: dict, chain: dict) -> dict:
+    """``tests/oracle_utils.py`` on the given bytes: ``oracle_unpack`` and
+    ``oracle_deinterleave`` of each format's bytes, and
+    ``oracle_stream_chain`` of ``chain["samples"]`` under the config of
+    ``chain["fields"]``."""
+    import oracle_utils as OU
+    from srtb_tpu.config import Config
+    out = {}
+    for name, raw in raws.items():
+        bits = nbits[name]
+        if name == "simple":
+            out[f"unpack/{bits}"] = OU.oracle_unpack(raw, bits)
+        for s, x in enumerate(OU.oracle_deinterleave(raw, name, bits)):
+            out[f"deinterleave/{name}/{s}"] = x
+    wf, ts, nzap = OU.oracle_stream_chain(chain["samples"],
+                                          Config(**chain["fields"]))
+    out.update({"chain/wf": wf, "chain/ts": ts, "chain/nzap": nzap})
+    return out
+
+
+def tool_keys(n_packets: int) -> dict:
+    """The reference's live tools' JSON: ``udp_soak.run_soak`` through its
+    Python receiver, and the e2e harness at 2^14 for a second, each as
+    its sorted keys (and the soak's fixed fields)."""
+    import contextlib
+    import io
+    from srtb_tpu.tools import e2e_live, udp_soak
+    soak = udp_soak.run_soak(n_packets, "python", port=free_udp_port())
+    buf = io.StringIO()
+    with tempfile_dir() as d, contextlib.redirect_stdout(buf):
+        rc = e2e_live.main(["--seconds", "1", "--rate_x", "0.05",
+                            "--log2n", "14", "--log2chan", "5", "--port",
+                            str(free_udp_port()), "--prefix",
+                            f"{d}/out_", "--max_segments", "2"])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    return {"soak_keys": json.dumps(sorted(soak)),
+            "soak_required_gbps": soak["required_gbps"],
+            "e2e_rc": rc, "e2e_keys": json.dumps(sorted(line))}
+
+
+def tempfile_dir():
+    import tempfile
+    return tempfile.TemporaryDirectory()
+
 def _refill_reference_window() -> None:
     """The JAX package's engine ends a run early, its source unread, when
     the sink thread drains the whole in-flight window between two of the

@@ -324,17 +324,18 @@ def test_ring_warm_equals_cold_every_format(fmt):
 
 # the settings still refused: (field, value, the ROADMAP item named)
 UNPORTED_SETTINGS = {
-    "sanitize": ("sanitize", "1", "A9d"),
     "distributed_num_processes": ("distributed_num_processes", "2", "A8"),
 }
 # the settings that raised before the micro-batch (A3), durability (A6b),
-# resilience (A7), observability (A9a), health (A9b) and perf tools (A9c)
-# slices, and now run: a device fault the ladder recovers, a stall under
-# the default retries, the segment deadline, the span journal, the events
-# dump, a profile capture, the canary (refused loudly by the 2-bit input:
-# it injects only into 8-bit "simple" bytes), the incident directory (no
-# escalation: no bundle) and the perf ledger (one "steady" record) ("{tmp}"
-# is the test's directory)
+# resilience (A7), observability (A9a), health (A9b), perf tools (A9c) and
+# A9d slices, and now run: a device fault the ladder recovers, a stall
+# under the default retries, the segment deadline, the span journal, the
+# events dump, a profile capture, the canary (refused loudly by the 2-bit
+# input: it injects only into 8-bit "simple" bytes), the incident
+# directory (no escalation: no bundle), the perf ledger (one "steady"
+# record), the runtime sanitizer (no trip on the clean input, nothing
+# patched after) and the compiled-kernel cache (off on the CPU: nothing
+# built or written) ("{tmp}" is the test's directory)
 NOW_PORTED = {
     "checkpoint_path": ["--checkpoint_path", "{tmp}/ck.json"],
     "run_manifest_path": ["--run_manifest_path", "{tmp}/manifest.jsonl"],
@@ -352,6 +353,8 @@ NOW_PORTED = {
     "canary_every_segments": ["--canary_every_segments", "2"],
     "incident_dir": ["--incident_dir", "{tmp}/incidents"],
     "perf_ledger_path": ["--perf_ledger_path", "{tmp}/ledger.jsonl"],
+    "sanitize": ["--sanitize", "1"],
+    "aot_plan_path": ["--aot_plan_path", "{tmp}/aot"],
 }
 
 
@@ -380,8 +383,9 @@ def test_unported_runtime_settings_raise(tmp_path, fresh_metrics, case):
     profile capture (a torch.profiler trace whose user annotations hold
     the stage names), the canary (disabled, loudly, on this 2-bit input),
     the incident directory (created, and empty after a run that did not
-    escalate) and the perf ledger (one "steady" record of the run) run
-    and find the pulse."""
+    escalate), the perf ledger (one "steady" record of the run), the
+    runtime sanitizer (no trip, nothing patched after the run) and the
+    compiled-kernel cache (off on the CPU) run and find the pulse."""
     argv, _nres = make_case(tmp_path)
     out = ["--device", "cpu", "--baseband_output_file_prefix",
            f"{tmp_path}/out_"]
@@ -430,6 +434,12 @@ def test_unported_runtime_settings_raise(tmp_path, fresh_metrics, case):
         assert rec["source"] == "steady" and rec["platform"] == "cpu"
         assert rec["extra"]["segments"] == 3
         assert rec["plan"] == pipe.processor.plan_name
+    if case == "sanitize":
+        from srtb_tpu_torch.analysis import sanitizer as S
+        assert pipe.sanitizer is not None and not S.patched()
+    if case == "aot_plan_path":
+        assert not pipe.processor.aot_active
+        assert not os.path.exists(flags[1])
     if case == "profile_capture_segments":
         with open(os.path.join(flags[3], "trace.json")) as f:
             names = {e["name"] for e in json.load(f)["traceEvents"]

@@ -327,6 +327,38 @@ def test_source_pool_and_loss_counters():
     assert pool.stats()["in_use"] == 0
 
 
+@pytest.mark.parametrize("native", [False, True])
+def test_port_zero_binds_a_port_of_its_own(native):
+    """A configured port 0 binds the port the OS gives each receiver
+    (``UdpReceiverSource.port``, ``MultiUdpSource.ports``), and packets
+    sent there are the segment's."""
+    if native and not udp.native_available():
+        pytest.skip("recvmmsg unavailable")
+    cfg = source_config(baseband_reserve_sample=False,
+                        udp_receiver_address=["127.0.0.1"],
+                        udp_receiver_port=[0])
+    src = udp.UdpReceiverSource(cfg, use_native=native)
+    payload = (np.arange(5 * P) % 251).astype(np.uint8)
+    try:
+        port = src.port
+        assert port != 0
+        sender = start_thread(send_datagrams, port,
+                              stream_datagrams(FASTMB, P, payload, 0))
+        seg = bounded(lambda: next(src), "segment")
+        assert np.array_equal(seg.data, payload[:4 * P])
+        sender.join(UDP_TIMEOUT_S)
+    finally:
+        src.close()
+    multi = udp.MultiUdpSource(cfg.replace(
+        udp_receiver_address=["127.0.0.1"] * 2, udp_receiver_port=[0, 0]),
+        use_native=native)
+    try:
+        ports = multi.ports
+        assert len(set(ports)) == 2 and 0 not in ports
+    finally:
+        bounded(multi.close, "close")
+
+
 def test_multi_source_close_wakes_blocked_receivers():
     """Closing a ``MultiUdpSource`` whose receivers wait for packets that
     never come shuts their sockets down: the threads end at once."""
