@@ -397,8 +397,11 @@ def free_card() -> str:
     import torch
     from srtb_tpu_torch.kernels import fft2 as K2
     from srtb_tpu_torch.ops import fft as F
+    from srtb_tpu_torch.parallel import dist_fft as DF
     K2.twiddle.cache_clear()
     F._hermitian_weights.cache_clear()
+    DF._twiddle_block.cache_clear()
+    DF._post_weights.cache_clear()
     torch.cuda.empty_cache()
     return (f"allocated {torch.cuda.memory_allocated()} bytes, reserved "
             f"{torch.cuda.memory_reserved()} bytes")
@@ -2800,6 +2803,150 @@ def perf_gate_round(card: str, ledger: Path) -> dict:
     return {"selftest": st, "baseline": verdicts}
 
 
+# C9's soak: the round trip's variants, taken in turns a round: as the
+# script makes it ("script"), without the ledger writes between the
+# batches ("no_ledger"), with the allocators' caches emptied and a
+# collection between them ("empty_cache"), and right after a short
+# stalled capture ("after_stall"); "drop_first" is "script" compared
+# again without each batch's first capture
+GATE_SOAK_VARIANTS = ("script", "no_ledger", "empty_cache", "after_stall")
+
+
+def _round_trip(base: Path, ledger: Path | None, between=None) -> dict:
+    """One ``--write-baseline`` / ``--baseline`` round trip (``between``
+    called between the batches): its verdict, and each batch's capture
+    medians when a ledger took them."""
+    from srtb_tpu_torch.tools import perf_gate as PG
+    from srtb_tpu_torch.utils import perf_ledger as PL
+    extra = ["--ledger", str(ledger)] if ledger is not None else []
+    rc, text = _printed(PG.main, ["--write-baseline", str(base)] + extra)
+    if rc:
+        fail(f"gate soak --write-baseline: rc {rc}, {text[-500:]}")
+    if between is not None:
+        between()
+    rc, text = _printed(PG.main, ["--baseline", str(base)] + extra)
+    (v,) = _json_lines("gate soak --baseline", text)
+    out = {k: v[k] for k in ("effect", "noise_floor", "p", "regression",
+                             "median_a_s", "median_b_s")}
+    out["batch_a_s"] = json.loads(base.read_text())["samples_s"]
+    if ledger is not None:
+        a, b = PL.load(str(ledger))[-2:]
+        out["batch_a_s"], out["batch_b_s"] = a["samples_s"], b["samples_s"]
+    return out
+
+
+def _drop_first(r: dict) -> dict:
+    from srtb_tpu_torch.utils import perf_stats as PS
+    v = PS.compare(r["batch_a_s"][1:], r["batch_b_s"][1:])
+    return {k: v[k] for k in ("effect", "noise_floor", "p", "regression",
+                              "median_a_s", "median_b_s")}
+
+
+def gate_round_child(argv: list) -> int:
+    """One round trip in a fresh process (``chip_smoke.py
+    --gate-round-child DIR``), its line after ``GATE_MARK``."""
+    sys.path.insert(0, str(ROOT))
+    d = Path(argv[0])
+    d.mkdir(parents=True, exist_ok=True)
+    r = _round_trip(d / "baseline.json", d / "ledger.jsonl")
+    print(GATE_MARK + json.dumps(r), flush=True)
+    return 0
+
+
+GATE_MARK = "GATE_ROUND "
+
+
+def gate_round_soak(argv: list) -> int:
+    """C9's soak (``chip_smoke.py --gate-round-soak N``): the process
+    brought to the state the perf phase finds it in (the kernels built,
+    staged_2^30's main path run, ``perf_gate --selftest`` run), then N
+    rounds, each the round trip's variants in turns
+    (``GATE_SOAK_VARIANTS``), each line with its effect, floor, p, both
+    batches' medians and capture medians; then N round trips in fresh
+    processes.  The last line sums the regressions read by variant."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from srtb_tpu_torch.tools import perf_gate as PG
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    n = int(argv[0])
+    card = phase_card()
+    phase_build()
+    made = {}
+    label, log2_n, extra, plan, per_segment, env = _main_path("staged_2^30")
+    phase_main_path(card, label, log2_n, extra, plan, per_segment, env, made)
+    free_card()
+    rc, text = _printed(PG.main, ["--selftest"])
+    (st,) = _json_lines("gate soak --selftest", text)
+    say(f"gate soak: selftest {st['selftest']}, clean "
+        f"{st['clean']['effect']:.4f} against {st['clean']['noise_floor']:.4f},"
+        f" stall {st['stalled']['effect']:.4f}; card {card}")
+    root = OUT_DIR / "gate_soak"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+
+    def emptied():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def stalled():
+        med = float(np.median(PG.capture(segments=2, warmup=1)["samples_s"]))
+        PG.capture(segments=PG.SHORT_SEGMENTS, warmup=4,
+                   fault_plan=PG.stall_plan(PG.SHORT_SEGMENTS, 4,
+                                            PG.stall_for(med)))
+    found: dict = {v: [] for v in GATE_SOAK_VARIANTS + ("drop_first",)}
+    for i in range(n):
+        for v in GATE_SOAK_VARIANTS:
+            d = root / f"{v}_{i}"
+            d.mkdir()
+            if v == "after_stall":
+                stalled()
+            r = _round_trip(d / "baseline.json",
+                            None if v == "no_ledger" else d / "ledger.jsonl",
+                            emptied if v == "empty_cache" else None)
+            found[v].append(r)
+            say(f"gate soak round {i} {v}: " + json.dumps(r))
+            if v == "script":
+                r2 = _drop_first(r)
+                found["drop_first"].append(r2)
+                say(f"gate soak round {i} drop_first: " + json.dumps(r2))
+    fresh = []
+    for i in range(n):
+        d = root / f"fresh_{i}"
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--gate-round-child", str(d)], capture_output=True, text=True,
+            timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith(GATE_MARK)]
+        if proc.returncode or not lines:
+            fail(f"gate soak fresh {i}: rc {proc.returncode}, "
+                 f"{proc.stderr[-1500:]}")
+        r = json.loads(lines[-1][len(GATE_MARK):])
+        fresh.append(r)
+        say(f"gate soak fresh {i}: " + json.dumps(r))
+    found["fresh"] = fresh
+
+    def first_high(rs):
+        # how often a batch's first capture is its slowest
+        return sum(int(np.argmax(r[k]) == 0) for r in rs
+                   for k in ("batch_a_s", "batch_b_s") if k in r)
+    summary = {v: {"regressions": sum(r["regression"] for r in rs),
+                   "effects": [round(r["effect"], 4) for r in rs],
+                   "floors": [round(r["noise_floor"], 4) for r in rs],
+                   "first_capture_slowest": first_high(rs)}
+               for v, rs in found.items()}
+    shutil.rmtree(root)
+    print(json.dumps({"gate_round_soak": summary, "rounds": n,
+                      "card": card}), flush=True)
+    return 0
+
+
 def perf_steady(card: str, window: dict, ledger: Path) -> dict:
     """fused_2^27 on the window phase's 8-segment file with
     ``perf_ledger_path``: its candidate files byte for byte the window
@@ -3065,6 +3212,8 @@ WATCHDOG_STALL = "fetch:stall=1.5@6"
 # halt before the engine ("sink")
 STICKY_AT = {"chain": 1, "sink": 0}
 STICKY_MARK = "STICKY_RESULT "
+# the longest the chain child waits for its injected assert to land
+STICKY_LAND_S = 60
 RESILIENCE_COUNTERS = ("plan_demotions", "plan_promotions", "device_reinits",
                        "retries_total", "data_loss_total",
                        "watchdog_requeues", "faults_injected",
@@ -3492,9 +3641,10 @@ def sticky_child(argv: list) -> int:
     """The sticky fault's child (``chip_smoke.py --sticky-child CFG
     INJECT [WHERE]``): the pipeline of the JSON config ``CFG`` with a
     device-side assert triggered inside the chain of segment ``INJECT``
-    (WHERE ``chain``, the default: left in flight, as a kernel's own
-    assert is, so that the context dies while the engine goes on
-    enqueueing and freeing) or by the sink thread at push ``INJECT``
+    (WHERE ``chain``, the default: enqueued as a kernel's own assert is,
+    then waited for until it has landed, so that every check the engine
+    makes after it meets the dead context) or by the sink thread at push
+    ``INJECT``
     (``sink``, which then waits on the card); ``INJECT`` < 0: none, a
     plain resume.  Prints the outcome after ``STICKY_MARK`` and exits 1
     when the run raised."""
@@ -3516,6 +3666,20 @@ def sticky_child(argv: list) -> int:
         x = torch.zeros(4, device=device)
         x[torch.tensor([10], device=device)]
 
+    def assert_landed(device) -> None:
+        # the chain's assert is left in flight, but the engine checks
+        # nothing until it has landed: every later query and free then
+        # meets a dead context, whatever the host's timing
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < STICKY_LAND_S:
+            try:
+                torch.cuda.current_stream(device).query()
+            except RuntimeError:  # torch.AcceleratorError: it landed
+                return
+            time.sleep(0.001)
+        raise SystemExit(f"the injected assert did not land within "
+                         f"{STICKY_LAND_S} s")
+
     if where == "chain":
         run_device = S.SegmentProcessor._chain
 
@@ -3523,6 +3687,7 @@ def sticky_child(argv: list) -> int:
             calls[0] += 1
             if calls[0] == inject + 1:
                 device_assert(raw.device)
+                assert_landed(raw.device)
             return run_device(self, raw)
         S.SegmentProcessor._chain = asserting_run_device
     else:
@@ -5870,7 +6035,185 @@ def phase_dmsearch(card: str, made: dict) -> dict:
     if rc != 0 or not ("<- best" in text or text.rstrip().endswith(".png")):
         fail(f"{label}: srtb-torch-plot-dm-curve returned {rc}: {text}")
     return {"counts": counts, "peaks": peaks, "breakdown": breakdown,
-            "peak": peak, "msamples_per_s": stats.msamples_per_sec}
+            "peak": peak, "msamples_per_s": stats.msamples_per_sec,
+            "records": records}
+
+
+# the a8a phase: B6's distributed legs at 2^29 complex points (the packed
+# spectrum of a 2^30-sample segment), held to torch.fft within the
+# reference's gate for its B6 legs (tests/test_dist_fft.py:
+# test_dist_fft_pallas_legs, 2e-5 of the largest value); per segment of
+# the DM search on the mesh: K1 once, B6 for each of the two legs, B3,
+# K3 and K4 once a trial
+A8A_FFT_LOG2 = 29
+A8A_FFT_GATE = 2e-5
+A8A_LAUNCHES = {"unpack_subbyte_window": 1, "fft_rows": 2,
+                "dedisperse": len(DM_TRIALS), "sk_stats": len(DM_TRIALS),
+                "sk_apply_timeseries": len(DM_TRIALS)}
+A8A_ENV = {"SRTB_DIST_ROWS_IMPL": "pallas"}
+A8A_PEAK_RTOL = 2e-4
+# the phase's share of the script's clock (seconds)
+A8A_BUDGET_S = 25.0
+
+
+def a8a_dist_fft(card: str) -> dict:
+    """``dist_fft`` over the world-1 seq mesh at 2^29 complex points with
+    the ``pallas`` legs against ``torch.fft.fft`` on the same input: B6's
+    launches, the error beside its gate, both times."""
+    import torch
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.parallel import dist_fft as DF
+    from srtb_tpu_torch.parallel import mesh as MM
+    n = 1 << A8A_FFT_LOG2
+    g = torch.Generator(device="cuda").manual_seed(1644)
+    x = torch.randn(n, dtype=torch.complex64, device="cuda", generator=g)
+    mesh = MM.seq_mesh(1)
+    K.reset_launch_counts()
+    y = DF.dist_fft(x, mesh, rows_impl="pallas")
+    torch.cuda.synchronize()
+    b6 = K.launch_counts()["fft_rows"]
+    inventory = dict(mesh.inventory)
+    want = torch.fft.fft(x)
+    err = float((y - want).abs().max() / want.abs().max())
+    del y, want
+    ms = cuda_ms(lambda: DF.dist_fft(x, mesh, rows_impl="pallas"), 3)
+    lib = cuda_ms(lambda: torch.fft.fft(x), 3)
+    say(f"a8a dist_fft [2^{A8A_FFT_LOG2}] pallas legs: B6 launches {b6}, "
+        f"max |err| / max |X| {err:.3e} (gate {A8A_FFT_GATE:g}), "
+        f"{ms:.3f} ms, torch.fft.fft {lib:.3f} ms, collectives "
+        f"{inventory}; card {card}")
+    if b6 != 2 or not err <= A8A_FFT_GATE:
+        fail(f"a8a dist_fft: B6 launches {b6} (2 expected), error {err:.3e}"
+             f" against the gate {A8A_FFT_GATE:g}")
+    del x
+    return {"ms": ms, "torch_ms": lib, "err": err}
+
+
+def phase_a8a(card: str, made: dict, dmsearch: dict) -> dict:
+    """The distributed layer on the card (ROADMAP A8a): a world-1 NCCL
+    group through ``distributed.initialize``; ``dist_fft`` at full size
+    with B6's legs (:func:`a8a_dist_fft`); ``DMSearchPipeline`` on
+    dmsearch_2^30's file and trials over the group's (1, 1) mesh with the
+    ``pallas`` legs (the sharded step), its records equal to
+    dmsearch_2^30's (best dm, counts and zero counts exactly, peaks
+    within ``A8A_PEAK_RTOL``), the collective inventory counted on the
+    NCCL group, the peak memory, one segment's chain re-dispatched under
+    ``set_sync_debug_mode("error")`` and timed; the group destroyed
+    after.  ``counts`` holds the pipeline run's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.parallel import distributed as D
+    from srtb_tpu_torch.pipeline.runtime import DMSearchPipeline
+    t0 = time.perf_counter()
+    label = "a8a_2^30"
+    out_dir = OUT_DIR / label
+    cfg, _text = path_cfg(out_dir, DMSEARCH_EXTRA, LOG2_N, label)
+    data = input_file(cfg, "dmsearch_2^30", made)
+    cfg = cfg.replace(input_file_path=str(data))
+    rendezvous = out_dir / "rendezvous"
+    rendezvous.unlink(missing_ok=True)
+    D.initialize(f"file://{rendezvous}", 1, 0)
+    try:
+        say(f"a8a: world {dist.get_world_size()} group on "
+            f"{dist.get_backend()} ({torch.cuda.get_device_name()}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if dist.get_backend() != "nccl":
+            fail(f"a8a: backend {dist.get_backend()}, not nccl")
+        fft = a8a_dist_fft(card)
+        free_card()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fresh_telemetry()
+        K.reset_launch_counts()
+        with path_env(A8A_ENV):
+            search = DMSearchPipeline(cfg)
+        t1 = time.perf_counter()
+        with search:
+            stats = search.run()
+        wall = time.perf_counter() - t1
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        proc = search.processor
+        inventory = {f"{name} {','.join(ax)}": c
+                     for (name, ax), c in sorted(proc.mesh.inventory.items())}
+        with open(search.trials_path) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        say(f"{label}: mesh {proc.mesh.shape}, sharded {proc.sharded}, "
+            f"legs {proc.rows_impl}, {stats.segments} segments in "
+            f"{wall:.2f} s, max_memory_allocated {peak} bytes "
+            f"({peak / 1e9:.2f} GB); collectives on the NCCL group "
+            f"{inventory}; launches {counts}; card {card}")
+        for rec in records:
+            say(f"{label}: record " + json.dumps(rec))
+        if not proc.sharded or proc.rows_impl != "pallas":
+            fail(f"{label}: the sharded step with the pallas legs did not "
+                 f"run (sharded {proc.sharded}, legs {proc.rows_impl})")
+        _check_launches(label, counts, A8A_LAUNCHES, stats.segments)
+        want_inv = {"all_to_all seq": 3, "ppermute seq": 2, "psum dm": 3,
+                    "psum seq": 3}
+        if inventory != {k: v * stats.segments for k, v in want_inv.items()}:
+            fail(f"{label}: collectives {inventory}, expected "
+                 f"{want_inv} a segment")
+        want = dmsearch["records"]
+        if len(records) != len(want):
+            fail(f"{label}: {len(records)} records, dmsearch_2^30 wrote "
+                 f"{len(want)}")
+        worst = 0.0
+        for got, exp in zip(records, want):
+            for key in ("best_dm", "signal_counts", "zero_counts"):
+                if got[key] != exp[key]:
+                    fail(f"{label}: segment {got['segment']}'s {key} "
+                         f"{got[key]}, dmsearch_2^30's {exp[key]}")
+            g, e = np.asarray(got["peak_snr"]), np.asarray(exp["peak_snr"])
+            worst = max(worst, float(np.max(
+                np.abs(g - e) / np.maximum(np.abs(e), 1e-30))))
+        if not worst <= A8A_PEAK_RTOL:
+            fail(f"{label}: peak S/N {worst:.3e} relative from "
+                 f"dmsearch_2^30's (gate {A8A_PEAK_RTOL:g})")
+        say(f"{label}: records equal dmsearch_2^30's (best dm, counts and "
+            f"zero counts exactly; peak S/N within {worst:.3e} relative, "
+            f"gate {A8A_PEAK_RTOL:g})")
+        # one segment again: its trials dispatched under the sync check,
+        # then its chain timed
+        segs, pool = _segments_pinned(cfg)
+        with path_env(A8A_ENV):
+            raw = search.processor.shard(segs[1].data)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = proc.run_device(raw)
+            except RuntimeError as e:
+                fail(f"{label}: the sharded trial loop synchronised with "
+                     f"the card: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            peaks = res.snr_peaks.reshape(len(DM_TRIALS), -1).amax(-1)
+            if peaks.tolist() != records[1]["peak_snr"]:
+                fail(f"{label}: the re-dispatch's peaks {peaks.tolist()}, "
+                     f"the run's {records[1]['peak_snr']}")
+            del res
+            chain = cuda_ms(lambda: proc.run_device(raw), 2)
+        for seg in segs:
+            pool.release(seg.data)
+        pool.free_all()
+        del raw, proc, search
+    finally:
+        D.shutdown()
+    if dist.is_initialized():
+        fail("a8a: the process group outlived the phase")
+    free_card()
+    took = time.perf_counter() - t0
+    say(f"{label}: the trial loop dispatched under set_sync_debug_mode"
+        f"('error'): no synchronising call; chain {chain:.3f} ms a segment "
+        f"({len(DM_TRIALS)} trials); group destroyed; phase {took:.1f} s "
+        f"(budget {A8A_BUDGET_S:g} s); card {card}")
+    if took > A8A_BUDGET_S:
+        say(f"{label}: the phase took {took:.1f} s, over its "
+            f"{A8A_BUDGET_S:g} s share")
+    return {"counts": counts, "fft": fft, "chain_ms": chain, "peak": peak,
+            "seconds": took}
 
 
 def phase_breakdown_dmsearch(cfg, pinned) -> dict:
@@ -6757,6 +7100,8 @@ def main() -> int:
     free_card()
     runs["dmsearch_2^30"] = phase_dmsearch(card, made)
     free_card()
+    runs["a8a_2^30"] = phase_a8a(card, made, runs["dmsearch_2^30"])
+    lap("a8a")
     runs["correlator_2^30"] = phase_correlator(card)
     free_card()
     lap("search modes")
@@ -6822,6 +7167,10 @@ if __name__ == "__main__":
         sys.exit(sticky_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--sticky-soak"]:
         sys.exit(sticky_soak(sys.argv[2:]))
+    if sys.argv[1:2] == ["--gate-round-soak"]:
+        sys.exit(gate_round_soak(sys.argv[2:]))
+    if sys.argv[1:2] == ["--gate-round-child"]:
+        sys.exit(gate_round_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--aot-child"]:
         sys.exit(aot_child(sys.argv[2:]))
     sys.exit(main())

@@ -88,14 +88,17 @@ def fft_minor(x: torch.Tensor, inverse: bool, rows_impl: str = "xla",
     ``_fft_minor``).  ``rows_impl = "pallas"``: rows longer than
     ``len_cap`` (default 2^16) recurse into :func:`four_step_fft`, rows in
     the kernels' window run B6, shorter rows ``torch.fft``.
-    ``rows_impl = "xla"``: ``torch.fft`` at any length."""
-    if rows_impl not in ("xla", "pallas"):
+    ``rows_impl = "xla"``: ``torch.fft`` at any length.
+    ``rows_impl = "pallas_interpret"``: the "pallas" plan with B6's plain
+    version in the kernel's place (the reference's interpret mode)."""
+    if rows_impl not in ("xla", "pallas", "pallas_interpret"):
         raise ValueError(f"unknown rows impl {rows_impl!r}")
     length = x.shape[-1]
-    if rows_impl == "pallas":
+    if rows_impl != "xla":
         if length > (len_cap or FFT_LEN_CAP):
             return four_step_fft(x, inverse, rows_impl, len_cap)
-        if KF.supported(length, x.numel() // length):
+        if rows_impl == "pallas" and KF.supported(length,
+                                                  x.numel() // length):
             return KF.fft_rows(x.contiguous(), inverse)
     return KF.fft_rows_plain(x, inverse)
 

@@ -144,6 +144,7 @@ from srtb_tpu_torch.io.native_writer import AsyncWriterPool
 from srtb_tpu_torch.io.writers import (WriteAllSink, WriteSignalSink,
                                        recover_orphan_temps, to_host)
 from srtb_tpu_torch.ops.dedisperse import nsamps_reserved
+from srtb_tpu_torch.parallel import mesh as mesh_mod
 from srtb_tpu_torch.parallel.segment_dist import DistSegmentProcessor
 from srtb_tpu_torch.pipeline import framework as fw
 from srtb_tpu_torch.pipeline import registry
@@ -237,9 +238,6 @@ def sync_with_deadline(deadline_s: float, fn):
         timer.cancel()
 
 
-# more than one process joins a process group in the reference
-UNPORTED_PROCESSES = "ROADMAP A8: parallel/* on torch.distributed"
-
 # the resilience counters a run copies into ``stats.extras`` (with the
 # ``retries_<site>`` and ``worker_restarts_<name>`` families)
 EXTRAS_COUNTERS = (
@@ -249,14 +247,6 @@ EXTRAS_COUNTERS = (
     "shed_baseband", "degrade_level", "degrade_steps",
     "degrade_recoveries", "faults_injected", "worker_restarts")
 EXTRAS_PREFIXES = ("retries_", "worker_restarts_")
-
-
-def check_processes(cfg: Config) -> None:
-    """Raise for ``distributed_num_processes > 1``."""
-    if int(cfg.distributed_num_processes or 1) > 1:
-        raise NotImplementedError(
-            f"distributed_num_processes={cfg.distributed_num_processes} "
-            f"is not ported yet ({UNPORTED_PROCESSES})")
 
 
 def counters_snapshot() -> dict:
@@ -332,7 +322,6 @@ class Pipeline:
 
     def __init__(self, cfg: Config, source=None, device=None, sinks=None,
                  processor=None, keep_waterfall: bool = True):
-        check_processes(cfg)
         self.cfg = cfg
         # the waterfall goes to every sink, or (False) only to the sinks
         # that declare ``wants_waterfall`` (a lossy GUI tap), so that the
@@ -494,6 +483,12 @@ class Pipeline:
         # thread can both see a halt first, so it starts under its lock
         self._halted = None
         self._halted_lock = threading.Lock()
+        # the last drained item's pinned results and held buffers, freed
+        # at the next drain that finds the context alive
+        # (``_keep_if_dead``), and the event of the last dispatch, which
+        # ``_ring_invalidate`` asks before it drops the carry
+        self._deferred = None
+        self._last_done = None
 
     @property
     def sink(self):
@@ -610,12 +605,20 @@ class Pipeline:
             yield
 
     def _ring_invalidate(self) -> None:
-        """Drop the carry: the next dispatch is cold."""
-        if self._ring_carry is not None and self.events is not None:
-            # a live carry is dropped: the warm chain breaks here
-            self.events.emit("ring.invalidate", trace=events.current()[0],
-                             stream=self.stream)
-        self._keep_if_halted(self._ring_carry)
+        """Drop the carry: the next dispatch is cold.  The carry is a view
+        of a staged buffer whose free records an event, so outside a halt
+        the context is asked first, as the drain asks (``_keep_if_dead``):
+        on a dead one the carry is held (``_halted``)."""
+        carry = self._ring_carry
+        if carry is not None:
+            if self.events is not None:
+                # a live carry is dropped: the warm chain breaks here
+                self.events.emit("ring.invalidate",
+                                 trace=events.current()[0],
+                                 stream=self.stream)
+            if self._halted is None and not self._alive(self._last_done):
+                self._halt_seen()
+        self._keep_if_halted(carry)
         self._ring_carry = None
         self._ring_prev = None
 
@@ -631,17 +634,38 @@ class Pipeline:
             if self._halted is None:
                 self._halted = []
 
+    @staticmethod
+    def _alive(done) -> bool:
+        """Whether the context of ``done`` (an event, None on the CPU)
+        lives: a query on a context a sticky fault killed raises."""
+        if done is None:
+            return True
+        try:
+            done.query()
+        except RuntimeError:  # torch.AcceleratorError: a dead context
+            return False
+        return True
+
     def _keep_if_dead(self, item) -> None:
         """Hold a drained item (``_halted``) when its card's context died
         before the engine thread saw the halt: its event's query raises,
         and freeing its pinned results would abort the process from a
-        destructor.  The sink thread asks before it drops each item."""
-        if self._halted is None and item.done is not None:
-            try:
-                item.done.query()
-            except RuntimeError:  # torch.AcceleratorError: a dead context
-                self._halt_seen()
-        self._keep_if_halted(item)
+        destructor.  The sink thread asks before it drops each item.  What
+        a free records an event for (the pinned results and the held
+        device buffers) is freed one drain later, after the next item's
+        query found the context alive (``_deferred``), so that no free
+        follows a death its own query did not see; the waterfall, whose
+        free records none, goes with the item."""
+        dead = self._halted is None and not self._alive(item.done)
+        with self._halted_lock:
+            if dead and self._halted is None:
+                self._halted = []
+            prev, self._deferred = self._deferred, (item.det, item.hold)
+            if self._halted is not None:
+                self._halted.extend(o for o in (prev, item)
+                                    if o is not None)
+                self._deferred = None
+        del prev  # the previous drain's: this query found the context alive
 
     def _ring_adjacent(self, seg) -> bool:
         """Whether ``seg`` is the stream-adjacent successor of the last
@@ -692,6 +716,7 @@ class Pipeline:
         dets = [det._replace(**fields) for det, fields in zip(dets, copies)]
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(proc.device))
+        self._last_done = done
         return dets, done
 
     # -------------------------------------------- the healer's hooks
@@ -1334,8 +1359,11 @@ class Pipeline:
             if self.healer is not None:
                 self.stats.extras["active_plan"] = self.active_plan
         # the run outlived its halts: the context lives, free what they held
+        # and the last drain's deferred results (nothing runs on the card
+        # after the last drain's query)
         with self._halted_lock:
             self._halted = None
+            self._deferred = None
         return stats
 
     def _engine(self, max_segments: int | None) -> PipelineStats:
@@ -1628,7 +1656,20 @@ class Pipeline:
                                          or dispatched[0] < max_segments)
 
         def ingest_one(index: int):
-            one = self._ingest(it, index)
+            # a read that pins a new buffer (``BufferPool._new_block``) on
+            # a context a sticky fault killed raises the context's error:
+            # a halt is the healer's there as at a dispatch, and the read
+            # is made again after a heal (the pool allocates before the
+            # reader moves)
+            while True:
+                one, err = guarded(lambda: self._ingest(it, index))
+                if err is None:
+                    break
+                h = self.healer
+                if h is None or h.classify(err) != DEVICE_HALT \
+                        or not heal(err):
+                    raise err
+                err = None
             if one is None:
                 exhausted[0] = True
             return one
@@ -2263,22 +2304,42 @@ class ThreadedPipeline(Pipeline):
         return stats
 
 
+def dm_search_mesh(cfg: Config, n_trials: int):
+    """The DM search's mesh, as the reference builds it: the largest dm
+    size that divides both the trials and the devices (``n_devices``, by
+    default the process group's size), seq 1."""
+    n_dev = mesh_mod.world_size() if cfg.n_devices == 0 else cfg.n_devices
+    n_dm = 1
+    for d in range(min(n_dev, n_trials), 0, -1):
+        if n_trials % d == 0 and n_dev % d == 0:
+            n_dm = d
+            break
+    return mesh_mod.make_mesh(n_dm=n_dm, n_seq=1)
+
+
 class DMSearchPipeline:
     """The streaming DM search (the reference's ``DMSearchPipeline``):
     every segment runs the DM-trial step (``parallel/segment_dist.py``)
-    over the trial list ``cfg.dm_list``; each segment's per-trial
-    summaries are appended to ``<prefix>dm_trials.jsonl`` as the
-    reference's record (the same keys in the same order), the best
-    trial of a positive segment is logged, and the segment counts in the
-    metrics registry and stamps ``/healthz``'s liveness.  The segments
-    come from ``source`` (any source ``tools/main.make_source`` gives) or
-    the configured input file.  One segment at a time: its bytes uploaded
-    (pinned, on the copy stream, on the card), every trial enqueued, then
-    one fetch of the summaries."""
+    over the trial list ``cfg.dm_list`` on a ("dm", "seq") mesh of the
+    process group's ranks (:func:`dm_search_mesh`, or ``mesh``); each
+    segment's per-trial summaries are appended to
+    ``<prefix>dm_trials.jsonl`` as the reference's record (the same keys
+    in the same order) by rank 0 only (the summaries are replicated; the
+    other ranks write to ``os.devnull``), the best trial of a positive
+    segment is logged, and the segment counts in the metrics registry and
+    stamps ``/healthz``'s liveness.  The segments come from ``source``
+    (any source ``tools/main.make_source`` gives) or the configured input
+    file, every rank reading the whole segment and taking its shard.  One
+    segment at a time: its bytes uploaded (pinned on the card), every
+    trial enqueued, then one fetch of the summaries under
+    ``segment_deadline_s``."""
 
     def __init__(self, cfg: Config, source=None, mesh=None, device=None):
         self.cfg = cfg
         self.dm_list = list(cfg.dm_list) or [cfg.dm]
+        if mesh is None:
+            mesh = dm_search_mesh(cfg, len(self.dm_list))
+        self.mesh = mesh
         self.processor = DistSegmentProcessor(cfg, mesh, self.dm_list,
                                               device=device)
         if source is None:
@@ -2297,15 +2358,26 @@ class DMSearchPipeline:
         sp = self.processor.processor
         n_dm = len(self.dm_list)
         start = time.perf_counter()
-        with open(self.trials_path, "a") as trials_file:
+        proc = self.processor
+        # the summaries are replicated: the first rank records them
+        write_records = mesh_mod.rank() == 0
+        with open(self.trials_path if write_records else os.devnull,
+                  "a") as trials_file:
             for i, seg in enumerate(self.source):
                 try:
                     if max_segments is not None and i >= max_segments:
                         break
-                    res = self.processor.run_device(sp.stage_input(seg.data))
-                    # one fetch a segment, after the last trial
-                    peaks, counts, zero = (to_host(x) for x in (
-                        res.snr_peaks, res.signal_counts, res.zero_count))
+                    raw = (sp.stage_input(seg.data) if not proc.sharded
+                           else proc.shard(seg.data))
+                    res = proc.run_device(raw)
+                    del raw
+                    # one fetch a segment, after the last trial, under
+                    # the fail-fast deadline
+                    peaks, counts, zero = sync_with_deadline(
+                        cfg.segment_deadline_s,
+                        lambda: tuple(to_host(x) for x in (
+                            res.snr_peaks, res.signal_counts,
+                            res.zero_count)))
                 finally:
                     self.source.pool.release(seg.data)
                 # reduce over (stream, boxcar) to per-trial quantities

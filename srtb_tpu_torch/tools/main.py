@@ -33,6 +33,14 @@ report.  Ends with the same ``[main] done: N segments, M with signal, X
 Msamples/s`` line.  A ``dm_list`` runs the DM-trial search instead
 (``DMSearchPipeline``: one ``<prefix>dm_trials.jsonl`` record a
 segment), ending with ``[main] dm search done: ...``.
+
+``--distributed_coordinator H:P --distributed_num_processes N
+--distributed_process_id i`` (one process a device; ``H:P`` a TCP
+rendezvous, or a ``file://`` URL) joins a process group first
+(``parallel/distributed.py``: NCCL on the card, gloo with ``--device
+cpu``).  The DM search then shards its trials over the group's ranks and
+rank 0 writes the records; the single-DM pipeline runs whole in every
+process, as the reference's does.
 """
 
 from __future__ import annotations
@@ -42,8 +50,9 @@ import sys
 
 from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.ops import dedisperse as dd
+from srtb_tpu_torch.parallel import distributed
 from srtb_tpu_torch.pipeline.runtime import (DMSearchPipeline, Pipeline,
-                                             PipelineStats, check_processes)
+                                             PipelineStats)
 from srtb_tpu_torch.utils.logging import log
 from srtb_tpu_torch.utils.termination import install_termination_handler
 
@@ -138,7 +147,17 @@ def run(argv=None) -> tuple[PipelineStats, Pipeline]:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _pop_device(argv)
     cfg = Config.from_args(argv)
-    check_processes(cfg)
+    # the process group first, before any device work (NCCL on the card,
+    # gloo with --device cpu); a group this call formed is left at the end
+    if not distributed.maybe_initialize_from_config(cfg, device):
+        return _run(cfg, device)
+    try:
+        return _run(cfg, device)
+    finally:
+        distributed.shutdown()
+
+
+def _run(cfg, device) -> tuple[PipelineStats, Pipeline]:
     if cfg.dm_list:
         return run_dm_search(cfg, device)
     if cfg.gui_http_port and not cfg.gui_enable:

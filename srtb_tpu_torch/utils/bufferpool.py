@@ -41,7 +41,10 @@ class BufferPool:
         if not self.pinned:
             return np.empty(nbytes, dtype=np.uint8)
         import torch
-        # the numpy view keeps the pinned tensor alive (its ``base``)
+        # on a context a sticky fault killed this raises the context's
+        # error; the engine reads under its healer (``Pipeline``'s
+        # ``ingest_one``), which takes it as a halt.  The numpy view keeps
+        # the pinned tensor alive (its ``base``)
         return torch.empty(nbytes, dtype=torch.uint8,
                            pin_memory=True).numpy()
 

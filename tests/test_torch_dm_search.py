@@ -2,7 +2,8 @@
 (``parallel/dm_grid.py``), the segment step (``parallel/segment_dist.py``)
 at the reference's one-device mesh, ``DMSearchPipeline`` and its
 ``dm_trials.jsonl`` records (one stream and two, the reserve on and off),
-``srtb-torch-main --dm_list`` and the refusals.
+``srtb-torch-main --dm_list``, the refusals and the step on meshes of
+two and four gloo ranks.
 
 Geometry: the reference's tests/test_parallel.py (2^14 8-bit samples, 64
 channels, trials 0 ... 70, the pulse at DM 30), and the pipeline tests'
@@ -25,14 +26,16 @@ from srtb_tpu_torch.config import Config
 from srtb_tpu_torch.io.synth import (interleave_streams,
                                      make_dispersed_baseband_host)
 from srtb_tpu_torch.parallel import dm_grid
+from srtb_tpu_torch.parallel import mesh as mesh_mod
 from srtb_tpu_torch.parallel.segment_dist import (DistSegmentProcessor,
-                                                  mesh_axes)
+                                                  DistSegmentResult as
+                                                  DistResult, mesh_axes)
 from srtb_tpu_torch.pipeline import registry
 from srtb_tpu_torch.pipeline.runtime import DMSearchPipeline, Pipeline
 from srtb_tpu_torch.pipeline.segment import SegmentProcessor
 from srtb_tpu_torch.tools import main as M
 from test_torch_pipeline import make_case
-from test_torch_ref import run_reference
+from test_torch_ref import run_reference, run_world
 
 N = 1 << 14
 DM_LIST = [0.0, 10.0, 20.0, 30.0, 40.0, 50.0, 60.0, 70.0]
@@ -351,10 +354,24 @@ def test_cli_dm_list_writes_the_records(ref, pipe_runs, tmp_path):
         assert a == b
 
 
-def test_refusals_match_reference(ref):
+def mesh_case(mesh: dict, dm_list: list) -> dict:
+    """A rank's part of the segment step on the mesh of shape ``mesh``
+    over the first ranks of its process group (the others take none)."""
+    n_dm, n_seq = mesh_axes(mesh)
+    if mesh_mod.rank() >= n_dm * n_seq:
+        mesh_mod.make_mesh(n_dm, n_seq)  # every rank makes every group
+        return {"in_mesh": np.array(0)}
+    dist = DistSegmentProcessor(parallel_cfg(), mesh=mesh, dm_list=dm_list,
+                                device="cpu")
+    return {"in_mesh": np.array(1), "result": dist.process(RAW)._asdict()}
+
+
+def test_refusals_match_reference(ref, tmp_path):
     """A non-dividing channel count in DM mode and an unknown search mode
-    raise as the reference's do; a mesh or process group above one device
-    raises naming ROADMAP A8."""
+    raise as the reference's do; a mesh above one device runs on a
+    process group's ranks (four gloo ranks here: dm 2, then seq 4), with
+    the reference's one-device results at its gates, and without a group
+    asks for one."""
     msgs = ref["out"]["refusals/messages"].tolist()
     with pytest.raises(ValueError) as e:
         DistSegmentProcessor(parallel_cfg(spectrum_channel_count=48),
@@ -363,9 +380,26 @@ def test_refusals_match_reference(ref):
     with pytest.raises(ValueError) as e:
         registry.resolve_mode(parallel_cfg(search_mode="acceleration"))
     assert f"ValueError: {e.value}" == msgs[1]
-    for mesh in ({"dm": 2, "seq": 1}, {"dm": 1, "seq": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    meshes = ({"dm": 2, "seq": 1}, {"dm": 1, "seq": 4})
+    for mesh in meshes:
+        with pytest.raises(ValueError, match="needs a process group"):
             DistSegmentProcessor(parallel_cfg(), mesh=mesh, device="cpu")
+    ranks = run_world([{"key": f"m{i}", "fn": "test_torch_dm_search:mesh_case",
+                        "args": [mesh, [30.0, 0.0]]}
+                       for i, mesh in enumerate(meshes)], tmp_path, 4)
+    want = _result(ref["out"], "dist/matched_and_zero/result")
+    for i, mesh in enumerate(meshes):
+        got = [r for r in ranks if int(r[f"m{i}/in_mesh"])]
+        assert len(got) == mesh["dm"] * mesh["seq"]
+        for dm, r in enumerate(got):
+            res = DistResult(*(torch.from_numpy(r[f"m{i}/result/{f}"])
+                               for f in DistResult._fields))
+            if mesh["dm"] > 1:
+                # each dm rank holds its own trial's series
+                want_r = dict(want, time_series=want["time_series"][dm:dm + 1])
+            else:
+                want_r = want
+            _held(res, want_r)
     assert mesh_axes(None) == (1, 1)
     assert mesh_axes({"dm": 1, "seq": 1}) == (1, 1)
     # one device takes any trial count (the dm axis is 1)

@@ -68,6 +68,86 @@ def run_reference(jobs: list[dict], tmp_dir,
         return {k: z[k] for k in z.files}
 
 
+# ------------------------------------------------- the port's worlds
+
+# how long a world's rank waits for its peers (the rendezvous and each
+# collective), and how long a whole world may take
+WORLD_GLOO_TIMEOUT_S = 60
+WORLD_TIMEOUT_S = 240
+
+
+def run_world(jobs: list[dict], tmp_dir, world: int,
+              env_of=None) -> list[dict[str, np.ndarray]]:
+    """Run ``jobs`` (as :func:`run_reference` takes them, each a port
+    function) in ``world`` processes that form one gloo process group
+    (``file://`` rendezvous under ``tmp_dir``, so no port is taken), one
+    thread each; every rank runs every job in order and returns its
+    flattened results, rank by rank.  ``env_of(rank)``: extra environment
+    of a rank.  A rank that fails, or a world past ``WORLD_TIMEOUT_S``,
+    raises with the ranks' output."""
+    tmp_dir = Path(tmp_dir)
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    with open(tmp_dir / "world_jobs.pkl", "wb") as f:
+        pickle.dump(jobs, f)
+    procs = []
+    for r in range(world):
+        env = dict(os.environ)
+        env.update({"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"})
+        env.update(env_of(r) if env_of is not None else {})
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(REPO), env.get("PYTHONPATH", "")) if p)
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, "--world-rank", str(r), str(world),
+             str(tmp_dir)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = [""] * world
+    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    try:
+        for r, p in enumerate(procs):
+            outs[r], _ = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise RuntimeError(f"world of {world} ranks past {WORLD_TIMEOUT_S}"
+                           " s:\n" + "\n".join(o[-2000:] for o in outs))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode]
+    if failed:
+        raise RuntimeError("world ranks failed: " + "\n".join(
+            f"rank {r} rc {procs[r].returncode}:\n{outs[r][-4000:]}"
+            for r in failed))
+    results = []
+    for r in range(world):
+        with np.load(tmp_dir / f"world_rank{r}.npz",
+                     allow_pickle=False) as z:
+            results.append({k: z[k] for k in z.files})
+    return results
+
+
+def _world_rank(rank: int, world: int, tmp_dir: str) -> None:
+    """One rank of :func:`run_world` (the port only: nothing of JAX)."""
+    import torch
+    torch.set_num_threads(1)
+    from srtb_tpu_torch.parallel import distributed
+    distributed.initialize(f"file://{tmp_dir}/world_rendezvous", world,
+                           rank, device="cpu",
+                           timeout_s=WORLD_GLOO_TIMEOUT_S)
+    with open(os.path.join(tmp_dir, "world_jobs.pkl"), "rb") as f:
+        jobs = pickle.load(f)
+    results: dict = {}
+    for job in jobs:
+        fn = _resolve(job["fn"])
+        _flatten(job["key"], fn(*job.get("args", ()),
+                                **job.get("kwargs", {})), results)
+    np.savez(os.path.join(tmp_dir, f"world_rank{rank}.npz"), **results)
+    distributed.shutdown()
+
+
 # ---------------------------------------------------------------- runner
 # (everything below runs only in the runner's interpreter)
 
@@ -1194,6 +1274,146 @@ def dist_segment(fields: dict, raw: np.ndarray, dm_list: list,
     return {"result": dist.process(raw)}
 
 
+def _ref_seq_mesh(n_seq: int):
+    import jax
+    from srtb_tpu.parallel import mesh as M
+    assert len(jax.devices()) >= n_seq, "the runner needs the CPU devices"
+    return M.seq_mesh(n_seq)
+
+
+def ref_dist_fft(x: np.ndarray, inverse: bool = False,
+                 rows_impl: str = "xla", len_cap=None,
+                 n_seq: int = 8) -> dict:
+    """The reference's ``dist_fft`` on its ``n_seq``-device seq mesh."""
+    import jax.numpy as jnp
+    from srtb_tpu.parallel import dist_fft as DF
+    return {"y": np.asarray(DF.dist_fft(
+        jnp.asarray(x), _ref_seq_mesh(n_seq), inverse=inverse,
+        rows_impl=rows_impl, len_cap=len_cap))}
+
+
+def ref_dist_rfft(x: np.ndarray, n_seq: int = 8) -> dict:
+    """The reference's ``dist_rfft_drop_nyquist`` on ``n_seq`` devices."""
+    import jax.numpy as jnp
+    from srtb_tpu.parallel import dist_fft as DF
+    return {"y": np.asarray(DF.dist_rfft_drop_nyquist(
+        jnp.asarray(x), _ref_seq_mesh(n_seq)))}
+
+
+def _collect_collectives(jaxpr, out: list) -> list:
+    """(primitive, mesh axes) of every collective in a jaxpr tree (the
+    reference's ``tests/test_parallel.py`` inventory walk)."""
+    for eqn in jaxpr.eqns:
+        name = eqn.primitive.name
+        if name in ("all_to_all", "ppermute", "all_gather",
+                    "reduce_scatter") or "psum" in name:
+            ax = eqn.params.get("axes") or eqn.params.get("axis_name")
+            ax = (ax,) if isinstance(ax, str) else tuple(ax)
+            out.append((name.replace("psum_invariant", "psum"), ax))
+        for v in eqn.params.values():
+            for item in (v if isinstance(v, (list, tuple)) else [v]):
+                if hasattr(item, "jaxpr"):
+                    _collect_collectives(item.jaxpr, out)
+                elif hasattr(item, "eqns"):
+                    _collect_collectives(item, out)
+    return out
+
+
+def ref_dist_step(fields: dict, raw: np.ndarray, dm_list: list, n_dm: int,
+                  n_seq: int, window_name: str = "rectangle",
+                  env: dict | None = None, inventory: bool = False) -> dict:
+    """The reference's ``DistSegmentProcessor`` on a (dm, seq) mesh of its
+    CPU devices, under ``env``; with ``inventory`` also its step's
+    collective inventory (``name axis count`` lines, sorted)."""
+    from collections import Counter
+
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from srtb_tpu.config import Config
+    from srtb_tpu.parallel import mesh as M
+    from srtb_tpu.parallel.segment_dist import DistSegmentProcessor
+    cfg = Config(**fields)
+    with environ(env):
+        mesh = M.make_mesh(n_dm=n_dm, n_seq=n_seq,
+                           devices=jax.devices()[:n_dm * n_seq])
+        dist = DistSegmentProcessor(cfg, mesh, dm_list=dm_list,
+                                    window_name=window_name)
+        out = {"result": dist.process(raw)}
+        if inventory:
+            raw_dev = jax.device_put(np.zeros(cfg.segment_bytes(
+                dist.fmt.data_stream_count), np.uint8),
+                NamedSharding(mesh, P("seq")))
+            args = [raw_dev, dist.chirp_bank, dist.rfi_mask]
+            if dist.window is not None:
+                args.append(dist.window)
+            got = Counter(_collect_collectives(
+                jax.make_jaxpr(dist._step)(*args).jaxpr, []))
+            out["inventory"] = np.array(sorted(
+                f"{name} {','.join(ax)} {c}" for (name, ax), c in
+                got.items()))
+    return out
+
+
+def ref_hybrid_layouts() -> dict:
+    """The reference's hybrid meshes on its eight CPU devices: one slice
+    at n_seq 2, two faked slices at n_seq 2 (device ids and slice
+    indices), and the bad n_seq's message."""
+    import jax
+    from srtb_tpu.parallel import distributed as D
+
+    class FakeDev:
+        def __init__(self, d, s):
+            self._d, self.slice_index, self.id = d, s, d.id
+
+    one = D.hybrid_dm_seq_mesh(n_seq=2)
+    devs = jax.devices()
+    fake = [FakeDev(d, s) for s, half in
+            enumerate((devs[:4], devs[4:])) for d in half]
+    two = D.hybrid_dm_seq_mesh(n_seq=2, devices=fake).devices
+    try:
+        D.hybrid_dm_seq_mesh(n_seq=3)
+        bad = ""
+    except ValueError as e:
+        bad = f"ValueError: {e}"
+    return {"one": np.array([[d.id for d in row] for row in one.devices]),
+            "names": np.array(one.axis_names),
+            "two_ids": np.array([[d.id for d in row] for row in two]),
+            "two_slices": np.array([[d.slice_index for d in row]
+                                    for row in two]),
+            "bad": np.array(bad)}
+
+
+def ref_errors(cases: list) -> dict:
+    """The message each reference call raises: ``("step", fields, n_dm,
+    n_seq, dm_list)``, ``("mesh", n_dm, n_seq)``, ``("local", n_dm,
+    n_trials)``, ``("init", fields)``."""
+    import jax
+    from srtb_tpu.config import Config
+    from srtb_tpu.parallel import distributed as D
+    from srtb_tpu.parallel import mesh as M
+    from srtb_tpu.parallel.segment_dist import DistSegmentProcessor
+    out = []
+    for kind, *args in cases:
+        try:
+            if kind == "step":
+                fields, n_dm, n_seq, dm_list = args
+                DistSegmentProcessor(
+                    Config(**fields), M.make_mesh(
+                        n_dm, n_seq, devices=jax.devices()[:n_dm * n_seq]),
+                    dm_list=dm_list)
+            elif kind == "mesh":
+                M.make_mesh(*args)
+            elif kind == "local":
+                D.process_local_dm_indices(M.make_mesh(args[0], 1),
+                                           args[1])
+            else:
+                D.maybe_initialize_from_config(Config(**args[0]))
+            out.append("")
+        except Exception as e:  # the case's refusal, reported
+            out.append(f"{type(e).__name__}: {e}")
+    return {"messages": np.array(out)}
+
+
 def dm_search_pipeline(fields: dict) -> dict:
     """The reference's ``DMSearchPipeline(cfg, mesh=...).run()`` on one
     device: its statistics and the records it appended."""
@@ -2273,6 +2493,11 @@ def incident_recorder_script(pkg: str, directory: str, max_bundles: int,
     E = _pkg(pkg, "events")
     M.metrics.reset()
     I.IncidentRecorder._last_dump_by_dir.clear()
+    # a fresh flight recorder, whatever an earlier test in this process
+    # left armed or disarmed; the caller's is given back at the end
+    saved_hub = E.hub
+    E.configure(False)
+    E.configure(True)
     os.makedirs(os.path.join(directory, "incident_007_x.srtb_tmp"))
     clock = FakeClock()
     results, counters = [], []
@@ -2300,6 +2525,7 @@ def incident_recorder_script(pkg: str, directory: str, max_bundles: int,
                if os.path.isdir(directory) else [])
     evs = [e["info"] for e in (E.hub.dump() if E.hub else [])
            if e["type"] == "incident"]
+    E.hub = saved_hub
     M.metrics.reset()
     return {"results": np.array(results),
             "counters": np.array(counters, dtype=np.float64),
@@ -2874,4 +3100,7 @@ def _main(req: str, out: str) -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, str(REPO))
-    _main(sys.argv[1], sys.argv[2])
+    if sys.argv[1] == "--world-rank":
+        _world_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        _main(sys.argv[1], sys.argv[2])

@@ -16,6 +16,8 @@ gate, and the ring's warm steps at every format."""
 
 import json
 import os
+import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -322,13 +324,14 @@ def test_ring_warm_equals_cold_every_format(fmt):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
-# the settings still refused: (field, value, the ROADMAP item named)
-UNPORTED_SETTINGS = {
-    "distributed_num_processes": ("distributed_num_processes", "2", "A8"),
-}
+# the settings still refused: (field, value, the ROADMAP item named);
+# none since A8a ran distributed_num_processes
+UNPORTED_SETTINGS: dict = {}
 # the settings that raised before the micro-batch (A3), durability (A6b),
-# resilience (A7), observability (A9a), health (A9b), perf tools (A9c) and
-# A9d slices, and now run: a device fault the ladder recovers, a stall
+# resilience (A7), observability (A9a), health (A9b), perf tools (A9c),
+# A9d and A8a slices, and now run: two processes in one gloo group, each
+# running the whole single-DM pipeline (the reference's Pipeline does not
+# shard), rank 1 in a process of its own; a device fault the ladder recovers, a stall
 # under the default retries, the segment deadline, the span journal, the
 # events dump, a profile capture, the canary (refused loudly by the 2-bit
 # input: it injects only into 8-bit "simple" bytes), the incident
@@ -337,6 +340,9 @@ UNPORTED_SETTINGS = {
 # patched after) and the compiled-kernel cache (off on the CPU: nothing
 # built or written) ("{tmp}" is the test's directory)
 NOW_PORTED = {
+    "distributed_num_processes": [
+        "--distributed_coordinator", "file://{tmp}/rendezvous",
+        "--distributed_num_processes", "2", "--distributed_process_id", "0"],
     "checkpoint_path": ["--checkpoint_path", "{tmp}/ck.json"],
     "run_manifest_path": ["--run_manifest_path", "{tmp}/manifest.jsonl"],
     "micro_batch_segments": ["--micro_batch_segments", "2"],
@@ -374,9 +380,11 @@ def fresh_metrics():
 
 @pytest.mark.parametrize("case", sorted(UNPORTED_SETTINGS)
                          + sorted(NOW_PORTED))
-def test_unported_runtime_settings_raise(tmp_path, fresh_metrics, case):
+def test_unported_runtime_settings_raise(tmp_path, fresh_metrics, case,
+                                        monkeypatch):
     """What is still unported raises ``NotImplementedError`` naming its
-    ROADMAP item, before any input is read; the checkpoint, the run
+    ROADMAP item, before any input is read (nothing since A8a); two
+    processes in one group (each runs the whole pipeline), the checkpoint, the run
     manifest, the micro-batch, a fault plan (an injected out-of-memory
     demotes once), the segment deadline, the span journal (one schema-11
     span a segment), the events dump (each segment's stage edges), a
@@ -407,8 +415,36 @@ def test_unported_runtime_settings_raise(tmp_path, fresh_metrics, case):
         assert reads == []
         return
     flags = [a.replace("{tmp}", str(tmp_path)) for a in NOW_PORTED[case]]
-    stats, pipe = M.run(argv + flags + out)
+    peer = None
+    if case == "distributed_num_processes":
+        from srtb_tpu_torch.parallel import distributed as D
+        from test_torch_ref import REPO
+        monkeypatch.setattr(D, "DEFAULT_TIMEOUT_S", 60)
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        peer = subprocess.Popen(
+            [sys.executable, "-m", "srtb_tpu_torch.tools.main", *argv,
+             *flags[:-1], "1", "--device", "cpu",
+             "--baseband_output_file_prefix", f"{tmp_path}/rank1/out_"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        os.makedirs(tmp_path / "rank1")
+    try:
+        stats, pipe = M.run(argv + flags + out)
+    finally:
+        if peer is not None:
+            peer_out = peer.communicate(timeout=120)[0]
     assert stats.segments == 3 and pipe.positive_segments == [1]
+    if case == "distributed_num_processes":
+        # rank 1 ran the same pipeline whole: the same files, byte for
+        # byte; the group is gone after the run
+        assert peer.returncode == 0, peer_out[-3000:]
+        mine = sorted(f for f in os.listdir(tmp_path)
+                      if f.startswith("out_"))
+        assert mine and sorted(os.listdir(tmp_path / "rank1")) == mine
+        for f in mine:
+            assert (tmp_path / f).read_bytes() == \
+                (tmp_path / "rank1" / f).read_bytes(), f
+        assert not torch.distributed.is_initialized()
     if case in ("checkpoint_path", "run_manifest_path"):
         assert os.path.exists(flags[1])
     assert stats.extras.get("plan_demotions", 0) == (case == "fault_plan")

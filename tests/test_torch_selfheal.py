@@ -428,9 +428,108 @@ def test_a_drained_item_is_held_when_its_context_died(work):
         assert pipe._halted is None
         dead = Fetched(None, None, None, Event(True))
         pipe._keep_if_dead(dead)
-        assert pipe._halted == [dead]
+        # the healthy item's results, deferred one drain, are held too
+        assert pipe._halted == [(alive.det, alive.hold), dead]
         pipe._keep_if_dead(alive)
-        assert pipe._halted == [dead, alive]
+        assert pipe._halted == [(alive.det, alive.hold), dead, alive]
+
+
+class _Event:
+    """A ``done`` event; ``dead``: its query raises, as on a context a
+    sticky fault killed."""
+
+    def __init__(self, dead: bool = False):
+        self.dead = dead
+
+    def query(self):
+        if self.dead:
+            raise torch.AcceleratorError(
+                "CUDA error: device-side assert triggered")
+        return True
+
+
+def test_a_drained_items_results_are_freed_one_drain_later(work):
+    """The drain's query and its free are two calls: a context that dies
+    between them must not see the free.  So a drained item's results
+    (its pinned copies and held buffers) are freed only after the next
+    drain's query found the context alive; when that query raises, they
+    are held with the dead item (ROADMAP C8)."""
+    import gc
+    import weakref
+
+    def item(dead=False):
+        buf = torch.zeros(4)
+        return Fetched(None, None, None, _Event(dead), hold=(buf,)), \
+            weakref.ref(buf)
+
+    cfg = Config(**engine_fields(work, "deferred"))
+    with Pipeline(cfg, sinks=[CaptureSink()], device="cpu") as pipe:
+        a, ref_a = item()
+        pipe._keep_if_dead(a)
+        del a
+        gc.collect()
+        assert ref_a() is not None  # deferred: no later query yet
+        b, ref_b = item()
+        pipe._keep_if_dead(b)
+        del b
+        gc.collect()
+        assert ref_a() is None and ref_b() is not None
+        # the context dies after b's query: its free is not made
+        c, ref_c = item(dead=True)
+        pipe._keep_if_dead(c)
+        del c
+        gc.collect()
+        assert ref_b() is not None and ref_c() is not None
+        assert len(pipe._halted) == 2
+
+
+def test_the_ring_carry_is_held_when_its_context_died(work):
+    """``_ring_invalidate`` outside a halt asks the last dispatch's event
+    before it drops the carry (a view of a staged buffer, whose free
+    records an event): alive, it is dropped; dead, the halt starts and
+    the carry is held (ROADMAP C8)."""
+    cfg = Config(**engine_fields(work, "carry"))
+    with Pipeline(cfg, sinks=[CaptureSink()], device="cpu") as pipe:
+        carry = torch.zeros(4)
+        pipe._ring_carry, pipe._last_done = carry, _Event()
+        pipe._ring_invalidate()
+        assert pipe._ring_carry is None and pipe._halted is None
+        pipe._ring_carry, pipe._last_done = carry, _Event(dead=True)
+        pipe._ring_invalidate()
+        assert pipe._ring_carry is None
+        assert len(pipe._halted) == 1 and pipe._halted[0] is carry
+
+
+def test_a_read_that_meets_a_dead_context_escalates(work, monkeypatch):
+    """A read that must pin a new buffer after the context died raises
+    the context's error from ``BufferPool._new_block``: the healer takes
+    it as a halt, as at a dispatch, so every reinit's read fails the
+    same way and the run ends ``ReinitBudgetExceeded``, not in a bare
+    ``AcceleratorError`` (ROADMAP C8)."""
+    from srtb_tpu_torch.utils.bufferpool import BufferPool
+    acquire, reads = BufferPool.acquire, [0]
+
+    def dying(self, nbytes, zero=True):
+        reads[0] += 1
+        if reads[0] > 2:
+            # the third read finds no cached block, and its pin meets a
+            # dead context
+            self._free.clear()
+            self._new_block = _dead_pin
+        return acquire(self, nbytes, zero)
+
+    def _dead_pin(nbytes):
+        raise torch.AcceleratorError(
+            "CUDA error: device-side assert triggered")
+    monkeypatch.setattr(BufferPool, "acquire", dying)
+    cfg = Config(**engine_fields(work, "dead_read", inflight_segments=2,
+                                 retry_max_attempts=1))
+    metrics.reset()
+    with Pipeline(cfg, sinks=[CaptureSink()], device="cpu") as pipe, \
+            pytest.raises(E.ReinitBudgetExceeded) as info:
+        pipe.run()
+    assert isinstance(info.value.__cause__, torch.AcceleratorError)
+    assert metrics.get("device_reinits") == cfg.device_reinit_max
 
 
 @pytest.mark.parametrize("ring", ["on", "off"])
