@@ -170,7 +170,7 @@ result lines are printed:
    the recovered S/N, and ``telemetry_report`` and ``quality_report`` in
    both formats on its journal; (b) the canary off: the write-all file
    equal to (a)'s by SHA-256 and segments 0 and 2's detection results
-   bit-identical; a second pair off then on, Msamples/s of all four;
+   bit-identical; Msamples/s of both;
    (c) two segments with 61 of the band's 64 MHz zapped and the expected
    S/N pinned to (a)'s: the check fails, detection degraded, one
    ``canary_sensitivity`` bundle holding the failed verdict and the
@@ -205,6 +205,25 @@ result lines are printed:
    track holding every stage event); ``obs.regression --selftest`` on
    the card, every side's samples printed.  The phase prints its seconds
    by part.
+
+15. a8b (after a8a): the stream fleet (``pipeline/fleet.py``) at
+   fused_2^27's cfg, four streams ``j1644.beam0`` ... ``beam3`` (one
+   tenant) on files of 4 segments each from its own seed, the pulse in
+   beam0's segment 2 only: ``fleet_2^27`` (solo lanes) with every
+   stream's candidates equal to its own solo ``Pipeline`` run's by
+   SHA-256, one plan compile and 3 hits, fused_2^27's plan, B13 1, B6 2,
+   K2 1 and B8 1 launches a stream-segment, the decisions (beam0's
+   segment 2 alone positive), Msamples/s over the lanes' span beside the
+   solo runs back to back (each without its construction, and both with
+   it), the peak beside its reckoning and the pool (``fleet_devices =
+   2``, capped at the card count); ``fleet_batch_2^27`` (``fleet_batch_max = 4``): ``.bin``
+   bitwise, ``.npy`` / ``.tim`` within the reference's vmap tolerance,
+   decisions exact, ``batch_size`` on every record, device dispatches at
+   most half the segments; each leg dispatched again under
+   ``set_sync_debug_mode("error")``; then ``fleet_soak`` on the card at
+   2^27 samples a segment (3 streams of ``A8B_SOAK_SEGMENTS``, inputs
+   made on the card) with the victim's injected out-of-memory (gates a,
+   b, c) and its selftest.  The phase fails past ``A8B_BUDGET_S``.
 
 The last two lines are the kernels' JSON record and the result line.
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -354,6 +373,41 @@ def card_line() -> str:
     if out.returncode:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+# C9: the card's own state around each batch of the gate's round trip
+CARD_STATE_FIELDS = ("clocks.sm", "clocks.mem", "temperature.gpu",
+                     "power.draw", "clocks_event_reasons.active")
+# older nvidia-smi releases' name of the last field
+CARD_STATE_OLD = "clocks_throttle_reasons.active"
+
+
+def card_state() -> dict:
+    """The card's SM and memory clocks (MHz), temperature (C), power
+    draw (W) and active clock-event (throttle) reasons, one
+    ``nvidia-smi`` query (the older field name where nvidia-smi lacks
+    the newer)."""
+    for last in (CARD_STATE_FIELDS[-1], CARD_STATE_OLD):
+        query = ",".join(CARD_STATE_FIELDS[:-1] + (last,))
+        out = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60)
+        if not out.returncode:
+            break
+    else:
+        fail(f"nvidia-smi card state failed: {out.stderr.strip()}")
+    vals = [v.strip() for v in out.stdout.strip().splitlines()[0].split(",")]
+    return dict(zip(("sm_mhz", "mem_mhz", "temp_c", "power_w", "reasons"),
+                    vals))
+
+
+def state_shift(states: list) -> bool:
+    """Whether the SM clock, the memory clock or the active throttle
+    reasons differ among a round trip's readings (before and after each
+    of its two batches)."""
+    return any(len({s[k] for s in states}) > 1
+               for k in ("sm_mhz", "mem_mhz", "reasons"))
 
 
 @contextlib.contextmanager
@@ -2772,16 +2826,21 @@ def perf_gate_round(card: str, ledger: Path) -> dict:
     base = PERF_DIR / "baseline.json"
     verdicts = []
     threads = []
+    states = []
     for _ in range(2):
         threads.append(threading.active_count())
+        states.append([card_state()])
         rc, text = _printed(PG.main, ["--write-baseline", str(base),
                                       "--ledger", str(ledger)])
+        states[-1].append(card_state())
         (wb,) = _json_lines("perf perf_gate --write-baseline", text)
         if rc or not base.exists():
             fail(f"perf perf_gate --write-baseline: rc {rc}, {wb}")
         threads.append(threading.active_count())
+        states[-1].append(card_state())
         rc, text = _printed(PG.main, ["--baseline", str(base),
                                       "--ledger", str(ledger)])
+        states[-1].append(card_state())
         (v,) = _json_lines("perf perf_gate --baseline", text)
         verdicts.append(v)
         if rc != 1:
@@ -2799,8 +2858,10 @@ def perf_gate_round(card: str, ledger: Path) -> dict:
         f"{base_samples}; every round's effect / floor {rounds}; live "
         f"threads before each batch {threads} "
         f"({sorted({t.name.split('-')[0] for t in threading.enumerate()})}"
-        f"); {time.perf_counter() - t1:.1f} s; card {card}")
-    return {"selftest": st, "baseline": verdicts}
+        f"); card state before and after each batch, a round "
+        f"{json.dumps(states)}, shifted {[state_shift(x) for x in states]}"
+        f"; {time.perf_counter() - t1:.1f} s; card {card}")
+    return {"selftest": st, "baseline": verdicts, "card_states": states}
 
 
 # C9's soak: the round trip's variants, taken in turns a round: as the
@@ -2819,15 +2880,21 @@ def _round_trip(base: Path, ledger: Path | None, between=None) -> dict:
     from srtb_tpu_torch.tools import perf_gate as PG
     from srtb_tpu_torch.utils import perf_ledger as PL
     extra = ["--ledger", str(ledger)] if ledger is not None else []
+    states = [card_state()]
     rc, text = _printed(PG.main, ["--write-baseline", str(base)] + extra)
+    states.append(card_state())
     if rc:
         fail(f"gate soak --write-baseline: rc {rc}, {text[-500:]}")
     if between is not None:
         between()
+    states.append(card_state())
     rc, text = _printed(PG.main, ["--baseline", str(base)] + extra)
+    states.append(card_state())
     (v,) = _json_lines("gate soak --baseline", text)
     out = {k: v[k] for k in ("effect", "noise_floor", "p", "regression",
                              "median_a_s", "median_b_s")}
+    out["card_states"] = states
+    out["state_shift"] = state_shift(states)
     out["batch_a_s"] = json.loads(base.read_text())["samples_s"]
     if ledger is not None:
         a, b = PL.load(str(ledger))[-2:]
@@ -2838,8 +2905,10 @@ def _round_trip(base: Path, ledger: Path | None, between=None) -> dict:
 def _drop_first(r: dict) -> dict:
     from srtb_tpu_torch.utils import perf_stats as PS
     v = PS.compare(r["batch_a_s"][1:], r["batch_b_s"][1:])
-    return {k: v[k] for k in ("effect", "noise_floor", "p", "regression",
-                              "median_a_s", "median_b_s")}
+    out = {k: v[k] for k in ("effect", "noise_floor", "p", "regression",
+                             "median_a_s", "median_b_s")}
+    out["state_shift"] = r["state_shift"]
+    return out
 
 
 def gate_round_child(argv: list) -> int:
@@ -2936,10 +3005,19 @@ def gate_round_soak(argv: list) -> int:
         # how often a batch's first capture is its slowest
         return sum(int(np.argmax(r[k]) == 0) for r in rs
                    for k in ("batch_a_s", "batch_b_s") if k in r)
+    def crossed(rs, regression: bool, shift: bool) -> int:
+        # C9's candidate: rounds by verdict against a shift of the card's
+        # clocks or throttle reasons between their batches
+        return sum(1 for r in rs if bool(r["regression"]) == regression
+                   and bool(r["state_shift"]) == shift)
     summary = {v: {"regressions": sum(r["regression"] for r in rs),
                    "effects": [round(r["effect"], 4) for r in rs],
                    "floors": [round(r["noise_floor"], 4) for r in rs],
-                   "first_capture_slowest": first_high(rs)}
+                   "first_capture_slowest": first_high(rs),
+                   "regression_shifted": crossed(rs, True, True),
+                   "regression_steady": crossed(rs, True, False),
+                   "clean_shifted": crossed(rs, False, True),
+                   "clean_steady": crossed(rs, False, False)}
                for v, rs in found.items()}
     shutil.rmtree(root)
     print(json.dumps({"gate_round_soak": summary, "rounds": n,
@@ -4575,9 +4653,9 @@ def phase_health(card: str) -> dict:
     the incident directory: segments 1 and 3 injected, checked and
     passed, the first calibrating, nothing positive, the spans and the
     manifest flag both, ``/healthz`` reports detection ``ok``, the
-    launches the table's; (b) the same with the canary off: the write-all
-    file equal to (a)'s by SHA-256, segments 0 and 2's detection results
-    bit-identical to (a)'s; (c) two segments with 61 of 64 MHz zapped and
+    launches the table's; (b) the same with the canary off, run before
+    (a): the write-all file equal to (a)'s by SHA-256, segments 0 and 2's
+    detection results bit-identical to (a)'s; (c) two segments with 61 of 64 MHz zapped and
     the expectation pinned to (a)'s S/N: the check fails, detection
     degraded, one ``canary_sensitivity`` bundle whose ``extra.json`` holds
     the failed verdict and the quality timeline, ``trace_export
@@ -4611,6 +4689,22 @@ def phase_health(card: str) -> dict:
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
 
+    # (b) the canary off, first: the first run on this file takes any
+    # first-run cost, so that it does not land on the canary's side
+    dets_b: dict = {}
+    off = CANARY_EXTRA + CANARY_ARMED.format(every=0, amp=CANARY_AMP,
+                                             write_all=1, d="{d}")
+    _cfg, stats_b, pipe_b, counts, _d = _health_leg(
+        card, root, "b", off, data, env, dets_b)
+    add(counts)
+    wa = root / "b" / "out_stream0.bin"
+    sha_b = file_sha256(wa)
+    wa.unlink()
+    if metrics.get("canary_injected"):
+        fail(f"health canary_2^30 (b): {metrics.get('canary_injected')} "
+             "canaries injected with the canary off")
+    del pipe_b
+    free_card()
     # (a) the canary armed
     dets_a: dict = {}
     _cfg, stats_a, pipe_a, counts, _d = _health_leg(
@@ -4670,18 +4764,7 @@ def phase_health(card: str) -> dict:
         f"characters printed {json.dumps(reports)}")
     del pipe_a
     free_card()
-    # (b) the canary off
-    dets_b: dict = {}
-    off = CANARY_EXTRA + CANARY_ARMED.format(every=0, amp=CANARY_AMP,
-                                             write_all=1, d="{d}")
-    _cfg, stats_b, pipe_b, counts, _d = _health_leg(
-        card, root, "b", off, data, env, dets_b)
-    add(counts)
-    wa = root / "b" / "out_stream0.bin"
-    sha_b = file_sha256(wa)
-    wa.unlink()
-    if sha_b != sha_a or any(dets_b[i] != dets_a[i] for i in (0, 2)) or \
-            metrics.get("canary_injected"):
+    if sha_b != sha_a or any(dets_b[i] != dets_a[i] for i in (0, 2)):
         fail(f"health canary_2^30 (b): write-all SHA-256 {sha_b} against "
              f"(a)'s {sha_a}; detections {dets_b} against {dets_a}")
     say(f"health canary_2^30 (b): the write-all file equals (a)'s by "
@@ -4689,25 +4772,15 @@ def phase_health(card: str) -> dict:
         f"bit-identical to (a)'s; Msamples/s canary on "
         f"{stats_a.msamples_per_sec:.1f}, off "
         f"{stats_b.msamples_per_sec:.1f}; card {card}")
-    del pipe_b
-    free_card()
-    # the canary's cost: a second pair in the other order, off then on
-    # (run (a) was the first on this geometry in a process that ran none
-    # before it)
+    # the canary's cost: one pair in the turns off, on (the second pair
+    # was cut for the a8b phase's room: the difference is no claim,
+    # PERF.md section 6)
     rates = {"on": [stats_a.msamples_per_sec],
              "off": [stats_b.msamples_per_sec]}
-    for tag, text in (("b2", off), ("a2", armed)):
-        _cfg, stats, pipe, counts, _d = _health_leg(
-            card, root, tag, text, data, env, {})
-        add(counts)
-        rates["on" if tag == "a2" else "off"].append(stats.msamples_per_sec)
-        (root / tag / "out_stream0.bin").unlink()
-        del pipe
-        free_card()
     diffs = [(on - off) / off for on, off in zip(rates["on"], rates["off"])]
     say(f"health canary_2^30: Msamples/s canary on {rates['on']}, off "
-        f"{rates['off']} (turns on, off, off, on); the on run's difference "
-        f"a pair {[round(x, 4) for x in diffs]}; card {card}")
+        f"{rates['off']} (turns off, on); the on run's difference "
+        f"{[round(x, 4) for x in diffs]}; card {card}")
     # (c) degraded: two segments, most of the band zapped
     os.truncate(data, cfg_a.baseband_input_count + stride - 1)
     degraded = CANARY_EXTRA + CANARY_ARMED.format(
@@ -6272,6 +6345,320 @@ def phase_breakdown_dmsearch(cfg, pinned) -> dict:
         "trial_ms (loop / trials)": trial_loop / len(dist.dm_list)})
 
 
+# the a8b phase: the fleet at fused_2^27's cfg, four streams of one
+# tenant, each on its own 4-segment file (seed A8B_SEED + 10 i), the pulse
+# in beam0's segment 2 only
+A8B_STREAMS = tuple(f"j1644.beam{i}" for i in range(4))
+A8B_SEGMENTS = 4
+A8B_PULSE = 2
+A8B_SEED = 2300
+A8B_LAUNCHES = {"unpack_subbyte_planes_window": 1, "fft_rows": 2,
+                "rfi_s1_dedisperse": 1, "fft_rows_skzap": 1}
+# the batch former's leg: one family of four at a window of 4, so that
+# every lane offers its four segments before its first drain and the
+# family fills four times (no idle flush of a partial family), and a
+# partial batch waits for its family rather than the default 2 ms linger
+A8B_BATCH_WINDOW = 4
+A8B_BATCH = (f"fleet_batch_max = 4\nfleet_batch_linger_ms = 1000\n"
+             f"inflight_segments = {A8B_BATCH_WINDOW}\n")
+# the card's fleet soak: the soak's own cfg (8-bit, 64 channels, every
+# segment positive and dumped), at the slice's width of 2^27 samples a
+# segment; its depth, A8B_SOAK_SEGMENTS a stream, is what the phase's
+# budget cuts (each stream-segment dumps about 0.7 GB, in the solo
+# goldens and in the fleet)
+A8B_SOAK_LOG2N = 27
+A8B_SOAK_SEGMENTS = 2
+A8B_SOAK_PLAN = "stream0:dispatch:oom@1"
+# the reference's documented vmap tolerance (tools/fleet_soak.py)
+A8B_VMAP = "rtol 1e-5, atol 1e-4 max(|golden|, 1)"
+# fused_2^27 alone at window 2 (PERF.md section 5), holding two of its
+# waterfalls (complex64 [2^11, 2^15]); each further waterfall in flight
+# adds one
+A8B_SOLO_PEAK_GB = 7.35
+# the phase's share of the script's clock (seconds)
+A8B_BUDGET_S = 40.0
+
+
+def _a8b_cfg(tag: str, extra: str):
+    """fused_2^27's cfg lines plus ``extra`` for one stream, its outputs
+    in a directory of its own."""
+    return path_cfg(OUT_DIR / "a8b" / tag, PALLAS_27 + extra,
+                    LOG2_N_ROWS, tag)
+
+
+def _a8b_files(out_dir: Path) -> dict:
+    """name -> SHA-256 of every candidate file under ``out_dir``."""
+    import hashlib
+    out = {}
+    for p in sorted(out_dir.glob("out_*")):
+        h = hashlib.sha256()
+        with open(p, "rb") as f:
+            while chunk := f.read(1 << 26):
+                h.update(chunk)
+        out[p.name] = h.hexdigest()
+    return out
+
+
+def _a8b_fleet(card: str, label: str, extra: str, data: dict,
+               journals: bool) -> dict:
+    """One fleet run of the four streams: its launches (counted only
+    here), seconds, peak, lanes' positives and statistics, the plan
+    cache's compiles and hits and the pool's size; then one dispatch of
+    each leg again under ``set_sync_debug_mode("error")`` (a beam's solo
+    dispatch, and with the former a formed batch of two).  ``engine_s``
+    is the lanes' span, from the first lane's start (its pipeline built)
+    to the last lane's end, as a solo run's ``elapsed_s`` covers its
+    engine only; ``wall`` adds the fleet's construction and admission,
+    as ``run_cli``'s wall adds a solo run's."""
+    import torch
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.pipeline.fleet import (StreamFleet, StreamSpec,
+                                               _BatchSlot)
+    specs = []
+    for name in A8B_STREAMS:
+        jp = (f"telemetry_journal_path = {OUT_DIR / 'a8b' / label}_"
+              f"{name}.jsonl\n" if journals else "")
+        cfg, _text = _a8b_cfg(f"{label}_{name}",
+                              extra + "fleet_devices = 2\n" + jp
+                              + f"input_file_path = {data[name]}\n")
+        specs.append(StreamSpec(name=name, cfg=cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fresh_telemetry()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    fleet = StreamFleet(specs)
+    res = fleet.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    from srtb_tpu_torch.utils.metrics import metrics
+    lanes = [fleet.lanes[n] for n in A8B_STREAMS]
+    engine_s = (max(ln._t_start + ln.pipe.stats.elapsed_s for ln in lanes)
+                - min(ln._t_start for ln in lanes))
+    out = {"counts": counts, "wall": wall, "engine_s": engine_s,
+           "peak": peak,
+           "compiles": fleet.plans.compiles, "hits": fleet.plans.hits,
+           "pool": len(fleet.pool),
+           "batched_dispatches": int(metrics.get("batched_dispatches")),
+           "batched_segments": int(metrics.get("batched_segments")),
+           "dropped": int(metrics.get("segments_dropped")),
+           "results": res}
+    out["positives"] = {n: list(fleet.lanes[n].pipe.positive_segments)
+                        for n in A8B_STREAMS}
+    out["plans"] = {n: fleet.lanes[n].pipe.processor.plan_name
+                    for n in A8B_STREAMS}
+    for name, r in res.items():
+        if r.status != "done":
+            fail(f"{label}: stream {name} {r.status}: {r.error!r}")
+        check_no_recovery(f"{label} {name}", r.stats)
+    out["sync_check"] = _a8b_sync_check(fleet, _BatchSlot)
+    fleet.close()
+    return out
+
+
+def _a8b_sync_check(fleet, slot_cls) -> str:
+    """Dispatch beam0's first segment again through its lane (and with
+    the former, beam0's and beam1's first segments as one formed batch)
+    under ``set_sync_debug_mode("error")``: a synchronising call in the
+    lane's or the former's dispatch raises."""
+    import torch
+    from srtb_tpu_torch.io.file_input import make_file_source
+    from srtb_tpu_torch.utils.bufferpool import BufferPool
+    lanes = [fleet.lanes[n] for n in A8B_STREAMS[:2]]
+    pool = BufferPool("a8b dispatch check", pinned=True)
+    segs = []
+    for lane in lanes:
+        src = make_file_source(lane.pipe.cfg, buffer_pool=pool)
+        segs.append((next(iter(src)), src.logical_offset))
+        src.close()
+    former = fleet._former
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if former is None:
+            items = [lanes[0]._dispatch(segs[0][0], 0.0, segs[0][1], 0)]
+            what = "a lane's solo dispatch"
+        else:
+            slots = [slot_cls(lane, seg, 0.0, off, 0)
+                     for lane, (seg, off) in zip(lanes, segs)]
+            former._dispatch_shared(lanes[0].pipe.processor, slots)
+            errs = [s.error for s in slots if s.error is not None]
+            if errs:
+                raise errs[0]
+            items = [s.item for s in slots]
+            if any(getattr(s.seg, "batch_size", None) != 2 for s in slots):
+                fail("a8b: the checked dispatch was not a formed batch of 2")
+            what = "a formed batch of 2"
+    except RuntimeError as e:
+        fail(f"a8b: the fleet's dispatch synchronised with the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for item in items:
+        item.done.synchronize()
+    del items
+    for seg, _off in segs:
+        pool.release(seg.data)
+    pool.free_all()
+    return what
+
+
+def phase_a8b(card: str) -> dict:
+    """The stream fleet on the card (ROADMAP A8b): the four streams' solo
+    goldens, ``fleet_2^27``, ``fleet_batch_2^27`` and the card's
+    ``fleet_soak`` with its selftest (see the module docstring, phase
+    15).  Returns the fleet legs' launch counts by path."""
+    import shutil
+    import torch
+    from srtb_tpu_torch.tools import fleet_soak as FS
+    t0 = time.perf_counter()
+    root = OUT_DIR / "a8b"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    data, solo, solo_s, positives = {}, {}, {}, {}
+    solo_engine_s, solo_wall = {}, {}
+    for i, name in enumerate(A8B_STREAMS):
+        cfg, text = _a8b_cfg(f"solo_{name}", "")
+        data[name] = root / f"{name}.bin"
+        make_input_file(cfg, data[name], A8B_SEGMENTS,
+                        A8B_PULSE if i == 0 else None, A8B_SEED + 10 * i)
+        stats, pipe, wall = run_cli(root / f"solo_{name}", text,
+                                    data[name], {})
+        solo[name] = _a8b_files(root / f"solo_{name}")
+        solo_s[name] = stats.msamples_per_sec
+        solo_engine_s[name] = stats.elapsed_s
+        solo_wall[name] = wall
+        positives[name] = list(pipe.positive_segments)
+        del pipe
+    n_seg = len(A8B_STREAMS) * A8B_SEGMENTS
+    samples = n_seg * (1 << LOG2_N_ROWS)
+    wf_gb = 8 * (1 << LOG2_CHANNELS) * (1 << 15) / 1e9
+    reckoned = {
+        "fleet_2^27": A8B_SOLO_PEAK_GB
+        + (2 * len(A8B_STREAMS) - 2) * wf_gb,
+        "fleet_batch_2^27": A8B_SOLO_PEAK_GB
+        + (A8B_BATCH_WINDOW * len(A8B_STREAMS) - 2) * wf_gb}
+    # the four solo runs back to back: their engines' seconds (elapsed_s),
+    # and their walls with each run's construction
+    b2b = samples / sum(solo_engine_s.values()) / 1e6
+    b2b_wall = samples / sum(solo_wall.values()) / 1e6
+    say(f"a8b: solo goldens {positives} positive, Msamples/s "
+        f"{[round(x, 1) for x in solo_s.values()]}, back to back "
+        f"{b2b:.1f} over their engines' {sum(solo_engine_s.values()):.3f} s"
+        f" ({b2b_wall:.1f} over their walls' {sum(solo_wall.values()):.3f} "
+        f"s with construction); reckoned peaks (GB) "
+        f"{ {k: round(v, 2) for k, v in reckoned.items()} }: fused_2^27 "
+        f"alone {A8B_SOLO_PEAK_GB} GB holding 2 waterfalls, plus "
+        f"{wf_gb:.3f} GB for each further one in flight (4 lanes at "
+        f"window 2; at window {A8B_BATCH_WINDOW}); card {card}")
+    want_pos = {n: [A8B_PULSE] if i == 0 else []
+                for i, n in enumerate(A8B_STREAMS)}
+    if positives != want_pos:
+        fail(f"a8b: solo positives {positives}, expected {want_pos}")
+    legs = {}
+    for label, extra in (("fleet_2^27", ""), ("fleet_batch_2^27",
+                                              A8B_BATCH)):
+        run = legs[label] = _a8b_fleet(card, label, extra, data,
+                                       journals=label != "fleet_2^27")
+        rate = samples / run["engine_s"] / 1e6
+        per = {n: round(r.stats.msamples_per_sec, 1)
+               for n, r in run["results"].items()}
+        say(f"a8b {label}: {n_seg} stream-segments, {rate:.1f} Msamples/s "
+            f"aggregate over the lanes' {run['engine_s']:.3f} s (the solo "
+            f"runs back to back {b2b:.1f}); with construction "
+            f"{samples / run['wall'] / 1e6:.1f} over {run['wall']:.3f} s "
+            f"(back to back {b2b_wall:.1f}); per stream {per}; plan cache "
+            f"{run['compiles']} compile(s), {run['hits']} hit(s); pool of "
+            f"{run['pool']} member(s) for fleet_devices = 2 on "
+            f"{torch.cuda.device_count()} card(s); peak {run['peak']} bytes "
+            f"({run['peak'] / 1e9:.2f} GB, reckoned {reckoned[label]:.2f});"
+            f" "
+            f"positives {run['positives']}; launches {run['counts']}; "
+            f"batched dispatches {run['batched_dispatches']} of "
+            f"{run['batched_segments']} segments; re-dispatched "
+            f"{run['sync_check']} under set_sync_debug_mode('error'): no "
+            f"synchronising call; card {card}")
+        if run["compiles"] != 1 or run["hits"] != len(A8B_STREAMS) - 1:
+            fail(f"a8b {label}: plan cache {run['compiles']} compiles, "
+                 f"{run['hits']} hits")
+        plan = _main_path("fused_2^27")[3]
+        if set(run["plans"].values()) != {plan}:
+            fail(f"a8b {label}: plans {run['plans']}, expected {plan}")
+        if run["positives"] != want_pos or run["dropped"]:
+            fail(f"a8b {label}: positives {run['positives']}, dropped "
+                 f"{run['dropped']}")
+        if run["pool"] != min(2, torch.cuda.device_count()):
+            fail(f"a8b {label}: a pool of {run['pool']} members")
+        _check_launches(f"a8b {label}", run["counts"], A8B_LAUNCHES, n_seg)
+    # fleet_2^27: every stream's candidates its solo run's by SHA-256
+    for name in A8B_STREAMS:
+        got = _a8b_files(root / f"fleet_2^27_{name}")
+        if got != solo[name]:
+            fail(f"a8b fleet_2^27 {name}: candidates {sorted(got)} differ "
+                 f"from the solo run's {sorted(solo[name])}")
+    say(f"a8b fleet_2^27: every stream's candidates equal its solo run's "
+        f"by SHA-256 ({sum(len(v) for v in solo.values())} files)")
+    # fleet_batch_2^27: the vmap contract, batch_size on every record
+    batch = legs["fleet_batch_2^27"]
+    sizes, recs = [], 0
+    for name in A8B_STREAMS:
+        why = FS.artifacts_close(
+            str(root / f"solo_{name}"), str(root / f"fleet_batch_2^27_{name}"),
+            solo[name], _a8b_files(root / f"fleet_batch_2^27_{name}"))
+        if why is not None:
+            fail(f"a8b fleet_batch_2^27 {name}: {why} ({A8B_VMAP})")
+        for line in open(root / f"fleet_batch_2^27_{name}.jsonl"):
+            rec = json.loads(line)
+            recs += 1
+            if "batch_size" not in rec or rec.get("device") != "dev0":
+                fail(f"a8b fleet_batch_2^27 {name}: a record without "
+                     f"batch_size or device: {rec}")
+            sizes.append(rec["batch_size"])
+    dispatches = round(sum(1 / b for b in sizes))
+    exact = sum(solo[n] == _a8b_files(root / f"fleet_batch_2^27_{n}")
+                for n in A8B_STREAMS)
+    say(f"a8b fleet_batch_2^27: {recs} records, mean batch size "
+        f"{sum(sizes) / len(sizes):.2f}, {dispatches} device dispatches for "
+        f"{recs} segments ({batch['batched_dispatches']} formed batches), "
+        f"launches a dispatch {json.dumps({k: v / dispatches for k, v in batch['counts'].items()})}; "
+        f"candidates within the vmap contract ({A8B_VMAP}), {exact} of "
+        f"{len(A8B_STREAMS)} streams bitwise; Msamples/s "
+        f"{samples / batch['engine_s'] / 1e6:.1f} against fleet_2^27's "
+        f"{samples / legs['fleet_2^27']['engine_s'] / 1e6:.1f} (over the "
+        f"lanes' spans); card {card}")
+    if recs != n_seg or 2 * dispatches > recs:
+        fail(f"a8b fleet_batch_2^27: {dispatches} device dispatches for "
+             f"{recs} records (at most half of {n_seg})")
+    free_card()
+    # the card's fleet soak and its selftest
+    t1 = time.perf_counter()
+    soak = FS.run_soak(streams=3, segments=A8B_SOAK_SEGMENTS,
+                       log2n=A8B_SOAK_LOG2N,
+                       plan=A8B_SOAK_PLAN, device="cuda",
+                       tmpdir=str(root / "soak"))
+    t2 = time.perf_counter()
+    fails = FS.selftest(log2n=12, device="cuda")
+    t3 = time.perf_counter()
+    say(f"a8b fleet_soak --streams 3 --segments {A8B_SOAK_SEGMENTS} "
+        f"--log2n {A8B_SOAK_LOG2N} --plan {A8B_SOAK_PLAN} --device cuda: gates "
+        f"(a), (b), (c) passed, drained {soak['drained']}, dropped "
+        f"{soak['dropped']}, {soak['plan_compiles']} compile, "
+        f"{soak['plan_cache_hits']} hits, {t2 - t1:.1f} s; selftest "
+        f"{'sharp' if not fails else fails}, {t3 - t2:.1f} s; card {card}")
+    if not soak["ok"] or fails:
+        fail(f"a8b fleet_soak: {soak}, selftest {fails}")
+    shutil.rmtree(root)
+    free_card()
+    took = time.perf_counter() - t0
+    say(f"a8b: phase {took:.1f} s (budget {A8B_BUDGET_S:g} s); card {card}")
+    if took > A8B_BUDGET_S:
+        fail(f"a8b: the phase took {took:.1f} s, over its "
+             f"{A8B_BUDGET_S:g} s budget")
+    return {label: {"counts": run["counts"]} for label, run in legs.items()}
+
+
 def phase_correlator(card: str) -> dict:
     """correlator_2^30: two 8-bit files of 2^30 samples made on the card,
     the second the first delayed by CORR_LAG samples plus independent
@@ -7102,6 +7489,8 @@ def main() -> int:
     free_card()
     runs["a8a_2^30"] = phase_a8a(card, made, runs["dmsearch_2^30"])
     lap("a8a")
+    runs.update(phase_a8b(card))
+    lap("a8b")
     runs["correlator_2^30"] = phase_correlator(card)
     free_card()
     lap("search modes")

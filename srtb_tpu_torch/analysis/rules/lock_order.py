@@ -12,7 +12,8 @@ modules.  A self-edge (re-acquiring a non-reentrant lock already
 held) is the degenerate cycle and equally fatal.
 
 The reference's runtime twin, ``analysis/tsan.py`` (``Config.tsan``),
-arms only its fleet and comes to the port with it (ROADMAP A8).
+arms only the fleet's locks (``pipeline/fleet.py``, A8b); it comes in
+ROADMAP A8c, with ``race_soak``.
 """
 
 from __future__ import annotations

@@ -14,8 +14,8 @@ the metrics registry (``utils/metrics.py``), each after the SLO tracker's
 evaluation; ``/healthz`` serves ``utils/telemetry.health``: 200 while the
 last segment is younger than ``health_stale_after_s`` (or before the
 first), 503 once it is older, with the per-stream breakdown.  All three
-answer as the reference's.  ``/fleet`` (the fleet's status, ROADMAP A8)
-answers 501 naming that item.
+answer as the reference's.  ``/fleet`` (the fleet's status, the
+reference's ``obs/status.py``, ROADMAP A8c) answers 501 naming that item.
 """
 
 from __future__ import annotations
@@ -154,7 +154,8 @@ contrast <input class="contrast" type="range" min="20" max="300"
 
 # endpoints of later slices: path -> the ROADMAP item they wait for
 UNPORTED_ENDPOINTS = {
-    "/fleet": "ROADMAP A8: the fleet's status",
+    "/fleet": ("ROADMAP A8c: the fleet's status (obs/status.py over the "
+               "fleet of pipeline/fleet.py)"),
 }
 
 

@@ -14,7 +14,8 @@ dumps, ``/metrics``, the perf ledger).
   (rollup medians against the perf ledger's history).
 
 The reference's ``obs/status.py`` (the ``/fleet`` payload and the
-console's data) comes with the fleet (ROADMAP A8).
+console's data) reads the fleet (``pipeline/fleet.py``, A8b) and its pool
+and comes in ROADMAP A8c.
 """
 
 from __future__ import annotations

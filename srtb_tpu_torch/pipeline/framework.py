@@ -95,13 +95,17 @@ class Pipe:
 
     def __init__(self, functor: Callable, in_queue: WorkQueue | None,
                  out_queue: WorkQueue | None, stop_token: StopToken,
-                 name: str | None = None):
+                 name: str | None = None,
+                 on_done: Callable | None = None):
         self.functor = functor
         self.in_queue = in_queue
         self.out_queue = out_queue
         self.stop_token = stop_token
         self.name = name or getattr(functor, "__name__",
                                     type(functor).__name__)
+        # called on the worker thread as it exits (normally or crashed):
+        # the fleet scheduler's idle wakeup
+        self.on_done = on_done
         self.thread = threading.Thread(target=self._run, name=self.name,
                                        daemon=True)
         termination.tag_thread(self.thread)
@@ -135,6 +139,12 @@ class Pipe:
                 # blocking push: a lossy sentinel could be dropped on a
                 # full queue and deadlock the consumer
                 self.out_queue.push(SENTINEL, self.stop_token)
+            if self.on_done is not None:
+                try:
+                    self.on_done()
+                except Exception as e:  # noqa: BLE001 - exit path
+                    log.debug(f"[pipe {self.name}] on_done hook "
+                              f"failed: {e!r}")
             log.debug(f"[pipe {self.name}] exiting")
 
     def start(self):
@@ -149,9 +159,11 @@ class Pipe:
 
 def start_pipe(functor: Callable, in_queue: WorkQueue | None,
                out_queue: WorkQueue | None, stop_token: StopToken,
-               name: str | None = None) -> Pipe:
+               name: str | None = None,
+               on_done: Callable | None = None) -> Pipe:
     """Spawn a pipe thread (ref: start_pipe, framework/pipe.hpp:148-175)."""
-    return Pipe(functor, in_queue, out_queue, stop_token, name).start()
+    return Pipe(functor, in_queue, out_queue, stop_token, name,
+                on_done=on_done).start()
 
 
 def on_exit(stop_token: StopToken, pipes: list[Pipe],

@@ -22,7 +22,8 @@ kernel build fault: that ladder ends in ``LadderExhausted``.
 
 The reference's registry also holds the plan families (for its HLO
 auditor, which reads XLA's compiled programs and has no counterpart in
-the port) and the fleet's ``plan_cache_key`` (A8, which brings it).
+the port).  :func:`plan_cache_key` is the fleet's shared-plan key
+(``pipeline/fleet.SharedPlanCache``).
 """
 
 from __future__ import annotations
@@ -78,6 +79,14 @@ def build_processor(cfg, **kwargs):
     """The segment processor of ``cfg``'s mode; ``kwargs`` pass through to
     its constructor (window_name, device, staged)."""
     return resolve_mode(cfg).resolve()(cfg, **kwargs)
+
+
+def plan_cache_key(cfg, **kwargs) -> str:
+    """Mode-dispatched shared-plan cache key
+    (``SegmentProcessor.plan_cache_key``): each mode's class projects its
+    own trace-relevant config, so two configs share a processor only
+    when mode AND projection agree."""
+    return resolve_mode(cfg).resolve().plan_cache_key(cfg, **kwargs)
 
 
 register_mode(SearchMode(

@@ -249,6 +249,16 @@ EXTRAS_COUNTERS = (
 EXTRAS_PREFIXES = ("retries_", "worker_restarts_")
 
 
+def _guarded(fn):
+    """``fn()`` and None, or None and the failure it raised (the caller
+    heals it after leaving the ``except`` block, so the failed chain's
+    frames are gone before a new rung allocates)."""
+    try:
+        return fn(), None
+    except BaseException as e:  # noqa: BLE001 - classified by the caller
+        return None, e
+
+
 def counters_snapshot() -> dict:
     """The resilience counters the registry holds now, by name."""
     snap = metrics.snapshot()
@@ -489,6 +499,9 @@ class Pipeline:
         # ``_ring_invalidate`` asks before it drops the carry
         self._deferred = None
         self._last_done = None
+        # the fleet's pool member this pipeline dispatches through (the
+        # span's ``device``; None outside a fleet)
+        self.device_label = None
 
     @property
     def sink(self):
@@ -791,6 +804,207 @@ class Pipeline:
             raise LadderExhausted("device fault survived every demotion "
                                   f"rung: {exc}") from exc
         self._swap_processor(newp)
+
+    def _heal(self, exc, on_halt) -> bool:
+        """Heal a device fault: True when it was recovered (the processor
+        may have been swapped); False leaves the original failure to the
+        caller (not a device fault, or healing off); a spent budget
+        raises the typed FATAL escalation with its incident bundle.  A
+        halt goes to ``on_halt(exc)``, which rebuilds and re-dispatches
+        what is in flight and returns False when its budget is spent (the
+        engine's own reinit, or the fleet's scoped halt).  A rebuild that
+        fails the same way is one more reinit or demotion: on a dead CUDA
+        context the budget runs out, and the run escalates."""
+        h = self.healer
+        if h is None:
+            return False
+        kind = h.classify(exc)
+        if kind is None:
+            return False
+        self._settle_fault(exc, kind)
+        while True:
+            try:
+                if kind == DEVICE_HALT:
+                    if on_halt(exc):
+                        return True
+                    self._incident(
+                        "reinit_budget_exceeded",
+                        reason=f"device halt beyond reinit budget: {exc}")
+                    raise ReinitBudgetExceeded(
+                        "device halt beyond reinit recovery "
+                        "(device_reinit_max budget spent or "
+                        f"disabled): {exc}") from exc
+                self._demote(exc, kind)
+                return True
+            except (ReinitBudgetExceeded, LadderExhausted):
+                raise
+            except BaseException as e:  # noqa: BLE001 - classified
+                again = h.classify(e)
+                if again is None:
+                    raise
+                self._settle_fault(e, again)
+                exc, kind = e, again
+
+    def _ingest_healed(self, it, index: int, heal):
+        """One read (:meth:`_ingest`) under the healer: a read that pins a
+        new buffer on a context a sticky fault killed raises the
+        context's error, a halt there is healed as at a dispatch, and
+        the read is made again (the pool allocates before the reader
+        moves)."""
+        while True:
+            one, err = _guarded(lambda: self._ingest(it, index))
+            if err is None:
+                return one
+            h = self.healer
+            if h is None or h.classify(err) != DEVICE_HALT \
+                    or not heal(err):
+                raise err
+            err = None
+
+    def _dispatch_healed(self, seg, offset_after: int, index: int, heal,
+                         requeue: bool = False, ingest_s: float = 0.0,
+                         before=None) -> InFlight:
+        """One dispatch (:meth:`_dispatch_segment`) with self-healing: a
+        device fault demotes or reinitializes and re-dispatches the same
+        segment cold.  ``before()`` runs first in every attempt (the
+        fleet's pool dispatch clock, whose virtual halt the healer takes
+        here).  The failure is healed outside its ``except`` block, so
+        the failed chain's frames are gone before a new rung
+        allocates."""
+        def attempt():
+            if before is not None:
+                before()
+            return self._dispatch_segment(seg, offset_after, index,
+                                          requeue=requeue)
+        while True:
+            item, err = _guarded(attempt)
+            if err is None:
+                return item._replace(ingest_s=ingest_s)
+            if not heal(err):
+                raise err
+            err = None
+            requeue = True
+
+    def _fetch_healed(self, item: InFlight, depth: int, live_now: int,
+                      heal, dispatch) -> Fetched:
+        """The fetch of the drain head (:meth:`_fetch_inflight`) with
+        self-healing: the faulted segment's results died with the fault,
+        so it is re-dispatched cold under the (demoted or rebuilt) plan
+        by ``dispatch(seg, offset_after, index, requeue=True,
+        ingest_s=...)`` and fetched again."""
+        while True:
+            fetched, err = _guarded(lambda: self._fetch_inflight(
+                item, depth, live_now))
+            if err is None:
+                return fetched
+            if not heal(err):
+                raise err
+            err = None
+            seg, off, idx = item.seg, item.offset_after, item.index
+            ing = item.ingest_s
+            item = None
+            item = dispatch(seg, off, idx, requeue=True, ingest_s=ing)
+
+    def _maybe_promote(self) -> None:
+        """The healer's promotion probe, when one is due: a promoted
+        processor replaces the current one."""
+        h = self.healer
+        if h is not None and h.promote_due():
+            newp = h.promote()
+            if newp is not None:
+                self._swap_processor(newp)
+
+    def _unit(self, window: int, batch: int) -> int:
+        """The dispatch unit: ``batch`` segments, or, under the healer,
+        its rung's micro-batch within the window (the micro_batch rung
+        drops it to 1, a promotion restores it)."""
+        if self.healer is not None:
+            return min(window, self.healer.micro_batch)
+        return batch
+
+    def _next_unit(self, window: int, live_count, unit, may_read,
+                   ingest_one, first: int,
+                   max_segments: int | None) -> tuple[int, list]:
+        """The window refill's admission and read, for the engine and a
+        fleet lane alike: the dispatch unit ``unit()`` is admitted only
+        when all of it fits beside ``live_count()`` in ``window`` and
+        ``may_read()`` holds; a due promotion comes first and the unit is
+        checked again (a promotion may restore a unit that no longer
+        fits).  Then up to a unit of segments is read by
+        ``ingest_one(index)`` from dispatch index ``first`` (fewer at
+        the source's end or at ``max_segments``).  Returns the unit and
+        what was read, ``[]`` when nothing was admitted or left."""
+        if live_count() + unit() > window or not may_read():
+            return 0, []
+        self._maybe_promote()
+        b = unit()
+        if live_count() + b > window:
+            return b, []
+        budget = b if max_segments is None else min(b, max_segments - first)
+        got = []
+        while len(got) < budget:
+            one = ingest_one(first + len(got))
+            if one is None:
+                break
+            got.append(one)
+        return b, got
+
+    def _dispatch_unit(self, got: list, first: int, b: int, heal,
+                       dispatch_one, before=None) -> tuple[list, int]:
+        """Dispatch the read segments ``got`` (``(seg, offset_after,
+        ingest_s)`` each, from dispatch index ``first``): a full unit of
+        ``b > 1`` as ONE batched dispatch, anything else (a unit of 1, a
+        tail shorter than the unit) as single dispatches through
+        ``dispatch_one(seg, offset_after, index, requeue=, ingest_s=)``.
+        A batch's failure is healed outside its ``except`` block, and
+        then every segment finishes as a cold single dispatch (the healed
+        plan may not batch).  ``before()`` runs first in the batch's
+        attempt (the fleet's pool dispatch clock).  Returns the in-flight
+        items and the number of device dispatches."""
+        if b > 1 and len(got) == b:
+            segs, offsets, ingests = map(list, zip(*got))
+
+            def attempt():
+                if before is not None:
+                    before()
+                return self._dispatch_batch(segs, offsets, first, ingests)
+            items, err = _guarded(attempt)
+            if err is None:
+                return items, 1
+            if not heal(err):
+                raise err
+            err = None
+            items = [dispatch_one(seg, off, first + i, requeue=True,
+                                  ingest_s=ing)
+                     for i, (seg, off, ing) in enumerate(got)]
+            return items, len(items)
+        items = [dispatch_one(seg, off, first + i, requeue=False,
+                              ingest_s=ing)
+                 for i, (seg, off, ing) in enumerate(got)]
+        return items, len(items)
+
+    def _begin_run(self, window: int, batch: int) -> list:
+        """A run's start, for the engine and a fleet lane alike: the
+        extras, the profile capture armed before the first dispatch, the
+        carry dropped (a resumed run is a fresh process), and the drain
+        count the checkpoint resumes from, which the canary's schedule
+        continues too.  Returns the drain counter ``[count]``."""
+        self._init_extras(window, batch)
+        if self.profile_capture is not None:
+            self.profile_capture.start()
+        self._ring_invalidate()
+        drained = [self.checkpoint.segments_done
+                   if self.checkpoint is not None else 0]
+        self._canary_base = drained[0]
+        return drained
+
+    def _end_holds(self) -> None:
+        """The run outlived its halts: the context lives, so free what
+        they held and the last drain's deferred results (nothing runs on
+        the card after the last drain's query)."""
+        with self._halted_lock:
+            self._halted = None
+            self._deferred = None
 
     # ------------------------------------------- dispatch and fetch
 
@@ -1320,7 +1534,13 @@ class Pipeline:
             active_plan=self._plan_of(self.processor),
             stream=self.stream or None, trace_id=tid or None,
             device_s=item.device_s, achieved_msamps=msamps,
-            roofline_frac=frac))
+            roofline_frac=frac,
+            # v10: stamped by the fleet's batch former, absent on a solo
+            # dispatch; v11: the fleet's pool member, absent outside one
+            batch_size=getattr(seg, "batch_size", None),
+            batch_wait_ms=(None if getattr(seg, "batch_wait_s", None) is None
+                           else seg.batch_wait_s * 1e3),
+            device=self.device_label))
 
     # --------------------------------------------------- the engine
 
@@ -1358,12 +1578,7 @@ class Pipeline:
             self.stats.extras.update(counters_snapshot())
             if self.healer is not None:
                 self.stats.extras["active_plan"] = self.active_plan
-        # the run outlived its halts: the context lives, free what they held
-        # and the last drain's deferred results (nothing runs on the card
-        # after the last drain's query)
-        with self._halted_lock:
-            self._halted = None
-            self._deferred = None
+        self._end_holds()
         return stats
 
     def _engine(self, max_segments: int | None) -> PipelineStats:
@@ -1432,17 +1647,13 @@ class Pipeline:
         if batch > 1 and getattr(self.processor, "staged", False):
             raise ValueError(BATCH_NEEDS_FUSED)
         stats = self.stats
-        self._init_extras(window, batch)
-        stage_s = stats.extras["stage_s"]
         san = self.sanitizer
         n_samples = cfg.baseband_input_count
         start = time.perf_counter()
-        if self.profile_capture is not None:
-            # armed before the first dispatch: the capture covers the
-            # kernels' builds and the first N segments
-            self.profile_capture.start()
-        # a resumed run is a fresh process: its carry starts cold
-        self._ring_invalidate()
+        # the capture covers the kernels' builds and the first N segments;
+        # the drain index continues the checkpoint's count
+        drained = self._begin_run(window, batch)
+        stage_s = stats.extras["stage_s"]
 
         # a segment is live from dispatch until its sink completes; the
         # window bounds that count, so at most W waterfalls are on the
@@ -1461,12 +1672,6 @@ class Pipeline:
                 if self._stream_labels is not None:
                     metrics.set("inflight_depth", live[0],
                                 labels=self._stream_labels)
-
-        # the drain index continues the checkpoint's count, and so does
-        # the canary's schedule
-        drained = [self.checkpoint.segments_done
-                   if self.checkpoint is not None else 0]
-        self._canary_base = drained[0]
 
         # the sink pipe's supervisor: a crash that is not fatal restarts
         # it, its item replayed inline first (journal order kept)
@@ -1661,25 +1866,13 @@ class Pipeline:
             # a halt is the healer's there as at a dispatch, and the read
             # is made again after a heal (the pool allocates before the
             # reader moves)
-            while True:
-                one, err = guarded(lambda: self._ingest(it, index))
-                if err is None:
-                    break
-                h = self.healer
-                if h is None or h.classify(err) != DEVICE_HALT \
-                        or not heal(err):
-                    raise err
-                err = None
+            one = self._ingest_healed(it, index, heal)
             if one is None:
                 exhausted[0] = True
             return one
 
-        # the dispatch unit follows the healer: the micro_batch rung
-        # drops it to 1, a promotion restores it
         def cur_unit() -> int:
-            if self.healer is not None:
-                return min(window, self.healer.micro_batch)
-            return batch
+            return self._unit(window, batch)
 
         # ---- the healer's handlers, reached only from exceptions
 
@@ -1700,73 +1893,15 @@ class Pipeline:
             return True
 
         def heal(exc) -> bool:
-            """True when a device fault was recovered (the processor may
-            have been swapped); False propagates the original failure (not
-            a device fault, or healing off); a spent budget raises the
-            typed FATAL escalation."""
-            h = self.healer
-            if h is None:
-                return False
-            kind = h.classify(exc)
-            if kind is None:
-                return False
-
-            self._settle_fault(exc, kind)
-            while True:
-                # a rebuild (or a re-dispatch) that fails the same way is
-                # one more reinit or demotion: on a dead CUDA context the
-                # reinit budget runs out, and the run escalates
-                try:
-                    if kind == DEVICE_HALT:
-                        if reinit_and_redispatch(exc):
-                            return True
-                        self._incident(
-                            "reinit_budget_exceeded",
-                            reason=f"device halt beyond reinit budget: {exc}")
-                        raise ReinitBudgetExceeded(
-                            "device halt beyond reinit recovery "
-                            "(device_reinit_max budget spent or "
-                            f"disabled): {exc}") from exc
-                    self._demote(exc, kind)
-                    return True
-                except (ReinitBudgetExceeded, LadderExhausted):
-                    raise
-                except BaseException as e:  # noqa: BLE001 - classified
-                    again = h.classify(e)
-                    if again is None:
-                        raise
-                    self._settle_fault(e, again)
-                    exc, kind = e, again
-
-        def guarded(fn):
-            """``fn()``, or the failure it raised (the caller heals it
-            after leaving the ``except`` block, so the failed chain's
-            frames are gone before a new rung allocates)."""
-            try:
-                return fn(), None
-            except BaseException as e:  # noqa: BLE001 - classified
-                return None, e
+            return self._heal(exc, reinit_and_redispatch)
 
         def dispatch_one(seg, offset_after, index, requeue=False,
                          ingest_s=0.0):
-            """One dispatch with self-healing: a device fault demotes or
-            reinitializes and re-dispatches the same segment cold."""
-            while True:
-                item, err = guarded(lambda: self._dispatch_segment(
-                    seg, offset_after, index, requeue=requeue))
-                if err is None:
-                    return item._replace(ingest_s=ingest_s)
-                if not heal(err):
-                    raise err
-                err = None
-                requeue = True
+            return self._dispatch_healed(seg, offset_after, index, heal,
+                                         requeue=requeue, ingest_s=ingest_s)
 
-        def maybe_promote() -> None:
-            h = self.healer
-            if h is not None and h.promote_due():
-                newp = h.promote()
-                if newp is not None:
-                    self._swap_processor(newp)
+        def may_read() -> bool:
+            return want_more() and sink_alive()
 
         def fill_window() -> None:
             if san is not None:
@@ -1777,44 +1912,16 @@ class Pipeline:
                 # a capture the sink thread completed stops here
                 self.profile_capture.poll()
             # the unit is the batch: admitted only when all of it fits
-            while live_count() + cur_unit() <= window and want_more() \
-                    and sink_alive():
-                maybe_promote()
-                b = cur_unit()
-                if live_count() + b > window:
-                    return  # a promotion restored a unit that no longer fits
+            while True:
                 first = dispatched[0]
-                budget = b if max_segments is None else \
-                    min(b, max_segments - first)
-                got = []
-                while len(got) < budget:
-                    one = ingest_one(first + len(got))
-                    if one is None:
-                        break
-                    got.append(one)
+                b, got = self._next_unit(window, live_count, cur_unit,
+                                         may_read, ingest_one, first,
+                                         max_segments)
                 if not got:
                     return
-                if b > 1 and len(got) == b:
-                    segs, offsets, ingests = map(list, zip(*got))
-                    items, err = guarded(lambda: self._dispatch_batch(
-                        segs, offsets, first, ingests))
-                    if err is not None:
-                        if not heal(err):
-                            raise err
-                        err = None
-                        # the healed plan may not batch: these segments
-                        # finish as single cold dispatches
-                        items = [dispatch_one(seg, off, first + i,
-                                              requeue=True, ingest_s=ing)
-                                 for i, (seg, off, ing) in enumerate(got)]
-                        stats.extras["dispatches"] += len(items)
-                    else:
-                        stats.extras["dispatches"] += 1
-                else:  # one segment, or a tail shorter than the batch
-                    items = [dispatch_one(seg, off, first + i,
-                                          ingest_s=ing)
-                             for i, (seg, off, ing) in enumerate(got)]
-                    stats.extras["dispatches"] += len(items)
+                items, n = self._dispatch_unit(got, first, b, heal,
+                                               dispatch_one)
+                stats.extras["dispatches"] += n
                 pending.extend(items)
                 live_add(len(items))
                 dispatched[0] += len(items)
@@ -1878,21 +1985,8 @@ class Pipeline:
             # the depths at this drain, this item included: dispatched
             # and not fetched, and dispatched and not through its sink
             depth, live_now = len(pending), live_count()
-            item = pending.popleft()
-            while True:
-                fetched, err = guarded(lambda: self._fetch_inflight(
-                    item, depth, live_now))
-                if err is None:
-                    break
-                if not heal(err):
-                    raise err
-                err = None
-                # the faulted segment's results died with the fault: re-
-                # dispatch it cold under the (demoted or rebuilt) plan
-                seg, off, idx = item.seg, item.offset_after, item.index
-                ing = item.ingest_s
-                item = None
-                item = dispatch_one(seg, off, idx, requeue=True, ingest_s=ing)
+            fetched = self._fetch_healed(pending.popleft(), depth, live_now,
+                                         heal, dispatch_one)
             h = self.healer
             if h is not None:
                 h.note_healthy()
@@ -2188,13 +2282,9 @@ class ThreadedPipeline(Pipeline):
                 # swapped by a demotion or a promotion) is the device
                 # pipe's
                 san.assert_owner("inflight_window")
-            h = self.healer
-            if h is not None and h.promote_due():
-                # the promotion probe, paced by the drain's healthy
-                # segments (an off-by-one pacing slack is acceptable)
-                newp = h.promote()
-                if newp is not None:
-                    self._swap_processor(newp)
+            # the promotion probe, paced by the drain's healthy segments
+            # (an off-by-one pacing slack is acceptable)
+            self._maybe_promote()
             requeue = False
             while True:
                 try:

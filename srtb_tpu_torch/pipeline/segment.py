@@ -547,6 +547,22 @@ class SegmentProcessor:
                  if k in os.environ}
         return cfg_d, knobs
 
+    @classmethod
+    def plan_cache_key(cls, cfg, window_name: str = W.DEFAULT_WINDOW
+                       ) -> str:
+        """The fleet's shared-plan key, without building a processor (the
+        reference's): the trace projection and the constructor's inputs.
+        Equal keys imply equal :meth:`plan_signature`, since every plan
+        flag resolves from exactly these.  Per-stream identity (the
+        stream's name, priority, paths) is outside the projection:
+        tenancy never splits the plan cache."""
+        import json
+
+        cfg_d, knobs = cls._trace_projection(cfg)
+        return json.dumps(
+            {"cfg": cfg_d, "env": knobs, "window": window_name,
+             "mode": cls.MODE}, sort_keys=True, default=str)
+
     def plan_signature(self) -> str:
         """Stable string naming everything that shapes the chain this
         processor runs: the trace-shaping config fields and environment
@@ -804,13 +820,27 @@ class SegmentProcessor:
     # ---------------------------------------------------- retirement
 
     _retired = False
+    # set by the fleet's shared plan cache (:meth:`mark_shared`): this
+    # processor serves several streams at once, so one stream's demotion
+    # must not retire what its neighbors dispatch through
+    _fleet_shared = False
 
-    def retire(self) -> None:
+    def mark_shared(self) -> "SegmentProcessor":
+        """Flag this processor as fleet-shared (see :meth:`retire`)."""
+        self._fleet_shared = True
+        return self
+
+    def retire(self, force: bool = False) -> None:
         """Disarm a processor the pipeline has replaced (a demotion, a
         promotion probe or a device reinit, ``resilience/demote.py``): a
         stray dispatch through it raises, and its device tables (window,
         masks, the front-fused constants) are dropped, so the allocator
-        can hand their memory to the replacement."""
+        can hand their memory to the replacement.  A fleet-shared
+        processor refuses a lane's retire (a no-op) unless ``force``:
+        only the fleet retires it (a scoped halt, a reinit, the fleet's
+        close)."""
+        if self._fleet_shared and not force:
+            return
         self._retired = True
         for name, value in list(vars(self).items()):
             if isinstance(value, torch.Tensor) or (
@@ -1045,7 +1075,7 @@ class SegmentProcessor:
         self._check_live()
         if self.staged:
             raise ValueError(BATCH_NEEDS_FUSED)
-        seg, res = self._segment_bytes, self.reserved_bytes
+        res = self.reserved_bytes
         srcs = [self._upload_source(raw) for raw in raws]
         if carry is not None:
             srcs = [src[res:] for src in srcs]
@@ -1057,30 +1087,54 @@ class SegmentProcessor:
         elif self.ring:
             self._count_cold()
         self._count_h2d(sum(s.nbytes for s in srcs))
+        if carry is None:
+            return self._upload_rows(srcs)
         if self.device.type != "cuda":
-            if carry is None:
-                return torch.stack(srcs)
             return torch.cat([carry, *srcs])
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._copy_stream):
-            if carry is None:
-                dev = torch.empty(len(srcs), seg, dtype=torch.uint8,
-                                  device=self.device)
-                for row, src in zip(dev, srcs):
-                    row.copy_(src, non_blocking=True)
-            else:
-                stride = self.stride_bytes
-                dev = torch.empty(res + len(srcs) * stride,
-                                  dtype=torch.uint8, device=self.device)
-                dev[:res].copy_(carry)
-                for i, src in enumerate(srcs):
-                    dev[res + i * stride:res + (i + 1) * stride].copy_(
-                        src, non_blocking=True)
+            stride = self.stride_bytes
+            dev = torch.empty(res + len(srcs) * stride, dtype=torch.uint8,
+                              device=self.device)
+            dev[:res].copy_(carry)
+            for i, src in enumerate(srcs):
+                dev[res + i * stride:res + (i + 1) * stride].copy_(
+                    src, non_blocking=True)
         compute.wait_stream(self._copy_stream)
         dev.record_stream(compute)
         return dev
+
+    def _upload_rows(self, srcs: list) -> torch.Tensor:
+        """Whole segments' host bytes as the rows of one device tensor,
+        uploaded on the copy stream that the compute stream waits for."""
+        if self.device.type != "cuda":
+            return torch.stack(srcs)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            dev = torch.empty(len(srcs), self._segment_bytes,
+                              dtype=torch.uint8, device=self.device)
+            for row, src in zip(dev, srcs):
+                row.copy_(src, non_blocking=True)
+        compute.wait_stream(self._copy_stream)
+        dev.record_stream(compute)
+        return dev
+
+    def stack_batch(self, datas: list) -> torch.Tensor:
+        """B segments' host bytes (each as :meth:`stage_input` takes
+        them) on the device as one ``[B, segment_bytes]`` tensor, for a
+        cross-stream batch (:meth:`process_batch` /
+        :meth:`process_batch_cold`): :meth:`stage_batch`'s cold upload,
+        without the ring's count (the caller's batch plan counts)."""
+        self._check_live()
+        if self.staged:
+            raise ValueError(BATCH_NEEDS_FUSED)
+        srcs = [self._upload_source(raw) for raw in datas]
+        self._count_h2d(sum(s.nbytes for s in srcs))
+        return self._upload_rows(srcs)
 
     def run_batch(self, raws: torch.Tensor) -> list:
         """The chain on B device-resident segments ``raws [B, bytes]``, a

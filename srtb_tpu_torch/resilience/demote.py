@@ -160,6 +160,11 @@ class ComputeHealer:
     # ------------------------------------------------------- state
 
     @property
+    def level(self) -> int:
+        """The ladder position (0: the base plan)."""
+        return self._level
+
+    @property
     def rungs(self) -> list[Rung]:
         return list(self._rungs)
 
@@ -232,6 +237,19 @@ class ComputeHealer:
         log.warning(
             f"[selfheal] device halt — reinitializing at ladder rung "
             f"{self._level} ({self.active_step}): {exc!r}")
+        return self._build(self._level)
+
+    def rebuild(self, shared=None):
+        """A fresh processor at the CURRENT rung, with no budget check and
+        no counters: the fleet's shared reinit makes one budgeted decision
+        for the whole device and then rebuilds every lane (charging each
+        lane's own budget would let one flapping neighbor bankrupt the
+        fleet).  ``shared`` (a zero-argument factory) serves the fleet's
+        live migration: a lane at rung 0 re-admits through its target
+        member's shared plan cache; a demoted lane stays on its unshared
+        rung."""
+        if shared is not None and self._level == 0:
+            return shared()
         return self._build(self._level)
 
     # --------------------------------------------- promotion probe

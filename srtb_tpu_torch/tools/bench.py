@@ -35,14 +35,26 @@ leg: the compiled-kernel cache (``aot_plan_path``) at that directory, so
 that run twice the second run's ``compile_s`` is the warm restart's (its
 timer starts before the processor's construction, where the cache builds
 or loads the kernel library; the line says ``aot_active`` and the
-cache's hit and miss counts).  The fleet leg (``--fleet-batch``) waits
-for ROADMAP A8; ``SRTB_BENCH_AUDIT`` (the JAX package's HLO plan
-auditor, which reads XLA's compiled programs) has no counterpart in the
-port and is refused.
+cache's hit and miss counts).  ``SRTB_BENCH_AUDIT`` (the JAX package's
+HLO plan auditor, which reads XLA's compiled programs) has no
+counterpart in the port and is refused.
+
+The fleet leg (``--fleet-batch on|off``, the reference's
+``run_fleet_bench``): ``SRTB_BENCH_FLEET_STREAMS`` (4) same-shape streams
+of ``SRTB_BENCH_FLEET_SEGMENTS`` (6) segments each (the J1644 shape,
+random bytes from a seed, reserve off) through ``StreamFleet`` with the
+batch former armed (``fleet_batch_max`` = the streams) or off; one line
+with the aggregate Msamples/s (the median of ``SRTB_BENCH_REPS`` runs,
+each from the files read to the last drain, the first paying the
+kernels' builds), ``batched_dispatches``, ``batched_segments``, the mean
+batch size and the implied device dispatches.  Its default
+``SRTB_BENCH_LOG2N`` is 21 on the card and ``SRTB_BENCH_CPU_LOG2N`` (16)
+on the CPU, as the reference's.
 
 Usage: python -m srtb_tpu_torch.tools.bench [--overlap on|off]
            [--fused-tail auto|on|off] [--front-fuse auto|on|off]
-           [--ring on|off|none] [--ledger L.jsonl] [--device cpu]
+           [--ring on|off|none] [--fleet-batch on|off] [--ledger L.jsonl]
+           [--device cpu]
 """
 
 from __future__ import annotations
@@ -126,10 +138,7 @@ def parse_args(argv=None):
 
 
 def check_unported(args) -> None:
-    """Raise for the knobs of later slices."""
-    if args.fleet_batch != "none":
-        raise NotImplementedError(
-            "--fleet-batch is not ported yet (ROADMAP A8: the fleet)")
+    """Raise for the knobs the port has no counterpart of."""
     if int(os.environ.get("SRTB_BENCH_AUDIT", "0") or 0):
         raise NotImplementedError(
             "SRTB_BENCH_AUDIT is the JAX package's HLO plan auditor: it "
@@ -340,12 +349,124 @@ def run_bench(device, overlap: str = "on", fused_tail: str = "auto",
     return out
 
 
+def run_fleet_bench(device, leg: str, ledger: str = "") -> dict:
+    """The ``--fleet-batch`` leg: N same-shape streams through the fleet,
+    the batch former armed ("on", ``fleet_batch_max`` = N) or off, so
+    that the on/off delta reads as dispatch amortization."""
+    import shutil
+    import tempfile
+
+    from srtb_tpu_torch.config import Config
+    from srtb_tpu_torch.pipeline.fleet import StreamFleet, StreamSpec
+    from srtb_tpu_torch.utils.metrics import metrics
+    from srtb_tpu_torch.utils.perf_ledger import device_name
+
+    on_card = device.type == "cuda"
+    default_log2n = "21" if on_card else \
+        os.environ.get("SRTB_BENCH_CPU_LOG2N", "16")
+    n = 1 << int(os.environ.get("SRTB_BENCH_LOG2N", default_log2n))
+    channels = 1 << int(os.environ.get("SRTB_BENCH_LOG2CHAN", "11"))
+    streams = max(2, int(os.environ.get("SRTB_BENCH_FLEET_STREAMS", "4")))
+    segments = max(1, int(os.environ.get("SRTB_BENCH_FLEET_SEGMENTS",
+                                         "6")))
+    reps = int(os.environ.get("SRTB_BENCH_REPS", "3"))
+    batch_max = streams if leg == "on" else 0
+    tmp = tempfile.mkdtemp(prefix="srtb_fleet_bench_")
+    rng = np.random.default_rng(0)
+
+    def stream_cfg(i: int) -> Config:
+        # the J1644 shape shared by every stream: one plan family, the
+        # batchable case; reserve off (the leg measures dispatch
+        # amortization, not overlap-save)
+        path = os.path.join(tmp, f"bb{i}.bin")
+        if not os.path.exists(path):
+            rng.integers(0, 256, size=(n * 2 // 8) * segments,
+                         dtype=np.uint8).tofile(path)
+        return Config(
+            baseband_input_count=n, baseband_input_bits=2,
+            baseband_format_type="simple",
+            baseband_freq_low=1405.0 + 32.0, baseband_bandwidth=-64.0,
+            baseband_sample_rate=128e6,
+            dm=float(os.environ.get("SRTB_BENCH_DM", "-478.80")),
+            spectrum_channel_count=channels,
+            mitigate_rfi_average_method_threshold=1.5,
+            mitigate_rfi_spectral_kurtosis_threshold=1.05,
+            signal_detect_signal_noise_threshold=8.0,
+            signal_detect_max_boxcar_length=256,
+            mitigate_rfi_freq_list="1418-1422", input_file_path=path,
+            stream_name=f"bb{i}",
+            fft_strategy=os.environ.get("SRTB_BENCH_FFT_STRATEGY", "auto"),
+            fleet_batch_max=batch_max, gui_enable=False)
+
+    def one_rep() -> tuple:
+        metrics.reset()
+        specs = [StreamSpec(name=f"bb{i}", cfg=stream_cfg(i),
+                            keep_waterfall=False) for i in range(streams)]
+        t0 = time.perf_counter()
+        fleet = StreamFleet(specs, device=device)
+        results = fleet.run()
+        fleet.close()
+        dt = time.perf_counter() - t0
+        failed = [r.name for r in results.values() if r.status != "done"]
+        if failed:
+            raise RuntimeError(f"fleet streams failed: {failed}")
+        return (dt, sum(r.drained for r in results.values()),
+                int(metrics.get("batched_dispatches")),
+                int(metrics.get("batched_segments")))
+
+    try:
+        rep_out = [one_rep() for _ in range(reps)]
+    finally:
+        # the streams' inputs and outputs are the leg's own
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep_seconds = [round(dt, 5) for dt, _, _, _ in rep_out]
+    dt, drained, bdisp, bsegs = sorted(rep_out)[len(rep_out) // 2]
+    seg_s = drained / dt if dt else 0.0
+    out = {
+        "metric": "fleet_batched_throughput",
+        "value": round(seg_s * n / 1e6, 2),
+        "unit": UNIT,
+        "vs_baseline": round(seg_s * n / REALTIME_SAMPLES_PER_S, 3),
+        "device": device_name(device),
+        "card": card_line() if on_card else None,
+        "fleet_batch": leg, "fleet_batch_max": batch_max,
+        "streams": streams, "segments_per_stream": segments,
+        "log2n": int(math.log2(n)), "drained": drained,
+        "elapsed_s": round(dt, 3), "rep_seconds": rep_seconds,
+        "batched_dispatches": bdisp, "batched_segments": bsegs,
+        "batch_size_mean": round(bsegs / bdisp, 2) if bdisp else 0.0,
+        "device_dispatches": drained - bsegs + bdisp,
+        "pass": True,
+    }
+    if ledger:
+        try:
+            from srtb_tpu_torch.utils import perf_ledger as PL
+            PL.PerfLedger(ledger).append(PL.make_record(
+                "fleet_bench", out["value"], out["unit"],
+                plan=f"fleet_batch_{leg}",
+                shape={"log2n": out["log2n"], "channels": channels,
+                       "nbits": 2, "streams": streams},
+                platform=device.type, samples_s=rep_seconds,
+                extra={k: out[k] for k in
+                       ("fleet_batch", "fleet_batch_max",
+                        "batched_dispatches", "batched_segments",
+                        "batch_size_mean", "device_dispatches",
+                        "drained")}, device=device))
+        except Exception as e:  # noqa: BLE001 - the line must still land
+            print(f"bench: WARNING: perf-ledger append failed: {e}",
+                  file=sys.stderr)
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     try:
         from srtb_tpu_torch.utils.device import resolve_device
         check_unported(args)
         device = resolve_device(args.device)
+        if args.fleet_batch != "none":
+            emit(run_fleet_bench(device, args.fleet_batch, args.ledger))
+            return 0
         emit(run_bench(device, overlap=args.overlap,
                        fused_tail=args.fused_tail, ring=args.ring,
                        ledger=args.ledger, front_fuse=args.front_fuse))

@@ -23,9 +23,17 @@ injected raise and corrupt faults.
 out-of-memory with healing off, must fail the soak; one out-of-memory
 with healing armed must pass.
 
-The reference's pool-scoped ``device:halt@K`` entries schedule a halt on
-one member of its elastic device pool: they come with that pool
-(ROADMAP A8) and raise here.
+Pool-scoped halts: a plan entry ``device:halt@K`` is not a fault-injector
+spec: it schedules the device pool's deterministic virtual halt
+(``pipeline/pool.py``) on one member after K of ITS dispatches.  Such
+entries are taken out of the pipeline's plan and run as a fourth phase:
+one stream through a ``StreamFleet`` on a ``len(entries) + 1``-member pool,
+entry i armed on member i, so every halt has a survivor to drain onto.
+The gate: no loss, decisions and time series equal the clean run's bit
+for bit (migration stays at rung 0), ``device_drains`` the scheduled
+halts, every halt a live migration, no fleet-wide reinit, no demotion.
+A pool of several members needs several devices: the CPU's virtual pool
+(``--device cpu``), or that many cards.
 
 Usage::
 
@@ -118,13 +126,19 @@ def generate_plan(seed: int, segments: int, faults: int,
     return ",".join(entries)
 
 
-def _refuse_pool_entries(plan: str) -> None:
-    """The reference's ``device:halt@K`` entries need its device pool."""
+def _split_pool_plan(plan: str) -> tuple[list[int], str]:
+    """Split the pool-scoped ``device:halt@K`` entries out of a fault
+    plan: (the halts' dispatch counts, the pipeline's plan)."""
+    halts, rest = [], []
     for ent in plan.split(","):
-        if ent.strip().startswith("device:"):
-            raise NotImplementedError(
-                f"fault plan entry {ent.strip()!r}: pool-scoped halts "
-                "need the elastic device pool, not ported yet (ROADMAP A8)")
+        ent = ent.strip()
+        if not ent:
+            continue
+        if ent.startswith("device:halt@"):
+            halts.append(int(ent.rsplit("@", 1)[1]))
+        else:
+            rest.append(ent)
+    return halts, ",".join(rest)
 
 
 class _CaptureSink:
@@ -156,6 +170,29 @@ def _run(cfg, device):
     return stats, sink, counters, unfired, plans
 
 
+def _run_pool_phase(tmp: str, n: int, pool_halts: list[int],
+                    device) -> tuple:
+    """The ``device:halt@K`` phase: one stream on a pool of one member a
+    scheduled halt plus a survivor; entry i arms member i's halt after
+    K_i of its dispatches.  Returns (result, sink, counters)."""
+    from srtb_tpu_torch.pipeline.fleet import StreamFleet, StreamSpec
+    from srtb_tpu_torch.utils.metrics import metrics
+    metrics.reset()
+    cfg = _base_cfg(tmp, n, "pool", fleet_devices=len(pool_halts) + 1)
+    sink = _CaptureSink()
+    fleet = StreamFleet([StreamSpec(name="chaos", cfg=cfg, sinks=[sink])],
+                        device=device)
+    for i, k in enumerate(pool_halts):
+        fleet.pool.schedule_halt(i, after_dispatches=k)
+    results = fleet.run()
+    fleet.close()
+    counters = {k: int(metrics.get(k)) for k in (
+        "device_drains", "migrations", "device_reinits",
+        "segments_dropped", "plan_demotions")}
+    metrics.reset()
+    return results["chaos"], sink, counters
+
+
 def _make_input(tmp: str, n: int, segments: int, seed: int) -> None:
     from srtb_tpu_torch.io.synth import make_dispersed_baseband_host
     make_dispersed_baseband_host(
@@ -182,8 +219,10 @@ def run_soak(seed: int = 0, segments: int = 6, faults: int = 4,
     if plan is None:
         plan = generate_plan(seed, segments, faults,
                              max_demotions=len(rungs), max_halts=3)
-    _refuse_pool_entries(plan)
-    specs = parse_plan(plan) if plan else []
+    # device:halt@K entries are pool-scoped: taken out here, run as the
+    # fourth phase
+    pool_halts, pipe_plan = _split_pool_plan(plan)
+    specs = parse_plan(pipe_plan) if pipe_plan else []
     n_demote = sum(1 for s in specs if s.action in ("oom", "compile_fail"))
     n_halt = sum(1 for s in specs if s.action == "device_halt")
     n_transient = sum(1 for s in specs if s.action in ("raise", "corrupt"))
@@ -196,7 +235,7 @@ def run_soak(seed: int = 0, segments: int = 6, faults: int = 4,
         tmp, n, "off", plan_ladder="off", device_reinit_max=0), device)
     on, sink_on, c_on, _, _ = _run(_base_cfg(tmp, n, "on"), device)
     chaos_cfg = _base_cfg(
-        tmp, n, "chaos", fault_plan=plan,
+        tmp, n, "chaos", fault_plan=pipe_plan,
         promote_after_segments=promote_after,
         device_reinit_max=max(1, n_halt),
         checkpoint_path=os.path.join(tmp, "chaos_ck.json"))
@@ -250,8 +289,44 @@ def run_soak(seed: int = 0, segments: int = 6, faults: int = 4,
     check(int(counters["retries_total"]) >= n_transient,
           f"retries_total {int(counters['retries_total'])} < "
           f"{n_transient} injected transient faults")
+
+    # phase 4: every scheduled pool halt drains its member onto a
+    # survivor by live migration, without loss and bit for bit
+    pool_counters: dict = {}
+    if pool_halts:
+        pres, psink, pool_counters = _run_pool_phase(tmp, n, pool_halts,
+                                                     device)
+        check(pres.status == "done", f"pool phase did not finish: "
+              f"{pres.status} ({pres.error!r})")
+        check(len(psink.out) + pool_counters["segments_dropped"]
+              == off.segments,
+              f"pool phase loss not accounted: {len(psink.out)} drained + "
+              f"{pool_counters['segments_dropped']} dropped != "
+              f"{off.segments} source segments")
+        check(pool_counters["segments_dropped"] == 0,
+              f"pool phase dropped {pool_counters['segments_dropped']} "
+              "segment(s): a scoped halt migrates, it must not shed")
+        for i, (a, b) in enumerate(zip(psink.out, sink_off.out)):
+            check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                  and np.array_equal(a[2], b[2]) and a[3] == b[3],
+                  f"pool phase segment {i}: output differs from the clean "
+                  "reference: migration must be bit-identical")
+        check(pool_counters["device_drains"] == len(pool_halts),
+              f"device_drains {pool_counters['device_drains']} != "
+              f"{len(pool_halts)} scheduled pool halts")
+        check(pool_counters["migrations"] >= len(pool_halts),
+              f"migrations {pool_counters['migrations']} < "
+              f"{len(pool_halts)} scheduled halts: a halt failed to drain "
+              "its lane onto the survivor")
+        check(pool_counters["device_reinits"] == 0,
+              "a pool-scoped halt escalated to a fleet-wide reinit despite "
+              "a healthy survivor")
+        check(pool_counters["plan_demotions"] == 0,
+              "the pool phase demoted a plan: migration must rejoin the "
+              "survivor's family at rung 0")
     return {
         "seed": seed, "segments": int(off.segments), "plan": plan,
+        "pool_halts": pool_halts, "pool_counters": pool_counters,
         "rungs": [r.step for r in rungs], "plans": plans,
         "drained": drained, "dropped": dropped,
         "plan_demotions": int(counters["plan_demotions"]),

@@ -11,10 +11,11 @@ Host stages also run under ``torch.profiler.record_function``
 by stage name.  ``health()`` feeds ``/healthz`` (``gui/server.py``)
 with last-segment-age staleness.
 
-The record is schema 11.  The port's single-card engine writes every
-field of a solo reference run; like those, it leaves out ``batch_size``
-and ``batch_wait_ms`` (the cross-stream batch former) and ``device``
-(the device pool), which come with ROADMAP A8.
+The record is schema 11.  ``batch_size`` and ``batch_wait_ms`` (v10) are
+written on the records of a segment the fleet's cross-stream batch former
+dispatched, and left out on a solo dispatch; ``device`` (v11) names the
+fleet's pool member on every fleet record, and is left out outside a
+fleet (``pipeline/fleet.py``).
 """
 
 from __future__ import annotations
@@ -281,7 +282,10 @@ def segment_span(segment: int, stages_s: dict, queue_depth: int,
                  trace_id: int | None = None,
                  device_s: float | None = None,
                  achieved_msamps: float | None = None,
-                 roofline_frac: float | None = None) -> dict:
+                 roofline_frac: float | None = None,
+                 batch_size: int | None = None,
+                 batch_wait_ms: float | None = None,
+                 device: str | None = None) -> dict:
     """One journal record.  ``stages_s`` maps stage name -> seconds for
     THIS segment; loss/drop counters are the cumulative registry values
     at drain time (deltas between consecutive records localize a loss
@@ -363,6 +367,13 @@ def segment_span(segment: int, stages_s: dict, queue_depth: int,
         rec["device_ms"] = round(max(device_s, 0.0) * 1e3, 3)
     if achieved_msamps is not None:
         rec["achieved_msamps"] = round(achieved_msamps, 2)
+    if batch_size is not None:
+        # v10: segments sharing this segment's device dispatch (the
+        # cross-stream batch former); omitted on solo dispatches —
+        # never a fake 1
+        rec["batch_size"] = int(batch_size)
+    if batch_wait_ms is not None:
+        rec["batch_wait_ms"] = round(max(batch_wait_ms, 0.0), 3)
     if roofline_frac is not None:
         rec["roofline_frac"] = round(roofline_frac, 4)
     if active_plan is not None:
@@ -395,6 +406,11 @@ def segment_span(segment: int, stages_s: dict, queue_depth: int,
             rec[key] = type(rec[key])(metrics.get(key, labels=lbl))
         rec["compile_ms"] = round(
             metrics.get("compile_seconds", labels=lbl) * 1e3, 1)
+    if device:
+        # v11: the pool member this segment dispatched through (the
+        # fleet stamps its lanes; a migration switches the label at the
+        # boundary).  Omitted outside a fleet — never a fake placeholder.
+        rec["device"] = str(device)
     if trace_id:
         # v7: joins this span to its flight-recorder events (omitted
         # when tracing is off — never a fake 0)

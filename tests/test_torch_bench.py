@@ -264,13 +264,36 @@ def test_bench_ring_legs_on_the_cpu(ring, capsys, monkeypatch,
 @pytest.mark.parametrize("knob,item", (
     (("--fleet-batch", "on"), "A8"),
     ({"SRTB_BENCH_AUDIT": "1"}, "A9e")))
-def test_bench_refuses_later_slices(knob, item, capsys, monkeypatch):
+def test_bench_refuses_later_slices(knob, item, capsys, monkeypatch,
+                                    fresh_metrics, tmp_path):
+    """``SRTB_BENCH_AUDIT`` stays refused (no counterpart in the port).
+    ``--fleet-batch on`` (A8b) runs the fleet leg: one line with the
+    batching counters, the reference's accounting at full width (N
+    streams of S segments in S device dispatches of N), and its streams'
+    files removed after it."""
+    import tempfile
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     argv = ["--device", "cpu"]
     if isinstance(knob, dict):
         for k, v in knob.items():
             monkeypatch.setenv(k, v)
     else:
         argv += list(knob)
+        for k, v in {"SRTB_BENCH_CPU_LOG2N": "13", "SRTB_BENCH_LOG2CHAN":
+                     "5", "SRTB_BENCH_REPS": "1",
+                     "SRTB_BENCH_FLEET_SEGMENTS": "3"}.items():
+            monkeypatch.setenv(k, v)
+        assert B.main(argv) == 0
+        (line,) = _lines(capsys)
+        assert line["metric"] == "fleet_batched_throughput"
+        assert line["device"] == "cpu" and line["fleet_batch"] == "on"
+        assert (line["streams"], line["fleet_batch_max"]) == (4, 4)
+        assert line["drained"] == 12 and line["batched_segments"] == 12
+        assert line["batched_dispatches"] == 3
+        assert line["batch_size_mean"] == 4.0
+        assert line["device_dispatches"] == 3
+        assert not list(tmp_path.glob("srtb_fleet_bench_*"))
+        return
     assert B.main(argv) == 1
     (line,) = _lines(capsys)
     assert f"ROADMAP {item}" in line["error"]

@@ -512,7 +512,7 @@ def test_viewer(ref, frames_dir):
     for a missing or non-frame file; /metrics, /metrics.json and /healthz
     with the reference's status and content types (their bodies are each
     process's own registry: the Prometheus text, the snapshot, an idle
-    pipeline's health), and 501 naming ROADMAP A8 for /fleet; ``stop()``
+    pipeline's health), and 501 naming ROADMAP A8c for /fleet; ``stop()``
     joins the thread."""
     metrics.reset()
     got = viewer_responses(WaterfallHTTPServer, str(frames_dir),
@@ -521,7 +521,7 @@ def test_viewer(ref, frames_dir):
     for i, path in enumerate(VIEWER_PATHS):
         status, ctype, body = _response(got, i)
         if path == "/fleet":
-            assert status == 501 and "ROADMAP A8" in body.decode()
+            assert status == 501 and "ROADMAP A8c" in body.decode()
             continue
         if path in ("/metrics", "/metrics.json", "/healthz"):
             want = _response(_sub(ref, "viewer"), i)

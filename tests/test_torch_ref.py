@@ -3085,6 +3085,412 @@ def _refill_reference_window() -> None:
     R.Pipeline._run_engine = scope["_run_engine"]
 
 
+# ------------------------------------------------- the fleet (A8b)
+# Scripted runners that take the package's name, so that one script drives
+# the JAX package's fleet (in this runner's interpreter) and the port's (in
+# the pytest process, on the CPU).
+
+
+def _fleet_mods(pkg: str):
+    imp = importlib.import_module
+    return (imp(f"{pkg}.config").Config, imp(f"{pkg}.pipeline.fleet"),
+            imp(f"{pkg}.pipeline.runtime").Pipeline,
+            imp(f"{pkg}.utils.metrics").metrics)
+
+
+def _cpu_kw(pkg: str) -> dict:
+    """The port's entry points run on the card unless asked for the CPU."""
+    return {"device": "cpu"} if pkg == "srtb_tpu_torch" else {}
+
+
+class DecisionCap:
+    """Decision-capturing sink (the reference's fleet tests' ``_Cap``)."""
+
+    def __init__(self):
+        self.out = []
+
+    def push(self, work, positive):
+        det = work.detect
+        self.out.append((np.asarray(det.signal_counts).copy(),
+                         np.asarray(det.zero_count).copy(),
+                         np.asarray(det.time_series).copy(),
+                         bool(positive)))
+
+
+def _decisions(out: list) -> dict:
+    if not out:
+        return {"n": 0}
+    return {"n": len(out),
+            "signal_counts": np.stack([o[0] for o in out]),
+            "zero_count": np.stack([o[1] for o in out]),
+            "time_series": np.stack([o[2] for o in out]),
+            "positive": np.array([o[3] for o in out])}
+
+
+def _journal_summary(path: str) -> dict:
+    with open(path) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    return {"v": [int(r["v"]) for r in recs],
+            "stream": [str(r.get("stream", "")) for r in recs],
+            "device": [str(r.get("device", "")) for r in recs],
+            "segment": [int(r["segment"]) for r in recs],
+            "batch_size": [int(r.get("batch_size", 0)) for r in recs],
+            "has_wait": [int("batch_wait_ms" in r) for r in recs],
+            "plan_demotions": [int(r.get("plan_demotions", 0))
+                               for r in recs]}
+
+
+FLEET_COUNTERS = ("plan_demotions", "device_reinits", "device_drains",
+                  "migrations", "batched_dispatches", "batched_segments",
+                  "fleet_admitted", "fleet_queued", "fleet_rejected",
+                  "fleet_readmitted", "fleet_plan_compiles",
+                  "fleet_plan_cache_hits", "rolled_back_intents",
+                  "ring_cold_dispatches", "segments_dropped")
+FLEET_LABELED = ("plan_demotions", "device_reinits", "migrations",
+                 "segments_dropped", "batched_segments", "segments")
+
+
+def fleet_run(pkg: str, streams: dict, solo: bool = False,
+              pool_halts: list | None = None, rolling: bool = False,
+              pins: dict | None = None, burn: list | None = None,
+              debris: dict | None = None, prom: list | None = None
+              ) -> dict:
+    """One fleet run of ``pkg``: ``streams`` maps a name to its config
+    fields; each stream's decisions captured (and with ``solo`` its solo
+    ``Pipeline`` run's first, each from a fresh registry).  ``pool_halts``
+    schedules member i's virtual halt after K_i dispatches; ``rolling``
+    queues a rolling restart before the run; ``pins`` a stream's
+    ``pin_device``; ``burn`` names streams whose SLO verdict burns."""
+    Config, F, Pipeline, metrics = _fleet_mods(pkg)
+    kw = _cpu_kw(pkg)
+    out: dict = {"solo": {}}
+    for man_path, orphan in (debris or {}).values():
+        # crash debris in a stream's manifest namespace: an uncommitted
+        # intent and its orphaned artifact
+        RunManifest = importlib.import_module(f"{pkg}.io.manifest"
+                                              ).RunManifest
+        m = RunManifest.open(man_path, fsync=False)
+        m.intent((0, 0, "0:WriteSignalSink"), orphan)
+        m.sync()
+        m.close()
+        with open(orphan, "wb") as f:
+            f.write(b"orphan")
+    if solo:
+        for name, fields in streams.items():
+            metrics.reset()
+            cap = DecisionCap()
+            sf = dict(fields, baseband_output_file_prefix=fields[
+                "baseband_output_file_prefix"] + "solo_")
+            sf.pop("telemetry_journal_path", None)
+            with Pipeline(Config(**sf), sinks=[cap], **kw) as pipe:
+                stats = pipe.run()
+            out["solo"][name] = dict(_decisions(cap.out),
+                                     segments=int(stats.segments))
+    metrics.reset()
+    if burn:
+        slo = importlib.import_module(f"{pkg}.utils.slo")
+
+        class _Burning:
+            def evaluate(self):
+                return {b: {"ok": False} for b in burn}
+
+            def note_segment(self, *a, **k):
+                pass
+
+            note_dropped = note_canary = note_segment
+        saved = slo.tracker
+        slo.tracker = _Burning()
+    caps = {name: DecisionCap() for name in streams}
+    specs = [F.StreamSpec(name=name, cfg=Config(**fields),
+                          sinks=[caps[name]],
+                          pin_device=(pins or {}).get(name))
+             for name, fields in streams.items()]
+    try:
+        fleet = F.StreamFleet(specs, **kw)
+        for i, k in enumerate(pool_halts or ()):
+            fleet.pool.schedule_halt(i, after_dispatches=k)
+        if rolling:
+            fleet.rolling_restart()
+        res = fleet.run()
+        out["pool_compiles"] = fleet.pool.compiles
+        out["pool_size"] = len(fleet.pool)
+        out["pool_states"] = [d.state for d in fleet.pool.devices]
+        out["compiles"] = fleet.plans.compiles
+        out["hits"] = fleet.plans.hits
+        fleet.close()
+    finally:
+        if burn:
+            slo.tracker = saved
+    out["results"] = {
+        name: {"status": r.status, "drained": r.drained,
+               "dropped": r.dropped,
+               "error": type(r.error).__name__ if r.error else "",
+               "message": str(r.error) if r.error else "",
+               "segments": int(r.stats.segments) if r.stats else -1,
+               "device": str(r.extras.get("device", "")),
+               "migrations": int(r.extras.get("migrations", 0)),
+               "plan": str(r.extras.get("plan", ""))}
+        for name, r in res.items()}
+    out["decisions"] = {name: _decisions(c.out) for name, c in caps.items()}
+    out["counters"] = {k: float(metrics.get(k)) for k in FLEET_COUNTERS}
+    out["by_label"] = {k: dict(metrics.by_label(k)) for k in FLEET_LABELED}
+    out["journals"] = {
+        name: _journal_summary(f["telemetry_journal_path"])
+        for name, f in streams.items()
+        if f.get("telemetry_journal_path")
+        and os.path.exists(f["telemetry_journal_path"])}
+    out["debris_left"] = [int(os.path.exists(o))
+                          for _m, o in (debris or {}).values()]
+    text = metrics.prometheus()
+    out["prom"] = [int(p in text) for p in (prom or ())]
+    metrics.reset()
+    return out
+
+
+def fleet_resume(pkg: str, golden: dict, first: dict, second: dict
+                 ) -> dict:
+    """A stream killed on pool member 0 (its first run's fatal fault)
+    resumes pinned to member 1: its output set against an uninterrupted
+    golden run's, and fsck of its run directory."""
+    Config, F, Pipeline, metrics = _fleet_mods(pkg)
+    imp = importlib.import_module
+    snapshot = imp(f"{pkg}.tools.crash_soak").snapshot_outputs
+    fsck = imp(f"{pkg}.tools.fsck").fsck
+    kw = _cpu_kw(pkg)
+    metrics.reset()
+    with Pipeline(Config(**golden), **kw) as pipe:
+        pipe.run()
+    gold = snapshot(os.path.dirname(golden["baseband_output_file_prefix"]))
+    out = {"golden_files": len(gold)}
+    for tag, fields, pin in (("p1", first, 0), ("p2", second, 1)):
+        metrics.reset()
+        fleet = F.StreamFleet([F.StreamSpec(name="mig",
+                                            cfg=Config(**fields),
+                                            pin_device=pin)], **kw)
+        r = fleet.run()["mig"]
+        fleet.close()
+        out[tag] = {"status": r.status, "device": r.extras["device"],
+                    "dropped": r.dropped}
+    run_dir = os.path.dirname(second["baseband_output_file_prefix"])
+    out["equal"] = int(snapshot(run_dir) == gold)
+    rep = fsck(second["run_manifest_path"], second["checkpoint_path"])
+    out["fsck_clean"] = int(bool(rep["clean"]))
+    metrics.reset()
+    return out
+
+
+def fleet_units(pkg: str) -> dict:
+    """The fleet's pure parts, scripted: admission (capacity, queue,
+    priority eviction, the loner-family tie-break), the shed policy's
+    order and hysteresis (batch-aware too), placement, the pool, the
+    batch former on stub lanes, the v10/v11 span fields."""
+    imp = importlib.import_module
+    A = imp(f"{pkg}.resilience.admission")
+    D = imp(f"{pkg}.resilience.degrade")
+    PL = imp(f"{pkg}.pipeline.placement")
+    P = imp(f"{pkg}.pipeline.pool")
+    F = imp(f"{pkg}.pipeline.fleet")
+    T = imp(f"{pkg}.utils.telemetry")
+    metrics = imp(f"{pkg}.utils.metrics").metrics
+    out: dict = {}
+    metrics.reset()
+    adm = A.AdmissionController(max_streams=2, queue_limit=1)
+    out["adm"] = [adm.request("a", 0), adm.request("b", 0),
+                  adm.request("c", 1), adm.request("d", 0),
+                  adm.request("e", 5)]
+    out["adm_rejected"] = list(adm.rejected)
+    out["adm_queued"] = list(adm.queued)
+    adm.release("a")
+    out["adm_pop"] = [str(adm.pop_ready()), str(adm.pop_ready())]
+    out["adm_metrics"] = [metrics.get("fleet_rejected"), metrics.get(
+        "fleet_admitted", labels={"stream": "e"})]
+    adm = A.AdmissionController(max_streams=0)
+    out["adm_unlimited"] = [adm.request(f"s{i}", 0) for i in range(10)]
+    ac = A.AdmissionController(max_streams=1, queue_limit=2)
+    out["adm_loner"] = [ac.request("run0", priority=0, plan_key="k1"),
+                        ac.request("lone", priority=0, plan_key="k2"),
+                        ac.request("mate", priority=0, plan_key="k1"),
+                        ac.request("vip", priority=5, plan_key=None)]
+    out["adm_loner_rejected"] = list(ac.rejected)
+    out["adm_loner_queued"] = list(ac.queued)
+    ac = A.AdmissionController(max_streams=1, queue_limit=2)
+    out["adm_nokey"] = [ac.request("run0", priority=0),
+                        ac.request("q0", priority=0),
+                        ac.request("q1", priority=0),
+                        ac.request("vip", priority=5)]
+    out["adm_nokey_rejected"] = list(ac.rejected)
+    ac.note_migration("run0", "dev0", "dev1")
+    out["readmitted"] = [metrics.get("fleet_readmitted"), metrics.get(
+        "fleet_readmitted", labels={"device": "dev1"})]
+    # the shed policy
+    metrics.reset()
+    pol = D.FleetShedPolicy(high=0.9, low=0.25, hold=2)
+    lanes = [("hi", 5, True), ("mid", 3, True), ("lo", 1, True),
+             ("file", 0, False)]
+    out["shed"] = [sorted(pol.observe(p, False, lanes))
+                   for p in (1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+                             0.5, 0.0)]
+    out["shed_lo"] = metrics.get("fleet_sheds", labels={"stream": "lo"})
+    pol = D.FleetShedPolicy(hold=1)
+    blanes = [("bat", 0, True, True), ("solo", 0, True, False)]
+    out["shed_batched"] = [sorted(pol.observe(p, False, blanes))
+                           for p in (1.0, 1.0, 0.0)]
+    pol = D.FleetShedPolicy(hold=1)
+    out["shed_3tuple"] = sorted(pol.observe(1.0, False, [("a", 0, True),
+                                                         ("b", 1, True)]))
+    pol = D.FleetShedPolicy(hold=1)
+    out["shed_loss"] = sorted(pol.observe(0.0, True, lanes))
+    try:
+        D.FleetShedPolicy(high=0.2, low=0.5)
+        out["shed_bad"] = ""
+    except ValueError as e:
+        out["shed_bad"] = str(e)
+    # placement
+    metrics.reset()
+    pool = P.DevicePool(3)
+
+    class Spec:
+        def __init__(self, name, pin=None):
+            self.name = name
+            self.pin_device = pin
+    devs = pool.devices
+    out["tenant"] = [PL.tenant_of("radioA.band0"), PL.tenant_of("flat"),
+                     PL.tenant_of("a.b.c")]
+    out["initial"] = [
+        PL.choose_initial(Spec("x"), devs, {0: 1, 1: 0, 2: 0}).index,
+        PL.choose_initial(Spec("x"), devs, {}).index,
+        PL.choose_initial(Spec("r.b2"), devs, {0: 0, 1: 0, 2: 1},
+                          {0: {"r"}, 1: set()}).index,
+        PL.choose_initial(Spec("r.b3"), devs[:2], {0: 0, 1: 0},
+                          {0: {"r"}, 1: {"r"}}).index,
+        PL.choose_initial(Spec("p", pin=2), devs, {2: 9}).index]
+    pins = []
+    for pin, healthy in ((5, devs), (1, [devs[0], devs[2]])):
+        try:
+            PL.choose_initial(Spec("p", pin=pin), healthy, {})
+            pins.append("")
+        except ValueError as e:
+            pins.append(str(e))
+    out["pin_errors"] = pins
+    out["target"] = [
+        PL.choose_target("s", 0, devs, {0: 0, 1: 2, 2: 1}).index,
+        str(PL.choose_target("s", 0, devs[:1], {0: 0})),
+        PL.choose_target("t.x", 1, devs, {0: 1, 1: 0, 2: 1},
+                         {0: {"t"}, 2: set()}).index]
+    # the pool
+    metrics.reset()
+    one = P.DevicePool(1)
+    out["pool1"] = [len(one), one.devices[0].label,
+                    metrics.get("fleet_pool_size")]
+    pool = P.DevicePool(2)
+    out["pool_distinct"] = int(pool.devices[0].plans
+                               is not pool.devices[1].plans)
+    dev = pool.devices[1]
+    dev.schedule_halt(2)
+    fired = []
+    for _ in range(5):
+        try:
+            dev.note_dispatch()
+            fired.append(0)
+        except Exception as e:  # noqa: BLE001 - the virtual halt
+            fired.append(1)
+            out["halt_type"] = type(e).__name__
+            out["halt_msg"] = str(e)
+    out["halt_fired"] = fired
+    dev0 = pool.devices[0]
+    dev0.schedule_halt(0)
+    dev0.note_dispatch(check=False)
+    out["batch_skip"] = dev0.dispatches
+    try:
+        dev0.note_dispatch()
+        out["after_batch"] = 0
+    except Exception:  # noqa: BLE001 - fires at the solo boundary
+        out["after_batch"] = 1
+    dev.set_state(P.STATE_HALTED)
+    pool.devices[0].set_state(P.STATE_DRAINING)
+    out["gauges"] = [metrics.get("fleet_device_state",
+                                 labels={"device": "dev0"}),
+                     metrics.get("fleet_device_state",
+                                 labels={"device": "dev1"})]
+    out["healthy_halted"] = [d.index for d in pool.healthy()]
+    try:
+        dev.set_state("bogus")
+        out["bad_state"] = ""
+    except ValueError as e:
+        out["bad_state"] = str(e)
+    pool.invalidate_all()
+    out["rearmed"] = [d.state for d in pool.devices]
+    out["total_dispatches"] = pool.total_dispatches
+    # the batch former on stub lanes (the reference's own stubs)
+
+    class StubLane:
+        def __init__(self, name, priority, proc):
+            self.name = name
+            self.priority = priority
+            self.pipe = type("P", (), {"processor": proc})()
+
+    def former(batch_max, linger_s=0.0):
+        f = F._BatchFormer.__new__(F._BatchFormer)
+        F._BatchFormer.__init__(f, fleet=None, batch_max=batch_max,
+                                linger_s=linger_s)
+        return f
+    proc = object()
+    fm = former(4)
+    shared, solo = [], []
+    fm._dispatch_shared = lambda p, slots: shared.append(
+        [s.lane.name for s in slots])
+    fm._single_fallback = lambda slot, requeue=False: solo.append(
+        slot.lane.name)
+    lanes = [StubLane("low", 0, proc), StubLane("high", 9, proc),
+             StubLane("mid", 1, proc)]
+    for i, lane in enumerate(lanes):
+        fm.offer(lane, (object(), 0, 0.0), i)
+    out["former_before"] = len(shared)
+    out["former_flush"] = int(fm.flush_all())
+    for i, lane in enumerate(lanes + lanes[:2]):
+        fm.offer(lane, (object(), 0, 0.0), 10 + i)
+    out["former_auto"] = len(shared)
+    fm.flush_all()
+    out["former_shared"] = shared
+    out["former_solo"] = solo
+    fm = former(4, linger_s=0.05)
+    solo2 = []
+    fm._single_fallback = lambda slot, requeue=False: solo2.append(1)
+    fm.offer(StubLane("a", 0, object()), (object(), 0, 0.0), 0)
+    pumps = [int(fm.pump())]
+    time.sleep(0.08)
+    pumps += [int(fm.pump()), int(fm.pump())]
+    out["former_pump"] = pumps
+    out["former_pump_solo"] = len(solo2)
+    pa, pb = object(), object()
+    fm = former(2)
+    calls = []
+    fm._dispatch_shared = lambda p, slots: calls.append(
+        (int(p is pa), sorted(s.lane.name for s in slots)))
+    fm._single_fallback = lambda slot, requeue=False: None
+    fm.offer(StubLane("a0", 0, pa), (object(), 0, 0.0), 0)
+    fm.offer(StubLane("b0", 0, pb), (object(), 0, 0.0), 0)
+    out["former_groups_before"] = len(calls)
+    fm.offer(StubLane("a1", 0, pa), (object(), 0, 0.0), 0)
+    out["former_groups"] = calls
+    fm = former(4)
+    x = StubLane("x", 0, proc)
+    fm.offer(x, (object(), 0, 0.0), 0)
+    fm.drop_lane(x)
+    out["former_dropped"] = len(fm._groups)
+    # the v10 / v11 span fields
+    rec = T.segment_span(0, {"dispatch": 0.1}, 0, 0, False, 1024)
+    out["span_solo"] = sorted(k for k in ("batch_size", "batch_wait_ms",
+                                          "device") if k in rec)
+    rec = T.segment_span(0, {"dispatch": 0.1}, 0, 0, False, 1024,
+                         batch_size=3, batch_wait_ms=1.234, device="dev1",
+                         stream="x")
+    out["span_batched"] = [rec["batch_size"], rec["batch_wait_ms"],
+                           rec["device"], rec["v"], rec["stream"]]
+    metrics.reset()
+    return out
+
+
 def _main(req: str, out: str) -> None:
     _apply_jax_shim()
     _refill_reference_window()

@@ -130,6 +130,14 @@ def ref(tmp_path_factory, work):
                       "args": [_both_fields(base, "both", True)],
                       "kwargs": {"capture": False, "source_fields":
                                  _both_fields(base, "both", False)}})
+    # the chaos soak's pool-scoped halt (its fourth phase, a one-stream
+    # fleet on a two-member pool)
+    os.makedirs(base / "chaos_pool", exist_ok=True)
+    halves[1].append({"key": "chaos_pool",
+                      "fn": "srtb_tpu.tools.chaos_soak:run_soak",
+                      "kwargs": {"segments": 3, "log2n": 12,
+                                 "plan": "device:halt@2",
+                                 "tmpdir": str(base / "chaos_pool")}})
     dirs = [tmp_path_factory.mktemp("ref_selfheal") for _ in halves]
     with ThreadPoolExecutor(2) as pool:
         outs = list(pool.map(
@@ -667,7 +675,20 @@ def test_chaos_soak_selftest_is_sharp():
     assert CS.selftest(device="cpu") == []
 
 
-def test_chaos_soak_refuses_pool_halts(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        CS.run_soak(segments=3, log2n=12, plan="device:halt@2",
-                    tmpdir=str(tmp_path), device="cpu")
+def test_chaos_soak_refuses_pool_halts(tmp_path, ref):
+    """A pool-scoped ``device:halt@2`` runs as the soak's fourth phase (a
+    one-stream fleet on a two-member pool, the halted member drained onto
+    the survivor) and gives the reference's report: the same segments,
+    drains, migrations, no reinit, no demotion, no loss."""
+    rep = CS.run_soak(segments=3, log2n=12, plan="device:halt@2",
+                      tmpdir=str(tmp_path), device="cpu")
+    assert rep["ok"] and bool(ref["chaos_pool/ok"])
+    assert rep["pool_halts"] == ref["chaos_pool/pool_halts"].tolist() == [2]
+    for key in ("segments", "drained", "dropped", "plan_demotions",
+                "device_reinits"):
+        assert rep[key] == int(ref[f"chaos_pool/{key}"]), key
+    for key in ("device_drains", "migrations", "device_reinits",
+                "segments_dropped", "plan_demotions"):
+        assert rep["pool_counters"][key] == \
+            int(ref[f"chaos_pool/pool_counters/{key}"]), key
+    assert rep["pool_counters"]["device_drains"] == 1

@@ -391,7 +391,7 @@ def test_healthz_goes_stale_and_fleet_stays_unported(fresh, tmp_path):
         status, body = get("/healthz")
         assert status == 503 and json.loads(body)["status"] == "stale"
         status, body = get("/fleet")
-        assert status == 501 and "ROADMAP A8" in body
+        assert status == 501 and "ROADMAP A8c" in body
         status, body = get("/metrics")
         assert status == 200 and "srtb_last_segment_monotonic" in body
     finally:
