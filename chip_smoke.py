@@ -113,7 +113,7 @@ result lines are printed:
    from files of the overlap-save layout, while ``Pipeline(cfg,
    source=...)`` searches them at the engine's defaults: ``live_2^30``
    (staged_2^30's cfg, one ``UdpReceiverSource``, 3 segments, the pulse
-   in the first; if packets are lost, again without the pulse) and
+   in the first) and
    ``live2rx_2^27`` (fused_2^27's cfg on two ports,
    ``MultiUdpSource``, 4 segments a port, the pulse on port 0 only).
    Each prints its provider (it must be the native recvmmsg one), packets
@@ -224,6 +224,24 @@ result lines are printed:
    2^27 samples a segment (3 streams of ``A8B_SOAK_SEGMENTS``, inputs
    made on the card) with the victim's injected out-of-memory (gates a,
    b, c) and its selftest.  The phase fails past ``A8B_BUDGET_S``.
+16. a8c (right after a8b, on a8b's four beam files and their solo
+   goldens): ``archive_2^27``, ``pipeline/archive.ArchiveReplay`` over
+   the four files at the archive's defaults (2 lanes, micro-batch 4, 8
+   in flight) on the card: one plan compile, none failed, 16 of 16
+   segments drained, B13 1, B6 2, K2 1 and B8 1 launches a segment, every
+   artifact (the raw dumps, waterfalls and series) the solo runs' by
+   name and SHA-256 (the port's micro-batch runs a member at a time),
+   Msamples/s over the replay's ``elapsed_s`` beside the solo runs back
+   to back, the peak beside its reckoning; ``fleet_status()`` right
+   after it (the card's one member ``ok``, the four streams' segments),
+   the viewer's ``/fleet`` answering 200 with the same payload and
+   ``console --url`` rendering it; ``race_soak``'s selftest (sharp) and
+   ``run_race_soak`` at 2^16 on the card under a deadline, its migrate
+   phase on the CPU's virtual pool (asked for, and said so on its line);
+   then the archive's selftest, ``archive_replay --selftest --device
+   cuda`` through its ``main`` (the SIGTERM landed, the resume's outputs
+   the streamed goldens' by SHA-256, its children on the card).  The
+   phase fails past ``A8C_BUDGET_S``.
 
 The last two lines are the kernels' JSON record and the result line.
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -6508,7 +6526,10 @@ def phase_a8b(card: str) -> dict:
     """The stream fleet on the card (ROADMAP A8b): the four streams' solo
     goldens, ``fleet_2^27``, ``fleet_batch_2^27`` and the card's
     ``fleet_soak`` with its selftest (see the module docstring, phase
-    15).  Returns the fleet legs' launch counts by path."""
+    15).  Returns the fleet legs' launch counts by path (``counts``) and
+    what the a8c phase reuses (``kept``): the four input files, the solo
+    goldens' SHA-256 maps and directories, and the solo runs' engine and
+    wall seconds; the fleet legs' outputs are deleted."""
     import shutil
     import torch
     from srtb_tpu_torch.tools import fleet_soak as FS
@@ -6649,15 +6670,230 @@ def phase_a8b(card: str) -> dict:
         f"{'sharp' if not fails else fails}, {t3 - t2:.1f} s; card {card}")
     if not soak["ok"] or fails:
         fail(f"a8b fleet_soak: {soak}, selftest {fails}")
-    shutil.rmtree(root)
+    # the inputs and the solo goldens stay for the a8c phase, which
+    # deletes them
+    for p in root.iterdir():
+        if p.is_dir() and not p.name.startswith("solo_"):
+            shutil.rmtree(p)
     free_card()
     took = time.perf_counter() - t0
     say(f"a8b: phase {took:.1f} s (budget {A8B_BUDGET_S:g} s); card {card}")
     if took > A8B_BUDGET_S:
         fail(f"a8b: the phase took {took:.1f} s, over its "
              f"{A8B_BUDGET_S:g} s budget")
-    return {label: {"counts": run["counts"]} for label, run in legs.items()}
+    return {"counts": {label: {"counts": run["counts"]}
+                       for label, run in legs.items()},
+            "kept": {"data": data, "solo": solo, "root": root,
+                     "solo_engine_s": solo_engine_s,
+                     "solo_wall": solo_wall}}
 
+
+
+# the a8c phase: the archive replay over a8b's four beam files (their solo
+# goldens were written with deterministic timestamps, so each artifact's
+# name is the archive's but for the prefix), at the archive's defaults
+A8C_LANES = 2
+A8C_MICRO_BATCH = 4
+A8C_INFLIGHT = 8
+# the archive's selftest at its defaults (4 segments a file, 2^13), its
+# command line's argv (``python -m srtb_tpu_torch.tools.archive_replay``)
+# through its ``main`` in this process; its children run on the card
+A8C_SELFTEST = ("--selftest", "--device", "cuda")
+# the race soak on the card at a small depth; its migration phase on the
+# CPU's virtual pool (the card's machine has one card)
+A8C_RACE = dict(streams=2, segments=3, log2n=16, seed=1, batch=2)
+A8C_RACE_DEADLINE_S = 120.0
+# the phase's share of the script's clock (seconds)
+A8C_BUDGET_S = 60.0
+
+
+def _a8c_status(card: str) -> None:
+    """``fleet_status()`` right after the archive: the card's one member
+    ``ok``, the four streams' segments; the viewer's ``/fleet`` answering
+    200 with the same payload; ``console --url`` rendering it."""
+    import contextlib
+    import io
+    import urllib.request
+    from srtb_tpu_torch.gui.server import WaterfallHTTPServer
+    from srtb_tpu_torch.obs.status import fleet_status
+    from srtb_tpu_torch.tools import console
+    status = fleet_status()
+    devices, streams = status["devices"], status["streams"]
+    if status["pool"]["members"] != 1 or \
+            [d["state"] for d in devices.values()] != ["ok"]:
+        fail(f"a8c fleet_status: pool {status['pool']}, devices {devices}")
+    if {n: s.get("segments") for n, s in streams.items()} != \
+            {n: A8B_SEGMENTS for n in A8B_STREAMS}:
+        fail(f"a8c fleet_status: streams {streams}")
+    server = WaterfallHTTPServer(str(OUT_DIR / "a8c"), port=0).start()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        with urllib.request.urlopen(base + "/fleet", timeout=10) as r:
+            code, ctype = r.status, r.headers.get("Content-Type", "")
+            served = json.loads(r.read().decode())
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = console.main(["--url", base, "--once"])
+    finally:
+        server.stop()
+    frame = buf.getvalue()
+    for key in ("devices", "pool", "streams", "batch"):
+        if served[key] != status[key]:
+            fail(f"a8c /fleet: {key} {served[key]} against fleet_status()'s "
+                 f"{status[key]}")
+    if code != 200 or ctype != "application/json" or rc != 0 or \
+            "POOL  members=1" not in frame or "STREAMS" not in frame:
+        fail(f"a8c /fleet {code} {ctype}, console rc {rc}:\n{frame}")
+    say(f"a8c fleet_status: /fleet {code} ({ctype}), keys "
+        f"{sorted(status)}; devices "
+        f"{ {d: (v['state'], v['lanes']) for d, v in devices.items()} }; "
+        f"streams {len(streams)} "
+        f"{ {n: s.get('segments') for n, s in sorted(streams.items())} } "
+        f"segments; batch {status['batch']}; console --url rc {rc}, "
+        f"{len(frame.splitlines())} lines; card {card}")
+
+
+def phase_a8c(card: str, kept: dict) -> dict:
+    """The modules on the fleet on the card (ROADMAP A8c): ``archive_2^27``
+    (the archive replay over a8b's four beam files, equal to their solo
+    runs), the archive's selftest in a process of its own, the fleet's
+    status through ``/fleet`` and the console, and the race soak (see the
+    module docstring, phase 16).  Deletes a8b's kept files; returns the
+    archive's launch counts by path."""
+    import shutil
+    import torch
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.pipeline.archive import ArchiveReplay
+    from srtb_tpu_torch.tools import archive_replay as AR
+    from srtb_tpu_torch.tools import race_soak as RS
+    t0 = time.perf_counter()
+    root = OUT_DIR / "a8c"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    # archive_2^27: the base cfg is fused_2^27's (each lane's prefix,
+    # checkpoint, manifest and batch depth are the archive's)
+    cfg, _text = path_cfg(root / "cfg", PALLAS_27, LOG2_N_ROWS,
+                          "archive_2^27")
+    files = [str(kept["data"][n]) for n in A8B_STREAMS]
+    # the solo goldens under the archive's names (each lane's prefix is
+    # its stream's name where the solo run's was "out_")
+    golden = {f"{name}_{fname[len('out_'):]}": sha
+              for name in A8B_STREAMS
+              for fname, sha in kept["solo"][name].items()}
+    n_seg = len(A8B_STREAMS) * A8B_SEGMENTS
+    samples = n_seg * (1 << LOG2_N_ROWS)
+    wf_gb = 8 * (1 << LOG2_CHANNELS) * (1 << 15) / 1e9
+    reckoned = A8B_SOLO_PEAK_GB + (A8C_LANES * A8C_INFLIGHT - 2) * wf_gb
+    out_dir = root / "archive"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fresh_telemetry()
+    K.reset_launch_counts()
+    rep = ArchiveReplay(cfg, files, str(out_dir), lanes=A8C_LANES,
+                        micro_batch=A8C_MICRO_BATCH,
+                        inflight=A8C_INFLIGHT).run()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    d = rep.as_dict()
+    if d["plan_compiles"] != 1 or d["failed"] or \
+            not d["drained"] == d["segments"] == n_seg:
+        fail(f"a8c archive_2^27: report {d}")
+    _check_launches("a8c archive_2^27", counts, A8B_LAUNCHES, n_seg)
+    got = AR._sha_map(str(out_dir))
+    if got != golden:
+        fail(f"a8c archive_2^27 against the solo runs: only in the archive "
+             f"{sorted(set(got) - set(golden))}, only in the solo runs "
+             f"{sorted(set(golden) - set(got))}, differing by SHA-256 "
+             f"{sorted(k for k in set(got) & set(golden) if got[k] != golden[k])}")
+    b2b = samples / sum(kept["solo_engine_s"].values()) / 1e6
+    b2b_wall = samples / sum(kept["solo_wall"].values()) / 1e6
+    say(f"a8c archive_2^27: {len(files)} files, lanes {A8C_LANES}, "
+        f"micro-batch {A8C_MICRO_BATCH}, in flight {A8C_INFLIGHT}: "
+        f"drained {d['drained']} of {d['segments']} segments, failed "
+        f"{d['failed']}, {d['plan_compiles']} plan compile(s), batched "
+        f"dispatches {d['batched_dispatches']}; "
+        f"{samples / rep.elapsed_s / 1e6:.1f} Msamples/s over the replay's "
+        f"elapsed_s {rep.elapsed_s:.3f} s (the fleet's construction in it), "
+        f"the solo runs back to back {b2b_wall:.1f} over their walls with "
+        f"construction ({b2b:.1f} over their engines' seconds); peak "
+        f"{peak} bytes ({peak / 1e9:.2f} GB, reckoned {reckoned:.2f}: "
+        f"fused_2^27 alone {A8B_SOLO_PEAK_GB} GB holding 2 waterfalls, plus "
+        f"{wf_gb:.3f} GB for each further one of {A8C_LANES} lanes x "
+        f"{A8C_INFLIGHT} in flight); launches {counts}; artifacts equal the "
+        f"solo runs' by name and SHA-256 ({len(got)} files, "
+        f"{sum(k.endswith('.bin') for k in got)} raw dumps); card {card}")
+    _a8c_status(card)
+    t1 = time.perf_counter()
+    fails = RS.selftest()
+    if fails:
+        fail(f"a8c race_soak --selftest: {fails}")
+    t2 = time.perf_counter()
+    # the race soak's and the selftest's temporary files under the phase's
+    # directory, deleted with it
+    import contextlib
+    import io
+    import tempfile
+    tmp = root / "tmp"
+    tmp.mkdir()
+    saved, tempfile.tempdir = tempfile.tempdir, str(tmp)
+    try:
+        try:
+            race = RS.run_race_soak(**A8C_RACE,
+                                    deadline_s=A8C_RACE_DEADLINE_S,
+                                    device="cuda", migrate_device="cpu")
+        except AssertionError as e:
+            fail(f"a8c race_2^16: {e}")
+        t3 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = AR.main(list(A8C_SELFTEST))
+    finally:
+        tempfile.tempdir = saved
+    t4 = time.perf_counter()
+    lines = buf.getvalue().splitlines()
+    report = None
+    if lines and lines[-1].startswith("{"):
+        report = json.loads(lines[-1])
+    if rc != 0 or report is None or not report.get("ok") or \
+            not report.get("killed_mid_run") or \
+            report.get("batch_bitwise") != report.get("artifacts"):
+        fail(f"a8c archive_selftest: rc {rc}, report {report}:\n"
+             + "\n".join(lines[-30:]))
+    say(f"a8c archive_selftest (archive_replay {' '.join(A8C_SELFTEST)}): "
+        f"rc {rc}, SIGTERM landed with bb0 at "
+        f"{report['bb0_segments_at_kill']} segments, resumed: "
+        f"{report['artifacts']} artifacts of {report['segments']} segments "
+        f"equal the streamed goldens by SHA-256, fsck clean, no orphan "
+        f"temp; the micro-batched leg {report['batch_bitwise']} of "
+        f"{report['artifacts']} bitwise; device {report['device']}; "
+        f"{t4 - t3:.1f} s; card {card}")
+    if not race["ok"] or race["perturbs"] <= 0 or \
+            not race["device"].startswith("cuda"):
+        fail(f"a8c race_2^16: {race}")
+    say(f"a8c race_2^16: race_soak --selftest sharp (the inverted order "
+        f"raised, the consistent order did not), {t2 - t1:.1f} s; "
+        f"run_race_soak {json.dumps(A8C_RACE)} deadline "
+        f"{A8C_RACE_DEADLINE_S:g} s on {race['device']}: fleet_soak gates "
+        f"(a), (b), (c) passed, drained {race['drained']}, dropped "
+        f"{race['dropped']}, {race['batched_dispatches']} formed batches, "
+        f"{race['perturbs']} perturbations at {race['perturb_sites']}, the "
+        f"journal replayed exactly; migrate phase device: "
+        f"{race['migrate_device']}, {race['migrations']} migrations, "
+        f"{race['migrate_device_drains']} drains; {t3 - t2:.1f} s; card "
+        f"{card}")
+    if race["migrate_device"] != "cpu (virtual pool)":
+        fail(f"a8c race_2^16: migrate phase on {race['migrate_device']}")
+    shutil.rmtree(root)
+    shutil.rmtree(kept["root"])
+    free_card()
+    took = time.perf_counter() - t0
+    say(f"a8c: phase {took:.1f} s (budget {A8C_BUDGET_S:g} s); card {card}")
+    if took > A8C_BUDGET_S:
+        fail(f"a8c: the phase took {took:.1f} s, over its "
+             f"{A8C_BUDGET_S:g} s budget")
+    return {"archive_2^27": {"counts": counts}}
 
 def phase_correlator(card: str) -> dict:
     """correlator_2^30: two 8-bit files of 2^30 samples made on the card,
@@ -6752,10 +6988,11 @@ def check_same_candidates(staged: dict, quality: dict) -> None:
 # the window phase's file (True) or the main path's two-segment one)
 THREADED_PATHS = (("threaded_2^30", "staged_2^30", False),
                   ("threaded_2^27", "fused_2^27", True))
-# the live harness at the cfg's geometry: real time, 4 segments, the pulse
-# in the first, the deadline armed
+# the live harness at the cfg's geometry: real time, 2 segments (a depth
+# cut from 4 for the script's clock: each costs 8.4 s at 1x), the pulse in
+# the first, the deadline armed
 E2E_LABEL = "e2e_live_2^30"
-E2E_SEGMENTS = 4
+E2E_SEGMENTS = 2
 E2E_PLAN = "staged:four_step"
 E2E_LAUNCHES = {"unpack_subbyte_window": 1, "dedisperse": 1}
 # the compiled-kernel cache's children: the fused_2^27 main path's cfg
@@ -6858,7 +7095,7 @@ def a9d_threaded(card: str, window: dict, runs: dict) -> dict:
 
 def a9d_e2e_live(card: str, runs: dict) -> dict:
     """(b) ``python -m srtb_tpu_torch.tools.e2e_live`` at 2^30 / 2^11, real
-    time, 4 segments, the pulse in the first, /metrics served, the
+    time, ``E2E_SEGMENTS`` segments, the pulse in the first, /metrics served, the
     deadline armed: the run completes, the plan and the launches a
     segment are expected ones, the pulse's segment is positive, every
     packet slot is accounted (received + lost); its loss beside
@@ -7489,8 +7726,11 @@ def main() -> int:
     free_card()
     runs["a8a_2^30"] = phase_a8a(card, made, runs["dmsearch_2^30"])
     lap("a8a")
-    runs.update(phase_a8b(card))
+    a8b = phase_a8b(card)
+    runs.update(a8b["counts"])
     lap("a8b")
+    runs.update(phase_a8c(card, a8b["kept"]))
+    lap("a8c")
     runs["correlator_2^30"] = phase_correlator(card)
     free_card()
     lap("search modes")
@@ -7519,12 +7759,6 @@ def main() -> int:
             in LIVE_PATHS:
         runs[label] = phase_live_path(card, label, log2_n, extra, segments,
                                       pulse, ports, per_segment)
-        if runs[label]["lost"]:
-            # where the loss comes from: the same stream without the
-            # pulse, so without the positive's waterfall dump in the sink
-            say(f"live {label}: packets lost; again without the pulse")
-            phase_live_path(card, f"{label}_no_pulse", log2_n, extra,
-                            segments, None, ports, per_segment)
     lap("live")
     a9d = phase_a9d(card, window, runs)
     runs.update({label: {"counts": counts}

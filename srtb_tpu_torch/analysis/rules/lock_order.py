@@ -11,9 +11,9 @@ caught even when the two halves live in different functions or
 modules.  A self-edge (re-acquiring a non-reentrant lock already
 held) is the degenerate cycle and equally fatal.
 
-The reference's runtime twin, ``analysis/tsan.py`` (``Config.tsan``),
-arms only the fleet's locks (``pipeline/fleet.py``, A8b); it comes in
-ROADMAP A8c, with ``race_soak``.
+The runtime twin, ``analysis/tsan.py`` (``Config.tsan``), arms the
+fleet's locks (``pipeline/fleet.py``) and traps an inverted order live;
+``tools/race_soak.py`` drives it under seeded schedule perturbation.
 """
 
 from __future__ import annotations

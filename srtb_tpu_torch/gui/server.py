@@ -14,8 +14,10 @@ the metrics registry (``utils/metrics.py``), each after the SLO tracker's
 evaluation; ``/healthz`` serves ``utils/telemetry.health``: 200 while the
 last segment is younger than ``health_stale_after_s`` (or before the
 first), 503 once it is older, with the per-stream breakdown.  All three
-answer as the reference's.  ``/fleet`` (the fleet's status, the
-reference's ``obs/status.py``, ROADMAP A8c) answers 501 naming that item.
+answer as the reference's.  ``/fleet`` serves the fleet's status
+(``obs/status.fleet_status``: pool members, streams, SLO burn, roofline,
+batch occupancy, drift), with the rollup store's tail when the server was
+started with ``fleet_store_dir``.
 """
 
 from __future__ import annotations
@@ -152,16 +154,10 @@ contrast <input class="contrast" type="range" min="20" max="300"
 """
 
 
-# endpoints of later slices: path -> the ROADMAP item they wait for
-UNPORTED_ENDPOINTS = {
-    "/fleet": ("ROADMAP A8c: the fleet's status (obs/status.py over the "
-               "fleet of pipeline/fleet.py)"),
-}
-
-
 class _Handler(http.server.BaseHTTPRequestHandler):
     directory = "."
     health_stale_after_s = 30.0
+    fleet_store_dir = ""  # rollup store surfaced via /fleet
 
     def log_message(self, *args):  # quiet
         pass
@@ -219,10 +215,13 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             self._send(200 if h["ok"] else 503, "application/json",
                        (json.dumps(h, sort_keys=True) + "\n").encode())
             return
-        if self.path in UNPORTED_ENDPOINTS:
-            self._send(501, "text/plain", (
-                f"{self.path} is not ported yet "
-                f"({UNPORTED_ENDPOINTS[self.path]})\n").encode())
+        if self.path == "/fleet":
+            # the control tower's status snapshot, plus the rollup-store
+            # tail when the server was started with fleet_store_dir
+            from srtb_tpu_torch.obs.status import fleet_status
+            status = fleet_status(store_dir=self.fleet_store_dir)
+            self._send(200, "application/json", (json.dumps(
+                status, sort_keys=True) + "\n").encode())
             return
         if self.path == "/frames.json":
             self._send(200, "application/json", (json.dumps(
@@ -266,10 +265,12 @@ class WaterfallHTTPServer:
 
     def __init__(self, directory: str, port: int = 0,
                  address: str = "127.0.0.1",
-                 health_stale_after_s: float = 30.0, supervisor=None):
+                 health_stale_after_s: float = 30.0, supervisor=None,
+                 fleet_store_dir: str = ""):
         handler = type("Handler", (_Handler,), {
             "directory": directory,
-            "health_stale_after_s": float(health_stale_after_s)})
+            "health_stale_after_s": float(health_stale_after_s),
+            "fleet_store_dir": fleet_store_dir})
         self._httpd = http.server.ThreadingHTTPServer((address, port),
                                                       handler)
         self.port = self._httpd.server_address[1]

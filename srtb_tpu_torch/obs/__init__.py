@@ -11,13 +11,13 @@ dumps, ``/metrics``, the perf ledger).
 - :mod:`~srtb_tpu_torch.obs.trace_join` — the cross-device Perfetto
   export, one process track per device;
 - :mod:`~srtb_tpu_torch.obs.regression` — the mid-run regression watch
-  (rollup medians against the perf ledger's history).
-
-The reference's ``obs/status.py`` (the ``/fleet`` payload and the
-console's data) reads the fleet (``pipeline/fleet.py``, A8b) and its pool
-and comes in ROADMAP A8c.
+  (rollup medians against the perf ledger's history);
+- :mod:`~srtb_tpu_torch.obs.status` — the fleet's status snapshot (pool
+  members, streams, SLO burn, batch occupancy, the store's tail): the
+  viewer's ``/fleet`` payload and ``tools/console.py``'s data.
 """
 
 from __future__ import annotations
 
-__all__ = ["digest", "store", "rollup", "trace_join", "regression"]
+__all__ = ["digest", "store", "rollup", "trace_join", "regression",
+           "status"]

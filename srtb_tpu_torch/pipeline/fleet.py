@@ -62,6 +62,9 @@ process resumes from each stream's checkpoint.
 Limits (the reference's, enforced loudly): real-time lanes dispatch one
 segment at a time (``micro_batch_segments > 1`` is refused there; file
 lanes may micro-batch); ``Config.sanitize`` is refused inside a fleet.
+``Config.tsan`` arms the runtime concurrency checker
+(``analysis/tsan.py``) on the lanes' live locks, the scheduler's wake
+condition, the batch former's slots and the lanes' step and sink state.
 """
 
 from __future__ import annotations
@@ -245,6 +248,11 @@ class _BatchFormer:
         """Park one read segment ``(seg, offset_after, ingest_s)`` in its
         family's forming batch; returns the slot the lane appends to
         ``pending``.  Reaching ``batch_max`` flushes the family now."""
+        ts = getattr(self.fleet, "_tsan", None)
+        if ts is not None:
+            # group slots are scheduler-owned (offer/pump/flush all run
+            # on the scheduler thread): claim-on-first-use
+            ts.assert_owner("former.groups")
         seg, offset_after, ingest_s = one
         slot = _BatchSlot(lane, seg, ingest_s, offset_after, index)
         proc = lane.pipe.processor
@@ -261,6 +269,9 @@ class _BatchFormer:
         """The linger check, paced by the scheduler: flush every family
         whose oldest live offer waited past the deadline.  True when
         anything dispatched."""
+        ts = getattr(self.fleet, "_tsan", None)
+        if ts is not None:
+            ts.assert_owner("former.groups")
         now = time.perf_counter()
         flushed = False
         for key in list(self._groups):
@@ -276,6 +287,9 @@ class _BatchFormer:
     def flush_all(self) -> bool:
         """Idle-scheduler flush: nothing else can progress, so every
         pending offer dispatches now."""
+        ts = getattr(self.fleet, "_tsan", None)
+        if ts is not None:
+            ts.assert_owner("former.groups")
         flushed = False
         for key in list(self._groups):
             if any(not s.cancelled for s in self._groups[key][1]):
@@ -310,6 +324,9 @@ class _BatchFormer:
     # -------------------------------------------------------- dispatch
 
     def _flush(self, key: int) -> None:
+        ts = getattr(self.fleet, "_tsan", None)
+        if ts is not None:
+            ts.assert_owner("former.groups")
         proc, slots = self._groups.pop(key)
         live = [s for s in slots if not s.cancelled]
         live.sort(key=lambda s: (-s.lane.priority, s.t_offer, s.lane.name))
@@ -557,8 +574,12 @@ class _StreamLane:
         self._t_start = time.perf_counter()
         self._t_close = None
         # dispatched-through-sink count, written by the scheduler thread
-        # and the lane's sink thread
-        self._live_lock = threading.Lock()
+        # and the lane's sink thread (instrumented under Config.tsan)
+        if fleet._tsan is not None:
+            self._live_lock = fleet._tsan.lock(
+                f"lane.{spec.name}._live_lock")
+        else:
+            self._live_lock = threading.Lock()
         self._live = 0
         self._stop = fw.StopToken()
         self._q_sink = fw.WorkQueue(capacity=self.window)
@@ -590,6 +611,10 @@ class _StreamLane:
     # ------------------------------------------------------- sink side
 
     def _sink_f(self, _stop, item):
+        ts = getattr(self.fleet, "_tsan", None)
+        if ts is not None:
+            # per-lane sink state is sink-thread-owned
+            ts.assert_owner(f"lane.{self.name}.sink")
         self._current[0] = item
         self._progress[0] = self.drained[0]
         try:
@@ -626,6 +651,10 @@ class _StreamLane:
             else:
                 log.warning(f"[fleet:{self.name}] sink crashed after its "
                             "segment was accounted; skipping replay")
+        if self.fleet._tsan is not None:
+            # the restarted pipe is a NEW thread: drop the crashed
+            # thread's ownership claim so the successor can re-claim
+            self.fleet._tsan.release_owners(f"lane.{self.name}.sink")
         self._sink_pipe = fw.start_pipe(
             self._sink_f, self._q_sink, None, self._stop,
             f"sink_drain:{self.name}", on_done=self.fleet._notify)
@@ -882,6 +911,10 @@ class _StreamLane:
         loss."""
         if self.done:
             return False
+        ts = getattr(self.fleet, "_tsan", None)
+        if ts is not None:
+            # lane step state is scheduler-owned: claim-on-first-use
+            ts.assert_owner(f"lane.{self.name}.step")
         try:
             return self._step_inner(allow_block)
         except (KeyboardInterrupt, SystemExit):
@@ -1137,10 +1170,14 @@ class StreamFleet:
             s.cfg.stream_name = s.name
         self.specs = {s.name: s for s in specs}
         cfg0 = fleet_cfg if fleet_cfg is not None else specs[0].cfg
+        # the opt-in runtime concurrency checker (analysis/tsan.py,
+        # Config.tsan): None when off, every hook site an `if ts is not
+        # None`, and the locks plain threading objects, so the disabled
+        # path has no wrapper indirection
+        self._tsan = None
         if getattr(cfg0, "tsan", False):
-            raise NotImplementedError(
-                "Config.tsan arms the reference's runtime concurrency "
-                "checker (analysis/tsan.py), not ported yet (ROADMAP A8c)")
+            from srtb_tpu_torch.analysis.tsan import Tsan
+            self._tsan = Tsan()
         self.device = resolve_device(device)
         self.pool = DevicePool.from_config(cfg0, self.device)
         # the member-0 cache (the one-member pool's only one)
@@ -1165,7 +1202,8 @@ class StreamFleet:
         # sink threads wake an idle scheduler through this condition; the
         # sequence number closes the race between its progress check and
         # its wait
-        self._wake = threading.Condition()
+        self._wake = (self._tsan.condition("fleet._wake")
+                      if self._tsan is not None else threading.Condition())
         self._wake_seq = 0
         # the SHARED reinit budget of a halt with no peer
         self._reinit_sup = None
@@ -1531,6 +1569,10 @@ class StreamFleet:
                         self._wake.wait(left)
         finally:
             metrics.set("fleet_running", 0)
+            if self._tsan is not None:
+                # a later run() may be driven from another thread: claims
+                # are per run, the order graph persists
+                self._tsan.release_owners()
         return self.results
 
     def close(self) -> None:

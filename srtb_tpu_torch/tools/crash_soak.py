@@ -218,6 +218,23 @@ def _run_child(run_dir: str, cfg: dict, device: str | None,
             "wall_s": time.perf_counter() - t0, "lines": lines}
 
 
+def _sealed_beyond_floor(manifest_path: str) -> bool:
+    """Whether the WAL holds a group at or beyond its checkpoint floor that
+    a resume finds complete, by the resume's own test: its done marker, a
+    commit for every intent, and every atomic artifact on disk.  The scan
+    merges the lives (a re-intent keeps an earlier commit), so without the
+    disk a commit of an earlier life could stand for a file that a later
+    life's rollback removed and wrote again, uncommitted."""
+    from srtb_tpu_torch.io.manifest import (_artifact_on_disk,
+                                            group_complete, scan_manifest)
+    scan = scan_manifest(manifest_path)
+    floor = scan.checkpoint_floor()
+    return any(key[1] >= floor and group_complete(grp)
+               and all(_artifact_on_disk(a) for a in grp.artifacts.values()
+                       if a.mode == "atomic")
+               for key, grp in scan.groups.items())
+
+
 def _read_ck_done(run_dir: str) -> int:
     for name in ("ck.json", "ck.json.bak"):
         try:
@@ -325,7 +342,6 @@ def run_soak(seed: int = 0, segments: int = 10, kills: int = 5,
     ``input_path`` replace the CPU soak's configuration and synthetic
     input.  Returns the report; raises :class:`SoakFailure` on a broken
     invariant."""
-    from srtb_tpu_torch.io.manifest import group_complete, scan_manifest
     from srtb_tpu_torch.tools.fsck import fsck
 
     tmp = tmpdir or tempfile.mkdtemp(prefix="srtb_crash_")
@@ -388,10 +404,8 @@ def run_soak(seed: int = 0, segments: int = 10, kills: int = 5,
                          "recovery": res["recovery"]})
         if res["killed"]:
             kills_done += 1
-            scan = scan_manifest(os.path.join(soak_dir, "manifest.jsonl"))
-            floor = scan.checkpoint_floor()
-            if any(k[1] >= floor and group_complete(g)
-                   for k, g in scan.groups.items()):
+            if _sealed_beyond_floor(os.path.join(soak_dir,
+                                                 "manifest.jsonl")):
                 expect_replay = True
             if kind == "rename":
                 expect_rollback = True

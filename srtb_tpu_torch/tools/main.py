@@ -188,6 +188,7 @@ def _run(cfg, device) -> tuple[PipelineStats, Pipeline]:
             gui_server = WaterfallHTTPServer(
                 service.out_dir, port=cfg.gui_http_port,
                 health_stale_after_s=cfg.health_stale_after_s,
+                fleet_store_dir=cfg.obs_store_dir,
                 supervisor=Supervisor(
                     "gui_server", max_restarts=cfg.supervisor_max_restarts,
                     window_s=cfg.supervisor_window_s,

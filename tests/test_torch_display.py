@@ -512,8 +512,9 @@ def test_viewer(ref, frames_dir):
     for a missing or non-frame file; /metrics, /metrics.json and /healthz
     with the reference's status and content types (their bodies are each
     process's own registry: the Prometheus text, the snapshot, an idle
-    pipeline's health), and 501 naming ROADMAP A8c for /fleet; ``stop()``
-    joins the thread."""
+    pipeline's health), and /fleet with the reference's status, content
+    type and keys, its body the port's ``fleet_status()``; ``stop()`` joins
+    the thread."""
     metrics.reset()
     got = viewer_responses(WaterfallHTTPServer, str(frames_dir),
                            VIEWER_PATHS)
@@ -521,7 +522,12 @@ def test_viewer(ref, frames_dir):
     for i, path in enumerate(VIEWER_PATHS):
         status, ctype, body = _response(got, i)
         if path == "/fleet":
-            assert status == 501 and "ROADMAP A8c" in body.decode()
+            from srtb_tpu_torch.obs.status import fleet_status
+            want = _response(_sub(ref, "viewer"), i)
+            assert (status, ctype) == want[:2] == (200, "application/json")
+            doc = json.loads(body.decode())
+            assert doc == fleet_status()
+            assert sorted(doc) == sorted(json.loads(want[2].decode()))
             continue
         if path in ("/metrics", "/metrics.json", "/healthz"):
             want = _response(_sub(ref, "viewer"), i)

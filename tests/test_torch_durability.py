@@ -657,3 +657,50 @@ def test_sigkill_soak(soak, which):
         assert rep["rolled_back_intents"] >= 1
     assert [c["killed"] for c in rep["children"] if c["kind"] != "golden"] \
         == [True] * rep["sigkills"] + [False]
+
+
+def _wal(path, records) -> str:
+    with open(path, "wb") as f:
+        for rec in records:
+            f.write(MF.encode_record(rec))
+    return str(path)
+
+
+def test_soak_expects_a_replay_only_of_a_group_a_resume_finds_sealed(
+        tmp_path):
+    """The soak's gate demands a replayed skip after a kill only for a
+    group at or past the checkpoint floor that the resume finds complete:
+    its done marker, every intent committed and every file on disk.  A
+    first life commits ``a`` of a segment's ``a`` and ``b`` and is killed;
+    the next life rolls the group back (``a`` unlinked), writes both
+    again, commits ``b`` and is killed before ``a``'s rename: the merged
+    scan reads the group complete, the resume does not."""
+    def art(t, path):
+        rec = {"t": t, "stream": 0, "seg": 1, "sink": "0:W", "path": path}
+        return dict(rec, len=1) if t == "commit" else rec
+    done = {"t": "done", "stream": 0, "seg": 1, "sink": "0:W"}
+    wal = [{"t": "run"}, art("intent", "a"), art("intent", "b"),
+           art("commit", "a"), done, {"t": "run"}, art("intent", "a"),
+           art("intent", "b"), done, art("commit", "b")]
+    path = _wal(tmp_path / "m.jsonl", wal)
+    (tmp_path / "b").write_bytes(b"b")
+    assert MF.group_complete(MF.scan_manifest(path).groups[0, 1, "0:W"])
+    assert not CS._sealed_beyond_floor(path)
+    (tmp_path / "a").write_bytes(b"a")
+    assert CS._sealed_beyond_floor(path)
+    below = _wal(tmp_path / "f.jsonl", wal + [{"t": "ckpt",
+                                               "segments_done": 2}])
+    assert not CS._sealed_beyond_floor(below)
+    assert not CS._sealed_beyond_floor(str(tmp_path / "none.jsonl"))
+
+
+def test_sigkill_soak_with_the_writer_pool(tmp_path):
+    """The checkpoint kill and the rename kill at B = 1 with a writer pool
+    of two threads (the card's durability cfg): every kill lands, the
+    resume ends fsck-clean with the golden output set, and the rename
+    kill's intents are rolled back."""
+    rep = CS.run_soak(segments=4, log2n=12, kill_plan="ckpt_stall@1,"
+                      "rename@1", writer_threads=2, device="cpu",
+                      tmpdir=str(tmp_path))
+    assert rep["ok"] and rep["sigkills"] == 2
+    assert rep["rolled_back_intents"] >= 1

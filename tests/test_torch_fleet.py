@@ -550,7 +550,8 @@ def test_guardrails_refuse_as_the_reference(port):
     """``sanitize`` and a real-time lane's micro-batch are refused
     (ValueError, "file-mode"), a file lane micro-batches, a batch above
     the window is refused ("exceeds"); a failed start hands its slot to
-    the queued stream; duplicate names and ``tsan`` are refused."""
+    the queued stream; duplicate names are refused, and ``tsan`` arms the
+    runtime concurrency checker, as the reference's does."""
     r = _results(port, "sanitize")["s"]
     assert r["status"] == "failed" and r["error"] == "ValueError"
     r = _results(port, "rt_micro")["s"]
@@ -570,9 +571,12 @@ def test_guardrails_refuse_as_the_reference(port):
         StreamFleet([StreamSpec(name="s", cfg=Config(**mkfields(
             ".", "s1", infile))), StreamSpec(name="s", cfg=Config(
                 **mkfields(".", "s2", infile)))], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8c"):
-        StreamFleet([StreamSpec(name="s", cfg=Config(**mkfields(
-            ".", "s", infile, tsan=True)))], device="cpu")
+    from srtb_tpu_torch.analysis.tsan import InstrumentedCondition, Tsan
+    fleet = StreamFleet([StreamSpec(name="s", cfg=Config(**mkfields(
+        ".", "s", infile, tsan=True)))], device="cpu")
+    assert isinstance(fleet._tsan, Tsan)
+    assert isinstance(fleet._wake, InstrumentedCondition)
+    fleet.close()
 
 
 def test_lane_failure_is_contained(port):

@@ -12,7 +12,10 @@ run by both packages on the same seeded inputs:
   tail, a torn then whole rotated ``.gz``, the active arm's rotation, an
   event dump read twice;
 - ``trace_join``: the document, its validation and the CLI;
-- ``RegressionWatch``: trips once and latches; too few samples.
+- ``RegressionWatch``: trips once and latches; too few samples;
+- ``fleet_status`` and the console (ROADMAP A8c): the status and its
+  rendered frame on one metric state and rollup store, the viewer's
+  ``/fleet`` and ``console --url`` against it.
 
 Each comparison is exact: the port's copy computes what the reference
 computes.  The properties the reference's tests assert hold on the
@@ -26,9 +29,10 @@ import math
 import numpy as np
 import pytest
 
-from test_torch_ref import (obs_aggregator_script, obs_digest_script,
-                            obs_regression_script, obs_store_script,
-                            obs_trace_join_script, run_reference)
+from test_torch_ref import (console_url_script, obs_aggregator_script,
+                            obs_digest_script, obs_regression_script,
+                            obs_store_script, obs_trace_join_script,
+                            run_reference, status_console_script)
 
 PORT = "srtb_tpu_torch"
 
@@ -38,7 +42,8 @@ def dirs(tmp_path_factory):
     root = tmp_path_factory.mktemp("obs")
     out = {}
     for side in ("ref", "port"):
-        for name in ("store", "aggregator", "trace_join", "regression"):
+        for name in ("store", "aggregator", "trace_join", "regression",
+                     "status", "console"):
             d = root / side / name
             d.mkdir(parents=True)
             out[side, name] = str(d)
@@ -53,6 +58,10 @@ def ref(dirs):
     jobs += [{"key": name, "fn": f"test_torch_ref:obs_{name}_script",
               "args": [dirs["ref", name]]}
              for name in ("store", "aggregator", "trace_join", "regression")]
+    jobs += [{"key": "status", "fn": "test_torch_ref:status_console_script",
+              "args": ["srtb_tpu", dirs["ref", "status"] + "/store"]},
+             {"key": "console", "fn": "test_torch_ref:console_url_script",
+              "args": ["srtb_tpu", dirs["ref", "console"]]}]
     return run_reference(jobs, dirs["runner"])
 
 
@@ -188,3 +197,53 @@ def test_rollup_main_resumes(tmp_path, capsys):
     second = json.loads(capsys.readouterr().out)
     assert first["spans"] == 3 and first["plans"] == ["p1"]
     assert second["spans"] == 0 and second["compact"]["rows"] == 3
+
+
+# --------------------------------------- status, console, /fleet (A8c)
+
+
+def test_fleet_status_and_console_render(ref, dirs):
+    """``fleet_status`` (with the store, without, and over a missing
+    store), ``console.render`` of it and of an empty status, ``_bar``, and
+    the tail lengths on the reference's metric state and rollup store:
+    the reference's, exactly; and the reference's own assertions."""
+    got = status_console_script(PORT, dirs["port", "status"] + "/store")
+    keys = {k[len("status/"):] for k in ref if k.startswith("status/")}
+    assert keys == set(got)
+    for k in sorted(keys):
+        have = got[k]
+        have = have.tolist() if hasattr(have, "tolist") else have
+        assert have == ref[f"status/{k}"].tolist(), k
+    status = json.loads(got["status"])
+    assert status["devices"]["dev0"]["state"] == "ok"
+    assert status["devices"]["dev1"]["state"] == "halted"
+    assert status["devices"]["dev2"]["state"] == "code7"
+    assert status["devices"]["dev0"]["lanes"] == 3
+    assert status["pool"]["migrations"] == 2
+    assert status["batch"]["occupancy"] == 2.5
+    assert status["streams"]["s0"]["roofline_frac"] == 0.1235
+    assert status["store"]["timeline"][0]["kind"] == "fleet.migrate"
+    assert status["store"]["digests"]["stage:dispatch"]["n"] == 4
+    assert "store" not in json.loads(got["bare"])
+    text = got["frame"]
+    assert "POOL" in text and "dev1" in text and "halted" in text
+    assert "fleet.migrate" in text and "dev0->dev1" in text
+    assert "occupancy=2.50" in text
+
+
+def test_console_url_mode_against_server(ref, dirs):
+    """The viewer's ``/fleet`` answers 200 with ``fleet_status()``'s
+    payload (JSON, keys sorted), and ``console --url`` renders it and
+    prints it with ``--json``: return codes, frames, the JSON line and the
+    body the reference's; against a closed port the console exits 1."""
+    got = console_url_script(PORT, dirs["port", "console"])
+    for k in sorted(got):
+        have = got[k]
+        assert have == ref[f"console/{k}"].tolist(), k
+    assert got["fleet_status"] == 200
+    assert got["fleet_type"] == "application/json"
+    doc = json.loads(got["json"])
+    assert doc["devices"]["dev0"]["state"] == "ok"
+    assert json.loads(got["fleet_body"]) == doc
+    assert "POOL" in got["text"] and "dev0" in got["text"]
+    assert (got["text_rc"], got["json_rc"], got["closed_rc"]) == (0, 0, 1)

@@ -30,6 +30,7 @@ import os
 import pickle
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3488,6 +3489,323 @@ def fleet_units(pkg: str) -> dict:
     out["span_batched"] = [rec["batch_size"], rec["batch_wait_ms"],
                            rec["device"], rec["v"], rec["stream"]]
     metrics.reset()
+    return out
+
+
+
+# ------------------------------------- the archive replay (A8c)
+# Scripted runners that take the package's name, as the fleet's: one
+# script drives the JAX package's archive replay (in this runner's
+# interpreter) and the port's (in the pytest process, on the CPU).
+
+
+def _archive_mods(pkg: str):
+    imp = importlib.import_module
+    return (imp(f"{pkg}.config").Config, imp(f"{pkg}.pipeline.archive"),
+            imp(f"{pkg}.tools.archive_replay"),
+            imp(f"{pkg}.utils.metrics").metrics)
+
+
+def _sha_listing(pkg: str, d: str) -> dict:
+    """The archive tool's own ``_sha_map`` of ``d``, as canonical JSON."""
+    return json.dumps(_archive_mods(pkg)[2]._sha_map(d), sort_keys=True)
+
+
+def archive_report(rep) -> str:
+    """An ``ArchiveReport``'s ``as_dict()`` less its clock fields, as
+    canonical JSON (the counts, statuses and per-file dicts)."""
+    d = rep.as_dict()
+    for k in ("elapsed_s", "segments_per_sec"):
+        d.pop(k)
+    return json.dumps(d, sort_keys=True)
+
+
+def archive_passes(pkg: str, base_fields: dict, files: list, out_dir: str,
+                   passes: list) -> dict:
+    """``ArchiveReplay(Config(**base_fields), files, out_dir, **kw).run()``
+    once for each ``kw`` of ``passes``, in order, from a fresh registry:
+    each pass's report and the artifact map after it."""
+    Config, A, _AR, metrics = _archive_mods(pkg)
+    metrics.reset()
+    out = {}
+    for i, kw in enumerate(passes):
+        rep = A.ArchiveReplay(Config(**base_fields), files, out_dir,
+                              **kw, **_cpu_kw(pkg)).run()
+        out[f"{i}/report"] = archive_report(rep)
+        out[f"{i}/sha"] = _sha_listing(pkg, out_dir)
+    metrics.reset()
+    return out
+
+
+def archive_goldens(pkg: str, n: int, files: list, gdir: str,
+                    **extra) -> dict:
+    """Each file's streamed golden (the solo engine, deterministic
+    timestamps, window 2, outputs ``bb<i>_`` under ``gdir``): the artifact
+    map and the runs' segments and signals."""
+    Config, _A, AR, metrics = _archive_mods(pkg)
+    Pipeline = importlib.import_module(f"{pkg}.pipeline.runtime").Pipeline
+    os.makedirs(gdir, exist_ok=True)
+    segs, sigs = [], []
+    for i, f in enumerate(files):
+        metrics.reset()
+        cfg = Config(**AR._science_cfg(n)).replace(
+            input_file_path=f,
+            baseband_output_file_prefix=os.path.join(gdir, f"bb{i}_"),
+            deterministic_timestamps=True, inflight_segments=2, **extra)
+        with Pipeline(cfg, **_cpu_kw(pkg)) as pipe:
+            stats = pipe.run()
+        segs.append(stats.segments)
+        sigs.append(stats.signals)
+    metrics.reset()
+    return {"sha": _sha_listing(pkg, gdir), "segments": segs,
+            "signals": sigs}
+
+
+def archive_stamps(pkg: str, n: int, path: str) -> dict:
+    """The deterministic reader's stamps of ``path``, read twice, its class
+    name, and whether the default reader is the deterministic one."""
+    Config, _A, AR, _m = _archive_mods(pkg)
+    FI = importlib.import_module(f"{pkg}.io.file_input")
+    cfg = Config(**AR._science_cfg(n)).replace(
+        input_file_path=path, deterministic_timestamps=True)
+    stamps = []
+    for _ in range(2):
+        r = FI.make_file_source(cfg)
+        stamps.append([int(w.timestamp) for w in r])
+        r.close()
+    off = FI.make_file_source(cfg.replace(deterministic_timestamps=False))
+    off_det = isinstance(off, FI.DeterministicTimestampReader)
+    off.close()
+    return {"stamps": np.array(stamps, dtype=np.int64),
+            "epoch": int(FI.DETERMINISTIC_EPOCH_NS),
+            "cls": type(FI.make_file_source(cfg)).__name__,
+            "off_is_deterministic": off_det}
+
+
+def archive_pipeline_twice(pkg: str, n: int, path: str, tmp: str) -> dict:
+    """Two pipeline runs of one file with deterministic timestamps, each
+    into its own directory: their artifact maps."""
+    Config, _A, AR, metrics = _archive_mods(pkg)
+    Pipeline = importlib.import_module(f"{pkg}.pipeline.runtime").Pipeline
+    out = {}
+    for tag in ("a", "b"):
+        d = os.path.join(tmp, tag)
+        os.makedirs(d)
+        metrics.reset()
+        cfg = Config(**AR._science_cfg(n)).replace(
+            input_file_path=path,
+            baseband_output_file_prefix=os.path.join(d, "out_"),
+            deterministic_timestamps=True)
+        with Pipeline(cfg, **_cpu_kw(pkg)) as pipe:
+            pipe.run()
+        out[tag] = _sha_listing(pkg, d)
+    metrics.reset()
+    return out
+
+
+def archive_guards(pkg: str, n: int, tmp: str) -> dict:
+    """The engine's input validation (the exception's type and message of
+    each refusal) and ``stream_name_for`` on the reference's cases."""
+    Config, A, AR, _m = _archive_mods(pkg)
+    base = Config(**AR._science_cfg(n))
+    errors = []
+    for files in ([], [os.path.join(tmp, "nope.bin")]):
+        try:
+            A.ArchiveReplay(base, files, tmp)
+            errors.append("")
+        except (ValueError, FileNotFoundError) as e:
+            errors.append(f"{type(e).__name__}: {e}")
+    taken: set = set()
+    names = [A.stream_name_for(p, taken) for p in (
+        "/a/obs.bin", "/b/obs.bin", "/c/weird name!.raw", "/d/obs.bin",
+        "/e/.bin", "/f/obs.1.bin")]
+    return {"errors": np.array(errors), "names": np.array(names),
+            "defaults": [A.DEFAULT_LANES, A.DEFAULT_MICRO_BATCH,
+                         A.DEFAULT_INFLIGHT]}
+
+
+def archive_cli(pkg: str, n: int, path: str, out_dir: str) -> dict:
+    """``archive_replay.main`` on one file (the reference's CLI test): its
+    return code and its last line, the report, less its clock fields."""
+    import contextlib
+    import io
+    _C, _A, AR, metrics = _archive_mods(pkg)
+    argv = ["--files", path, "--out-dir", out_dir, "--micro-batch", "1",
+            "--inflight", "2", "--lanes", "1"]
+    for k, v in sorted(AR._science_cfg(n).items()):
+        argv += ["--set", f"{k}={int(v) if isinstance(v, bool) else v}"]
+    if pkg == "srtb_tpu_torch":
+        argv += ["--device", "cpu"]
+    metrics.reset()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = AR.main(argv)
+    rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+    keys = sorted(rep)
+    for k in ("elapsed_s", "segments_per_sec"):
+        rep.pop(k)
+    metrics.reset()
+    return {"rc": rc, "keys": np.array(keys),
+            "report": json.dumps(rep, sort_keys=True)}
+
+
+# --------------------------------- status, console and tsan (A8c)
+
+
+def status_console_script(pkg: str, store_dir: str) -> dict:
+    """``fleet_status`` and ``console.render`` on the metric state and the
+    rollup store of ``tests/test_obs.py``'s status test, plus a stream's
+    gauges and a digest row: the status as canonical JSON and the frame."""
+    imp = importlib.import_module
+    ST = imp(f"{pkg}.obs.status")
+    CON = imp(f"{pkg}.tools.console")
+    S = imp(f"{pkg}.obs.store")
+    D = imp(f"{pkg}.obs.digest")
+    metrics = imp(f"{pkg}.utils.metrics").metrics
+    metrics.reset()
+    metrics.set("fleet_device_state", 0, labels={"device": "dev0"})
+    metrics.set("fleet_device_state", 2, labels={"device": "dev1"})
+    metrics.set("fleet_device_state", 7, labels={"device": "dev2"})
+    metrics.set("fleet_device_lanes", 3, labels={"device": "dev0"})
+    metrics.add("migrations", 2)
+    metrics.add("migrations", labels={"device": "dev0"}, value=2)
+    metrics.add("device_drains", labels={"device": "dev1"})
+    metrics.set("roofline_frac", 0.062)
+    metrics.add("batched_dispatches", 4)
+    metrics.add("batched_segments", 10)
+    metrics.add("segments", 5, labels={"stream": "s0"})
+    metrics.set("roofline_frac", 0.12345678, labels={"stream": "s0"})
+    metrics.set("achieved_msamps", 812.5, labels={"stream": "s0"})
+    store = S.RollupStore(store_dir)
+    store.append({"k": "e:1", "type": "fleet_event", "minute": 1,
+                  "ts": 61.0, "kind": "fleet.migrate", "stream": "s0",
+                  "seg": 3, "info": "dev0->dev1"})
+    store.append({"k": "m:1:s0", "type": "rollup_minute", "minute": 1,
+                  "segments": 5})
+    dig = D.QuantileDigest()
+    for v in (1.0, 2.0, 3.0, 40.0):
+        dig.add(v)
+    store.append({"k": "d:stage:dispatch", "type": "rollup_digest",
+                  "kind": "stage", "label": "dispatch",
+                  "digest": dig.to_dict()})
+    status = ST.fleet_status(store_dir=store_dir)
+    bare = ST.fleet_status()
+    empty = ST.fleet_status(store_dir=os.path.join(store_dir, "none"))
+    out = {"status": json.dumps(status, sort_keys=True),
+           "bare": json.dumps(bare, sort_keys=True),
+           "empty_store": json.dumps(empty.get("store"), sort_keys=True),
+           "frame": CON.render(status),
+           "thin_frame": CON.render({}),
+           "bars": np.array([CON._bar(f) for f in (-1.0, 0.0, 0.26, 1.0,
+                                                   3.0)]),
+           "recent": [ST.RECENT_MINUTES, ST.RECENT_EVENTS]}
+    metrics.reset()
+    return out
+
+
+
+def console_url_script(pkg: str, directory: str) -> dict:
+    """The package's viewer on an OS-chosen port with one pool member
+    ``dev0`` ok, then ``console.main(["--url", base, "--once"])`` and the
+    same with ``--json``: their return codes and outputs, ``/fleet``'s
+    status, type and body, and the console's rc against a closed port."""
+    import contextlib
+    import io
+    import urllib.request
+    imp = importlib.import_module
+    server_cls = imp(f"{pkg}.gui.server").WaterfallHTTPServer
+    CON = imp(f"{pkg}.tools.console")
+    metrics = imp(f"{pkg}.utils.metrics").metrics
+    metrics.reset()
+    metrics.set("fleet_device_state", 0, labels={"device": "dev0"})
+    srv = server_cls(directory, port=0).start()
+    out: dict = {}
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        for key, extra in (("text", []), ("json", ["--json"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out[f"{key}_rc"] = CON.main(["--url", base, "--once",
+                                             *extra])
+            out[key] = buf.getvalue()
+        with urllib.request.urlopen(base + "/fleet",
+                                    timeout=VIEWER_TIMEOUT_S) as r:
+            out["fleet_status"] = r.status
+            out["fleet_type"] = r.headers.get("Content-Type", "")
+            out["fleet_body"] = r.read().decode()
+    finally:
+        srv.stop()
+    with contextlib.redirect_stderr(io.StringIO()):
+        out["closed_rc"] = CON.main(["--url", base, "--once"])
+    metrics.reset()
+    return out
+
+def tsan_script(pkg: str) -> dict:
+    """The runtime concurrency checker, scripted on one thread (plus one
+    intruder thread of a fixed name): the perturbers' journals and
+    decisions for fixed seeds, rates and site sequences, each trap's
+    message, the order graph's report and the race soak's selftest."""
+    T = importlib.import_module(f"{pkg}.analysis.tsan")
+    RS = importlib.import_module(f"{pkg}.tools.race_soak")
+    out: dict = {}
+    seq = (["fleet._wake"] * 40 + ["lane.s0._live_lock"] * 40
+           + ["fleet._wake", "lane.s1._live_lock"] * 20
+           + ["former.groups", "lane.stream0._live_lock"] * 7)
+    for seed, rate in ((0, 0.25), (42, 0.3), (7, 0.5), (123, 0.05),
+                       (9, 1.0)):
+        p = T.SchedulePerturber(seed, rate=rate, sleep_s=0.0)
+        for site in seq:
+            p.perturb(site)
+        out[f"journal/{seed}"] = json.dumps(p.journal)
+        out[f"decide/{seed}"] = np.array(
+            [p.decide(s, k) for s in ("x", "fleet._wake") for k in
+             range(128)])
+    msgs = []
+
+    def trap(fn):
+        try:
+            fn()
+            msgs.append("")
+        except T.TsanError as e:
+            msgs.append(str(e))
+    ts = T.Tsan()
+    a, b, c = ts.lock("A"), ts.lock("B"), ts.lock("C")
+
+    def nest(*locks):
+        def run():
+            held = []
+            try:
+                for lk in locks:
+                    lk.acquire()
+                    held.append(lk)
+            finally:
+                for lk in reversed(held):
+                    lk.release()
+        return run
+    trap(nest(a, b))
+    trap(nest(b, c))
+    trap(nest(c, a))
+    trap(nest(b, a))
+    trap(nest(a, a))
+    cv = ts.condition("cv")
+    trap(cv.notify_all)
+    trap(lambda: cv.wait(0.01))
+    trap(lambda: cv.notify(1))
+    ts.assert_owner("lane.s0.step")
+
+    def intruder():
+        trap(lambda: ts.assert_owner("lane.s0.step"))
+    t = threading.Thread(target=intruder, name="intruder")
+    t.start()
+    t.join()
+    rep = ts.report()
+    out["messages"] = np.array(
+        [m.replace(threading.current_thread().name, "<main>")
+         for m in msgs])
+    out["report"] = json.dumps({k: rep[k] for k in ("order_edges",
+                                                    "order_nodes")})
+    out["owners"] = sorted(rep["owners"])
+    out["selftest"] = np.array(RS.selftest() or [""])
     return out
 
 

@@ -370,7 +370,8 @@ def test_profile_capture_writes_a_trace_with_the_stages(case, fresh,
 
 def test_healthz_goes_stale_and_fleet_stays_unported(fresh, tmp_path):
     """``/healthz`` answers 200 before the first segment and while they
-    come, 503 past ``health_stale_after_s``; ``/fleet`` stays 501."""
+    come, 503 past ``health_stale_after_s``; ``/fleet`` answers 200 with
+    the fleet's status (no pool member yet: no device, no stream)."""
     server = WaterfallHTTPServer(str(tmp_path),
                                  health_stale_after_s=0.05).start()
     try:
@@ -391,7 +392,9 @@ def test_healthz_goes_stale_and_fleet_stays_unported(fresh, tmp_path):
         status, body = get("/healthz")
         assert status == 503 and json.loads(body)["status"] == "stale"
         status, body = get("/fleet")
-        assert status == 501 and "ROADMAP A8c" in body
+        doc = json.loads(body)
+        assert status == 200 and doc["devices"] == {} and "store" not in doc
+        assert doc["pool"]["members"] == 0 and doc["batch"]["occupancy"] == 0
         status, body = get("/metrics")
         assert status == 200 and "srtb_last_segment_monotonic" in body
     finally:
