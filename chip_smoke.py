@@ -242,6 +242,14 @@ result lines are printed:
    cuda`` through its ``main`` (the SIGTERM landed, the resume's outputs
    the streamed goldens' by SHA-256, its children on the card).  The
    phase fails past ``A8C_BUDGET_S``.
+17. a10 (right after a8c): the library's last entry points at the
+   J1644-4559 width (2^27 real samples, 2^11 channels), each held to
+   its reference on the same input and timed beside it:
+   ``rfft_via_c2c`` (one cuFFT C2C, and the four-step) against
+   ``rfft_drop_nyquist``; ``four_step_stage1`` and ``four_step_stage2``
+   with ``pallas`` rows (B6 twice, its launches printed) against
+   ``torch.fft.fft``; ``ifft_refft_waterfall`` against the same steps in
+   float64 on the card.  The phase fails past ``A10_BUDGET_S``.
 
 The last two lines are the kernels' JSON record and the result line.
 Outputs go to ``build/chip_smoke/`` in the checkout.
@@ -6895,6 +6903,121 @@ def phase_a8c(card: str, kept: dict) -> dict:
              f"{A8C_BUDGET_S:g} s budget")
     return {"archive_2^27": {"counts": counts}}
 
+
+# the a10 phase's gates: max |err| / max |reference| of each function
+A10_RFFT_GATE = 2e-5      # rfft_via_c2c against rfft_drop_nyquist
+A10_FOUR_STEP_GATE = 2e-5  # the four-step halves against torch.fft.fft
+A10_REFFT_GATE = 2e-5     # ifft_refft_waterfall against float64
+A10_REPS = 3
+# the phase's share of the script's clock (seconds)
+A10_BUDGET_S = 15.0
+
+
+def phase_a10(card: str) -> dict:
+    """The library's last entry points on the card at the J1644-4559
+    width (2^27 real samples, 2^11 channels; fused_2^27's cfg), each
+    against its reference on the same input, with its error beside its
+    gate and its time beside the reference's: ``rfft_via_c2c`` (the C2C
+    by one cuFFT call and by the four-step) against
+    ``rfft_drop_nyquist``; ``four_step_stage1`` then ``four_step_stage2``
+    with ``rows_impl="pallas"`` on the packed 2^26 points (two B6
+    launches, rows of 8192) against ``torch.fft.fft``;
+    ``ifft_refft_waterfall`` of the segment's spectrum (the cfg's
+    reserved tail trimmed, a hann window) against the same steps in
+    float64 on the card.  The phase fails past ``A10_BUDGET_S``; returns
+    the halves' launch counts."""
+    import torch
+    from srtb_tpu_torch import kernels as K
+    from srtb_tpu_torch.ops import dedisperse as dd
+    from srtb_tpu_torch.ops import fft as F
+    from srtb_tpu_torch.ops import window as W
+    t0 = time.perf_counter()
+    cfg, _text = path_cfg(OUT_DIR / "a10", PALLAS_27, LOG2_N_ROWS,
+                          "a10_2^27")
+    n = cfg.baseband_input_count
+    channels = cfg.spectrum_channel_count
+    g = torch.Generator(device="cuda").manual_seed(1644)
+    x = torch.randn(n, device="cuda", generator=g)
+    lines = []
+
+    # rfft_via_c2c against rfft_drop_nyquist
+    want = F.rfft_drop_nyquist(x)
+    lib = cuda_ms(lambda: F.rfft_drop_nyquist(x), A10_REPS)
+    for four_step in (False, True):
+        def rfft():
+            return F.rfft_via_c2c(x, use_four_step=four_step,
+                                  drop_nyquist=True)
+        err, scale = _fft_err(rfft(), want)
+        ms = cuda_ms(rfft, A10_REPS)
+        lines.append(("rfft_via_c2c" + (" four_step" if four_step else ""),
+                      err / scale, A10_RFFT_GATE, ms, "rfft_drop_nyquist",
+                      lib))
+    spec = want
+    del want
+
+    # the four-step halves on B6 legs against torch.fft.fft
+    z = F.pack_even_odd(x)
+    del x
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    y = F.four_step_stage2(F.four_step_stage1(z, rows_impl="pallas"),
+                           rows_impl="pallas")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    want = torch.fft.fft(z)
+    err, scale = _fft_err(y, want)
+    del y, want
+    ms = cuda_ms(lambda: F.four_step_stage2(
+        F.four_step_stage1(z, rows_impl="pallas"), rows_impl="pallas"),
+        A10_REPS)
+    lib = cuda_ms(lambda: torch.fft.fft(z), A10_REPS)
+    lines.append((f"four_step_stage1 + four_step_stage2 "
+                  f"[2^{LOG2_N_ROWS - 1}] pallas rows (B6 launches "
+                  f"{counts['fft_rows']})",
+                  err / scale, A10_FOUR_STEP_GATE, ms, "torch.fft.fft", lib))
+    del z
+
+    # ifft_refft_waterfall against float64 on the card
+    reserved = dd.nsamps_reserved(cfg) // 2
+    win = torch.from_numpy(W.window_coefficients("hann", channels)).cuda()
+    got = F.ifft_refft_waterfall(spec, channels, reserved, win)
+
+    def refft64():
+        td = torch.fft.ifft(spec.to(torch.complex128), norm="forward")
+        td = td[:n // 2 - reserved]
+        rows = td.shape[-1] // channels
+        td = td[:rows * channels].reshape(rows, channels)
+        return torch.fft.fft(td * win.to(torch.float64))
+    want = refft64()
+    err, scale = _fft_err(got.to(torch.complex128), want)
+    shape = tuple(got.shape)
+    del got, want
+    ms = cuda_ms(lambda: F.ifft_refft_waterfall(spec, channels, reserved,
+                                                win), A10_REPS)
+    lib = cuda_ms(refft64, A10_REPS)
+    lines.append((f"ifft_refft_waterfall {list(shape)} (reserved "
+                  f"{reserved}, hann)", err / scale, A10_REFFT_GATE, ms,
+                  "the same steps in float64", lib))
+    del spec
+
+    for what, err, gate, ms, other, other_ms in lines:
+        say(f"a10_2^27 {what}: max |err| / max |ref| {err:.3e} (gate "
+            f"{gate:g}), {ms:.3f} ms, {other} {other_ms:.3f} ms; card "
+            f"{card}")
+        if not err <= gate:
+            fail(f"a10_2^27 {what}: error {err:.3e} over the gate {gate:g}")
+    if counts["fft_rows"] != 2 or sum(counts.values()) != 2:
+        fail(f"a10_2^27: launches {counts} (B6 twice and nothing else "
+             "expected)")
+    free_card()
+    took = time.perf_counter() - t0
+    say(f"a10: phase {took:.1f} s (budget {A10_BUDGET_S:g} s); card {card}")
+    if took > A10_BUDGET_S:
+        fail(f"a10: the phase took {took:.1f} s, over its "
+             f"{A10_BUDGET_S:g} s budget")
+    return {"counts": counts}
+
+
 def phase_correlator(card: str) -> dict:
     """correlator_2^30: two 8-bit files of 2^30 samples made on the card,
     the second the first delayed by CORR_LAG samples plus independent
@@ -7731,6 +7854,8 @@ def main() -> int:
     lap("a8b")
     runs.update(phase_a8c(card, a8b["kept"]))
     lap("a8c")
+    runs["a10_2^27"] = phase_a10(card)
+    lap("a10")
     runs["correlator_2^30"] = phase_correlator(card)
     free_card()
     lap("search modes")

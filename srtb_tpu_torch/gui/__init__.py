@@ -1,0 +1,1 @@
+from srtb_tpu_torch.gui import waterfall  # noqa: F401

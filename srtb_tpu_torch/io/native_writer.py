@@ -72,6 +72,16 @@ def native_library() -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """Whether the native writer library builds and loads here (built
+    at the first call, as :class:`AsyncWriterPool` builds it)."""
+    try:
+        native_library()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 class _DaemonWriterPool:
     """Minimal Future-based thread pool with DAEMON workers, spawned at
     the first submit.  ``concurrent.futures`` executors use non-daemon

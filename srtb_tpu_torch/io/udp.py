@@ -32,7 +32,9 @@ counter.  Where the port differs from the reference:
   the reference counts them, in the metrics registry with their 10 s
   windows (``packet_loss_rate_window``) and the lost packets' twin
   labeled by stream, with the reference's ``[udp_receiver] lost ...``
-  warning.
+  warning; with the asyncio provider the source also sets the gauge
+  ``udp_rx{id}_queue_packets`` to the receiver's queue depth after each
+  block.
 """
 
 from __future__ import annotations
@@ -564,6 +566,13 @@ class AsyncioBlockReceiver(PythonBlockReceiver):
             loop.run_until_complete(loop.shutdown_asyncgens())
             loop.close()
 
+    def queue_depth(self) -> int:
+        """Packets waiting between the event loop and the block assembler
+        (the provider's ring occupancy; at the queue's bound the oldest
+        packet is dropped as loss)."""
+        with self._cv:
+            return len(self._q)
+
     def _next_packet(self) -> bytes:
         need = self.fmt.packet_payload_size
         while True:
@@ -918,6 +927,10 @@ class UdpReceiverSource:
             origin = (str(self.cfg.stream_name or "")
                       or str(self.data_stream_id))
             metrics.add("packets_lost", lost, labels={"stream": origin})
+        depth = getattr(self.receiver, "queue_depth", None)
+        if depth is not None:
+            metrics.set(f"udp_rx{self.data_stream_id}_queue_packets",
+                        depth())
         if lost:
             log.warning(f"[udp_receiver] lost {lost}/{total} packets "
                         f"({lost / total:.2%})")

@@ -18,7 +18,9 @@ Files are byte-compatible with the reference's:
   write_signal_pipe.hpp:77-140);
 - ``<prefix>stream0.bin``      every segment's baseband (all its
   interleaved streams) minus the reserved tail, appended
-  (``WriteAllSink``, ref: write_file_pipe.hpp:41-94).
+  (``WriteAllSink``, ref: write_file_pipe.hpp:41-94);
+- a sigproc filterbank header (``write_filterbank_header``, ref:
+  io/sigproc_filterbank.hpp), for a caller that writes ``.fil`` files.
 
 Every candidate file is written to ``<path>.srtb_tmp`` and renamed into
 place, so a reader never sees a torn candidate; a run that died between
@@ -562,3 +564,55 @@ class WriteAllSink:
         if self._f is not None:
             self._f.close()
             self._f = None
+
+
+# ----------------------------------------------------------------
+# sigproc filterbank header (ref: io/sigproc_filterbank.hpp)
+# ----------------------------------------------------------------
+
+def _fb_string(key: str) -> bytes:
+    b = key.encode()
+    return np.int32(len(b)).tobytes() + b
+
+
+def _fb_int(key: str, value: int) -> bytes:
+    return _fb_string(key) + np.int32(value).tobytes()
+
+
+def _fb_double(key: str, value: float) -> bytes:
+    return _fb_string(key) + np.float64(value).tobytes()
+
+
+def encode_angle_dms(d: int, m: int, s: float) -> float:
+    """Degrees, minutes and seconds packed as ddmmss.s, the sigproc
+    convention (ref: io/sigproc_filterbank.hpp:59-70)."""
+    sign = -1.0 if d < 0 else 1.0
+    return sign * (abs(d) * 10000.0 + m * 100.0 + s)
+
+
+def write_filterbank_header(f, *, telescope_id: int = 0, machine_id: int = 0,
+                            data_type: int = 1, fch1: float = 0.0,
+                            foff: float = 0.0, nchans: int = 0,
+                            tsamp: float = 0.0, nbits: int = 32,
+                            nifs: int = 1, tstart: float = 0.0,
+                            src_raj: float = 0.0, src_dej: float = 0.0,
+                            source_name: str = "unknown") -> None:
+    """Write a sigproc filterbank header to the binary file ``f``: the
+    reference writer's keys in its order, each a length-prefixed string
+    followed by an int32 or a float64."""
+    f.write(_fb_string("HEADER_START"))
+    f.write(_fb_string("source_name"))
+    f.write(_fb_string(source_name))
+    f.write(_fb_int("telescope_id", telescope_id))
+    f.write(_fb_int("machine_id", machine_id))
+    f.write(_fb_int("data_type", data_type))
+    f.write(_fb_double("fch1", fch1))
+    f.write(_fb_double("foff", foff))
+    f.write(_fb_int("nchans", nchans))
+    f.write(_fb_int("nbits", nbits))
+    f.write(_fb_double("tstart", tstart))
+    f.write(_fb_double("tsamp", tsamp))
+    f.write(_fb_int("nifs", nifs))
+    f.write(_fb_double("src_raj", src_raj))
+    f.write(_fb_double("src_dej", src_dej))
+    f.write(_fb_string("HEADER_END"))

@@ -116,3 +116,10 @@ def chirp_factor(n: int, f_min: float, df: float, f_c: float, dm: float,
     """The chirp as complex64 [n] (float64 phase, float32 factor)."""
     c, s = chirp_cos_sin(n, f_min, df, f_c, dm, device)
     return torch.complex(c, s)
+
+
+def dedisperse(spectrum: torch.Tensor, chirp: torch.Tensor) -> torch.Tensor:
+    """Apply the chirp: one complex multiply a channel (ref:
+    coherent_dedispersion.hpp:223-248).  The plans apply it inside K2 or
+    B3; this is the plain form for a caller that holds the chirp."""
+    return spectrum * chirp

@@ -53,6 +53,11 @@ def rfft_drop_nyquist(x: torch.Tensor) -> torch.Tensor:
     return torch.fft.rfft(x)[..., :-1]
 
 
+def c2c_forward(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Unnormalized forward C2C."""
+    return torch.fft.fft(x, dim=dim)
+
+
 def c2c_backward(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Unnormalized inverse C2C (cuFFT BACKWARD semantics)."""
     return torch.fft.ifft(x, dim=dim, norm="forward")
@@ -78,6 +83,30 @@ def waterfall_rows(spectrum: torch.Tensor, channel_count: int
     watfft_len = spectrum.shape[-1] // channel_count
     x = spectrum[..., :channel_count * watfft_len]
     return x.reshape(*spectrum.shape[:-1], channel_count, watfft_len)
+
+
+def ifft_refft_waterfall(spectrum: torch.Tensor, channel_count: int,
+                         nsamps_reserved_complex: int = 0,
+                         window: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """The reference's alternate channelization (disabled in its main(),
+    ref: main.cpp:182-186): the whole spectrum back to the complex time
+    domain by an unnormalized inverse C2C, the reserved tail trimmed,
+    then forward C2Cs over chunks of ``channel_count`` samples, each
+    chunk multiplied by ``window`` first when one is given (ref:
+    fft_pipe.hpp:88-170 ifft_1d_c2c_pipe, 183-278 refft_1d_c2c_pipe).
+    Time-major: ``[..., n_chunks, channel_count]``."""
+    td = c2c_backward(spectrum)
+    n = td.shape[-1]
+    if 0 < nsamps_reserved_complex < n:
+        td = td[..., :n - nsamps_reserved_complex]
+    refft_length = min(channel_count, td.shape[-1])
+    batch = td.shape[-1] // refft_length
+    td = td[..., :batch * refft_length].reshape(*td.shape[:-1], batch,
+                                                refft_length)
+    if window is not None:
+        td = td * window
+    return c2c_forward(td)
 
 
 # ---------------------------------------------------------------- rows
@@ -108,28 +137,66 @@ def _split_factor(n: int) -> int:
     return 1 << ((n.bit_length() - 1) // 2)
 
 
+def four_step_stage1(x: torch.Tensor, inverse: bool = False,
+                     rows_impl: str = "xla",
+                     len_cap: int | None = None) -> torch.Tensor:
+    """The four-step's first half, [..., n] -> A[..., n2, k1]: view
+    [n1, n2], transpose, FFT_n1 along rows (:func:`fft_minor`: B6 under
+    "pallas" where the rows lie in its window).  The reference splits
+    the decomposition so that its staged plans run each half as a
+    program of its own."""
+    n = x.shape[-1]
+    if n & (n - 1):
+        raise ValueError("four_step_fft requires power-of-two length")
+    n1 = _split_factor(n)
+    a = x.reshape(*x.shape[:-1], n1, n // n1).transpose(-1, -2).contiguous()
+    return fft_minor(a, inverse, rows_impl, len_cap)
+
+
+def four_step_stage2(a: torch.Tensor, inverse: bool = False,
+                     rows_impl: str = "xla",
+                     len_cap: int | None = None) -> torch.Tensor:
+    """The four-step's second half, A[..., n2, k1] -> X[..., n]: the
+    twiddle exp(-+2 pi i j2 k1 / n), transpose, FFT_n2 along rows
+    (:func:`fft_minor`), transpose and flatten."""
+    n2, n1 = a.shape[-2], a.shape[-1]
+    a = a * twiddle(n2, n1, inverse, a.device)
+    a = a.transpose(-1, -2).contiguous()                 # [k1, j2]
+    a = fft_minor(a, inverse, rows_impl, len_cap)        # C[k1, k2]
+    return a.transpose(-1, -2).reshape(*a.shape[:-2], n1 * n2)
+
+
 def four_step_fft(x: torch.Tensor, inverse: bool = False,
                   rows_impl: str = "xla",
                   len_cap: int | None = None) -> torch.Tensor:
     """1-D C2C of power-of-two length n = n1 n2 (leading dims batch) by
     the four-step algorithm, as the reference spells it: view [n1, n2],
-    transpose, FFT_n1 rows, twiddle, transpose, FFT_n2 rows, transpose.
-    The rows go through :func:`fft_minor` (B6 legs under "pallas"); the
+    transpose, FFT_n1 rows, twiddle, transpose, FFT_n2 rows, transpose
+    (:func:`four_step_stage1`, then :func:`four_step_stage2`).  The rows
+    go through :func:`fft_minor` (B6 legs under "pallas"); the
     transposes and the twiddle are plain torch."""
-    n = x.shape[-1]
-    if n & (n - 1):
-        raise ValueError("four_step_fft requires power-of-two length")
-    n1 = _split_factor(n)
-    n2 = n // n1
-    a = x.reshape(*x.shape[:-1], n1, n2).transpose(-1, -2).contiguous()
-    a = fft_minor(a, inverse, rows_impl, len_cap)        # A[j2, k1]
-    a = a * twiddle(n2, n1, inverse, a.device)
-    a = a.transpose(-1, -2).contiguous()                 # [k1, j2]
-    a = fft_minor(a, inverse, rows_impl, len_cap)        # C[k1, k2]
-    return a.transpose(-1, -2).reshape(*x.shape[:-1], n)
+    return four_step_stage2(four_step_stage1(x, inverse, rows_impl,
+                                             len_cap),
+                            inverse, rows_impl, len_cap)
 
 
 # ------------------------------------------------- R2C via half-size C2C
+
+def rfft_via_c2c(x: torch.Tensor, use_four_step: bool = False,
+                 drop_nyquist: bool = False, len_cap: int | None = None,
+                 epilogue=None) -> torch.Tensor:
+    """R2C of 2m reals by one m-point C2C of the packed even/odd samples
+    and the Hermitian post-process (ref:
+    fft/fft_1d_r2c_post_process.hpp:33-82): m + 1 bins, or m with
+    ``drop_nyquist``.  The C2C is one ``torch.fft`` call, or
+    :func:`four_step_fft` with ``use_four_step``.  The reference's
+    ``premul`` (a precombined chirp bank) has no counterpart: the port
+    keeps no chirp bank."""
+    z = pack_even_odd(x)
+    zf = four_step_fft(z, len_cap=len_cap) if use_four_step \
+        else c2c_forward(z)
+    return hermitian_rfft_post(zf, drop_nyquist, epilogue=epilogue)
+
 
 def pack_even_odd(x: torch.Tensor) -> torch.Tensor:
     """2m reals -> m complex (even samples -> re, odd -> im), for the
@@ -282,13 +349,13 @@ def segment_rfft(x: torch.Tensor, strategy: str = "auto",
             raise ValueError("the monolithic R2C cannot host a spectrum "
                              "epilogue")
         return rfft_drop_nyquist(x)
+    if strategy in ("four_step", "mxu"):
+        return rfft_via_c2c(x, drop_nyquist=True, epilogue=epilogue)
     z = pack_even_odd(x)
     if strategy == "pallas":
         zf = four_step_fft(z, rows_impl="pallas", len_cap=len_cap)
     elif strategy == "pallas2":
         zf = pallas2_or_fallback(z, len_cap)
-    elif strategy in ("four_step", "mxu"):
-        zf = fft_minor(z, inverse=False)
     else:
         raise ValueError(f"unknown fft strategy {strategy!r}")
     return hermitian_rfft_post(zf, drop_nyquist=True, epilogue=epilogue)

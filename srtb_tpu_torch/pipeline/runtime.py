@@ -222,14 +222,15 @@ def _abort_on_deadline(deadline_s: float) -> None:  # pragma: no cover
     os.kill(os.getpid(), signal.SIGABRT)
 
 
-def sync_with_deadline(deadline_s: float, fn):
+def sync_with_deadline(deadline_s: float, fn, on_deadline=None):
     """Run a blocking device sync under a fail-fast deadline (seconds,
-    <= 0 disables): on expiry the process aborts (a loud stack through
-    the termination handler, not a silent hang)."""
+    <= 0 disables): on expiry ``on_deadline`` runs, by default an abort
+    (a loud stack through the termination handler, not a silent hang)."""
     if not deadline_s or deadline_s <= 0:
         return fn()
     timer = threading.Timer(deadline_s,
-                            lambda: _abort_on_deadline(deadline_s))
+                            on_deadline or
+                            (lambda: _abort_on_deadline(deadline_s)))
     timer.daemon = True
     timer.start()
     try:

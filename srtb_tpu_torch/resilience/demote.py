@@ -63,6 +63,10 @@ class Rung:
     cfg: object
     staged: bool | None
 
+    @property
+    def name(self) -> str:
+        return self.step
+
 
 def parse_ladder(text: str) -> tuple[str, ...]:
     """``Config.plan_ladder`` -> the ordered steps: "auto" is the whole

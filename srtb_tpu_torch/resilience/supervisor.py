@@ -49,6 +49,13 @@ class Supervisor:
     def restarts(self) -> int:
         return len(self._restarts)
 
+    def remaining(self) -> int:
+        """The restart budget left inside the current window (advisory;
+        ``should_restart`` decides), after the window's old restarts
+        expire."""
+        self._expire(self._clock())
+        return max(0, self.max_restarts - len(self._restarts))
+
     def _expire(self, now: float) -> None:
         while self._restarts and now - self._restarts[0] > self.window_s:
             self._restarts.popleft()

@@ -76,3 +76,8 @@ class Logger:
 
 
 log = Logger()
+
+
+def get_logger() -> Logger:
+    """The process-wide logger."""
+    return log

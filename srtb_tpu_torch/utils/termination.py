@@ -23,6 +23,7 @@ import time
 import traceback
 
 from srtb_tpu_torch.utils.logging import log
+from srtb_tpu_torch.utils.metrics import metrics
 
 _installed = False
 
@@ -105,10 +106,13 @@ def format_thread_stacks(threads) -> str:
 
 def report_wedged(threads, context: str) -> None:
     """One loud log block naming each thread still alive after a bounded
-    join, with its creation site and current stack."""
+    join, with its creation site and current stack, and the
+    ``wedged_threads`` counter, so that a deployment that wedges quietly
+    shows on ``/metrics``."""
     threads = [t for t in threads if t.is_alive()]
     if not threads:
         return
+    metrics.add("wedged_threads", len(threads))
     log.error(f"[termination] {len(threads)} thread(s) still alive "
               f"after {context}:")
     for line in format_thread_stacks(threads).splitlines():

@@ -33,6 +33,34 @@ def test_every_port_module_imports_without_jax():
     assert bad == "[]"
 
 
+_PACKAGES_PROBE = """
+import importlib, sys
+from srtb_tpu_torch.kernels import build
+def refuse(*_a, **_k):
+    raise AssertionError("a package import built or loaded a library")
+for name in ("build", "build_library", "build_host_library",
+             "load_library", "library"):
+    setattr(build, name, refuse)
+import torch
+for pkg in ("", ".analysis", ".gui", ".io", ".kernels", ".obs", ".ops",
+            ".parallel", ".pipeline", ".quality", ".resilience", ".tools",
+            ".utils"):
+    importlib.import_module("srtb_tpu_torch" + pkg)
+print(torch.cuda.is_initialized(), build._library is None,
+      "triton" in sys.modules)
+"""
+
+
+def test_importing_the_packages_builds_nothing():
+    """The packages' ``__init__`` imports (``ops``, ``pipeline``, ...)
+    build and load no kernel library, import no ``triton`` and leave
+    CUDA uninitialized: kernels are built at their first launch."""
+    proc = subprocess.run([sys.executable, "-c", _PACKAGES_PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "True", "False"]
+
+
 def test_runtime_modules_are_the_ports_own():
     """The engine's modules (framework, buffer pool, termination, writer
     pool) exist in the port and are the ones the runtime uses."""

@@ -666,6 +666,46 @@ def supervisor_script(supervisor_cls, max_restarts: int, window_s: float,
     return {"decisions": np.array(decisions), "restarts": sup.restarts}
 
 
+def remaining_script(pkg: str, max_restarts: int, window_s: float,
+                     steps: list) -> dict:
+    """A ``restart_fatal`` supervisor of ``pkg`` on a :class:`FakeClock`
+    driven by ``steps``: ``("tick", seconds)``, ``("crash",)`` (one
+    ``should_restart``) and ``("remaining",)``; returns every decision
+    and every ``remaining()`` read, in order."""
+    S = importlib.import_module(f"{pkg}.resilience.supervisor")
+    clock = FakeClock()
+    sup = S.Supervisor("test", max_restarts=max_restarts,
+                       window_s=window_s, restart_fatal=True, clock=clock,
+                       counter=None)
+    reads = []
+    for step in steps:
+        if step[0] == "tick":
+            clock.advance(step[1])
+        elif step[0] == "crash":
+            reads.append(int(sup.should_restart(RuntimeError("crash"))))
+        else:
+            reads.append(sup.remaining())
+    return {"reads": np.array(reads)}
+
+
+def filterbank_header(pkg: str, kwargs: dict) -> dict:
+    """``io.writers.write_filterbank_header`` of ``pkg`` into memory:
+    its bytes and their SHA-256.  ``src_raj`` / ``src_dej`` given as
+    (d, m, s) go through the package's ``encode_angle_dms`` first."""
+    import hashlib
+    import io
+    W = importlib.import_module(f"{pkg}.io.writers")
+    kw = dict(kwargs)
+    for key in ("src_raj", "src_dej"):
+        if isinstance(kw.get(key), (tuple, list)):
+            kw[key] = W.encode_angle_dms(*kw[key])
+    buf = io.BytesIO()
+    W.write_filterbank_header(buf, **kw)
+    data = buf.getvalue()
+    return {"bytes": np.frombuffer(data, np.uint8),
+            "sha256": hashlib.sha256(data).hexdigest()}
+
+
 def ref_supervisor_script(*args) -> dict:
     """:func:`supervisor_script` on the JAX package's supervisor."""
     from srtb_tpu.resilience.supervisor import Supervisor
@@ -2326,7 +2366,8 @@ def _bundles(directory: str) -> dict:
 
 def health_run(pkg: str, fields: dict, max_segments=None,
                source_fields: dict | None = None, wedge: str = "",
-               chain_log: list | None = None) -> dict:
+               chain_log: list | None = None,
+               counters: tuple = HEALTH_COUNTERS) -> dict:
     """One ``Pipeline`` run of ``pkg`` on ``fields`` from a fresh registry,
     SLO and flight recorder: the exception that ended it (its class name,
     "" when it completed), its segment and signal counts, the journal's
@@ -2338,7 +2379,8 @@ def health_run(pkg: str, fields: dict, max_segments=None,
     live source's stand-in: ``fields`` has no input file).  ``wedge``:
     "chain" makes every dispatch never ready, "sink" replaces the sinks by
     a :class:`WedgedSink`.  ``chain_log`` (the port only) receives the
-    bytes each chain reads."""
+    bytes each chain reads.  ``counters`` names the counters read
+    (``HEALTH_COUNTERS``)."""
     import hashlib
     R = importlib.import_module(f"{pkg}.pipeline.runtime")
     T = _pkg(pkg, "telemetry")
@@ -2419,7 +2461,7 @@ def health_run(pkg: str, fields: dict, max_segments=None,
            "spans": np.array(spans or [""]),
            "manifest": np.array(canary_recs or [""]),
            "write_all": digest,
-           "counters": np.array([M.metrics.get(k) for k in HEALTH_COUNTERS],
+           "counters": np.array([M.metrics.get(k) for k in counters],
                                 dtype=np.float64),
            "detection": json.dumps(health.get("detection"),
                                    sort_keys=True),
@@ -2427,6 +2469,56 @@ def health_run(pkg: str, fields: dict, max_segments=None,
                                  sort_keys=True)}
     M.metrics.reset()
     E.configure(False)
+    return out
+
+
+def wedged_pipe_script(pkg: str, timeout: float = 0.25) -> dict:
+    """``framework.on_exit`` of ``pkg`` on one pipe that ignores its stop
+    token: how many pipes it returned as wedged, the ``wedged_threads``
+    counter and whether the join stayed bounded (under 5 s); the pipe is
+    released and joined after."""
+    fw = importlib.import_module(f"{pkg}.pipeline.framework")
+    M = _pkg(pkg, "metrics")
+    M.metrics.reset()
+    entered, release = threading.Event(), threading.Event()
+
+    def stuck(stop_token, _):
+        entered.set()
+        release.wait()
+
+    stop = fw.StopToken()
+    pipe = fw.start_pipe(stuck, None, None, stop, "wedged_pipe")
+    # the stop must come once the pipe is inside its functor: a pipe
+    # that sees it first exits at once, wedged on nothing
+    assert entered.wait(30.0)
+    t0 = time.monotonic()
+    wedged = fw.on_exit(stop, [pipe], timeout=timeout)
+    out = {"bounded": time.monotonic() - t0 < 5.0,
+           "wedged": [p is pipe for p in wedged],
+           "wedged_threads": M.metrics.get("wedged_threads")}
+    release.set()
+    out["joined"] = bool(pipe.join(5.0))
+    M.metrics.reset()
+    return out
+
+
+def asyncio_gauge_script(pkg: str, fields: dict, counters: list, seed: int,
+                         segments: int) -> dict:
+    """:func:`source_segments` of ``pkg``'s ``UdpReceiverSource`` on
+    ``fields`` with ``udp_packet_provider = "asyncio"``, and what the
+    metrics registry shows after it: the Prometheus lines of
+    ``udp_rx0_queue_packets`` and the gauge's value."""
+    udp = importlib.import_module(f"{pkg}.io.udp")
+    M = _pkg(pkg, "metrics")
+    M.metrics.reset()
+    cfg = _config(pkg, dict(fields, udp_packet_provider="asyncio"))
+    out = source_segments(udp, cfg, [counters], seed, segments)
+    name = "udp_rx0_queue_packets"
+    out["lines"] = np.array([line for line in
+                             M.metrics.prometheus().splitlines()
+                             if name in line] or [""])
+    out["gauge"] = M.metrics.get(name)
+    M.metrics.reset()
     return out
 
 
