@@ -1,0 +1,7 @@
+"""The kernels' least time by the roofline model over their profiled time (the closed loop through Pipeline)."""
+
+from portbench import readers
+
+
+def read(ctx):
+    return readers.kernel_roofline_share(ctx)
